@@ -1,0 +1,170 @@
+"""Attention functionals, the PyTorch counterpart of
+``apex_tpu/contrib/multihead_attn/attn_funcs.py``.
+
+``flash_attention`` is the fast path: the flash-attention forward kernel
+(:mod:`apex_tpu_torch.kernels.attention`) inside a
+``torch.autograd.Function`` whose backward is ported with the training
+slice.  ``self_attn_func`` keeps the JAX package's per-head INTERLEAVED QKV
+layout: the in-projection output is reshaped to (T, B*H, 3, D), so weight
+rows group as [q_h, k_h, v_h] per head, not torch's [Q; K; V] blocks.
+The tensor- and sequence-parallel branches come with later slices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...kernels import attention as _k
+from ...kernels.dispatch import MASKED_FILL
+
+_f32 = torch.float32
+
+
+def _to_3d(q4, k4, v4, bias):
+    """(B, H, S, D) -> the kernel's (B*H, S, D) layout; a per-batch bias
+    (B, Sq|1, Sk) is repeated once per head, a (1, Sq|1, Sk) one
+    broadcasts as it is."""
+    b, h, sq, d = q4.shape
+    sk = k4.shape[2]
+    bias3 = bias
+    if bias is not None and bias.shape[0] != 1:
+        bias3 = torch.repeat_interleave(bias, h, dim=0)
+    return (q4.reshape(b * h, sq, d), k4.reshape(b * h, sk, d),
+            v4.reshape(b * h, sk, d), bias3)
+
+
+def attention_reference(q4, k4, v4, bias, causal, scale, window=None):
+    """Plain attention in the (B, H, S, D) layout (the flash kernel's plain
+    version): fp32 scores, the finite -1e30 mask, softmax, product; the
+    result in q's dtype."""
+    q3, k3, v3, bias3 = _to_3d(q4, k4, v4, bias)
+    out3, _ = _k.flash_attention_reference(q3, k3, v3, bias3, scale, causal,
+                                           window)
+    return out3.reshape(q4.shape)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q3, k3, v3, bias3, scale, causal, window):
+        out, _ = _k.flash_attention_fwd(q3, k3, v3, bias3, scale, causal,
+                                        window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "the flash-attention backward kernel is ported with the "
+            "training slice")
+
+
+def flash_attention(q4, k4, v4, bias=None, causal=False, scale=None,
+                    sliding_window=None, dropout_p=0.0):
+    """Fused scaled-dot-product attention, (B, H, S, D) layout.
+
+    ``bias`` is an additive mask broadcastable as (B|1, Sq|1, Sk);
+    ``causal`` masks future positions in-kernel; ``sliding_window``
+    (requires ``causal``) keeps keys in (t - window, t].  Attention dropout
+    is ported with the training slice: ``dropout_p > 0`` raises."""
+    if sliding_window is not None:
+        if not causal:
+            raise ValueError(
+                "sliding_window requires causal=True (the band is defined "
+                "against the causal direction)")
+        if sliding_window < 1:
+            raise ValueError(
+                f"sliding_window must be >= 1, got {sliding_window}")
+    if dropout_p:
+        if not 0.0 <= dropout_p < 1.0:
+            raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+        raise NotImplementedError(
+            "flash attention dropout is ported with the training slice")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q4.shape[-1])
+    q3, k3, v3, bias3 = _to_3d(q4, k4, v4, bias)
+    out3 = _FlashAttention.apply(q3.contiguous(), k3.contiguous(),
+                                 v3.contiguous(), bias3, scale, causal,
+                                 sliding_window)
+    return out3.reshape(q4.shape)
+
+
+def _split_interleaved_qkv(lin, t, b, heads, head_dim):
+    """(T, B, 3E) -> three (B*H, T, D), interleaved per head."""
+    lin = lin.reshape(t, b * heads, 3, head_dim)
+    q, k, v = lin[:, :, 0], lin[:, :, 1], lin[:, :, 2]
+    return q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1)
+
+
+def _masks_to_bias(mask, use_time_mask, b, heads, sq, sk, dtype=_f32):
+    """Mask semantics -> additive bias (B|1, Sq|1, Sk).  Boolean and integer
+    masks mark EXCLUDED positions with True; float masks are additive."""
+    if mask is None:
+        return None
+    mask = torch.as_tensor(mask)
+    excluded = mask.dtype == torch.bool or not mask.is_floating_point()
+    if use_time_mask:
+        if mask.dim() != 2:
+            raise ValueError("Timing mask is not 2D!")
+        bias = (torch.where(mask.bool(), MASKED_FILL, 0.0) if excluded
+                else mask)
+        return bias.to(dtype)[None, :, :]
+    # key padding (B, Sk)
+    bias = torch.where(mask.bool(), MASKED_FILL, 0.0) if excluded else mask
+    return bias.to(dtype)[:, None, :]
+
+
+def _attn_with_dropout(q3, k3, v3, bias, heads, scale, dropout_prob,
+                       generator=None, use_time_mask_causal=False):
+    """Materializing attention with dropout on the probabilities (the
+    'default' impl)."""
+    bh, sq, _ = q3.shape
+    b = bh // heads
+    s = torch.einsum("btd,bsd->bts", q3.float(), k3.float()) * scale
+    if bias is not None:
+        s = (s.reshape(b, heads, sq, -1) + bias[:, None].float()).reshape(
+            bh, sq, -1)
+    if use_time_mask_causal:
+        rows = torch.arange(sq, device=s.device)[:, None]
+        cols = torch.arange(s.shape[-1], device=s.device)[None, :]
+        s = torch.where(rows >= cols, s, MASKED_FILL)
+    p = torch.softmax(s, dim=-1)
+    if dropout_prob > 0.0:
+        keep = 1.0 - dropout_prob
+        m = torch.rand(p.shape, generator=generator, device=p.device) < keep
+        p = torch.where(m, p / keep, 0.0)
+    return torch.einsum("bts,bsd->btd", p, v3.float()).to(q3.dtype)
+
+
+def self_attn_func(use_time_mask, is_training, heads, scale, inputs,
+                   input_weights, output_weights, input_biases=None,
+                   output_biases=None, mask=None, dropout_prob=0.0,
+                   generator=None, use_flash=False, causal=False):
+    """Self-attention over ``inputs (T, B, E)``: fused interleaved QKV
+    projection, attention (``use_flash`` selects the kernel path, else the
+    materializing one), output projection.  ``causal`` masks future
+    positions; ``generator`` feeds the materializing path's dropout."""
+    t, b, e = inputs.shape
+    head_dim = e // heads
+    lin = torch.matmul(inputs, input_weights.t())
+    if input_biases is not None:
+        lin = lin + input_biases
+    q3, k3, v3 = _split_interleaved_qkv(lin, t, b, heads, head_dim)
+    dropout = dropout_prob if is_training else 0.0
+    bias = _masks_to_bias(mask, use_time_mask, b, heads, t, t)
+    if bias is not None:
+        bias = bias.to(inputs.device)
+    if use_flash:
+        ctx4 = flash_attention(q3.reshape(b, heads, t, head_dim),
+                               k3.reshape(b, heads, t, head_dim),
+                               v3.reshape(b, heads, t, head_dim),
+                               bias=bias, causal=causal, scale=scale,
+                               dropout_p=dropout)
+        ctx3 = ctx4.reshape(b * heads, t, head_dim)
+    else:
+        ctx3 = _attn_with_dropout(q3, k3, v3, bias, heads, scale, dropout,
+                                  generator, use_time_mask_causal=causal)
+    ctx = ctx3.transpose(0, 1).reshape(t, b, e)
+    out = torch.matmul(ctx, output_weights.t())
+    if output_biases is not None:
+        out = out + output_biases
+    return out

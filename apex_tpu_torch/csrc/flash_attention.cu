@@ -1,0 +1,275 @@
+// Flash-attention forward for Hopper (sm_90a), with a plain C interface.
+//
+// Replaces: apex_tpu/kernels/attention.py::flash_attention_fwd (Pallas
+// kernel _fwd_kernel): blockwise online-softmax attention with fp32 scores,
+// softmax and accumulation, returning out (in q's dtype) and the per-row
+// logsumexp (fp32).  Same masking conventions: the scale multiplies q.k^T,
+// an additive fp32 bias broadcasts as (BH|1, Sq|1, Sk), causal masking is
+// top-left aligned (row >= col), the Mistral band keeps col > row - window,
+// and masked scores are the finite -1e30, so a row whose keys are all masked
+// averages v uniformly.  Keys past Sk (the ragged last tile) are left out of
+// the softmax altogether, as in the plain reference.
+//
+// Bound on the H100: operations.  At GPT-2-small prefill (BH = 96, S = 512,
+// D = 64, causal) the two products do 4 * D operations per unmasked
+// (row, key) pair, 3.2 GFLOP, against 50 MB of q, k, v and out; with the
+// math in fp32 on the CUDA cores (67 TFLOP/s) that is ~48 us of arithmetic
+// against ~15 us of memory traffic.
+//
+// Design: one 256-thread block per (batch*head, 64-row query tile); blocks run
+// in parallel, so the TPU's sequential k grid becomes a loop inside the block.
+// The Q tile and each 64-key K/V tile are staged in shared memory as fp32
+// (dynamic shared memory: 70 KB at D = 64, 119 KB at D = 128).  Each thread
+// owns a 4 x 4 patch of the score tile and a 4 x (D/16) patch of the output
+// accumulator, so the running max and sum of a row live in the 16 lanes of
+// one half-warp and are combined with shuffles.  K tiles entirely above the
+// diagonal, or entirely below the band, are never loaded.  Query tiles are
+// issued from the last (the longest under causal masking) to the first.
+// The products run as CUDA-core FMAs; wgmma and TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+
+namespace {
+
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 64;        // keys per tile
+constexpr int NT = 256;       // threads per block: 16 x 16
+constexpr int SS = BK + 16;   // score-tile row stride in floats (no bank conflicts)
+constexpr float NEG = -1e30f;
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
+
+// max / sum over the 16 lanes of a half-warp (the 16 threads of one row)
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__host__ __device__ constexpr size_t smem_bytes(int d) {
+  // Q and K tiles at a row stride of d + 1 (16 rows read in one column hit
+  // 16 banks), the V tile at d, the score tile at SS
+  return sizeof(float) * (size_t)(BQ * (d + 1) + BK * (d + 1) + BK * d + BQ * SS);
+}
+
+// NE = output columns per thread: head dim d <= 16 * NE
+template <typename T, int NE>
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const float* __restrict__ bias, long long bias_bstride,
+                 long long bias_qstride, T* __restrict__ out, float* __restrict__ lse,
+                 int sq, int sk, int d, float scale, int causal, int window) {
+  extern __shared__ float smem[];
+  const int qk_stride = d + 1;
+  float* Qs = smem;
+  float* Ks = Qs + BQ * qk_stride;
+  float* Vs = Ks + BK * qk_stride;
+  float* Ss = Vs + BK * d;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const T* qb = q + (long long)bh * sq * d;
+  const T* kb = k + (long long)bh * sk * d;
+  const T* vb = v + (long long)bh * sk * d;
+  const float* bb = bias == nullptr ? nullptr : bias + bh * bias_bstride;
+
+  for (int idx = tid; idx < BQ * d; idx += NT) {
+    const int r = idx / d, c = idx - r * d;
+    Qs[r * qk_stride + c] = q0 + r < sq ? to_f(qb[(long long)(q0 + r) * d + c]) : 0.f;
+  }
+
+  float m[4], l[4], acc[4][NE];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = NEG;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) acc[r][e] = 0.f;
+  }
+
+  // the key tiles that hold an unmasked entry for some row of this tile
+  int kbeg = 0, kend = sk;
+  if (causal) {
+    kend = min(sk, q0 + BQ);
+    if (window > 0) kbeg = max(0, q0 - window + 1);
+  }
+  const int jt0 = kbeg / BK, jt1 = (kend + BK - 1) / BK;
+
+  for (int jt = jt0; jt < jt1; ++jt) {
+    const int k0 = jt * BK;
+    __syncthreads();  // the Q tile is in place; the last tile's reads are done
+    for (int idx = tid; idx < BK * d; idx += NT) {
+      const int r = idx / d, c = idx - r * d;
+      float kv = 0.f, vv = 0.f;
+      if (k0 + r < sk) {
+        const long long off = (long long)(k0 + r) * d + c;
+        kv = to_f(kb[off]);
+        vv = to_f(vb[off]);
+      }
+      Ks[r * qk_stride + c] = kv;
+      Vs[r * d + c] = vv;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+    for (int dd = 0; dd < d; ++dd) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) qv[r] = Qs[(ty + 16 * r) * qk_stride + dd];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * qk_stride + dd];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int gi = q0 + ty + 16 * r;
+      const float* brow = (bb != nullptr && gi < sq) ? bb + gi * bias_qstride : nullptr;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int gj = k0 + tx + 16 * c;
+        float x = s[r][c] * scale;
+        if (gj >= sk) {
+          x = -INFINITY;  // past the keys: no weight, even in a fully masked row
+        } else {
+          if (brow != nullptr) x += brow[gj];
+          if (causal && (gj > gi || (window > 0 && gj <= gi - window))) x = NEG;
+        }
+        s[r][c] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[r], half_warp_max(mx));
+      const float alpha = expf(m[r] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[r][c] - m_new);
+        Ss[(ty + 16 * r) * SS + tx + 16 * c] = p;
+        ps += p;
+      }
+      l[r] = l[r] * alpha + half_warp_sum(ps);
+      m[r] = m_new;
+#pragma unroll
+      for (int e = 0; e < NE; ++e) acc[r][e] *= alpha;
+    }
+    __syncthreads();
+
+    const int jn = min(BK, sk - k0);
+    for (int j = 0; j < jn; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pv[r] = Ss[(ty + 16 * r) * SS + j];
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const int c = tx + 16 * e;
+        const float vv = c < d ? Vs[j * d + c] : 0.f;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][e] = fmaf(pv[r], vv, acc[r][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int gi = q0 + ty + 16 * r;
+    if (gi >= sq) continue;
+    // l >= 1 whenever a tile was visited; l == 0 only for a row that no
+    // tile reaches (a band that ends before the keys do)
+    const float sl = l[r] == 0.f ? 1.f : l[r];
+    T* orow = out + ((long long)bh * sq + gi) * d;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const int c = tx + 16 * e;
+      if (c < d) orow[c] = from_f<T>(acc[r][e] / sl);
+    }
+    if (tx == 0) lse[(long long)bh * sq + gi] = m[r] + logf(sl);
+  }
+}
+
+template <typename T, int NE>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
+                   long long bias_bstride, long long bias_qstride, void* out, float* lse,
+                   int bh, int sq, int sk, int d, float scale, int causal, int window,
+                   cudaStream_t st) {
+  // allow the largest tile set of this instantiation once (above 48 KB only
+  // dynamic shared memory may be used, after this opt-in)
+  static cudaError_t opt_in = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, NE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(16 * NE));
+  if (opt_in != cudaSuccess) return opt_in;
+  const dim3 grid(bh, (sq + BQ - 1) / BQ);
+  flash_fwd_kernel<T, NE><<<grid, NT, smem_bytes(d), st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      bias_bstride, bias_qstride, static_cast<T*>(out), lse, sq, sk, d, scale, causal,
+      window);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const float* bias,
+                     long long bs, long long qs, void* out, float* lse, int bh, int sq,
+                     int sk, int d, float scale, int causal, int window, cudaStream_t st) {
+  if (d <= 16) return launch<T, 1>(q, k, v, bias, bs, qs, out, lse, bh, sq, sk, d, scale, causal, window, st);
+  if (d <= 32) return launch<T, 2>(q, k, v, bias, bs, qs, out, lse, bh, sq, sk, d, scale, causal, window, st);
+  if (d <= 64) return launch<T, 4>(q, k, v, bias, bs, qs, out, lse, bh, sq, sk, d, scale, causal, window, st);
+  if (d <= 128) return launch<T, 8>(q, k, v, bias, bs, qs, out, lse, bh, sq, sk, d, scale, causal, window, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q (bh, sq, d), k and v (bh, sk, d), contiguous, in dtype (0 float32,
+// 1 bfloat16, 2 float16); bias fp32 or null, element (b, i, j) at
+// b * bias_bstride + i * bias_qstride + j (a stride of 0 broadcasts);
+// out like q; lse (bh, sq) fp32.  window <= 0 means no band; the band
+// applies only with causal.  Returns the cudaError_t of the launch.
+extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
+                              long long bias_bstride, long long bias_qstride, void* out,
+                              void* lse, int bh, int sq, int sk, int d, float scale,
+                              int causal, int window, int dtype, void* stream) {
+  const float* bf = static_cast<const float*>(bias);
+  float* lf = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // grid.y counts query tiles and may not pass 65535
+  if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || sq > 65535 * BQ) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return dispatch<float>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, st);
+    case 1: return dispatch<__nv_bfloat16>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, st);
+    case 2: return dispatch<__half>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* apex_strerror(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,39 @@
+"""Carry weights from the JAX package into the port.
+
+The port keeps the JAX package's parameter names (``tok_emb.weight``,
+``blocks.{i}.attn.in_proj_weight``, ``blocks.{i}.fc1.weight``, ...,
+``ln_f.bias``) and layouts (Linear weights are (out, in) on both sides), so
+the state dict maps one to one.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def from_jax_state_dict(model: torch.nn.Module, sd) -> torch.nn.Module:
+    """Copy ``sd`` (``{name: np.ndarray}``, e.g. ``np.asarray`` over each
+    value of an ``apex_tpu`` module's ``state_dict()``) into ``model``, cast
+    to each parameter's device and dtype.  The key sets must be equal and
+    every shape must match, or this raises before copying anything."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"state dict keys differ: missing {missing}, "
+                       f"unexpected {unexpected}")
+    arrays = {}
+    for name, t in own.items():
+        arr = np.asarray(sd[name])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} does not "
+                             f"match the model's {tuple(t.shape)}")
+        if arr.dtype.name == "bfloat16":
+            # numpy's bfloat16 (ml_dtypes) has no torch.from_numpy
+            # counterpart; fp32 holds it exactly
+            arr = arr.astype(np.float32)
+        arrays[name] = arr
+    with torch.no_grad():
+        for name, t in own.items():
+            t.copy_(torch.from_numpy(np.array(arrays[name])))
+    return model

@@ -1,0 +1,83 @@
+"""The port stands alone: ``apex_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package, and the port's entry points
+refuse to run quietly on the CPU when no card is present."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+from apex_tpu_torch.models import GptModel, gpt2_small
+from apex_tpu_torch.normalization import FusedLayerNorm
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "apex_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "apex_tpu")
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    return sorted(paths)
+
+
+def test_importing_the_port_loads_no_jax_module():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import apex_tpu_torch\n"
+        "for m in pkgutil.walk_packages(apex_tpu_torch.__path__, "
+        "'apex_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(len([n for n in sys.modules if n.startswith("
+        "'apex_tpu_torch.')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[0]) >= 12     # every module was imported
+
+
+def test_port_sources_import_nothing_of_jax():
+    paths = _port_sources()
+    assert len(paths) >= 15
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        for node in ast.walk(ast.parse(src, path)):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & set(FORBIDDEN), \
+                f"{path}:{node.lineno} imports {roots}"
+        for needle in ("import jax", "from jax", "from apex_tpu import",
+                       "apex_tpu."):
+            hits = [ln for ln in src.splitlines()
+                    if needle in ln.replace("apex_tpu_torch", "")]
+            assert not hits, f"{path}: {needle!r} in {hits}"
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(vocab_size=32, hidden=16, layers=1, heads=2,
+                 max_positions=8)
+    for build in (lambda: GptModel(**small),
+                  lambda: gpt2_small(**small),
+                  lambda: FusedLayerNorm(16),
+                  lambda: SelfMultiheadAttn(16, 2),
+                  lambda: GptModel(**small, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert GptModel(**small, device="cpu").tok_emb.weight.device.type \
+        == "cpu"
