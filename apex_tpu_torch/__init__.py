@@ -11,8 +11,15 @@ version.  Entry points run on the card unless the caller passes
 
 Ported so far: GPT-2-family greedy and sampled generation (prefill through
 the flash-attention forward kernel, KV-cache decode, every LayerNorm
-through the LayerNorm forward kernel), inference only.
+through the LayerNorm forward kernel), and single-device GPT training
+(``training.make_train_step`` with ``optimizers.FusedAdam``, the dynamic or
+static loss scaler, O2-style half copies over fp32 masters), whose
+backward runs the flash-attention and LayerNorm backward kernels and whose
+update runs the multi-tensor Adam kernel.
 """
-from . import contrib, inference, kernels, models, normalization
+from . import (amp, contrib, inference, kernels, models, multi_tensor_apply,
+               nn, normalization, ops, optimizers, training)
 
-__all__ = ["contrib", "inference", "kernels", "models", "normalization"]
+__all__ = ["amp", "contrib", "inference", "kernels", "models",
+           "multi_tensor_apply", "nn", "normalization", "ops", "optimizers",
+           "training"]

@@ -3,8 +3,9 @@
 
 ``flash_attention`` is the fast path: the flash-attention forward kernel
 (:mod:`apex_tpu_torch.kernels.attention`) inside a
-``torch.autograd.Function`` whose backward is ported with the training
-slice.  ``self_attn_func`` keeps the JAX package's per-head INTERLEAVED QKV
+``torch.autograd.Function`` whose backward runs the two backward kernels on
+the saved inputs, ``out`` and ``lse``, as the JAX package's ``custom_vjp``
+does; the bias gets no gradient (the JAX package returns zeros for it).  ``self_attn_func`` keeps the JAX package's per-head INTERLEAVED QKV
 layout: the in-projection output is reshaped to (T, B*H, 3, D), so weight
 rows group as [q_h, k_h, v_h] per head, not torch's [Q; K; V] blocks.
 The tensor- and sequence-parallel branches come with later slices.
@@ -47,15 +48,19 @@ def attention_reference(q4, k4, v4, bias, causal, scale, window=None):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q3, k3, v3, bias3, scale, causal, window):
-        out, _ = _k.flash_attention_fwd(q3, k3, v3, bias3, scale, causal,
-                                        window=window)
+        out, lse = _k.flash_attention_fwd(q3, k3, v3, bias3, scale, causal,
+                                          window=window)
+        ctx.save_for_backward(q3, k3, v3, bias3, out, lse)
+        ctx.scale, ctx.causal, ctx.window = scale, causal, window
         return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the flash-attention backward kernel is ported with the "
-            "training slice")
+        q3, k3, v3, bias3, out, lse = ctx.saved_tensors
+        dq, dk, dv = _k.flash_attention_bwd(q3, k3, v3, bias3, out, lse, g,
+                                            ctx.scale, ctx.causal,
+                                            window=ctx.window)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q4, k4, v4, bias=None, causal=False, scale=None,
@@ -64,8 +69,8 @@ def flash_attention(q4, k4, v4, bias=None, causal=False, scale=None,
 
     ``bias`` is an additive mask broadcastable as (B|1, Sq|1, Sk);
     ``causal`` masks future positions in-kernel; ``sliding_window``
-    (requires ``causal``) keeps keys in (t - window, t].  Attention dropout
-    is ported with the training slice: ``dropout_p > 0`` raises."""
+    (requires ``causal``) keeps keys in (t - window, t].  In-kernel
+    attention dropout is not ported yet: ``dropout_p > 0`` raises."""
     if sliding_window is not None:
         if not causal:
             raise ValueError(
@@ -78,13 +83,17 @@ def flash_attention(q4, k4, v4, bias=None, causal=False, scale=None,
         if not 0.0 <= dropout_p < 1.0:
             raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
         raise NotImplementedError(
-            "flash attention dropout is ported with the training slice")
+            "flash attention: in-kernel attention dropout is not ported "
+            "yet")
     if scale is None:
         scale = 1.0 / math.sqrt(q4.shape[-1])
     q3, k3, v3, bias3 = _to_3d(q4, k4, v4, bias)
-    out3 = _FlashAttention.apply(q3.contiguous(), k3.contiguous(),
-                                 v3.contiguous(), bias3, scale, causal,
-                                 sliding_window)
+    args = (q3.contiguous(), k3.contiguous(), v3.contiguous(), bias3, scale,
+            causal)
+    if torch.is_grad_enabled():
+        out3 = _FlashAttention.apply(*args, sliding_window)
+    else:   # nothing to save for a backward (generation)
+        out3, _ = _k.flash_attention_fwd(*args, window=sliding_window)
     return out3.reshape(q4.shape)
 
 

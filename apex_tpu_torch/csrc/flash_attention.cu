@@ -8,7 +8,8 @@
 // top-left aligned (row >= col), the Mistral band keeps col > row - window,
 // and masked scores are the finite -1e30, so a row whose keys are all masked
 // averages v uniformly.  Keys past Sk (the ragged last tile) are left out of
-// the softmax altogether, as in the plain reference.
+// the softmax altogether, as in the plain reference.  The masking code is
+// flash_common.cuh, shared with the backward kernels.
 //
 // Bound on the H100: operations.  At GPT-2-small prefill (BH = 96, S = 512,
 // D = 64, causal) the two products do 4 * D operations per unmasked
@@ -27,45 +28,12 @@
 // issued from the last (the longest under causal masking) to the first.
 // The products run as CUDA-core FMAs; wgmma and TMA are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
 constexpr int NT = 256;       // threads per block: 16 x 16
 constexpr int SS = BK + 16;   // score-tile row stride in floats (no bank conflicts)
-constexpr float NEG = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
-
-// max / sum over the 16 lanes of a half-warp (the 16 threads of one row)
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 __host__ __device__ constexpr size_t smem_bytes(int d) {
   // Q and K tiles at a row stride of d + 1 (16 rows read in one column hit
@@ -110,11 +78,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   // the key tiles that hold an unmasked entry for some row of this tile
-  int kbeg = 0, kend = sk;
-  if (causal) {
-    kend = min(sk, q0 + BQ);
-    if (window > 0) kbeg = max(0, q0 - window + 1);
-  }
+  int kbeg, kend;
+  key_range(q0, sk, causal, window, &kbeg, &kend);
   const int jt0 = kbeg / BK, jt1 = (kend + BK - 1) / BK;
 
   for (int jt = jt0; jt < jt1; ++jt) {
@@ -157,14 +122,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int gj = k0 + tx + 16 * c;
-        float x = s[r][c] * scale;
-        if (gj >= sk) {
-          x = -INFINITY;  // past the keys: no weight, even in a fully masked row
-        } else {
-          if (brow != nullptr) x += brow[gj];
-          if (causal && (gj > gi || (window > 0 && gj <= gi - window))) x = NEG;
-        }
+        const float x = score(s[r][c], scale, brow, gi, k0 + tx + 16 * c, sk, causal, window);
         s[r][c] = x;
         mx = fmaxf(mx, x);
       }
@@ -268,8 +226,4 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, const
     case 2: return dispatch<__half>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, st);
     default: return cudaErrorInvalidValue;
   }
-}
-
-extern "C" const char* apex_strerror(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,10 +1,15 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version, and the device rule that picks between them
 (:mod:`.dispatch`)."""
-from .attention import flash_attention_fwd, flash_attention_reference
+from .attention import (flash_attention_bwd, flash_attention_bwd_reference,
+                        flash_attention_fwd, flash_attention_reference)
 from .dispatch import MASKED_FILL, MASKED_LOGIT_THR, counts, reset_counts
-from .layer_norm import ln_forward, ln_forward_reference
+from .layer_norm import (ln_backward, ln_backward_reference, ln_forward,
+                         ln_forward_reference)
+from .multi_tensor import fused_adam, fused_adam_reference
 
-__all__ = ["flash_attention_fwd", "flash_attention_reference", "ln_forward",
-           "ln_forward_reference", "MASKED_FILL", "MASKED_LOGIT_THR",
-           "counts", "reset_counts"]
+__all__ = ["flash_attention_bwd", "flash_attention_bwd_reference",
+           "flash_attention_fwd", "flash_attention_reference", "fused_adam",
+           "fused_adam_reference", "ln_backward", "ln_backward_reference",
+           "ln_forward", "ln_forward_reference", "MASKED_FILL",
+           "MASKED_LOGIT_THR", "counts", "reset_counts"]

@@ -1,11 +1,14 @@
-"""LayerNorm forward: the CUDA kernel ``csrc/layer_norm.cu`` and its plain
-PyTorch version.
+"""LayerNorm forward and backward: the CUDA kernels ``csrc/layer_norm.cu``
+and their plain PyTorch versions.
 
 Port of ``apex_tpu/kernels/layer_norm.py::ln_forward``: normalise over the
 last dim of ``x2d (rows, N)`` with fp32 two-pass statistics (the mean, then
 the mean of squared deviations), optional affine; returns ``y`` in x's dtype
-and ``mean``, ``rstd`` of shape ``(rows, 1)`` in fp32.  A CUDA tensor
-launches the kernel; a CPU tensor takes :func:`ln_forward_reference`.
+and ``mean``, ``rstd`` of shape ``(rows, 1)`` in fp32.  And of
+``ln_backward``: from the saved statistics, ``dx`` in x's dtype and, for the
+affine form, ``dgamma``/``dbeta`` summed over the rows in fp32.  A CUDA
+tensor launches the kernel; a CPU tensor takes the plain version
+(:func:`ln_forward_reference`, :func:`ln_backward_reference`).
 """
 from __future__ import annotations
 
@@ -20,6 +23,10 @@ from .dispatch import LAUNCHES, check_dtype, dtype_code, use_kernel
 MAX_N = 16384     # the longest row the kernel takes (csrc/layer_norm.cu)
 
 LAUNCHES.setdefault("ln_forward", 0)
+# the backward is two launches: dx with per-block partial column sums, then
+# the column reduction of the partials into dgamma/dbeta (affine form only)
+LAUNCHES.setdefault("ln_backward_rows", 0)
+LAUNCHES.setdefault("ln_backward_cols", 0)
 
 
 def ln_forward_reference(x2d, weight, bias, eps):
@@ -35,36 +42,78 @@ def ln_forward_reference(x2d, weight, bias, eps):
     return y.to(x2d.dtype), mean, rstd
 
 
-def _validate(x2d, weight, bias):
+def ln_backward_reference(g2d, x2d, mean, rstd, weight):
+    """The plain version of the backward, the same arithmetic in PyTorch
+    operations: ``(dx,)`` or ``(dx, dgamma, dbeta)``, the sums fp32."""
+    g = g2d.float()
+    xhat = (x2d.float() - mean) * rstd
+    gh = g * weight.float() if weight is not None else g
+    c1 = gh.mean(dim=1, keepdim=True)
+    c2 = (gh * xhat).mean(dim=1, keepdim=True)
+    dx = ((gh - c1 - xhat * c2) * rstd).to(x2d.dtype)
+    if weight is None:
+        return (dx,)
+    return dx, (g * xhat).sum(dim=0), g.sum(dim=0)
+
+
+def _validate(x2d, weight, bias, what="ln_forward"):
     if x2d.dim() != 2:
-        raise ValueError(f"ln_forward takes x2d (rows, N), got shape "
+        raise ValueError(f"{what} takes x2d (rows, N), got shape "
                          f"{tuple(x2d.shape)}")
-    check_dtype(x2d, "ln_forward x2d")
+    check_dtype(x2d, f"{what} x2d")
     n = x2d.shape[1]
     if not 0 < n <= MAX_N:
-        raise ValueError(f"ln_forward: N = {n} outside the kernel's range "
+        raise ValueError(f"{what}: N = {n} outside the kernel's range "
                          f"1..{MAX_N}")
     if (weight is None) != (bias is None):
-        raise ValueError("ln_forward: weight and bias are both given or "
+        raise ValueError(f"{what}: weight and bias are both given or "
                          "both None")
     if weight is not None:
         for name, t in (("weight", weight), ("bias", bias)):
             if tuple(t.shape) != (n,):
-                raise ValueError(f"ln_forward: {name} shape "
+                raise ValueError(f"{what}: {name} shape "
                                  f"{tuple(t.shape)} != ({n},)")
-            check_dtype(t, f"ln_forward {name}")
+            check_dtype(t, f"{what} {name}")
     if not x2d.is_contiguous():
-        raise ValueError("ln_forward: x2d must be contiguous")
+        raise ValueError(f"{what}: x2d must be contiguous")
+
+
+def _validate_bwd(g2d, x2d, mean, rstd, weight):
+    # the backward takes no bias: the weight stands in for the pair check
+    _validate(x2d, weight, weight, "ln_backward")
+    rows, n = x2d.shape
+    if tuple(g2d.shape) != (rows, n):
+        raise ValueError(f"ln_backward: g shape {tuple(g2d.shape)} != x "
+                         f"shape {(rows, n)}")
+    check_dtype(g2d, "ln_backward g")
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if tuple(t.shape) != (rows, 1) or t.dtype != torch.float32:
+            raise ValueError(f"ln_backward: {name} must be fp32 of shape "
+                             f"{(rows, 1)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("layer_norm")
-    lib.apex_ln_fwd.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.apex_ln_fwd.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.apex_ln_fwd.argtypes = [p] * 6 + [i, i, ctypes.c_float, i, p]
+    lib.apex_ln_fwd.restype = i
+    lib.apex_ln_bwd_parts.argtypes = [i, i]
+    lib.apex_ln_bwd_parts.restype = i
+    lib.apex_ln_bwd.argtypes = [p] * 5 + [i] + [p] * 3 + [i] * 4 + [p]
+    lib.apex_ln_bwd.restype = i
+    lib.apex_ln_bwd_cols.argtypes = [p] * 4 + [i, i, p]
+    lib.apex_ln_bwd_cols.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_parts(device_index, rows, n):
+    """Rows of partial sums the backward kernel writes for this shape (its
+    grid size on this device)."""
+    with torch.cuda.device(device_index):
+        return _lib().apex_ln_bwd_parts(rows, n)
 
 
 def _launch(x2d, weight, bias, eps):
@@ -99,3 +148,54 @@ def ln_forward(x2d, weight, bias, eps):
     if use_kernel(x2d, weight, bias):
         return _launch(x2d, weight, bias, eps)
     return ln_forward_reference(x2d, weight, bias, eps)
+
+
+def _launch_bwd(g2d, x2d, mean, rstd, weight):
+    rows, n = x2d.shape
+    dx = torch.empty_like(x2d)
+    affine = weight is not None
+    if rows == 0:
+        if not affine:
+            return (dx,)
+        z = torch.zeros(n, dtype=torch.float32, device=x2d.device)
+        return dx, z, z.clone()
+    g2d = g2d.to(x2d.dtype).contiguous()
+    dev = x2d.device
+    lib = _lib()
+    parts = _bwd_parts(dev.index, rows, n)
+    pw = pb = None
+    if affine:
+        weight = weight.contiguous()
+        pw = torch.empty((parts, n), dtype=torch.float32, device=dev)
+        pb = torch.empty_like(pw)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.apex_ln_bwd(
+            g2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            None if weight is None else weight.data_ptr(),
+            dtype_code(weight.dtype) if affine else 0, dx.data_ptr(),
+            None if pw is None else pw.data_ptr(),
+            None if pb is None else pb.data_ptr(), parts, rows, n,
+            dtype_code(x2d.dtype), stream)
+        _build.check(lib, err, "ln_backward")
+        LAUNCHES["ln_backward_rows"] += 1
+        if not affine:
+            return (dx,)
+        dw = torch.empty(n, dtype=torch.float32, device=dev)
+        db = torch.empty_like(dw)
+        err = lib.apex_ln_bwd_cols(pw.data_ptr(), pb.data_ptr(),
+                                   dw.data_ptr(), db.data_ptr(), parts, n,
+                                   stream)
+        _build.check(lib, err, "ln_backward (column sums)")
+        LAUNCHES["ln_backward_cols"] += 1
+    return dx, dw, db
+
+
+def ln_backward(g2d, x2d, mean, rstd, weight):
+    """g2d, x2d (rows, N); mean, rstd (rows, 1) fp32 from the forward;
+    weight (N,) or None.  -> ``(dx,)`` in x's dtype, or ``(dx, dgamma,
+    dbeta)`` with the sums fp32 of shape (N,)."""
+    _validate_bwd(g2d, x2d, mean, rstd, weight)
+    if use_kernel(g2d, x2d, mean, rstd, weight):
+        return _launch_bwd(g2d, x2d, mean, rstd, weight)
+    return ln_backward_reference(g2d, x2d, mean, rstd, weight)

@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights between the JAX package and the port.
 
 The port keeps the JAX package's parameter names (``tok_emb.weight``,
 ``blocks.{i}.attn.in_proj_weight``, ``blocks.{i}.fc1.weight``, ...,
@@ -37,3 +37,16 @@ def from_jax_state_dict(model: torch.nn.Module, sd) -> torch.nn.Module:
         for name, t in own.items():
             t.copy_(torch.from_numpy(np.array(arrays[name])))
     return model
+
+
+def to_numpy_state_dict(model: torch.nn.Module) -> dict:
+    """The inverse of :func:`from_jax_state_dict`: ``{name: np.ndarray}``
+    under the JAX package's names, on the host (bf16 values widened to
+    fp32, which holds them exactly, since numpy has no bf16)."""
+    out = {}
+    for name, t in model.state_dict().items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.numpy().copy()
+    return out

@@ -4,11 +4,15 @@
 Pre-LN blocks (LayerNorm -> causal multi-head attention -> residual,
 LayerNorm -> tanh-GELU FFN -> residual), learned position embeddings and a
 weight-tied LM head.  ``forward`` runs the blocks in (S, B, E), the
-attention module's layout; the cached paths (``prefill``, ``decode_chunk``,
-``decode_step``) run in (B, S, E).  Prompt prefill goes through the
-flash-attention kernel; decode attention over the KV cache is plain
-PyTorch, as it is plain XLA in the JAX package.  Every LayerNorm runs the
-LayerNorm kernel.  Parameter names are the JAX package's, so
+attention module's layout, and trains under autograd: attention through
+the flash-attention kernels (forward and backward), every LayerNorm through
+the LayerNorm kernels.  In training mode the residual and embedding
+dropout draw their masks from the ``generator`` passed to ``forward``
+(``torch.rand(...) < keep``, scaled by ``1 / keep``), so a train step can
+seed them from its own state.  The cached paths (``prefill``,
+``decode_chunk``, ``decode_step``) run in (B, S, E); decode attention over
+the KV cache is plain PyTorch, as it is plain XLA in the JAX package.
+Parameter names are the JAX package's, so
 :func:`apex_tpu_torch.models.convert.from_jax_state_dict` carries weights
 across one to one.
 
@@ -26,6 +30,16 @@ from ..contrib.multihead_attn.attn_funcs import flash_attention
 from ..inference.quant import kv_value, kv_write, make_kv_cache
 from ..kernels.dispatch import MASKED_FILL, resolve_device
 from ..normalization import FusedLayerNorm
+
+
+def dropout(x, p, training, generator=None):
+    """Inverted dropout with its mask drawn from ``generator`` (the global
+    generator when None): kept entries scaled by ``1 / (1 - p)``."""
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 class GptBlock(nn.Module):
@@ -52,12 +66,13 @@ class GptBlock(nn.Module):
     def _ffn(self, h):
         return self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
 
-    def forward(self, x):
-        """``x (S, B, E)``."""
-        h, _ = self.attn(self.ln1(x))
-        x = x + self.dropout(h)
+    def forward(self, x, generator=None):
+        """``x (S, B, E)``; ``generator`` draws the dropout masks."""
+        p = self.dropout.p
+        h, _ = self.attn(self.ln1(x), generator=generator)
+        x = x + dropout(h, p, self.training, generator)
         h = self._ffn(self.ln2(x))
-        return x + self.dropout(h)
+        return x + dropout(h, p, self.training, generator)
 
     def _chunk_qkv(self, x):
         """(B, S_c, E) -> q, k, v (B, H, S_c, D) through the interleaved
@@ -157,16 +172,19 @@ class GptModel(nn.Module):
                      attn_bias=attn_bias, **kw) for _ in range(layers)])
         self.ln_f = FusedLayerNorm(hidden, **kw)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, generator=None):
+        """``input_ids (B, S)`` -> logits ``(B, S, V)``; in training mode
+        ``generator`` (on the model's device) draws every dropout mask."""
         b, s = input_ids.shape
         if s > self.max_positions:
             raise ValueError(f"sequence length {s} exceeds max_positions "
                              f"{self.max_positions}")
         pos = torch.arange(s, device=input_ids.device)
-        x = self.drop(self.tok_emb(input_ids) + self.pos_emb(pos)[None])
+        x = dropout(self.tok_emb(input_ids) + self.pos_emb(pos)[None],
+                    self.drop.p, self.training, generator)
         x = x.transpose(0, 1)                  # (S, B, E)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         x = self.ln_f(x).transpose(0, 1)       # (B, S, E)
         emb = self.tok_emb.weight
         return self._mask_pad_logits(torch.matmul(x, emb.t().to(x.dtype)))

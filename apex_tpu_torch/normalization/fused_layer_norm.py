@@ -3,9 +3,12 @@
 
 The functional forms run the LayerNorm forward kernel
 (:func:`apex_tpu_torch.kernels.layer_norm.ln_forward`) inside a
-``torch.autograd.Function``; its backward is ported with the training
-slice and raises until then.  Note the two default eps values, as in the
-JAX package: 1e-6 for the functions, 1e-5 for the module.
+``torch.autograd.Function`` whose backward runs the backward kernel
+(:func:`~apex_tpu_torch.kernels.layer_norm.ln_backward`) on the saved input
+and statistics, as the JAX package's ``custom_vjp`` does: ``dx`` in x's
+dtype, ``dgamma``/``dbeta`` summed in fp32 and cast to the weight's dtype.
+Note the two default eps values, as in the JAX package: 1e-6 for the
+functions, 1e-5 for the module.
 """
 from __future__ import annotations
 
@@ -32,25 +35,37 @@ def _flatten(x, normalized_shape):
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, weight, bias, eps):
-        y, _, _ = _k.ln_forward(x2d, weight, bias, eps)
+        y, mean, rstd = _k.ln_forward(x2d, weight, bias, eps)
+        ctx.save_for_backward(x2d, mean, rstd, weight)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the LayerNorm backward kernel is ported with the training "
-            "slice")
+        x2d, mean, rstd, weight = ctx.saved_tensors
+        if weight is None:
+            (dx,) = _k.ln_backward(g, x2d, mean, rstd, None)
+            return dx, None, None, None
+        dx, dw, db = _k.ln_backward(g, x2d, mean, rstd, weight)
+        return dx, dw.to(weight.dtype), db.to(weight.dtype), None
+
+
+def _layer_norm(x2d, weight, bias, eps):
+    # with grad off (generation) nothing is saved for a backward: the
+    # kernel is called directly, without the autograd Function's host cost
+    if torch.is_grad_enabled():
+        return _LayerNorm.apply(x2d, weight, bias, eps)
+    return _k.ln_forward(x2d, weight, bias, eps)[0]
 
 
 def fused_layer_norm_affine(input, weight, bias, normalized_shape, eps=1e-6):
     x2d, n = _flatten(input, normalized_shape)
-    y = _LayerNorm.apply(x2d, weight.reshape(n), bias.reshape(n), eps)
+    y = _layer_norm(x2d, weight.reshape(n), bias.reshape(n), eps)
     return y.reshape(input.shape)
 
 
 def fused_layer_norm(input, normalized_shape, eps=1e-6):
     x2d, _ = _flatten(input, normalized_shape)
-    return _LayerNorm.apply(x2d, None, None, eps).reshape(input.shape)
+    return _layer_norm(x2d, None, None, eps).reshape(input.shape)
 
 
 class FusedLayerNorm(nn.Module):

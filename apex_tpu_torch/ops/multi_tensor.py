@@ -1,0 +1,88 @@
+"""Multi-tensor ops, the PyTorch counterpart of
+``apex_tpu/ops/multi_tensor.py`` (cut to what the GPT training slice runs).
+
+The ``noop_flag`` is an int32 device scalar, as in the JAX package.
+``multi_tensor_scale`` sets it on a non-finite input and is plain PyTorch,
+as it is plain jnp there.  ``multi_tensor_adam`` is the hand-written Adam
+kernel (:mod:`apex_tpu_torch.kernels.multi_tensor`) on CUDA tensors and its
+plain version on CPU tensors; unlike the JAX op it updates params and
+moments in place and reads the flag as a skip flag (the JAX train step
+selects the old values on a set flag, to the same effect).
+``adam_unfused`` is the JAX package's per-tensor loop: functional, and
+blind to the flag.  The other ops (axpby, l2norm, maxnorm, sgd, lamb,
+novograd) come with the slices that run them.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..kernels import multi_tensor as _k
+from ..kernels.dispatch import resolve_device
+
+ADAM_MODE_L2 = 0          # L2 regularisation (classic Adam)
+ADAM_MODE_DECOUPLED = 1   # AdamW decoupled weight decay
+
+_static_nonzero = _k._static_nonzero
+
+
+def zero_flag(device=None) -> torch.Tensor:
+    """A fresh overflow flag, an int32 zero on the card unless ``device``
+    says otherwise."""
+    return torch.zeros((), dtype=torch.int32, device=resolve_device(device))
+
+
+def nonfinite_flag(noop_flag, xs):
+    """``noop_flag`` raised to 1 where any of ``xs`` holds an inf or nan,
+    all on the device."""
+    if not xs:
+        return noop_flag
+    bad = torch.stack([(~torch.isfinite(x)).any() for x in xs]).any()
+    return torch.maximum(noop_flag, bad.to(torch.int32))
+
+
+def multi_tensor_scale(noop_flag, tensor_lists: Sequence[Sequence[torch.Tensor]],
+                       scale):
+    """``out[i] = in[i] * scale`` in fp32, cast to ``outs[i]``'s dtype, with
+    the flag raised on a non-finite input.  ``tensor_lists = [ins, outs]``
+    (``outs`` gives the dtypes).  Returns ``(noop_flag, new_outs)``."""
+    ins, outs = tensor_lists
+    if not ins:
+        return noop_flag, []
+    s = torch.as_tensor(scale, dtype=torch.float32, device=ins[0].device)
+    new_outs = [(x.float() * s).to(o.dtype) for x, o in zip(ins, outs)]
+    return nonfinite_flag(noop_flag, ins), new_outs
+
+
+def multi_tensor_adam(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
+                      mode: int, bias_correction: bool, weight_decay):
+    """Adam / AdamW over ``[grads, params, exp_avgs, exp_avg_sqs]`` in one
+    kernel launch per list, in place; nothing changes when the flag is
+    set.  Returns ``(noop_flag, params, exp_avgs, exp_avg_sqs)``."""
+    return _k.fused_adam(noop_flag, tensor_lists, lr, beta1, beta2, eps,
+                         step, mode, bias_correction, weight_decay)
+
+
+def adam_unfused(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
+                 mode: int, bias_correction: bool, weight_decay):
+    """The JAX package's per-tensor Adam / AdamW: new tensors in the
+    params' and moments' dtypes, the flag neither read nor written.  Bias
+    correction on the host for a Python ``step``, on the device for a
+    tensor one."""
+    gs, ps, ms, vs = tensor_lists
+    if not gs:
+        return noop_flag, [], [], []
+    scal = _k.adam_scalars(lr, beta1, beta2, eps, step, bias_correction,
+                           weight_decay, ps[0].device)
+    s = list(scal.unbind())
+    use_wd = _static_nonzero(weight_decay)
+    new_ps, new_ms, new_vs = [], [], []
+    for g, p, m, v in zip(gs, ps, ms, vs):
+        pf, mf, vf = _k._adam_math(g.float(), p.float(), m.float(),
+                                   v.float(), s, mode == ADAM_MODE_DECOUPLED,
+                                   use_wd)
+        new_ps.append(pf.to(p.dtype))
+        new_ms.append(mf.to(m.dtype))
+        new_vs.append(vf.to(v.dtype))
+    return noop_flag, new_ps, new_ms, new_vs

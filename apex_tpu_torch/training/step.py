@@ -1,0 +1,351 @@
+"""The fused train step, the PyTorch counterpart of
+``apex_tpu/training/step.py`` (one device, dense).
+
+One call runs the whole iteration on the card with no host round trip:
+the O2-style forward on half copies of the parameters, the backward, the
+unscale and overflow check into fp32 master gradients, the Adam update of
+the fp32 masters (the hand-written kernel, which skips itself on a set
+overflow flag), the re-made half copies and the loss-scale update.  The
+state is device tensors updated in place, which is what buffer donation
+buys the JAX package; the ``noop`` skip, the step count and the scaler
+live on the device, so the step reads nothing back.
+
+What the JAX step does beyond that is owed to later slices and refused
+here with ``NotImplementedError``: data, tensor and ZeRO parallelism,
+flat masters, gradient accumulation, lr schedules, telemetry and
+optimizers other than ``FusedAdam``.
+"""
+from __future__ import annotations
+
+import inspect
+from typing import Callable, NamedTuple, Optional
+
+import torch
+from torch.func import functional_call
+from torch.utils._pytree import tree_map
+
+from .. import ops
+from ..amp.scaler import ScalerState, update_scale_state
+from ..ops.multi_tensor import nonfinite_flag
+from ..optimizers import FusedAdam
+
+_f32 = torch.float32
+
+
+class StepState(NamedTuple):
+    """Device-side training state."""
+    master_params: list          # fp32 masters
+    model_params: list           # half copies fed to forward, None where fp32
+    opt_state: dict              # optimizer slots, name -> list
+    scaler: ScalerState
+    stats: list                  # the model's buffers (updated in place)
+    step: torch.Tensor           # int32 scalar: applied optimizer steps
+
+
+def dropout_seed(rng_seed: int, step: int) -> int:
+    """The seed of a step's dropout generator: the pair (``rng_seed``,
+    ``step``), both taken mod 2**32, through the splitmix64 finaliser, a
+    bijection of 64 bits that spreads every input bit over the low 32 too
+    (the CPU generator keeps only those; the card's keeps all 64)."""
+    m = (1 << 64) - 1
+    x = ((int(rng_seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+    x = (x + 0x9E3779B97F4A7C15) & m
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
+    return x ^ (x >> 31)
+
+
+class TrainStep:
+    """Built by :func:`make_train_step`; ``step(*batch) -> loss`` runs one
+    iteration and returns the loss as a device scalar."""
+
+    def __init__(self, model, optimizer, loss_fn, step_fn, params,
+                 init_state):
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self._step_fn = step_fn
+        self._params = params
+        self.state = init_state
+        #: 0-based count of calls; with ``rng_seed`` it seeds the dropout
+        #: generator of each call (a host integer: reading the device step
+        #: count would be a host sync)
+        self.calls = 0
+
+    def __call__(self, *batch):
+        self.state, loss = self._step_fn(self.state, self.calls, *batch)
+        self.calls += 1
+        return loss
+
+    @property
+    def last_step_skipped(self):
+        """Device int32 scalar: 1 when the most recent call skipped its
+        update on an overflow (reading it with ``int(...)`` is a host
+        sync)."""
+        return self.state.scaler.overflow
+
+    def sync_to_objects(self):
+        """Write the state back into the model: each parameter gets its
+        model-dtype value (the half copy where cast, else the fp32 master);
+        the masters stay in ``self.state.master_params``."""
+        st = self.state
+        with torch.no_grad():
+            for p, m, half in zip(self._params, st.master_params,
+                                  st.model_params):
+                p.data = m if half is None else half
+
+
+def match_param_groups(optimizer, params, caller="make_train_step"):
+    """The optimizer's param groups as index lists into ``params``,
+    matched by identity; parameters in no group stay frozen."""
+    id2idx = {id(p): i for i, p in enumerate(params)}
+    group_idxs = []
+    for gi, group in enumerate(optimizer.param_groups):
+        idxs = []
+        for p in group["params"]:
+            if id(p) not in id2idx:
+                raise ValueError(
+                    f"{caller}: optimizer param_groups[{gi}] holds a "
+                    f"parameter (shape {tuple(p.shape)}) that is not one of "
+                    f"model.parameters(); the fused step requires the "
+                    f"optimizer to optimize the model's own parameters")
+            idxs.append(id2idx[id(p)])
+        group_idxs.append(idxs)
+    return group_idxs
+
+
+def _model_dtypes(model, params, half_dtype, keep_batchnorm_fp32):
+    """The dtype each parameter takes in the forward: ``half_dtype`` for
+    every one (LayerNorm weights and embeddings included), except
+    BatchNorm's with ``keep_batchnorm_fp32``."""
+    if half_dtype is None:
+        return [p.dtype for p in params]
+    bn_ids = set()
+    if keep_batchnorm_fp32:
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                bn_ids.update(id(p) for p in m.parameters(recurse=False))
+    return [_f32 if id(p) in bn_ids else half_dtype for p in params]
+
+
+def init_step_state(params, buffers, model_dtypes, opt_init, init_scale):
+    """The initial state: fp32 copies of the parameters as masters, half
+    copies where the forward casts, the optimizer's slots, the scaler at
+    ``init_scale``, the step count at 0 (all on the parameters' device)."""
+    dev = params[0].device
+    masters = [p.detach().to(_f32, copy=True) for p in params]
+    return StepState(
+        master_params=masters,
+        model_params=[None if d == _f32 else m.to(d)
+                      for m, d in zip(masters, model_dtypes)],
+        opt_state=opt_init(),
+        scaler=ScalerState(torch.tensor(init_scale, dtype=_f32, device=dev),
+                           torch.zeros((), dtype=torch.int32, device=dev),
+                           torch.zeros((), dtype=torch.int32, device=dev)),
+        stats=list(buffers),
+        step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def model_vals_of(state: StepState):
+    """The parameter values the forward reads: the half copy where cast,
+    else the fp32 master."""
+    return [state.master_params[i] if mp is None else mp
+            for i, mp in enumerate(state.model_params)]
+
+
+def build_opt_update(optimizer, params, group_idxs,
+                     caller="make_train_step"):
+    """The optimizer as an update over flat lists, one
+    ``ops.multi_tensor_adam`` per param group.  Returns ``(opt_update,
+    opt_init)``; ``opt_update(flag, grads, masters, slots, step)`` updates
+    masters and slots in place and leaves them untouched on a set flag."""
+    if not isinstance(optimizer, FusedAdam):
+        raise NotImplementedError(
+            f"{caller}: only FusedAdam is ported so far; FusedSGD comes with "
+            f"the ResNet baseline slice, FusedLAMB and FusedNovoGrad after "
+            f"it (got {type(optimizer).__name__})")
+    opt = optimizer
+
+    def opt_update(flag, grads, masters, slots, step):
+        for group, idxs in zip(opt.param_groups, group_idxs):
+            if not idxs:
+                continue
+            b1, b2 = group["betas"]
+            ops.multi_tensor_adam(
+                flag, [[grads[i] for i in idxs], [masters[i] for i in idxs],
+                       [slots["m"][i] for i in idxs],
+                       [slots["v"][i] for i in idxs]],
+                group["lr"], b1, b2, group["eps"], step, opt.adam_w_mode,
+                bool(group["bias_correction"]), group["weight_decay"])
+
+    def opt_init():
+        return {k: [torch.zeros(p.shape, dtype=_f32, device=p.device)
+                    for p in params] for k in ("m", "v")}
+
+    return opt_update, opt_init
+
+
+def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
+                       init_scale, scale_window, min_loss_scale,
+                       max_loss_scale, zero_flag):
+    """The post-gradient half of a step, on the device: unscale into fp32
+    master gradients with the overflow flag, the optimizer update (skipped
+    on the flag), the half copies re-made from the masters, the step count
+    and the loss-scale update.  A static scale of 1.0 (the bf16 recipe)
+    neither unscales nor checks, and never skips, as in the JAX package.
+    Returns the new state."""
+    check_overflow = dynamic or init_scale != 1.0
+    if check_overflow:
+        inv = 1.0 / state.scaler.loss_scale
+        master_grads = [g.float() * inv for g in grads]
+        flag = nonfinite_flag(zero_flag, master_grads)
+    else:
+        flag = zero_flag
+        # the kernel widens the gradients to fp32 itself; one dtype a list
+        master_grads = grads if len({g.dtype for g in grads}) == 1 \
+            else [g.float() for g in grads]
+    step_count = state.step + 1
+    opt_update(flag, master_grads, state.master_params, state.opt_state,
+               step_count)
+    halves = [(h, m) for h, m in zip(state.model_params, state.master_params)
+              if h is not None]
+    if halves:
+        with torch.no_grad():
+            torch._foreach_copy_([h for h, _ in halves],
+                                 [m for _, m in halves])
+    skip = flag > 0
+    new_scaler, _ = update_scale_state(
+        ScalerState(state.scaler.loss_scale, state.scaler.unskipped, flag),
+        dynamic=dynamic, scale_window=scale_window,
+        min_loss_scale=min_loss_scale, max_loss_scale=max_loss_scale)
+    # carry this step's skip flag out in the scaler state, as the JAX step
+    # does, so last_step_skipped reads it without a host sync
+    return state._replace(scaler=new_scaler._replace(overflow=flag),
+                          step=torch.where(skip, state.step, step_count))
+
+
+def _refuse(what, owner):
+    raise NotImplementedError(
+        f"make_train_step: {what} is not ported yet ({owner})")
+
+
+def make_train_step(model, optimizer, loss_fn: Callable,
+                    half_dtype=None,
+                    keep_batchnorm_fp32: bool = True,
+                    dynamic_loss_scale: bool = True,
+                    scale_window: int = 2000,
+                    min_loss_scale: Optional[float] = None,
+                    max_loss_scale: float = 2.0 ** 24,
+                    loss_scale="dynamic",
+                    axis_name=None,
+                    tp_axis=None,
+                    gradient_predivide_factor: float = 1.0,
+                    allreduce_always_fp32: bool = False,
+                    donate_state="auto",
+                    grad_accum_steps: int = 1,
+                    accum_steps: Optional[int] = None,
+                    accum_stacked: bool = False,
+                    lr_schedule: Optional[Callable] = None,
+                    rng_seed: int = 0,
+                    zero_sharding: bool = False,
+                    zero_mesh=None,
+                    zero_axis: str = "data",
+                    zero_stage: int = 1,
+                    flat_master: bool = False,
+                    parallel=None,
+                    example_batch=None,
+                    devices=None,
+                    auto_tune: int = 0,
+                    plan_options=None,
+                    telemetry: bool = False,
+                    drain_every: int = 1,
+                    overlap="auto"):
+    """Build an O2-style train step: ``step(*batch) -> loss``.
+
+    ``batch[0]`` feeds the model (its floating tensors cast to
+    ``half_dtype``; integer ids stay as they are) and the whole batch feeds
+    ``loss_fn(output, *batch[1:])``.  With ``half_dtype`` every parameter
+    runs the forward as a half copy (BatchNorm's stay fp32 with
+    ``keep_batchnorm_fp32``) while the optimizer and the scaler work on fp32
+    masters.  The backward differentiates ``loss.float() * loss_scale``.
+    ``loss_scale="dynamic"`` starts at ``min(max_loss_scale, 2**16)``,
+    halves on an overflow (the step is skipped: masters, slots and step
+    count unchanged) and doubles after ``scale_window`` clean steps; a
+    number is a static scale.  A model whose ``forward`` takes a
+    ``generator`` gets one on its device per call, seeded from
+    :func:`dropout_seed` (``rng_seed``, call index), for its dropout masks.
+
+    Only ``FusedAdam`` is ported.  ``axis_name``, ``tp_axis``, the DDP
+    knobs, ``zero_sharding``, ``flat_master``, ``parallel``, gradient
+    accumulation, ``lr_schedule`` and ``telemetry`` raise
+    ``NotImplementedError``.  ``donate_state`` has nothing to choose: the
+    state is always updated in place."""
+    if axis_name is not None or gradient_predivide_factor != 1.0 \
+            or allreduce_always_fp32:
+        _refuse("data parallelism (axis_name and the DDP knobs)",
+                "the ResNet baseline slice, with DDP")
+    if tp_axis is not None:
+        _refuse("tensor parallelism (tp_axis)",
+                "ROADMAP queue A, parallelism beyond DP")
+    if zero_sharding or zero_mesh is not None:
+        _refuse("ZeRO sharding", "ROADMAP queue A, parallelism beyond DP")
+    if flat_master:
+        _refuse("flat_master", "ROADMAP queue A, parallelism beyond DP")
+    if parallel is not None:
+        _refuse("parallel=", "ROADMAP queue A, parallelism beyond DP")
+    if grad_accum_steps != 1 or accum_steps not in (None, 1) \
+            or accum_stacked:
+        _refuse("gradient accumulation", "slice 3")
+    if lr_schedule is not None:
+        _refuse("lr_schedule", "slice 3, with optimizers/schedules.py")
+    if telemetry:
+        _refuse("telemetry", "ROADMAP queue A, observe/")
+
+    params = [p for p in model.parameters()]
+    names = [n for n, _ in model.named_parameters()]
+    buffers = list(model.buffers())
+    group_idxs = match_param_groups(optimizer, params)
+    model_dtypes = _model_dtypes(model, params, half_dtype,
+                                 keep_batchnorm_fp32)
+    opt_update, opt_init = build_opt_update(optimizer, params, group_idxs)
+    dynamic = loss_scale == "dynamic"
+    init_scale = (min(max_loss_scale, 2.0 ** 16) if dynamic
+                  else float(loss_scale))
+    init_state = init_step_state(params, buffers, model_dtypes, opt_init,
+                                 init_scale)
+    dev = params[0].device
+    zero_flag = torch.zeros((), dtype=torch.int32, device=dev)
+    takes_generator = "generator" in inspect.signature(
+        model.forward).parameters
+
+    def cast(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point() \
+                and x.dtype != half_dtype:
+            return x.to(half_dtype)
+        return x
+
+    def step_fn(state: StepState, call_index, *batch):
+        leaves = [v.detach().requires_grad_(True)
+                  for v in model_vals_of(state)]
+        x = batch[0] if half_dtype is None else tree_map(cast, batch[0])
+        kwargs = {}
+        if takes_generator:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(dropout_seed(rng_seed, call_index))
+            kwargs["generator"] = gen
+        with torch.enable_grad():
+            out = functional_call(model, dict(zip(names, leaves)), (x,),
+                                  kwargs)
+            loss = loss_fn(out, *batch[1:])
+            scaled = loss.float() * state.scaler.loss_scale
+        grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
+        grads = [torch.zeros_like(v) if g is None else g
+                 for v, g in zip(leaves, grads)]
+        new_state = apply_fused_update(
+            state, grads, opt_update, dynamic=dynamic,
+            init_scale=init_scale, scale_window=scale_window,
+            min_loss_scale=min_loss_scale, max_loss_scale=max_loss_scale,
+            zero_flag=zero_flag)
+        return new_state, loss.detach()
+
+    return TrainStep(model, optimizer, loss_fn, step_fn, params, init_state)

@@ -12,20 +12,32 @@ Phases, each of which raises on failure:
    build of every kernel under ``apex_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together; cached builds are reused);
 2. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes and a few others (dtypes, masks, ragged sizes), with the
-   tolerance printed beside each error; then the kernel's, the plain
-   version's and one library call's time at the main path's shapes (CUDA
-   events around 10 calls queued behind a device-side sleep, median of 25
-   such runs after warm-up);
-3. the main path: ``generate`` on GPT-2 small (hidden 768, 12 layers, 12
-   heads, vocab 50257, max_positions 640, fp32, random weights from a seed)
-   with a batch of 8 512-token prompts and 128 greedy new tokens, reading
-   the kernels' launch counts around that one call; then the prefill time
-   and decode rate of the same work, timed phase by phase;
-4. where the time goes: the prefill and a few decode steps under
-   ``torch.profiler``, with the device's idle share and its top kernels;
-5. the card against the CPU: the same weights on a CPU model (the plain
-   versions), prefill logits and teacher-forced decode logits compared.
+   paths' shapes and a few others (dtypes, masks, ragged sizes), with the
+   tolerance printed beside each error (the Adam kernel bit for bit); then
+   the kernel's, the plain version's and one library call's time at the
+   main paths' shapes (CUDA events around back-to-back calls queued behind
+   a device-side sleep, median over timed runs after warm-up), and, where
+   a function is two launches, each launch's device time from
+   ``torch.profiler``;
+3. the serving path: ``generate`` on GPT-2 small (hidden 768, 12 layers,
+   12 heads, vocab 50257, max_positions 640, fp32, random weights from a
+   seed) with a batch of 8 512-token prompts and 128 greedy new tokens,
+   reading the kernels' launch counts around that one call; then the
+   prefill time and decode rate of the same work, timed phase by phase;
+   where the time goes under ``torch.profiler``; and the card against the
+   CPU (prefill and teacher-forced decode logits of the same weights);
+4. the training path: ``make_train_step`` on GPT-2 small (max_positions
+   1024, dropout 0.1, fp32 masters, bf16 half copies, static loss scale
+   1.0) with ``FusedAdam(lr=6e-4, weight_decay=0.1)`` and the plain
+   cross-entropy loss, on one seeded 16 x 1024 batch: 2 warm-up steps, one
+   step with the launch counts read around it, 10 timed steps (step ms,
+   train tokens/s, the losses, which must fall), and one step under
+   ``torch.profiler``;
+5. training on the card against the CPU: the same weights in fp32,
+   dropout 0, batch 2 x 128: the loss and every gradient of one backward,
+   then the losses and the fp32 masters of 3 train steps; and a
+   dynamic-scale fp16 run (batch 1 x 8) with a non-finite loss planted at
+   step 2, which both devices must skip, halving the scale.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -33,6 +45,8 @@ card, or without the rest of the repository beside it, it exits non-zero
 before printing a result.  TF32 is off for every comparison.
 """
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -41,7 +55,10 @@ import time
 SEED = 1234
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 / fp16 tensor cores, dense
 BATCH, PROMPT, NEW, MAX_POS = 8, 512, 128, 640
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_POS = 16, 1024, 1024
+LR, WD = 6e-4, 0.1
 
 
 def card_line():
@@ -101,6 +118,24 @@ def scaled_err(got, ref):
     return err / max(1.0, ref.float().abs().max().item()), err
 
 
+def ulp_err(got, ref):
+    """Max |got - ref| in units in the last place of ``ref``'s dtype at
+    |ref|; entries below 2^-10 of max |ref| take the unit at that floor."""
+    import torch
+    r = ref.float()
+    floor = max(r.abs().max().item() * 2.0 ** -10, torch.finfo(ref.dtype).tiny)
+    _, e = torch.frexp(r.abs().clamp_min(floor))
+    unit = torch.ldexp(torch.full_like(r, torch.finfo(ref.dtype).eps), e - 1)
+    return ((got.float() - r).abs() / unit).max().item()
+
+
+def bound_ms(nbytes, ops, rate):
+    """The least time for ``nbytes`` of memory traffic and ``ops``
+    operations at ``rate``: (ms, "bytes" or "operations")."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
 def check(what, err, tol):
     print(f"  {what}: err {err:.3e} (tol {tol:.0e})")
     if not err <= tol:
@@ -151,11 +186,8 @@ def ln_phase(torch, layer_norm):
         plain = median_ms(
             lambda: layer_norm.ln_forward_reference(x, w, b, 1e-5))[0]
         lib = median_ms(lambda: F.layer_norm(x, (n,), w, b, 1e-5))[0]
-        nbytes = 2 * x.numel() * 4 + 2 * n * 4 + 2 * rows * 4
-        ops = 8 * x.numel()
-        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S)
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / FP32_FLOP_PER_S \
-            else "operations"
+        bound, by = bound_ms(2 * x.numel() * 4 + 2 * n * 4 + 2 * rows * 4,
+                             8 * x.numel(), FP32_FLOP_PER_S)
         print(f"  time {shape} fp32 affine: kernel {ms:.4f} ms (host "
               f"{host:.4f} ms a call), plain {plain:.4f} ms, F.layer_norm "
               f"{lib:.4f} ms, bound {bound:.6f} ms ({by})")
@@ -235,9 +267,7 @@ def flash_phase(torch, attention):
         q4, k4, v4, is_causal=True, scale=scale))[0]
     nbytes = 4 * bh * s * d * 4 + bh * s * 4
     ops = 4 * d * bh * _unmasked_pairs(s, s, True, None)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
-    bound = 1e3 * max(t_bytes, t_ops)
-    by = "operations" if t_ops >= t_bytes else "bytes"
+    bound, by = bound_ms(nbytes, ops, FP32_FLOP_PER_S)
     print(f"  time ({bh}, {s}, {s}, {d}) fp32 causal: kernel {ms:.4f} ms "
           f"(host {host:.4f} ms a call), plain {plain:.4f} ms, "
           f"F.scaled_dot_product_attention "
@@ -270,8 +300,9 @@ def main_path(torch, dispatch, gpt):
           "tokens, fp32, greedy)")
     print(f"  launches: {counts}")
     layers = len(model.blocks)
-    want = {"flash_attention_fwd": layers,
-            "ln_forward": (2 * layers + 1) * NEW}
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention_fwd=layers,
+                ln_forward=(2 * layers + 1) * NEW)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     if out.shape != (BATCH, PROMPT + NEW) or out.dtype != torch.long:
@@ -392,13 +423,528 @@ def cpu_phase(torch, gpt, model, out, prefill_logits, step_logits):
                   (logits - want).abs().max().item(), tol)
 
 
+def kernel_split_ms(torch, fn, names, calls=5):
+    """Device ms per call of each kernel whose name contains one of
+    ``names``, from ``calls`` calls of ``fn`` under ``torch.profiler``."""
+    fn()
+    _, _, by_name, _ = _profiled(torch, lambda: [fn() for _ in range(calls)])
+    if by_name is None:
+        raise AssertionError("torch.profiler saw no device activity")
+    out = {}
+    for key in names:
+        hits = [ms for name, ms in by_name.items() if key in name]
+        if not hits:
+            raise AssertionError(f"no device kernel named *{key}* in "
+                                 f"{sorted(by_name)[:8]}")
+        out[key] = sum(hits) / calls
+    return out
+
+
+def fwd_train_shapes(torch, attention, layer_norm):
+    """The forward kernels' times at the training path's shapes (bf16)."""
+    from torch.nn import functional as F
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    bh, s, d = TRAIN_BATCH * 12, TRAIN_SEQ, 64
+    q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    scale = d ** -0.5
+    q4, k4, v4 = (t.view(TRAIN_BATCH, 12, s, d) for t in (q, k, v))
+    ms = median_ms(lambda: attention.flash_attention_fwd(
+        q, k, v, None, scale, True))[0]
+    plain = median_ms(lambda: attention.flash_attention_reference(
+        q, k, v, None, scale, True), reps=5, inner=2)[0]
+    lib = median_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=scale))[0]
+    ops = 4 * d * bh * _unmasked_pairs(s, s, True, None)
+    bnd, by = bound_ms(4 * bh * s * d * 2 + bh * s * 4, ops, BF16_FLOP_PER_S)
+    fl = dict(shape=f"({bh}, {s}, {d}) bf16 causal", ms=ms, plain_ms=plain,
+              library_ms=lib, bound_ms=bnd, bound_by=by)
+    rows, n = TRAIN_BATCH * TRAIN_SEQ, 768
+    x = torch.randn((rows, n), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
+    ms = median_ms(lambda: layer_norm.ln_forward(x, w, b, 1e-5))[0]
+    plain = median_ms(lambda: layer_norm.ln_forward_reference(x, w, b,
+                                                              1e-5))[0]
+    lib = median_ms(lambda: F.layer_norm(x, (n,), w, b, 1e-5))[0]
+    bnd, by = bound_ms(2 * rows * n * 2 + 2 * n * 2 + 2 * rows * 4,
+                       8 * rows * n, FP32_FLOP_PER_S)
+    ln = dict(shape=f"({rows}, {n}) bf16 affine", ms=ms, plain_ms=plain,
+              library_ms=lib, bound_ms=bnd, bound_by=by)
+    for what, r in (("flash_attention_fwd", fl), ("ln_forward", ln)):
+        print(f"  time {what} {r['shape']} (training shape): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    return fl, ln
+
+
+def ln_bwd_phase(torch, layer_norm):
+    """LayerNorm backward kernels against their plain version (fp32 on the
+    same inputs); timings at the training path's shape.  Returns the two
+    kernel lines' numbers."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    rows, n = TRAIN_BATCH * TRAIN_SEQ, 768
+    cases = [((rows, n), bf16, True), ((rows, n), bf16, False),
+             ((rows, n), f32, True), ((rows, n), f32, False),
+             ((1001, 1000), f32, True), ((37, 768), bf16, True),
+             ((300, 4000), f16, True), ((5, 12000), f32, False)]
+    print("LayerNorm backward vs plain (the plain version in fp32 on the "
+          "same inputs, TF32 off; err: max abs / max(1, max |ref|)):")
+    main_err = None
+    for shape, dtype, affine in cases:
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 1).to(dtype)
+        dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        w = None
+        if affine:
+            w = (torch.randn(shape[1], generator=g, device="cuda") * 0.5
+                 + 1).to(dtype)
+        _, mean, rstd = layer_norm.ln_forward_reference(x, None, None, 1e-5)
+        got = layer_norm.ln_backward(dy, x, mean, rstd, w)
+        torch.cuda.synchronize()
+        ref = layer_norm.ln_backward_reference(
+            dy.float(), x.float(), mean, rstd, None if w is None else w.float())
+        tag = f"{shape} {str(dtype)[6:]} affine={affine}"
+        err, err_abs = scaled_err(got[0], ref[0])
+        # dx is rounded to its dtype; dgamma / dbeta are fp32 sums over the
+        # rows in another order
+        check(f"{tag} dx", err, 1e-5 if dtype == f32 else 1e-2)
+        if affine:
+            check(f"{tag} dgamma", scaled_err(got[1], ref[1])[0], 1e-5)
+            check(f"{tag} dbeta", scaled_err(got[2], ref[2])[0], 1e-5)
+        if shape == (rows, n) and dtype == bf16 and affine:
+            # the kernel line's errors: against the plain version on the
+            # same bf16 tensors (dx rounded to bf16 on both sides)
+            same = layer_norm.ln_backward_reference(dy, x, mean, rstd, w)
+            main_err = (scaled_err(got[0], same[0])[1],
+                        max(scaled_err(a, b)[1]
+                            for a, b in zip(got[1:], same[1:])))
+
+    x = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
+    dy = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
+    w = torch.randn(n, generator=g, device="cuda").to(bf16)
+    b = torch.zeros(n, device="cuda", dtype=bf16)
+    _, mean, rstd = layer_norm.ln_forward_reference(x, None, None, 1e-5)
+    fn = lambda: layer_norm.ln_backward(dy, x, mean, rstd, w)  # noqa: E731
+    ms = median_ms(fn)[0]
+    split = kernel_split_ms(torch, fn, ("ln_bwd_kernel", "ln_bwd_cols"))
+    plain = median_ms(lambda: layer_norm.ln_backward_reference(
+        dy, x, mean, rstd, w))[0]
+    # aten's backward takes the statistics in the layout of its own forward
+    _, amean, arstd = torch.ops.aten.native_layer_norm(x, [n], w, b, 1e-5)
+    lib = median_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [n], amean, arstd, w, b, [True, True, True]))[0]
+    parts = layer_norm._bwd_parts(0, rows, n)
+    b_rows = bound_ms(3 * rows * n * 2 + 2 * rows * 4 + n * 2
+                      + 2 * parts * n * 4, 12 * rows * n, FP32_FLOP_PER_S)
+    b_cols = bound_ms(2 * parts * n * 4 + 2 * n * 4, 2 * parts * n,
+                      FP32_FLOP_PER_S)
+    b_all = bound_ms(3 * rows * n * 2 + 2 * rows * 4 + n * 2 + 2 * n * 4,
+                     12 * rows * n, FP32_FLOP_PER_S)
+    print(f"  time ({rows}, {n}) bf16 affine: both launches {ms:.4f} ms "
+          f"(dx + partial sums {split['ln_bwd_kernel']:.4f} ms over "
+          f"{parts} blocks, column sums {split['ln_bwd_cols']:.4f} ms), "
+          f"plain {plain:.4f} ms, aten native_layer_norm_backward "
+          f"{lib:.4f} ms, bound {b_all[0]:.4f} ms ({b_all[1]}; whole "
+          f"function)")
+    common = dict(plain_ms=plain, library_ms=lib, whole_ms=ms,
+                  whole_bound_ms=b_all[0],
+                  scope="plain_ms and library_ms time the whole backward "
+                        "(both launches)")
+    print(f"  ({rows}, {n}) bf16 affine against the plain version on the "
+          f"same bf16 tensors: dx max abs err {main_err[0]:.3e}, "
+          f"dgamma/dbeta {main_err[1]:.3e}")
+    return (dict(max_abs_err=main_err[0], ms=split["ln_bwd_kernel"],
+                 bound_ms=b_rows[0], bound_by=b_rows[1], **common),
+            dict(max_abs_err=main_err[1], ms=split["ln_bwd_cols"],
+                 bound_ms=b_cols[0], bound_by=b_cols[1], **common))
+
+
+def flash_bwd_phase(torch, attention):
+    """Flash-attention backward kernels against the plain version's
+    autograd (fp32 on the same inputs); timings at the training path's
+    shape.  Returns the two kernel lines' numbers."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    bh0, s0 = TRAIN_BATCH * 12, TRAIN_SEQ
+    cases = [  # (bh, sq, sk, d, dtype, causal, bias, window)
+        (bh0, s0, s0, 64, bf16, True, None, None),
+        (bh0, s0, s0, 64, f32, True, None, None),
+        (96, 512, 512, 64, f32, False, "keypad", None),
+        (96, 1024, 1024, 64, bf16, True, None, 128),
+        (48, 500, 500, 64, f32, True, None, None),
+        (24, 300, 700, 64, f32, False, "full", None),
+        (16, 256, 256, 128, f32, True, None, None),
+        (8, 200, 200, 40, f16, True, "keypad", None),
+    ]
+    print("flash-attention backward vs the plain version's autograd (fp32 "
+          "on the same inputs, TF32 off; err: max abs / max(1, max |ref|)):")
+    main_err = None
+    for bh, sq, sk, d, dtype, causal, kind, window in cases:
+        q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda")
+                   .to(dtype) for s in (sq, sk, sk))
+        dout = torch.randn((bh, sq, d), generator=g, device="cuda").to(dtype)
+        bias = None
+        if kind == "keypad":   # per batch of 12 heads, the last keys masked
+            pad = torch.zeros((bh // 12 or 1, 1, sk), device="cuda")
+            for i in range(pad.shape[0]):
+                pad[i, 0, sk - 1 - 17 * i:] = -1e30
+            bias = torch.repeat_interleave(pad, bh // pad.shape[0], dim=0)
+        elif kind == "full":
+            bias = torch.randn((1, sq, sk), generator=g, device="cuda")
+        scale = d ** -0.5
+        out, lse = attention.flash_attention_fwd(q, k, v, bias, scale, causal,
+                                                 window=window)
+        got = attention.flash_attention_bwd(q, k, v, bias, out, lse, dout,
+                                            scale, causal, window=window)
+        torch.cuda.synchronize()
+        leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+        ref_out, _ = attention.flash_attention_reference(
+            *leaves, bias, scale, causal, window)
+        ref = torch.autograd.grad(ref_out, leaves, dout.float())
+        # against fp32 autograd a half-precision case differs by the
+        # rounding of its inputs' products (out is rounded before delta)
+        tol = 5e-5 if dtype == f32 else 3e-2
+        tag = (f"({bh}, {sq}, {sk}, {d}) {str(dtype)[6:]} causal={causal} "
+               f"bias={kind} window={window}")
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            check(f"{tag} {name}", scaled_err(a, r)[0], tol)
+        # against the plain version on the same tensors, which rounds the
+        # same fp32 math to the same dtype: within 1 unit in the last place
+        # in half precision, 1e-5 of max |ref| in fp32
+        plain = attention.flash_attention_bwd_reference(
+            q, k, v, bias, out, lse, dout, scale, causal, window)
+        for name, a, r in zip(("dq", "dk", "dv"), got, plain):
+            if dtype == f32:
+                err = (a - r).abs().max().item() / r.abs().max().item()
+                check(f"{tag} {name} vs flash_attention_bwd_reference (err: "
+                      f"max abs / max |ref|)", err, 1e-5)
+            else:
+                check(f"{tag} {name} vs flash_attention_bwd_reference (err "
+                      f"in units in the last place)", ulp_err(a, r), 1)
+        if (bh, sq, dtype, window) == (bh0, s0, bf16, None):
+            main_err = max(scaled_err(a, r)[1] for a, r in zip(got, plain))
+        del leaves, ref_out, ref, got, plain
+
+    bh, s, d = bh0, s0, 64
+    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device="cuda")
+                     .to(bf16) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = attention.flash_attention_fwd(q, k, v, None, scale, True)
+    fn = lambda: attention.flash_attention_bwd(  # noqa: E731
+        q, k, v, None, out, lse, dout, scale, True)
+    ms = median_ms(fn)[0]
+    split = kernel_split_ms(torch, fn, ("flash_bwd_dq", "flash_bwd_dkv"))
+    plain = median_ms(lambda: attention.flash_attention_bwd_reference(
+        q, k, v, None, out, lse, dout, scale, True), reps=5, inner=2)[0]
+    q4, k4, v4 = (t.view(TRAIN_BATCH, 12, s, d).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    o4 = torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=scale)
+    g4 = dout.view(TRAIN_BATCH, 12, s, d)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True)
+    lib = median_ms(sdpa_bwd)[0]
+    _, _, by_name, _ = _profiled(torch, sdpa_bwd)
+    backend = max(by_name.items(), key=lambda kv: kv[1])[0] if by_name \
+        else "not measured"
+    pairs = _unmasked_pairs(s, s, True, None)
+    io = bh * s * d * 2
+    b_dq = bound_ms(5 * io + 2 * bh * s * 4, 6 * d * bh * pairs,
+                    BF16_FLOP_PER_S)
+    b_dkv = bound_ms(6 * io + 2 * bh * s * 4, 8 * d * bh * pairs,
+                     BF16_FLOP_PER_S)
+    b_all = bound_ms(8 * io + bh * s * 4, 10 * d * bh * pairs,
+                     BF16_FLOP_PER_S)
+    print(f"  time ({bh}, {s}, {d}) bf16 causal: both launches {ms:.4f} ms "
+          f"(dq {split['flash_bwd_dq']:.4f} ms, dk/dv "
+          f"{split['flash_bwd_dkv']:.4f} ms), plain {plain:.4f} ms, "
+          f"scaled_dot_product_attention backward {lib:.4f} ms (its "
+          f"largest kernel: {backend[:80]}), bound {b_all[0]:.4f} ms "
+          f"({b_all[1]}: {10 * d * bh * pairs / 1e9:.2f} GFLOP at the bf16 "
+          f"tensor-core rate; {1e3 * 10 * d * bh * pairs / FP32_FLOP_PER_S:.3f}"
+          f" ms at the fp32 CUDA-core rate)")
+    common = dict(plain_ms=plain, library_ms=lib, whole_ms=ms,
+                  whole_bound_ms=b_all[0], library_backend=backend[:120],
+                  scope="plain_ms and library_ms time the whole backward "
+                        "(both launches)")
+    return (dict(max_abs_err=main_err, ms=split["flash_bwd_dq"],
+                 bound_ms=b_dq[0], bound_by=b_dq[1], **common),
+            dict(max_abs_err=main_err, ms=split["flash_bwd_dkv"],
+                 bound_ms=b_dkv[0], bound_by=b_dkv[1], **common))
+
+
+def adam_phase(torch, multi_tensor, shapes):
+    """The Adam kernel against its plain version, bit for bit, over the
+    parameter shapes of GPT-2 small; timing of the training path's
+    configuration.  Returns the kernel line's numbers."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
+
+    def make(gdtype):
+        gs = [torch.randn(s, generator=g, device="cuda").to(gdtype)
+              for s in shapes]
+        ps = [torch.randn(s, generator=g, device="cuda") for s in shapes]
+        ms = [torch.randn(s, generator=g, device="cuda") * 0.1 for s in shapes]
+        vs = [torch.rand(s, generator=g, device="cuda") * 0.01
+              for s in shapes]
+        return [gs, ps, ms, vs]
+
+    def clone(lists):
+        return [lists[0]] + [[t.clone() for t in lst] for lst in lists[1:]]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for la, lb in zip(a[1:], b[1:])
+                   for x, y in zip(la, lb))
+
+    print(f"Adam kernel vs plain ({len(shapes)} tensors, {n_el} elements; "
+          f"bit for bit):")
+    dev_step = torch.tensor(7, dtype=torch.int32, device="cuda")
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    for gdtype in (f32, bf16):
+        base = make(gdtype)
+        for mode, wd, step, bc in ((0, 0.0, 7, True), (0, 0.1, dev_step, True),
+                                   (1, 0.0, dev_step, True), (1, 0.1, 7, True),
+                                   (1, 0.1, dev_step, False)):
+            ka, ra = clone(base), clone(base)
+            multi_tensor.fused_adam(zero, ka, LR, 0.9, 0.999, 1e-8, step, mode,
+                                    bc, wd)
+            scal = multi_tensor.adam_scalars(LR, 0.9, 0.999, 1e-8, step, bc,
+                                             wd, "cuda")
+            multi_tensor.fused_adam_reference(zero, ra, scal, mode, wd != 0.0)
+            torch.cuda.synchronize()
+            tag = (f"grads {str(gdtype)[6:]} mode {mode} wd {wd} "
+                   f"step {'device' if torch.is_tensor(step) else 'host'} "
+                   f"bias_correction {bc}")
+            if not same(ka, ra):
+                raise AssertionError(f"Adam {tag}: kernel != plain version")
+            if same(ka, base):
+                raise AssertionError(f"Adam {tag}: nothing was updated")
+            print(f"  {tag}: bitwise equal")
+        ka = clone(base)
+        multi_tensor.fused_adam(one, ka, LR, 0.9, 0.999, 1e-8, dev_step, 1,
+                                True, 0.1)
+        torch.cuda.synchronize()
+        if not same(ka, base):
+            raise AssertionError("Adam with the skip flag set changed a "
+                                 "tensor")
+        print(f"  grads {str(gdtype)[6:]} with the skip flag set: every "
+              f"tensor unchanged")
+        del base, ka, ra
+
+    # the eager optimizer (host step count) on the card against the CPU
+    from apex_tpu_torch.optimizers import FusedAdam
+    init = [torch.randn(s, generator=g, device="cuda") for s in shapes[-6:]]
+    grads = [[torch.randn(s, generator=g, device="cuda") for s in shapes[-6:]]
+             for _ in range(3)]
+    runs = []
+    for dev in ("cuda", "cpu"):
+        ps = [torch.nn.Parameter(t.to(dev, copy=True)) for t in init]
+        opt = FusedAdam([{"params": ps[:3]},
+                         {"params": ps[3:], "weight_decay": 0.0,
+                          "bias_correction": False}], lr=LR, weight_decay=WD)
+        for gs in grads:
+            for p, gr in zip(ps, gs):
+                p.grad = gr.to(dev)
+            opt.step()
+        runs.append([p.detach().to("cpu", copy=True) for p in ps])
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("eager FusedAdam: card != CPU")
+    print("  eager FusedAdam.step, two param groups, 3 steps: card and CPU "
+          "bitwise equal")
+
+    lists = make(bf16)
+    fn = lambda: multi_tensor.fused_adam(  # noqa: E731
+        zero, lists, LR, 0.9, 0.999, 1e-8, dev_step, 1, True, WD)
+    ms = median_ms(fn, reps=15, inner=5)[0]
+    scal = multi_tensor.adam_scalars(LR, 0.9, 0.999, 1e-8, dev_step, True,
+                                     WD, "cuda")
+    plain = median_ms(lambda: multi_tensor.fused_adam_reference(
+        zero, lists, scal, 1, True), reps=3, inner=1, warmup=1)[0]
+    params = [p.clone().requires_grad_(True) for p in lists[1]]
+    for p, gr in zip(params, lists[0]):
+        p.grad = gr.float()
+    lib_opt = torch.optim.AdamW(params, lr=LR, weight_decay=WD, fused=True)
+    lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
+    bnd, by = bound_ms(n_el * (2 + 12 + 12), 15 * n_el, FP32_FLOP_PER_S)
+    print(f"  time {len(shapes)} tensors, bf16 grads, AdamW: kernel {ms:.4f} "
+          f"ms, plain {plain:.4f} ms, torch.optim.AdamW(fused=True).step "
+          f"(fp32 grads) {lib:.4f} ms, bound {bnd:.4f} ms ({by}: "
+          f"{n_el * 26 / 1e9:.3f} GB)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bnd, bound_by=by)
+
+
+def _lm_loss(torch):
+    from apex_tpu_torch.nn import functional as F
+
+    def lm_loss(logits, ids, w=None):
+        flat = logits[:, :-1].reshape(-1, logits.shape[-1])
+        loss = F.cross_entropy(flat, ids[:, 1:].reshape(-1))
+        return loss if w is None else loss * w
+    return lm_loss
+
+
+def train_path(torch, dispatch, model):
+    """make_train_step on GPT-2 small at the training shape, bf16 half
+    copies; returns the launch counts of one step."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    opt = FusedAdam(list(model.parameters()), lr=LR, weight_decay=WD)
+    step = make_train_step(model, opt, _lm_loss(torch),
+                           half_dtype=torch.bfloat16, loss_scale=1.0)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    ids = torch.randint(0, model.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g, device="cuda")
+    losses = [step(ids, ids) for _ in range(2)]     # warm-up
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    counts = dispatch.counts()
+    layers = len(model.blocks)
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
+                flash_attention_bwd_dkv=layers, ln_forward=2 * layers + 1,
+                ln_backward_rows=2 * layers + 1,
+                ln_backward_cols=2 * layers + 1, fused_adam=1)
+    print(f"training path: make_train_step(gpt2_small, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, plain "
+          f"cross entropy)")
+    print(f"  launches in one step: {counts}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    t0 = time.perf_counter()
+    for _ in range(10):
+        losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 10
+    values = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"non-finite training loss: {values}")
+    if not values[-1] < values[0]:
+        raise AssertionError(f"the loss did not fall: {values}")
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    print(f"  step {1e3 * step_s:.2f} ms = {tok_s:.1f} train tokens/s "
+          f"(10 steps, host clock, ending in a synchronize)")
+    print(f"  losses of {len(values)} steps: "
+          f"{', '.join(f'{x:.4f}' for x in values)}")
+    wall, busy, by_name, n = _profiled(torch, lambda: step(ids, ids))
+    if busy is None:
+        print(f"  profiled step: wall {wall:.2f} ms; device time not measured "
+              f"(the profiler saw no device activity)")
+    else:
+        print(f"  profiled step: wall {wall:.2f} ms, device busy {busy:.2f} "
+              f"ms, idle share {1 - busy / wall:.3f}, {n} device operations")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    return counts
+
+
+def train_cpu_phase(torch, gpt, model):
+    """Training on the card against the CPU from the same weights."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    lm_loss = _lm_loss(torch)
+    kw = dict(max_positions=TRAIN_POS, dropout=0.0, attn_dropout=0.0)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    def pair():
+        out = []
+        for dev in ("cuda", "cpu"):
+            m = gpt.gpt2_small(**kw, device=dev)
+            m.load_state_dict(sd)
+            out.append(m)
+        return out
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    ids = torch.randint(0, model.vocab_size, (2, 128), generator=g)
+    print("training, card vs CPU (same weights, fp32, TF32 off, dropout 0, "
+          "batch 2 x 128):")
+    mc, mh = pair()
+    losses = []
+    for m in (mc, mh):
+        loss = lm_loss(m(ids.to(m.tok_emb.weight.device)),
+                       ids.to(m.tok_emb.weight.device))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    check("loss of one forward (relative)",
+          abs(losses[0] - losses[1]) / abs(losses[1]), 1e-4)
+    worst, worst_name = 0.0, None
+    for (name, pc), ph in zip(mc.named_parameters(), mh.parameters()):
+        ref = ph.grad
+        e = (pc.grad.cpu() - ref).abs().max().item() / max(
+            ref.abs().max().item(), 1e-30)
+        if e > worst:
+            worst, worst_name = e, name
+    check(f"gradients of one backward, worst tensor {worst_name} (max abs "
+          f"err / max |g|)", worst, 1e-3)
+
+    mc, mh = pair()
+    runs = []
+    for m in (mc, mh):
+        dev = m.tok_emb.weight.device
+        step = make_train_step(m, FusedAdam(list(m.parameters()), lr=LR,
+                                            weight_decay=WD),
+                               lm_loss, half_dtype=None, loss_scale=1.0)
+        x = ids.to(dev)
+        runs.append(([float(step(x, x)) for _ in range(3)],
+                     [t.cpu() for t in step.state.master_params]))
+    for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
+        check(f"train step {i + 1} loss (relative)", abs(a - b) / abs(b),
+              1e-4)
+    # Adam moves every parameter by about lr a step whatever the size of its
+    # gradient (|m/sqrt(v)| = 1 at step 1), so a near-zero gradient whose
+    # sign differs between the devices (sums in another order) puts the two
+    # copies up to 2 lr apart per step: 6 lr over 3 steps
+    tol = 6.5 * LR
+    check(f"fp32 masters after 3 steps (max abs diff; tol 6.5 x lr)",
+          max((a - b).abs().max().item()
+              for a, b in zip(runs[0][1], runs[1][1])), tol)
+
+    print("dynamic loss scale, fp16 half copies, batch 1 x 8, a non-finite "
+          "loss planted at step 2:")
+    mc, mh = pair()
+    ids8 = ids[:1, :8]
+    for m in (mc, mh):
+        dev = m.tok_emb.weight.device
+        step = make_train_step(m, FusedAdam(list(m.parameters()), lr=LR,
+                                            weight_decay=WD),
+                               lm_loss, half_dtype=torch.float16,
+                               loss_scale="dynamic",
+                               max_loss_scale=2.0 ** 10)
+        x = ids8.to(dev)
+        skips, scales, masters = [], [], []
+        for w in (1.0, float("inf"), 1.0):
+            step(x, x, torch.tensor(w, device=dev))
+            skips.append(int(step.last_step_skipped))
+            scales.append(float(step.state.scaler.loss_scale))
+            masters.append([t.clone() for t in step.state.master_params])
+        unchanged = all(torch.equal(a, b)
+                        for a, b in zip(masters[0], masters[1]))
+        print(f"  {dev.type}: skipped {skips}, scale {scales}, masters "
+              f"unchanged by the skipped step: {unchanged}, step count "
+              f"{int(step.state.step)}")
+        if skips != [0, 1, 0] or scales != [1024.0, 512.0, 512.0] \
+                or not unchanged or int(step.state.step) != 2:
+            raise AssertionError(f"dynamic-scale skip on {dev.type}: skipped "
+                                 f"{skips}, scales {scales}, unchanged "
+                                 f"{unchanged}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from apex_tpu_torch import _build
-    from apex_tpu_torch.kernels import attention, dispatch, layer_norm
+    from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
+        multi_tensor
     from apex_tpu_torch.models import gpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -412,24 +958,71 @@ def main():
     built = _build.build_all()
     print(f"kernel build: {built}, {time.perf_counter() - t0:.1f} s")
 
+    # the training path's model, built first: its parameter shapes feed
+    # the Adam kernel's phase
+    torch.manual_seed(SEED)
+    train_model = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.1,
+                                 attn_dropout=0.0, device="cuda")
+    shapes = [tuple(p.shape) for p in train_model.parameters()]
+    t_phase = time.perf_counter()
     ln = ln_phase(torch, layer_norm)
     fl = flash_phase(torch, attention)
-    model, out, counts, prefill_logits, step_logits = main_path(
+    fl_train, ln_train = fwd_train_shapes(torch, attention, layer_norm)
+    lnb_rows, lnb_cols = ln_bwd_phase(torch, layer_norm)
+    dq, dkv = flash_bwd_phase(torch, attention)
+    adam = adam_phase(torch, multi_tensor, shapes)
+    print(f"kernel phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    model, out, serve, prefill_logits, step_logits = main_path(
         torch, dispatch, gpt)
     profile_phase(torch, model, out)
     cpu_phase(torch, gpt, model, out, prefill_logits, step_logits)
+    del model, out
+    print(f"serving phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    train = train_path(torch, dispatch, train_model)
+    train_cpu_phase(torch, gpt, train_model)
+    print(f"training phases: {time.perf_counter() - t_phase:.1f} s")
 
+    def both(name):
+        return dict(launches=serve[name] + train[name],
+                    launches_by_path={"generate": serve[name],
+                                      "train_step": train[name]})
+    fa, fb = "apex_tpu_torch/csrc/flash_attention", "apex_tpu/kernels/"
+    ln_src = "apex_tpu_torch/csrc/layer_norm.cu"
     kernels = [
-        dict(name="flash_attention_fwd", route="cuda",
-             source="apex_tpu_torch/csrc/flash_attention.cu",
-             replaces="apex_tpu/kernels/attention.py:352",
-             launches=counts["flash_attention_fwd"],
-             shape="(96, 512, 64) fp32 causal", **fl),
-        dict(name="ln_forward", route="cuda",
-             source="apex_tpu_torch/csrc/layer_norm.cu",
-             replaces="apex_tpu/kernels/layer_norm.py:77",
-             launches=counts["ln_forward"],
-             shape="(4096, 768) fp32 affine", **ln),
+        dict(name="flash_attention_fwd", route="cuda", source=f"{fa}.cu",
+             replaces=f"{fb}attention.py:352", **both("flash_attention_fwd"),
+             shape="(96, 512, 64) fp32 causal", **fl,
+             train_shape=fl_train),
+        dict(name="flash_attention_bwd_dq", route="cuda",
+             source=f"{fa}_bwd.cu",
+             replaces=f"{fb}attention.py:420 (_dq_kernel :237, "
+                      f"pallas_call :466)",
+             launches=train["flash_attention_bwd_dq"],
+             shape="(192, 1024, 64) bf16 causal", **dq),
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             source=f"{fa}_bwd.cu",
+             replaces=f"{fb}attention.py:420 (_dkv_kernel :283, "
+                      f"pallas_call :490)",
+             launches=train["flash_attention_bwd_dkv"],
+             shape="(192, 1024, 64) bf16 causal", **dkv),
+        dict(name="ln_forward", route="cuda", source=ln_src,
+             replaces=f"{fb}layer_norm.py:77", **both("ln_forward"),
+             shape="(4096, 768) fp32 affine", **ln, train_shape=ln_train),
+        dict(name="ln_backward", route="cuda", source=ln_src,
+             replaces=f"{fb}layer_norm.py:109",
+             launches=train["ln_backward_rows"],
+             shape="(16384, 768) bf16 affine", **lnb_rows),
+        dict(name="ln_backward_cols", route="cuda", source=ln_src,
+             replaces=f"{fb}layer_norm.py:109 (dgamma/dbeta, :68-74)",
+             launches=train["ln_backward_cols"],
+             shape="(16384, 768) bf16 affine", **lnb_cols),
+        dict(name="fused_adam", route="cuda",
+             source="apex_tpu_torch/csrc/multi_tensor_adam.cu",
+             replaces=f"{fb}multi_tensor.py:207",
+             launches=train["fused_adam"],
+             shape=f"{len(shapes)} tensors, bf16 grads, AdamW", **adam),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -68,6 +68,33 @@ def test_port_sources_import_nothing_of_jax():
             assert not hits, f"{path}: {needle!r} in {hits}"
 
 
+def test_package_data_ships_every_kernel_source_and_header():
+    """An installed package builds its kernels from the files that the
+    package data lists, so those globs must cover every source under
+    ``csrc`` and every file that a source includes by a quoted name."""
+    import fnmatch
+    import re
+    import tomllib
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "apex_tpu_torch"]
+    csrc = os.path.join(PKG, "csrc")
+    names = sorted(os.listdir(csrc))
+    assert any(n.endswith(".cu") for n in names)
+    assert any(n.endswith(".cuh") for n in names)
+
+    def shipped(name):
+        return any(fnmatch.fnmatch(f"csrc/{name}", g) for g in globs)
+
+    for name in names:
+        assert shipped(name), f"csrc/{name} is not in the package data"
+        with open(os.path.join(csrc, name)) as f:
+            for inc in re.findall(r'^\s*#include\s+"([^"]+)"', f.read(),
+                                  re.M):
+                assert inc in names, f"csrc/{name} includes missing {inc}"
+                assert shipped(inc), f"csrc/{inc} is not in the package data"
+
+
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     small = dict(vocab_size=32, hidden=16, layers=1, heads=2,
