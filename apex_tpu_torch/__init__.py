@@ -11,11 +11,14 @@ version.  Entry points run on the card unless the caller passes
 
 Ported so far: GPT-2-family greedy and sampled generation (prefill through
 the flash-attention forward kernel, KV-cache decode, every LayerNorm
-through the LayerNorm forward kernel), and single-device GPT training
+through the LayerNorm forward kernel), single-device GPT training
 (``training.make_train_step`` with ``optimizers.FusedAdam``, the dynamic or
-static loss scaler, O2-style half copies over fp32 masters), whose
-backward runs the flash-attention and LayerNorm backward kernels and whose
-update runs the multi-tensor Adam kernel.
+static loss scaler, O2-style half copies over fp32 masters, gradient
+accumulation and lr schedules), whose backward runs the flash-attention and
+LayerNorm backward kernels and whose update runs the multi-tensor Adam
+kernel; the label-smoothed cross-entropy and the chunked LM-head loss
+(``contrib.xentropy``) over the xentropy kernels; and the eager mixed
+precision loop (``amp.initialize`` O0/O2/O3 and ``amp.scale_loss``).
 """
 from . import (amp, contrib, inference, kernels, models, multi_tensor_apply,
                nn, normalization, ops, optimizers, training)

@@ -3,14 +3,13 @@
 Two layers, as there:
 
 * a functional core (``ScalerState``, ``init_scaler_state``,
-  ``update_scale_state``) whose state is device tensors, so a train step's
-  unscale, overflow check, skip and scale update make no host round trip;
+  ``update_scale_state``, ``unscale_grads``, ``unscale_with_stashed_grads``)
+  whose state is device tensors, so a train step's unscale, overflow
+  check, skip and scale update make no host round trip;
 * a stateful ``LossScaler`` with the reference's API and dynamics: the
   dynamic scale starts at ``min(max_loss_scale, 2**16)``, halves on an
   overflow (clamped to ``min_loss_scale``) and doubles after
   ``scale_window`` clean steps (clamped to ``max_loss_scale``).
-
-``amp.initialize`` and ``scale_loss`` come with a later slice.
 """
 from __future__ import annotations
 
@@ -19,7 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels.dispatch import resolve_device
-from ..ops import multi_tensor_scale
+from ..ops import multi_tensor_axpby, multi_tensor_scale
 
 _f32, _i32 = torch.float32, torch.int32
 
@@ -67,6 +66,45 @@ def update_scale_state(state: ScalerState, *, dynamic: bool,
     return ScalerState(scale, unskipped, zero), overflow
 
 
+def unscale_grads(state: ScalerState, model_grads, master_dtypes=None,
+                  check_overflow: bool = True, scale_override=None):
+    """``master = model / loss_scale`` in fp32, cast to ``master_dtypes``
+    (default: each gradient's own), with the overflow flag raised on a
+    non-finite gradient.  Returns ``(new_state, master_grads)``."""
+    scale = state.loss_scale if scale_override is None \
+        else torch.as_tensor(scale_override, dtype=_f32,
+                             device=state.loss_scale.device)
+    outs = [torch.empty(0, dtype=g.dtype if master_dtypes is None
+                        else master_dtypes[i])
+            for i, g in enumerate(model_grads)]
+    flag, masters = multi_tensor_scale(state.overflow,
+                                       [list(model_grads), outs], 1.0 / scale)
+    if not check_overflow:
+        flag = state.overflow
+    return state._replace(overflow=flag), masters
+
+
+def unscale_with_stashed_grads(state: ScalerState, model_grads,
+                               stashed_grads, scale_override=None):
+    """Gradient accumulation over backward passes: ``out = (out_scale /
+    grads_have_scale) * new + (out_scale / stashed_have_scale) * stashed``
+    through ``multi_tensor_axpby``, the flag raised on a non-finite new
+    gradient; ``scale_override`` is the triple (grads_have_scale,
+    stashed_have_scale, out_scale), by default (loss scale, 1, 1).
+    Returns ``(new_state, master_grads)`` in the stashed gradients'
+    dtypes."""
+    out_scale = 1.0
+    if scale_override is not None:
+        grads_have_scale, stashed_have_scale, out_scale = scale_override
+    else:
+        grads_have_scale, stashed_have_scale = state.loss_scale, 1.0
+    flag, masters = multi_tensor_axpby(
+        state.overflow, [list(model_grads), list(stashed_grads),
+                         list(stashed_grads)],
+        out_scale / grads_have_scale, out_scale / stashed_have_scale, 0)
+    return state._replace(overflow=flag), masters
+
+
 class LossScaler:
     """Stateful facade with the reference's API.  Holds a ``ScalerState``
     of device tensors; ``loss_scale()`` and ``update_scale()`` read it back
@@ -101,29 +139,48 @@ class LossScaler:
         """The loss scale as a device scalar (no host sync)."""
         return self._state.loss_scale
 
+    @property
+    def _unskipped(self):
+        return int(self._state.unskipped)
+
+    @_unskipped.setter
+    def _unskipped(self, v):
+        self._state = self._state._replace(unskipped=torch.tensor(
+            v, dtype=_i32, device=self._state.unskipped.device))
+
+    @property
+    def _loss_scale(self):
+        return float(self._state.loss_scale)
+
+    @_loss_scale.setter
+    def _loss_scale(self, v):
+        self._state = self._state._replace(loss_scale=torch.tensor(
+            v, dtype=_f32, device=self._state.loss_scale.device))
+
     def clear_overflow_state(self):
         self._state = self._state._replace(
             overflow=torch.zeros_like(self._state.overflow))
 
     def unscale(self, model_grads, master_grads, unused_scale=None,
                 models_are_masters=False, scale_override=None):
-        """``master = model / scale`` in fp32, cast to each master's dtype,
-        flagging non-finite gradients into the state.  Returns the new
-        master gradients (functional: callers rebind)."""
-        scale = (self._state.loss_scale if scale_override is None
-                 else torch.as_tensor(scale_override, dtype=_f32,
-                                      device=self._state.loss_scale.device))
-        flag, masters = multi_tensor_scale(
-            self._state.overflow, [list(model_grads), list(master_grads)],
-            1.0 / scale)
-        self._state = self._state._replace(overflow=flag)
+        """``master = model / scale`` in fp32, cast to each master's dtype
+        (``master_grads`` give only the dtypes), flagging non-finite
+        gradients into the state.  Returns the new master gradients
+        (functional: callers rebind)."""
+        self._state, masters = unscale_grads(
+            self._state, list(model_grads),
+            master_dtypes=[m.dtype for m in master_grads],
+            scale_override=scale_override)
         return masters
 
     def unscale_with_stashed(self, model_grads, stashed_master_grads,
                              master_grads, scale_override=None):
-        raise NotImplementedError(
-            "LossScaler.unscale_with_stashed needs multi_tensor_axpby, "
-            "which is ported with slice 3 (amp.scale_loss)")
+        """``new / scale + stashed`` (see
+        :func:`unscale_with_stashed_grads`); returns the new master
+        gradients."""
+        self._state, masters = unscale_with_stashed_grads(
+            self._state, model_grads, stashed_master_grads, scale_override)
+        return masters
 
     def update_scale(self):
         """One host sync, as in the reference: returns a Python bool

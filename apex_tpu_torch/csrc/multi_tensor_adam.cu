@@ -20,10 +20,10 @@
 // its caller to select from, it updates p, m and v in place, so it reads
 // the flag itself and leaves every tensor untouched when the flag is set.
 //
-// Bound on the H100: bytes.  Each element reads g (2 or 4 bytes), p, m and
-// v and writes p, m and v: 26-28 bytes for ~15 operations.  At GPT-2 small
-// (124.4 M parameters in 124 tensors) that is 3.2-3.5 GB, ~1 ms at
-// 3.35 TB/s.
+// Bound on the H100: bytes.  Each element reads g, p, m and v and writes p,
+// m and v: 26-28 bytes with fp32 p, m and v, 14 with all four in fp16, for
+// ~15 operations.  At GPT-2 small (124.4 M parameters in 124 tensors) that
+// is 3.2-3.5 GB, ~1 ms at 3.35 TB/s, or 1.74 GB, ~0.52 ms, in fp16.
 //
 // Design: the reference CUDA design (multi_tensor_apply.cuh), not the
 // Pallas copy of every tensor into one packed panel, which would move the
@@ -33,9 +33,14 @@
 // caller builds it once per list and keeps it, since the in-place updates
 // keep those addresses.  The gradients are new tensors every step, so
 // their addresses travel in the launch's parameters instead (up to 256
-// tensors a launch).  Loads and stores are 16-byte vectors where every
-// address of the chunk allows it, scalar otherwise.  p, m and v are fp32;
-// g is fp32, bf16 or fp16.
+// tensors a launch).  g is fp32, bf16 or fp16; so are p, m and v, each
+// list of one dtype.  Every value is read as fp32, updated in fp32 and
+// written back rounded to nearest in its own dtype, as the JAX function
+// casts its fp32 results back (so O3's half parameters and moments run
+// here too).  The kernel is a template on the four dtypes, one instance
+// for each combination: a thread takes four consecutive elements with one
+// vector load and store per array (16 bytes in fp32, 8 in a half dtype)
+// where every address of the chunk allows it, and the rest one by one.
 
 #include <stdint.h>
 
@@ -66,37 +71,57 @@ __device__ __forceinline__ void adam_elem(float g, float& p, float& m, float& v,
   p = __fsub_rn(p, __fmul_rn(s.lr, u));
 }
 
-// four consecutive gradients as fp32, from an address aligned to ALIGN
-template <typename G> struct Grad4;
-template <> struct Grad4<float> {
+// four consecutive elements of T as fp32, loaded from and stored to an
+// address aligned to ALIGN; a store rounds to nearest, as from_f<T> does
+template <typename T> struct Vec4;
+template <> struct Vec4<float> {
   static constexpr uintptr_t ALIGN = 16;
-  __device__ static void load(const float* g, float o[4]) {
-    const float4 t = *reinterpret_cast<const float4*>(g);
+  __device__ static void load(const float* a, float o[4]) {
+    const float4 t = *reinterpret_cast<const float4*>(a);
     o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
   }
-};
-template <> struct Grad4<__nv_bfloat16> {
-  static constexpr uintptr_t ALIGN = 8;
-  __device__ static void load(const __nv_bfloat16* g, float o[4]) {
-    const uint2 u = *reinterpret_cast<const uint2*>(g);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+  __device__ static void store(float* a, const float o[4]) {
+    *reinterpret_cast<float4*>(a) = make_float4(o[0], o[1], o[2], o[3]);
   }
 };
-template <> struct Grad4<__half> {
+template <> struct Vec4<__nv_bfloat16> {
   static constexpr uintptr_t ALIGN = 8;
-  __device__ static void load(const __half* g, float o[4]) {
-    const uint2 u = *reinterpret_cast<const uint2*>(g);
-    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
-    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
-    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+  __device__ static void load(const __nv_bfloat16* a, float o[4]) {
+    const uint2 u = *reinterpret_cast<const uint2*>(a);
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    o[0] = x.x; o[1] = x.y; o[2] = y.x; o[3] = y.y;
+  }
+  __device__ static void store(__nv_bfloat16* a, const float o[4]) {
+    const __nv_bfloat162 x = __floats2bfloat162_rn(o[0], o[1]);
+    const __nv_bfloat162 y = __floats2bfloat162_rn(o[2], o[3]);
+    *reinterpret_cast<uint2*>(a) = make_uint2(*reinterpret_cast<const unsigned*>(&x),
+                                              *reinterpret_cast<const unsigned*>(&y));
+  }
+};
+template <> struct Vec4<__half> {
+  static constexpr uintptr_t ALIGN = 8;
+  __device__ static void load(const __half* a, float o[4]) {
+    const uint2 u = *reinterpret_cast<const uint2*>(a);
+    const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+    const float2 y = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+    o[0] = x.x; o[1] = x.y; o[2] = y.x; o[3] = y.y;
+  }
+  __device__ static void store(__half* a, const float o[4]) {
+    const __half2 x = __floats2half2_rn(o[0], o[1]);
+    const __half2 y = __floats2half2_rn(o[2], o[3]);
+    *reinterpret_cast<uint2*>(a) = make_uint2(*reinterpret_cast<const unsigned*>(&x),
+                                              *reinterpret_cast<const unsigned*>(&y));
   }
 };
 
+template <typename T> __device__ __forceinline__ bool vec_aligned(const T* a) {
+  return reinterpret_cast<uintptr_t>(a) % Vec4<T>::ALIGN == 0;
+}
+
 // table (int64): p, m, v addresses [3 * nt], sizes [nt], then per chunk
 // (tensor index, element offset) [2 * nc]
-template <typename G>
+template <typename G, typename P, typename M, typename V>
 __global__ void __launch_bounds__(NT)
 adam_kernel(GradList gl, const long long* __restrict__ table, int nt, int nc,
             const float* __restrict__ scal, const int* __restrict__ flag, int use_wd,
@@ -112,47 +137,48 @@ adam_kernel(GradList gl, const long long* __restrict__ table, int nt, int nc,
     const long long off = chunks[2 * c + 1];
     const int n = (int)min((long long)CHUNK, sizes[t] - off);
     const G* g = static_cast<const G*>(gl.g[t]) + off;
-    float* p = reinterpret_cast<float*>(table[t]) + off;
-    float* m = reinterpret_cast<float*>(table[nt + t]) + off;
-    float* v = reinterpret_cast<float*>(table[2 * nt + t]) + off;
-    const bool vec =
-        ((reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(m) |
-          reinterpret_cast<uintptr_t>(v)) % 16 == 0) &&
-        reinterpret_cast<uintptr_t>(g) % Grad4<G>::ALIGN == 0;
+    P* p = reinterpret_cast<P*>(table[t]) + off;
+    M* m = reinterpret_cast<M*>(table[nt + t]) + off;
+    V* v = reinterpret_cast<V*>(table[2 * nt + t]) + off;
     int tail = 0;
-    if (vec) {
+    if (vec_aligned(g) && vec_aligned(p) && vec_aligned(m) && vec_aligned(v)) {
       const int n4 = n / 4;
       for (int i = threadIdx.x; i < n4; i += NT) {
-        float gv[4];
-        Grad4<G>::load(g + 4 * i, gv);
-        float4 pv = reinterpret_cast<float4*>(p)[i];
-        float4 mv = reinterpret_cast<float4*>(m)[i];
-        float4 vv = reinterpret_cast<float4*>(v)[i];
-        adam_elem(gv[0], pv.x, mv.x, vv.x, s, l2, dec);
-        adam_elem(gv[1], pv.y, mv.y, vv.y, s, l2, dec);
-        adam_elem(gv[2], pv.z, mv.z, vv.z, s, l2, dec);
-        adam_elem(gv[3], pv.w, mv.w, vv.w, s, l2, dec);
-        reinterpret_cast<float4*>(p)[i] = pv;
-        reinterpret_cast<float4*>(m)[i] = mv;
-        reinterpret_cast<float4*>(v)[i] = vv;
+        float gv[4], pv[4], mv[4], vv[4];
+        Vec4<G>::load(g + 4 * i, gv);
+        Vec4<P>::load(p + 4 * i, pv);
+        Vec4<M>::load(m + 4 * i, mv);
+        Vec4<V>::load(v + 4 * i, vv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) adam_elem(gv[e], pv[e], mv[e], vv[e], s, l2, dec);
+        Vec4<P>::store(p + 4 * i, pv);
+        Vec4<M>::store(m + 4 * i, mv);
+        Vec4<V>::store(v + 4 * i, vv);
       }
       tail = n4 * 4;
     }
     for (int i = tail + threadIdx.x; i < n; i += NT) {
-      float pv = p[i], mv = m[i], vv = v[i];
+      float pv = to_f(p[i]), mv = to_f(m[i]), vv = to_f(v[i]);
       adam_elem(to_f(g[i]), pv, mv, vv, s, l2, dec);
-      p[i] = pv;
-      m[i] = mv;
-      v[i] = vv;
+      p[i] = from_f<P>(pv);
+      m[i] = from_f<M>(mv);
+      v[i] = from_f<V>(vv);
     }
   }
 }
 
-template <typename G>
-cudaError_t launch(const GradList& gl, const long long* table, int nt, int nc, const float* scal,
-                   const int* flag, int use_wd, int decoupled, cudaStream_t st) {
-  adam_kernel<G><<<nc, NT, 0, st>>>(gl, table, nt, nc, scal, flag, use_wd, decoupled);
-  return cudaGetLastError();
+template <typename T> struct Tag {
+  using type = T;
+};
+
+// f(Tag<T>{}) for the type T of a dtype code
+template <typename F> cudaError_t with_dtype(int code, F&& f) {
+  switch (code) {
+    case DT_F32: return f(Tag<float>{});
+    case DT_BF16: return f(Tag<__nv_bfloat16>{});
+    case DT_F16: return f(Tag<__half>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -164,14 +190,15 @@ extern "C" int apex_adam_max_tensors() { return MAXT; }
 extern "C" int apex_adam_chunk() { return CHUNK; }
 
 // grads: host array of nt device addresses of the gradients, all of gdtype
-// (0 float32, 1 bfloat16, 2 float16); table: the device table above for
-// fp32 p, m and v (nc chunks); scal: 9 fp32 device values (lr, wd, b1,
-// 1 - b1, b2, 1 - b2, eps, bc1, bc2); flag: device int32, or null; nothing
-// changes when it is non-zero.  decoupled: 1 for AdamW, 0 for L2;
-// use_wd: 0 leaves weight decay out.  Returns the cudaError_t of the launch.
+// (0 float32, 1 bfloat16, 2 float16); table: the device table above for p,
+// m and v (nc chunks), of pdtype, mdtype and vdtype; scal: 9 fp32 device
+// values (lr, wd, b1, 1 - b1, b2, 1 - b2, eps, bc1, bc2); flag: device
+// int32, or null; nothing changes when it is non-zero.  decoupled: 1 for
+// AdamW, 0 for L2; use_wd: 0 leaves weight decay out.  Returns the
+// cudaError_t of the launch.
 extern "C" int apex_adam(const void* const* grads, const void* table, int nt, int nc,
                          const void* scal, const void* flag, int gdtype, int use_wd,
-                         int decoupled, void* stream) {
+                         int decoupled, int pdtype, int mdtype, int vdtype, void* stream) {
   if (nt <= 0 || nt > MAXT || nc <= 0 || grads == nullptr || table == nullptr ||
       scal == nullptr)
     return cudaErrorInvalidValue;
@@ -182,10 +209,16 @@ extern "C" int apex_adam(const void* const* grads, const void* table, int nt, in
   const float* sc = static_cast<const float*>(scal);
   const int* fl = static_cast<const int*>(flag);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (gdtype) {
-    case DT_F32: return launch<float>(gl, tb, nt, nc, sc, fl, use_wd, decoupled, st);
-    case DT_BF16: return launch<__nv_bfloat16>(gl, tb, nt, nc, sc, fl, use_wd, decoupled, st);
-    case DT_F16: return launch<__half>(gl, tb, nt, nc, sc, fl, use_wd, decoupled, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_dtype(gdtype, [&](auto tg) {
+    return with_dtype(pdtype, [&](auto tp) {
+      return with_dtype(mdtype, [&](auto tm) {
+        return with_dtype(vdtype, [&](auto tv) {
+          adam_kernel<typename decltype(tg)::type, typename decltype(tp)::type,
+                      typename decltype(tm)::type, typename decltype(tv)::type>
+              <<<nc, NT, 0, st>>>(gl, tb, nt, nc, sc, fl, use_wd, decoupled);
+          return cudaGetLastError();
+        });
+      });
+    });
+  });
 }

@@ -7,9 +7,12 @@ from .dispatch import MASKED_FILL, MASKED_LOGIT_THR, counts, reset_counts
 from .layer_norm import (ln_backward, ln_backward_reference, ln_forward,
                          ln_forward_reference)
 from .multi_tensor import fused_adam, fused_adam_reference
+from .xentropy import (xent_backward, xent_backward_reference, xent_forward,
+                       xent_forward_reference)
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_fwd", "flash_attention_reference", "fused_adam",
            "fused_adam_reference", "ln_backward", "ln_backward_reference",
            "ln_forward", "ln_forward_reference", "MASKED_FILL",
-           "MASKED_LOGIT_THR", "counts", "reset_counts"]
+           "MASKED_LOGIT_THR", "counts", "reset_counts", "xent_backward",
+           "xent_backward_reference", "xent_forward", "xent_forward_reference"]

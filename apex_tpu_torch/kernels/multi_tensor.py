@@ -14,10 +14,11 @@ update needs: p, m and v are updated in place (and returned), and the
 ``noop_flag`` is the skip flag: when it is set, every tensor is left as it
 was (the JAX train step computes the update and then selects the old
 values; the result is the same).  Like the reference, the update never
-writes the flag.  p, m and v are fp32 (other dtypes wait for the slice that
-needs them); the gradients are fp32, bf16 or fp16.  A CUDA tensor launches
-the kernel, one launch per list of up to 256 tensors; a CPU tensor takes
-:func:`fused_adam_reference`.
+writes the flag.  The gradients, and each of p, m and v, are fp32, bf16 or
+fp16 (one dtype a list): every value is updated in fp32 and written back in
+its own dtype, as the JAX function casts its results back.  A CUDA tensor
+launches the kernel, one launch per list of up to 256 tensors; a CPU tensor
+takes :func:`fused_adam_reference`.
 """
 from __future__ import annotations
 
@@ -65,18 +66,25 @@ def _cached_vector(values, device):
 def adam_scalars(lr, beta1, beta2, eps, step, bias_correction, weight_decay,
                  device):
     """The nine fp32 scalars of the update (lr, wd, b1, 1 - b1, b2, 1 - b2,
-    eps, bc1, bc2) as a (9,) tensor on ``device``.  Each is the JAX
-    package's expression rounded to fp32: ``1 - beta ** step`` in double on
-    the host for a Python ``step``, ``1 - f32(beta) ** f32(step)`` on the
-    device for a tensor ``step``; weight decay enters as 0 when it is a
-    Python zero."""
+    eps, bc1, bc2) as a (9,) tensor on ``device``; ``lr`` is a number or a
+    device scalar.  Each is the JAX package's expression rounded to fp32:
+    ``1 - beta ** step`` in double on the host for a Python ``step``,
+    ``1 - f32(beta) ** f32(step)`` on the device for a tensor ``step``;
+    weight decay enters as 0 when it is a Python zero."""
+    if isinstance(lr, torch.Tensor):
+        # a device lr (a scheduled one): the rest as for a number, then lr
+        # put in its slot on the device
+        rest = adam_scalars(0.0, beta1, beta2, eps, step, bias_correction,
+                            weight_decay, device)
+        lr_t = lr.to(device=device, dtype=torch.float32).reshape(1)
+        return torch.cat([lr_t, rest[LR + 1:]])
     wd = weight_decay if _static_nonzero(weight_decay) else 0.0
     head = [lr, wd, beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps]
     for name, x in zip(("lr", "weight_decay", "beta1", "beta2", "eps"),
                        (lr, wd, beta1, beta2, eps)):
         if not isinstance(x, (int, float)):
-            raise TypeError(f"adam_scalars: {name} must be a Python number, "
-                            f"got {type(x).__name__}")
+            raise TypeError(f"adam_scalars: {name} must be a Python number "
+                            f"(lr may be a tensor), got {type(x).__name__}")
     if not bias_correction:
         return _cached_vector(head + [1.0, 1.0], device)
     if isinstance(step, (int, float)):
@@ -138,20 +146,20 @@ def _validate(noop_flag, tensor_lists, mode):
             or noop_flag.dtype != torch.int32:
         raise TypeError("fused_adam: noop_flag must be a one-element int32 "
                         "tensor")
-    gdtypes = {g.dtype for g in gs}
-    if len(gdtypes) > 1:
-        raise TypeError(f"fused_adam: the gradients of one list share a "
-                        f"dtype, got {sorted(map(str, gdtypes))}")
+    for name, lst in (("gradients", gs), ("params", ps), ("exp_avgs", ms),
+                      ("exp_avg_sqs", vs)):
+        dtypes = {t.dtype for t in lst}
+        if len(dtypes) > 1:
+            raise TypeError(f"fused_adam: the {name} of one list share a "
+                            f"dtype, got {sorted(map(str, dtypes))}")
     for i, (g, p, m, v) in enumerate(zip(*tensor_lists)):
         if g.dtype not in KERNEL_DTYPES:
             raise TypeError(f"fused_adam: gradient {i} dtype {g.dtype} not "
                             f"supported (float32, bfloat16 or float16)")
         for name, t in (("param", p), ("exp_avg", m), ("exp_avg_sq", v)):
-            if t.dtype != torch.float32:
-                raise NotImplementedError(
-                    f"fused_adam: {name} {i} is {t.dtype}; the kernel "
-                    f"updates fp32 params and moments only (other dtypes "
-                    f"are owed, ROADMAP queue B)")
+            if t.dtype not in KERNEL_DTYPES:
+                raise TypeError(f"fused_adam: {name} {i} dtype {t.dtype} not "
+                                f"supported (float32, bfloat16 or float16)")
             if t.shape != g.shape:
                 raise ValueError(f"fused_adam: {name} {i} shape "
                                  f"{tuple(t.shape)} != gradient shape "
@@ -169,7 +177,8 @@ def _lib():
     lib.apex_adam_max_tensors.restype = i
     lib.apex_adam_chunk.argtypes = []
     lib.apex_adam_chunk.restype = i
-    lib.apex_adam.argtypes = [ctypes.POINTER(p), p, i, i, p, p, i, i, i, p]
+    lib.apex_adam.argtypes = [ctypes.POINTER(p), p, i, i, p, p] + [i] * 6 \
+        + [p]
     lib.apex_adam.restype = i
     return lib
 
@@ -224,7 +233,9 @@ def _launch(noop_flag, tensor_lists, scal, mode, use_wd):
             err = lib.apex_adam(grads, table.data_ptr(), len(gsub), nc,
                                 scal.data_ptr(), flag.data_ptr(),
                                 dtype_code(gsub[0].dtype), int(use_wd),
-                                int(mode == 1), stream)
+                                int(mode == 1), dtype_code(ps[0].dtype),
+                                dtype_code(ms[0].dtype),
+                                dtype_code(vs[0].dtype), stream)
             _build.check(lib, err, "fused_adam")
             LAUNCHES["fused_adam"] += 1
 

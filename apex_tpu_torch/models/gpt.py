@@ -16,8 +16,14 @@ Parameter names are the JAX package's, so
 :func:`apex_tpu_torch.models.convert.from_jax_state_dict` carries weights
 across one to one.
 
-Mixture-of-experts, tensor and sequence parallelism, rematerialisation and
-``output_hidden`` come with later slices.
+With ``output_hidden=True``, ``forward`` returns ``(hidden (B, S, E),
+tok_emb.weight)`` instead of the logits, so that a loss such as
+:func:`apex_tpu_torch.contrib.xentropy.chunked_lm_head_loss` applies the
+tied head itself and the ``(B, S, V)`` logits never exist whole; the cached
+paths apply the head themselves and are unaffected.
+
+Mixture-of-experts, tensor and sequence parallelism and rematerialisation
+come with later slices.
 """
 from __future__ import annotations
 
@@ -148,9 +154,10 @@ class GptModel(nn.Module):
     def __init__(self, vocab_size=50257, hidden=768, layers=12, heads=12,
                  intermediate=None, max_positions=1024, dropout=0.1,
                  attn_dropout=0.1, attn_bias=False, pad_vocab_multiple=None,
-                 device=None, dtype=torch.float32):
+                 output_hidden=False, device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
+        self.output_hidden = output_hidden
         intermediate = intermediate or 4 * hidden
         # pad_vocab_multiple rounds the table up to a multiple; the pad
         # columns of the logits are masked to -1e30
@@ -173,7 +180,8 @@ class GptModel(nn.Module):
         self.ln_f = FusedLayerNorm(hidden, **kw)
 
     def forward(self, input_ids, generator=None):
-        """``input_ids (B, S)`` -> logits ``(B, S, V)``; in training mode
+        """``input_ids (B, S)`` -> logits ``(B, S, V)``, or ``(hidden (B, S,
+        E), tok_emb.weight)`` with ``output_hidden``; in training mode
         ``generator`` (on the model's device) draws every dropout mask."""
         b, s = input_ids.shape
         if s > self.max_positions:
@@ -187,6 +195,8 @@ class GptModel(nn.Module):
             x = blk(x, generator)
         x = self.ln_f(x).transpose(0, 1)       # (B, S, E)
         emb = self.tok_emb.weight
+        if self.output_hidden:
+            return x, emb
         return self._mask_pad_logits(torch.matmul(x, emb.t().to(x.dtype)))
 
     def _mask_pad_logits(self, logits):

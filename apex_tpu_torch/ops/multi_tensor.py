@@ -9,11 +9,13 @@ plain version on CPU tensors; unlike the JAX op it updates params and
 moments in place and reads the flag as a skip flag (the JAX train step
 selects the old values on a set flag, to the same effect).
 ``adam_unfused`` is the JAX package's per-tensor loop: functional, and
-blind to the flag.  The other ops (axpby, l2norm, maxnorm, sgd, lamb,
-novograd) come with the slices that run them.
+blind to the flag.  ``multi_tensor_axpby``, ``multi_tensor_l2norm`` and
+``multi_tensor_maxnorm`` are jnp in the JAX package and plain PyTorch here.
+The other ops (sgd, lamb, novograd) come with the slices that run them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -53,6 +55,48 @@ def multi_tensor_scale(noop_flag, tensor_lists: Sequence[Sequence[torch.Tensor]]
     s = torch.as_tensor(scale, dtype=torch.float32, device=ins[0].device)
     new_outs = [(x.float() * s).to(o.dtype) for x, o in zip(ins, outs)]
     return nonfinite_flag(noop_flag, ins), new_outs
+
+
+def multi_tensor_axpby(noop_flag, tensor_lists, a, b, arg_to_check: int = -1):
+    """``out[i] = a * x[i] + b * y[i]`` in fp32, cast to ``outs[i]``'s
+    dtype, with the flag raised on a non-finite ``x`` (``arg_to_check``
+    0), ``y`` (1) or either (-1).  ``tensor_lists = [xs, ys, outs]``;
+    ``a`` and ``b`` are numbers or fp32 device scalars.  Returns
+    ``(noop_flag, new_outs)``."""
+    xs, ys, outs = tensor_lists
+    if not xs:
+        return noop_flag, []
+    dev = xs[0].device
+    at = torch.as_tensor(a, dtype=torch.float32, device=dev)
+    bt = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    new_outs = [(at * x.float() + bt * y.float()).to(o.dtype)
+                for x, y, o in zip(xs, ys, outs)]
+    checked = {0: list(xs), 1: list(ys)}.get(arg_to_check,
+                                             list(xs) + list(ys))
+    return nonfinite_flag(noop_flag, checked), new_outs
+
+
+def multi_tensor_l2norm(noop_flag, tensor_lists, per_tensor: bool = False):
+    """``(noop_flag, total L2 norm, per-tensor norms or None)``, fp32,
+    the squares summed in fp32."""
+    (xs,) = tensor_lists
+    if not xs:
+        z = torch.zeros((), dtype=torch.float32)
+        return noop_flag, z, (torch.zeros(0) if per_tensor else None)
+    sqs = torch.stack([x.float().square().sum() for x in xs])
+    total = torch.sqrt(functools.reduce(torch.add, sqs.unbind()))
+    return noop_flag, total, (torch.sqrt(sqs) if per_tensor else None)
+
+
+def multi_tensor_maxnorm(noop_flag, tensor_lists, per_tensor: bool = False):
+    """``(noop_flag, max |x| over all tensors, per-tensor max or None)``,
+    fp32."""
+    (xs,) = tensor_lists
+    if not xs:
+        z = torch.zeros((), dtype=torch.float32)
+        return noop_flag, z, (torch.zeros(0) if per_tensor else None)
+    ms = torch.stack([x.float().abs().max() for x in xs])
+    return noop_flag, ms.max(), (ms if per_tensor else None)
 
 
 def multi_tensor_adam(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,

@@ -6,8 +6,9 @@ A ``torch.optim.Optimizer`` whose ``step()`` runs one
 bucket: on the card one launch of the hand-written Adam kernel each, which
 updates params and moments in place.  The step count is a Python int per
 group, so the bias corrections are computed on the host.  The step is
-skipped when ``_overflow_buf`` (an int32 device scalar) is set.  Params and
-moments are fp32 (other dtypes are owed, see ROADMAP queue B).
+skipped when ``_overflow_buf`` (an int32 device scalar) is set.  The
+moments take each parameter's dtype, as in the JAX package, so half
+parameters (amp O3) keep half moments; the update itself is fp32.
 """
 from __future__ import annotations
 

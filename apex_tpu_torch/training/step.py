@@ -10,10 +10,11 @@ state is device tensors updated in place, which is what buffer donation
 buys the JAX package; the ``noop`` skip, the step count and the scaler
 live on the device, so the step reads nothing back.
 
-What the JAX step does beyond that is owed to later slices and refused
-here with ``NotImplementedError``: data, tensor and ZeRO parallelism,
-flat masters, gradient accumulation, lr schedules, telemetry and
-optimizers other than ``FusedAdam``.
+Gradient accumulation (``accum_steps``) and lr schedules (``lr_schedule``)
+run as in the JAX step.  What the JAX step does beyond that is owed to
+later slices and refused here with ``NotImplementedError``: data, tensor
+and ZeRO parallelism, flat masters, telemetry and optimizers other than
+``FusedAdam``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.func import functional_call
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 
 from .. import ops
 from ..amp.scaler import ScalerState, update_scale_state
@@ -46,7 +47,12 @@ def dropout_seed(rng_seed: int, step: int) -> int:
     """The seed of a step's dropout generator: the pair (``rng_seed``,
     ``step``), both taken mod 2**32, through the splitmix64 finaliser, a
     bijection of 64 bits that spreads every input bit over the low 32 too
-    (the CPU generator keeps only those; the card's keeps all 64)."""
+    (the CPU generator keeps only those; the card's keeps all 64).
+
+    ``step`` is the index of the forward pass: the call index without
+    gradient accumulation, and ``call_index * accum_steps + microbatch``
+    with it, so each microbatch draws masks of its own and none repeats
+    another call's."""
     m = (1 << 64) - 1
     x = ((int(rng_seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
     x = (x + 0x9E3779B97F4A7C15) & m
@@ -157,8 +163,10 @@ def build_opt_update(optimizer, params, group_idxs,
                      caller="make_train_step"):
     """The optimizer as an update over flat lists, one
     ``ops.multi_tensor_adam`` per param group.  Returns ``(opt_update,
-    opt_init)``; ``opt_update(flag, grads, masters, slots, step)`` updates
-    masters and slots in place and leaves them untouched on a set flag."""
+    opt_init)``; ``opt_update(flag, grads, masters, slots, step,
+    lr_scale=None)`` updates masters and slots in place and leaves them
+    untouched on a set flag; a device ``lr_scale`` multiplies each group's
+    lr on the device."""
     if not isinstance(optimizer, FusedAdam):
         raise NotImplementedError(
             f"{caller}: only FusedAdam is ported so far; FusedSGD comes with "
@@ -166,16 +174,17 @@ def build_opt_update(optimizer, params, group_idxs,
             f"it (got {type(optimizer).__name__})")
     opt = optimizer
 
-    def opt_update(flag, grads, masters, slots, step):
+    def opt_update(flag, grads, masters, slots, step, lr_scale=None):
         for group, idxs in zip(opt.param_groups, group_idxs):
             if not idxs:
                 continue
             b1, b2 = group["betas"]
+            lr = group["lr"] if lr_scale is None else group["lr"] * lr_scale
             ops.multi_tensor_adam(
                 flag, [[grads[i] for i in idxs], [masters[i] for i in idxs],
                        [slots["m"][i] for i in idxs],
                        [slots["v"][i] for i in idxs]],
-                group["lr"], b1, b2, group["eps"], step, opt.adam_w_mode,
+                lr, b1, b2, group["eps"], step, opt.adam_w_mode,
                 bool(group["bias_correction"]), group["weight_decay"])
 
     def opt_init():
@@ -187,13 +196,14 @@ def build_opt_update(optimizer, params, group_idxs,
 
 def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
                        init_scale, scale_window, min_loss_scale,
-                       max_loss_scale, zero_flag):
+                       max_loss_scale, zero_flag, lr_schedule=None):
     """The post-gradient half of a step, on the device: unscale into fp32
     master gradients with the overflow flag, the optimizer update (skipped
-    on the flag), the half copies re-made from the masters, the step count
-    and the loss-scale update.  A static scale of 1.0 (the bf16 recipe)
-    neither unscales nor checks, and never skips, as in the JAX package.
-    Returns the new state."""
+    on the flag; with ``lr_schedule``, each group's lr times the schedule
+    of the 1-based device step count), the half copies re-made from the
+    masters, the step count and the loss-scale update.  A static scale of
+    1.0 (the bf16 recipe) neither unscales nor checks, and never skips, as
+    in the JAX package.  Returns the new state."""
     check_overflow = dynamic or init_scale != 1.0
     if check_overflow:
         inv = 1.0 / state.scaler.loss_scale
@@ -206,7 +216,8 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
             else [g.float() for g in grads]
     step_count = state.step + 1
     opt_update(flag, master_grads, state.master_params, state.opt_state,
-               step_count)
+               step_count, lr_scale=None if lr_schedule is None
+               else lr_schedule(step_count))
     halves = [(h, m) for h, m in zip(state.model_params, state.master_params)
               if h is not None]
     if halves:
@@ -275,11 +286,20 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     ``generator`` gets one on its device per call, seeded from
     :func:`dropout_seed` (``rng_seed``, call index), for its dropout masks.
 
+    A model output may be a tuple, such as ``(hidden, table)`` from an
+    ``output_hidden`` GPT with a chunked loss.  ``accum_steps`` (or
+    ``grad_accum_steps``) K > 1 splits every batch element whose leaves
+    share the model input's leading dim into K microbatches (with
+    ``accum_stacked`` the batch is already (K, B, ...)) and broadcasts the
+    rest; the scaled gradients and the losses are summed in fp32 and
+    averaged, as the JAX step does.  ``lr_schedule(step) -> multiplier``
+    (:mod:`apex_tpu_torch.optimizers.schedules`) scales each group's lr by
+    its value at the 1-based device step count, on the device.
+
     Only ``FusedAdam`` is ported.  ``axis_name``, ``tp_axis``, the DDP
-    knobs, ``zero_sharding``, ``flat_master``, ``parallel``, gradient
-    accumulation, ``lr_schedule`` and ``telemetry`` raise
-    ``NotImplementedError``.  ``donate_state`` has nothing to choose: the
-    state is always updated in place."""
+    knobs, ``zero_sharding``, ``flat_master``, ``parallel`` and
+    ``telemetry`` raise ``NotImplementedError``.  ``donate_state`` has
+    nothing to choose: the state is always updated in place."""
     if axis_name is not None or gradient_predivide_factor != 1.0 \
             or allreduce_always_fp32:
         _refuse("data parallelism (axis_name and the DDP knobs)",
@@ -293,11 +313,20 @@ def make_train_step(model, optimizer, loss_fn: Callable,
         _refuse("flat_master", "ROADMAP queue A, parallelism beyond DP")
     if parallel is not None:
         _refuse("parallel=", "ROADMAP queue A, parallelism beyond DP")
-    if grad_accum_steps != 1 or accum_steps not in (None, 1) \
-            or accum_stacked:
-        _refuse("gradient accumulation", "slice 3")
-    if lr_schedule is not None:
-        _refuse("lr_schedule", "slice 3, with optimizers/schedules.py")
+    if accum_steps is not None:
+        if grad_accum_steps not in (1, accum_steps):
+            raise ValueError(
+                f"accum_steps={accum_steps} conflicts with "
+                f"grad_accum_steps={grad_accum_steps}: they are the same "
+                f"knob (accum_steps is the preferred spelling); pass one")
+        grad_accum_steps = int(accum_steps)
+    if accum_stacked and grad_accum_steps == 1:
+        raise ValueError(
+            "accum_stacked=True requires accum_steps > 1: stacked "
+            "(K, B, ...) blocks only exist under accumulation")
+    if grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, "
+                         f"got {grad_accum_steps}")
     if telemetry:
         _refuse("telemetry", "ROADMAP queue A, observe/")
 
@@ -324,28 +353,89 @@ def make_train_step(model, optimizer, loss_fn: Callable,
             return x.to(half_dtype)
         return x
 
-    def step_fn(state: StepState, call_index, *batch):
-        leaves = [v.detach().requires_grad_(True)
-                  for v in model_vals_of(state)]
-        x = batch[0] if half_dtype is None else tree_map(cast, batch[0])
+    k_acc = grad_accum_steps
+
+    def grads_of(leaves, pass_index, scale, *b):
+        """The loss and the gradients of ``loss.float() * scale`` for one
+        forward over the batch ``b``."""
+        x = b[0] if half_dtype is None else tree_map(cast, b[0])
         kwargs = {}
         if takes_generator:
             gen = torch.Generator(device=dev)
-            gen.manual_seed(dropout_seed(rng_seed, call_index))
+            gen.manual_seed(dropout_seed(rng_seed, pass_index))
             kwargs["generator"] = gen
         with torch.enable_grad():
             out = functional_call(model, dict(zip(names, leaves)), (x,),
                                   kwargs)
-            loss = loss_fn(out, *batch[1:])
-            scaled = loss.float() * state.scaler.loss_scale
+            loss = loss_fn(out, *b[1:])
+            scaled = loss.float() * scale
         grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
-        grads = [torch.zeros_like(v) if g is None else g
-                 for v, g in zip(leaves, grads)]
+        return loss.detach(), [torch.zeros_like(v) if g is None else g
+                               for v, g in zip(leaves, grads)]
+
+    def microbatches(batch):
+        """The K microbatches of ``batch``: every element whose leaves all
+        share the model input's leading dim is split along it (indexed,
+        with ``accum_stacked``); anything else is broadcast."""
+        lead = [a for a in tree_leaves(batch[0])
+                if isinstance(a, torch.Tensor) and a.dim() >= 1]
+        if not lead:
+            raise ValueError(
+                f"grad_accum_steps={k_acc}: the model input (batch[0]) has "
+                f"no leading batch dimension to split")
+        n0 = lead[0].shape[0]
+
+        def splittable(b):
+            leaves = tree_leaves(b)
+            return bool(leaves) and all(
+                isinstance(a, torch.Tensor) and a.dim() >= 1
+                and a.shape[0] == n0 for a in leaves)
+
+        def leaf(a, i):
+            n = a.shape[0]
+            if accum_stacked:
+                if n != k_acc:
+                    raise ValueError(
+                        f"accum_stacked=True with accum_steps={k_acc}: "
+                        f"batch leading dim {n} is not the microbatch count "
+                        f"(expected (K, B, ...) stacked blocks)")
+                return a[i]
+            if n % k_acc:
+                raise ValueError(
+                    f"grad_accum_steps={k_acc}: batch leading dim {n} is "
+                    f"not divisible into microbatches")
+            m = n // k_acc
+            return a[i * m:(i + 1) * m]
+
+        splits = [i == 0 or splittable(b) for i, b in enumerate(batch)]
+        return [tuple(tree_map(lambda a: leaf(a, i), b) if sp else b
+                      for b, sp in zip(batch, splits))
+                for i in range(k_acc)]
+
+    def step_fn(state: StepState, call_index, *batch):
+        leaves = [v.detach().requires_grad_(True)
+                  for v in model_vals_of(state)]
+        scale = state.scaler.loss_scale
+        if k_acc == 1:
+            loss, grads = grads_of(leaves, call_index, scale, *batch)
+        else:
+            # the JAX step's scan: fp32 sums of each microbatch's scaled
+            # gradients and loss, then their means
+            acc = [torch.zeros(v.shape, dtype=_f32, device=dev)
+                   for v in leaves]
+            loss_sum = torch.zeros((), dtype=_f32, device=dev)
+            for i, mb in enumerate(microbatches(batch)):
+                loss_i, g_i = grads_of(leaves, call_index * k_acc + i, scale,
+                                       *mb)
+                acc = [a + g.float() for a, g in zip(acc, g_i)]
+                loss_sum = loss_sum + loss_i.float()
+            grads = [a / k_acc for a in acc]
+            loss = loss_sum / k_acc
         new_state = apply_fused_update(
             state, grads, opt_update, dynamic=dynamic,
             init_scale=init_scale, scale_window=scale_window,
             min_loss_scale=min_loss_scale, max_loss_scale=max_loss_scale,
-            zero_flag=zero_flag)
-        return new_state, loss.detach()
+            zero_flag=zero_flag, lr_schedule=lr_schedule)
+        return new_state, loss
 
     return TrainStep(model, optimizer, loss_fn, step_fn, params, init_state)

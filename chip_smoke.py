@@ -37,7 +37,27 @@ Phases, each of which raises on failure:
    dropout 0, batch 2 x 128: the loss and every gradient of one backward,
    then the losses and the fp32 masters of 3 train steps; and a
    dynamic-scale fp16 run (batch 1 x 8) with a non-finite loss planted at
-   step 2, which both devices must skip, halving the scale.
+   step 2, which both devices must skip, halving the scale;
+6. the xentropy kernels against their plain versions (fp32, bf16, fp16,
+   smoothing 0 and 0.1, padding rows, masked columns, C 50257 and 50304,
+   ragged row counts), at the bench shape in fp32 also against
+   ``F.cross_entropy`` under autograd, with times at the fused (16368,
+   50257) and the chunked (1023, 50257) shape; and the Adam kernel on half
+   params and moments (amp O3), bit for bit (these run with phase 2);
+7. the bench's loss modes on the training path: the default chunked loss
+   (``output_hidden`` GPT, ``make_chunked_lm_loss``, 16 chunks of 1023
+   rows: 16 forward and 16 backward xentropy launches a step) and the
+   fused loss on materialised logits (1 and 1), each with the launch
+   counts of one step, 10 timed steps, peak memory and a profiled step,
+   beside the plain step; the chunked step once more on a head padded to
+   50304; both modes on the card against the CPU (fp32, batch 2 x 128,
+   chunks of 100 rows);
+8. ``amp.initialize`` + ``amp.scale_loss`` on GPT-2 small with the fused
+   loss: O2 (fp16, dynamic scale capped at 2^12) and O3 (fp16 params and
+   moments through the Adam kernel, eps 1e-4), batch 4 x 1024, 3
+   iterations, the launch counts of the third; the overflow skip on the
+   card and the CPU (batch 1 x 8); and ``delay_unscale`` over two backward
+   passes of one batch against the undelayed accumulation.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -58,6 +78,7 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 / fp16 tensor cores, dense
 BATCH, PROMPT, NEW, MAX_POS = 8, 512, 128, 640
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_POS = 16, 1024, 1024
+AMP_BATCH = 4
 LR, WD = 6e-4, 0.1
 
 
@@ -789,14 +810,15 @@ def _lm_loss(torch):
     return lm_loss
 
 
-def train_path(torch, dispatch, model):
+def train_path(torch, dispatch, model, loss_fn, what, xent_want):
     """make_train_step on GPT-2 small at the training shape, bf16 half
-    copies; returns the launch counts of one step."""
+    copies, with ``loss_fn``; returns the launch counts of one step and the
+    step's ms."""
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.training import make_train_step
     opt = FusedAdam(list(model.parameters()), lr=LR, weight_decay=WD)
-    step = make_train_step(model, opt, _lm_loss(torch),
-                           half_dtype=torch.bfloat16, loss_scale=1.0)
+    step = make_train_step(model, opt, loss_fn, half_dtype=torch.bfloat16,
+                           loss_scale=1.0)
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     ids = torch.randint(0, model.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
                         generator=g, device="cuda")
@@ -811,18 +833,20 @@ def train_path(torch, dispatch, model):
     want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
                 flash_attention_bwd_dkv=layers, ln_forward=2 * layers + 1,
                 ln_backward_rows=2 * layers + 1,
-                ln_backward_cols=2 * layers + 1, fused_adam=1)
+                ln_backward_cols=2 * layers + 1, fused_adam=1, **xent_want)
     print(f"training path: make_train_step(gpt2_small, batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, plain "
-          f"cross entropy)")
+          f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, "
+          f"{what})")
     print(f"  launches in one step: {counts}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(10):
         losses.append(step(ids, ids))
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / 10
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     values = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in values):
         raise AssertionError(f"non-finite training loss: {values}")
@@ -830,19 +854,13 @@ def train_path(torch, dispatch, model):
         raise AssertionError(f"the loss did not fall: {values}")
     tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
     print(f"  step {1e3 * step_s:.2f} ms = {tok_s:.1f} train tokens/s "
-          f"(10 steps, host clock, ending in a synchronize)")
+          f"(10 steps, host clock, ending in a synchronize); peak memory "
+          f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
     print(f"  losses of {len(values)} steps: "
           f"{', '.join(f'{x:.4f}' for x in values)}")
-    wall, busy, by_name, n = _profiled(torch, lambda: step(ids, ids))
-    if busy is None:
-        print(f"  profiled step: wall {wall:.2f} ms; device time not measured "
-              f"(the profiler saw no device activity)")
-    else:
-        print(f"  profiled step: wall {wall:.2f} ms, device busy {busy:.2f} "
-              f"ms, idle share {1 - busy / wall:.3f}, {n} device operations")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
-    return counts
+    _print_profile(torch, lambda: step(ids, ids), 10)
+    del step, opt
+    return counts, 1e3 * step_s
 
 
 def train_cpu_phase(torch, gpt, model):
@@ -937,6 +955,513 @@ def train_cpu_phase(torch, gpt, model):
                                  f"{unchanged}")
 
 
+
+def _xent_case(torch, g, rows, c, dtype, padding_idx, masked):
+    x = (torch.randn((rows, c), generator=g, device="cuda") * 3).to(dtype)
+    if masked:               # a padded head: the last columns masked
+        x[:, c - masked:] = -1e30
+        x[::7, : c // 3] = -1e30
+    # labels off the masked columns (an fp16 -1e30 is -inf, whose loss
+    # would be inf on both sides)
+    lo = c // 3 if masked else 0
+    lab = torch.randint(lo, c - masked, (rows,), generator=g, device="cuda")
+    lab[::97] = padding_idx
+    lab[1] = c + 5           # out of range: target logit 0
+    return x, lab
+
+
+def xent_phase(torch, xentropy):
+    """The xentropy kernels against their plain versions on the same
+    inputs; at the bench shape in fp32 also against F.cross_entropy under
+    autograd; timings at the fused and the chunked shape.  Returns the two
+    kernel lines' numbers."""
+    from torch.nn import functional as F
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    rows0 = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    cases = [  # (rows, C, dtype, smoothing, padding_idx, masked columns)
+        (rows0, 50257, bf16, 0.0, -1, 0), (1023, 50257, bf16, 0.0, -1, 0),
+        (rows0, 50257, f32, 0.0, -1, 0), (4092, 50257, f32, 0.0, -1, 0),
+        (4092, 50257, f16, 0.0, -1, 0), (1023, 50304, bf16, 0.1, -1, 47),
+        (777, 50304, f16, 0.1, 0, 47), (1001, 50304, f32, 0.1, -1, 47),
+        (513, 50257, bf16, 0.1, 0, 0), (37, 1003, f16, 0.0, -1, 0),
+        (5, 12345, f32, 0.1, 0, 100)]
+    print("xentropy forward/backward vs plain (losses, lse: max abs / max(1, "
+          "max |ref|); dx: units in the last place (half) or max abs / max "
+          "|ref| (fp32)):")
+    main_err = None
+    for rows, c, dtype, sm, pad, masked in cases:
+        x, lab = _xent_case(torch, g, rows, c, dtype, pad, masked)
+        loss, lse, live = xentropy.xent_forward(x, lab, sm, pad)
+        torch.cuda.synchronize()
+        rloss, rlse, rlive = xentropy.xent_forward_reference(x, lab, sm, pad)
+        tag = (f"({rows}, {c}) {str(dtype)[6:]} smoothing {sm} padding_idx "
+               f"{pad} masked {masked}")
+        el = scaled_err(loss, rloss)
+        check(f"{tag} losses", el[0], 1e-5)
+        check(f"{tag} lse", scaled_err(lse, rlse)[0], 1e-5)
+        if not torch.equal(live, rlive):
+            raise AssertionError(f"{tag}: live-column counts differ")
+        gm = torch.rand((rows,), generator=g, device="cuda") / rows
+        gm = torch.where(lab == pad, 0.0, gm)
+        dx = xentropy.xent_backward(x, lab, lse, gm, sm, live)
+        torch.cuda.synchronize()
+        rdx = xentropy.xent_backward_reference(x, lab, lse, gm, sm, live)
+        if dtype == f32:
+            e = (dx - rdx).abs().max().item() / rdx.abs().max().item()
+            check(f"{tag} dx (max abs / max |ref|)", e, 1e-5)
+        else:
+            check(f"{tag} dx (ulp)", ulp_err(dx, rdx), 1)
+        if (rows, c, dtype) == (rows0, 50257, bf16):
+            main_err = (el[1], (dx.float() - rdx.float()).abs().max().item())
+        if (rows, c, dtype) == (rows0, 50257, f32):
+            # a slip shared by the kernel and its plain version shows here;
+            # F.cross_entropy takes no out-of-range label, so those rows
+            # become padding rows (-1, its ignore_index) on both sides
+            ok = torch.where((lab >= 0) & (lab < c), lab, -1)
+            gk = torch.where(ok == -1, 0.0, gm)
+            kl, klse, klive = xentropy.xent_forward(x, ok, 0.0, -1)
+            kdx = xentropy.xent_backward(x, ok, klse, gk, 0.0, klive)
+            xl = x.detach().requires_grad_(True)
+            ref = F.cross_entropy(xl, ok, reduction="none", ignore_index=-1)
+            rg = torch.autograd.grad(ref, xl, gk)[0]
+            check(f"{tag} losses vs F.cross_entropy",
+                  scaled_err(kl, ref.detach())[0], 1e-5)
+            e = (kdx - rg).abs().max().item() / rg.abs().max().item()
+            check(f"{tag} dx vs F.cross_entropy autograd (max abs / max "
+                  f"|ref|)", e, 1e-5)
+            del xl, ref, rg, kdx
+        del x, lab, dx, rdx
+
+    numbers = {}
+    for rows in (rows0, 1023):
+        c = 50257
+        x = torch.randn((rows, c), generator=g, device="cuda").to(bf16)
+        lab = torch.randint(0, c, (rows,), generator=g, device="cuda")
+        gm = torch.full((rows,), 1.0 / rows, device="cuda")
+        loss, lse, live = xentropy.xent_forward(x, lab, 0.0, -1)
+        reps = dict(reps=9, inner=3) if rows == rows0 else {}
+        f_ms = median_ms(lambda: xentropy.xent_forward(x, lab, 0.0, -1),
+                         **reps)[0]
+        b_ms = median_ms(lambda: xentropy.xent_backward(x, lab, lse, gm, 0.0,
+                                                        live), **reps)[0]
+        f_plain = median_ms(lambda: xentropy.xent_forward_reference(
+            x, lab, 0.0, -1), reps=3, inner=1, warmup=1)[0]
+        b_plain = median_ms(lambda: xentropy.xent_backward_reference(
+            x, lab, lse, gm, 0.0, live), reps=3, inner=1, warmup=1)[0]
+        f_lib = median_ms(lambda: F.cross_entropy(x, lab, reduction="none"),
+                          **reps)[0]
+        xl = x.detach().requires_grad_(True)
+        ref = F.cross_entropy(xl, lab, reduction="none")
+        gl = gm.to(ref.dtype)
+        b_lib = median_ms(lambda: torch.autograd.grad(
+            ref, xl, gl, retain_graph=True), **reps)[0]
+        n = rows * c
+        fb = bound_ms(2 * n + 8 * rows + 12 * rows, 4 * n, FP32_FLOP_PER_S)
+        bb = bound_ms(4 * n + 8 * rows + 12 * rows, 6 * n, FP32_FLOP_PER_S)
+        print(f"  time ({rows}, {c}) bf16: forward {f_ms:.4f} ms (bound "
+              f"{fb[0]:.4f}, {fb[1]}; plain {f_plain:.4f}; F.cross_entropy "
+              f"{f_lib:.4f}), backward {b_ms:.4f} ms (bound {bb[0]:.4f}, "
+              f"{bb[1]}; plain {b_plain:.4f}; F.cross_entropy backward "
+              f"{b_lib:.4f}); forward + backward {f_ms + b_ms:.4f} ms against "
+              f"F.cross_entropy's {f_lib + b_lib:.4f}")
+        numbers[rows] = (
+            dict(ms=f_ms, plain_ms=f_plain, library_ms=f_lib, bound_ms=fb[0],
+                 bound_by=fb[1]),
+            dict(ms=b_ms, plain_ms=b_plain, library_ms=b_lib, bound_ms=bb[0],
+                 bound_by=bb[1]))
+        del x, xl, ref
+    fwd = dict(max_abs_err=main_err[0], **numbers[rows0][0],
+               chunk_shape=dict(shape="(1023, 50257) bf16",
+                                **numbers[1023][0]))
+    bwd = dict(max_abs_err=main_err[1], **numbers[rows0][1],
+               chunk_shape=dict(shape="(1023, 50257) bf16",
+                                **numbers[1023][1]))
+    return fwd, bwd
+
+
+def adam_half_phase(torch, multi_tensor, shapes):
+    """The Adam kernel with p, m and v in half dtypes (amp O3) against its
+    plain version, bit for bit; timing of the O3 configuration (fp16 p, m,
+    v and gradients).  Returns the numbers of that case."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    print("Adam kernel with half params and moments vs plain (bit for bit):")
+
+    def place(x, offset):
+        # a copy of x that starts offset elements into its buffer: with
+        # offset > 0 no address allows a vector access
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device="cuda")
+        return buf[offset:].view(x.shape).copy_(x)
+
+    def make(pmv, gd, shps=shapes, offset=0):
+        def rnd(s, dt, scale, pos=False):
+            x = (torch.rand if pos else torch.randn)(
+                s, generator=g, device="cuda") * scale
+            return place(x.to(dt), offset)
+        return [[rnd(s, gd, 1.0) for s in shps],
+                [rnd(s, pmv[0], 1.0) for s in shps],
+                [rnd(s, pmv[1], 0.1) for s in shps],
+                [rnd(s, pmv[2], 0.01, pos=True) for s in shps]]
+
+    # sizes that are no multiple of 4, one past a chunk boundary (65536)
+    odd = [(1003,), (7, 5), (2 * 65536 + 5,), (3, 333)]
+    cases = [((f16, f16, f16), f16, shapes, 0),
+             ((bf16, bf16, bf16), bf16, shapes, 0),
+             ((f16, f16, f16), f32, shapes, 0),
+             ((f32, bf16, f16), bf16, odd, 0),
+             ((bf16, f32, f16), f16, odd, 1)]
+    for pmv, gd, shps, offset in cases:
+        base = make(pmv, gd, shps, offset)
+        for mode, wd in ((0, 0.0), (1, 0.1)):
+            ka = [base[0]] + [[place(t, offset) for t in lst]
+                              for lst in base[1:]]
+            ra = [base[0]] + [[t.clone() for t in lst] for lst in base[1:]]
+            multi_tensor.fused_adam(zero, ka, LR, 0.9, 0.999, 1e-4, 5, mode,
+                                    True, wd)
+            scal = multi_tensor.adam_scalars(LR, 0.9, 0.999, 1e-4, 5, True,
+                                             wd, "cuda")
+            multi_tensor.fused_adam_reference(zero, ra, scal, mode, wd != 0.0)
+            torch.cuda.synchronize()
+            tag = (f"p/m/v {'/'.join(str(d)[6:] for d in pmv)}, grads "
+                   f"{str(gd)[6:]}, {len(shps)} tensors, offset {offset}, "
+                   f"mode {mode} wd {wd}")
+            if not all(torch.equal(a, b) for la, lb in zip(ka[1:], ra[1:])
+                       for a, b in zip(la, lb)):
+                raise AssertionError(f"Adam {tag}: kernel != plain version")
+            if all(torch.equal(a, b) for la, lb in zip(ka[1:], base[1:])
+                   for a, b in zip(la, lb)):
+                raise AssertionError(f"Adam {tag}: nothing was updated")
+            print(f"  {tag}: bitwise equal")
+        del base, ka, ra
+    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
+    lists = make((f16, f16, f16), f16)
+    ms = median_ms(lambda: multi_tensor.fused_adam(
+        zero, lists, LR, 0.9, 0.999, 1e-4, 5, 1, True, WD),
+        reps=15, inner=5)[0]
+    scal = multi_tensor.adam_scalars(LR, 0.9, 0.999, 1e-4, 5, True, WD,
+                                     "cuda")
+    plain = median_ms(lambda: multi_tensor.fused_adam_reference(
+        zero, lists, scal, 1, True), reps=3, inner=1, warmup=1)[0]
+    params = [p.clone().requires_grad_(True) for p in lists[1]]
+    for p, gr in zip(params, lists[0]):
+        p.grad = gr
+    lib_opt = torch.optim.AdamW(params, lr=LR, eps=1e-4, weight_decay=WD,
+                                fused=True)
+    lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
+    bnd, by = bound_ms(n_el * 14, 15 * n_el, FP32_FLOP_PER_S)
+    print(f"  time {len(shapes)} tensors, fp16 p/m/v and grads, AdamW: "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"torch.optim.AdamW(fused=True) {lib:.4f} ms, bound {bnd:.4f} ms "
+          f"({by}: {n_el * 14 / 1e9:.3f} GB)")
+    return dict(shape=f"{len(shapes)} tensors, fp16 p/m/v and grads, AdamW",
+                max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=bnd, bound_by=by)
+
+
+def _fused_lm_loss(torch):
+    from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+
+    def lm_loss(logits, ids):
+        flat = logits[:, :-1].reshape(-1, logits.shape[-1])
+        return softmax_cross_entropy_loss(flat, ids[:, 1:].reshape(-1), 0.0,
+                                          -1, True).mean()
+    return lm_loss
+
+
+def _chunked_lm_loss(vocab=50257, chunk_rows=None):
+    from apex_tpu_torch.contrib.xentropy import make_chunked_lm_loss
+    return make_chunked_lm_loss(vocab_size=vocab, padding_idx=-1,
+                                chunk_rows=chunk_rows)
+
+
+def loss_mode_path(torch, dispatch, model, mode):
+    """make_train_step on GPT-2 small at the training shape with the
+    bench's chunked (default) or fused loss: launch counts around one step,
+    10 timed steps, peak memory, one profiled step.  Returns (counts, step
+    ms)."""
+    from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
+    model.output_hidden = mode == "chunked"
+    loss_fn = _chunked_lm_loss() if mode == "chunked" else \
+        _fused_lm_loss(torch)
+    rows = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    n_chunks = -(-rows // _chunk_rows(rows, 50257, None)) \
+        if mode == "chunked" else 1
+    try:
+        counts, step_ms = train_path(
+            torch, dispatch, model, loss_fn, f"{mode} loss",
+            dict(xent_forward=n_chunks, xent_backward=n_chunks))
+    finally:
+        model.output_hidden = False
+    return counts, step_ms
+
+
+def pad_vocab_path(torch, gpt):
+    """The chunked step once more on a head padded to 50304 (the JAX
+    bench's --pad-vocab): step ms and the profiled step's largest kernels,
+    to see whether the head GEMMs leave the align1 kernels."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED)
+    model = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.1,
+                           attn_dropout=0.0, pad_vocab_multiple=128,
+                           output_hidden=True, device="cuda")
+    step = make_train_step(model, FusedAdam(list(model.parameters()), lr=LR,
+                                            weight_decay=WD),
+                           _chunked_lm_loss(), half_dtype=torch.bfloat16,
+                           loss_scale=1.0)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    ids = torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                        device="cuda")
+    losses = [step(ids, ids) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 10
+    values = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in values) or not values[-1] < values[0]:
+        raise AssertionError(f"padded-vocab chunked losses: {values}")
+    print(f"padded vocabulary (50304, pad_vocab_multiple=128), chunked loss: "
+          f"step {1e3 * step_s:.2f} ms = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} train tokens/s; losses "
+          f"{values[0]:.4f} -> {values[-1]:.4f}")
+    _print_profile(torch, lambda: step(ids, ids), 8)
+    return 1e3 * step_s
+
+
+def _print_profile(torch, fn, top):
+    wall, busy, by_name, n = _profiled(torch, fn)
+    if busy is None:
+        print(f"  profiled step: wall {wall:.2f} ms; device time not measured "
+              f"(the profiler saw no device activity)")
+        return
+    print(f"  profiled step: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / wall:.3f}, {n} device operations")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+
+
+def train_modes_cpu_phase(torch, gpt, model):
+    """The chunked and fused steps on the card against the CPU, from the
+    same weights: fp32, dropout 0, batch 2 x 128, chunks of 100 rows (two
+    full chunks and a padded remainder of 54)."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    g = torch.Generator().manual_seed(SEED + 8)
+    ids = torch.randint(0, 50257, (2, 128), generator=g)
+    for mode in ("chunked", "fused"):
+        loss_fn = _chunked_lm_loss(chunk_rows=100) if mode == "chunked" \
+            else _fused_lm_loss(torch)
+        kw = dict(max_positions=TRAIN_POS, dropout=0.0, attn_dropout=0.0,
+                  output_hidden=mode == "chunked")
+
+        def pair():
+            out = []
+            for dev in ("cuda", "cpu"):
+                m = gpt.gpt2_small(**kw, device=dev)
+                m.load_state_dict(sd)
+                out.append(m)
+            return out
+
+        print(f"training with the {mode} loss, card vs CPU (same weights, "
+              f"fp32, TF32 off, dropout 0, batch 2 x 128):")
+        mc, mh = pair()
+        losses = []
+        for m in (mc, mh):
+            x = ids.to(m.tok_emb.weight.device)
+            loss = loss_fn(m(x), x)
+            loss.backward()
+            losses.append(float(loss.detach()))
+        check("loss of one forward (relative)",
+              abs(losses[0] - losses[1]) / abs(losses[1]), 1e-4)
+        worst, worst_name = 0.0, None
+        for (name, pc), ph in zip(mc.named_parameters(), mh.parameters()):
+            e = (pc.grad.cpu() - ph.grad).abs().max().item() / max(
+                ph.grad.abs().max().item(), 1e-30)
+            if e > worst:
+                worst, worst_name = e, name
+        check(f"gradients of one backward, worst tensor {worst_name} (max "
+              f"abs err / max |g|)", worst, 1e-3)
+        mc, mh = pair()
+        runs = []
+        for m in (mc, mh):
+            x = ids.to(m.tok_emb.weight.device)
+            step = make_train_step(m, FusedAdam(list(m.parameters()), lr=LR,
+                                                weight_decay=WD),
+                                   loss_fn, half_dtype=None, loss_scale=1.0)
+            runs.append(([float(step(x, x)) for _ in range(3)],
+                         [t.cpu() for t in step.state.master_params]))
+        for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
+            check(f"train step {i + 1} loss (relative)", abs(a - b) / abs(b),
+                  1e-4)
+        check("fp32 masters after 3 steps (max abs diff; tol 6.5 x lr)",
+              max((a - b).abs().max().item()
+                  for a, b in zip(runs[0][1], runs[1][1])), 6.5 * LR)
+        del mc, mh, runs
+
+
+
+def _amp_model(torch, gpt, sd, dev, **kw):
+    m = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0, attn_dropout=0.0,
+                       device=dev, **kw)
+    m.load_state_dict(sd)
+    return m
+
+
+def amp_phase(torch, dispatch, gpt, model):
+    """amp.initialize + scale_loss on GPT-2 small at full width with the
+    fused xentropy loss: O2 (fp16, dynamic scale) with launch counts of one
+    iteration, O3 (fp16 parameters and moments through the Adam kernel),
+    the overflow skip on the card and the CPU, and delay_unscale.  Returns
+    the launch counts of one O2 and one O3 iteration."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp._amp_state import _amp_state, reset
+    from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
+    from apex_tpu_torch.optimizers import FusedAdam
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    ids = torch.randint(0, 50257, (AMP_BATCH, TRAIN_SEQ), generator=g,
+                        device="cuda")
+
+    def loss_of(logits, x):
+        flat = logits[:, :-1].reshape(-1, logits.shape[-1])
+        return SoftmaxCrossEntropyLoss.apply(flat, x[:, 1:].reshape(-1), 0.0,
+                                             -1, True).mean()
+
+    counts = {}
+    for level, eps in (("O2", 1e-8), ("O3", 1e-4)):
+        reset()
+        m = _amp_model(torch, gpt, sd, "cuda")
+        opt = FusedAdam(list(m.parameters()), lr=LR, eps=eps,
+                        weight_decay=WD)
+        m, opt = amp.initialize(m, opt, opt_level=level, verbosity=0,
+                                max_loss_scale=2.0 ** 12)
+        losses, skips = [], []
+        for i in range(3):
+            if i == 2:
+                torch.cuda.synchronize()
+                dispatch.reset_counts()
+            loss = loss_of(m(ids), ids)
+            with amp.scale_loss(loss, opt) as scaled:
+                scaled.backward()
+            steps_before = opt.param_groups[0].get("step", 0)
+            opt.step()
+            opt.zero_grad()
+            skips.append(opt.param_groups[0].get("step", 0) == steps_before)
+            losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        counts[level] = dispatch.counts()
+        layers = len(m.blocks)
+        want = dict.fromkeys(counts[level], 0)
+        want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
+                    flash_attention_bwd_dkv=layers, ln_forward=2 * layers + 1,
+                    ln_backward_rows=2 * layers + 1,
+                    ln_backward_cols=2 * layers + 1, xent_forward=1,
+                    xent_backward=1, fused_adam=1)
+        p0 = opt.param_groups[0]["params"][0]
+        print(f"amp {level}: amp.initialize(gpt2_small, FusedAdam(eps={eps})"
+              f") -> forward -> scale_loss -> backward -> step, batch "
+              f"{AMP_BATCH} x {TRAIN_SEQ}, fused xentropy loss; "
+              f"{len(opt.param_groups[0]['params'])} {p0.dtype} optimizer "
+              f"params, moments {opt.state[p0]['exp_avg'].dtype}")
+        print(f"  launches in iteration 3: {counts[level]}")
+        print(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; skipped "
+              f"{skips}; loss scale {_amp_state.loss_scalers[0].loss_scale()}")
+        if counts[level] != want:
+            raise AssertionError(f"amp {level} launch counts {counts[level]}"
+                                 f" != expected {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"amp {level}: non-finite losses {losses}")
+        if any(skips):
+            raise AssertionError(f"amp {level}: steps skipped: {skips}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"amp {level}: the loss did not fall: "
+                                 f"{losses}")
+        del m, opt
+
+    print("amp O2 overflow skip, batch 1 x 8, a non-finite gradient planted "
+          "at iteration 2:")
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        reset()
+        m = _amp_model(torch, gpt, {k: v.to(dev) for k, v in sd.items()},
+                       dev)
+        opt = FusedAdam(list(m.parameters()), lr=LR, weight_decay=WD)
+        m, opt = amp.initialize(m, opt, opt_level="O2", verbosity=0,
+                                max_loss_scale=2.0 ** 10)
+        x = ids[:1, :8].to(dev)
+        rows = []
+        for i in range(3):
+            loss = loss_of(m(x), x)
+            with amp.scale_loss(loss, opt) as scaled:
+                scaled.backward()
+                if i == 1:
+                    p16 = opt._amp_stash.all_fp16_params[0]
+                    p16.grad[(0,) * p16.grad.dim()] = float("inf")
+            before = opt.param_groups[0].get("step", 0)
+            opt.step()
+            opt.zero_grad()
+            rows.append((opt.param_groups[0].get("step", 0) == before,
+                         _amp_state.loss_scalers[0].loss_scale()))
+        hist[dev] = rows
+        print(f"  {dev}: (skipped, scale) per iteration {rows}")
+        del m, opt
+    if hist["cuda"] != hist["cpu"] or \
+            hist["cuda"] != [(False, 1024.0), (True, 512.0), (False, 512.0)]:
+        raise AssertionError(f"amp skip history differs: {hist}")
+
+    print("amp O2 delay_unscale: two backward passes (1 x 256) into one "
+          "step, delayed against undelayed:")
+
+    def accumulate(delay, batches):
+        reset()
+        m = _amp_model(torch, gpt, sd, "cuda")
+        opt = FusedAdam(list(m.parameters()), lr=LR, weight_decay=WD)
+        m, opt = amp.initialize(m, opt, opt_level="O2", verbosity=0,
+                                max_loss_scale=2.0 ** 10)
+        for i, x in enumerate(batches):
+            loss = loss_of(m(x), x)
+            with amp.scale_loss(loss, opt,
+                                delay_unscale=delay and i == 0) as scaled:
+                scaled.backward()
+        masters = opt.param_groups[0]["params"]
+        grads = [p.grad.detach().clone() for p in masters]
+        opt.step()
+        return grads, [p.detach().clone() for p in masters]
+
+    def rel(a_list, b_list):
+        return max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                    1e-30)
+                   for a, b in zip(a_list, b_list))
+
+    # one batch twice: both sums are exact doublings, so the master
+    # gradients agree to rounding (a window left scaled would be off by
+    # the loss scale, 1024)
+    x = ids[:1, :256]
+    (g_d, m_d), (g_n, m_n) = accumulate(True, (x, x)), \
+        accumulate(False, (x, x))
+    check("same batch twice: master gradients, worst tensor max abs diff "
+          "/ max |grad|", rel(g_d, g_n), 1e-6)
+    check("same batch twice: masters after the step, worst tensor max abs "
+          "diff / max |master|", rel(m_d, m_n), 1e-6)
+    # two batches: the delayed window sums in fp16 and rounds once more
+    y = ids[1:2, :256]
+    g_d, _ = accumulate(True, (x, y))
+    g_n, _ = accumulate(False, (x, y))
+    worst = max(((a - b).abs() - 2e-2 * b.abs()).max().item()
+                / max(b.abs().max().item(), 1e-30)
+                for a, b in zip(g_d, g_n))
+    check("two batches: master gradients, worst tensor max of (|diff| - "
+          "0.02 |ref|) / max |ref|", worst, 1e-3)
+    reset()
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -944,7 +1469,7 @@ def main():
         return 1
     from apex_tpu_torch import _build
     from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
-        multi_tensor
+        multi_tensor, xentropy
     from apex_tpu_torch.models import gpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -971,6 +1496,8 @@ def main():
     lnb_rows, lnb_cols = ln_bwd_phase(torch, layer_norm)
     dq, dkv = flash_bwd_phase(torch, attention)
     adam = adam_phase(torch, multi_tensor, shapes)
+    adam_half = adam_half_phase(torch, multi_tensor, shapes)
+    xf, xb = xent_phase(torch, xentropy)
     print(f"kernel phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     model, out, serve, prefill_logits, step_logits = main_path(
@@ -980,49 +1507,75 @@ def main():
     del model, out
     print(f"serving phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    train = train_path(torch, dispatch, train_model)
-    train_cpu_phase(torch, gpt, train_model)
+    paths = {"generate": serve}
+    paths["train_step"], plain_ms = train_path(
+        torch, dispatch, train_model, _lm_loss(torch), "plain cross entropy",
+        {})
+    paths["train_step_chunked"], chunked_ms = loss_mode_path(
+        torch, dispatch, train_model, "chunked")
+    paths["train_step_fused"], fused_ms = loss_mode_path(
+        torch, dispatch, train_model, "fused")
+    print(f"train step ms in this run: plain {plain_ms:.2f}, chunked "
+          f"{chunked_ms:.2f}, fused {fused_ms:.2f}")
+    pad_vocab_path(torch, gpt)
     print(f"training phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    train_cpu_phase(torch, gpt, train_model)
+    train_modes_cpu_phase(torch, gpt, train_model)
+    print(f"card-vs-CPU training phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    amp_counts = amp_phase(torch, dispatch, gpt, train_model)
+    paths["amp_O2"], paths["amp_O3"] = amp_counts["O2"], amp_counts["O3"]
+    print(f"amp phases: {time.perf_counter() - t_phase:.1f} s")
 
-    def both(name):
-        return dict(launches=serve[name] + train[name],
-                    launches_by_path={"generate": serve[name],
-                                      "train_step": train[name]})
+    def launches(name):
+        by = {k: c[name] for k, c in paths.items() if c[name]}
+        return dict(launches=sum(by.values()), launches_by_path=by)
     fa, fb = "apex_tpu_torch/csrc/flash_attention", "apex_tpu/kernels/"
     ln_src = "apex_tpu_torch/csrc/layer_norm.cu"
+    xe_src = "apex_tpu_torch/csrc/xentropy.cu"
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=f"{fa}.cu",
-             replaces=f"{fb}attention.py:352", **both("flash_attention_fwd"),
+             replaces=f"{fb}attention.py:352",
+             **launches("flash_attention_fwd"),
              shape="(96, 512, 64) fp32 causal", **fl,
              train_shape=fl_train),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source=f"{fa}_bwd.cu",
              replaces=f"{fb}attention.py:420 (_dq_kernel :237, "
                       f"pallas_call :466)",
-             launches=train["flash_attention_bwd_dq"],
+             **launches("flash_attention_bwd_dq"),
              shape="(192, 1024, 64) bf16 causal", **dq),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source=f"{fa}_bwd.cu",
              replaces=f"{fb}attention.py:420 (_dkv_kernel :283, "
                       f"pallas_call :490)",
-             launches=train["flash_attention_bwd_dkv"],
+             **launches("flash_attention_bwd_dkv"),
              shape="(192, 1024, 64) bf16 causal", **dkv),
         dict(name="ln_forward", route="cuda", source=ln_src,
-             replaces=f"{fb}layer_norm.py:77", **both("ln_forward"),
+             replaces=f"{fb}layer_norm.py:77", **launches("ln_forward"),
              shape="(4096, 768) fp32 affine", **ln, train_shape=ln_train),
         dict(name="ln_backward", route="cuda", source=ln_src,
              replaces=f"{fb}layer_norm.py:109",
-             launches=train["ln_backward_rows"],
+             **launches("ln_backward_rows"),
              shape="(16384, 768) bf16 affine", **lnb_rows),
         dict(name="ln_backward_cols", route="cuda", source=ln_src,
              replaces=f"{fb}layer_norm.py:109 (dgamma/dbeta, :68-74)",
-             launches=train["ln_backward_cols"],
+             **launches("ln_backward_cols"),
              shape="(16384, 768) bf16 affine", **lnb_cols),
+        dict(name="xent_forward", route="cuda", source=xe_src,
+             replaces=f"{fb}xentropy.py:134 (_fwd_kernel :73, pallas_call "
+                      f":147)", **launches("xent_forward"),
+             shape="(16368, 50257) bf16", **xf),
+        dict(name="xent_backward", route="cuda", source=xe_src,
+             replaces=f"{fb}xentropy.py:160 (_bwd_kernel :117, pallas_call "
+                      f":185)", **launches("xent_backward"),
+             shape="(16368, 50257) bf16", **xb),
         dict(name="fused_adam", route="cuda",
              source="apex_tpu_torch/csrc/multi_tensor_adam.cu",
-             replaces=f"{fb}multi_tensor.py:207",
-             launches=train["fused_adam"],
-             shape=f"{len(shapes)} tensors, bf16 grads, AdamW", **adam),
+             replaces=f"{fb}multi_tensor.py:207", **launches("fused_adam"),
+             shape=f"{len(shapes)} tensors, bf16 grads, AdamW", **adam,
+             o3_case=adam_half),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -108,3 +108,24 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
             build()
     assert GptModel(**small, device="cpu").tok_emb.weight.device.type \
         == "cpu"
+
+
+@pytest.mark.parametrize("source", sorted(
+    n for n in os.listdir(os.path.join(PKG, "csrc")) if n.endswith(".cu")))
+def test_every_include_of_a_kernel_source_is_package_data(source):
+    """Each ``#include "..."`` of ``csrc/<source>`` names a file that
+    ``pyproject.toml``'s package-data globs ship, so an installed package
+    builds every kernel."""
+    import fnmatch
+    import re
+    import tomllib
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "apex_tpu_torch"]
+    with open(os.path.join(PKG, "csrc", source)) as f:
+        incs = re.findall(r'^\s*#include\s+"([^"]+)"', f.read(), re.M)
+    assert incs, f"csrc/{source} includes no local header"
+    for inc in [source] + incs:
+        assert os.path.isfile(os.path.join(PKG, "csrc", inc)), inc
+        assert any(fnmatch.fnmatch(f"csrc/{inc}", g) for g in globs), \
+            f"csrc/{inc} is not in the package data"

@@ -310,8 +310,7 @@ def test_unported_make_train_step_options_raise():
                dict(gradient_predivide_factor=2.0),
                dict(allreduce_always_fp32=True), dict(zero_sharding=True),
                dict(flat_master=True), dict(parallel="auto"),
-               dict(grad_accum_steps=2), dict(accum_steps=4),
-               dict(lr_schedule=lambda s: 1.0), dict(telemetry=True)):
+               dict(telemetry=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_train_step(tm, opt, _torch_loss, **kw)
     sgd = torch.optim.SGD(tm.parameters(), lr=0.1)
@@ -330,3 +329,227 @@ def test_to_numpy_state_dict_round_trips():
     assert all(v.dtype == np.float32 for v in sd16.values())
     back = from_jax_state_dict(GptModel(**CFG, device="cpu"), sd16)
     assert torch.equal(back.tok_emb.weight, tm.tok_emb.weight.float())
+
+
+# --- the chunked and fused losses, accumulation, lr schedules ---
+
+XV = 1003
+XCFG = dict(CFG, vocab_size=XV)
+
+
+def _xmodels(seed=21, **kw):
+    cfg = {**XCFG, **kw}
+    jnn.manual_seed(seed)
+    jm = JaxGpt(**cfg)
+    sd = {k: np.asarray(v) for k, v in jm.state_dict().items()}
+    return jm, from_jax_state_dict(GptModel(**cfg, device="cpu"), sd)
+
+
+def _xids(seed, b=B):
+    return np.random.default_rng(seed).integers(0, XV, (b, S))
+
+
+def _jax_fused_loss(logits, ids):
+    from apex_tpu.contrib.xentropy import softmax_cross_entropy_loss
+    flat = logits[:, :-1].reshape((-1, logits.shape[-1]))
+    return jnp.mean(softmax_cross_entropy_loss(
+        flat, ids[:, 1:].reshape((-1,)), 0.0, -1, True))
+
+
+def _torch_fused_loss(logits, ids):
+    from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+    flat = logits[:, :-1].reshape(-1, logits.shape[-1])
+    return softmax_cross_entropy_loss(flat, ids[:, 1:].reshape(-1), 0.0, -1,
+                                      True).mean()
+
+
+def _losses(mode):
+    """(output_hidden, JAX loss, port loss) of a bench loss mode."""
+    if mode == "fused":
+        return False, _jax_fused_loss, _torch_fused_loss
+    from apex_tpu.contrib.xentropy import make_chunked_lm_loss as jax_mcl
+    from apex_tpu_torch.contrib.xentropy import make_chunked_lm_loss
+    # 30 rows in chunks of 8: three full chunks and a padded remainder
+    return (True, jax_mcl(vocab_size=XV, padding_idx=-1, chunk_rows=8),
+            make_chunked_lm_loss(vocab_size=XV, padding_idx=-1,
+                                 chunk_rows=8))
+
+
+def _run_pair(mode, ids, steps=4, jax_kw=None, port_kw=None, **kw):
+    """Losses and scaler histories of the JAX and the port's
+    ``make_train_step`` from the same weights, fp32, dynamic scale."""
+    hidden, jloss, tloss = _losses(mode)
+    jm, tm = _xmodels(output_hidden=hidden)
+    jstep = jax_make_train_step(
+        jm, JaxFusedAdam(list(jm.parameters()), lr=LR, weight_decay=WD),
+        jloss, loss_scale="dynamic", **kw, **(jax_kw or {}))
+    tstep = make_train_step(
+        tm, FusedAdam(list(tm.parameters()), lr=LR, weight_decay=WD),
+        tloss, loss_scale="dynamic", **kw, **(port_kw or {}))
+    out = {}
+    for key, step, arr in (("jax", jstep, jnp.asarray),
+                           ("port", tstep, torch.from_numpy)):
+        losses, hist = [], []
+        x = arr(ids)
+        for _ in range(steps):
+            with force_mode("interpret"):
+                losses.append(float(step(x, x)))
+            st = step.state.scaler
+            hist.append((int(st.overflow), float(st.loss_scale),
+                         int(st.unskipped), int(step.state.step)))
+        out[key] = (losses, hist, step)
+    return out, jm, tm
+
+
+@pytest.mark.parametrize("mode", ["chunked", "fused"])
+def test_loss_mode_train_steps_match_jax(mode):
+    out, jm, tm = _run_pair(mode, _xids(31))
+    (jl, jh, jstep), (tl, th, tstep) = out["jax"], out["port"]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert th == jh == [(0, 65536.0, i, i) for i in range(1, 5)]
+    assert tl[-1] < tl[0]
+    jw = _masters(jstep, jm.named_parameters())
+    tw = _masters(tstep, tm.named_parameters())
+    diff = np.concatenate([np.abs(tw[n] - jw[n]).ravel() for n in jw])
+    assert diff.max() <= 8 * LR
+    assert (diff <= 1e-5).mean() >= 0.999
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_gradient_accumulation_matches_jax(stacked):
+    ids = _xids(32, b=4)
+    if stacked:
+        ids = ids.reshape(2, 2, S)
+    # a static scale of 1.0 (the bf16 recipe's) with a loss weight that
+    # is broadcast to every microbatch, not split
+    kw = dict(accum_steps=2, accum_stacked=stacked)
+    hidden, jloss, tloss = _losses("chunked")
+    jm, tm = _xmodels(output_hidden=hidden)
+    jstep = jax_make_train_step(
+        jm, JaxFusedAdam(list(jm.parameters()), lr=LR, weight_decay=WD),
+        lambda out, x, w: jloss(out, x) * w, loss_scale=1.0, **kw)
+    tstep = make_train_step(
+        tm, FusedAdam(list(tm.parameters()), lr=LR, weight_decay=WD),
+        lambda out, x, w: tloss(out, x) * w, loss_scale=1.0, **kw)
+    with force_mode("interpret"):
+        jl = [float(jstep(jnp.asarray(ids), jnp.asarray(ids),
+                          jnp.asarray(0.5, jnp.float32))) for _ in range(3)]
+    tl = [float(tstep(torch.from_numpy(ids), torch.from_numpy(ids),
+                      torch.tensor(0.5))) for _ in range(3)]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert int(tstep.state.step) == int(jstep.state.step) == 3
+    jw = _masters(jstep, jm.named_parameters())
+    tw = _masters(tstep, tm.named_parameters())
+    diff = np.concatenate([np.abs(tw[n] - jw[n]).ravel() for n in jw])
+    assert diff.max() <= 6 * LR and (diff <= 1e-5).mean() >= 0.999
+    with pytest.raises(ValueError, match="microbatch count" if stacked
+                       else "not divisible"):
+        tstep(torch.from_numpy(_xids(1, b=3)), torch.from_numpy(_xids(1, b=3)),
+              torch.tensor(1.0))
+
+
+def test_accumulation_options_are_checked_like_jax():
+    _, tm = _xmodels()
+    opt = FusedAdam(list(tm.parameters()), lr=LR)
+    with pytest.raises(ValueError, match="conflicts"):
+        make_train_step(tm, opt, _torch_fused_loss, accum_steps=2,
+                        grad_accum_steps=3)
+    with pytest.raises(ValueError, match="accum_stacked"):
+        make_train_step(tm, opt, _torch_fused_loss, accum_stacked=True)
+    with pytest.raises(ValueError, match=">= 1"):
+        make_train_step(tm, opt, _torch_fused_loss, grad_accum_steps=0)
+    step = make_train_step(tm, opt, _torch_fused_loss, accum_steps=2,
+                           accum_stacked=True, loss_scale=1.0)
+    with pytest.raises(ValueError, match="microbatch count"):
+        step(torch.from_numpy(_xids(2, b=3)), torch.from_numpy(_xids(2, b=3)))
+
+
+def test_lr_schedule_matches_jax():
+    from apex_tpu.optimizers.schedules import warmup_cosine as jwc
+    from apex_tpu_torch.optimizers import warmup_cosine
+    out, jm, tm = _run_pair("fused", _xids(33), steps=4,
+                            jax_kw=dict(lr_schedule=jwc(2, 8)),
+                            port_kw=dict(lr_schedule=warmup_cosine(2, 8)))
+    (jl, jh, jstep), (tl, th, tstep) = out["jax"], out["port"]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert th == jh
+    jw = _masters(jstep, jm.named_parameters())
+    tw = _masters(tstep, tm.named_parameters())
+    diff = np.concatenate([np.abs(tw[n] - jw[n]).ravel() for n in jw])
+    assert diff.max() <= 8 * LR and (diff <= 1e-5).mean() >= 0.999
+
+
+def test_schedules_match_jax():
+    from apex_tpu.optimizers import schedules as js
+    from apex_tpu_torch.optimizers import schedules as ts
+    pairs = [(js.warmup_poly(3, 10, 2.0, 0.1), ts.warmup_poly(3, 10, 2.0,
+                                                              0.1)),
+             (js.warmup_linear(2, 9), ts.warmup_linear(2, 9)),
+             (js.warmup_cosine(4, 20, 0.05), ts.warmup_cosine(4, 20, 0.05)),
+             (js.step_decay([3, 6], [0.5, 0.1]),
+              ts.step_decay([3, 6], [0.5, 0.1]))]
+    for jf, tf in pairs:
+        for step in range(0, 25):
+            got = tf(torch.tensor(step, dtype=torch.int32))
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(float(got), float(jf(step)),
+                                       rtol=1e-6, atol=1e-7)
+            assert float(tf(step)) == float(got)
+    with pytest.raises(ValueError, match="warmup"):
+        ts.warmup_cosine(5, 5)
+    with pytest.raises(ValueError, match="ascending"):
+        ts.step_decay([5, 2], [0.1, 0.2])
+
+
+def test_output_hidden_matches_jax():
+    from apex_tpu.nn.modules import Ctx
+    jm, tm = _xmodels(seed=22, output_hidden=True)
+    ids = _xids(34)
+    with force_mode("interpret"):
+        jh, jt = jm.forward(Ctx(env={}, training=False), jnp.asarray(ids))
+    tm.eval()
+    with torch.no_grad():
+        th, tt = tm(torch.from_numpy(ids))
+    assert tuple(th.shape) == (B, S, E) and tt is tm.tok_emb.weight
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(tt.detach().numpy(), np.asarray(jt))
+    # the cached paths still return logits
+    caches = tm.init_caches(B, S)
+    with torch.no_grad():
+        logits, _ = tm.prefill(torch.from_numpy(ids[:, :4]), caches)
+    assert logits.shape == (B, 4, XV)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_adam_half_params_and_moments_equal_adam_unfused(dtype):
+    """B12's plain version with p, m and v in a half dtype (amp O3) is bit
+    for bit the JAX package's per-tensor Adam, each result cast back to its
+    own dtype."""
+    from apex_tpu.ops import multi_tensor as jops
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.kernels import multi_tensor as mt
+    r = np.random.default_rng(40)
+    shapes = [(6, 5), (33,), (4, 4, 3)]
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def arr(scale, pos=False):
+        return [np.array(jnp.asarray((np.abs if pos else np.asarray)(
+            r.normal(0, scale, s)).astype(np.float32), jd).astype(
+                jnp.float32)) for s in shapes]
+
+    g, p, m, v = arr(1.0), arr(1.0), arr(0.1), arr(0.01, pos=True)
+    for mode, wd in ((0, 0.0), (1, 0.1), (0, 0.1)):
+        _, jp, jm_, jv = jops.adam_unfused(
+            jnp.zeros((), jnp.int32),
+            [[jnp.asarray(a, jd) for a in lst] for lst in (g, p, m, v)],
+            1e-2, 0.9, 0.999, 1e-8, 3, mode, True, wd)
+        lists = [[torch.from_numpy(a).to(td) for a in lst]
+                 for lst in (g, p, m, v)]
+        mt.fused_adam(ops.zero_flag("cpu"), lists, 1e-2, 0.9, 0.999, 1e-8,
+                      3, mode, True, wd)
+        for got, want in zip(lists[1:], (jp, jm_, jv)):
+            for a, b in zip(got, want):
+                assert a.dtype == td
+                np.testing.assert_array_equal(
+                    a.float().numpy(), np.asarray(b.astype(jnp.float32)))

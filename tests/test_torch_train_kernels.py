@@ -381,9 +381,13 @@ def test_backward_and_adam_wrappers_refuse_what_the_kernels_cannot_take():
 
     flag = torch.zeros((), dtype=torch.int32)
     g, p = [torch.zeros(3)], [torch.zeros(3)]
-    with pytest.raises(NotImplementedError, match="fp32 params"):
-        multi_tensor.fused_adam(flag, [g, [p[0].bfloat16()], p, p], 1e-3,
+    with pytest.raises(TypeError, match="param 0 dtype torch.float64"):
+        multi_tensor.fused_adam(flag, [g, [p[0].double()], p, p], 1e-3,
                                 0.9, 0.999, 1e-8, 1, 1, True, 0.0)
+    with pytest.raises(TypeError, match="exp_avgs of one list share"):
+        multi_tensor.fused_adam(flag, [g * 2, p * 2, [p[0], p[0].half()],
+                                       p * 2], 1e-3, 0.9, 0.999, 1e-8, 1, 1,
+                                True, 0.0)
     with pytest.raises(TypeError, match="share a dtype"):
         multi_tensor.fused_adam(flag, [[g[0], g[0].bfloat16()], p * 2,
                                        p * 2, p * 2], 1e-3, 0.9, 0.999,
@@ -400,8 +404,8 @@ def test_backward_and_adam_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="4 lists|lists"):
         multi_tensor.fused_adam(flag, [g, p, p], 1e-3, 0.9, 0.999, 1e-8, 1,
                                 1, True, 0.0)
-    with pytest.raises(TypeError, match="lr must be a Python number"):
-        multi_tensor.adam_scalars(torch.tensor(1e-3), 0.9, 0.999, 1e-8, 1,
+    with pytest.raises(TypeError, match="eps must be a Python number"):
+        multi_tensor.adam_scalars(1e-3, 0.9, 0.999, torch.tensor(1e-8), 1,
                                   True, 0.0, "cpu")
 
 
