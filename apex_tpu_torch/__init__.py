@@ -17,12 +17,16 @@ static loss scaler, O2-style half copies over fp32 masters, gradient
 accumulation and lr schedules), whose backward runs the flash-attention and
 LayerNorm backward kernels and whose update runs the multi-tensor Adam
 kernel; the label-smoothed cross-entropy and the chunked LM-head loss
-(``contrib.xentropy``) over the xentropy kernels; and the eager mixed
-precision loop (``amp.initialize`` O0/O2/O3 and ``amp.scale_loss``).
+(``contrib.xentropy``) over the xentropy kernels; the eager mixed
+precision loop (``amp.initialize`` O0/O2/O3 and ``amp.scale_loss``); and
+ResNet training (``models.resnet50``) through the fused step or the amp
+loop with ``optimizers.FusedSGD``, whose update runs the multi-tensor SGD
+kernel, with data parallelism and SyncBatchNorm on ``torch.distributed``
+(``parallel``).
 """
 from . import (amp, contrib, inference, kernels, models, multi_tensor_apply,
-               nn, normalization, ops, optimizers, training)
+               nn, normalization, ops, optimizers, parallel, training)
 
 __all__ = ["amp", "contrib", "inference", "kernels", "models",
            "multi_tensor_apply", "nn", "normalization", "ops", "optimizers",
-           "training"]
+           "parallel", "training"]

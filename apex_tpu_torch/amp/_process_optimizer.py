@@ -10,7 +10,14 @@ copies the masters back into the half model parameters, a patched
 backward, the gradients already there are stashed; after it, the new
 half gradients are unscaled into fp32 master gradients (or added to the
 stashed ones) with the overflow flag raised on a non-finite one.  "Half"
-means float16 or bfloat16.  The ``FusedSGD`` variants come with FusedSGD.
+means float16 or bfloat16.
+
+``FusedSGD`` gets the JAX package's variants: its step writes the half
+model copy itself (a depth-4 launch), so the patched step makes no copy of
+its own; and with ``materialize_master_grads=False`` the backward leaves
+the half gradients scaled (unscaled only by what an earlier stashed
+gradient needs) and records in ``most_recent_scale`` the scale the kernel
+divides them by.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import types
 
 import torch
 
+from ..optimizers import FusedSGD
 from ._amp_state import maybe_print
 
 _HALF = (torch.float16, torch.bfloat16)
@@ -215,6 +223,56 @@ def post_backward_no_master_weights(self, scaler):
         post_backward_models_are_masters(scaler, params, stashed_grads)
 
 
+def prepare_backward_with_master_weights_FusedSGD(self):
+    if self.materialize_master_grads:
+        prepare_backward_with_master_weights(self)
+        return
+    stash = self._amp_stash
+    self._amp_lazy_init()
+    for i, param in enumerate(stash.all_fp16_params):
+        stash.all_fp16_grad_stash[i] = param.grad
+        param.grad = None
+    for i, param in enumerate(stash.all_fp32_from_fp32_params):
+        stash.all_fp32_from_fp32_grad_stash[i] = param.grad
+        param.grad = None
+
+
+def post_backward_with_master_weights_FusedSGD(self, scaler):
+    """With ``materialize_master_grads`` as for any optimizer; without, the
+    half and fp32 gradients keep ``out_scale`` (the loss scale, or the
+    smaller of it and the previous backward's), which FusedSGD's kernel
+    divides out through ``most_recent_scale``."""
+    if self.materialize_master_grads:
+        post_backward_with_master_weights(self, scaler)
+        return
+    stash = self._amp_stash
+    self._amp_lazy_init()
+    grads_have_scale = scaler.loss_scale()
+    stashed_have_scale = self.most_recent_scale
+    out_scale = grads_have_scale
+    if self.scale_set_by_backward:
+        out_scale = min(grads_have_scale, self.most_recent_scale)
+    for params, stashed_grads in (
+            (stash.all_fp16_params, stash.all_fp16_grad_stash),
+            (stash.all_fp32_from_fp32_params,
+             stash.all_fp32_from_fp32_grad_stash)):
+        post_backward_models_are_masters(
+            scaler, params, stashed_grads,
+            (grads_have_scale, stashed_have_scale, out_scale))
+    self.most_recent_scale = out_scale
+    self.scale_set_by_backward = True
+
+
+def exchange_before_unscale(optimizer):
+    """A ``DistributedDataParallel`` attached to ``optimizer`` (its
+    ``attach_optimizer``) exchanges the window's gradients here, before amp
+    unscales them: every rank then unscales the same gradients and takes
+    the same overflow-skip decision."""
+    ddp = getattr(optimizer, "_ddp_attached", None)
+    if ddp is not None:
+        ddp.exchange_window()
+
+
 def finalize_delayed_unscale(optimizer, scaler=None):
     """Settle gradients left scaled by ``scale_loss(delay_unscale=True)``
     when the caller goes to ``optimizer.step()`` without a last non-delayed
@@ -230,6 +288,7 @@ def finalize_delayed_unscale(optimizer, scaler=None):
         from ._amp_state import _amp_state
         scaler = _amp_state.loss_scalers[0]
     scaler.clear_overflow_state()
+    exchange_before_unscale(optimizer)
     optimizer._post_amp_backward(scaler)
     stash.params_have_scaled_gradients = False
     stash._delayed_scaler = None
@@ -245,6 +304,15 @@ def _skip_delayed_overflow_step(optimizer, scaler):
         f"scale to {scaler.loss_scale()}")
     for param in getattr(stash, "all_fp32_from_fp16_params", []):
         param.grad = None
+    reset_fused_sgd_scale(optimizer)
+
+
+def reset_fused_sgd_scale(optimizer):
+    """A skipped step consumes no scale: FusedSGD's recorded one is
+    dropped, as its own step drops it."""
+    if hasattr(optimizer, "most_recent_scale"):
+        optimizer.most_recent_scale = 1.0
+        optimizer.scale_set_by_backward = False
 
 
 def _amp_lazy_init(self):
@@ -270,7 +338,8 @@ def _patch_master_weights(optimizer):
             _skip_delayed_overflow_step(self, scaler)
             return None
         retval = old_step()
-        self._master_params_to_model_params()
+        if not isinstance(self, FusedSGD):
+            self._master_params_to_model_params()
         for param in self._amp_stash.all_fp32_from_fp16_params:
             param.grad = None
         return retval
@@ -291,10 +360,13 @@ def _patch_master_weights(optimizer):
 
     optimizer.step = types.MethodType(new_step, optimizer)
     optimizer.zero_grad = types.MethodType(new_zero_grad, optimizer)
+    sgd = isinstance(optimizer, FusedSGD)
     optimizer._prepare_amp_backward = types.MethodType(
-        prepare_backward_with_master_weights, optimizer)
+        prepare_backward_with_master_weights_FusedSGD if sgd
+        else prepare_backward_with_master_weights, optimizer)
     optimizer._post_amp_backward = types.MethodType(
-        post_backward_with_master_weights, optimizer)
+        post_backward_with_master_weights_FusedSGD if sgd
+        else post_backward_with_master_weights, optimizer)
 
 
 def _patch_no_master_weights(optimizer):

@@ -6,7 +6,9 @@ Entering runs each optimizer's ``_prepare_amp_backward`` and yields
 runs ``_post_amp_backward`` (the half gradients unscaled into fp32 master
 gradients, the overflow flag raised on a non-finite one) and
 ``update_scale`` (one host read); on an overflow each optimizer's next
-``step()`` is patched, once, to skip and print "Gradient overflow".
+``step()`` is patched, once, to skip and print "Gradient overflow".  An
+optimizer with a ``DistributedDataParallel`` attached has its gradients
+exchanged before the unscale, so that every rank decides alike.
 
 ``delay_unscale=True`` leaves the gradients scaled for a later
 ``scale_loss`` (or ``step()``, which finalizes them) to unscale once.
@@ -22,6 +24,7 @@ import contextlib
 import torch
 
 from ._amp_state import _amp_state, maybe_print
+from ._process_optimizer import exchange_before_unscale, reset_fused_sgd_scale
 
 
 def _patch_step_skip(opt, scaler, idx):
@@ -36,6 +39,7 @@ def _patch_step_skip(opt, scaler, idx):
         for param in getattr(opt._amp_stash, "all_fp32_from_fp16_params",
                              []):
             param.grad = None
+        reset_fused_sgd_scale(opt)
         opt.step = opt_step
         opt._amp_stash.already_patched = False
 
@@ -84,6 +88,7 @@ def scale_loss(loss, optimizers, loss_id=0, model=None, delay_unscale=False,
         return
     loss_scaler.clear_overflow_state()
     for optimizer in optimizers:
+        exchange_before_unscale(optimizer)
         optimizer._post_amp_backward(loss_scaler)
         optimizer._amp_stash.params_have_scaled_gradients = False
         optimizer._amp_stash._delayed_scaler = None

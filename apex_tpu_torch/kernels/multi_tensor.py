@@ -1,5 +1,6 @@
-"""Adam / AdamW over a list of tensors: the CUDA kernel
-``csrc/multi_tensor_adam.cu`` and its plain PyTorch version.
+"""Adam / AdamW and momentum SGD over a list of tensors: the CUDA kernels
+``csrc/multi_tensor_adam.cu`` and ``csrc/multi_tensor_sgd.cu`` and their
+plain PyTorch versions.
 
 Port of ``apex_tpu/kernels/multi_tensor.py::fused_adam``: over
 ``[grads, params, exp_avgs, exp_avg_sqs]``, in fp32 and in the op order of
@@ -9,16 +10,23 @@ entering as fp32 values (:func:`adam_scalars`): on the host when the step is
 a Python number, on the device when it is a tensor, so a train step whose
 step count lives on the card makes no host round trip.
 
-Two differences from the JAX function, both of them what an in-place
-update needs: p, m and v are updated in place (and returned), and the
+Port of ``apex_tpu/kernels/multi_tensor.py::fused_sgd``: over ``[grads,
+params, momenta]`` or, with a half model copy of the params written in the
+same pass, ``[grads, master_params, momenta, model_params]``, in fp32 and in
+the op order of ``_sgd_kernel`` (:func:`fused_sgd`).  Its gradients may mix
+dtypes within one list (bf16 conv gradients beside fp32 BatchNorm ones):
+the kernel reads each tensor's gradient in its own dtype.
+
+Two differences from the JAX functions, both of them what an in-place
+update needs: the tensors are updated in place (and returned), and the
 ``noop_flag`` is the skip flag: when it is set, every tensor is left as it
-was (the JAX train step computes the update and then selects the old
-values; the result is the same).  Like the reference, the update never
-writes the flag.  The gradients, and each of p, m and v, are fp32, bf16 or
-fp16 (one dtype a list): every value is updated in fp32 and written back in
-its own dtype, as the JAX function casts its results back.  A CUDA tensor
+was (the JAX functions compute the update and the caller or the function
+then selects the old values; the result is the same).  Neither update
+writes the flag.  Every value is updated in fp32 and written back in its
+own dtype, as the JAX functions cast their results back.  A CUDA tensor
 launches the kernel, one launch per list of up to 256 tensors; a CPU tensor
-takes :func:`fused_adam_reference`.
+takes the plain version (:func:`fused_adam_reference`,
+:func:`fused_sgd_reference`).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from .. import _build
 from .dispatch import LAUNCHES, KERNEL_DTYPES, dtype_code, use_kernel
 
 LAUNCHES.setdefault("fused_adam", 0)
+LAUNCHES.setdefault("fused_sgd", 0)
 
 # the slots of the fp32 scalar vector the kernel reads
 LR, WD, B1, OMB1, B2, OMB2, EPS, BC1, BC2 = range(9)
@@ -131,7 +140,7 @@ def fused_adam_reference(noop_flag, tensor_lists, scal, mode, use_wd):
                 dst.copy_(torch.where(skip, dst, new.to(dst.dtype)))
 
 
-def _validate(noop_flag, tensor_lists, mode):
+def _validate_adam(noop_flag, tensor_lists, mode):
     if len(tensor_lists) != 4:
         raise ValueError(f"fused_adam takes [grads, params, exp_avgs, "
                          f"exp_avg_sqs], got {len(tensor_lists)} lists")
@@ -170,7 +179,7 @@ def _validate(noop_flag, tensor_lists, mode):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
+def _adam_lib():
     lib = _build.load("multi_tensor_adam")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.apex_adam_max_tensors.argtypes = []
@@ -186,37 +195,40 @@ def _lib():
 _TABLES: collections.OrderedDict = collections.OrderedDict()
 
 
-def _table(ps, ms, vs, chunk):
-    """The kernel's device table for one list (p, m, v addresses, sizes,
-    chunk -> (tensor, offset) map) and its chunk count, kept across calls
-    (at most 64 lists): the in-place updates keep the addresses, so a train
-    step builds it once."""
-    key = (ps[0].device.index,) + tuple(
-        (p.data_ptr(), m.data_ptr(), v.data_ptr(), p.numel())
-        for p, m, v in zip(ps, ms, vs))
+def _table(first, second, third, chunk):
+    """A kernel's device table for one list of tensors (the addresses of
+    the tensors of ``first``, ``second`` and ``third``, a ``None`` list
+    giving null addresses; the sizes of ``first``; the chunk -> (tensor,
+    offset) map) and its chunk count, kept across calls (at most 64
+    lists): the in-place updates keep the addresses, so a train step builds
+    it once."""
+    lists = (first, second, third)
+    addrs = np.array([[0] * len(first) if lst is None else
+                      [t.data_ptr() for t in lst] for lst in lists],
+                     np.int64)
+    key = (first[0].device.index, addrs.tobytes(),
+           tuple(t.numel() for t in first))
     hit = _TABLES.get(key)
     if hit is not None:
         _TABLES.move_to_end(key)
         return hit
-    nt = len(ps)
-    sizes = np.array([p.numel() for p in ps], np.int64)
+    nt = len(first)
+    sizes = np.array([t.numel() for t in first], np.int64)
     per = (sizes + chunk - 1) // chunk
     owner = np.repeat(np.arange(nt, dtype=np.int64), per)
-    first = np.repeat(np.cumsum(per) - per, per)
-    offset = (np.arange(owner.size, dtype=np.int64) - first) * chunk
-    addrs = np.array([[t.data_ptr() for t in lst] for lst in (ps, ms, vs)],
-                     np.int64).reshape(-1)
-    flat = np.concatenate([addrs, sizes,
+    start = np.repeat(np.cumsum(per) - per, per)
+    offset = (np.arange(owner.size, dtype=np.int64) - start) * chunk
+    flat = np.concatenate([addrs.reshape(-1), sizes,
                            np.stack([owner, offset], 1).reshape(-1)])
-    hit = (torch.from_numpy(flat).to(ps[0].device), int(owner.size))
+    hit = (torch.from_numpy(flat).to(first[0].device), int(owner.size))
     _TABLES[key] = hit
     if len(_TABLES) > 64:
         _TABLES.popitem(last=False)
     return hit
 
 
-def _launch(noop_flag, tensor_lists, scal, mode, use_wd):
-    lib = _lib()
+def _launch_adam(noop_flag, tensor_lists, scal, mode, use_wd):
+    lib = _adam_lib()
     maxt, chunk = lib.apex_adam_max_tensors(), lib.apex_adam_chunk()
     gs, ps, ms, vs = tensor_lists
     flag = noop_flag.reshape(())
@@ -247,7 +259,7 @@ def fused_adam(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
     nothing changes when ``noop_flag`` (a one-element int32 tensor) is set.
     ``step`` is the 1-based step count, a Python int or a device tensor.
     Returns ``(noop_flag, params, exp_avgs, exp_avg_sqs)``."""
-    _validate(noop_flag, tensor_lists, mode)
+    _validate_adam(noop_flag, tensor_lists, mode)
     gs, ps, ms, vs = tensor_lists
     if not gs:
         return noop_flag, [], [], []
@@ -255,7 +267,190 @@ def fused_adam(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
                         weight_decay, ps[0].device)
     use_wd = _static_nonzero(weight_decay)
     if use_kernel(noop_flag, *gs, *ps, *ms, *vs):
-        _launch(noop_flag, tensor_lists, scal, mode, use_wd)
+        _launch_adam(noop_flag, tensor_lists, scal, mode, use_wd)
     else:
         fused_adam_reference(noop_flag, tensor_lists, scal, mode, use_wd)
     return noop_flag, list(ps), list(ms), list(vs)
+
+
+# ---------------------------------------------------------------------------
+# SGD
+# ---------------------------------------------------------------------------
+
+# the slots of the fp32 scalar vector the SGD kernel reads
+SGD_LR, SGD_WD, SGD_SCALE, SGD_MOM, SGD_OMD = range(5)
+_COPY_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def sgd_scalars(lr, weight_decay, scale, momentum, dampening, device):
+    """The five fp32 scalars of the SGD update (lr, wd, scale, momentum,
+    1 - dampening) as a (5,) tensor on ``device``.  ``lr`` and ``scale``
+    are numbers or device scalars (a scheduled lr, an amp scale), ``wd`` a
+    number or a device scalar (0 when it is a Python zero); ``momentum`` and
+    ``dampening`` are Python numbers, and ``1 - dampening`` is taken in
+    double before its rounding to fp32, as the JAX kernel's Python float
+    is."""
+    for name, x in (("momentum", momentum), ("dampening", dampening)):
+        if not isinstance(x, (int, float)):
+            raise TypeError(f"sgd_scalars: {name} must be a Python number, "
+                            f"got {type(x).__name__}")
+    wd = weight_decay if _static_nonzero(weight_decay) else 0.0
+    vals = [lr, wd, scale, momentum, 1.0 - dampening]
+    if all(isinstance(v, (int, float)) for v in vals):
+        return _cached_vector(vals, device)
+    return torch.stack([
+        v.to(device=device, dtype=torch.float32).reshape(())
+        if isinstance(v, torch.Tensor)
+        else torch.tensor(v, dtype=torch.float32, device=device)
+        for v in vals])
+
+
+def _sgd_math(g, p, m, s, has_mom, nesterov, first_run, wd_after, use_wd):
+    """One SGD update of fp32 ``g, p, m`` with the scalars ``s`` (0-dim
+    fp32 tensors on their device), one rounding per operation in the op
+    order of the kernel.  Returns the new (p, m); m is returned as it came
+    without momentum."""
+    gf = g * s[SGD_SCALE]
+    if use_wd and not wd_after:
+        gf = gf + s[SGD_WD] * p
+    upd = gf
+    if has_mom:
+        m = gf if first_run else s[SGD_MOM] * m + s[SGD_OMD] * gf
+        upd = gf + s[SGD_MOM] * m if nesterov else m
+    if use_wd and wd_after:
+        upd = upd + s[SGD_WD] * p
+    return p - s[SGD_LR] * upd, m
+
+
+def fused_sgd_reference(noop_flag, tensor_lists, scal, has_mom, nesterov,
+                        first_run, wd_after_momentum, use_wd):
+    """The plain version of the kernel: the same update in PyTorch
+    operations on the scalar vector ``scal`` from :func:`sgd_scalars`, in
+    place, leaving every tensor untouched when ``noop_flag`` is set; with
+    momentum off (``has_mom`` False) the momenta are not written."""
+    s = list(scal.unbind())
+    skip = noop_flag.reshape(()) > 0
+    copies = tensor_lists[3] if len(tensor_lists) == 4 \
+        else [None] * len(tensor_lists[0])
+    with torch.no_grad():
+        for g, p, m, c in zip(*tensor_lists[:3], copies):
+            np_, nm = _sgd_math(g.float(), p.float(), m.float(), s, has_mom,
+                                nesterov, first_run, wd_after_momentum,
+                                use_wd)
+            out = [(p, np_)] + ([(m, nm)] if has_mom else []) \
+                + ([] if c is None else [(c, np_)])
+            for dst, new in out:
+                dst.copy_(torch.where(skip, dst, new.to(dst.dtype)))
+
+
+def _validate_sgd(noop_flag, tensor_lists):
+    depth = len(tensor_lists)
+    if depth not in (3, 4):
+        raise ValueError(f"fused_sgd supports depth 3 or 4, got {depth}")
+    if len({len(lst) for lst in tensor_lists}) != 1:
+        raise ValueError(f"fused_sgd: list lengths differ "
+                         f"{tuple(len(lst) for lst in tensor_lists)}")
+    if not isinstance(noop_flag, torch.Tensor) or noop_flag.numel() != 1 \
+            or noop_flag.dtype != torch.int32:
+        raise TypeError("fused_sgd: noop_flag must be a one-element int32 "
+                        "tensor")
+    for name, lst in zip(("params", "momenta", "model params"),
+                         tensor_lists[1:]):
+        dtypes = {t.dtype for t in lst}
+        if len(dtypes) > 1:
+            raise TypeError(f"fused_sgd: the {name} of one list share a "
+                            f"dtype, got {sorted(map(str, dtypes))}")
+    for i, (g, p, m, *c) in enumerate(zip(*tensor_lists)):
+        if g.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"fused_sgd: gradient {i} dtype {g.dtype} not "
+                            f"supported (float32, bfloat16 or float16)")
+        if p.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"fused_sgd: param {i} dtype {p.dtype} not "
+                            f"supported (float32, bfloat16 or float16)")
+        if m.dtype != torch.float32:
+            raise TypeError(f"fused_sgd: momentum {i} must be float32, got "
+                            f"{m.dtype}")
+        if c and c[0].dtype not in _COPY_DTYPES:
+            raise TypeError(f"fused_sgd: model param {i} dtype {c[0].dtype} "
+                            f"not supported (bfloat16 or float16)")
+        for name, t in [("param", p), ("momentum", m)] + \
+                [("model param", x) for x in c]:
+            if t.shape != g.shape:
+                raise ValueError(f"fused_sgd: {name} {i} shape "
+                                 f"{tuple(t.shape)} != gradient shape "
+                                 f"{tuple(g.shape)}")
+            if not t.is_contiguous():
+                raise ValueError(f"fused_sgd: {name} {i} must be contiguous "
+                                 f"(it is updated in place)")
+
+
+@functools.lru_cache(maxsize=None)
+def _sgd_lib():
+    lib = _build.load("multi_tensor_sgd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.apex_sgd_max_tensors.argtypes = []
+    lib.apex_sgd_max_tensors.restype = i
+    lib.apex_sgd_chunk.argtypes = []
+    lib.apex_sgd_chunk.restype = i
+    lib.apex_sgd.argtypes = [ctypes.POINTER(p), ctypes.POINTER(ctypes.c_ubyte),
+                             p, i, i, p, p] + [i] * 7 + [p]
+    lib.apex_sgd.restype = i
+    return lib
+
+
+def _launch_sgd(noop_flag, tensor_lists, scal, has_mom, nesterov, first_run,
+                wd_after_momentum, use_wd):
+    lib = _sgd_lib()
+    maxt, chunk = lib.apex_sgd_max_tensors(), lib.apex_sgd_chunk()
+    gs, ps, ms = tensor_lists[:3]
+    cs = tensor_lists[3] if len(tensor_lists) == 4 else None
+    cdtype = -1 if cs is None else dtype_code(cs[0].dtype)
+    flag = noop_flag.reshape(())
+    with torch.cuda.device(ps[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for i in range(0, len(gs), maxt):
+            sub = slice(i, i + maxt)
+            table, nc = _table(ps[sub], ms[sub],
+                               None if cs is None else cs[sub], chunk)
+            if nc == 0:
+                continue            # every tensor of the list is empty
+            gsub = [g.contiguous() for g in gs[sub]]
+            grads = (ctypes.c_void_p * len(gsub))(
+                *[g.data_ptr() for g in gsub])
+            codes = (ctypes.c_ubyte * len(gsub))(
+                *[dtype_code(g.dtype) for g in gsub])
+            err = lib.apex_sgd(grads, codes, table.data_ptr(), len(gsub), nc,
+                               scal.data_ptr(), flag.data_ptr(),
+                               dtype_code(ps[0].dtype), cdtype, int(use_wd),
+                               int(wd_after_momentum), int(has_mom),
+                               int(first_run), int(nesterov), stream)
+            _build.check(lib, err, "fused_sgd")
+            LAUNCHES["fused_sgd"] += 1
+
+
+def fused_sgd(noop_flag, tensor_lists, wd, momentum, dampening, lr,
+              nesterov: bool, first_run: bool, wd_after_momentum: bool,
+              scale=1.0):
+    """Momentum SGD over ``[grads, params, momenta]`` (depth 3) or
+    ``[grads, master_params, momenta, model_params]`` (depth 4, the half
+    model copy written from the new params), in place; nothing changes when
+    ``noop_flag`` (a one-element int32 tensor) is set.  ``scale``
+    multiplies each gradient first (amp's unscale folded in); ``lr``,
+    ``wd`` and ``scale`` may be device scalars.  The gradients of one list
+    may mix fp32, bf16 and fp16; the momenta are fp32, the params of one
+    dtype, the model copy bf16 or fp16.  Returns ``(noop_flag, params,
+    momenta[, model_params])``, the JAX function's tuple."""
+    _validate_sgd(noop_flag, tensor_lists)
+    gs, ps, ms = tensor_lists[:3]
+    out = (noop_flag, list(ps), list(ms)) + (
+        (list(tensor_lists[3]),) if len(tensor_lists) == 4 else ())
+    if not gs:
+        return out
+    scal = sgd_scalars(lr, wd, scale, momentum, dampening, ps[0].device)
+    args = (float(momentum) != 0.0, bool(nesterov), bool(first_run),
+            bool(wd_after_momentum), _static_nonzero(wd))
+    if use_kernel(noop_flag, *(t for lst in tensor_lists for t in lst)):
+        _launch_sgd(noop_flag, tensor_lists, scal, *args)
+    else:
+        fused_sgd_reference(noop_flag, tensor_lists, scal, *args)
+    return out

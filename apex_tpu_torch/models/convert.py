@@ -3,7 +3,9 @@
 The port keeps the JAX package's parameter names (``tok_emb.weight``,
 ``blocks.{i}.attn.in_proj_weight``, ``blocks.{i}.fc1.weight``, ...,
 ``ln_f.bias``) and layouts (Linear weights are (out, in) on both sides), so
-the state dict maps one to one.
+the state dict maps one to one.  Buffers travel with the parameters:
+BatchNorm's running statistics, and its ``num_batches_tracked``, an int32
+in the JAX package and an int64 here (each side's integer dtype is kept).
 """
 from __future__ import annotations
 
@@ -42,11 +44,17 @@ def from_jax_state_dict(model: torch.nn.Module, sd) -> torch.nn.Module:
 def to_numpy_state_dict(model: torch.nn.Module) -> dict:
     """The inverse of :func:`from_jax_state_dict`: ``{name: np.ndarray}``
     under the JAX package's names, on the host (bf16 values widened to
-    fp32, which holds them exactly, since numpy has no bf16)."""
+    fp32, which holds them exactly, since numpy has no bf16; int64 counters
+    narrowed to the JAX package's int32)."""
     out = {}
     for name, t in model.state_dict().items():
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        elif t.dtype == torch.int64:
+            if t.numel() and t.abs().max() > torch.iinfo(torch.int32).max:
+                raise OverflowError(f"{name}: {t.abs().max()} does not fit "
+                                    f"the JAX package's int32")
+            t = t.to(torch.int32)
         out[name] = t.numpy().copy()
     return out

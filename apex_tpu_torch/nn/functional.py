@@ -1,8 +1,10 @@
 """Functional ops, the PyTorch counterpart of ``apex_tpu/nn/functional.py``
-(so far the loss of the GPT training path)."""
+(so far the loss of the training paths and the batch norm that
+``parallel.SyncBatchNorm`` runs across ranks)."""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..kernels.dispatch import MASKED_LOGIT_THR
 
@@ -48,3 +50,82 @@ def cross_entropy(logits, target, weight=None, reduction="mean",
         if reduction == "mean":
             return nll.sum() / w.sum()
     return _reduce(nll, reduction)
+
+
+class _AllGather(torch.autograd.Function):
+    """``all_gather`` that carries a gradient: forward stacks every rank's
+    ``x`` (group size first); backward sums the stacked gradient over the
+    ranks and keeps this rank's slice (``torch.distributed.all_gather``
+    alone is not differentiable, and gloo has no reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = [torch.empty_like(x)
+               for _ in range(dist.get_world_size(group))]
+        dist.all_gather(out, x, group=group)
+        return torch.stack(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad[dist.get_rank(ctx.group)], None
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.1, eps=1e-5, process_group=None):
+    """torch-semantics batch norm over dim 1 (N, C, ...), in plain PyTorch,
+    the port of the JAX package's ``F.batch_norm``.
+
+    In training the local statistics are a shifted two-pass ``(mean, m2)``
+    in fp32.  Given a ``torch.distributed`` ``process_group`` of more than
+    one rank (``torch.distributed.group.WORLD`` for all; the SyncBatchNorm
+    path), every rank's ``(mean, m2, count)`` is all-gathered, with a
+    gradient, and merged as a Welford merge; the JAX package gathers over a
+    mesh axis in the same way, where every shard has the same count.  Here
+    a rank may hold fewer rows than another (a last partial batch), so the
+    merge weighs each rank by its count (carried in fp32: exact up to 2^24
+    values a channel on a rank).  The normalisation uses the biased
+    variance, the running variance the unbiased one (``count / max(count -
+    1, 1)``).  Returns ``(y, new_running_mean, new_running_var)`` with
+    ``y`` in ``x.dtype``."""
+    reduce_axes = (0,) + tuple(range(2, x.dim()))
+    shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    xf = x.float()
+    if training:
+        local_count = x.numel() // x.shape[1]
+        mean = xf.mean(dim=reduce_axes)
+        m2 = (xf - mean.reshape(shape)).square().sum(dim=reduce_axes)
+        count = float(local_count)
+        group = 1 if process_group is None \
+            else dist.get_world_size(process_group)
+        if group > 1:
+            every = _AllGather.apply(
+                torch.stack([mean, m2, torch.full_like(mean, count)]),
+                process_group)
+            means, m2s, counts = every[:, 0], every[:, 1], every[:, 2]
+            count = counts.sum(dim=0)
+            mean = (counts * means).sum(dim=0) / count
+            m2 = m2s.sum(dim=0) + (counts * (means - mean).square()).sum(
+                dim=0)
+            var = m2 / count
+            unbiased = var * (count / (count - 1.0).clamp_min(1.0))
+        else:
+            var = m2 / count
+            unbiased = var * (count / max(count - 1.0, 1.0))
+        new_rm = None if running_mean is None else \
+            (1 - momentum) * running_mean + momentum * mean.detach()
+        new_rv = None if running_var is None else \
+            (1 - momentum) * running_var + momentum * unbiased.detach()
+    else:
+        mean, var = running_mean, running_var
+        new_rm, new_rv = running_mean, running_var
+    inv = torch.rsqrt(var.float() + eps)
+    y = (xf - mean.reshape(shape)) * inv.reshape(shape)
+    if weight is not None:
+        y = y * weight.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    return y.to(x.dtype), new_rm, new_rv

@@ -9,9 +9,13 @@ plain version on CPU tensors; unlike the JAX op it updates params and
 moments in place and reads the flag as a skip flag (the JAX train step
 selects the old values on a set flag, to the same effect).
 ``adam_unfused`` is the JAX package's per-tensor loop: functional, and
-blind to the flag.  ``multi_tensor_axpby``, ``multi_tensor_l2norm`` and
-``multi_tensor_maxnorm`` are jnp in the JAX package and plain PyTorch here.
-The other ops (sgd, lamb, novograd) come with the slices that run them.
+blind to the flag.  ``multi_tensor_sgd`` is the hand-written SGD kernel
+(depth 3, or depth 4 with the half model copy) in the same way, skipping
+itself on a set flag; ``sgd_unfused`` is the JAX package's per-tensor SGD
+loop: functional, returning the old tensors on a set flag.
+``multi_tensor_axpby``, ``multi_tensor_l2norm`` and ``multi_tensor_maxnorm``
+are jnp in the JAX package and plain PyTorch here.
+The other ops (lamb, novograd) come with the slices that run them.
 """
 from __future__ import annotations
 
@@ -130,3 +134,43 @@ def adam_unfused(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
         new_ms.append(mf.to(m.dtype))
         new_vs.append(vf.to(v.dtype))
     return noop_flag, new_ps, new_ms, new_vs
+
+
+def multi_tensor_sgd(noop_flag, tensor_lists, wd, momentum, dampening, lr,
+                     nesterov: bool, first_run: bool, wd_after_momentum: bool,
+                     scale=1.0):
+    """Momentum SGD over ``[grads, params, momenta]`` (depth 3) or
+    ``[grads, master_params, momenta, model_params]`` (depth 4) in one
+    kernel launch per list, in place; nothing changes when the flag is set.
+    ``scale`` multiplies the gradients first.  Returns ``(noop_flag,
+    params, momenta[, model_params])``."""
+    return _k.fused_sgd(noop_flag, tensor_lists, wd, momentum, dampening, lr,
+                        nesterov, first_run, wd_after_momentum, scale)
+
+
+def sgd_unfused(noop_flag, tensor_lists, wd, momentum, dampening, lr,
+                nesterov: bool, first_run: bool, wd_after_momentum: bool,
+                scale=1.0):
+    """The JAX package's per-tensor SGD: new tensors in the params',
+    momenta's and model copies' dtypes, the old ones where the flag is set
+    (the reference kernel's early exit).  Depth 3 returns ``(flag, params,
+    momenta)``, depth 4 also the model copies."""
+    depth = len(tensor_lists)
+    if depth not in (3, 4):
+        raise ValueError(f"multi_tensor_sgd supports depth 3 or 4, got "
+                         f"{depth}")
+    gs, ps, ms = tensor_lists[:3]
+    outs = ([], [], []) if depth == 4 else ([], [])
+    if not gs:
+        return (noop_flag,) + outs
+    s = list(_k.sgd_scalars(lr, wd, scale, momentum, dampening,
+                            ps[0].device).unbind())
+    skip = noop_flag.reshape(()) > 0
+    copies = tensor_lists[3] if depth == 4 else [None] * len(gs)
+    for g, p, m, c in zip(gs, ps, ms, copies):
+        pf, mf = _k._sgd_math(g.float(), p.float(), m.float(), s,
+                              momentum != 0.0, nesterov, first_run,
+                              wd_after_momentum, _static_nonzero(wd))
+        for out, old, new in zip(outs, (p, m, c), (pf, mf, pf)):
+            out.append(torch.where(skip, old, new.to(old.dtype)))
+    return (noop_flag,) + outs

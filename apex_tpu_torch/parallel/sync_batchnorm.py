@@ -1,0 +1,82 @@
+"""SyncBatchNorm, the PyTorch counterpart of
+``apex_tpu/parallel/sync_batchnorm.py`` (and of the reference's
+``apex/parallel/sync_batchnorm.py``).
+
+A subclass of torch's ``_BatchNorm``, so amp's ``keep_batchnorm_fp32``
+and the fused train step treat it as BatchNorm.  In training with more
+than one rank in its group, each rank's ``(mean, m2, count)`` is
+all-gathered, with a gradient, and merged as a Welford merge weighted by
+the counts, so ranks may hold batches of different sizes
+(:func:`apex_tpu_torch.nn.functional.batch_norm`), the reference's
+``welford_parallel`` scheme.  With one rank, or without
+``torch.distributed``, it computes what ``torch.nn.BatchNorm2d`` computes
+(the JAX package's unbound-axis case); in eval mode it uses the running
+statistics and no collective.  ``channel_last=True`` (NHWC activations) is
+owed to the channels-last slice and raises until then.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+from torch.nn.modules.batchnorm import _BatchNorm
+
+from ..nn import functional as F
+
+
+class SyncBatchNorm(_BatchNorm):
+    """Cross-rank BatchNorm; ``process_group`` (default: every rank) is
+    the group whose ranks share statistics, ``fuse_relu`` applies a ReLU to
+    the output."""
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.1, affine=True,
+                 track_running_stats=True, process_group=None,
+                 channel_last=False, fuse_relu=False, device=None,
+                 dtype=None):
+        if channel_last:
+            raise NotImplementedError(
+                "SyncBatchNorm(channel_last=True) is not ported yet (the "
+                "channels-last slice decides the port's NHWC layout)")
+        super().__init__(num_features, eps=eps, momentum=momentum,
+                         affine=affine,
+                         track_running_stats=track_running_stats,
+                         device=device, dtype=dtype)
+        self.process_group = process_group
+        self.fuse_relu = fuse_relu
+
+    def _check_input_dim(self, x):
+        if x.dim() < 2:
+            raise ValueError(f"expected at least 2D input (got {x.dim()}D "
+                             f"input)")
+
+    def _group(self):
+        """The process group to gather over, or None when there is one
+        rank."""
+        if not dist.is_available() or not dist.is_initialized():
+            return None
+        group = self.process_group or dist.group.WORLD
+        return group if dist.get_world_size(group) > 1 else None
+
+    def forward(self, x):
+        self._check_input_dim(x)
+        bn_training = self.training or (self.running_mean is None
+                                        and self.running_var is None)
+        group = self._group() if bn_training else None
+        if group is None:
+            y = super().forward(x)
+        else:
+            track = self.training and self.track_running_stats
+            if track:
+                self.num_batches_tracked.add_(1)
+            momentum = self.momentum
+            if momentum is None:    # a cumulative average, as torch's
+                momentum = 1.0 / float(self.num_batches_tracked)
+            y, new_rm, new_rv = F.batch_norm(
+                x, self.running_mean if track else None,
+                self.running_var if track else None, self.weight,
+                self.bias, training=True, momentum=momentum, eps=self.eps,
+                process_group=group)
+            if track:
+                with torch.no_grad():
+                    self.running_mean.copy_(new_rm)
+                    self.running_var.copy_(new_rv)
+        return torch.relu(y) if self.fuse_relu else y

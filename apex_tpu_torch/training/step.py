@@ -3,9 +3,9 @@
 
 One call runs the whole iteration on the card with no host round trip:
 the O2-style forward on half copies of the parameters, the backward, the
-unscale and overflow check into fp32 master gradients, the Adam update of
-the fp32 masters (the hand-written kernel, which skips itself on a set
-overflow flag), the re-made half copies and the loss-scale update.  The
+unscale and overflow check into fp32 master gradients, the Adam or SGD
+update of the fp32 masters (a hand-written kernel, which skips itself on a
+set overflow flag), the re-made half copies and the loss-scale update.  The
 state is device tensors updated in place, which is what buffer donation
 buys the JAX package; the ``noop`` skip, the step count and the scaler
 live on the device, so the step reads nothing back.
@@ -14,7 +14,7 @@ Gradient accumulation (``accum_steps``) and lr schedules (``lr_schedule``)
 run as in the JAX step.  What the JAX step does beyond that is owed to
 later slices and refused here with ``NotImplementedError``: data, tensor
 and ZeRO parallelism, flat masters, telemetry and optimizers other than
-``FusedAdam``.
+``FusedAdam`` and ``FusedSGD``.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 from .. import ops
 from ..amp.scaler import ScalerState, update_scale_state
 from ..ops.multi_tensor import nonfinite_flag
-from ..optimizers import FusedAdam
+from ..optimizers import FusedAdam, FusedSGD
 
 _f32 = torch.float32
 
@@ -161,20 +161,47 @@ def model_vals_of(state: StepState):
 
 def build_opt_update(optimizer, params, group_idxs,
                      caller="make_train_step"):
-    """The optimizer as an update over flat lists, one
-    ``ops.multi_tensor_adam`` per param group.  Returns ``(opt_update,
-    opt_init)``; ``opt_update(flag, grads, masters, slots, step,
-    lr_scale=None)`` updates masters and slots in place and leaves them
-    untouched on a set flag; a device ``lr_scale`` multiplies each group's
-    lr on the device."""
-    if not isinstance(optimizer, FusedAdam):
-        raise NotImplementedError(
-            f"{caller}: only FusedAdam is ported so far; FusedSGD comes with "
-            f"the ResNet baseline slice, FusedLAMB and FusedNovoGrad after "
-            f"it (got {type(optimizer).__name__})")
+    """The optimizer as an update over flat lists, one kernel launch per
+    param group (``ops.multi_tensor_adam`` or ``ops.multi_tensor_sgd``).
+    Returns ``(opt_update, opt_init)``; ``opt_update(flag, grads, masters,
+    slots, step, lr_scale=None)`` updates masters and slots in place and
+    leaves them untouched on a set flag; a device ``lr_scale`` multiplies
+    each group's lr on the device.  The gradients may mix dtypes: the SGD
+    kernel reads each in its own, and the Adam branch widens a mixed list
+    to fp32 first (its kernel takes one gradient dtype a list)."""
     opt = optimizer
+    if isinstance(opt, FusedSGD):
+        def opt_update(flag, grads, masters, slots, step, lr_scale=None):
+            for group, idxs in zip(opt.param_groups, group_idxs):
+                if not idxs:
+                    continue
+                lr = group["lr"] if lr_scale is None \
+                    else group["lr"] * lr_scale
+                # the JAX step's branch: first_run False and scale 1 (from
+                # zero momenta without dampening the first update is a
+                # first run's)
+                ops.multi_tensor_sgd(
+                    flag, [[grads[i] for i in idxs],
+                           [masters[i] for i in idxs],
+                           [slots["momentum"][i] for i in idxs]],
+                    group["weight_decay"], group["momentum"],
+                    group["dampening"], lr, group["nesterov"], False,
+                    opt.wd_after_momentum, 1.0)
+
+        def opt_init():
+            return {"momentum": [torch.zeros(p.shape, dtype=_f32,
+                                             device=p.device)
+                                 for p in params]}
+        return opt_update, opt_init
+    if not isinstance(opt, FusedAdam):
+        raise NotImplementedError(
+            f"{caller}: only FusedAdam and FusedSGD are ported so far; "
+            f"FusedLAMB and FusedNovoGrad come with later slices (got "
+            f"{type(optimizer).__name__})")
 
     def opt_update(flag, grads, masters, slots, step, lr_scale=None):
+        if len({g.dtype for g in grads}) > 1:
+            grads = [g.float() for g in grads]
         for group, idxs in zip(opt.param_groups, group_idxs):
             if not idxs:
                 continue
@@ -210,10 +237,8 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
         master_grads = [g.float() * inv for g in grads]
         flag = nonfinite_flag(zero_flag, master_grads)
     else:
-        flag = zero_flag
-        # the kernel widens the gradients to fp32 itself; one dtype a list
-        master_grads = grads if len({g.dtype for g in grads}) == 1 \
-            else [g.float() for g in grads]
+        # the kernels widen the gradients to fp32 themselves
+        flag, master_grads = zero_flag, grads
     step_count = state.step + 1
     opt_update(flag, master_grads, state.master_params, state.opt_state,
                step_count, lr_scale=None if lr_schedule is None
@@ -296,7 +321,10 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     (:mod:`apex_tpu_torch.optimizers.schedules`) scales each group's lr by
     its value at the 1-based device step count, on the device.
 
-    Only ``FusedAdam`` is ported.  ``axis_name``, ``tp_axis``, the DDP
+    ``FusedAdam`` and ``FusedSGD`` are ported.  A model's buffers
+    (BatchNorm's running statistics) are its own, updated in place by its
+    forward, as the JAX step carries them through a skipped step too.
+    ``axis_name``, ``tp_axis``, the DDP
     knobs, ``zero_sharding``, ``flat_master``, ``parallel`` and
     ``telemetry`` raise ``NotImplementedError``.  ``donate_state`` has
     nothing to choose: the state is always updated in place."""

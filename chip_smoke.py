@@ -57,7 +57,28 @@ Phases, each of which raises on failure:
    moments through the Adam kernel, eps 1e-4), batch 4 x 1024, 3
    iterations, the launch counts of the third; the overflow skip on the
    card and the CPU (batch 1 x 8); and ``delay_unscale`` over two backward
-   passes of one batch against the undelayed accumulation.
+   passes of one batch against the undelayed accumulation;
+9. the SGD kernel against its plain version, bit for bit, at ResNet-50's
+   161 parameter shapes (depth 3 with the fused step's mixed bf16/fp32
+   gradients, depth 4 with an fp16 and a bf16 model copy, ``first_run``,
+   nesterov with weight decay after momentum, momentum 0, a set noop flag,
+   ragged and misaligned tensors), with its time, its bound, the plain
+   version's and ``torch.optim.SGD(fused=True)``'s (this runs with phase 2);
+10. the bench's ResNet path: ``make_train_step(resnet50, FusedSGD(lr 0.1,
+   momentum 0.9, weight_decay 1e-4), cross entropy, bf16 half copies)`` at
+   batch 128 of 3 x 224 x 224 from ``numpy.random.default_rng(0)``: the
+   launch counts of one step (one SGD launch), 10 timed steps (step ms,
+   images/s, peak memory, losses falling) and one profiled step; the same
+   step on the card and on the CPU in fp32 (``cudnn.deterministic``,
+   default initialisation, batch 2 of 3 x 64 x 64, 3 steps), each held
+   against a plain fp64 loop on the CPU at step 1;
+11. ``examples/imagenet/main_amp.py``'s loop: ``torch.distributed`` (NCCL,
+   world size 1), ``convert_syncbn_model``, ``amp.initialize(O2)`` (fp16,
+   dynamic scale), ``DistributedDataParallel``, ``FusedSGD``, batch 64 of
+   3 x 224 x 224, 10 iterations (two SGD launches each, depth 4 and depth
+   3; DDP's exchanges; images/s; a profiled iteration); SyncBatchNorm
+   against BatchNorm2d; a
+   planted overflow skipped alike on the card and on the CPU (gloo).
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -800,6 +821,469 @@ def adam_phase(torch, multi_tensor, shapes):
                 bound_ms=bnd, bound_by=by)
 
 
+RESNET_BATCH, AMP_RESNET_BATCH, IMAGENET_ITERS = 128, 64, 10
+SGD_HYPER = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+
+
+def _resnet_loss(torch):
+    from apex_tpu_torch.nn import functional as F
+    return lambda out, y: F.cross_entropy(out, y)
+
+
+def sgd_phase(torch, multi_tensor, named_shapes, bn_names):
+    """The SGD kernel against its plain version, bit for bit, over the
+    parameter shapes of ResNet-50 and a few others; timing of the two main
+    paths' configurations.  Returns the kernel line's numbers."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    shapes = [s for _, s in named_shapes]
+    # the fused step's gradients: bf16 conv and fc, fp32 BatchNorm
+    step_gd = [f32 if n in bn_names else bf16 for n, _ in named_shapes]
+    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
+
+    def place(x, offset):
+        # a copy of x that starts offset elements into its buffer: with
+        # offset > 0 no address allows a vector access
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device="cuda")
+        return buf[offset:].view(x.shape).copy_(x)
+
+    def make(gds, shps, copy=None, offset=0):
+        lists = [[place(torch.randn(s, generator=g, device="cuda").to(d),
+                        offset) for s, d in zip(shps, gds)],
+                 [place(torch.randn(s, generator=g, device="cuda"), offset)
+                  for s in shps],
+                 [place(torch.randn(s, generator=g, device="cuda") * 0.1,
+                        offset) for s in shps]]
+        if copy is not None:
+            lists.append([place(p.to(copy), offset) for p in lists[1]])
+        return lists
+
+    def clone(lists, offset=0):
+        return [lists[0]] + [[place(t, offset) for t in lst]
+                             for lst in lists[1:]]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for la, lb in zip(a[1:], b[1:])
+                   for x, y in zip(la, lb))
+
+    print(f"SGD kernel vs plain ({len(shapes)} ResNet-50 tensors, {n_el} "
+          f"elements, and ragged ones; bit for bit):")
+    odd = [(1003,), (7, 5), (2 * 65536 + 5,), (3, 333), ()]
+    lr_dev = torch.tensor(0.05, device="cuda")
+    # (tag, gradient dtypes, shapes, copy, momentum, dampening, nesterov,
+    #  wd_after, first_run, lr, scale, offset)
+    cases = [
+        ("depth 3, the fused step's mixed bf16/fp32 grads", step_gd, shapes,
+         None, 0.9, 0.0, False, False, False, 0.1, 1.0, 0),
+        ("depth 4, fp32 grads, fp16 copy, amp scale 1/1024",
+         [f32] * len(shapes), shapes, f16, 0.9, 0.0, False, False, False, 0.1,
+         1 / 1024, 0),
+        ("depth 4, fp16 grads, bf16 copy, dampening 0.1, device lr",
+         [f16] * len(shapes), shapes, bf16, 0.9, 0.1, False, False, False,
+         lr_dev, 1.0, 0),
+        ("first_run", step_gd, shapes, None, 0.9, 0.0, False, False, True,
+         0.1, 1.0, 0),
+        ("nesterov, wd after momentum, scale 2", step_gd, shapes, None, 0.9,
+         0.0, True, True, False, 0.1, 2.0, 0),
+        ("momentum 0, fp16 copy", step_gd, shapes, f16, 0.0, 0.0, False,
+         False, False, 0.1, 1.0, 0),
+        ("ragged sizes, mixed grads, fp16 copy", [bf16, f32, f16, f32, bf16],
+         odd, f16, 0.9, 0.0, False, False, False, 0.1, 0.5, 0),
+        ("ragged sizes one element off alignment", [f32, bf16, f16, bf16, f32],
+         odd, bf16, 0.9, 0.0, True, False, False, 0.1, 1.0, 1)]
+    for (tag, gds, shps, copy, mom, damp, nest, wd_after, first, lr, scale,
+         offset) in cases:
+        base = make(gds, shps, copy, offset)
+        ka, ra = clone(base, offset), clone(base)
+        args = (1e-4, mom, damp, lr, nest, first, wd_after, scale)
+        multi_tensor.fused_sgd(zero, ka, *args)
+        scal = multi_tensor.sgd_scalars(lr, 1e-4, scale, mom, damp, "cuda")
+        multi_tensor.fused_sgd_reference(zero, ra, scal, mom != 0.0, nest,
+                                         first, wd_after, True)
+        torch.cuda.synchronize()
+        if not same(ka, ra):
+            raise AssertionError(f"SGD {tag}: kernel != plain version")
+        if all(torch.equal(a, b) for a, b in zip(ka[1], base[1])):
+            raise AssertionError(f"SGD {tag}: nothing was updated")
+        if mom == 0.0 and not all(torch.equal(a, b)
+                                  for a, b in zip(ka[2], base[2])):
+            raise AssertionError(f"SGD {tag}: momentum 0 wrote the momenta")
+        ka = clone(base, offset)
+        multi_tensor.fused_sgd(one, ka, *args)
+        torch.cuda.synchronize()
+        if not same(ka, base):
+            raise AssertionError(f"SGD {tag}: a set noop flag changed a "
+                                 f"tensor")
+        print(f"  {tag}: bitwise equal; with the noop flag set every tensor "
+              f"unchanged")
+        del base, ka, ra
+
+    numbers = {}
+    for key, gds, copy in (("step", step_gd, None),
+                           ("amp", [f32] * len(shapes), f16)):
+        lists = make(gds, shapes, copy)
+        args = (1e-4, 0.9, 0.0, 0.1, False, False, False, 1.0)
+        ms = median_ms(lambda: multi_tensor.fused_sgd(zero, lists, *args),
+                       reps=15, inner=5)[0]
+        scal = multi_tensor.sgd_scalars(0.1, 1e-4, 1.0, 0.9, 0.0, "cuda")
+        plain = median_ms(lambda: multi_tensor.fused_sgd_reference(
+            zero, lists, scal, True, False, False, False, True),
+            reps=3, inner=1, warmup=1)[0]
+        params = [p.clone().requires_grad_(True) for p in lists[1]]
+        for p, gr in zip(params, lists[0]):
+            p.grad = gr.float()
+        lib_opt = torch.optim.SGD(params, **SGD_HYPER, fused=True)
+        lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
+        nbytes = sum(t.numel() * t.element_size() for t in lists[0]) \
+            + 2 * sum(t.numel() * 4 for t in lists[1] + lists[2]) \
+            + (sum(t.numel() * t.element_size() for t in lists[3])
+               if copy is not None else 0)
+        bnd, by = bound_ms(nbytes, 8 * n_el, FP32_FLOP_PER_S)
+        what = ("depth 3, bf16 conv/fc and fp32 BatchNorm grads, fp32 p/m"
+                if key == "step" else "depth 4, fp32 grads and p/m, fp16 copy")
+        print(f"  time {len(shapes)} tensors, {what}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, torch.optim.SGD(fused=True).step (fp32 "
+              f"grads) {lib:.4f} ms, bound {bnd:.4f} ms ({by}: "
+              f"{nbytes / 1e9:.3f} GB)")
+        numbers[key] = dict(shape=f"{len(shapes)} tensors, {what}",
+                            max_abs_err=0.0, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=bnd, bound_by=by)
+        del lists, params, lib_opt
+    return numbers
+
+
+def resnet_train_path(torch, dispatch, models):
+    """The bench's ResNet step (``bench.py::build_resnet_step``):
+    make_train_step(resnet50, FusedSGD(lr 0.1, momentum 0.9, wd 1e-4),
+    cross entropy, bf16 half copies, static scale 1) at batch 128 of
+    3 x 224 x 224.  Returns the launch counts of one step and its ms."""
+    import numpy as np
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED)
+    model = models.resnet50(num_classes=1000, device="cuda")
+    opt = FusedSGD(list(model.parameters()), **SGD_HYPER)
+    step = make_train_step(model, opt, _resnet_loss(torch),
+                           half_dtype=torch.bfloat16, loss_scale=1.0)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (RESNET_BATCH, 3, 224, 224)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, (RESNET_BATCH,))).cuda()
+    losses = [step(x, y) for _ in range(2)]     # warm-up
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    losses.append(step(x, y))
+    torch.cuda.synchronize()
+    counts = dispatch.counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(fused_sgd=1)
+    print(f"ResNet training path: make_train_step(resnet50, batch "
+          f"{RESNET_BATCH} x 3 x 224 x 224, bf16 half copies, BatchNorm "
+          f"fp32, FusedSGD {SGD_HYPER}, cross entropy)")
+    print(f"  launches in one step: {counts}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        losses.append(step(x, y))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 10
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    values = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite ResNet loss: {values}")
+    if not values[-1] < values[0]:
+        raise AssertionError(f"the ResNet loss did not fall: {values}")
+    print(f"  step {1e3 * step_s:.2f} ms = {RESNET_BATCH / step_s:.1f} "
+          f"images/s (10 steps, host clock, ending in a synchronize); peak "
+          f"memory {peak:.2f} GiB (torch.cuda.max_memory_allocated)")
+    print(f"  losses of {len(values)} steps: "
+          f"{', '.join(f'{v:.4f}' for v in values)}")
+    _print_profile(torch, lambda: step(x, y), 10)
+    del step, opt, model
+    return counts, 1e3 * step_s
+
+
+def resnet_cpu_phase(torch, models):
+    """make_train_step + FusedSGD (the bench's lr 0.1, momentum 0.9, weight
+    decay 1e-4) on ResNet-50 at full width and depth from torch's default
+    initialisation, batch 2 of 3 x 64 x 64, 3 steps: on the card and on the
+    CPU in fp32 (TF32 off, ``cudnn.deterministic``), each held against a
+    plain fp64 loop on the CPU (same weights, same batch, and
+    ``torch.optim.SGD`` in place of the port's train step and FusedSGD; the
+    model's wiring is held against the JAX package's by
+    ``tests/test_torch_resnet.py``).
+
+    This network's backward is ill-conditioned: fp32 gradients of this batch
+    lie about 1e-2 (CPU) to 3e-2 (card, cuDNN) from the fp64 ones, in norm,
+    tensor by tensor, and any two runs part within a step (at step 2 the
+    card's loss lies 9% and the CPU's 1.5% from fp64's).  So the gradient
+    is held where every run takes it from the same weights, at step 1: its
+    loss within 1e-4 (relative); the momenta after it (FusedSGD's
+    ``first_run``: the gradient plus weight decay times p) and the masters'
+    change within 0.1 of fp64's, tensor by tensor in norm (three times the
+    largest reading; one block's branch gradient 15% off on the card reads
+    0.155); the running statistics it leaves (a forward, which is well
+    conditioned) within 1e-4 of max(1, |ref|).  Steps 2-3 print their
+    losses, which must be finite, and leave ``num_batches_tracked`` at 3 in
+    every run."""
+    import numpy as np
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.training import make_train_step
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    torch.backends.cudnn.deterministic = True
+    torch.manual_seed(SEED + 22)
+    sd = models.resnet50(device="cpu").state_dict()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 1000, (2,)))
+    runs = {}
+    for tag, dev in (("card", "cuda"), ("CPU", "cpu")):
+        m = models.resnet50(device=dev)
+        m.load_state_dict(sd)
+        step = make_train_step(m, FusedSGD(list(m.parameters()),
+                                           **SGD_HYPER),
+                               _resnet_loss(torch), loss_scale=1.0)
+        losses = [float(step(x.to(dev), y.to(dev)))]
+        # copies: on the CPU, .cpu() would alias what steps 2-3 update
+        first = ([t.to("cpu", copy=True) for t in step.state.master_params],
+                 [t.to("cpu", copy=True)
+                  for t in step.state.opt_state["momentum"]],
+                 {n: b.to("cpu", copy=True) for n, b in m.named_buffers()
+                  if b.is_floating_point()})
+        losses += [float(step(x.to(dev), y.to(dev))) for _ in range(2)]
+        runs[tag] = (losses,) + first + (
+            {n: int(b) for n, b in m.named_buffers()
+             if not b.is_floating_point()},)
+    torch.backends.cudnn.deterministic = False
+    m = models.resnet50(device="cpu")
+    m.load_state_dict(sd)
+    m = m.double()
+    params = list(m.parameters())
+    opt = torch.optim.SGD(params, foreach=False, **SGD_HYPER)
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = torch.nn.functional.cross_entropy(m(x.double()), y)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        if len(losses) == 1:
+            first = ([p.detach().clone() for p in params],
+                     [opt.state[p]["momentum_buffer"].clone()
+                      for p in params],
+                     {n: b.clone() for n, b in m.named_buffers()
+                      if b.is_floating_point()})
+    runs["fp64"] = (losses,) + first + (
+        {n: int(b) for n, b in m.named_buffers()
+         if not b.is_floating_point()},)
+    init = [sd[n] for n, _ in m.named_parameters()]
+
+    def worst(pairs):
+        """The largest per-tensor norm(a - ref) / norm(ref), and the
+        median."""
+        errs = [float((a.double() - r).norm() / r.norm().clamp_min(1e-300))
+                for a, r in pairs]
+        return max(errs), float(np.median(errs))
+
+    ref = runs["fp64"]
+    print(f"ResNet-50 training from the default initialisation, card and "
+          f"CPU fp32 (TF32 off, cudnn.deterministic) against a CPU fp64 loop "
+          f"(torch.optim.SGD); batch 2 x 3 x 64 x 64, FusedSGD {SGD_HYPER}, "
+          f"3 steps:")
+    print(f"  losses: card {runs['card'][0]}, CPU {runs['CPU'][0]}, fp64 "
+          f"{ref[0]} (steps 2-3 part, fp32 from fp64, on either device)")
+    for tag in ("card", "CPU"):
+        run = runs[tag]
+        check(f"{tag}: step 1 loss vs fp64 (relative)",
+              abs(run[0][0] - ref[0][0]) / abs(ref[0][0]), 1e-4)
+        mom = worst(zip(run[2], ref[2]))
+        chg = worst((a - p0, r - p0) for a, r, p0 in zip(run[1], ref[1],
+                                                          init))
+        print(f"  {tag}: after step 1, per tensor norm(diff) / norm(fp64): "
+              f"momenta max {mom[0]:.3e} median {mom[1]:.3e}; masters' "
+              f"change max {chg[0]:.3e} median {chg[1]:.3e}")
+        check(f"{tag}: momenta after step 1 vs fp64 (worst tensor)",
+              mom[0], 0.1)
+        check(f"{tag}: masters' change in step 1 vs fp64 (worst tensor)",
+              chg[0], 0.1)
+        check(f"{tag}: BatchNorm running statistics after step 1 vs fp64 "
+              f"(max abs diff / max(1, |ref|))",
+              max(scaled_err(b, ref[3][n])[0] for n, b in run[3].items()),
+              1e-4)
+        if not all(math.isfinite(v) for v in run[0]):
+            raise AssertionError(f"{tag}: ResNet-50 losses not finite: "
+                                 f"{run[0]}")
+    tracked = [run[4] for run in runs.values()]
+    if any(t != tracked[0] for t in tracked) or \
+            set(tracked[0].values()) != {3}:
+        raise AssertionError("num_batches_tracked differs between card, CPU "
+                             "and fp64, or is not 3")
+    print(f"  num_batches_tracked: 3 in all {len(tracked[0])} BatchNorm "
+          f"layers of every run")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _imagenet_model(torch, models, parallel, amp, dev, group=None,
+                    max_loss_scale=2.0 ** 24, seed=SEED + 23):
+    """``examples/imagenet/main_amp.py``'s set-up: resnet50 ->
+    convert_syncbn_model -> FusedSGD -> amp.initialize(O2, fp16, dynamic
+    scale) -> DistributedDataParallel."""
+    from apex_tpu_torch.optimizers import FusedSGD
+    torch.manual_seed(seed)
+    model = models.resnet50(device=dev)
+    model = parallel.convert_syncbn_model(model, process_group=group)
+    opt = FusedSGD(list(model.parameters()), **SGD_HYPER)
+    model, opt = amp.initialize(model, opt, opt_level="O2", verbosity=0,
+                                max_loss_scale=max_loss_scale)
+    return parallel.DistributedDataParallel(model, process_group=group), opt
+
+
+def _amp_iteration(amp, model, opt, criterion, x, y, plant=False):
+    """One iteration of the example's loop; returns (loss, skipped)."""
+    loss = criterion(model(x), y)
+    with amp.scale_loss(loss, opt) as scaled:
+        scaled.backward()
+        if plant:
+            p16 = opt._amp_stash.all_fp16_params[0]
+            p16.grad[(0,) * p16.grad.dim()] = float("inf")
+    skipped = opt._amp_stash.already_patched   # scale_loss patched a skip
+    opt.step()
+    opt.zero_grad()
+    return loss, skipped
+
+
+def imagenet_amp_path(torch, dispatch, models):
+    """The example's loop on the card: torch.distributed with NCCL at world
+    size 1, SyncBatchNorm, amp O2 (fp16, dynamic scale), DDP, FusedSGD;
+    batch 64 of 3 x 224 x 224, 10 iterations.  Then SyncBatchNorm against
+    BatchNorm2d, and a planted overflow on the card and on the CPU (a gloo
+    group).  Returns the launch counts of one iteration and images/s."""
+    import numpy as np
+    import torch.distributed as dist
+    from apex_tpu_torch import amp, parallel
+    from apex_tpu_torch.amp._amp_state import _amp_state, reset
+    parallel.init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1,
+                              process_id=0, timeout_s=120)
+    print(f"imagenet amp path: torch.distributed {dist.get_backend()} "
+          f"(world size {dist.get_world_size()}) -> resnet50 -> "
+          f"convert_syncbn_model -> FusedSGD {SGD_HYPER} -> "
+          f"amp.initialize(O2) -> DistributedDataParallel; batch "
+          f"{AMP_RESNET_BATCH} x 3 x 224 x 224, {IMAGENET_ITERS} iterations")
+    try:
+        reset()
+        # a dynamic scale capped at 2^10: from amp's default 2^16 a random
+        # ResNet-50's first-layer gradients overflow fp16 for the first
+        # few iterations, each a skipped step
+        model, opt = _imagenet_model(torch, models, parallel, amp, "cuda",
+                                     max_loss_scale=2.0 ** 10)
+        criterion = _resnet_loss(torch)
+        rng = np.random.default_rng(2)
+        x = torch.from_numpy(rng.standard_normal(
+            (AMP_RESNET_BATCH, 3, 224, 224)).astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.integers(0, 1000, (AMP_RESNET_BATCH,))
+                             ).cuda()
+        losses, skips, exchanges = [], [], []
+        for i in range(IMAGENET_ITERS):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if i == IMAGENET_ITERS - 1:
+                torch.cuda.synchronize()
+                dispatch.reset_counts()
+            before = model.exchanges
+            loss, skipped = _amp_iteration(amp, model, opt, criterion, x, y)
+            if i == IMAGENET_ITERS - 1:
+                torch.cuda.synchronize()
+                counts = dispatch.counts()
+            skips.append(skipped)
+            exchanges.append(model.exchanges - before)
+            losses.append(float(loss.detach()))
+        img_s = (IMAGENET_ITERS - 2) * AMP_RESNET_BATCH / (
+            time.perf_counter() - t0)
+        want = dict.fromkeys(counts, 0)
+        want.update(fused_sgd=2)
+        print(f"  {len(opt._amp_stash.all_fp16_params)} fp16 model params "
+              f"(one depth-4 launch over their fp32 masters, writing the fp16 "
+              f"copy) and {len(opt._amp_stash.all_fp32_from_fp32_params)} "
+              f"fp32 BatchNorm params (one depth-3 launch)")
+        print(f"  launches in iteration {IMAGENET_ITERS}: {counts}")
+        print(f"  losses {', '.join(f'{v:.4f}' for v in losses)}; skipped "
+              f"{skips}; loss scale {_amp_state.loss_scalers[0].loss_scale()}"
+              f"; DDP exchanges per iteration {exchanges} (buckets of "
+              f"{model.message_size} elements, one dtype each)")
+        print(f"  {img_s:.1f} images/s (iterations 3-{IMAGENET_ITERS}, host "
+              f"clock, the loss read back each iteration)")
+        if counts != want or skips[-1]:
+            raise AssertionError(f"imagenet launch counts {counts} != "
+                                 f"expected {want}, or the last iteration "
+                                 f"skipped")
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"imagenet losses did not fall: {losses}")
+        if min(exchanges) < 1:
+            raise AssertionError(f"an iteration exchanged no gradient: "
+                                 f"{exchanges}")
+        _print_profile(torch, lambda: _amp_iteration(amp, model, opt,
+                                                     criterion, x, y), 8)
+        del model, opt
+
+        ref_bn = torch.nn.BatchNorm2d(64).cuda()
+        sbn = parallel.convert_syncbn_model(
+            torch.nn.Sequential(torch.nn.BatchNorm2d(64).cuda()))[0]
+        xb = torch.randn(8, 64, 28, 28, device="cuda") * 2 + 1
+        yb, ysb = ref_bn(xb), sbn(xb)
+        # one rank: SyncBatchNorm takes BatchNorm2d's own path, so the two
+        # agree to the last bit
+        check("SyncBatchNorm (world size 1) vs BatchNorm2d, output (max abs "
+              "err / max(1, |ref|))", scaled_err(ysb, yb)[0], 0.0)
+        check("SyncBatchNorm vs BatchNorm2d, running variance",
+              scaled_err(sbn.running_var, ref_bn.running_var)[0], 0.0)
+
+        # 64 x 64: at 32 x 32 (layer4's 3x3 stride-2 conv then sees a 1 x 1
+        # input) every iteration overflowed on the CPU; scale 2^6, under
+        # which this batch's gradients stay finite in fp16
+        print("amp O2 + DDP + SyncBatchNorm overflow skip, batch 2 x 3 x 64 "
+              "x 64, loss scale 2^6, a non-finite gradient planted at "
+              "iteration 2:")
+        hist = {}
+        xs = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)).astype(
+            np.float32))
+        ys = torch.from_numpy(rng.integers(0, 1000, (2,)))
+        gloo = dist.new_group([0], backend="gloo")
+        for dev, group in (("cuda", None), ("cpu", gloo)):
+            reset()
+            m, o = _imagenet_model(torch, models, parallel, amp, dev, group,
+                                   max_loss_scale=2.0 ** 6, seed=SEED + 24)
+            rows = []
+            for i in range(3):
+                _, skipped = _amp_iteration(amp, m, o, criterion, xs.to(dev),
+                                            ys.to(dev), plant=i == 1)
+                rows.append((skipped,
+                             _amp_state.loss_scalers[0].loss_scale()))
+            hist[dev] = rows
+            print(f"  {dev}: (skipped, scale) per iteration {rows}, "
+                  f"{m.exchanges} DDP exchanges")
+            del m, o
+        if hist["cuda"] != hist["cpu"] or hist["cuda"] != [
+                (False, 64.0), (True, 32.0), (False, 32.0)]:
+            raise AssertionError(f"imagenet skip history differs: {hist}")
+        reset()
+        return counts, img_s
+    finally:
+        dist.destroy_process_group()
+
+
 def _lm_loss(torch):
     from apex_tpu_torch.nn import functional as F
 
@@ -1470,6 +1954,7 @@ def main():
     from apex_tpu_torch import _build
     from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
         multi_tensor, xentropy
+    from apex_tpu_torch import models
     from apex_tpu_torch.models import gpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1489,6 +1974,13 @@ def main():
     train_model = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.1,
                                  attn_dropout=0.0, device="cuda")
     shapes = [tuple(p.shape) for p in train_model.parameters()]
+    # ResNet-50's parameter names and shapes feed the SGD kernel's phase
+    rn = models.resnet50(device="cpu")
+    rn_shapes = [(n, tuple(p.shape)) for n, p in rn.named_parameters()]
+    rn_bn = {f"{mn}.{pn}" for mn, m in rn.named_modules()
+             if isinstance(m, torch.nn.BatchNorm2d)
+             for pn, _ in m.named_parameters(recurse=False)}
+    del rn
     t_phase = time.perf_counter()
     ln = ln_phase(torch, layer_norm)
     fl = flash_phase(torch, attention)
@@ -1497,6 +1989,7 @@ def main():
     dq, dkv = flash_bwd_phase(torch, attention)
     adam = adam_phase(torch, multi_tensor, shapes)
     adam_half = adam_half_phase(torch, multi_tensor, shapes)
+    sgd = sgd_phase(torch, multi_tensor, rn_shapes, rn_bn)
     xf, xb = xent_phase(torch, xentropy)
     print(f"kernel phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -1527,6 +2020,13 @@ def main():
     amp_counts = amp_phase(torch, dispatch, gpt, train_model)
     paths["amp_O2"], paths["amp_O3"] = amp_counts["O2"], amp_counts["O3"]
     print(f"amp phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    paths["resnet_train_step"], resnet_ms = resnet_train_path(
+        torch, dispatch, models)
+    resnet_cpu_phase(torch, models)
+    paths["imagenet_amp"], imagenet_img_s = imagenet_amp_path(
+        torch, dispatch, models)
+    print(f"ResNet phases: {time.perf_counter() - t_phase:.1f} s")
 
     def launches(name):
         by = {k: c[name] for k, c in paths.items() if c[name]}
@@ -1576,6 +2076,12 @@ def main():
              replaces=f"{fb}multi_tensor.py:207", **launches("fused_adam"),
              shape=f"{len(shapes)} tensors, bf16 grads, AdamW", **adam,
              o3_case=adam_half),
+        dict(name="fused_sgd", route="cuda",
+             source="apex_tpu_torch/csrc/multi_tensor_sgd.cu",
+             replaces=f"{fb}multi_tensor.py:129 (_sgd_kernel :106, "
+                      f"pallas_call :156)", **launches("fused_sgd"),
+             **sgd["step"], amp_case=sgd["amp"],
+             resnet_step_ms=resnet_ms, imagenet_images_per_s=imagenet_img_s),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

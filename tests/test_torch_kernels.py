@@ -193,7 +193,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     assert _build.sources() == ["flash_attention", "flash_attention_bwd",
                                 "layer_norm", "multi_tensor_adam",
-                                "xentropy"]
+                                "multi_tensor_sgd", "xentropy"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("layer_norm")
     with pytest.raises(RuntimeError, match="nvcc not found"):
