@@ -22,7 +22,11 @@ precision loop (``amp.initialize`` O0/O2/O3 and ``amp.scale_loss``); and
 ResNet training (``models.resnet50``) through the fused step or the amp
 loop with ``optimizers.FusedSGD``, whose update runs the multi-tensor SGD
 kernel, with data parallelism and SyncBatchNorm on ``torch.distributed``
-(``parallel``).
+(``parallel``); and the Llama family (``models.llama``: RoPE, RMSNorm,
+SwiGLU, grouped-query attention), served through ``generate`` and trained
+through ``make_train_step``, whose RMSNorms run the RMSNorm kernels
+(``normalization.FusedRMSNorm``) and whose loss may run the fused LM-head +
+cross-entropy kernels (``kernels.lm_head_xent.fused_lm_head_xent``).
 """
 from . import (amp, contrib, inference, kernels, models, multi_tensor_apply,
                nn, normalization, ops, optimizers, parallel, training)

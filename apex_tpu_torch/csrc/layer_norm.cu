@@ -32,33 +32,9 @@
 // partial sums per block into a workspace; a second kernel sums the
 // workspace by column in a fixed order.  Deterministic, no float atomics.
 
-#include "common.cuh"
+#include "norm_common.cuh"
 
 namespace {
-
-// Sum over the TPR threads of one row: shuffles inside each warp, then, for a
-// row spread over several warps, one partial per warp through shared memory.
-template <int WPR>
-__device__ __forceinline__ float row_sum(float s, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (WPR > 1) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();  // the previous reduction's reads of red are done
-    if (lane == 0) red[warp] = s;
-    __syncthreads();
-    s = 0.f;
-#pragma unroll
-    for (int i = 0; i < WPR; ++i) s += red[i];
-  }
-  return s;
-}
-
-template <int TPR>
-struct Shape {
-  static constexpr int RPC = TPR >= 128 ? 1 : 128 / TPR;  // rows per block
-  static constexpr int WPR = TPR / 32;                     // warps per row
-};
 
 template <typename T, int VPT, int TPR>
 __global__ void __launch_bounds__(TPR * Shape<TPR>::RPC)
@@ -127,16 +103,9 @@ cudaError_t launch(const void* x, const float* w, const float* b, void* y, float
 template <typename T>
 cudaError_t dispatch(const void* x, const float* w, const float* b, void* y, float* mean,
                      float* rstd, int rows, int n, float eps, cudaStream_t st) {
-  if (n <= 128) return launch<T, 4, 32>(x, w, b, y, mean, rstd, rows, n, eps, st);
-  if (n <= 256) return launch<T, 8, 32>(x, w, b, y, mean, rstd, rows, n, eps, st);
-  if (n <= 512) return launch<T, 16, 32>(x, w, b, y, mean, rstd, rows, n, eps, st);
-  if (n <= 768) return launch<T, 24, 32>(x, w, b, y, mean, rstd, rows, n, eps, st);
-  if (n <= 1024) return launch<T, 32, 32>(x, w, b, y, mean, rstd, rows, n, eps, st);
-  if (n <= 2048) return launch<T, 8, 256>(x, w, b, y, mean, rstd, rows, n, eps, st);
-  if (n <= 4096) return launch<T, 16, 256>(x, w, b, y, mean, rstd, rows, n, eps, st);
-  if (n <= 8192) return launch<T, 32, 256>(x, w, b, y, mean, rstd, rows, n, eps, st);
-  if (n <= 16384) return launch<T, 16, 1024>(x, w, b, y, mean, rstd, rows, n, eps, st);
-  return cudaErrorInvalidValue;
+#define APEX_LN_FWD(VPT, TPR) launch<T, VPT, TPR>(x, w, b, y, mean, rstd, rows, n, eps, st)
+  APEX_NORM_BY_ROW(n, APEX_LN_FWD);
+#undef APEX_LN_FWD
 }
 
 
@@ -274,17 +243,8 @@ cudaError_t dispatch_bwd(const void* g, const void* x, const float* mean, const 
                          int rows, int n, cudaStream_t st) {
 #define APEX_LN_BWD(VPT, TPR) \
   launch_bwd<T, VPT, TPR>(g, x, mean, rstd, w, wdtype, dx, pw, pb, parts, rows, n, st)
-  if (n <= 128) return APEX_LN_BWD(4, 32);
-  if (n <= 256) return APEX_LN_BWD(8, 32);
-  if (n <= 512) return APEX_LN_BWD(16, 32);
-  if (n <= 768) return APEX_LN_BWD(24, 32);
-  if (n <= 1024) return APEX_LN_BWD(32, 32);
-  if (n <= 2048) return APEX_LN_BWD(8, 256);
-  if (n <= 4096) return APEX_LN_BWD(16, 256);
-  if (n <= 8192) return APEX_LN_BWD(32, 256);
-  if (n <= 16384) return APEX_LN_BWD(16, 1024);
+  APEX_NORM_BY_ROW(n, APEX_LN_BWD);
 #undef APEX_LN_BWD
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -309,18 +269,9 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b, void* y,
 }
 
 // The number of blocks (and rows of partial sums) apex_ln_bwd runs for a
-// (rows, n) input on the current device: two per SM, so that all are
-// resident at once, and no more than the rows need.  The caller allocates
-// the (parts, n) fp32 workspaces from it.
-extern "C" int apex_ln_bwd_parts(int rows, int n) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    sms = 132;
-  const int rpc = n <= 1024 ? 4 : 1;
-  const int need = (rows + rpc - 1) / rpc;
-  return need < 2 * sms ? (need > 0 ? need : 1) : 2 * sms;
-}
+// (rows, n) input on the current device (norm_bwd_parts).  The caller
+// allocates the (parts, n) fp32 workspaces from it.
+extern "C" int apex_ln_bwd_parts(int rows, int n) { return norm_bwd_parts(rows, n); }
 
 // g, x, dx (rows, n) contiguous in dtype; mean, rstd (rows,) float32; w (n,)
 // in wdtype, or null for the plain form, whose part_w and part_b are null

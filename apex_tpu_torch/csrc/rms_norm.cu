@@ -1,0 +1,266 @@
+// RMSNorm forward and backward for Hopper (sm_90a), with a plain C
+// interface.
+//
+// Replaces: apex_tpu/kernels/rms_norm.py::rms_forward (Pallas kernel
+// _fwd_kernel): y = x * rstd [* w] over the last dim, with
+// rstd = 1 / sqrt(mean(x^2) + eps) in fp32; y is in x's dtype, rstd fp32,
+// one per row.  And apex_tpu/kernels/rms_norm.py::rms_backward (Pallas
+// kernel _bwd_kernel): from the saved rstd, xhat = x * rstd, gh = g * w,
+// c2 = mean(gh * xhat) and dx = (gh - xhat * c2) * rstd in x's dtype;
+// dw = sum(g * xhat) over all rows, in fp32.
+//
+// Bound on the H100: bytes.  At the Llama shapes (16384 x 768 in training,
+// 4096 x 768 in prefill, 8 x 768 per decode step) both kernels do under ten
+// operations per element they read and write once, far below the card's
+// ~20 fp32 operations per byte, so the least time is the bytes of x and y
+// (forward) or g, x and dx (backward) over 3.35 TB/s; the 8-row decode
+// shape is bound by launch latency.
+//
+// Design: layer_norm.cu's, without the mean, on the row layout of
+// norm_common.cuh.  The row stays in registers, so x (and g) are read from
+// memory once.  A row of n <= 1024 belongs to one warp (four rows per
+// 128-thread block); a longer row to a 256- or 1024-thread block whose warps
+// combine their partial sums through shared memory.  Each thread holds VPT
+// elements at a stride of the row's thread count, so neighbouring threads
+// read neighbouring addresses.  Up to n = 16384.  The TPU kernel sums dw in place across its sequential grid;
+// CUDA blocks run in no order, so the backward runs a fixed grid of a few
+// blocks per SM, each walking rows at a grid stride and keeping its
+// threads' column sums in registers, and writes one fp32 row of partial
+// sums per block into a workspace; a second kernel sums the workspace by
+// column in a fixed order.  Deterministic, no float atomics.
+
+#include "norm_common.cuh"
+
+namespace {
+
+template <typename T, int VPT, int TPR>
+__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC)
+rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
+               float* __restrict__ rstd_out, int rows, int n, float eps) {
+  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR;
+  __shared__ float red[RPC][WPR];
+  const int tid = threadIdx.x;
+  const long long row = (long long)blockIdx.x * RPC + threadIdx.y;
+  // a block of several warps holds one row (RPC == 1), so a block either
+  // returns whole or not at all and the __syncthreads in row_sum are safe
+  if (row >= rows) return;
+  const T* xr = x + row * n;
+
+  float v[VPT];
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = tid + i * TPR;
+    v[i] = c < n ? to_f(xr[c]) : 0.f;
+    q += v[i] * v[i];
+  }
+  const float ms = row_sum<WPR>(q, red[threadIdx.y]) / n;
+  const float rs = 1.f / sqrtf(ms + eps);
+
+  T* yr = y + row * n;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = tid + i * TPR;
+    if (c < n) {
+      float o = v[i] * rs;
+      if (w != nullptr) o = o * w[c];
+      yr[c] = from_f<T>(o);
+    }
+  }
+  if (tid == 0) rstd_out[row] = rs;
+}
+
+template <typename T, int VPT, int TPR>
+cudaError_t launch(const void* x, const float* w, void* y, float* rstd, int rows, int n,
+                   float eps, cudaStream_t st) {
+  constexpr int RPC = Shape<TPR>::RPC;
+  const dim3 block(TPR, RPC);
+  const dim3 grid((rows + RPC - 1) / RPC);
+  rms_fwd_kernel<T, VPT, TPR><<<grid, block, 0, st>>>(
+      static_cast<const T*>(x), w, static_cast<T*>(y), rstd, rows, n, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* x, const float* w, void* y, float* rstd, int rows, int n,
+                     float eps, cudaStream_t st) {
+#define APEX_RMS_FWD(VPT, TPR) launch<T, VPT, TPR>(x, w, y, rstd, rows, n, eps, st)
+  APEX_NORM_BY_ROW(n, APEX_RMS_FWD);
+#undef APEX_RMS_FWD
+}
+
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+template <typename T, int VPT, int TPR>
+__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC)
+rms_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
+               const float* __restrict__ rstd, const void* __restrict__ w, int wdtype,
+               T* __restrict__ dx, float* __restrict__ part_w, int rows, int n) {
+  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR;
+  __shared__ float red[RPC][WPR];
+  const int tid = threadIdx.x;
+
+  float wv[VPT], aw[VPT];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int c = tid + i * TPR;
+    wv[i] = (w != nullptr && c < n) ? load_as_f(w, c, wdtype) : 1.f;
+    aw[i] = 0.f;
+  }
+
+  // with RPC == 1 every thread of the block walks the same rows, so the
+  // __syncthreads in row_sum are reached by all of them
+  const long long stride = (long long)gridDim.x * RPC;
+  for (long long row = (long long)blockIdx.x * RPC + threadIdx.y; row < rows; row += stride) {
+    const T* gr = g + row * n;
+    const T* xr = x + row * n;
+    const float rs = rstd[row];
+    float gv[VPT], xh[VPT];
+    float s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int c = tid + i * TPR;
+      gv[i] = 0.f;
+      xh[i] = 0.f;
+      if (c < n) {
+        gv[i] = to_f(gr[c]);
+        xh[i] = to_f(xr[c]) * rs;
+      }
+      s2 += gv[i] * wv[i] * xh[i];
+    }
+    const float c2 = row_sum<WPR>(s2, red[threadIdx.y]) / n;
+    T* dxr = dx + row * n;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int c = tid + i * TPR;
+      if (c < n) dxr[c] = from_f<T>((gv[i] * wv[i] - xh[i] * c2) * rs);
+      aw[i] += gv[i] * xh[i];
+    }
+  }
+  if (part_w == nullptr) return;  // the plain (non-affine) form
+
+  float* pw = part_w + (long long)blockIdx.x * n;
+  if constexpr (RPC == 1) {
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int c = tid + i * TPR;
+      if (c < n) pw[c] = aw[i];
+    }
+  } else {
+    // the RPC warps of the block (one row stream each) add their column
+    // sums in a fixed order
+    __shared__ float cw[RPC][VPT * TPR];
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) cw[threadIdx.y][tid + i * TPR] = aw[i];
+    __syncthreads();
+    for (int c = threadIdx.y * TPR + tid; c < n; c += RPC * TPR) {
+      float sw = 0.f;
+#pragma unroll
+      for (int r = 0; r < RPC; ++r) sw += cw[r][c];
+      pw[c] = sw;
+    }
+  }
+}
+
+// dw[c] = sum over p of part_w[p, c]: 32 columns a block, 32 threads down
+// each column, then a fixed-order sum of the 32 through shared memory
+__global__ void __launch_bounds__(1024)
+rms_bwd_cols_kernel(const float* __restrict__ part_w, float* __restrict__ dw, int parts,
+                    int n) {
+  __shared__ float red[32][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.f;
+  if (c < n) {
+#pragma unroll 4
+    for (int p = threadIdx.y; p < parts; p += 32) s += part_w[(long long)p * n + c];
+  }
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) t += red[i][threadIdx.x];
+    dw[c] = t;
+  }
+}
+
+template <typename T, int VPT, int TPR>
+cudaError_t launch_bwd(const void* g, const void* x, const float* rstd, const void* w,
+                       int wdtype, void* dx, float* pw, int parts, int rows, int n,
+                       cudaStream_t st) {
+  const dim3 block(TPR, Shape<TPR>::RPC);
+  rms_bwd_kernel<T, VPT, TPR><<<parts, block, 0, st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), rstd, w, wdtype,
+      static_cast<T*>(dx), pw, rows, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* g, const void* x, const float* rstd, const void* w,
+                         int wdtype, void* dx, float* pw, int parts, int rows, int n,
+                         cudaStream_t st) {
+#define APEX_RMS_BWD(VPT, TPR) \
+  launch_bwd<T, VPT, TPR>(g, x, rstd, w, wdtype, dx, pw, parts, rows, n, st)
+  APEX_NORM_BY_ROW(n, APEX_RMS_BWD);
+#undef APEX_RMS_BWD
+}
+
+}  // namespace
+
+// x (rows, n) contiguous in dtype (0 float32, 1 bfloat16, 2 float16);
+// w (n,) float32, or null for the non-affine form; y like x; rstd (rows,)
+// float32.  Returns the cudaError_t of the launch.
+extern "C" int apex_rms_fwd(const void* x, const void* w, void* y, void* rstd, int rows,
+                            int n, float eps, int dtype, void* stream) {
+  const float* wf = static_cast<const float*>(w);
+  float* rf = static_cast<float*>(rstd);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || n <= 0) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case DT_F32: return dispatch<float>(x, wf, y, rf, rows, n, eps, st);
+    case DT_BF16: return dispatch<__nv_bfloat16>(x, wf, y, rf, rows, n, eps, st);
+    case DT_F16: return dispatch<__half>(x, wf, y, rf, rows, n, eps, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The number of blocks (and rows of partial sums) apex_rms_bwd runs for a
+// (rows, n) input on the current device (norm_bwd_parts).  The caller
+// allocates the (parts, n) fp32 workspace from it.
+extern "C" int apex_rms_bwd_parts(int rows, int n) { return norm_bwd_parts(rows, n); }
+
+// g, x, dx (rows, n) contiguous in dtype; rstd (rows,) float32; w (n,) in
+// wdtype, or null for the plain form, whose part_w is null too; part_w
+// (parts, n) float32 with parts from apex_rms_bwd_parts.  Returns the
+// cudaError_t of the launch.
+extern "C" int apex_rms_bwd(const void* g, const void* x, const void* rstd, const void* w,
+                            int wdtype, void* dx, void* part_w, int parts, int rows, int n,
+                            int dtype, void* stream) {
+  const float* rf = static_cast<const float*>(rstd);
+  float* pw = static_cast<float*>(part_w);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || n <= 0 || parts <= 0 || (w == nullptr) != (pw == nullptr) ||
+      wdtype < 0 || wdtype > 2)
+    return cudaErrorInvalidValue;
+  switch (dtype) {
+    case DT_F32: return dispatch_bwd<float>(g, x, rf, w, wdtype, dx, pw, parts, rows, n, st);
+    case DT_BF16:
+      return dispatch_bwd<__nv_bfloat16>(g, x, rf, w, wdtype, dx, pw, parts, rows, n, st);
+    case DT_F16: return dispatch_bwd<__half>(g, x, rf, w, wdtype, dx, pw, parts, rows, n, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// dw (n,) float32 = the column sums of part_w (parts, n).  Returns the
+// cudaError_t of the launch.
+extern "C" int apex_rms_bwd_cols(const void* part_w, void* dw, int parts, int n,
+                                 void* stream) {
+  if (parts <= 0 || n <= 0) return cudaErrorInvalidValue;
+  const dim3 grid((n + 31) / 32), block(32, 32);
+  rms_bwd_cols_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part_w), static_cast<float*>(dw), parts, n);
+  return cudaGetLastError();
+}

@@ -1,0 +1,181 @@
+"""RMSNorm forward and backward: the CUDA kernels ``csrc/rms_norm.cu`` and
+their plain PyTorch versions.
+
+Port of ``apex_tpu/kernels/rms_norm.py::rms_forward``: normalise ``x2d
+(rows, N)`` by the fp32 reciprocal root mean square of its last dim,
+optional weight (no bias, no mean); returns ``y`` in x's dtype and ``rstd``
+of shape ``(rows, 1)`` in fp32.  And of ``rms_backward``: from the saved
+``rstd``, ``dx`` in x's dtype and, for the affine form, ``dw`` summed over
+the rows in fp32.  A CUDA tensor launches the kernel; a CPU tensor takes
+the plain version (:func:`rms_forward_reference`,
+:func:`rms_backward_reference`).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+from .dispatch import LAUNCHES, check_dtype, dtype_code, use_kernel
+
+MAX_N = 16384     # the longest row the kernel takes (csrc/rms_norm.cu)
+
+LAUNCHES.setdefault("rms_forward", 0)
+# the backward is two launches: dx with per-block partial column sums, then
+# the column reduction of the partials into dw (affine form only)
+LAUNCHES.setdefault("rms_backward_rows", 0)
+LAUNCHES.setdefault("rms_backward_cols", 0)
+
+
+def rms_forward_reference(x2d, weight, eps):
+    """The plain version, the same arithmetic in PyTorch operations."""
+    xf = x2d.float()
+    rstd = torch.rsqrt((xf * xf).mean(dim=1, keepdim=True) + eps)
+    y = xf * rstd
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x2d.dtype), rstd
+
+
+def rms_backward_reference(g2d, x2d, rstd, weight):
+    """The plain version of the backward: ``(dx,)`` or ``(dx, dw)``, the
+    sum fp32."""
+    g = g2d.float()
+    xhat = x2d.float() * rstd
+    gh = g * weight.float() if weight is not None else g
+    c2 = (gh * xhat).mean(dim=1, keepdim=True)
+    dx = ((gh - xhat * c2) * rstd).to(x2d.dtype)
+    if weight is None:
+        return (dx,)
+    return dx, (g * xhat).sum(dim=0)
+
+
+def _validate(x2d, weight, what="rms_forward"):
+    if x2d.dim() != 2:
+        raise ValueError(f"{what} takes x2d (rows, N), got shape "
+                         f"{tuple(x2d.shape)}")
+    check_dtype(x2d, f"{what} x2d")
+    n = x2d.shape[1]
+    if not 0 < n <= MAX_N:
+        raise ValueError(f"{what}: N = {n} outside the kernel's range "
+                         f"1..{MAX_N}")
+    if weight is not None:
+        if tuple(weight.shape) != (n,):
+            raise ValueError(f"{what}: weight shape "
+                             f"{tuple(weight.shape)} != ({n},)")
+        check_dtype(weight, f"{what} weight")
+    if not x2d.is_contiguous():
+        raise ValueError(f"{what}: x2d must be contiguous")
+
+
+def _validate_bwd(g2d, x2d, rstd, weight):
+    _validate(x2d, weight, "rms_backward")
+    rows, n = x2d.shape
+    if tuple(g2d.shape) != (rows, n):
+        raise ValueError(f"rms_backward: g shape {tuple(g2d.shape)} != x "
+                         f"shape {(rows, n)}")
+    check_dtype(g2d, "rms_backward g")
+    if tuple(rstd.shape) != (rows, 1) or rstd.dtype != torch.float32:
+        raise ValueError(f"rms_backward: rstd must be fp32 of shape "
+                         f"{(rows, 1)}, got {rstd.dtype} "
+                         f"{tuple(rstd.shape)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("rms_norm")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.apex_rms_fwd.argtypes = [p] * 4 + [i, i, ctypes.c_float, i, p]
+    lib.apex_rms_fwd.restype = i
+    lib.apex_rms_bwd_parts.argtypes = [i, i]
+    lib.apex_rms_bwd_parts.restype = i
+    lib.apex_rms_bwd.argtypes = [p] * 4 + [i, p, p] + [i] * 4 + [p]
+    lib.apex_rms_bwd.restype = i
+    lib.apex_rms_bwd_cols.argtypes = [p, p, i, i, p]
+    lib.apex_rms_bwd_cols.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_parts(device_index, rows, n):
+    """Rows of partial sums the backward kernel writes for this shape (its
+    grid size on this device)."""
+    with torch.cuda.device(device_index):
+        return _lib().apex_rms_bwd_parts(rows, n)
+
+
+def _launch(x2d, weight, eps):
+    rows, n = x2d.shape
+    y = torch.empty_like(x2d)
+    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
+    if rows == 0:
+        return y, rstd
+    if weight is not None:
+        # the kernel reads the weight as fp32
+        weight = weight.to(torch.float32).contiguous()
+    lib = _lib()
+    with torch.cuda.device(x2d.device):
+        err = lib.apex_rms_fwd(
+            x2d.data_ptr(), None if weight is None else weight.data_ptr(),
+            y.data_ptr(), rstd.data_ptr(), rows, n, float(eps),
+            dtype_code(x2d.dtype), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "rms_forward")
+    LAUNCHES["rms_forward"] += 1
+    return y, rstd
+
+
+def rms_forward(x2d, weight, eps):
+    """x2d (rows, N); weight (N,) or None.  -> (y, rstd), rstd fp32 with
+    shape (rows, 1)."""
+    _validate(x2d, weight)
+    if use_kernel(x2d, weight):
+        return _launch(x2d, weight, eps)
+    return rms_forward_reference(x2d, weight, eps)
+
+
+def _launch_bwd(g2d, x2d, rstd, weight):
+    rows, n = x2d.shape
+    dx = torch.empty_like(x2d)
+    affine = weight is not None
+    if rows == 0:
+        if not affine:
+            return (dx,)
+        return dx, torch.zeros(n, dtype=torch.float32, device=x2d.device)
+    g2d = g2d.to(x2d.dtype).contiguous()
+    dev = x2d.device
+    lib = _lib()
+    parts = _bwd_parts(dev.index, rows, n)
+    pw = None
+    if affine:
+        weight = weight.contiguous()
+        pw = torch.empty((parts, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.apex_rms_bwd(
+            g2d.data_ptr(), x2d.data_ptr(), rstd.data_ptr(),
+            None if weight is None else weight.data_ptr(),
+            dtype_code(weight.dtype) if affine else 0, dx.data_ptr(),
+            None if pw is None else pw.data_ptr(), parts, rows, n,
+            dtype_code(x2d.dtype), stream)
+        _build.check(lib, err, "rms_backward")
+        LAUNCHES["rms_backward_rows"] += 1
+        if not affine:
+            return (dx,)
+        dw = torch.empty(n, dtype=torch.float32, device=dev)
+        err = lib.apex_rms_bwd_cols(pw.data_ptr(), dw.data_ptr(), parts, n,
+                                    stream)
+        _build.check(lib, err, "rms_backward (column sums)")
+        LAUNCHES["rms_backward_cols"] += 1
+    return dx, dw
+
+
+def rms_backward(g2d, x2d, rstd, weight):
+    """g2d, x2d (rows, N); rstd (rows, 1) fp32 from the forward; weight
+    (N,) or None.  -> ``(dx,)`` in x's dtype, or ``(dx, dw)`` with dw fp32
+    of shape (N,)."""
+    _validate_bwd(g2d, x2d, rstd, weight)
+    if use_kernel(g2d, x2d, rstd, weight):
+        return _launch_bwd(g2d, x2d, rstd, weight)
+    return rms_backward_reference(g2d, x2d, rstd, weight)

@@ -312,10 +312,13 @@ def make_sampler(temperature, top_k, top_p, vocab):
     return sample
 
 
-def generate(model: GptModel, prompt_ids, max_new_tokens, temperature=0.0,
+def generate(model, prompt_ids, max_new_tokens, temperature=0.0,
              top_k=None, generator=None, cache_dtype=None, top_p=None):
     """Autoregressive decoding with a KV cache: ``prompt_ids (B, P)`` ->
-    ``(B, P + max_new_tokens)`` token ids on the model's device.
+    ``(B, P + max_new_tokens)`` token ids on the model's device.  Drives
+    any model with the decode protocol (``init_caches``, ``prefill``,
+    ``decode_step``, ``max_positions``, ``tok_emb``): the GPT and Llama
+    families.
 
     With ``P > 1`` and at least one new token, the prompt goes through ONE
     ``prefill`` pass, whose last logits give the first new token, and
@@ -334,7 +337,9 @@ def generate(model: GptModel, prompt_ids, max_new_tokens, temperature=0.0,
             f"max_positions {model.max_positions}")
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a torch.Generator")
-    sample = make_sampler(temperature, top_k, top_p, model.vocab_size)
+    vocab = getattr(model, "vocab_size", None) \
+        or model.tok_emb.weight.shape[0]
+    sample = make_sampler(temperature, top_k, top_p, vocab)
     if cache_dtype is None:
         cache_dtype = model.tok_emb.weight.dtype
     prompt = prompt_ids.to(device=model.tok_emb.weight.device,

@@ -1,0 +1,352 @@
+"""Llama-style decoder family, the PyTorch counterpart of
+``apex_tpu/models/llama.py`` (dense, single device): RoPE, RMSNorm, SwiGLU
+and grouped-query attention, no biases, an untied LM head.
+
+``forward`` runs the blocks in the flash kernel's own (B, H, S, D) layout
+and trains under autograd: attention through the flash-attention kernels
+(forward and backward, with the Mistral band when ``sliding_window`` is
+set), every RMSNorm through the RMSNorm kernels.  GQA repeats each K/V
+head over its query group (``repeat_interleave``, the JAX package's
+``jnp.repeat``: query head ``h`` reads K/V head ``h // group``).  The
+cached paths (``prefill``, ``decode_chunk``, ``decode_step``) keep the
+caches KVH wide; decode attention over the cache is plain PyTorch, as it
+is plain XLA in the JAX package.  Parameter names are the JAX package's
+(``blocks.{i}.ln1.weight``, ``blocks.{i}.q_proj.weight``, ...,
+``norm.weight``, ``lm_head.weight``), so
+:func:`apex_tpu_torch.models.convert.from_jax_state_dict` carries weights
+across one to one.
+
+With ``output_hidden=True``, ``forward`` returns ``(hidden (B, S, E),
+lm_head.weight)`` so that a loss such as
+:func:`apex_tpu_torch.kernels.lm_head_xent.fused_lm_head_xent` or
+:func:`apex_tpu_torch.contrib.xentropy.chunked_lm_head_loss` applies the
+head itself.
+
+Owed to later slices, and refused with ``NotImplementedError``: tensor and
+sequence parallelism (``tp_axis``, ``sp_axis``) and the mixture of experts
+(``moe_axis``), ROADMAP queue A item 12; rematerialisation (``remat``);
+cached decode with ``sliding_window`` (the rolling window cache of
+``inference/rolling.py`` and the chunked prefill over it), queue A item 7.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..contrib.multihead_attn.attn_funcs import flash_attention
+from ..inference.quant import kv_value, kv_write, make_kv_cache
+from ..kernels.dispatch import MASKED_FILL, resolve_device
+from ..normalization import FusedRMSNorm
+
+
+def rope_tables(positions, head_dim, theta=10000.0):
+    """cos/sin tables for rotary embeddings, HF half-rotation convention:
+    ``positions (...,)`` integers -> ``(cos, sin)`` of shape ``(...,
+    head_dim)`` fp32, frequencies duplicated over both halves."""
+    half = head_dim // 2
+    inv_freq = 1.0 / (theta ** (torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        * (2.0 / head_dim)))
+    ang = positions.to(torch.float32)[..., None] * inv_freq
+    ang = torch.cat([ang, ang], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """Rotate ``x (..., S, D)`` by tables ``(S, D)`` in fp32 and cast back;
+    the second half holds the negated quadrature component (HF
+    ``rotate_half``)."""
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x.float() * cos + rotated.float() * sin).to(x.dtype)
+
+
+def _linear(x, w):
+    """``x @ w.T`` with the (out, in) weight cast to x's dtype."""
+    return torch.matmul(x, w.t().to(x.dtype))
+
+
+def _refuse(what, owner):
+    raise NotImplementedError(f"{what} is not ported yet ({owner})")
+
+
+class LlamaBlock(nn.Module):
+    """Pre-norm decoder block: RMSNorm -> RoPE-GQA causal attention ->
+    residual, RMSNorm -> SwiGLU FFN -> residual.  No biases."""
+
+    def __init__(self, hidden, heads, kv_heads, intermediate,
+                 rope_theta=10000.0, eps=1e-6, head_dim=None,
+                 sliding_window=None, device=None, dtype=torch.float32):
+        super().__init__()
+        if head_dim is None:
+            if hidden % heads:
+                raise ValueError(f"hidden {hidden} not divisible by {heads} "
+                                 f"— pass head_dim explicitly")
+            head_dim = hidden // heads
+        if heads % kv_heads:
+            raise ValueError(
+                f"heads {heads} not divisible by kv_heads {kv_heads} (GQA "
+                f"shares each K/V head over an equal group)")
+        self.heads = heads
+        self.kv_heads = kv_heads
+        self.head_dim = head_dim
+        self.rope_theta = rope_theta
+        self.sliding_window = sliding_window
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        lin = lambda i, o: nn.Linear(i, o, bias=False, **kw)  # noqa: E731
+        self.ln1 = FusedRMSNorm(hidden, eps=eps, **kw)
+        self.q_proj = lin(hidden, heads * head_dim)
+        self.k_proj = lin(hidden, kv_heads * head_dim)
+        self.v_proj = lin(hidden, kv_heads * head_dim)
+        self.o_proj = lin(heads * head_dim, hidden)
+        self.ln2 = FusedRMSNorm(hidden, eps=eps, **kw)
+        self.gate_proj = lin(hidden, intermediate)
+        self.up_proj = lin(hidden, intermediate)
+        self.down_proj = lin(intermediate, hidden)
+
+    def _qkv(self, h):
+        """(B, S, E) -> q (B, H, S, D), k/v (B, KVH, S, D)."""
+        b, s, _ = h.shape
+        d = self.head_dim
+
+        def to_heads(y, nh):
+            return y.reshape(b, s, nh, d).transpose(1, 2)
+        return (to_heads(_linear(h, self.q_proj.weight), self.heads),
+                to_heads(_linear(h, self.k_proj.weight), self.kv_heads),
+                to_heads(_linear(h, self.v_proj.weight), self.kv_heads))
+
+    def _attend(self, q, k, v):
+        """Causal flash attention of q (B, H, S, D) over the chunk's own
+        K/V (B, KVH, S, D), each K/V head repeated over its query group;
+        -> (B, S, H * D)."""
+        rep = q.shape[1] // k.shape[1]
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        o = flash_attention(q, k, v, causal=True,
+                            sliding_window=self.sliding_window)
+        b, h, s, d = o.shape
+        return o.transpose(1, 2).reshape(b, s, h * d)
+
+    def forward(self, x, cos, sin):
+        """``x (B, S, E)``; ``cos``/``sin`` the (S, D) RoPE tables."""
+        q, k, v = self._qkv(self.ln1(x))
+        o = self._attend(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+        return self._mlp_tail(x, o)
+
+    def _ffn(self, h):
+        gated = F.silu(_linear(h, self.gate_proj.weight)) \
+            * _linear(h, self.up_proj.weight)
+        return _linear(gated, self.down_proj.weight)
+
+    def _mlp_tail(self, x, o):
+        """Attention output projection + residual, then the RMSNorm ->
+        SwiGLU residual (one body for training and every cached path)."""
+        x = x + _linear(o, self.o_proj.weight)
+        return x + self._ffn(self.ln2(x))
+
+    def _chunk_qkv(self, x, pos):
+        """(B, S_c, E) -> rotated q (B, H, S_c, D), k (B, KVH, S_c, D) and v
+        at absolute positions ``pos (S_c,)``."""
+        q, k, v = self._qkv(self.ln1(x))
+        cos, sin = rope_tables(pos, self.head_dim, self.rope_theta)
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+    def prefill(self, x, kcache, vcache):
+        """Cache-filling forward from position 0: causal flash attention
+        over the chunk ``x (B, S_c, E)`` plus the KV writes."""
+        s_c = x.shape[1]
+        q, k_new, v_new = self._chunk_qkv(
+            x, torch.arange(s_c, device=x.device))
+        kcache = kv_write(kcache, k_new, (0, 0, 0, 0))
+        vcache = kv_write(vcache, v_new, (0, 0, 0, 0))
+        return self._mlp_tail(x, self._attend(q, k_new, v_new)), kcache, \
+            vcache
+
+    def decode_chunk(self, x, kcache, vcache, t0):
+        """Cached forward over ``x (B, S_c, E)`` at positions ``t0 ..``:
+        writes the chunk's K/V into the KVH-wide caches, and each query
+        attends the cache up to its own position."""
+        b, s_c, _ = x.shape
+        d = self.head_dim
+        pos = t0 + torch.arange(s_c, device=x.device)
+        q, k_new, v_new = self._chunk_qkv(x, pos)
+        kcache = kv_write(kcache, k_new, (0, 0, t0, 0))
+        vcache = kv_write(vcache, v_new, (0, 0, t0, 0))
+        slots = torch.arange(kcache.shape[2], device=x.device)
+        kvh = kcache.shape[1]
+        qg = q.reshape(b, kvh, self.heads // kvh, s_c, d)
+        scores = torch.einsum("bkgqd,bksd->bkgqs", qg.float(),
+                              kv_value(kcache)) * (d ** -0.5)
+        # cache slots beyond each position are unwritten (or stale)
+        valid = slots[None, :] <= pos[:, None]
+        scores = torch.where(valid, scores, MASKED_FILL)
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bkgqs,bksd->bkgqd", probs,
+                         kv_value(vcache)).to(x.dtype)
+        o = o.reshape(b, self.heads, s_c, d).transpose(1, 2) \
+            .reshape(b, s_c, self.heads * d)
+        return self._mlp_tail(x, o), kcache, vcache
+
+    def decode(self, x, kcache, vcache, t):
+        """One-token decode, ``x (B, E)`` at position ``t``: the ``S_c = 1``
+        case of :meth:`decode_chunk`."""
+        y, kcache, vcache = self.decode_chunk(x[:, None, :], kcache, vcache,
+                                              t)
+        return y[:, 0], kcache, vcache
+
+
+class LlamaModel(nn.Module):
+    """Embeddings -> N Llama blocks -> final RMSNorm -> untied LM head.
+    ``forward(input_ids (B, S)) -> logits (B, S, V)``.
+
+    Runs on the CUDA card unless ``device="cpu"`` is passed, where the
+    kernels' plain versions run.  Weights are drawn from PyTorch's global
+    generator (``torch.manual_seed``): embedding and head N(0, 0.02), the
+    projections ``torch.nn.Linear``'s default, the norms ones."""
+
+    def __init__(self, vocab_size=32000, hidden=512, layers=8, heads=8,
+                 kv_heads=None, intermediate=None, max_positions=2048,
+                 rope_theta=10000.0, eps=1e-6, remat=False, head_dim=None,
+                 tp_axis=None, sp_axis=None, moe_axis=None,
+                 sliding_window=None, output_hidden=False, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if tp_axis is not None or sp_axis is not None:
+            _refuse("LlamaModel: tensor and sequence parallelism (tp_axis, "
+                    "sp_axis)", "ROADMAP queue A item 12, parallelism "
+                    "beyond DP")
+        if moe_axis is not None:
+            _refuse("LlamaModel: the mixture of experts (moe_axis)",
+                    "ROADMAP queue A item 12, expert parallelism")
+        if remat:
+            _refuse("LlamaModel: rematerialisation (remat)",
+                    "ROADMAP queue A item 5, the Llama family's remainder")
+        if sliding_window is not None and sliding_window < 1:
+            raise ValueError(f"sliding_window must be >= 1, got "
+                             f"{sliding_window}")
+        device = resolve_device(device)
+        self.output_hidden = output_hidden
+        self.vocab_size = vocab_size
+        self.hidden = hidden
+        self.max_positions = max_positions
+        self.rope_theta = rope_theta
+        self.sliding_window = sliding_window
+        kv_heads = kv_heads or heads
+        # Llama's FFN width: 2/3 * 4E rounded up to a multiple of 256 (only
+        # the default; checkpoints carry their own)
+        if intermediate is None:
+            intermediate = -(-(8 * hidden // 3) // 256) * 256
+        kw = dict(device=device, dtype=dtype)
+        self.tok_emb = nn.Embedding(vocab_size, hidden, **kw)
+        nn.init.normal_(self.tok_emb.weight, std=0.02)
+        self.blocks = nn.ModuleList([
+            LlamaBlock(hidden, heads, kv_heads, intermediate,
+                       rope_theta=rope_theta, eps=eps, head_dim=head_dim,
+                       sliding_window=sliding_window, **kw)
+            for _ in range(layers)])
+        self.norm = FusedRMSNorm(hidden, eps=eps, **kw)
+        self.lm_head = nn.Linear(hidden, vocab_size, bias=False, **kw)
+        nn.init.normal_(self.lm_head.weight, std=0.02)
+
+    def forward(self, input_ids):
+        """``input_ids (B, S)`` -> logits ``(B, S, V)``, or ``(hidden (B, S,
+        E), lm_head.weight)`` with ``output_hidden``."""
+        s = input_ids.shape[1]
+        if s > self.max_positions:
+            raise ValueError(f"sequence length {s} exceeds max_positions "
+                             f"{self.max_positions}")
+        cos, sin = rope_tables(torch.arange(s, device=input_ids.device),
+                               self.blocks[0].head_dim, self.rope_theta)
+        x = self.tok_emb(input_ids)
+        for blk in self.blocks:
+            x = blk(x, cos, sin)
+        x = self.norm(x)
+        if self.output_hidden:
+            return x, self.lm_head.weight
+        return _linear(x, self.lm_head.weight)
+
+    def _decode_guard(self, what):
+        if self.sliding_window is not None:
+            _refuse(f"{what}: cached decode with sliding_window (the rolling "
+                    f"window cache)", "ROADMAP queue A item 7, inference/")
+
+    def init_caches(self, batch, s_max, dtype=torch.float32):
+        """Per-layer (k, v) caches of shape (B, KVH, S_max, D) on the
+        model's device: KVH wide, the GQA cache saving."""
+        self._decode_guard("init_caches")
+        dev = self.tok_emb.weight.device
+        return [(make_kv_cache((batch, blk.kv_heads, s_max, blk.head_dim),
+                               dtype, dev),
+                 make_kv_cache((batch, blk.kv_heads, s_max, blk.head_dim),
+                               dtype, dev)) for blk in self.blocks]
+
+    def _check_positions(self, what, t0, s_c, caches):
+        self._decode_guard(what)
+        if len(caches) != len(self.blocks):
+            raise ValueError(f"{what}: {len(caches)} caches for "
+                             f"{len(self.blocks)} blocks")
+        cap = caches[0][0].shape[2]
+        if t0 < 0 or t0 + s_c > min(self.max_positions, cap):
+            raise ValueError(
+                f"{what}: positions {t0}..{t0 + s_c} out of range for "
+                f"max_positions {self.max_positions} / cache capacity {cap}")
+
+    def _run_blocks(self, toks, caches, blk_fn):
+        """Embed ``toks``, thread the caches through ``blk_fn`` per block,
+        final norm and head."""
+        x = self.tok_emb.weight[toks]
+        new_caches = []
+        for blk, (kc, vc) in zip(self.blocks, caches):
+            x, kc, vc = blk_fn(blk, x, kc, vc)
+            new_caches.append((kc, vc))
+        return _linear(self.norm(x), self.lm_head.weight), new_caches
+
+    def prefill(self, toks, caches):
+        """Consume a prompt ``toks (B, S_p)`` from position 0 in one flash
+        pass, filling the caches: ``(logits (B, S_p, V), caches)``."""
+        self._check_positions("prefill", 0, toks.shape[1], caches)
+        return self._run_blocks(
+            toks, caches, lambda blk, x, kc, vc: blk.prefill(x, kc, vc))
+
+    def decode_chunk(self, toks, caches, t0):
+        """Logits for a token chunk ``toks (B, S_c)`` at positions ``t0 ..``
+        against the caches: ``(logits (B, S_c, V), caches)``."""
+        t0 = int(t0)
+        self._check_positions("decode_chunk", t0, toks.shape[1], caches)
+        return self._run_blocks(
+            toks, caches,
+            lambda blk, x, kc, vc: blk.decode_chunk(x, kc, vc, t0))
+
+    def decode_step(self, tok, caches, t):
+        """Logits for one token, ``tok (B,)`` at position ``t``:
+        ``(logits (B, V), caches)``."""
+        t = int(t)
+        self._check_positions("decode_step", t, 1, caches)
+        return self._run_blocks(
+            tok, caches, lambda blk, x, kc, vc: blk.decode(x, kc, vc, t))
+
+
+def llama_tiny(**kw):
+    """Test-scale geometry (for suites and examples)."""
+    return LlamaModel(**{**dict(vocab_size=1000, hidden=128, layers=2,
+                                heads=4, kv_heads=2, max_positions=128),
+                         **kw})
+
+
+def llama_1b(**kw):
+    """~1.2B geometry (Llama-3.2-1B-like: 16 layers, hidden 2048, 32q/8kv
+    heads, FFN 8192; the vocabulary comes from the caller)."""
+    return LlamaModel(**{**dict(hidden=2048, layers=16, heads=32,
+                                kv_heads=8, intermediate=8192,
+                                rope_theta=500000.0, max_positions=8192),
+                         **kw})
+
+
+def llama_7b(**kw):
+    """Llama-2-7B geometry: 32 layers, hidden 4096, 32 MHA heads, FFN
+    11008, a 4096-token context window."""
+    return LlamaModel(**{**dict(hidden=4096, layers=32, heads=32,
+                                intermediate=11008, max_positions=4096),
+                         **kw})

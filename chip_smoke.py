@@ -78,7 +78,29 @@ Phases, each of which raises on failure:
    3 x 224 x 224, 10 iterations (two SGD launches each, depth 4 and depth
    3; DDP's exchanges; images/s; a profiled iteration); SyncBatchNorm
    against BatchNorm2d; a
-   planted overflow skipped alike on the card and on the CPU (gloo).
+   planted overflow skipped alike on the card and on the CPU (gloo);
+12. the RMSNorm kernels against their plain versions (fp32, bf16 and fp16,
+   affine and not, rows of 768 to 12000, the (16384, 768) training shape),
+   and the fused LM-head + cross-entropy kernels against theirs (bf16 at
+   the Llama loss's (16368, 32000, 768), fp32 with V = 32001 and E = 100,
+   bf16 at E = 2048, fp16; labels -1 and V in every case), each with its
+   time, its bound, the plain version's and one library call's
+   (``F.rms_norm``; ``F.linear`` + ``F.cross_entropy``), the LM-head
+   kernels with few repetitions (tens of ms a launch; these run with
+   phase 2);
+13. the Llama serving path: ``generate`` on llama_125m (the JAX bench's
+   ``LlamaModel(vocab 32000, hidden 768, 12 layers, 12 heads, 4 KV heads,
+   FFN 2048)``, fp32, random weights from a seed) with phase 3's sizes,
+   the launch counts of that one call (12 flash, 25 x 128 RMSNorm),
+   prefill ms and decode tokens/s, where the time goes, and the card
+   against the CPU;
+14. the bench's Llama step (``bench.py::build_llama_step``: bf16 half
+   copies, ``FusedAdam(lr=6e-4, weight_decay=0.1)``, static scale 1) at 16 x
+   1024 with its ``chunked`` loss (16 + 16 xentropy launches a step) and
+   its ``kernel`` loss (the fused LM-head kernels: 1 + 1 + 1), each with
+   the launch counts of one step (RMSNorm 25/25/25, flash 12/12/12, Adam
+   1), 10 timed steps, peak memory, falling losses and a profiled step;
+   the two modes' first-step losses agree within 1e-3.
 
 It prints one JSON line of per-kernel numbers, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -1294,10 +1316,16 @@ def _lm_loss(torch):
     return lm_loss
 
 
-def train_path(torch, dispatch, model, loss_fn, what, xent_want):
-    """make_train_step on GPT-2 small at the training shape, bf16 half
-    copies, with ``loss_fn``; returns the launch counts of one step and the
-    step's ms."""
+LN_NAMES = ("ln_forward", "ln_backward_rows", "ln_backward_cols")
+RMS_NAMES = ("rms_forward", "rms_backward_rows", "rms_backward_cols")
+
+
+def train_path(torch, dispatch, model, loss_fn, what, xent_want,
+               name="gpt2_small", norms=LN_NAMES):
+    """make_train_step on ``model`` (GPT-2 small unless ``name`` says
+    otherwise; ``norms`` names its norm kernels' counters) at the training
+    shape, bf16 half copies, with ``loss_fn``; returns the launch counts of
+    one step, the step's ms and the first step's loss."""
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.training import make_train_step
     opt = FusedAdam(list(model.parameters()), lr=LR, weight_decay=WD)
@@ -1315,10 +1343,9 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want):
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
     want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
-                flash_attention_bwd_dkv=layers, ln_forward=2 * layers + 1,
-                ln_backward_rows=2 * layers + 1,
-                ln_backward_cols=2 * layers + 1, fused_adam=1, **xent_want)
-    print(f"training path: make_train_step(gpt2_small, batch {TRAIN_BATCH} x "
+                flash_attention_bwd_dkv=layers, fused_adam=1, **xent_want)
+    want.update(dict.fromkeys(norms, 2 * layers + 1))
+    print(f"training path: make_train_step({name}, batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, "
           f"{what})")
     print(f"  launches in one step: {counts}")
@@ -1344,7 +1371,7 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want):
           f"{', '.join(f'{x:.4f}' for x in values)}")
     _print_profile(torch, lambda: step(ids, ids), 10)
     del step, opt
-    return counts, 1e3 * step_s
+    return counts, 1e3 * step_s, values[0]
 
 
 def train_cpu_phase(torch, gpt, model):
@@ -1673,7 +1700,7 @@ def loss_mode_path(torch, dispatch, model, mode):
     n_chunks = -(-rows // _chunk_rows(rows, 50257, None)) \
         if mode == "chunked" else 1
     try:
-        counts, step_ms = train_path(
+        counts, step_ms, _ = train_path(
             torch, dispatch, model, loss_fn, f"{mode} loss",
             dict(xent_forward=n_chunks, xent_backward=n_chunks))
     finally:
@@ -1946,6 +1973,337 @@ def amp_phase(torch, dispatch, gpt, model):
     return counts
 
 
+# the JAX bench's llama_125m (bench.py:1424-1430, :1704-1706)
+LLAMA = dict(vocab_size=32000, hidden=768, layers=12, heads=12, kv_heads=4,
+             intermediate=2048)
+
+
+def rms_phase(torch, rms_norm):
+    """The RMSNorm kernels against their plain versions (in fp32 on the
+    same inputs); timings at the Llama training shape (16384, 768) bf16.
+    Returns the three kernel lines' numbers: the forward, the backward's
+    row pass and its column sums."""
+    from torch.nn import functional as F
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    rows, n = TRAIN_BATCH * TRAIN_SEQ, 768
+    cases = [((rows, n), bf16, True), ((rows, n), bf16, False),
+             ((rows, n), f32, True), ((BATCH * PROMPT, n), f32, True),
+             ((BATCH, n), f32, True), ((37, 1000), f32, True),
+             ((300, 2048), bf16, True), ((5, 4096), f16, True),
+             ((3, 12000), f32, False)]
+    print("RMSNorm forward/backward vs plain (the plain version in fp32 on "
+          "the same inputs; err: max abs / max(1, max |ref|)):")
+    main_err = None
+    for shape, dtype, affine in cases:
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5) \
+            .to(dtype)
+        dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        w = None
+        if affine:
+            w = (torch.randn(shape[1], generator=g, device="cuda") * 0.5
+                 + 1).to(dtype)
+        wf = None if w is None else w.float()
+        y, rstd = rms_norm.rms_forward(x, w, 1e-6)
+        got = rms_norm.rms_backward(dy, x, rstd, w)
+        torch.cuda.synchronize()
+        ry, rrstd = rms_norm.rms_forward_reference(x.float(), wf, 1e-6)
+        ref = rms_norm.rms_backward_reference(dy.float(), x.float(), rstd, wf)
+        tag = f"{shape} {str(dtype)[6:]} affine={affine}"
+        # y and dx are rounded to their dtype; rstd and dw are fp32 sums in
+        # another order
+        tol = 1e-5 if dtype == f32 else 2e-2
+        check(f"{tag} y", scaled_err(y, ry)[0], tol)
+        check(f"{tag} rstd", scaled_err(rstd, rrstd)[0], 1e-5)
+        check(f"{tag} dx", scaled_err(got[0], ref[0])[0], tol)
+        if affine:
+            check(f"{tag} dw", scaled_err(got[1], ref[1])[0], 1e-5)
+        if shape == (rows, n) and dtype == bf16 and affine:
+            # the kernel lines' errors: against the plain version on the
+            # same bf16 tensors (y and dx rounded to bf16 on both sides)
+            sy, _ = rms_norm.rms_forward_reference(x, w, 1e-6)
+            same = rms_norm.rms_backward_reference(dy, x, rstd, w)
+            main_err = (scaled_err(y, sy)[1], scaled_err(got[0], same[0])[1],
+                        scaled_err(got[1], same[1])[1])
+
+    x = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
+    dy = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
+    w = (torch.randn(n, generator=g, device="cuda") * 0.5 + 1).to(bf16)
+    f_ms = median_ms(lambda: rms_norm.rms_forward(x, w, 1e-6))[0]
+    f_plain = median_ms(lambda: rms_norm.rms_forward_reference(x, w,
+                                                               1e-6))[0]
+    f_lib = median_ms(lambda: F.rms_norm(x, (n,), w, 1e-6))[0]
+    fb = bound_ms(2 * rows * n * 2 + n * 2 + rows * 4, 4 * rows * n,
+                  FP32_FLOP_PER_S)
+    _, rstd = rms_norm.rms_forward(x, w, 1e-6)
+    fn = lambda: rms_norm.rms_backward(dy, x, rstd, w)  # noqa: E731
+    b_ms = median_ms(fn)[0]
+    split = kernel_split_ms(torch, fn, ("rms_bwd_kernel", "rms_bwd_cols"))
+    b_plain = median_ms(lambda: rms_norm.rms_backward_reference(
+        dy, x, rstd, w))[0]
+    xl = x.detach().requires_grad_(True)
+    wl = w.detach().requires_grad_(True)
+    yl = F.rms_norm(xl, (n,), wl, 1e-6)
+    b_lib = median_ms(lambda: torch.autograd.grad(yl, (xl, wl), dy,
+                                                  retain_graph=True))[0]
+    parts = rms_norm._bwd_parts(0, rows, n)
+    b_rows = bound_ms(3 * rows * n * 2 + rows * 4 + n * 2 + parts * n * 4,
+                      8 * rows * n, FP32_FLOP_PER_S)
+    b_cols = bound_ms(parts * n * 4 + n * 4, parts * n, FP32_FLOP_PER_S)
+    b_all = bound_ms(3 * rows * n * 2 + rows * 4 + n * 2 + n * 4,
+                     8 * rows * n, FP32_FLOP_PER_S)
+    print(f"  time ({rows}, {n}) bf16 affine: forward {f_ms:.4f} ms (bound "
+          f"{fb[0]:.4f}, {fb[1]}; plain {f_plain:.4f}; F.rms_norm "
+          f"{f_lib:.4f}); backward, both launches {b_ms:.4f} ms (dx + "
+          f"partial sums {split['rms_bwd_kernel']:.4f} ms over {parts} "
+          f"blocks, column sums {split['rms_bwd_cols']:.4f} ms; bound "
+          f"{b_all[0]:.4f}, {b_all[1]}; plain {b_plain:.4f}; F.rms_norm "
+          f"backward {b_lib:.4f})")
+    print(f"  ({rows}, {n}) bf16 affine against the plain version on the "
+          f"same bf16 tensors: y max abs err {main_err[0]:.3e}, dx "
+          f"{main_err[1]:.3e}, dw {main_err[2]:.3e}")
+    common = dict(plain_ms=b_plain, library_ms=b_lib, whole_ms=b_ms,
+                  whole_bound_ms=b_all[0],
+                  scope="plain_ms and library_ms time the whole backward "
+                        "(both launches)")
+    return (dict(max_abs_err=main_err[0], ms=f_ms, plain_ms=f_plain,
+                 library_ms=f_lib, bound_ms=fb[0], bound_by=fb[1]),
+            dict(max_abs_err=main_err[1], ms=split["rms_bwd_kernel"],
+                 bound_ms=b_rows[0], bound_by=b_rows[1], **common),
+            dict(max_abs_err=main_err[2], ms=split["rms_bwd_cols"],
+                 bound_ms=b_cols[0], bound_by=b_cols[1], **common))
+
+
+def _lmx_case(torch, g, n, v, e, dtype):
+    """Activations, a head table and labels with -1 and V among them (both
+    match no column: loss = lse)."""
+    x = torch.randn((n, e), generator=g, device="cuda").to(dtype)
+    emb = (torch.randn((v, e), generator=g, device="cuda") * 0.05).to(dtype)
+    lab = torch.randint(0, v, (n,), generator=g, device="cuda")
+    lab[1] = -1
+    lab[3] = v
+    return x, emb, lab
+
+
+def lmx_phase(torch, lm_head_xent):
+    """The fused LM-head + cross-entropy kernels against their plain
+    versions (which materialise the fp32 logits) on the same inputs; times
+    at the Llama loss's shape, (16368, 32000, 768) bf16, with few
+    repetitions (each launch takes tens of ms).  Returns the three kernel
+    lines' numbers: the forward, dx and demb."""
+    from torch.nn import functional as F
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    n0, v0, e0 = TRAIN_BATCH * (TRAIN_SEQ - 1), LLAMA["vocab_size"], 768
+    cases = [(n0, v0, e0, bf16), (1000, 32001, 768, f32),
+             (300, 1000, 100, f32), (257, 5003, 2048, bf16),
+             (77, 3001, 64, f16)]
+    print("fused LM head + cross-entropy vs plain (loss, lse: max abs / "
+          "max(1, max |ref|); dx, demb: max abs / max |ref|; fp32 sums in "
+          "another order, half outputs rounded on both sides):")
+    main_err = None
+    for n, v, e, dtype in cases:
+        x, emb, lab = _lmx_case(torch, g, n, v, e, dtype)
+        gm = torch.rand((n,), generator=g, device="cuda") / n
+        loss, lse = lm_head_xent.lm_head_xent_forward(x, emb, lab)
+        dx, demb = lm_head_xent.lm_head_xent_backward(x, emb, lab, lse, gm)
+        torch.cuda.synchronize()
+        rloss, rlse = lm_head_xent.lm_head_xent_forward_reference(x, emb, lab)
+        rdx, rdemb = lm_head_xent.lm_head_xent_backward_reference(
+            x, emb, lab, lse, gm)
+        tag = f"({n}, {v}, {e}) {str(dtype)[6:]}"
+        el = scaled_err(loss, rloss)
+        check(f"{tag} loss", el[0], 1e-5)
+        check(f"{tag} lse", scaled_err(lse, rlse)[0], 1e-5)
+        if not (torch.equal(loss[1], lse[1]) and torch.equal(loss[3], lse[3])):
+            raise AssertionError(f"{tag}: labels -1 and V must give loss = "
+                                 f"lse")
+        tol = 1e-4 if dtype == f32 else 1e-2
+        errs = []
+        for what, got, ref in (("dx", dx, rdx), ("demb", demb, rdemb)):
+            err = (got.float() - ref.float()).abs().max().item()
+            check(f"{tag} {what}", err / ref.float().abs().max().item(), tol)
+            errs.append(err)
+        if (n, v, e, dtype) == (n0, v0, e0, bf16):
+            main_err = (el[1], *errs)
+        del x, emb, lab, dx, demb, rdx, rdemb
+
+    x, emb, lab = _lmx_case(torch, g, n0, v0, e0, bf16)
+    ok = lab.clamp(0, v0 - 1)      # F.cross_entropy takes no -1 or V
+    gm = torch.full((n0,), 1.0 / n0, device="cuda")
+    _, lse = lm_head_xent.lm_head_xent_forward(x, emb, lab)
+    few = dict(reps=3, inner=1, warmup=1)
+    f_ms = median_ms(lambda: lm_head_xent.lm_head_xent_forward(x, emb, lab),
+                     **few)[0]
+    f_plain = median_ms(lambda: lm_head_xent.lm_head_xent_forward_reference(
+        x, emb, lab), **few)[0]
+    f_lib = median_ms(lambda: F.cross_entropy(F.linear(x, emb), ok,
+                                              reduction="none"),
+                      reps=5, inner=2)[0]
+    fn = lambda: lm_head_xent.lm_head_xent_backward(  # noqa: E731
+        x, emb, lab, lse, gm)
+    b_ms = median_ms(fn, **few)[0]
+    split = kernel_split_ms(torch, fn, ("lmx_dx_kernel", "lmx_dw_kernel"),
+                            calls=2)
+    b_plain = median_ms(lambda: lm_head_xent.lm_head_xent_backward_reference(
+        x, emb, lab, lse, gm), **few)[0]
+    xl = x.detach().requires_grad_(True)
+    el = emb.detach().requires_grad_(True)
+    ref = F.cross_entropy(F.linear(xl, el), ok, reduction="none")
+    b_lib = median_ms(lambda: torch.autograd.grad(ref, (xl, el), gm,
+                                                  retain_graph=True),
+                      reps=5, inner=2)[0]
+    nve, ne, ve = n0 * v0 * e0, n0 * e0 * 2, v0 * e0 * 2
+    fb = bound_ms(ne + ve + 3 * n0 * 4, 2 * nve, BF16_FLOP_PER_S)
+    dxb = bound_ms(2 * ne + ve + 3 * n0 * 4, 4 * nve, BF16_FLOP_PER_S)
+    dwb = bound_ms(ne + 2 * ve + 3 * n0 * 4, 4 * nve, BF16_FLOP_PER_S)
+    bb = bound_ms(2 * ne + 2 * ve + 3 * n0 * 4, 8 * nve, BF16_FLOP_PER_S)
+    print(f"  time ({n0}, {v0}, {e0}) bf16: forward {f_ms:.3f} ms (bound "
+          f"{fb[0]:.4f}, {fb[1]}: {2 * nve / 1e12:.3f} TFLOP at the bf16 "
+          f"rate; plain {f_plain:.3f}; F.linear + F.cross_entropy "
+          f"{f_lib:.3f}); backward, both launches {b_ms:.3f} ms (dx "
+          f"{split['lmx_dx_kernel']:.3f}, demb {split['lmx_dw_kernel']:.3f};"
+          f" bound {bb[0]:.4f}, {bb[1]}; plain {b_plain:.3f}; their "
+          f"backward {b_lib:.3f})")
+    print(f"  ({n0}, {v0}, {e0}) bf16 max abs err: loss {main_err[0]:.3e}, "
+          f"dx {main_err[1]:.3e}, demb {main_err[2]:.3e}")
+    common = dict(plain_ms=b_plain, library_ms=b_lib, whole_ms=b_ms,
+                  whole_bound_ms=bb[0],
+                  scope="plain_ms and library_ms time the whole backward "
+                        "(both launches)")
+    return (dict(max_abs_err=main_err[0], ms=f_ms, plain_ms=f_plain,
+                 library_ms=f_lib, bound_ms=fb[0], bound_by=fb[1]),
+            dict(max_abs_err=main_err[1], ms=split["lmx_dx_kernel"],
+                 bound_ms=dxb[0], bound_by=dxb[1], **common),
+            dict(max_abs_err=main_err[2], ms=split["lmx_dw_kernel"],
+                 bound_ms=dwb[0], bound_by=dwb[1], **common))
+
+
+def llama_generate_path(torch, dispatch, gpt, llama):
+    """generate() on llama_125m at full width, with the GPT path's sizes;
+    returns the model, the output tokens, the launch counts and the card's
+    logits for the CPU comparison."""
+    torch.manual_seed(SEED)
+    model = llama.LlamaModel(**LLAMA, max_positions=MAX_POS,
+                             device="cuda").eval()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    prompt = torch.randint(0, LLAMA["vocab_size"], (BATCH, PROMPT),
+                           generator=g, device="cuda")
+    gpt.generate(model, prompt[:, :16], 2)        # warm-up
+    torch.cuda.synchronize()
+
+    dispatch.reset_counts()
+    t0 = time.perf_counter()
+    out = gpt.generate(model, prompt, NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dispatch.counts()
+    print(f"Llama serving path: generate(llama_125m, batch {BATCH}, prompt "
+          f"{PROMPT}, {NEW} new tokens, fp32, greedy)")
+    print(f"  launches: {counts}")
+    layers = len(model.blocks)
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention_fwd=layers,
+                rms_forward=(2 * layers + 1) * NEW)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    if out.shape != (BATCH, PROMPT + NEW) or out.dtype != torch.long:
+        raise AssertionError(f"output {tuple(out.shape)} {out.dtype}")
+    if not torch.equal(out[:, :PROMPT], prompt):
+        raise AssertionError("generate changed the prompt")
+    if int(out.min()) < 0 or int(out.max()) >= LLAMA["vocab_size"]:
+        raise AssertionError("generated ids outside the vocabulary")
+
+    with torch.inference_mode():
+        caches = model.init_caches(BATCH, PROMPT + NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(out[:, :PROMPT], caches)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_logits = logits[:2].float().cpu()
+        greedy_ok = torch.equal(logits[:, -1].argmax(-1), out[:, PROMPT])
+        step_logits = []
+        t0 = time.perf_counter()
+        for t in range(PROMPT, PROMPT + NEW - 1):
+            logits, caches = model.decode_step(out[:, t], caches, t)
+            if t < PROMPT + 8:
+                step_logits.append(logits[:2].float().cpu())
+                greedy_ok &= torch.equal(logits.argmax(-1), out[:, t + 1])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    if not torch.isfinite(prefill_logits).all():
+        raise AssertionError("non-finite prefill logits")
+    if not greedy_ok:
+        raise AssertionError("generate's tokens are not the argmax of the "
+                             "same model's logits")
+    kv_mib = sum(c.numel() * c.element_size() for kv in caches for c in kv) \
+        / 2 ** 20
+    print(f"  generate wall {wall:.3f} s; prefill {1e3 * prefill_s:.2f} ms; "
+          f"decode {NEW - 1} steps {decode_s:.3f} s = "
+          f"{BATCH * (NEW - 1) / decode_s:.1f} tokens/s (batch {BATCH}); KV "
+          f"caches {kv_mib:.1f} MiB ({LLAMA['kv_heads']} of "
+          f"{LLAMA['heads']} heads wide)")
+    return model, out, counts, prefill_logits, step_logits
+
+
+def llama_cpu_phase(torch, llama, model, out, prefill_logits, step_logits):
+    """The same Llama weights on the CPU (the plain versions): prefill
+    logits of the first 2 sequences and 8 teacher-forced decode steps."""
+    cpu = llama.LlamaModel(**LLAMA, max_positions=MAX_POS,
+                           device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = out[:2].cpu()
+    tol = 1e-3     # fp32 on both sides, TF32 off; sums in other orders
+    print("Llama card vs CPU (same weights; max abs logit difference):")
+    with torch.inference_mode():
+        caches = cpu.init_caches(2, PROMPT + NEW)
+        logits, caches = cpu.prefill(toks[:, :PROMPT], caches)
+        check(f"prefill logits (2, {PROMPT}, {LLAMA['vocab_size']})",
+              (logits - prefill_logits).abs().max().item(), tol)
+        for i, want in enumerate(step_logits):
+            t = PROMPT + i
+            logits, caches = cpu.decode_step(toks[:, t], caches, t)
+            check(f"decode step t={t} logits",
+                  (logits - want).abs().max().item(), tol)
+
+
+def _kernel_lm_loss():
+    """The JAX bench's ``--loss-mode kernel`` (bench.py:1321-1329): the
+    mean fused LM-head loss of the next token."""
+    from apex_tpu_torch.kernels.lm_head_xent import fused_lm_head_xent
+
+    def lm_loss(out, ids):
+        hidden, table = out
+        flat = hidden[:, :-1].reshape(-1, hidden.shape[-1])
+        return fused_lm_head_xent(flat, table, ids[:, 1:].reshape(-1)).mean()
+    return lm_loss
+
+
+def llama_train_path(torch, dispatch, llama, mode):
+    """The JAX bench's Llama step (bench.py::build_llama_step) on
+    llama_125m at the training shape with its ``chunked`` or ``kernel``
+    loss mode; returns the launch counts of one step, the step's ms and the
+    first step's loss."""
+    from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
+    torch.manual_seed(SEED)
+    model = llama.LlamaModel(**LLAMA, max_positions=TRAIN_POS,
+                             output_hidden=True, device="cuda")
+    rows = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    if mode == "chunked":
+        chunks = -(-rows // _chunk_rows(rows, LLAMA["vocab_size"], None))
+        loss_fn = _chunked_lm_loss(LLAMA["vocab_size"])
+        want = dict(xent_forward=chunks, xent_backward=chunks)
+    else:
+        loss_fn = _kernel_lm_loss()
+        want = dict(lm_head_xent_fwd=1, lm_head_xent_dx=1,
+                    lm_head_xent_demb=1)
+    out = train_path(torch, dispatch, model, loss_fn, f"{mode} loss", want,
+                     name="llama_125m", norms=RMS_NAMES)
+    del model
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1953,9 +2311,9 @@ def main():
         return 1
     from apex_tpu_torch import _build
     from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
-        multi_tensor, xentropy
+        lm_head_xent, multi_tensor, rms_norm, xentropy
     from apex_tpu_torch import models
-    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch.models import gpt, llama
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1991,6 +2349,8 @@ def main():
     adam_half = adam_half_phase(torch, multi_tensor, shapes)
     sgd = sgd_phase(torch, multi_tensor, rn_shapes, rn_bn)
     xf, xb = xent_phase(torch, xentropy)
+    rms_f, rms_rows, rms_cols = rms_phase(torch, rms_norm)
+    lmx_f, lmx_dx, lmx_dw = lmx_phase(torch, lm_head_xent)
     print(f"kernel phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     model, out, serve, prefill_logits, step_logits = main_path(
@@ -1998,10 +2358,15 @@ def main():
     profile_phase(torch, model, out)
     cpu_phase(torch, gpt, model, out, prefill_logits, step_logits)
     del model, out
+    model, out, llama_serve, prefill_logits, step_logits = \
+        llama_generate_path(torch, dispatch, gpt, llama)
+    profile_phase(torch, model, out)
+    llama_cpu_phase(torch, llama, model, out, prefill_logits, step_logits)
+    del model, out
     print(f"serving phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    paths = {"generate": serve}
-    paths["train_step"], plain_ms = train_path(
+    paths = {"generate": serve, "llama_generate": llama_serve}
+    paths["train_step"], plain_ms, _ = train_path(
         torch, dispatch, train_model, _lm_loss(torch), "plain cross entropy",
         {})
     paths["train_step_chunked"], chunked_ms = loss_mode_path(
@@ -2011,6 +2376,16 @@ def main():
     print(f"train step ms in this run: plain {plain_ms:.2f}, chunked "
           f"{chunked_ms:.2f}, fused {fused_ms:.2f}")
     pad_vocab_path(torch, gpt)
+    paths["llama_train_chunked"], l_chunked_ms, l_chunked_loss = \
+        llama_train_path(torch, dispatch, llama, "chunked")
+    paths["llama_train_kernel"], l_kernel_ms, l_kernel_loss = \
+        llama_train_path(torch, dispatch, llama, "kernel")
+    print(f"llama_125m train step ms in this run: chunked "
+          f"{l_chunked_ms:.2f}, kernel {l_kernel_ms:.2f}")
+    # the same function at the same weights and batch: the chunked mode
+    # rounds its logits to bf16, the kernel keeps them in fp32
+    check("llama_125m first-step loss, kernel vs chunked (relative)",
+          abs(l_kernel_loss - l_chunked_loss) / abs(l_chunked_loss), 1e-3)
     print(f"training phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     train_cpu_phase(torch, gpt, train_model)
@@ -2034,6 +2409,8 @@ def main():
     fa, fb = "apex_tpu_torch/csrc/flash_attention", "apex_tpu/kernels/"
     ln_src = "apex_tpu_torch/csrc/layer_norm.cu"
     xe_src = "apex_tpu_torch/csrc/xentropy.cu"
+    rms_src = "apex_tpu_torch/csrc/rms_norm.cu"
+    lmx_src = "apex_tpu_torch/csrc/lm_head_xent.cu"
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=f"{fa}.cu",
              replaces=f"{fb}attention.py:352",
@@ -2071,6 +2448,31 @@ def main():
              replaces=f"{fb}xentropy.py:160 (_bwd_kernel :117, pallas_call "
                       f":185)", **launches("xent_backward"),
              shape="(16368, 50257) bf16", **xb),
+        dict(name="rms_forward", route="cuda", source=rms_src,
+             replaces=f"{fb}rms_norm.py:60 (_fwd_kernel :26, pallas_call "
+                      f":77)", **launches("rms_forward"),
+             shape="(16384, 768) bf16 affine", **rms_f),
+        dict(name="rms_backward", route="cuda", source=rms_src,
+             replaces=f"{fb}rms_norm.py:91 (_bwd_kernel :41, pallas_call "
+                      f":115)", **launches("rms_backward_rows"),
+             shape="(16384, 768) bf16 affine", **rms_rows),
+        dict(name="rms_backward_cols", route="cuda", source=rms_src,
+             replaces=f"{fb}rms_norm.py:91 (dw, :53-57)",
+             **launches("rms_backward_cols"),
+             shape="(16384, 768) bf16 affine", **rms_cols),
+        dict(name="lm_head_xent_fwd", route="cuda", source=lmx_src,
+             replaces=f"{fb}lm_head_xent.py:183 (_fwd_impl via "
+                      f"fused_lm_head_xent :172; _fwd_kernel :61, "
+                      f"pallas_call :192)", **launches("lm_head_xent_fwd"),
+             shape="(16368, 32000, 768) bf16", **lmx_f),
+        dict(name="lm_head_xent_dx", route="cuda", source=lmx_src,
+             replaces=f"{fb}lm_head_xent.py:214 (_bwd; _dx_kernel :96, "
+                      f"pallas_call :230)", **launches("lm_head_xent_dx"),
+             shape="(16368, 32000, 768) bf16", **lmx_dx),
+        dict(name="lm_head_xent_demb", route="cuda", source=lmx_src,
+             replaces=f"{fb}lm_head_xent.py:214 (_bwd; _demb_kernel :121, "
+                      f"pallas_call :244)", **launches("lm_head_xent_demb"),
+             shape="(16368, 32000, 768) bf16", **lmx_dw),
         dict(name="fused_adam", route="cuda",
              source="apex_tpu_torch/csrc/multi_tensor_adam.cu",
              replaces=f"{fb}multi_tensor.py:207", **launches("fused_adam"),
