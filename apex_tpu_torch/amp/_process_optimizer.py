@@ -12,12 +12,14 @@ half gradients are unscaled into fp32 master gradients (or added to the
 stashed ones) with the overflow flag raised on a non-finite one.  "Half"
 means float16 or bfloat16.
 
-``FusedSGD`` gets the JAX package's variants: its step writes the half
-model copy itself (a depth-4 launch), so the patched step makes no copy of
-its own; and with ``materialize_master_grads=False`` the backward leaves
-the half gradients scaled (unscaled only by what an earlier stashed
-gradient needs) and records in ``most_recent_scale`` the scale the kernel
-divides them by.
+``FusedAdam`` and ``FusedLAMB`` take that generic path: their step
+updates the fp32 masters, and the patched step copies them into the half
+model parameters.  ``FusedSGD`` gets the JAX package's variants: its step
+writes the half model copy itself (a depth-4 launch), so the patched step
+makes no copy of its own; and with ``materialize_master_grads=False`` the
+backward leaves the half gradients scaled (unscaled only by what an
+earlier stashed gradient needs) and records in ``most_recent_scale`` the
+scale the kernel divides them by.
 """
 from __future__ import annotations
 

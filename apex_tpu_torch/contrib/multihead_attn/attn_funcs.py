@@ -5,10 +5,17 @@
 (:mod:`apex_tpu_torch.kernels.attention`) inside a
 ``torch.autograd.Function`` whose backward runs the two backward kernels on
 the saved inputs, ``out`` and ``lse``, as the JAX package's ``custom_vjp``
-does; the bias gets no gradient (the JAX package returns zeros for it).  ``self_attn_func`` keeps the JAX package's per-head INTERLEAVED QKV
-layout: the in-projection output is reshaped to (T, B*H, 3, D), so weight
-rows group as [q_h, k_h, v_h] per head, not torch's [Q; K; V] blocks.
-The tensor- and sequence-parallel branches come with later slices.
+does; the bias gets no gradient (the JAX package returns zeros for it).
+Attention dropout rides inside the kernels, its mask the hash of
+``dropout_seed`` and the positions (:mod:`apex_tpu_torch.kernels.attention`),
+which the backward replays from the seed vector the Function saves.
+``self_attn_func`` keeps the JAX package's per-head INTERLEAVED QKV layout:
+the in-projection output is reshaped to (T, B*H, 3, D), so weight rows
+group as [q_h, k_h, v_h] per head, not torch's [Q; K; V] blocks.  On the
+flash path its dropout seed is one int32 drawn from the caller's
+``generator`` on the inputs' device (:func:`draw_dropout_seed`), a fresh
+one per call, as each JAX layer draws from a key of its own.  The tensor-
+and sequence-parallel branches come with later slices.
 """
 from __future__ import annotations
 
@@ -35,42 +42,60 @@ def _to_3d(q4, k4, v4, bias):
             v4.reshape(b * h, sk, d), bias3)
 
 
-def attention_reference(q4, k4, v4, bias, causal, scale, window=None):
+def attention_reference(q4, k4, v4, bias, causal, scale, window=None,
+                        dropout_p=0.0, dropout_seed=None):
     """Plain attention in the (B, H, S, D) layout (the flash kernel's plain
-    version): fp32 scores, the finite -1e30 mask, softmax, product; the
-    result in q's dtype."""
+    version): fp32 scores, the finite -1e30 mask, softmax, the dropout hash
+    mask of ``dropout_seed``, product; the result in q's dtype."""
     q3, k3, v3, bias3 = _to_3d(q4, k4, v4, bias)
     out3, _ = _k.flash_attention_reference(q3, k3, v3, bias3, scale, causal,
-                                           window)
+                                           window, dropout_p, dropout_seed)
     return out3.reshape(q4.shape)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q3, k3, v3, bias3, scale, causal, window):
-        out, lse = _k.flash_attention_fwd(q3, k3, v3, bias3, scale, causal,
-                                          window=window)
-        ctx.save_for_backward(q3, k3, v3, bias3, out, lse)
+    def forward(ctx, q3, k3, v3, bias3, scale, causal, window, dropout_p,
+                seed):
+        # one device vector [seed, 0, 0] for both directions: the backward
+        # kernels replay the forward's mask from it
+        seed_vec = _k.seed_vector(dropout_p, seed, device=q3.device)
+        out, lse = _k.flash_fwd(q3, k3, v3, bias3, scale, causal, window,
+                                dropout_p, seed_vec)
+        ctx.save_for_backward(q3, k3, v3, bias3, out, lse, seed_vec)
         ctx.scale, ctx.causal, ctx.window = scale, causal, window
+        ctx.dropout_p = dropout_p
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q3, k3, v3, bias3, out, lse = ctx.saved_tensors
-        dq, dk, dv = _k.flash_attention_bwd(q3, k3, v3, bias3, out, lse, g,
-                                            ctx.scale, ctx.causal,
-                                            window=ctx.window)
-        return dq, dk, dv, None, None, None, None
+        q3, k3, v3, bias3, out, lse, seed_vec = ctx.saved_tensors
+        dq, dk, dv = _k.flash_bwd(q3, k3, v3, bias3, out, lse, g, ctx.scale,
+                                  ctx.causal, ctx.window, ctx.dropout_p,
+                                  seed_vec)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def draw_dropout_seed(generator=None, device=None):
+    """One int32 seed for the dropout hash, drawn from ``generator`` (the
+    default generator of ``device`` when None) on ``device``: on the card
+    it stays there, and the kernels read it there."""
+    if generator is not None:
+        device = generator.device
+    return torch.randint(-2 ** 31, 2 ** 31, (), generator=generator,
+                         device=device, dtype=torch.int32)
 
 
 def flash_attention(q4, k4, v4, bias=None, causal=False, scale=None,
-                    sliding_window=None, dropout_p=0.0):
+                    sliding_window=None, dropout_p=0.0, dropout_seed=None):
     """Fused scaled-dot-product attention, (B, H, S, D) layout.
 
     ``bias`` is an additive mask broadcastable as (B|1, Sq|1, Sk);
     ``causal`` masks future positions in-kernel; ``sliding_window``
-    (requires ``causal``) keeps keys in (t - window, t].  In-kernel
-    attention dropout is not ported yet: ``dropout_p > 0`` raises."""
+    (requires ``causal``) keeps keys in (t - window, t].  ``dropout_p`` > 0
+    drops attention probabilities in-kernel by the hash mask of
+    ``dropout_seed`` (an int, or an int32 scalar tensor), which the
+    backward regenerates; no (Sq, Sk) mask exists in memory."""
     if sliding_window is not None:
         if not causal:
             raise ValueError(
@@ -79,21 +104,21 @@ def flash_attention(q4, k4, v4, bias=None, causal=False, scale=None,
         if sliding_window < 1:
             raise ValueError(
                 f"sliding_window must be >= 1, got {sliding_window}")
-    if dropout_p:
-        if not 0.0 <= dropout_p < 1.0:
-            raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
-        raise NotImplementedError(
-            "flash attention: in-kernel attention dropout is not ported "
-            "yet")
+    _k.check_dropout(dropout_p, dropout_seed)
+    if not dropout_p:
+        dropout_seed = None
     if scale is None:
         scale = 1.0 / math.sqrt(q4.shape[-1])
     q3, k3, v3, bias3 = _to_3d(q4, k4, v4, bias)
     args = (q3.contiguous(), k3.contiguous(), v3.contiguous(), bias3, scale,
             causal)
     if torch.is_grad_enabled():
-        out3 = _FlashAttention.apply(*args, sliding_window)
+        out3 = _FlashAttention.apply(*args, sliding_window, dropout_p,
+                                     dropout_seed)
     else:   # nothing to save for a backward (generation)
-        out3, _ = _k.flash_attention_fwd(*args, window=sliding_window)
+        out3, _ = _k.flash_attention_fwd(*args, window=sliding_window,
+                                         dropout_p=dropout_p,
+                                         dropout_seed=dropout_seed)
     return out3.reshape(q4.shape)
 
 
@@ -151,7 +176,9 @@ def self_attn_func(use_time_mask, is_training, heads, scale, inputs,
     """Self-attention over ``inputs (T, B, E)``: fused interleaved QKV
     projection, attention (``use_flash`` selects the kernel path, else the
     materializing one), output projection.  ``causal`` masks future
-    positions; ``generator`` feeds the materializing path's dropout."""
+    positions.  ``generator`` feeds the dropout: the materializing path's
+    mask, or on the flash path the seed of the kernels' hash mask, drawn
+    when ``is_training`` and ``dropout_prob > 0``."""
     t, b, e = inputs.shape
     head_dim = e // heads
     lin = torch.matmul(inputs, input_weights.t())
@@ -163,11 +190,13 @@ def self_attn_func(use_time_mask, is_training, heads, scale, inputs,
     if bias is not None:
         bias = bias.to(inputs.device)
     if use_flash:
+        seed = draw_dropout_seed(generator, inputs.device) if dropout > 0.0 \
+            else None
         ctx4 = flash_attention(q3.reshape(b, heads, t, head_dim),
                                k3.reshape(b, heads, t, head_dim),
                                v3.reshape(b, heads, t, head_dim),
                                bias=bias, causal=causal, scale=scale,
-                               dropout_p=dropout)
+                               dropout_p=dropout, dropout_seed=seed)
         ctx3 = ctx4.reshape(b * heads, t, head_dim)
     else:
         ctx3 = _attn_with_dropout(q3, k3, v3, bias, heads, scale, dropout,

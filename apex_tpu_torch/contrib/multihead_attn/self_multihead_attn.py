@@ -4,13 +4,17 @@
 Same constructor arguments and (T, B, E) input layout; ``impl='fast'``
 runs the flash-attention kernel, ``impl='default'`` the materializing path
 (the one that takes biases); ``include_norm_add`` adds a pre-LayerNorm and
-the residual.  Returns ``(outputs, None)``.
+the residual.  Returns ``(outputs, None)``.  Attention dropout on the fast
+path runs inside the flash kernels, its seed drawn from ``generator``.
+The sequence- and tensor-parallel arguments are taken at their defaults
+and refused otherwise.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..._unported import PARALLEL, accept_defaults
 from ...kernels.dispatch import resolve_device
 from ...normalization.fused_layer_norm import fused_layer_norm_affine
 from .attn_funcs import self_attn_func
@@ -19,8 +23,15 @@ from .attn_funcs import self_attn_func
 class SelfMultiheadAttn(nn.Module):
     def __init__(self, embed_dim, num_heads, dropout=0.0, bias=False,
                  include_norm_add=False, impl="fast", causal=False,
-                 device=None, dtype=torch.float32):
+                 seq_parallel_axis=None, seq_parallel_impl="ring",
+                 tensor_parallel_axis=None, device=None,
+                 dtype=torch.float32):
         super().__init__()
+        accept_defaults(
+            "SelfMultiheadAttn: sequence and tensor parallelism", PARALLEL,
+            seq_parallel_axis=(seq_parallel_axis, None),
+            seq_parallel_impl=(seq_parallel_impl, "ring"),
+            tensor_parallel_axis=(tensor_parallel_axis, None))
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         if impl not in ("fast", "default"):

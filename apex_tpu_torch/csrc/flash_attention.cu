@@ -9,7 +9,10 @@
 // and masked scores are the finite -1e30, so a row whose keys are all masked
 // averages v uniformly.  Keys past Sk (the ragged last tile) are left out of
 // the softmax altogether, as in the plain reference.  The masking code is
-// flash_common.cuh, shared with the backward kernels.
+// flash_common.cuh, shared with the backward kernels.  With dropout (a
+// seed vector is given), each probability is multiplied by the hash mask's
+// 1 / (1 - p) or 0 before it meets V, and only there: the running sum and
+// the logsumexp keep the undropped probabilities, as the Pallas kernel's do.
 //
 // Bound on the H100: operations.  At GPT-2-small prefill (BH = 96, S = 512,
 // D = 64, causal) the two products do 4 * D operations per unmasked
@@ -26,7 +29,9 @@
 // one half-warp and are combined with shuffles.  K tiles entirely above the
 // diagonal, or entirely below the band, are never loaded.  Query tiles are
 // issued from the last (the longest under causal masking) to the first.
-// The products run as CUDA-core FMAs; wgmma and TMA are later work.
+// The products run as CUDA-core FMAs; wgmma and TMA are later work.  The
+// dropout hash costs ~12 integer operations per (row, key) pair against the
+// 2 * D FMAs of the two products.
 
 #include "flash_common.cuh"
 
@@ -47,7 +52,8 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, long long bias_bstride,
                  long long bias_qstride, T* __restrict__ out, float* __restrict__ lse,
-                 int sq, int sk, int d, float scale, int causal, int window) {
+                 int sq, int sk, int d, float scale, int causal, int window,
+                 const int* __restrict__ seed_vec, uint32_t drop_thresh, float drop_scale) {
   extern __shared__ float smem[];
   const int qk_stride = d + 1;
   float* Qs = smem;
@@ -62,6 +68,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + (long long)bh * sk * d;
   const T* vb = v + (long long)bh * sk * d;
   const float* bb = bias == nullptr ? nullptr : bias + bh * bias_bstride;
+  const Dropout drop(seed_vec, bh, drop_thresh, drop_scale);
 
   for (int idx = tid; idx < BQ * d; idx += NT) {
     const int r = idx / d, c = idx - r * d;
@@ -132,7 +139,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float p = expf(s[r][c] - m_new);
-        Ss[(ty + 16 * r) * SS + tx + 16 * c] = p;
+        Ss[(ty + 16 * r) * SS + tx + 16 * c] = drop.on ? p * drop.mult(gi, k0 + tx + 16 * c) : p;
         ps += p;
       }
       l[r] = l[r] * alpha + half_warp_sum(ps);
@@ -178,7 +185,7 @@ template <typename T, int NE>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias,
                    long long bias_bstride, long long bias_qstride, void* out, float* lse,
                    int bh, int sq, int sk, int d, float scale, int causal, int window,
-                   cudaStream_t st) {
+                   const int* seed_vec, uint32_t thresh, float drop_scale, cudaStream_t st) {
   // allow the largest tile set of this instantiation once (above 48 KB only
   // dynamic shared memory may be used, after this opt-in)
   static cudaError_t opt_in = cudaFuncSetAttribute(
@@ -189,18 +196,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
   flash_fwd_kernel<T, NE><<<grid, NT, smem_bytes(d), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
       bias_bstride, bias_qstride, static_cast<T*>(out), lse, sq, sk, d, scale, causal,
-      window);
+      window, seed_vec, thresh, drop_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const float* bias,
                      long long bs, long long qs, void* out, float* lse, int bh, int sq,
-                     int sk, int d, float scale, int causal, int window, cudaStream_t st) {
-  if (d <= 16) return launch<T, 1>(q, k, v, bias, bs, qs, out, lse, bh, sq, sk, d, scale, causal, window, st);
-  if (d <= 32) return launch<T, 2>(q, k, v, bias, bs, qs, out, lse, bh, sq, sk, d, scale, causal, window, st);
-  if (d <= 64) return launch<T, 4>(q, k, v, bias, bs, qs, out, lse, bh, sq, sk, d, scale, causal, window, st);
-  if (d <= 128) return launch<T, 8>(q, k, v, bias, bs, qs, out, lse, bh, sq, sk, d, scale, causal, window, st);
+                     int sk, int d, float scale, int causal, int window, const int* seed_vec,
+                     uint32_t thresh, float drop_scale, cudaStream_t st) {
+#define APEX_FLASH_FWD(NE)                                                                  \
+  launch<T, NE>(q, k, v, bias, bs, qs, out, lse, bh, sq, sk, d, scale, causal, window,     \
+                seed_vec, thresh, drop_scale, st)
+  if (d <= 16) return APEX_FLASH_FWD(1);
+  if (d <= 32) return APEX_FLASH_FWD(2);
+  if (d <= 64) return APEX_FLASH_FWD(4);
+  if (d <= 128) return APEX_FLASH_FWD(8);
+#undef APEX_FLASH_FWD
   return cudaErrorInvalidValue;
 }
 
@@ -210,20 +222,26 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const float* b
 // 1 bfloat16, 2 float16); bias fp32 or null, element (b, i, j) at
 // b * bias_bstride + i * bias_qstride + j (a stride of 0 broadcasts);
 // out like q; lse (bh, sq) fp32.  window <= 0 means no band; the band
-// applies only with causal.  Returns the cudaError_t of the launch.
+// applies only with causal.  seed_vec: null for no dropout, else a device
+// int32 vector [seed, row_off, col_off]; drop_thresh and drop_scale are the
+// keep threshold min(int((1 - p) * 2^32), 2^32 - 1) and 1 / (1 - p) in
+// float32.  Returns the cudaError_t of the launch.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                               long long bias_bstride, long long bias_qstride, void* out,
                               void* lse, int bh, int sq, int sk, int d, float scale,
-                              int causal, int window, int dtype, void* stream) {
+                              int causal, int window, const void* seed_vec,
+                              unsigned int drop_thresh, float drop_scale, int dtype,
+                              void* stream) {
   const float* bf = static_cast<const float*>(bias);
   float* lf = static_cast<float*>(lse);
+  const int* sv = static_cast<const int*>(seed_vec);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // grid.y counts query tiles and may not pass 65535
   if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || sq > 65535 * BQ) return cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return dispatch<float>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, st);
-    case 1: return dispatch<__nv_bfloat16>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, st);
-    case 2: return dispatch<__half>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, st);
+    case DT_F32: return dispatch<float>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, sv, drop_thresh, drop_scale, st);
+    case DT_BF16: return dispatch<__nv_bfloat16>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, sv, drop_thresh, drop_scale, st);
+    case DT_F16: return dispatch<__half>(q, k, v, bf, bias_bstride, bias_qstride, out, lf, bh, sq, sk, d, scale, causal, window, sv, drop_thresh, drop_scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,10 @@
 // dq = scale * ds.k, dk = scale * ds^T.q and dv = p^T.dO, each in its
 // input's dtype.  All math in fp32.  Two kernels, as the reference splits
 // it: dq over a sweep of the keys, dk/dv over a sweep of the queries, so
-// neither needs atomics.
+// neither needs atomics.  With dropout, both regenerate the forward's hash
+// mask (flash_common.cuh) for their own tiles, as the Pallas kernels replay
+// it: dp = (dO.v^T) * mult, ds = p * (dp - delta) with delta taken over the
+// dropped output, and dv = (p * mult)^T.dO.
 //
 // Bound on the H100: operations.  At the GPT-2-small training shape
 // (BH = 192, S = 1024, D = 64, causal) the five products take 10 * D
@@ -73,7 +76,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     long long bias_qstride, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int sq, int sk, int d, float scale, int causal,
-                    int window) {
+                    int window, const int* __restrict__ seed_vec, uint32_t drop_thresh,
+                    float drop_scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* Qs = smem;
@@ -87,6 +91,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const long long qoff = (long long)bh * sq * d, koff = (long long)bh * sk * d;
   const float* bb = bias == nullptr ? nullptr : bias + bh * bias_bstride;
+  const Dropout drop(seed_vec, bh, drop_thresh, drop_scale);
 
   load_tile(Qs, q + qoff, q0, sq, d, ld);
   load_tile(Os, dout + qoff, q0, sq, d, ld);
@@ -150,7 +155,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const int gj = k0 + tx + 16 * c;
         const float x = score(s[r][c], scale, brow[r], gi, gj, sk, causal, window);
         const float p = gi < sq ? expf(x - lr[r]) : 0.f;
-        Ss[(ty + 16 * r) * SS + tx + 16 * c] = p * (dp[r][c] - dl[r]);
+        const float dpv = drop.on ? dp[r][c] * drop.mult(gi, gj) : dp[r][c];
+        Ss[(ty + 16 * r) * SS + tx + 16 * c] = p * (dpv - dl[r]);
       }
     }
     __syncthreads();
@@ -191,7 +197,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      long long bias_bstride, long long bias_qstride,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int sq, int sk, int d, float scale, int causal, int window) {
+                     int sq, int sk, int d, float scale, int causal, int window,
+                     const int* __restrict__ seed_vec, uint32_t drop_thresh,
+                     float drop_scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* Ks = smem;
@@ -208,6 +216,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.y * BK;  // the first key tiles see the most queries
   const long long qoff = (long long)bh * sq * d, koff = (long long)bh * sk * d;
   const float* bb = bias == nullptr ? nullptr : bias + bh * bias_bstride;
+  const Dropout drop(seed_vec, bh, drop_thresh, drop_scale);
 
   load_tile(Ks, k + koff, k0, sk, d, ld);
   load_tile(Vs, v + koff, k0, sk, d, ld);
@@ -268,8 +277,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int gj = k0 + ty + 16 * r;
         const float x = score(s[r][c], scale, brow, gi, gj, sk, causal, window);
         const float p = gi < sq ? expf(x - Ls[i]) : 0.f;
-        Ps[(ty + 16 * r) * SS + i] = p;
-        Ds[(ty + 16 * r) * SS + i] = p * (dp[r][c] - Dls[i]);
+        const float mult = drop.on ? drop.mult(gi, gj) : 1.f;
+        Ps[(ty + 16 * r) * SS + i] = p * mult;
+        Ds[(ty + 16 * r) * SS + i] = p * (dp[r][c] * mult - Dls[i]);
       }
     }
     __syncthreads();
@@ -323,6 +333,9 @@ struct Args {
   int bh, sq, sk, d;
   float scale;
   int causal, window;
+  const int* seed_vec;
+  uint32_t thresh;
+  float drop_scale;
   cudaStream_t st;
 };
 
@@ -338,7 +351,8 @@ cudaError_t launch_dq(const Args& a) {
   flash_bwd_dq_kernel<T, NE><<<grid, NT, dq_smem_bytes(a.d), a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.bias, a.bstride, a.qstride, static_cast<const T*>(a.dout), a.lse, a.delta,
-      static_cast<T*>(a.dq), a.sq, a.sk, a.d, a.scale, a.causal, a.window);
+      static_cast<T*>(a.dq), a.sq, a.sk, a.d, a.scale, a.causal, a.window, a.seed_vec,
+      a.thresh, a.drop_scale);
   return cudaGetLastError();
 }
 
@@ -353,7 +367,7 @@ cudaError_t launch_dkv(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.bias, a.bstride, a.qstride, static_cast<const T*>(a.dout), a.lse, a.delta,
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk, a.d, a.scale, a.causal,
-      a.window);
+      a.window, a.seed_vec, a.thresh, a.drop_scale);
   return cudaGetLastError();
 }
 
@@ -385,15 +399,19 @@ cudaError_t run(const Args& a, int dtype, bool dkv) {
 // (0 float32, 1 bfloat16, 2 float16); bias fp32 or null, element (b, i, j)
 // at b * bias_bstride + i * bias_qstride + j (a stride of 0 broadcasts);
 // lse and delta (bh, sq) fp32.  window <= 0 means no band; the band applies
-// only with causal.  Returns the cudaError_t of the launch.
+// only with causal.  seed_vec, drop_thresh and drop_scale as for
+// apex_flash_fwd (null: no dropout).  Returns the cudaError_t of the launch.
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
                                  long long bias_bstride, long long bias_qstride,
                                  const void* dout, const void* lse, const void* delta,
                                  void* dq, int bh, int sq, int sk, int d, float scale,
-                                 int causal, int window, int dtype, void* stream) {
+                                 int causal, int window, const void* seed_vec,
+                                 unsigned int drop_thresh, float drop_scale, int dtype,
+                                 void* stream) {
   const Args a{q, k, v, static_cast<const float*>(bias), bias_bstride, bias_qstride, dout,
                static_cast<const float*>(lse), static_cast<const float*>(delta), dq,
                nullptr, nullptr, bh, sq, sk, d, scale, causal, window,
+               static_cast<const int*>(seed_vec), drop_thresh, drop_scale,
                static_cast<cudaStream_t>(stream)};
   return run(a, dtype, false);
 }
@@ -404,10 +422,12 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   long long bias_qstride, const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int bh, int sq,
                                   int sk, int d, float scale, int causal, int window,
-                                  int dtype, void* stream) {
+                                  const void* seed_vec, unsigned int drop_thresh,
+                                  float drop_scale, int dtype, void* stream) {
   const Args a{q, k, v, static_cast<const float*>(bias), bias_bstride, bias_qstride, dout,
                static_cast<const float*>(lse), static_cast<const float*>(delta), nullptr,
                dk, dv, bh, sq, sk, d, scale, causal, window,
+               static_cast<const int*>(seed_vec), drop_thresh, drop_scale,
                static_cast<cudaStream_t>(stream)};
   return run(a, dtype, true);
 }

@@ -7,9 +7,16 @@
 // additive fp32 bias comes next, the causal mask is top-left aligned
 // (row >= col) and the Mistral band keeps col > row - window, masked
 // scores are the finite -1e30; keys past Sk are left out altogether (-inf).
+//
+// The attention dropout of the three kernels is here too: the counter-based
+// hash of apex_tpu/kernels/attention.py (_hash_keep_u32, _mult_from_hash),
+// a function of (seed, batch*head, global row, global column) alone, so the
+// forward and both backward kernels regenerate the same mask whatever their
+// tiling, and it equals the plain version's bit for bit.
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -56,6 +63,49 @@ __device__ __forceinline__ void query_range(int k0, int sq, int sk, int causal, 
     if (window > 0) *qend = min(sq, min(sk, k0 + BK) - 1 + window);
   }
 }
+
+// the murmur3-style finaliser of (row, col, batch*head, seed), in wrapping
+// uint32 arithmetic
+__device__ __forceinline__ uint32_t dropout_hash(uint32_t row, uint32_t col, uint32_t bh,
+                                                 uint32_t seed) {
+  uint32_t h = row * 0x9E3779B9u + col * 0x85EBCA6Bu + seed * 0xC2B2AE35u + bh * 0x27D4EB2Fu;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return h;
+}
+
+// one block's view of the dropout: off when the seed vector is null, else
+// the seed and the global offsets of row 0 and column 0 read from the
+// device vector [seed, row_off, col_off], the block's batch*head index, and
+// the keep threshold and 1 / (1 - p), both computed on the host exactly as
+// the JAX package computes them
+struct Dropout {
+  bool on;
+  uint32_t seed, row_off, col_off, bh, thresh;
+  float scale;
+
+  __device__ __forceinline__ Dropout(const int* seed_vec, int bh_, uint32_t thresh_,
+                                     float scale_)
+      : on(seed_vec != nullptr), seed(0), row_off(0), col_off(0),
+        bh(static_cast<uint32_t>(bh_)), thresh(thresh_), scale(scale_) {
+    if (on) {
+      seed = static_cast<uint32_t>(seed_vec[0]);
+      row_off = static_cast<uint32_t>(seed_vec[1]);
+      col_off = static_cast<uint32_t>(seed_vec[2]);
+    }
+  }
+
+  // the inverted-dropout multiplier of query row gi, key gj: 1 / (1 - p)
+  // where the hash falls below the threshold, else 0
+  __device__ __forceinline__ float mult(int gi, int gj) const {
+    const uint32_t h = dropout_hash(row_off + static_cast<uint32_t>(gi),
+                                    col_off + static_cast<uint32_t>(gj), bh, seed);
+    return h < thresh ? scale : 0.f;
+  }
+};
 
 // max / sum over the 16 lanes of a half-warp (the 16 threads of one row)
 __device__ __forceinline__ float half_warp_max(float x) {

@@ -12,15 +12,24 @@ dtype and the per-row logsumexp ``lse (BH, Sq)`` in fp32.  And of
 computes it outside its kernels), then ``dq``, ``dk``, ``dv`` in the
 inputs' dtypes.  A CUDA tensor launches the kernels; a CPU tensor takes the
 plain versions (:func:`flash_attention_reference`,
-:func:`flash_attention_bwd_reference`).  In-kernel attention dropout
-(``_hash_keep_u32`` in the JAX package) is not ported yet: ``dropout_p > 0``
-raises.
+:func:`flash_attention_bwd_reference`).
+
+Attention dropout rides inside the kernels as in the JAX package: with
+``dropout_p > 0`` each probability is multiplied by ``1 / (1 - p)`` or 0
+after the softmax (its sum and ``lse`` keep the undropped values), the
+mask a counter-based hash of (seed, batch*head, global row, global column)
+that the backward regenerates from the same seed.  Its plain version is
+:func:`dropout_keep_reference`, bit for bit the JAX package's
+(``_hash_keep_u32``, ``_mult_from_hash``).  The seed reaches the kernels as
+a device vector ``[seed, row_off, col_off]``, so drawing it on the card
+costs no host sync.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -51,11 +60,77 @@ def _scores(q3, k3, bias, scale, causal, window):
     return s
 
 
-def flash_attention_reference(q3, k3, v3, bias, scale, causal, window=None):
-    """The plain version: materialised fp32 scores, softmax, product."""
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(a, c):
+    """``a * c mod 2**32`` for an int64 tensor ``a`` in [0, 2**32) and a
+    constant ``c`` < 2**32, in halves of 16 bits so that no int64 product
+    overflows."""
+    return (a * (c & 0xFFFF) + ((a * (c >> 16)) & 0xFFFF) * 65536) & _U32
+
+
+def dropout_constants(rate):
+    """The keep threshold and the multiplier of kept entries, computed as
+    the JAX package computes them (``_mult_from_hash``): ``min(int((1 -
+    rate) * 2**32), 2**32 - 1)`` in Python double, and ``1 / (1 - rate)``
+    rounded to float32."""
+    thresh = min(int((1.0 - rate) * 2.0 ** 32), 2 ** 32 - 1)
+    return thresh, float(np.float32(1.0 / (1.0 - rate)))
+
+
+def _as_i64(x, device):
+    return torch.as_tensor(x).to(device=device, dtype=torch.int64)
+
+
+def dropout_keep_reference(b, sq, sk, seed, rate, row_off=0, col_off=0,
+                           device=None):
+    """The plain version of the kernels' mask: (B*H, Sq, Sk) fp32
+    multipliers, ``1 / (1 - rate)`` where the hash of (seed, batch*head,
+    ``row_off`` + row, ``col_off`` + column) falls below the keep threshold
+    and 0 elsewhere.  The hash runs in int64 with every sum and product
+    taken mod 2**32, which is the kernels' (and the JAX package's) uint32
+    arithmetic.  ``seed`` and the offsets are ints or int tensors."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    thresh, keep_scale = dropout_constants(rate)
+    rows = (_as_i64(row_off, dev) + torch.arange(sq, device=dev)) & _U32
+    cols = (_as_i64(col_off, dev) + torch.arange(sk, device=dev)) & _U32
+    heads = torch.arange(b, device=dev, dtype=torch.int64)
+    per_head = (_mul32(heads, 0x27D4EB2F)
+                + _mul32(_as_i64(seed, dev) & _U32, 0xC2B2AE35)) & _U32
+    h = (per_head[:, None, None] + _mul32(rows, 0x9E3779B9)[None, :, None]
+         + _mul32(cols, 0x85EBCA6B)[None, None, :]) & _U32
+    h ^= h >> 16
+    h = _mul32(h, 0x7FEB352D)
+    h ^= h >> 15
+    h = _mul32(h, 0x846CA68B)
+    h ^= h >> 16
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.where(h < thresh, torch.full_like(zero, keep_scale), zero)
+
+
+def _keep_mult(q3, k3, dropout_p, seed, row_off, col_off):
+    """The mask for q3 x k3, or None without dropout."""
+    if not dropout_p:
+        return None
+    return dropout_keep_reference(q3.shape[0], q3.shape[1], k3.shape[1],
+                                  seed, dropout_p, row_off, col_off,
+                                  device=q3.device)
+
+
+def flash_attention_reference(q3, k3, v3, bias, scale, causal, window=None,
+                              dropout_p=0.0, dropout_seed=None,
+                              dropout_row_off=0, dropout_col_off=0):
+    """The plain version: materialised fp32 scores, softmax, the dropout
+    mask on the probabilities, product; ``lse`` of the undropped scores."""
     s = _scores(q3, k3, bias, scale, causal, window)
     lse = torch.logsumexp(s, dim=-1)
-    out = torch.matmul(torch.softmax(s, dim=-1), v3.float())
+    p = torch.softmax(s, dim=-1)
+    mult = _keep_mult(q3, k3, dropout_p, dropout_seed, dropout_row_off,
+                      dropout_col_off)
+    if mult is not None:
+        p = p * mult
+    out = torch.matmul(p, v3.float())
     return out.to(q3.dtype), lse
 
 
@@ -65,26 +140,40 @@ def _delta(g, out):
 
 
 def flash_attention_bwd_reference(q3, k3, v3, bias, out, lse, g, scale,
-                                  causal, window=None):
+                                  causal, window=None, dropout_p=0.0,
+                                  dropout_seed=None, dropout_row_off=0,
+                                  dropout_col_off=0):
     """The plain version of the backward: the fp32 probabilities recomputed
-    from ``lse``, then the five products, materialised."""
+    from ``lse``, the mask replayed from the seed, then the five products,
+    materialised."""
     p = torch.exp(_scores(q3, k3, bias, scale, causal, window)
                   - lse[..., None])
+    mult = _keep_mult(q3, k3, dropout_p, dropout_seed, dropout_row_off,
+                      dropout_col_off)
     gf = g.float()
-    ds = p * (torch.matmul(gf, v3.float().transpose(1, 2))
-              - _delta(g, out)[..., None])
+    dp = torch.matmul(gf, v3.float().transpose(1, 2))
+    pd = p
+    if mult is not None:
+        dp = dp * mult
+        pd = p * mult
+    ds = p * (dp - _delta(g, out)[..., None])
     dq = torch.matmul(ds, k3.float()) * scale
     dk = torch.matmul(ds.transpose(1, 2), q3.float()) * scale
-    dv = torch.matmul(p.transpose(1, 2), gf)
+    dv = torch.matmul(pd.transpose(1, 2), gf)
     return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
-def _validate(q3, k3, v3, bias, window, dropout_p,
+def check_dropout(dropout_p, dropout_seed):
+    """The JAX package's checks of the dropout arguments."""
+    if dropout_p and not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    if dropout_p > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_p > 0 requires dropout_seed")
+
+
+def _validate(q3, k3, v3, bias, window, dropout_p, dropout_seed,
               what="flash_attention_fwd"):
-    if dropout_p:
-        raise NotImplementedError(
-            "flash attention: in-kernel attention dropout is not ported "
-            "yet")
+    check_dropout(dropout_p, dropout_seed)
     for name, t in (("q3", q3), ("k3", k3), ("v3", v3)):
         if t.dim() != 3:
             raise ValueError(f"{what}: {name} must be (BH, S, D), got "
@@ -119,8 +208,10 @@ def _validate(q3, k3, v3, bias, window, dropout_p,
         raise ValueError(f"{what}: window must be >= 1, got {window}")
 
 
-def _validate_bwd(q3, k3, v3, bias, out, lse, g, window, dropout_p):
-    _validate(q3, k3, v3, bias, window, dropout_p, "flash_attention_bwd")
+def _validate_bwd(q3, k3, v3, bias, out, lse, g, window, dropout_p,
+                  dropout_seed):
+    _validate(q3, k3, v3, bias, window, dropout_p, dropout_seed,
+              "flash_attention_bwd")
     for name, t in (("out", out), ("g", g)):
         if tuple(t.shape) != tuple(q3.shape):
             raise ValueError(f"flash_attention_bwd: {name} shape "
@@ -136,9 +227,10 @@ def _validate_bwd(q3, k3, v3, bias, out, lse, g, window, dropout_p):
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("flash_attention")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float, ctypes.c_uint
     lib.apex_flash_fwd.argtypes = [
-        p, p, p, p, ll, ll, p, p, i, i, i, i, ctypes.c_float, i, i, i, p]
+        p, p, p, p, ll, ll, p, p, i, i, i, i, f, i, i, p, u, f, i, p]
     lib.apex_flash_fwd.restype = ctypes.c_int
     return lib
 
@@ -146,13 +238,14 @@ def _lib():
 @functools.lru_cache(maxsize=None)
 def _lib_bwd():
     lib = _build.load("flash_attention_bwd")
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_float
+    p, i, ll, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float, ctypes.c_uint
     lib.apex_flash_bwd_dq.argtypes = [
-        p, p, p, p, ll, ll, p, p, p, p, i, i, i, i, f, i, i, i, p]
+        p, p, p, p, ll, ll, p, p, p, p, i, i, i, i, f, i, i, p, u, f, i, p]
     lib.apex_flash_bwd_dq.restype = i
     lib.apex_flash_bwd_dkv.argtypes = [
-        p, p, p, p, ll, ll, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
+        p, p, p, p, ll, ll, p, p, p, p, p, i, i, i, i, f, i, i, p, u, f, i,
+        p]
     lib.apex_flash_bwd_dkv.restype = i
     return lib
 
@@ -168,7 +261,43 @@ def _bias_layout(bias, sk):
     return bias, bstride, qstride
 
 
-def _launch(q3, k3, v3, bias, scale, causal, window):
+def _to_i32(x, device):
+    """An int or int tensor as an int32 scalar on ``device``, wrapped to
+    32 bits as the JAX package's int32 seed and offsets are.  An int is
+    written by a fill on the device: a copy from the host would wait for
+    the card's queue."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), (int(x) + 2 ** 31) % 2 ** 32 - 2 ** 31,
+                      dtype=torch.int32, device=device)
+
+
+def seed_vector(dropout_p, seed, row_off=0, col_off=0, device=None):
+    """The dropout arguments packed as the kernels read them: None without
+    dropout, else the int32 vector ``[seed, row_off, col_off]`` on
+    ``device`` (the JAX package's ``_seed_vec``), built there, so a seed
+    drawn on the card is not read back to the host."""
+    check_dropout(dropout_p, seed)
+    if not dropout_p:
+        return None
+    return torch.stack([_to_i32(x, device) for x in (seed, row_off,
+                                                     col_off)])
+
+
+def _unpack(seed_vec):
+    """``seed_vector``'s vector as the plain versions' seed and offsets."""
+    return (None, 0, 0) if seed_vec is None else seed_vec.unbind()
+
+
+def _dropout_args(dropout_p, seed_vec):
+    """The three trailing arguments of the C entry points."""
+    if not dropout_p:
+        return None, 0, 0.0
+    thresh, keep_scale = dropout_constants(dropout_p)
+    return seed_vec.data_ptr(), thresh, keep_scale
+
+
+def _launch(q3, k3, v3, bias, scale, causal, window, dropout_p, seed_vec):
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     out = torch.empty_like(q3)
@@ -180,27 +309,45 @@ def _launch(q3, k3, v3, bias, scale, causal, window):
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
             None if bias is None else bias.data_ptr(), bstride, qstride,
             out.data_ptr(), lse.data_ptr(), bh, sq, sk, d, float(scale),
-            int(bool(causal)), int(window or 0), dtype_code(q3.dtype),
+            int(bool(causal)), int(window or 0),
+            *_dropout_args(dropout_p, seed_vec), dtype_code(q3.dtype),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
     return out, lse
 
 
-def flash_attention_fwd(q3, k3, v3, bias, scale, causal, window=None,
-                        dropout_p=0.0):
-    """q3 (BH, Sq, D), k3/v3 (BH, Sk, D), bias (BH|1, Sq|1, Sk) or None.
-    ``window`` (with ``causal``) keeps keys in (t - window, t].  Returns
-    (out (BH, Sq, D) in q's dtype, lse (BH, Sq) fp32)."""
-    _validate(q3, k3, v3, bias, window, dropout_p)
+def flash_fwd(q3, k3, v3, bias, scale, causal, window, dropout_p,
+              seed_vec):
+    """:func:`flash_attention_fwd` with its dropout arguments packed by
+    :func:`seed_vector`, so that a caller that runs the backward too builds
+    the vector once."""
+    _validate(q3, k3, v3, bias, window, dropout_p, seed_vec)
     if not causal:
         window = None    # the band is defined against the causal direction
     if use_kernel(q3, k3, v3, bias):
-        return _launch(q3, k3, v3, bias, scale, causal, window)
-    return flash_attention_reference(q3, k3, v3, bias, scale, causal, window)
+        return _launch(q3, k3, v3, bias, scale, causal, window, dropout_p,
+                       seed_vec)
+    return flash_attention_reference(q3, k3, v3, bias, scale, causal, window,
+                                     dropout_p, *_unpack(seed_vec))
 
 
-def _launch_bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window):
+def flash_attention_fwd(q3, k3, v3, bias, scale, causal, window=None,
+                        dropout_p=0.0, dropout_seed=None, dropout_row_off=0,
+                        dropout_col_off=0):
+    """q3 (BH, Sq, D), k3/v3 (BH, Sk, D), bias (BH|1, Sq|1, Sk) or None.
+    ``window`` (with ``causal``) keeps keys in (t - window, t].
+    ``dropout_p`` > 0 drops attention probabilities by the hash mask of
+    ``dropout_seed`` (an int or an int32 tensor, on the card best a device
+    scalar) at the global offsets ``dropout_row_off``/``dropout_col_off``.
+    Returns (out (BH, Sq, D) in q's dtype, lse (BH, Sq) fp32)."""
+    return flash_fwd(q3, k3, v3, bias, scale, causal, window, dropout_p,
+                     seed_vector(dropout_p, dropout_seed, dropout_row_off,
+                                 dropout_col_off, q3.device))
+
+
+def _launch_bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window,
+                dropout_p, seed_vec):
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     g = g.to(q3.dtype).contiguous()
@@ -215,7 +362,7 @@ def _launch_bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window):
               None if bias is None else bias.data_ptr(), bstride, qstride,
               g.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (bh, sq, sk, d, float(scale), int(bool(causal)), int(window or 0),
-            dtype_code(q3.dtype))
+            *_dropout_args(dropout_p, seed_vec), dtype_code(q3.dtype))
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_flash_bwd_dq(*common, dq.data_ptr(), *tail, stream)
@@ -228,16 +375,29 @@ def _launch_bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window):
     return dq, dk, dv
 
 
-def flash_attention_bwd(q3, k3, v3, bias, out, lse, g, scale, causal,
-                        window=None, dropout_p=0.0):
-    """The backward of :func:`flash_attention_fwd` from its inputs, its
-    ``out`` and ``lse`` and the gradient ``g`` of ``out``.  Returns
-    ``(dq, dk, dv)`` with the shapes and dtypes of q3, k3, v3."""
-    _validate_bwd(q3, k3, v3, bias, out, lse, g, window, dropout_p)
+def flash_bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window,
+              dropout_p, seed_vec):
+    """:func:`flash_attention_bwd` with its dropout arguments packed by
+    :func:`seed_vector` (the forward's vector)."""
+    _validate_bwd(q3, k3, v3, bias, out, lse, g, window, dropout_p, seed_vec)
     if not causal:
         window = None
     if use_kernel(q3, k3, v3, bias, out, lse, g):
         return _launch_bwd(q3, k3, v3, bias, out, lse, g, scale, causal,
-                           window)
+                           window, dropout_p, seed_vec)
     return flash_attention_bwd_reference(q3, k3, v3, bias, out, lse, g,
-                                         scale, causal, window)
+                                         scale, causal, window, dropout_p,
+                                         *_unpack(seed_vec))
+
+
+def flash_attention_bwd(q3, k3, v3, bias, out, lse, g, scale, causal,
+                        window=None, dropout_p=0.0, dropout_seed=None,
+                        dropout_row_off=0, dropout_col_off=0):
+    """The backward of :func:`flash_attention_fwd` from its inputs, its
+    ``out`` and ``lse``, the gradient ``g`` of ``out`` and the forward's
+    dropout arguments.  Returns ``(dq, dk, dv)`` with the shapes and dtypes
+    of q3, k3, v3."""
+    return flash_bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window,
+                     dropout_p, seed_vector(dropout_p, dropout_seed,
+                                            dropout_row_off, dropout_col_off,
+                                            q3.device))

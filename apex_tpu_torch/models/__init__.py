@@ -1,3 +1,5 @@
+from .bert import (BertForMaskedLM, BertLayer, BertModel, bert_base,
+                   bert_large)
 from .convert import from_jax_state_dict, to_numpy_state_dict
 from .gpt import (GptBlock, GptModel, generate, gpt2_large, gpt2_medium,
                   gpt2_small, gpt2_xl, make_sampler, nucleus_filter)
@@ -6,9 +8,10 @@ from .llama import (LlamaBlock, LlamaModel, apply_rope, llama_1b, llama_7b,
 from .resnet import (BasicBlock, Bottleneck, ResNet, resnet18, resnet34,
                      resnet50, resnet101)
 
-__all__ = ["BasicBlock", "Bottleneck", "GptBlock", "GptModel", "LlamaBlock",
-           "LlamaModel", "ResNet", "apply_rope", "from_jax_state_dict",
-           "generate", "gpt2_large", "gpt2_medium", "gpt2_small", "gpt2_xl",
-           "llama_1b", "llama_7b", "llama_tiny", "make_sampler",
-           "nucleus_filter", "resnet18", "resnet34", "resnet50", "resnet101",
-           "rope_tables", "to_numpy_state_dict"]
+__all__ = ["BasicBlock", "BertForMaskedLM", "BertLayer", "BertModel",
+           "Bottleneck", "GptBlock", "GptModel", "LlamaBlock", "LlamaModel",
+           "ResNet", "apply_rope", "bert_base", "bert_large",
+           "from_jax_state_dict", "generate", "gpt2_large", "gpt2_medium",
+           "gpt2_small", "gpt2_xl", "llama_1b", "llama_7b", "llama_tiny",
+           "make_sampler", "nucleus_filter", "resnet18", "resnet34",
+           "resnet50", "resnet101", "rope_tables", "to_numpy_state_dict"]

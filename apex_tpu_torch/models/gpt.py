@@ -22,8 +22,11 @@ tok_emb.weight)`` instead of the logits, so that a loss such as
 tied head itself and the ``(B, S, V)`` logits never exist whole; the cached
 paths apply the head themselves and are unaffected.
 
-Mixture-of-experts, tensor and sequence parallelism and rematerialisation
-come with later slices.
+Attention dropout (``attn_dropout``, 0.1 by default) runs inside the flash
+kernels, seeded from the same ``generator``.  The JAX package's
+mixture-of-experts, tensor- and sequence-parallel and rematerialisation
+arguments are taken at their defaults and refused otherwise
+(``NotImplementedError`` naming the ROADMAP item that owns them).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .._unported import PARALLEL, REMAT, accept_defaults
 from ..contrib.multihead_attn import SelfMultiheadAttn
 from ..contrib.multihead_attn.attn_funcs import flash_attention
 from ..inference.quant import kv_value, kv_write, make_kv_cache
@@ -53,9 +57,12 @@ class GptBlock(nn.Module):
     residual."""
 
     def __init__(self, hidden, heads, intermediate, dropout=0.1,
-                 attn_dropout=0.1, attn_bias=False, device=None,
-                 dtype=torch.float32):
+                 attn_dropout=0.1, sp_axis=None, tp_axis=None,
+                 attn_bias=False, device=None, dtype=torch.float32):
         super().__init__()
+        accept_defaults("GptBlock: tensor and sequence parallelism",
+                        PARALLEL, sp_axis=(sp_axis, None),
+                        tp_axis=(tp_axis, None))
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.ln1 = FusedLayerNorm(hidden, **kw)
         # attn_bias=True (what GPT-2 checkpoints carry) selects the 'default'
@@ -153,9 +160,25 @@ class GptModel(nn.Module):
 
     def __init__(self, vocab_size=50257, hidden=768, layers=12, heads=12,
                  intermediate=None, max_positions=1024, dropout=0.1,
-                 attn_dropout=0.1, attn_bias=False, pad_vocab_multiple=None,
-                 output_hidden=False, device=None, dtype=torch.float32):
+                 attn_dropout=0.1, remat=False, sp_axis=None, tp_axis=None,
+                 tp_vocab=False, moe_axis=None, moe_num_experts=None,
+                 moe_every=2, moe_capacity_factor=1.25, moe_top_k=1,
+                 moe_aux_weight=0.01, attn_bias=False,
+                 pad_vocab_multiple=None, output_hidden=False, device=None,
+                 dtype=torch.float32):
         super().__init__()
+        accept_defaults("GptModel: rematerialisation", REMAT,
+                        remat=(remat, False))
+        accept_defaults("GptModel: tensor and sequence parallelism",
+                        PARALLEL, sp_axis=(sp_axis, None),
+                        tp_axis=(tp_axis, None), tp_vocab=(tp_vocab, False))
+        accept_defaults(
+            "GptModel: the mixture of experts", PARALLEL,
+            moe_axis=(moe_axis, None),
+            moe_num_experts=(moe_num_experts, None),
+            moe_every=(moe_every, 2),
+            moe_capacity_factor=(moe_capacity_factor, 1.25),
+            moe_top_k=(moe_top_k, 1), moe_aux_weight=(moe_aux_weight, 0.01))
         device = resolve_device(device)
         self.output_hidden = output_hidden
         intermediate = intermediate or 4 * hidden

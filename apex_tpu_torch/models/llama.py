@@ -24,9 +24,10 @@ head itself.
 
 Owed to later slices, and refused with ``NotImplementedError``: tensor and
 sequence parallelism (``tp_axis``, ``sp_axis``) and the mixture of experts
-(``moe_axis``), ROADMAP queue A item 12; rematerialisation (``remat``);
-cached decode with ``sliding_window`` (the rolling window cache of
-``inference/rolling.py`` and the chunked prefill over it), queue A item 7.
+(``moe_axis``, ``moe_num_experts`` and its knobs), ROADMAP A9;
+rematerialisation (``remat``), A4; cached decode with ``sliding_window``
+(the rolling window cache of ``inference/rolling.py`` and the chunked
+prefill over it), A5.  Each is taken at its JAX default.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .._unported import PARALLEL, REMAT, accept_defaults, refuse
 from ..contrib.multihead_attn.attn_funcs import flash_attention
 from ..inference.quant import kv_value, kv_write, make_kv_cache
 from ..kernels.dispatch import MASKED_FILL, resolve_device
@@ -67,18 +69,18 @@ def _linear(x, w):
     return torch.matmul(x, w.t().to(x.dtype))
 
 
-def _refuse(what, owner):
-    raise NotImplementedError(f"{what} is not ported yet ({owner})")
-
-
 class LlamaBlock(nn.Module):
     """Pre-norm decoder block: RMSNorm -> RoPE-GQA causal attention ->
     residual, RMSNorm -> SwiGLU FFN -> residual.  No biases."""
 
     def __init__(self, hidden, heads, kv_heads, intermediate,
-                 rope_theta=10000.0, eps=1e-6, head_dim=None,
-                 sliding_window=None, device=None, dtype=torch.float32):
+                 rope_theta=10000.0, eps=1e-6, head_dim=None, tp_axis=None,
+                 sp_axis=None, sliding_window=None, device=None,
+                 dtype=torch.float32):
         super().__init__()
+        accept_defaults("LlamaBlock: tensor and sequence parallelism",
+                        PARALLEL, tp_axis=(tp_axis, None),
+                        sp_axis=(sp_axis, None))
         if head_dim is None:
             if hidden % heads:
                 raise ValueError(f"hidden {hidden} not divisible by {heads} "
@@ -210,19 +212,22 @@ class LlamaModel(nn.Module):
                  kv_heads=None, intermediate=None, max_positions=2048,
                  rope_theta=10000.0, eps=1e-6, remat=False, head_dim=None,
                  tp_axis=None, sp_axis=None, moe_axis=None,
-                 sliding_window=None, output_hidden=False, device=None,
-                 dtype=torch.float32):
+                 moe_num_experts=None, moe_every=2, moe_capacity_factor=1.25,
+                 moe_top_k=1, moe_aux_weight=0.01, sliding_window=None,
+                 output_hidden=False, device=None, dtype=torch.float32):
         super().__init__()
-        if tp_axis is not None or sp_axis is not None:
-            _refuse("LlamaModel: tensor and sequence parallelism (tp_axis, "
-                    "sp_axis)", "ROADMAP queue A item 12, parallelism "
-                    "beyond DP")
-        if moe_axis is not None:
-            _refuse("LlamaModel: the mixture of experts (moe_axis)",
-                    "ROADMAP queue A item 12, expert parallelism")
-        if remat:
-            _refuse("LlamaModel: rematerialisation (remat)",
-                    "ROADMAP queue A item 5, the Llama family's remainder")
+        accept_defaults("LlamaModel: tensor and sequence parallelism",
+                        PARALLEL, tp_axis=(tp_axis, None),
+                        sp_axis=(sp_axis, None))
+        accept_defaults(
+            "LlamaModel: the mixture of experts", PARALLEL,
+            moe_axis=(moe_axis, None),
+            moe_num_experts=(moe_num_experts, None),
+            moe_every=(moe_every, 2),
+            moe_capacity_factor=(moe_capacity_factor, 1.25),
+            moe_top_k=(moe_top_k, 1), moe_aux_weight=(moe_aux_weight, 0.01))
+        accept_defaults("LlamaModel: rematerialisation", REMAT,
+                        remat=(remat, False))
         if sliding_window is not None and sliding_window < 1:
             raise ValueError(f"sliding_window must be >= 1, got "
                              f"{sliding_window}")
@@ -269,8 +274,8 @@ class LlamaModel(nn.Module):
 
     def _decode_guard(self, what):
         if self.sliding_window is not None:
-            _refuse(f"{what}: cached decode with sliding_window (the rolling "
-                    f"window cache)", "ROADMAP queue A item 7, inference/")
+            refuse(f"{what}: cached decode with sliding_window (the rolling "
+                   f"window cache)", "ROADMAP A5, inference/")
 
     def init_caches(self, batch, s_max, dtype=torch.float32):
         """Per-layer (k, v) caches of shape (B, KVH, S_max, D) on the

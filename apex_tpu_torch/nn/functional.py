@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from .._unported import PARALLEL, accept_defaults
 from ..kernels.dispatch import MASKED_LOGIT_THR
 
 
@@ -75,7 +76,9 @@ class _AllGather(torch.autograd.Function):
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
-               training=False, momentum=0.1, eps=1e-5, process_group=None):
+               training=False, momentum=0.1, eps=1e-5, axis_name=None,
+               axis_index_groups=None, return_stats=False, channel_axis=1,
+               process_group=None):
     """torch-semantics batch norm over dim 1 (N, C, ...), in plain PyTorch,
     the port of the JAX package's ``F.batch_norm``.
 
@@ -90,7 +93,17 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     values a channel on a rank).  The normalisation uses the biased
     variance, the running variance the unbiased one (``count / max(count -
     1, 1)``).  Returns ``(y, new_running_mean, new_running_var)`` with
-    ``y`` in ``x.dtype``."""
+    ``y`` in ``x.dtype``.  The JAX package's mesh arguments
+    (``axis_name``, ``axis_index_groups``) are taken at None only, and its
+    channels-last and group-BatchNorm arguments (``channel_axis``,
+    ``return_stats``) at their defaults only (ROADMAP A2)."""
+    accept_defaults("batch_norm: a mesh axis", PARALLEL,
+                    axis_name=(axis_name, None),
+                    axis_index_groups=(axis_index_groups, None))
+    accept_defaults("batch_norm: channels-last and group BatchNorm",
+                    "ROADMAP A2, channels-last and contrib/groupbn",
+                    return_stats=(return_stats, False),
+                    channel_axis=(channel_axis % x.dim(), 1))
     reduce_axes = (0,) + tuple(range(2, x.dim()))
     shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
     xf = x.float()

@@ -13,9 +13,9 @@ blind to the flag.  ``multi_tensor_sgd`` is the hand-written SGD kernel
 (depth 3, or depth 4 with the half model copy) in the same way, skipping
 itself on a set flag; ``sgd_unfused`` is the JAX package's per-tensor SGD
 loop: functional, returning the old tensors on a set flag.
-``multi_tensor_axpby``, ``multi_tensor_l2norm`` and ``multi_tensor_maxnorm``
-are jnp in the JAX package and plain PyTorch here.
-The other ops (lamb, novograd) come with the slices that run them.
+``multi_tensor_axpby``, ``multi_tensor_l2norm``, ``multi_tensor_maxnorm``
+and ``multi_tensor_lamb`` are jnp in the JAX package and plain PyTorch
+here.  ``multi_tensor_novograd`` comes with the slice that runs it.
 """
 from __future__ import annotations
 
@@ -174,3 +174,68 @@ def sgd_unfused(noop_flag, tensor_lists, wd, momentum, dampening, lr,
         for out, old, new in zip(outs, (p, m, c), (pf, mf, pf)):
             out.append(torch.where(skip, old, new.to(old.dtype)))
     return (noop_flag,) + outs
+
+
+def _bias_correction(beta, step):
+    """``1 - beta**step``: in double on the host for a Python ``step``, in
+    fp32 on the device for a tensor one, as the JAX package computes it."""
+    if isinstance(step, (int, float)):
+        return 1.0 - beta ** step
+    stepf = step.to(torch.float32)
+    return 1.0 - torch.full_like(stepf, beta) ** stepf
+
+
+def multi_tensor_lamb(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
+                      bias_correction: bool, weight_decay, grad_averaging: int,
+                      mode: int, global_grad_norm, max_grad_norm):
+    """LAMB over ``[grads, params, exp_avgs, exp_avg_sqs]``, plain PyTorch
+    per tensor, as the JAX package's op is jnp (no hand kernel).
+
+    Stage 1: the gradient divided by ``global_grad_norm / max_grad_norm``
+    where the norm exceeds ``max_grad_norm`` (> 0), weight decay added to
+    it (``mode`` 0, L2) or to the update (``mode`` 1, decoupled), Adam
+    moments and ``u = (m / bc1) / (sqrt(v / bc2) + eps)``.  Stage 2: the
+    trust ratio ``lr * |p| / |u|`` per tensor, plain ``lr`` where either
+    norm is 0, and ``p -= ratio * u``.  Functional: returns ``(noop_flag,
+    new_params, new_exp_avgs, new_exp_avg_sqs)`` in the inputs' dtypes; the
+    flag is neither read nor written (non-finite values propagate)."""
+    gs, ps, ms, vs = tensor_lists
+    if not gs:
+        return noop_flag, [], [], []
+    dev = ps[0].device
+    if bias_correction:
+        bc1 = _bias_correction(beta1, step)
+        bc2 = _bias_correction(beta2, step)
+    else:
+        bc1 = bc2 = 1.0
+    beta3 = (1.0 - beta1) if grad_averaging else 1.0
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    if max_grad_norm is not None and max_grad_norm > 0:
+        gnorm = torch.as_tensor(global_grad_norm, dtype=torch.float32,
+                                device=dev)
+        clip = torch.where(gnorm > max_grad_norm, gnorm / max_grad_norm, one)
+    else:
+        clip = one
+    use_wd = _static_nonzero(weight_decay)
+    new_ps, new_ms, new_vs = [], [], []
+    for g, p, m, v in zip(gs, ps, ms, vs):
+        gf = g.float() / clip
+        pf, mf, vf = p.float(), m.float(), v.float()
+        if mode == ADAM_MODE_L2 and use_wd:
+            gf = gf + weight_decay * pf
+        mf = beta1 * mf + beta3 * gf
+        vf = beta2 * vf + (1.0 - beta2) * gf * gf
+        u = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
+        if mode == ADAM_MODE_DECOUPLED and use_wd:
+            u = u + weight_decay * pf
+        p_norm = torch.sqrt(torch.sum(pf * pf))
+        u_norm = torch.sqrt(torch.sum(u * u))
+        use_ratio = (p_norm != 0) & (u_norm != 0)
+        ratio = torch.where(use_ratio,
+                            lr * p_norm / torch.where(use_ratio, u_norm, one),
+                            lr)
+        new_ps.append((pf - ratio * u).to(p.dtype))
+        new_ms.append(mf.to(m.dtype))
+        new_vs.append(vf.to(v.dtype))
+    return noop_flag, new_ps, new_ms, new_vs

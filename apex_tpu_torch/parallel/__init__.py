@@ -15,7 +15,7 @@ from .distributed import (DistributedDataParallel, DistributedInitError,
                           broadcast_module, flat_dist_call, init_distributed,
                           num_processes, rank, split_by_type, world_size)
 from .LARC import LARC
-from .sync_batchnorm import SyncBatchNorm
+from .sync_batchnorm import SyncBatchNorm, check_axis_name
 
 __all__ = ["DistributedDataParallel", "DistributedInitError", "LARC",
            "Reducer", "SyncBatchNorm", "all_reduce_mean",
@@ -25,10 +25,13 @@ __all__ = ["DistributedDataParallel", "DistributedInitError", "LARC",
            "world_size"]
 
 
-def convert_syncbn_model(module, process_group=None, channel_last=False):
+def convert_syncbn_model(module, process_group=None, channel_last=False,
+                         axis_name="data"):
     """Replace every BatchNorm module of ``module`` with a
     :class:`SyncBatchNorm` holding its parameters and buffers (reference
-    ``apex/parallel/__init__.py:21-56``); returns the converted module."""
+    ``apex/parallel/__init__.py:21-56``); returns the converted module.
+    ``axis_name`` as for :class:`SyncBatchNorm`."""
+    check_axis_name("convert_syncbn_model", axis_name)
     mod = module
     if isinstance(module, _BatchNorm) and not isinstance(module,
                                                          SyncBatchNorm):

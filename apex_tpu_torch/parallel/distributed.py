@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .._unported import PARALLEL, accept_defaults
 from ..kernels.dispatch import resolve_device
 
 
@@ -199,11 +200,15 @@ def _exchange(flat, group, always_fp32, predivide_factor, average,
 
 
 def all_reduce_mean(tensors, group=None, always_fp32: bool = False,
-                    predivide_factor: float = 1.0, average: bool = True):
+                    predivide_factor: float = 1.0, average: bool = True,
+                    mesh=None):
     """The mean (``average``) or sum of ``tensors`` over the ranks of
     ``group``, one flattened exchange per dtype, honouring the DDP dtype
     and predivide knobs.  Returns new tensors; without
-    ``torch.distributed`` (one process) the tensors themselves."""
+    ``torch.distributed`` (one process) the tensors themselves.  The JAX
+    package's ``mesh`` is taken at None only: ``group`` plays its part."""
+    accept_defaults("all_reduce_mean: a JAX mesh", PARALLEL,
+                    mesh=(mesh, None))
     if not dist.is_initialized() or not tensors:
         return list(tensors)
 
@@ -242,7 +247,8 @@ class Reducer:
 
     def __init__(self, module_or_grads_list, group=None,
                  allreduce_always_fp32: bool = False,
-                 gradient_predivide_factor: float = 1.0):
+                 gradient_predivide_factor: float = 1.0, mesh=None):
+        accept_defaults("Reducer: a JAX mesh", PARALLEL, mesh=(mesh, None))
         self.group = group
         self.allreduce_always_fp32 = allreduce_always_fp32
         self.gradient_predivide_factor = gradient_predivide_factor
@@ -286,7 +292,8 @@ class DistributedDataParallel(torch.nn.Module):
     ``num_allreduce_streams``, ``allreduce_communicators``,
     ``gradient_average_split_factor``, ``prof``) are checked as it checks
     them, and any other value than their default raises
-    ``NotImplementedError``."""
+    ``NotImplementedError``, as does the JAX package's ``mesh`` other than
+    None."""
 
     def __init__(self, module: torch.nn.Module, message_size: int = 10000000,
                  delay_allreduce: bool = False,
@@ -300,8 +307,11 @@ class DistributedDataParallel(torch.nn.Module):
                  gradient_predivide_factor: float = 1.0,
                  gradient_average_split_factor=None,
                  prof: bool = False,
-                 process_group=None):
+                 process_group=None,
+                 mesh=None):
         super().__init__()
+        accept_defaults("DistributedDataParallel: a JAX mesh", PARALLEL,
+                        mesh=(mesh, None))
         if shared_param is not None:
             raise ValueError(
                 "shared_param is no longer supported as an option.  It was "

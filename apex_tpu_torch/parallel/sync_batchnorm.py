@@ -12,7 +12,9 @@ the counts, so ranks may hold batches of different sizes
 ``torch.distributed``, it computes what ``torch.nn.BatchNorm2d`` computes
 (the JAX package's unbound-axis case); in eval mode it uses the running
 statistics and no collective.  ``channel_last=True`` (NHWC activations) is
-owed to the channels-last slice and raises until then.
+owed to the channels-last slice and raises until then.  The JAX package's
+``axis_name`` (the mesh axis the statistics are merged over) is taken at
+its default or None: ``process_group`` plays its part.
 """
 from __future__ import annotations
 
@@ -20,7 +22,15 @@ import torch
 import torch.distributed as dist
 from torch.nn.modules.batchnorm import _BatchNorm
 
+from .._unported import PARALLEL, refuse
 from ..nn import functional as F
+
+
+def check_axis_name(where, axis_name):
+    """The JAX package's mesh axis, accepted at its default ``"data"`` or
+    None (``process_group`` decides the ranks) and refused otherwise."""
+    if axis_name not in ("data", None):
+        refuse(f"{where}: axis_name={axis_name!r}", PARALLEL)
 
 
 class SyncBatchNorm(_BatchNorm):
@@ -30,8 +40,9 @@ class SyncBatchNorm(_BatchNorm):
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1, affine=True,
                  track_running_stats=True, process_group=None,
-                 channel_last=False, fuse_relu=False, device=None,
-                 dtype=None):
+                 channel_last=False, fuse_relu=False, axis_name="data",
+                 device=None, dtype=None):
+        check_axis_name("SyncBatchNorm", axis_name)
         if channel_last:
             raise NotImplementedError(
                 "SyncBatchNorm(channel_last=True) is not ported yet (the "

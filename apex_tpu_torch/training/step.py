@@ -3,9 +3,11 @@
 
 One call runs the whole iteration on the card with no host round trip:
 the O2-style forward on half copies of the parameters, the backward, the
-unscale and overflow check into fp32 master gradients, the Adam or SGD
-update of the fp32 masters (a hand-written kernel, which skips itself on a
-set overflow flag), the re-made half copies and the loss-scale update.  The
+unscale and overflow check into fp32 master gradients, the Adam, SGD or
+LAMB update of the fp32 masters (Adam and SGD a hand-written kernel, which
+skips itself on a set overflow flag; LAMB plain PyTorch, its new values
+kept only where the flag is clear), the re-made half copies and the
+loss-scale update.  The
 state is device tensors updated in place, which is what buffer donation
 buys the JAX package; the ``noop`` skip, the step count and the scaler
 live on the device, so the step reads nothing back.
@@ -13,8 +15,7 @@ live on the device, so the step reads nothing back.
 Gradient accumulation (``accum_steps``) and lr schedules (``lr_schedule``)
 run as in the JAX step.  What the JAX step does beyond that is owed to
 later slices and refused here with ``NotImplementedError``: data, tensor
-and ZeRO parallelism, flat masters, telemetry and optimizers other than
-``FusedAdam`` and ``FusedSGD``.
+and ZeRO parallelism, flat masters, telemetry and ``FusedNovoGrad``.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ from torch.utils._pytree import tree_leaves, tree_map
 from .. import ops
 from ..amp.scaler import ScalerState, update_scale_state
 from ..ops.multi_tensor import nonfinite_flag
-from ..optimizers import FusedAdam, FusedSGD
+from .._unported import PARALLEL, refuse
+from ..optimizers import FusedAdam, FusedLAMB, FusedSGD
 
 _f32 = torch.float32
 
@@ -162,7 +164,10 @@ def model_vals_of(state: StepState):
 def build_opt_update(optimizer, params, group_idxs,
                      caller="make_train_step"):
     """The optimizer as an update over flat lists, one kernel launch per
-    param group (``ops.multi_tensor_adam`` or ``ops.multi_tensor_sgd``).
+    param group (``ops.multi_tensor_adam`` or ``ops.multi_tensor_sgd``), or
+    for ``FusedLAMB`` each group's gradient norm and
+    ``ops.multi_tensor_lamb``, whose new values replace the old in place
+    where the flag is clear, as the JAX step selects them.
     Returns ``(opt_update, opt_init)``; ``opt_update(flag, grads, masters,
     slots, step, lr_scale=None)`` updates masters and slots in place and
     leaves them untouched on a set flag; a device ``lr_scale`` multiplies
@@ -193,11 +198,41 @@ def build_opt_update(optimizer, params, group_idxs,
                                              device=p.device)
                                  for p in params]}
         return opt_update, opt_init
+    if isinstance(opt, FusedLAMB):
+        def opt_update(flag, grads, masters, slots, step, lr_scale=None):
+            skip = flag.reshape(()) > 0
+            for group, idxs in zip(opt.param_groups, group_idxs):
+                if not idxs:
+                    continue
+                b1, b2 = group["betas"]
+                lr = group["lr"] if lr_scale is None \
+                    else group["lr"] * lr_scale
+                olds = [[masters[i] for i in idxs],
+                        [slots["m"][i] for i in idxs],
+                        [slots["v"][i] for i in idxs]]
+                g = [grads[i] for i in idxs]
+                # the group's global gradient norm, as the eager step takes
+                # it per dtype bucket
+                _, gnorm, _ = ops.multi_tensor_l2norm(flag, [g])
+                _, *news = ops.multi_tensor_lamb(
+                    flag, [g] + olds, lr, b1, b2, group["eps"], step,
+                    bool(group["bias_correction"]), group["weight_decay"],
+                    1 if group["grad_averaging"] else 0, opt.adam_w_mode,
+                    gnorm, group["max_grad_norm"])
+                with torch.no_grad():
+                    for old, new in zip(olds, news):
+                        torch._foreach_copy_(
+                            old, [torch.where(skip, o, n)
+                                  for o, n in zip(old, new)])
+
+        def opt_init():
+            return {k: [torch.zeros(p.shape, dtype=_f32, device=p.device)
+                        for p in params] for k in ("m", "v")}
+        return opt_update, opt_init
     if not isinstance(opt, FusedAdam):
-        raise NotImplementedError(
-            f"{caller}: only FusedAdam and FusedSGD are ported so far; "
-            f"FusedLAMB and FusedNovoGrad come with later slices (got "
-            f"{type(optimizer).__name__})")
+        refuse(f"{caller}: only FusedAdam, FusedSGD and FusedLAMB are "
+               f"ported so far; {type(optimizer).__name__}",
+               "ROADMAP A3, FusedNovoGrad and contrib/optimizers")
 
     def opt_update(flag, grads, masters, slots, step, lr_scale=None):
         if len({g.dtype for g in grads}) > 1:
@@ -261,8 +296,7 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
 
 
 def _refuse(what, owner):
-    raise NotImplementedError(
-        f"make_train_step: {what} is not ported yet ({owner})")
+    refuse(f"make_train_step: {what}", owner)
 
 
 def make_train_step(model, optimizer, loss_fn: Callable,
@@ -321,26 +355,24 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     (:mod:`apex_tpu_torch.optimizers.schedules`) scales each group's lr by
     its value at the 1-based device step count, on the device.
 
-    ``FusedAdam`` and ``FusedSGD`` are ported.  A model's buffers
-    (BatchNorm's running statistics) are its own, updated in place by its
-    forward, as the JAX step carries them through a skipped step too.
-    ``axis_name``, ``tp_axis``, the DDP
-    knobs, ``zero_sharding``, ``flat_master``, ``parallel`` and
-    ``telemetry`` raise ``NotImplementedError``.  ``donate_state`` has
+    ``FusedAdam``, ``FusedSGD`` and ``FusedLAMB`` are ported.  A model's
+    buffers (BatchNorm's running statistics) are its own, updated in place
+    by its forward, as the JAX step carries them through a skipped step
+    too.  ``axis_name``, ``tp_axis``, the DDP knobs, ``zero_sharding``,
+    ``flat_master``, ``parallel`` and ``telemetry`` raise
+    ``NotImplementedError`` naming their ROADMAP item.  ``donate_state`` has
     nothing to choose: the state is always updated in place."""
     if axis_name is not None or gradient_predivide_factor != 1.0 \
             or allreduce_always_fp32:
-        _refuse("data parallelism (axis_name and the DDP knobs)",
-                "the ResNet baseline slice, with DDP")
+        _refuse("data parallelism (axis_name and the DDP knobs)", PARALLEL)
     if tp_axis is not None:
-        _refuse("tensor parallelism (tp_axis)",
-                "ROADMAP queue A, parallelism beyond DP")
+        _refuse("tensor parallelism (tp_axis)", PARALLEL)
     if zero_sharding or zero_mesh is not None:
-        _refuse("ZeRO sharding", "ROADMAP queue A, parallelism beyond DP")
+        _refuse("ZeRO sharding", PARALLEL)
     if flat_master:
-        _refuse("flat_master", "ROADMAP queue A, parallelism beyond DP")
+        _refuse("flat_master", PARALLEL)
     if parallel is not None:
-        _refuse("parallel=", "ROADMAP queue A, parallelism beyond DP")
+        _refuse("parallel=", PARALLEL)
     if accum_steps is not None:
         if grad_accum_steps not in (1, accum_steps):
             raise ValueError(
@@ -356,7 +388,7 @@ def make_train_step(model, optimizer, loss_fn: Callable,
         raise ValueError(f"grad_accum_steps must be >= 1, "
                          f"got {grad_accum_steps}")
     if telemetry:
-        _refuse("telemetry", "ROADMAP queue A, observe/")
+        _refuse("telemetry", "ROADMAP A8, observe/")
 
     params = [p for p in model.parameters()]
     names = [n for n, _ in model.named_parameters()]

@@ -100,10 +100,34 @@ Phases, each of which raises on failure:
    its ``kernel`` loss (the fused LM-head kernels: 1 + 1 + 1), each with
    the launch counts of one step (RMSNorm 25/25/25, flash 12/12/12, Adam
    1), 10 timed steps, peak memory, falling losses and a profiled step;
-   the two modes' first-step losses agree within 1e-3.
+   the two modes' first-step losses agree within 1e-3;
+15. the dropout branch of the flash kernels (with phase 2): the forward's
+   and the dk/dv kernel's masks read back entry by entry (fp32, q = 0, v =
+   I, dO = I at (96, 64, 64)) against the plain mask for p 0.1 and 0.5, two
+   seeds and two pairs of offsets; then the kernels at p = 0.1 against the
+   plain versions at GPT's (192, 1024, 64) causal and BERT's (768, 128, 64)
+   key-padded shapes in bf16, and each kernel's time with and without
+   dropout at both; and, after phase 7, the GPT-2 small chunked step once
+   more at ``attn_dropout=0.1`` (the bench's ``--attn-dropout 0.1`` arm);
+16. the bench's BERT step (``bench.py::build_bert_step``): ``bert_base``
+   (max_positions 128, dropout 0.1), ``FusedLAMB(lr=1e-3,
+   weight_decay=0.01)``, bf16 half copies, static scale 1, batch 64 x 128
+   from ``numpy.random.default_rng(0)`` with 20 gathered MLM positions a
+   sequence and the fused xentropy loss, at attention dropout 0 and 0.1:
+   the launch counts of one step (flash 12/12/12, LayerNorm 26/26/26,
+   xentropy 1/1), 10 timed steps (step ms, sequences/s, peak memory,
+   falling losses) and a profiled step;
+17. ``BASELINE.json``'s config 4: ``amp.initialize(bert_base,
+   FusedLAMB, opt_level="O2")`` + ``scale_loss`` (fp16, dynamic scale), batch
+   64 x 128, 10 iterations, the launch counts of the third, sequences/s;
+   a planted overflow skipped alike on the card and on the CPU;
+18. BERT-base on the card against the CPU (fp32, dropout 0, a padded
+   sequence): MLM logits, loss, gradients, and one LAMB step's masters and
+   moments; one ``flash_attention`` call with dropout 0.1, card against CPU.
 
-It prints one JSON line of per-kernel numbers, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
+It prints a JSON line of the BERT and dropout-arm numbers, one JSON line
+of per-kernel numbers, the card's name and power limit, and as its last
+line ``{"ok": true, "device": {...}}``.  Without a
 card, or without the rest of the repository beside it, it exits non-zero
 before printing a result.  TF32 is off for every comparison.
 """
@@ -122,6 +146,8 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 / fp16 tensor cores, dense
 BATCH, PROMPT, NEW, MAX_POS = 8, 512, 128, 640
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_POS = 16, 1024, 1024
 AMP_BATCH = 4
+BERT_BATCH, BERT_SEQ = 64, 128
+BERT_MLM = -(-15 * BERT_SEQ // 100)   # gathered MLM positions a sequence
 LR, WD = 6e-4, 0.1
 
 
@@ -217,7 +243,11 @@ def ln_phase(torch, layer_norm):
              ((8, 768), f32, True), ((8, 768), f32, False),
              ((8, 768), bf16, True), ((8, 768), bf16, False),
              ((37, 1000), f32, True), ((5, 8192), f16, True),
-             ((3, 12000), f32, False)]
+             ((3, 12000), f32, False),
+             # BERT-base: the embeddings and the two norms of each layer,
+             # then the MLM transform over the gathered positions
+             ((BERT_BATCH * BERT_SEQ, 768), bf16, True),
+             ((BERT_BATCH * BERT_MLM, 768), bf16, True)]
     print("LayerNorm forward vs plain (err: max abs / max(1, max |ref|)):")
     main_err = None
     for shape, dtype, affine in cases:
@@ -272,6 +302,15 @@ def _unmasked_pairs(sq, sk, causal, window):
     return total
 
 
+def _keypad_bias(torch, bh, sk):
+    """A key-padding bias (BH, 1, Sk): per batch of 12 heads, the last keys
+    masked at -1e30, a different count for each batch."""
+    pad = torch.zeros((bh // 12 or 1, 1, sk), device="cuda")
+    for i in range(pad.shape[0]):
+        pad[i, 0, sk - 1 - (17 * i) % (sk // 2):] = -1e30
+    return torch.repeat_interleave(pad, bh // pad.shape[0], dim=0)
+
+
 def flash_phase(torch, attention):
     """Flash-attention kernel against its plain version; timings at the
     main path's shape.  Returns the kernel line's numbers."""
@@ -295,11 +334,8 @@ def flash_phase(torch, attention):
         q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda")
                    .to(dtype) for s in (sq, sk, sk))
         bias = None
-        if kind == "keypad":   # per batch of 12 heads, the last keys masked
-            pad = torch.zeros((bh // 12 or 1, 1, sk), device="cuda")
-            for i in range(pad.shape[0]):
-                pad[i, 0, sk - 1 - 17 * i:] = -1e30
-            bias = torch.repeat_interleave(pad, bh // pad.shape[0], dim=0)
+        if kind == "keypad":
+            bias = _keypad_bias(torch, bh, sk)
         elif kind == "full":
             bias = torch.randn((1, sq, sk), generator=g, device="cuda")
         scale = d ** -0.5
@@ -553,7 +589,9 @@ def ln_bwd_phase(torch, layer_norm):
     cases = [((rows, n), bf16, True), ((rows, n), bf16, False),
              ((rows, n), f32, True), ((rows, n), f32, False),
              ((1001, 1000), f32, True), ((37, 768), bf16, True),
-             ((300, 4000), f16, True), ((5, 12000), f32, False)]
+             ((300, 4000), f16, True), ((5, 12000), f32, False),
+             ((BERT_BATCH * BERT_SEQ, n), bf16, True),     # BERT-base
+             ((BERT_BATCH * BERT_MLM, n), bf16, True)]
     print("LayerNorm backward vs plain (the plain version in fp32 on the "
           "same inputs, TF32 off; err: max abs / max(1, max |ref|)):")
     main_err = None
@@ -650,11 +688,8 @@ def flash_bwd_phase(torch, attention):
                    .to(dtype) for s in (sq, sk, sk))
         dout = torch.randn((bh, sq, d), generator=g, device="cuda").to(dtype)
         bias = None
-        if kind == "keypad":   # per batch of 12 heads, the last keys masked
-            pad = torch.zeros((bh // 12 or 1, 1, sk), device="cuda")
-            for i in range(pad.shape[0]):
-                pad[i, 0, sk - 1 - 17 * i:] = -1e30
-            bias = torch.repeat_interleave(pad, bh // pad.shape[0], dim=0)
+        if kind == "keypad":
+            bias = _keypad_bias(torch, bh, sk)
         elif kind == "full":
             bias = torch.randn((1, sq, sk), generator=g, device="cuda")
         scale = d ** -0.5
@@ -738,6 +773,191 @@ def flash_bwd_phase(torch, attention):
                  bound_ms=b_dq[0], bound_by=b_dq[1], **common),
             dict(max_abs_err=main_err, ms=split["flash_bwd_dkv"],
                  bound_ms=b_dkv[0], bound_by=b_dkv[1], **common))
+
+
+DROP_P = 0.1      # the original recipes' attention dropout (GPT-2, BERT)
+
+
+def _flash_yardsticks(torch, attention, q, k, v, bias, out, lse, dout,
+                      scale, causal, drop):
+    """The least time of the flash forward and backward at these inputs
+    (bf16 tensor-core rate, each input read and each output written once),
+    the plain versions' times, and ``F.scaled_dot_product_attention``'s
+    forward and backward (its own dropout in the dropout arm; the bias as
+    its additive mask), each without and with dropout."""
+    from torch.nn import functional as F
+    bh, s, d = q.shape
+    io, extra = bh * s * d * 2, bh * s * 4 + (0 if bias is None
+                                              else bias.numel() * 4)
+    pairs = bh * _unmasked_pairs(s, s, causal, None)
+    out_d = {}
+    out_d["bound_fwd_ms"], out_d["bound_fwd_by"] = bound_ms(
+        4 * io + extra, 4 * d * pairs, BF16_FLOP_PER_S)
+    out_d["bound_bwd_ms"], out_d["bound_bwd_by"] = bound_ms(
+        8 * io + extra, 10 * d * pairs, BF16_FLOP_PER_S)
+    b4 = s4 = None
+    if bias is not None:     # (BH, 1, Sk) -> (B, H, 1, Sk)
+        b4 = bias.view(bh // 12, 12, 1, s).to(q.dtype)
+    q4, k4, v4 = (t.view(bh // 12, 12, s, d).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    g4 = dout.view(bh // 12, 12, s, d)
+    for label, kw, p in (("", {}, 0.0), ("dropout_", drop, drop["dropout_p"])):
+        out_d[label + "plain_fwd_ms"] = median_ms(
+            lambda: attention.flash_attention_reference(  # noqa: E731
+                q, k, v, bias, scale, causal, **kw), reps=5, inner=2)[0]
+        out_d[label + "plain_bwd_ms"] = median_ms(
+            lambda: attention.flash_attention_bwd_reference(  # noqa: E731
+                q, k, v, bias, out, lse, dout, scale, causal, **kw),
+            reps=5, inner=2)[0]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=b4, dropout_p=p,
+                is_causal=causal and b4 is None, scale=scale)
+        out_d[label + "library_fwd_ms"] = median_ms(
+            lambda: sdpa().detach())[0]
+        s4 = sdpa()
+        out_d[label + "library_bwd_ms"] = median_ms(
+            lambda: torch.autograd.grad(s4, (q4, k4, v4), g4,
+                                        retain_graph=True))[0]
+    del s4
+    return out_d
+
+
+def flash_dropout_phase(torch, attention):
+    """The dropout branch of the flash kernels against the plain mask and
+    the plain versions.  Exact mask: fp32, q = 0 (uniform probabilities
+    1/64 over Sk = D = 64 keys, non-causal), v = I and dO = I, so that
+    out * Sk and dv * Sk read back the multiplier grid and its transpose;
+    the kept and dropped entries must be the plain mask's everywhere.  Then
+    the GPT (192, 1024, 64) causal shape and the BERT (768, 128, 64)
+    non-causal one, without a bias (as the BERT step runs it) and with a
+    key-padding bias, in bf16 at p = 0.1 within the flash phases'
+    tolerances, and each kernel's time with and without dropout at each,
+    in turns.
+    Returns the numbers for the kernel line."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    bh, s, d = 96, 64, 64
+    print("flash-attention dropout: the exact mask (fp32, q = 0, v = I, "
+          "dO = I; (96, 64, 64) non-causal):")
+    k = torch.randn((bh, s, d), generator=g, device="cuda")
+    q = torch.zeros((bh, s, d), device="cuda")
+    eye = torch.eye(s, device="cuda").expand(bh, s, s).contiguous()
+    for p in (0.1, 0.5):
+        keep_scale = attention.dropout_constants(p)[1]
+        for seed in (SEED, -987654321):
+            for ro, co in ((0, 0), (1000, 37)):
+                drop = dict(dropout_p=p, dropout_seed=seed,
+                            dropout_row_off=ro, dropout_col_off=co)
+                out, lse = attention.flash_attention_fwd(
+                    q, k, eye, None, 1.0, False, **drop)
+                _, _, dv = attention.flash_attention_bwd(
+                    q, k, eye, None, out, lse, eye, 1.0, False, **drop)
+                torch.cuda.synchronize()
+                ref = attention.dropout_keep_reference(
+                    bh, s, s, seed, p, ro, co, device="cuda")
+                kept = ref != 0
+                bad = {}
+                for what, grid in (("forward (out * Sk)", out * s),
+                                   ("dk/dv (dv^T * Sk)",
+                                    dv.transpose(1, 2) * s)):
+                    n_bad = int(((grid != 0) != kept).sum())
+                    rel = ((grid[kept] - keep_scale).abs().max().item()
+                           / keep_scale)
+                    bad[what] = (n_bad, rel)
+                    if n_bad or rel > 1e-6:
+                        raise AssertionError(
+                            f"dropout mask p={p} seed={seed} offsets "
+                            f"({ro}, {co}) {what}: {n_bad} entries kept or "
+                            f"dropped against the plain mask, kept values "
+                            f"{rel:.3e} from 1/(1-p)")
+                print(f"  p={p} seed={seed} offsets ({ro}, {co}): "
+                      f"{int(kept.sum())} of {kept.numel()} kept; "
+                      + "; ".join(f"{w}: {n} entries off the plain mask, "
+                                  f"kept values within {r:.1e} of 1/(1-p)"
+                                  for w, (n, r) in bad.items()))
+
+    print(f"flash-attention dropout p={DROP_P} against the plain versions "
+          f"(bf16; err: max abs / max(1, max |ref|)):")
+    shapes = (("gpt", TRAIN_BATCH * 12, TRAIN_SEQ, True, False),
+              ("bert", BERT_BATCH * 12, BERT_SEQ, False, False),
+              ("bert_keypad", BERT_BATCH * 12, BERT_SEQ, False, True))
+    numbers = {}
+    for name, bh, s, causal, keypad in shapes:
+        q, k, v, dout = (torch.randn((bh, s, d), generator=g, device="cuda")
+                         .to(bf16) for _ in range(4))
+        bias = _keypad_bias(torch, bh, s) if keypad else None
+        scale = d ** -0.5
+        drop = dict(dropout_p=DROP_P, dropout_seed=SEED + 21)
+        tag = f"({bh}, {s}, {d}) bf16 causal={causal} keypad={keypad}"
+        out, lse = attention.flash_attention_fwd(q, k, v, bias, scale, causal,
+                                                 **drop)
+        got = attention.flash_attention_bwd(q, k, v, bias, out, lse, dout,
+                                            scale, causal, **drop)
+        torch.cuda.synchronize()
+        leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+        ref_out, ref_lse = attention.flash_attention_reference(
+            *leaves, bias, scale, causal, **drop)
+        eo, eo_abs = scaled_err(out, ref_out.detach())
+        check(f"{tag} out", eo, 2e-2)
+        check(f"{tag} lse", scaled_err(lse, ref_lse.detach())[0], 2e-5)
+        ref = torch.autograd.grad(ref_out, leaves, dout.float())
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            check(f"{tag} {gname} vs the plain version's autograd (fp32)",
+                  scaled_err(a, r)[0], 3e-2)
+        del leaves, ref_out, ref_lse, ref
+        plain = attention.flash_attention_bwd_reference(
+            q, k, v, bias, out, lse, dout, scale, causal, **drop)
+        for gname, a, r in zip(("dq", "dk", "dv"), got, plain):
+            check(f"{tag} {gname} vs flash_attention_bwd_reference (err in "
+                  f"units in the last place)", ulp_err(a, r), 1)
+        err = max([eo_abs] + [scaled_err(a, r)[1]
+                              for a, r in zip(got, plain)])
+        del plain, got
+
+        # without and with dropout in turns (off, on, on, off), each number
+        # the mean of its two turns: the forward and the whole backward by
+        # CUDA events, the backward's two launches from torch.profiler
+        times = {}
+        arms = [("", {}), ("dropout_", drop)]
+        for label, kw in arms + arms[::-1]:
+            fwd = lambda: attention.flash_attention_fwd(  # noqa: E731
+                q, k, v, bias, scale, causal, **kw)
+            bwd = lambda: attention.flash_attention_bwd(  # noqa: E731
+                q, k, v, bias, out, lse, dout, scale, causal, **kw)
+            split = kernel_split_ms(torch, bwd, ("flash_bwd_dq",
+                                                 "flash_bwd_dkv"), calls=10)
+            for key, ms in (("fwd_ms", median_ms(fwd, reps=10)[0]),
+                            ("bwd_ms", median_ms(bwd, reps=10)[0]),
+                            ("dq_ms", split["flash_bwd_dq"]),
+                            ("dkv_ms", split["flash_bwd_dkv"])):
+                times.setdefault(label + key, []).append(ms)
+        row = dict(shape=tag, max_abs_err=err,
+                   **{key: statistics.mean(v) for key, v in times.items()})
+        print(f"  time {tag}, without -> with dropout: " + ", ".join(
+            f"{what} {row[key]:.4f} -> {row['dropout_' + key]:.4f} ms "
+            f"({row['dropout_' + key] / row[key] - 1:+.1%})"
+            for what, key in (("forward", "fwd_ms"),
+                              ("backward (both launches)", "bwd_ms"),
+                              ("dq", "dq_ms"), ("dk/dv", "dkv_ms"))))
+        row.update(_flash_yardsticks(torch, attention, q, k, v, bias, out,
+                                     lse, dout, scale, causal, drop))
+        print(f"  {tag}: bound forward {row['bound_fwd_ms']:.4f} ms "
+              f"({row['bound_fwd_by']}), backward {row['bound_bwd_ms']:.4f}"
+              f" ms ({row['bound_bwd_by']}); plain forward "
+              f"{row['plain_fwd_ms']:.4f} -> {row['dropout_plain_fwd_ms']:.4f}"
+              f" ms, backward {row['plain_bwd_ms']:.4f} -> "
+              f"{row['dropout_plain_bwd_ms']:.4f} ms with dropout; "
+              f"F.scaled_dot_product_attention forward "
+              f"{row['library_fwd_ms']:.4f} -> "
+              f"{row['dropout_library_fwd_ms']:.4f} ms, backward "
+              f"{row['library_bwd_ms']:.4f} -> "
+              f"{row['dropout_library_bwd_ms']:.4f} ms with its own "
+              f"dropout")
+        numbers[name] = row
+        del q, k, v, dout, out, lse
+    return numbers
 
 
 def adam_phase(torch, multi_tensor, shapes):
@@ -1496,7 +1716,8 @@ def xent_phase(torch, xentropy):
         (4092, 50257, f16, 0.0, -1, 0), (1023, 50304, bf16, 0.1, -1, 47),
         (777, 50304, f16, 0.1, 0, 47), (1001, 50304, f32, 0.1, -1, 47),
         (513, 50257, bf16, 0.1, 0, 0), (37, 1003, f16, 0.0, -1, 0),
-        (5, 12345, f32, 0.1, 0, 100)]
+        (5, 12345, f32, 0.1, 0, 100),
+        (BERT_BATCH * BERT_MLM, BERT_VOCAB, bf16, 0.0, -1, 0)]  # BERT MLM
     print("xentropy forward/backward vs plain (losses, lse: max abs / max(1, "
           "max |ref|); dx: units in the last place (half) or max abs / max "
           "|ref| (fp32)):")
@@ -1687,7 +1908,7 @@ def _chunked_lm_loss(vocab=50257, chunk_rows=None):
                                 chunk_rows=chunk_rows)
 
 
-def loss_mode_path(torch, dispatch, model, mode):
+def loss_mode_path(torch, dispatch, model, mode, note=""):
     """make_train_step on GPT-2 small at the training shape with the
     bench's chunked (default) or fused loss: launch counts around one step,
     10 timed steps, peak memory, one profiled step.  Returns (counts, step
@@ -1701,7 +1922,7 @@ def loss_mode_path(torch, dispatch, model, mode):
         if mode == "chunked" else 1
     try:
         counts, step_ms, _ = train_path(
-            torch, dispatch, model, loss_fn, f"{mode} loss",
+            torch, dispatch, model, loss_fn, f"{mode} loss{note}",
             dict(xent_forward=n_chunks, xent_backward=n_chunks))
     finally:
         model.output_hidden = False
@@ -2304,6 +2525,301 @@ def llama_train_path(torch, dispatch, llama, mode):
     return out
 
 
+# BERT-base masked-LM pretraining, the JAX bench's build_bert_step
+# (bench.py:1144-1216): vocabulary 30522, FusedLAMB(lr 1e-3, wd 0.01)
+BERT_VOCAB, BERT_LR, BERT_WD = 30522, 1e-3, 0.01
+BERT_LN = 2 * 12 + 2          # embeddings, 2 a layer, the MLM transform
+
+
+def _bert_batch(torch, batch, seq, dev, seed=0):
+    """The bench's batch from ``numpy.random.default_rng(seed)``: ids (B, S),
+    ceil(0.15 S) sorted MLM positions a sequence and their labels.
+    Returns ``((ids, positions), labels)``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, BERT_VOCAB, (batch, seq))
+    n_pred = -(-15 * seq // 100)
+    positions = np.stack([np.sort(rng.choice(seq, n_pred, replace=False))
+                          for _ in range(batch)])
+    labels = rng.integers(0, BERT_VOCAB, (batch, n_pred))
+    t = [torch.from_numpy(a).to(dev) for a in (ids, positions, labels)]
+    return (t[0], t[1]), t[2]
+
+
+def _bert_mlm_loss(torch):
+    """The bench's loss: the fused xentropy over the gathered positions,
+    padding_idx -1, averaged."""
+    from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+
+    def mlm_loss(logits, labels):
+        flat = logits.reshape(-1, logits.shape[-1])
+        return softmax_cross_entropy_loss(flat, labels.reshape(-1), 0.0, -1,
+                                          True).mean()
+    return mlm_loss
+
+
+def _bert_want(counts, layers=12):
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
+                flash_attention_bwd_dkv=layers, xent_forward=1,
+                xent_backward=1)
+    want.update(dict.fromkeys(LN_NAMES, BERT_LN))
+    return want
+
+
+def bert_train_path(torch, dispatch, bert, attn_dropout):
+    """make_train_step(bert_base, FusedLAMB) with bf16 half copies and a
+    static scale of 1 at batch 64 x 128, gathered MLM over 20 positions a
+    sequence, residual and embedding dropout 0.1, attention dropout
+    ``attn_dropout``: the launch counts of one step (flash 12/12/12,
+    LayerNorm 26/26/26, xentropy 1/1, no hand kernel in the LAMB update),
+    10 timed steps, peak memory, a profiled step.  Returns (counts,
+    numbers)."""
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED)
+    model = bert.bert_base(max_positions=BERT_SEQ, attn_dropout=attn_dropout,
+                           device="cuda")
+    opt = FusedLAMB(list(model.parameters()), lr=BERT_LR,
+                    weight_decay=BERT_WD)
+    step = make_train_step(model, opt, _bert_mlm_loss(torch),
+                           half_dtype=torch.bfloat16, loss_scale=1.0)
+    x, labels = _bert_batch(torch, BERT_BATCH, BERT_SEQ, "cuda")
+    losses = [step(x, labels) for _ in range(2)]      # warm-up
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    losses.append(step(x, labels))
+    torch.cuda.synchronize()
+    counts = dispatch.counts()
+    print(f"BERT training path: make_train_step(bert_base, batch "
+          f"{BERT_BATCH} x {BERT_SEQ}, gathered MLM, bf16 half copies, "
+          f"FusedLAMB lr {BERT_LR} wd {BERT_WD}, attn_dropout "
+          f"{attn_dropout}, dropout 0.1)")
+    print(f"  launches in one step: {counts}")
+    if counts != _bert_want(counts):
+        raise AssertionError(f"BERT launch counts {counts} != expected "
+                             f"{_bert_want(counts)}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        losses.append(step(x, labels))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 10
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    values = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite BERT loss: {values}")
+    if not values[-1] < values[0]:
+        raise AssertionError(f"the BERT loss did not fall: {values}")
+    seq_s = BERT_BATCH / step_s
+    print(f"  step {1e3 * step_s:.2f} ms = {seq_s:.1f} sequences/s (10 "
+          f"steps, host clock, ending in a synchronize); peak memory "
+          f"{peak:.2f} GiB")
+    print(f"  losses of {len(values)} steps: "
+          f"{', '.join(f'{v:.4f}' for v in values)}")
+    wall, busy, by_name, n = _profiled(torch, lambda: step(x, labels))
+    idle, top = None, []
+    if busy is None:
+        print(f"  profiled step: wall {wall:.2f} ms; device time not "
+              f"measured (the profiler saw no device activity)")
+    else:
+        idle = 1 - busy / wall
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"  profiled step: wall {wall:.2f} ms, device busy {busy:.2f} "
+              f"ms, idle share {idle:.3f}, {n} device operations")
+        for name, ms in top:
+            print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    del step, opt, model
+    return counts, dict(step_ms=1e3 * step_s, sequences_per_s=seq_s,
+                        peak_gib=peak, idle_share=idle,
+                        top=[(name[:60], ms) for name, ms in top[:4]],
+                        first_loss=values[0], last_loss=values[-1])
+
+
+def bert_amp_path(torch, dispatch, bert):
+    """BASELINE.json's config 4: amp.initialize(bert_base, FusedLAMB,
+    opt_level="O2") + scale_loss (fp16, dynamic scale capped at 2^12),
+    batch 64 x 128, 10 iterations with the launch counts of the third and
+    the host time of iterations 3-10; then a non-finite gradient planted at
+    iteration 2 of 3 (batch 1 x 16), skipped alike on the card and on the
+    CPU.  Returns (counts, sequences/s)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp._amp_state import _amp_state, reset
+    from apex_tpu_torch.optimizers import FusedLAMB
+    loss_fn = _bert_mlm_loss(torch)
+
+    def build(dev, max_scale, sd=None):
+        reset()
+        torch.manual_seed(SEED)
+        m = bert.bert_base(max_positions=BERT_SEQ, device=dev)
+        if sd is not None:
+            m.load_state_dict(sd)
+        opt = FusedLAMB(list(m.parameters()), lr=BERT_LR,
+                        weight_decay=BERT_WD)
+        return amp.initialize(m, opt, opt_level="O2", verbosity=0,
+                              max_loss_scale=max_scale)
+
+    model, opt = build("cuda", 2.0 ** 12)
+    x, labels = _bert_batch(torch, BERT_BATCH, BERT_SEQ, "cuda")
+    losses, skips = [], []
+    for i in range(10):
+        if i == 2:
+            torch.cuda.synchronize()
+            dispatch.reset_counts()
+            t0 = time.perf_counter()
+        loss, skipped = _amp_iteration(amp, model, opt, loss_fn, x, labels)
+        if i == 2:
+            torch.cuda.synchronize()
+            counts = dispatch.counts()
+        losses.append(float(loss.detach()))
+        skips.append(skipped)
+    torch.cuda.synchronize()
+    seq_s = BERT_BATCH * 8 / (time.perf_counter() - t0)
+    p0 = opt.param_groups[0]["params"][0]
+    print(f"BERT amp O2: amp.initialize(bert_base, FusedLAMB) -> forward -> "
+          f"scale_loss -> backward -> step, batch {BERT_BATCH} x {BERT_SEQ}, "
+          f"dropout 0.1, attention dropout 0.1; "
+          f"{len(opt.param_groups[0]['params'])} {p0.dtype} optimizer "
+          f"params, moments {opt.state[p0]['exp_avg'].dtype}")
+    print(f"  launches in iteration 3: {counts}")
+    print(f"  losses {', '.join(f'{v:.4f}' for v in losses)}; skipped "
+          f"{skips}; loss scale {_amp_state.loss_scalers[0].loss_scale()}; "
+          f"iterations 3-10: {seq_s:.1f} sequences/s (host clock, the loss "
+          f"read back each iteration)")
+    if counts != _bert_want(counts):
+        raise AssertionError(f"BERT amp launch counts {counts} != expected "
+                             f"{_bert_want(counts)}")
+    if not all(math.isfinite(v) for v in losses) or any(skips):
+        raise AssertionError(f"BERT amp: losses {losses}, skipped {skips}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"BERT amp: the loss did not fall: {losses}")
+    sd = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    del model, opt
+
+    print("BERT amp O2 overflow skip, batch 1 x 16, a non-finite gradient "
+          "planted at iteration 2:")
+    xs, ls = _bert_batch(torch, 1, 16, "cpu", seed=1)
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        model, opt = build(dev, 2.0 ** 10, sd)
+        rows = []
+        for i in range(3):
+            _, skipped = _amp_iteration(
+                amp, model, opt, loss_fn, tuple(t.to(dev) for t in xs),
+                ls.to(dev), plant=i == 1)
+            rows.append((skipped, _amp_state.loss_scalers[0].loss_scale()))
+        hist[dev] = rows
+        print(f"  {dev}: (skipped, scale) per iteration {rows}")
+        del model, opt
+    reset()
+    if hist["cuda"] != hist["cpu"] or \
+            hist["cuda"] != [(False, 1024.0), (True, 512.0), (False, 512.0)]:
+        raise AssertionError(f"BERT amp skip history differs: {hist}")
+    return counts, seq_s
+
+
+def bert_cpu_phase(torch, bert, attn_funcs):
+    """BERT-base on the card against the CPU from the same weights (fp32,
+    TF32 off, every dropout 0, batch 2 x 128 with the second sequence
+    padded from position 100, 20 MLM positions a sequence): the logits,
+    the loss and every gradient of one backward, then one fused LAMB step's
+    loss, masters and moments; and one ``flash_attention`` call with
+    dropout 0.1 and its gradients, card against CPU."""
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.training import make_train_step
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    loss_fn = _bert_mlm_loss(torch)
+    torch.manual_seed(SEED)
+    kw = dict(max_positions=BERT_SEQ, dropout=0.0, attn_dropout=0.0)
+    mc = bert.bert_base(**kw, device="cuda")
+    sd = {k: v.detach().cpu() for k, v in mc.state_dict().items()}
+
+    def cpu_copy():
+        m = bert.bert_base(**kw, device="cpu")
+        m.load_state_dict(sd)
+        return m
+    mh = cpu_copy()
+    (ids, pos), labels = _bert_batch(torch, 2, BERT_SEQ, "cpu", seed=2)
+    mask = torch.ones_like(ids)
+    mask[1, 100:] = 0
+    print("BERT-base, card vs CPU (same weights, fp32, TF32 off, dropout 0, "
+          "batch 2 x 128, padding mask):")
+    outs = []
+    for m in (mc, mh):
+        dev = m.decoder_bias.device
+        logits = m(ids.to(dev), attention_mask=mask.to(dev),
+                   mlm_positions=pos.to(dev))
+        loss = loss_fn(logits, labels.to(dev))
+        loss.backward()
+        outs.append((logits.detach().cpu(), float(loss.detach())))
+    tol = 1e-3     # fp32 on both sides, TF32 off; sums in other orders
+    check("MLM logits (2, 20, 30522) (max abs diff)",
+          (outs[0][0] - outs[1][0]).abs().max().item(), tol)
+    check("loss (relative)", abs(outs[0][1] - outs[1][1]) / abs(outs[1][1]),
+          1e-4)
+    worst, worst_name = 0.0, None
+    for (name, pc), ph in zip(mc.named_parameters(), mh.parameters()):
+        e = (pc.grad.cpu() - ph.grad).abs().max().item() / max(
+            ph.grad.abs().max().item(), 1e-30)
+        if e > worst:
+            worst, worst_name = e, name
+    check(f"gradients, worst tensor {worst_name} (max abs err / max |g|)",
+          worst, 1e-3)
+
+    before = [p.detach().clone() for p in mh.parameters()]
+    runs = []
+    for m in (mc, mh):
+        dev = m.decoder_bias.device
+        m.zero_grad(set_to_none=True)
+        step = make_train_step(m, FusedLAMB(list(m.parameters()), lr=BERT_LR,
+                                            weight_decay=BERT_WD),
+                               loss_fn, half_dtype=None, loss_scale=1.0)
+        loss = float(step((ids.to(dev), pos.to(dev)), labels.to(dev)))
+        st = step.state
+        runs.append((loss, [[t.cpu() for t in lst] for lst in (
+            st.master_params, st.opt_state["m"], st.opt_state["v"])]))
+    check("LAMB step 1 loss (relative)",
+          abs(runs[0][0] - runs[1][0]) / abs(runs[1][0]), 1e-4)
+    # a 768 x 768 weight at std 0.02 moves by about lr |p| / |u| ~ 2e-5 an
+    # element, so the masters are held well inside that, and each tensor's
+    # change (new minus old) against the CPU's in norm
+    check("fp32 masters after the step (max abs diff)",
+          max((a - b).abs().max().item()
+              for a, b in zip(runs[0][1][0], runs[1][1][0])), 1e-5)
+    worst, worst_name = 0.0, None
+    for (name, _), a, b, p0 in zip(mh.named_parameters(), runs[0][1][0],
+                                   runs[1][1][0], before):
+        e = (torch.linalg.vector_norm((a - p0) - (b - p0))
+             / torch.linalg.vector_norm(b - p0).clamp_min(1e-30)).item()
+        if e > worst:
+            worst, worst_name = e, name
+    check(f"LAMB step 1 change of the masters, worst tensor {worst_name} "
+          f"(|card - CPU| / |CPU| in norm)", worst, 1e-3)
+    for what, i in (("first moments", 1), ("second moments", 2)):
+        check(f"LAMB {what}, worst tensor (max abs err / max |ref|)",
+              max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1e-30)
+                  for a, b in zip(runs[0][1][i], runs[1][1][i])), 2e-3)
+    del mc, mh, runs
+
+    g = torch.Generator().manual_seed(SEED + 22)
+    q, k, v, dout = (torch.randn((2, 12, BERT_SEQ, 64), generator=g)
+                     for _ in range(4))
+    bias = torch.zeros((2, 1, BERT_SEQ))
+    bias[1, 0, 90:] = -1e30
+    res = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = attn_funcs.flash_attention(*leaves, bias=bias.to(dev),
+                                         dropout_p=DROP_P,
+                                         dropout_seed=SEED + 23)
+        grads = torch.autograd.grad(out, leaves, dout.to(dev))
+        res.append([t.detach().cpu() for t in (out,) + grads])
+    for name, a, b in zip(("out", "dq", "dk", "dv"), *res):
+        check(f"flash_attention dropout {DROP_P}, (2, 12, 128, 64) fp32 "
+              f"key-padded, card vs CPU: {name}", scaled_err(a, b)[0], 1e-5)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2313,7 +2829,8 @@ def main():
     from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
         lm_head_xent, multi_tensor, rms_norm, xentropy
     from apex_tpu_torch import models
-    from apex_tpu_torch.models import gpt, llama
+    from apex_tpu_torch.contrib.multihead_attn import attn_funcs
+    from apex_tpu_torch.models import bert, gpt, llama
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2345,6 +2862,7 @@ def main():
     fl_train, ln_train = fwd_train_shapes(torch, attention, layer_norm)
     lnb_rows, lnb_cols = ln_bwd_phase(torch, layer_norm)
     dq, dkv = flash_bwd_phase(torch, attention)
+    fdrop = flash_dropout_phase(torch, attention)
     adam = adam_phase(torch, multi_tensor, shapes)
     adam_half = adam_half_phase(torch, multi_tensor, shapes)
     sgd = sgd_phase(torch, multi_tensor, rn_shapes, rn_bn)
@@ -2375,6 +2893,18 @@ def main():
         torch, dispatch, train_model, "fused")
     print(f"train step ms in this run: plain {plain_ms:.2f}, chunked "
           f"{chunked_ms:.2f}, fused {fused_ms:.2f}")
+    # the bench's --attn-dropout 0.1 arm: the same model and step with the
+    # attention dropout of the original GPT-2 recipe in the flash kernels
+    for blk in train_model.blocks:
+        blk.attn.dropout = DROP_P
+    paths["train_step_chunked_attn_dropout"], drop_ms = loss_mode_path(
+        torch, dispatch, train_model, "chunked",
+        f", attn_dropout {DROP_P}")
+    for blk in train_model.blocks:
+        blk.attn.dropout = 0.0
+    print(f"gpt2_small chunked step with attn_dropout {DROP_P}: "
+          f"{drop_ms:.2f} ms against {chunked_ms:.2f} ms without in this "
+          f"run ({drop_ms / chunked_ms - 1:+.1%})")
     pad_vocab_path(torch, gpt)
     paths["llama_train_chunked"], l_chunked_ms, l_chunked_loss = \
         llama_train_path(torch, dispatch, llama, "chunked")
@@ -2402,10 +2932,34 @@ def main():
     paths["imagenet_amp"], imagenet_img_s = imagenet_amp_path(
         torch, dispatch, models)
     print(f"ResNet phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    paths["bert_train"], bert_nums = bert_train_path(torch, dispatch, bert,
+                                                     0.0)
+    paths["bert_train_attn_dropout"], bert_drop_nums = bert_train_path(
+        torch, dispatch, bert, DROP_P)
+    print(f"bert_base step ms in this run: attn_dropout 0 "
+          f"{bert_nums['step_ms']:.2f}, {DROP_P} "
+          f"{bert_drop_nums['step_ms']:.2f}")
+    paths["bert_amp_O2"], bert_amp_seq_s = bert_amp_path(torch, dispatch,
+                                                         bert)
+    bert_cpu_phase(torch, bert, attn_funcs)
+    print(f"BERT phases: {time.perf_counter() - t_phase:.1f} s")
 
     def launches(name):
         by = {k: c[name] for k, c in paths.items() if c[name]}
         return dict(launches=sum(by.values()), launches_by_path=by)
+    def dropout_numbers(kernel, whole):
+        """The dropout phase's numbers for one flash kernel at both
+        shapes; the bound, plain and library times are of the whole
+        forward or backward."""
+        return {k: dict(
+            shape=r["shape"], ms=r[f"{kernel}_ms"],
+            dropout_ms=r[f"dropout_{kernel}_ms"], whole_ms=r[f"{whole}_ms"],
+            dropout_whole_ms=r[f"dropout_{whole}_ms"],
+            bound_ms=r[f"bound_{whole}_ms"], bound_by=r[f"bound_{whole}_by"],
+            **{f"{arm}{what}_ms": r[f"{arm}{what}_{whole}_ms"]
+               for arm in ("", "dropout_") for what in ("plain", "library")})
+            for k, r in fdrop.items()}
     fa, fb = "apex_tpu_torch/csrc/flash_attention", "apex_tpu/kernels/"
     ln_src = "apex_tpu_torch/csrc/layer_norm.cu"
     xe_src = "apex_tpu_torch/csrc/xentropy.cu"
@@ -2416,19 +2970,24 @@ def main():
              replaces=f"{fb}attention.py:352",
              **launches("flash_attention_fwd"),
              shape="(96, 512, 64) fp32 causal", **fl,
-             train_shape=fl_train),
+             train_shape=fl_train, dropout_branch="ported",
+             dropout=dropout_numbers("fwd", "fwd")),
         dict(name="flash_attention_bwd_dq", route="cuda",
              source=f"{fa}_bwd.cu",
              replaces=f"{fb}attention.py:420 (_dq_kernel :237, "
                       f"pallas_call :466)",
              **launches("flash_attention_bwd_dq"),
-             shape="(192, 1024, 64) bf16 causal", **dq),
+             shape="(192, 1024, 64) bf16 causal", **dq,
+             dropout_branch="ported",
+             dropout=dropout_numbers("dq", "bwd")),
         dict(name="flash_attention_bwd_dkv", route="cuda",
              source=f"{fa}_bwd.cu",
              replaces=f"{fb}attention.py:420 (_dkv_kernel :283, "
                       f"pallas_call :490)",
              **launches("flash_attention_bwd_dkv"),
-             shape="(192, 1024, 64) bf16 causal", **dkv),
+             shape="(192, 1024, 64) bf16 causal", **dkv,
+             dropout_branch="ported",
+             dropout=dropout_numbers("dkv", "bwd")),
         dict(name="ln_forward", route="cuda", source=ln_src,
              replaces=f"{fb}layer_norm.py:77", **launches("ln_forward"),
              shape="(4096, 768) fp32 affine", **ln, train_shape=ln_train),
@@ -2485,6 +3044,12 @@ def main():
              **sgd["step"], amp_case=sgd["amp"],
              resnet_step_ms=resnet_ms, imagenet_images_per_s=imagenet_img_s),
     ]
+    print(json.dumps({"bert_base": dict(train=bert_nums,
+                                        train_attn_dropout=bert_drop_nums,
+                                        amp_o2_sequences_per_s=bert_amp_seq_s),
+                      "gpt2_small_chunked_step_ms": dict(
+                          attn_dropout_0=chunked_ms,
+                          attn_dropout_01=drop_ms)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -226,16 +226,30 @@ def test_from_jax_state_dict_rejects_mismatches(models):
 
 
 def test_backward_is_not_ported_yet(models):
-    """What of the backward is not ported yet: attention dropout inside the
-    flash kernels, which raises in training.  Without it the backward runs
-    (the LayerNorm and flash-attention backward kernels' plain versions on
-    the CPU) and gives the JAX package's gradients."""
+    """The backward, attention dropout included.  A model at the default
+    ``attn_dropout`` of 0.1 trains: its masks (the flash kernels' hash mask
+    among them) come from the generator, so the same generator state gives
+    the same logits and gradients.  Without dropout the backward (the
+    LayerNorm and flash-attention backward kernels' plain versions on the
+    CPU) gives the JAX package's gradients."""
     jm, tm = models
     ids = _ids(12, 2, 6)
     labels = _ids(13, 1, 12)[0]
     drop = GptModel(**{**CFG, "attn_dropout": 0.1}, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="dropout is not ported"):
-        drop(torch.from_numpy(ids))
+    assert drop.blocks[0].attn.dropout == 0.1
+    runs = []
+    for seed in (7, 7, 8):
+        drop.zero_grad()
+        logits = drop(torch.from_numpy(ids),
+                      generator=torch.Generator().manual_seed(seed))
+        torch.nn.functional.cross_entropy(
+            logits.reshape(-1, V), torch.from_numpy(labels)).backward()
+        runs.append((logits.detach(), drop.blocks[0].attn.in_proj_weight
+                     .grad.clone()))
+    assert torch.isfinite(runs[0][0]).all()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert not torch.equal(runs[0][0], runs[2][0])
     jm.train()
     tm.train()
     try:

@@ -145,10 +145,10 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
     big = torch.zeros(2, 8, 160)
     with pytest.raises(ValueError, match="head dim 160"):
         attention.flash_attention_fwd(big, big, big, None, 0.1, True)
-    with pytest.raises(NotImplementedError, match="dropout is not ported"):
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         attention.flash_attention_fwd(q, q, q, None, 0.25, True,
                                       dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="dropout is not ported"):
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         attn_funcs.flash_attention(q[None], q[None], q[None], dropout_p=0.1)
     with pytest.raises(ValueError, match="sliding_window requires causal"):
         attn_funcs.flash_attention(q[None], q[None], q[None],

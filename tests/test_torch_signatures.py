@@ -1,0 +1,226 @@
+"""The port's callables take the JAX package's keyword arguments.
+
+For each callable of the port that has a JAX twin on this slice's paths
+(the models, the attention module and functions, the flash kernels'
+wrappers, the LAMB optimizer and op, and the data-parallel surface), every
+parameter of the JAX signature exists in the port's with the same default;
+the port may add ``device``, ``dtype`` and ``generator`` parameters, and
+the kernels' ``interpret`` switch has no counterpart.  A value other than
+the default of an argument that asks for something not ported yet (a mesh
+axis, tensor or sequence parallelism, experts, rematerialisation) raises
+``NotImplementedError`` naming the ROADMAP item that owns it.
+"""
+import inspect
+
+import pytest
+import torch
+
+import apex_tpu.contrib.multihead_attn as jax_mha
+import apex_tpu.contrib.multihead_attn.attn_funcs as jax_attn_funcs
+import apex_tpu.kernels.attention as jax_attention
+import apex_tpu.models.bert as jax_bert
+import apex_tpu.models.gpt as jax_gpt
+import apex_tpu.models.llama as jax_llama
+import apex_tpu.nn.functional as jax_F
+import apex_tpu.ops.multi_tensor as jax_ops
+import apex_tpu.optimizers as jax_optimizers
+import apex_tpu.parallel as jax_parallel
+import apex_tpu.parallel.distributed as jax_distributed
+
+import apex_tpu_torch.contrib.multihead_attn as mha
+import apex_tpu_torch.contrib.multihead_attn.attn_funcs as attn_funcs
+import apex_tpu_torch.kernels.attention as attention
+import apex_tpu_torch.models.bert as bert
+import apex_tpu_torch.models.gpt as gpt
+import apex_tpu_torch.models.llama as llama
+import apex_tpu_torch.nn.functional as F
+import apex_tpu_torch.ops.multi_tensor as ops
+import apex_tpu_torch.optimizers as optimizers
+import apex_tpu_torch.parallel as parallel
+import apex_tpu_torch.parallel.distributed as distributed
+from apex_tpu_torch.training import make_train_step
+
+torch.set_num_threads(2)
+
+PAIRS = [
+    (jax_gpt, gpt, "GptModel"), (jax_gpt, gpt, "GptBlock"),
+    (jax_llama, llama, "LlamaModel"), (jax_llama, llama, "LlamaBlock"),
+    (jax_bert, bert, "BertLayer"), (jax_bert, bert, "BertModel"),
+    (jax_bert, bert, "bert_base"), (jax_bert, bert, "bert_large"),
+    (jax_mha, mha, "SelfMultiheadAttn"),
+    (jax_attn_funcs, attn_funcs, "flash_attention"),
+    (jax_attn_funcs, attn_funcs, "attention_reference"),
+    (jax_attention, attention, "flash_attention_fwd"),
+    (jax_attention, attention, "flash_attention_bwd"),
+    (jax_attention, attention, "dropout_keep_reference"),
+    (jax_optimizers, optimizers, "FusedLAMB"),
+    (jax_ops, ops, "multi_tensor_lamb"),
+    (jax_distributed, distributed, "DistributedDataParallel"),
+    (jax_distributed, distributed, "Reducer"),
+    (jax_distributed, distributed, "all_reduce_mean"),
+    (jax_parallel, parallel, "SyncBatchNorm"),
+    (jax_parallel, parallel, "convert_syncbn_model"),
+    (jax_F, F, "batch_norm"),
+]
+NO_COUNTERPART = {"interpret"}
+
+
+@pytest.mark.parametrize("jax_mod,port_mod,name", PAIRS,
+                         ids=[f"{p[1].__name__.split('.')[-1]}.{p[2]}"
+                              for p in PAIRS])
+def test_every_jax_parameter_exists_with_its_default(jax_mod, port_mod, name):
+    want = inspect.signature(getattr(jax_mod, name)).parameters
+    got = inspect.signature(getattr(port_mod, name)).parameters
+    for pname, param in want.items():
+        if pname in NO_COUNTERPART or pname.startswith("_"):
+            continue
+        assert pname in got, f"{name}: no parameter {pname!r}"
+        assert got[pname].default == param.default, \
+            f"{name}({pname}=...): default {got[pname].default!r} != " \
+            f"{param.default!r}"
+
+
+SMALL_GPT = dict(vocab_size=16, hidden=16, layers=1, heads=2,
+                 max_positions=8, device="cpu")
+SMALL_BERT = dict(vocab_size=16, hidden=16, layers=1, heads=2,
+                  intermediate=32, max_positions=8, device="cpu")
+A9, A4 = "ROADMAP A9", "ROADMAP A4"
+
+REFUSED = [
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(remat=True), A4),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(tp_axis="model"),
+     A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(sp_axis="seq"), A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(tp_vocab=True), A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(moe_axis="data"),
+     A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(moe_num_experts=4),
+     A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(moe_every=1), A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw),
+     dict(moe_capacity_factor=2.0), A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(moe_top_k=2), A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(moe_aux_weight=0.1),
+     A9),
+    (lambda **kw: gpt.GptBlock(16, 2, 32, device="cpu", **kw),
+     dict(sp_axis="seq"), A9),
+    (lambda **kw: gpt.GptBlock(16, 2, 32, device="cpu", **kw),
+     dict(tp_axis="model"), A9),
+    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw), dict(remat=True), A4),
+    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw),
+     dict(tp_axis="model"), A9),
+    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw),
+     dict(moe_num_experts=4), A9),
+    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw), dict(moe_every=1),
+     A9),
+    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw),
+     dict(moe_capacity_factor=2.0), A9),
+    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw), dict(moe_top_k=2),
+     A9),
+    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw),
+     dict(moe_aux_weight=0.1), A9),
+    (lambda **kw: llama.LlamaBlock(16, 2, 2, 32, device="cpu", **kw),
+     dict(tp_axis="model"), A9),
+    (lambda **kw: llama.LlamaBlock(16, 2, 2, 32, device="cpu", **kw),
+     dict(sp_axis="seq"), A9),
+    (lambda **kw: bert.BertModel(**SMALL_BERT, **kw), dict(remat=True), A4),
+    (lambda **kw: bert.BertModel(**SMALL_BERT, **kw), dict(sp_axis="seq"),
+     A9),
+    (lambda **kw: bert.BertModel(**SMALL_BERT, **kw), dict(tp_axis="model"),
+     A9),
+    (lambda **kw: bert.BertLayer(16, 2, 32, device="cpu", **kw),
+     dict(tp_axis="model"), A9),
+    (lambda **kw: mha.SelfMultiheadAttn(16, 2, device="cpu", **kw),
+     dict(seq_parallel_axis="seq"), A9),
+    (lambda **kw: mha.SelfMultiheadAttn(16, 2, device="cpu", **kw),
+     dict(seq_parallel_impl="ulysses"), A9),
+    (lambda **kw: mha.SelfMultiheadAttn(16, 2, device="cpu", **kw),
+     dict(tensor_parallel_axis="model"), A9),
+    (lambda **kw: distributed.all_reduce_mean([torch.zeros(2)], **kw),
+     dict(mesh="a mesh"), A9),
+    (lambda **kw: distributed.Reducer([torch.zeros(2)], **kw),
+     dict(mesh="a mesh"), A9),
+    (lambda **kw: distributed.DistributedDataParallel(
+        torch.nn.Linear(2, 2), **kw), dict(mesh="a mesh"), A9),
+    (lambda **kw: parallel.SyncBatchNorm(4, **kw), dict(axis_name="batch"),
+     A9),
+    (lambda **kw: parallel.convert_syncbn_model(torch.nn.BatchNorm2d(4),
+                                                **kw),
+     dict(axis_name="batch"), A9),
+    (lambda **kw: F.batch_norm(torch.zeros(2, 3, 4), None, None,
+                               training=True, **kw),
+     dict(axis_name="data"), A9),
+    (lambda **kw: F.batch_norm(torch.zeros(2, 3, 4), None, None,
+                               training=True, **kw),
+     dict(axis_index_groups=[[0]]), A9),
+    (lambda **kw: F.batch_norm(torch.zeros(2, 3, 4), None, None,
+                               training=True, **kw),
+     dict(channel_axis=-1), "ROADMAP A2"),
+    (lambda **kw: F.batch_norm(torch.zeros(2, 3, 4), None, None,
+                               training=True, **kw),
+     dict(return_stats=True), "ROADMAP A2"),
+]
+
+
+@pytest.mark.parametrize("make,kw,owner", REFUSED,
+                         ids=[f"{i}-{next(iter(r[1]))}"
+                              for i, r in enumerate(REFUSED)])
+def test_non_default_values_are_refused_naming_their_owner(make, kw, owner):
+    with pytest.raises(NotImplementedError, match=owner) as info:
+        make(**kw)
+    assert next(iter(kw)) in str(info.value)
+
+
+def test_defaults_are_accepted():
+    """The JAX package's own calls at the defaults (the bench's GPT build
+    passes ``remat=remat``) construct the port's modules."""
+    jax_kw = dict(remat=False, sp_axis=None, tp_axis=None, tp_vocab=False,
+                  moe_axis=None, moe_num_experts=None, moe_every=2,
+                  moe_capacity_factor=1.25, moe_top_k=1, moe_aux_weight=0.01)
+    assert isinstance(gpt.GptModel(**SMALL_GPT, **jax_kw), gpt.GptModel)
+    llama_kw = {k: v for k, v in jax_kw.items() if k != "tp_vocab"}
+    assert isinstance(llama.LlamaModel(**SMALL_GPT, **llama_kw),
+                      llama.LlamaModel)
+    assert isinstance(bert.BertModel(**SMALL_BERT, remat=False, sp_axis=None,
+                                     tp_axis=None), bert.BertModel)
+    mha.SelfMultiheadAttn(16, 2, seq_parallel_axis=None,
+                          seq_parallel_impl="ring",
+                          tensor_parallel_axis=None, device="cpu")
+    for axis_name in ("data", None):
+        parallel.SyncBatchNorm(4, axis_name=axis_name)
+        parallel.convert_syncbn_model(torch.nn.BatchNorm1d(4),
+                                      axis_name=axis_name)
+    x = torch.randn(4, 3, 5)
+    y, _, _ = F.batch_norm(x, None, None, training=True, axis_name=None,
+                           axis_index_groups=None, return_stats=False,
+                           channel_axis=-2)
+    torch.testing.assert_close(y, torch.nn.functional.batch_norm(
+        x, None, None, training=True))
+
+
+def test_refusal_messages_name_the_current_roadmap_items():
+    """The owners named in the refusals follow ROADMAP's queue A as it is
+    numbered now (parallelism A9, remat A4, inference A5, observe A8)."""
+    small = dict(SMALL_GPT)
+    with pytest.raises(NotImplementedError,
+                       match="tensor and sequence.*ROADMAP A9"):
+        llama.LlamaModel(**small, tp_axis="model")
+    with pytest.raises(NotImplementedError,
+                       match="mixture of experts.*ROADMAP A9"):
+        llama.LlamaModel(**small, moe_axis="data")
+    with pytest.raises(NotImplementedError,
+                       match="rematerialisation.*ROADMAP A4"):
+        llama.LlamaModel(**small, remat=True)
+    banded = llama.LlamaModel(**small, sliding_window=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5, inference"):
+        banded.init_caches(1, 8)
+    tm = gpt.GptModel(**small)
+    opt = optimizers.FusedAdam(list(tm.parameters()))
+    loss = lambda out, y: out.float().mean()  # noqa: E731
+    for kw, owner in ((dict(axis_name="data"), A9),
+                      (dict(gradient_predivide_factor=2.0), A9),
+                      (dict(tp_axis="model"), A9),
+                      (dict(zero_sharding=True), A9),
+                      (dict(telemetry=True), "ROADMAP A8")):
+        with pytest.raises(NotImplementedError, match=owner):
+            make_train_step(tm, opt, loss, **kw)

@@ -357,7 +357,7 @@ def test_adam_kernel_table_maps_chunks_to_tensors():
 def test_backward_and_adam_wrappers_refuse_what_the_kernels_cannot_take():
     q = torch.zeros(2, 8, 16)
     lse = torch.zeros(2, 8)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         attention.flash_attention_bwd(q, q, q, None, q, lse, q, 0.25, True,
                                       dropout_p=0.1)
     big = torch.zeros(2, 8, 160)
