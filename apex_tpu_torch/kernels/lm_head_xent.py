@@ -7,8 +7,17 @@ row's ``lse`` and ``loss_i = lse_i - s_{i, labels_i}`` (fp32), without the
 ``(N, V)`` logits ever reaching device memory (the forward, ``_fwd_impl``);
 and the backward (``_bwd``), which recomputes the logits block by block
 into ``dl = g_i (softmax(s_i) - onehot(labels_i))`` and launches one kernel
-for ``dx = dl @ emb`` and one for ``demb = dl.T @ x``.  Products are fp32
-over the inputs widened to fp32.
+for ``dx = dl @ emb`` and one for ``demb = dl.T @ x``.
+
+Two routes of hand-written kernels, chosen by :func:`lmx_route` before the
+launch from the dtype, the width E and the base addresses: ``"tc"`` (bf16,
+E a multiple of 8 and at most 768, 16-byte-aligned bases) runs every
+product on the tensor cores (``wgmma``, bf16 x bf16 -> fp32: the logits are
+exact products summed in fp32, and ``dl`` is rounded to bf16 only as the
+second product's operand); ``"simt"`` takes everything else with fp32 FMAs
+over the inputs widened to fp32 (fp32, where tensor cores would compute
+TF32; fp16, whose range would flush ``dl`` ~ 1e-9 to 0).  Each route and
+kernel has its own launch counter.
 
 A label outside ``[0, V)`` matches no column, so its target term is 0 and
 its row's loss is ``lse``: the kernel's arm.  The JAX package's substrate
@@ -29,9 +38,22 @@ import torch
 from .. import _build
 from .dispatch import LAUNCHES, check_dtype, dtype_code, use_kernel
 
-LAUNCHES.setdefault("lm_head_xent_fwd", 0)
-LAUNCHES.setdefault("lm_head_xent_dx", 0)
-LAUNCHES.setdefault("lm_head_xent_demb", 0)
+ROUTES = ("simt", "tc")
+for _route in ROUTES:
+    for _kernel in ("fwd", "dx", "demb"):
+        LAUNCHES.setdefault(f"lm_head_xent_{_kernel}_{_route}", 0)
+
+# the widest E whose 128 own rows stay in an SM's shared memory (tc route)
+TC_E_MAX = 768
+
+
+def lmx_route(dtype, e, *addresses):
+    """The kernels' route for x and emb of ``dtype`` and width ``e`` at the
+    given base addresses: ``"tc"`` or ``"simt"`` (see the module note)."""
+    if (dtype != torch.bfloat16 or e % 8 or e > TC_E_MAX
+            or any(a % 16 for a in addresses)):
+        return "simt"
+    return "tc"
 
 
 def _logits(x, emb):
@@ -94,11 +116,13 @@ def _kernel_args(x, emb, labels, what):
 def _lib():
     lib = _build.load("lm_head_xent")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.apex_lmx_fwd.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.apex_lmx_fwd.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.apex_lmx_fwd.restype = i
     for fn in (lib.apex_lmx_bwd_dx, lib.apex_lmx_bwd_dw):
-        fn.argtypes = [p] * 6 + [i] * 4 + [p]
+        fn.argtypes = [p] * 6 + [i] * 5 + [p]
         fn.restype = i
+    lib.apex_lmx_tc_smem.argtypes = [i, i]
+    lib.apex_lmx_tc_smem.restype = i
     return lib
 
 
@@ -114,14 +138,15 @@ def lm_head_xent_forward(x, emb, labels):
     lse = torch.empty_like(loss)
     if n == 0:
         return loss, lse
+    route = lmx_route(x.dtype, e, x.data_ptr(), emb.data_ptr())
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.apex_lmx_fwd(
             x.data_ptr(), emb.data_ptr(), lab.data_ptr(), loss.data_ptr(),
-            lse.data_ptr(), n, v, e, dtype_code(x.dtype),
+            lse.data_ptr(), n, v, e, dtype_code(x.dtype), ROUTES.index(route),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "lm_head_xent_forward")
-    LAUNCHES["lm_head_xent_fwd"] += 1
+    _build.check(lib, err, f"lm_head_xent_forward ({route})")
+    LAUNCHES[f"lm_head_xent_fwd_{route}"] += 1
     return loss, lse
 
 
@@ -146,19 +171,19 @@ def lm_head_xent_backward(x, emb, labels, lse, g):
     demb = torch.empty_like(emb)
     if n == 0:
         return dx, demb.zero_()
+    route = lmx_route(x.dtype, e, x.data_ptr(), emb.data_ptr())
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (x.data_ptr(), emb.data_ptr(), lab.data_ptr(), lse.data_ptr(),
                 gm.data_ptr())
-        err = lib.apex_lmx_bwd_dx(*args, dx.data_ptr(), n, v, e,
-                                  dtype_code(x.dtype), stream)
-        _build.check(lib, err, "lm_head_xent_backward (dx)")
-        LAUNCHES["lm_head_xent_dx"] += 1
-        err = lib.apex_lmx_bwd_dw(*args, demb.data_ptr(), n, v, e,
-                                  dtype_code(x.dtype), stream)
-        _build.check(lib, err, "lm_head_xent_backward (demb)")
-        LAUNCHES["lm_head_xent_demb"] += 1
+        tail = (n, v, e, dtype_code(x.dtype), ROUTES.index(route), stream)
+        err = lib.apex_lmx_bwd_dx(*args, dx.data_ptr(), *tail)
+        _build.check(lib, err, f"lm_head_xent_backward (dx, {route})")
+        LAUNCHES[f"lm_head_xent_dx_{route}"] += 1
+        err = lib.apex_lmx_bwd_dw(*args, demb.data_ptr(), *tail)
+        _build.check(lib, err, f"lm_head_xent_backward (demb, {route})")
+        LAUNCHES[f"lm_head_xent_demb_{route}"] += 1
     return dx, demb
 
 

@@ -81,12 +81,16 @@ Phases, each of which raises on failure:
    planted overflow skipped alike on the card and on the CPU (gloo);
 12. the RMSNorm kernels against their plain versions (fp32, bf16 and fp16,
    affine and not, rows of 768 to 12000, the (16384, 768) training shape),
-   and the fused LM-head + cross-entropy kernels against theirs (bf16 at
-   the Llama loss's (16368, 32000, 768), fp32 with V = 32001 and E = 100,
-   bf16 at E = 2048, fp16; labels -1 and V in every case), each with its
-   time, its bound, the plain version's and one library call's
-   (``F.rms_norm``; ``F.linear`` + ``F.cross_entropy``), the LM-head
-   kernels with few repetitions (tens of ms a launch; these run with
+   and the fused LM-head + cross-entropy kernels against theirs on the
+   route the wrapper picks, read from the per-route launch counters: the
+   tensor-core route at the Llama loss's (16368, 32000, 768) bf16 and at
+   ragged bf16 shapes (E 520 and 104), the SIMT route for fp32 (V = 32001,
+   E = 100), bf16 at E = 2048 and E = 100, and fp16; labels -1 and V in
+   every case; the tensor-core kernels launched twice, bit for bit, and
+   their registers, shared memory and spills (``cuobjdump -res-usage``);
+   each with its time, its bound, the plain version's and one library
+   call's (``F.rms_norm``; ``F.linear`` + ``F.cross_entropy``), and the
+   SIMT LM-head kernels' time at the tensor-core shape (these run with
    phase 2);
 13. the Llama serving path: ``generate`` on llama_125m (the JAX bench's
    ``LlamaModel(vocab 32000, hidden 768, 12 layers, 12 heads, 4 KV heads,
@@ -97,10 +101,13 @@ Phases, each of which raises on failure:
 14. the bench's Llama step (``bench.py::build_llama_step``: bf16 half
    copies, ``FusedAdam(lr=6e-4, weight_decay=0.1)``, static scale 1) at 16 x
    1024 with its ``chunked`` loss (16 + 16 xentropy launches a step) and
-   its ``kernel`` loss (the fused LM-head kernels: 1 + 1 + 1), each with
-   the launch counts of one step (RMSNorm 25/25/25, flash 12/12/12, Adam
-   1), 10 timed steps, peak memory, falling losses and a profiled step;
-   the two modes' first-step losses agree within 1e-3;
+   its ``kernel`` loss (the fused LM-head kernels on the tensor-core
+   route: 1 + 1 + 1), both from the same weights and batch, each with the
+   launch counts of one step (RMSNorm 25/25/25, flash 12/12/12, Adam 1);
+   then 10 steps of each in turns (chunked, kernel, kernel, chunked) with
+   each turn's peak memory, falling losses and a profiled step of each
+   with the LM-head kernels' share; the two modes' first-step losses agree
+   within 1e-3 and their last timed steps' within 1e-2;
 15. the dropout branch of the flash kernels (with phase 2): the forward's
    and the dk/dv kernel's masks read back entry by entry (fp32, q = 0, v =
    I, dO = I at (96, 64, 64)) against the plain mask for p 0.1 and 0.5, two
@@ -125,11 +132,11 @@ Phases, each of which raises on failure:
    sequence): MLM logits, loss, gradients, and one LAMB step's masters and
    moments; one ``flash_attention`` call with dropout 0.1, card against CPU.
 
-It prints a JSON line of the BERT and dropout-arm numbers, one JSON line
-of per-kernel numbers, the card's name and power limit, and as its last
-line ``{"ok": true, "device": {...}}``.  Without a
-card, or without the rest of the repository beside it, it exits non-zero
-before printing a result.  TF32 is off for every comparison.
+It prints a JSON line of the BERT, Llama-step and dropout-arm numbers,
+one JSON line of per-kernel numbers, the card's name and power limit, and
+as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
+without the rest of the repository beside it, it exits non-zero before
+printing a result.  TF32 is off for every comparison.
 """
 import json
 import math
@@ -2306,33 +2313,115 @@ def _lmx_case(torch, g, n, v, e, dtype):
     return x, emb, lab
 
 
+LMX_TC_KERNELS = ("lmx_fwd_tc", "lmx_dx_tc", "lmx_dw_tc")
+
+
+def lmx_resources(lm_head_xent):
+    """Registers, static shared memory, stack and local memory (spills) of
+    the tensor-core LM-head kernels (``cuobjdump -res-usage`` on the built
+    library) and the dynamic shared memory each launch asks for at E =
+    768.  The registers are the launch bound's cap (384 threads, one block
+    an SM); ``setmaxnreg`` moves the consumer warpgroups to 232."""
+    from pathlib import Path
+    from apex_tpu_torch import _build
+    lib = lm_head_xent._lib()
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-res-usage",
+                          str(_build._lib_path("lm_head_xent"))],
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    lines = res.stdout.splitlines()
+    out = {}
+    for kind, name in enumerate(LMX_TC_KERNELS):
+        hits = [lines[i + 1] for i, ln in enumerate(lines[:-1])
+                if ln.lstrip().startswith("Function") and name in ln]
+        if len(hits) != 1:
+            raise AssertionError(f"cuobjdump lists {len(hits)} kernels "
+                                 f"named *{name}*")
+        f = dict(w.split(":", 1) for w in hits[0].split() if ":" in w)
+        out[name] = dict(registers=int(f["REG"]), stack=int(f["STACK"]),
+                         local=int(f["LOCAL"]),
+                         static_shared=int(f["SHARED"]),
+                         dynamic_shared=lib.apex_lmx_tc_smem(kind, 768))
+        print(f"  {name}: {out[name]}")
+    return out
+
+
+def _lmx_simt_ms(torch, lm_head_xent, x, emb, lab, lse, gm):
+    """One launch of each SIMT kernel at the tensor-core route's shape,
+    through the C entry points with the route forced (the wrapper would
+    pick the tensor cores): the earlier kernels' time in this run."""
+    lib = lm_head_xent._lib()
+    (n, e), v = x.shape, emb.shape[0]
+    lab32 = lab.to(torch.int32)
+    loss, lse2 = torch.empty_like(lse), torch.empty_like(lse)
+    dx, demb = torch.empty_like(x), torch.empty_like(emb)
+    st = torch.cuda.current_stream().cuda_stream
+    calls = {
+        "fwd": lambda: lib.apex_lmx_fwd(
+            x.data_ptr(), emb.data_ptr(), lab32.data_ptr(), loss.data_ptr(),
+            lse2.data_ptr(), n, v, e, 1, 0, st),
+        "dx": lambda: lib.apex_lmx_bwd_dx(
+            x.data_ptr(), emb.data_ptr(), lab32.data_ptr(), lse.data_ptr(),
+            gm.data_ptr(), dx.data_ptr(), n, v, e, 1, 0, st),
+        "demb": lambda: lib.apex_lmx_bwd_dw(
+            x.data_ptr(), emb.data_ptr(), lab32.data_ptr(), lse.data_ptr(),
+            gm.data_ptr(), demb.data_ptr(), n, v, e, 1, 0, st)}
+    out = {}
+    for what, fn in calls.items():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        err = fn()
+        end.record()
+        end.synchronize()
+        if err:
+            raise AssertionError(f"SIMT LM-head {what}: CUDA error {err}")
+        out[what] = start.elapsed_time(end)
+    return out
+
+
 def lmx_phase(torch, lm_head_xent):
     """The fused LM-head + cross-entropy kernels against their plain
-    versions (which materialise the fp32 logits) on the same inputs; times
-    at the Llama loss's shape, (16368, 32000, 768) bf16, with few
-    repetitions (each launch takes tens of ms).  Returns the three kernel
-    lines' numbers: the forward, dx and demb."""
+    versions (which materialise the fp32 logits) on the same inputs, each
+    case on the route the wrapper picks (tensor cores for bf16 with E a
+    multiple of 8 up to 768, SIMT otherwise), read from the per-route
+    launch counters; the tensor-core kernels twice, bit for bit; times at
+    the Llama loss's shape, (16368, 32000, 768) bf16, beside the SIMT
+    kernels' at that shape.  Returns the three kernel lines' numbers: the
+    forward, dx and demb."""
+    from apex_tpu_torch.kernels import dispatch
     from torch.nn import functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 21)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     n0, v0, e0 = TRAIN_BATCH * (TRAIN_SEQ - 1), LLAMA["vocab_size"], 768
-    cases = [(n0, v0, e0, bf16), (1000, 32001, 768, f32),
-             (300, 1000, 100, f32), (257, 5003, 2048, bf16),
-             (77, 3001, 64, f16)]
+    cases = [(n0, v0, e0, bf16, "tc"), (1000, 32001, 768, f32, "simt"),
+             (300, 1000, 100, f32, "simt"), (257, 5003, 2048, bf16, "simt"),
+             (77, 3001, 64, f16, "simt"), (300, 1000, 100, bf16, "simt"),
+             (1000, 5003, 520, bf16, "tc"), (77, 3001, 104, bf16, "tc")]
     print("fused LM head + cross-entropy vs plain (loss, lse: max abs / "
           "max(1, max |ref|); dx, demb: max abs / max |ref|; fp32 sums in "
-          "another order, half outputs rounded on both sides):")
+          "another order, half outputs rounded on both sides; the tensor "
+          "cores round dl to bf16):")
+    res = lmx_resources(lm_head_xent)
     main_err = None
-    for n, v, e, dtype in cases:
+    for n, v, e, dtype, route in cases:
         x, emb, lab = _lmx_case(torch, g, n, v, e, dtype)
         gm = torch.rand((n,), generator=g, device="cuda") / n
+        dispatch.reset_counts()
         loss, lse = lm_head_xent.lm_head_xent_forward(x, emb, lab)
         dx, demb = lm_head_xent.lm_head_xent_backward(x, emb, lab, lse, gm)
         torch.cuda.synchronize()
+        want = {f"lm_head_xent_{k}_{route}": 1 for k in ("fwd", "dx", "demb")}
+        got = {k: c for k, c in dispatch.counts().items() if c}
+        if got != want:
+            raise AssertionError(f"({n}, {v}, {e}) {dtype}: launches {got} "
+                                 f"!= {want}")
         rloss, rlse = lm_head_xent.lm_head_xent_forward_reference(x, emb, lab)
         rdx, rdemb = lm_head_xent.lm_head_xent_backward_reference(
             x, emb, lab, lse, gm)
-        tag = f"({n}, {v}, {e}) {str(dtype)[6:]}"
+        tag = f"({n}, {v}, {e}) {str(dtype)[6:]} [{route}]"
         el = scaled_err(loss, rloss)
         check(f"{tag} loss", el[0], 1e-5)
         check(f"{tag} lse", scaled_err(lse, rlse)[0], 1e-5)
@@ -2341,10 +2430,20 @@ def lmx_phase(torch, lm_head_xent):
                                  f"lse")
         tol = 1e-4 if dtype == f32 else 1e-2
         errs = []
-        for what, got, ref in (("dx", dx, rdx), ("demb", demb, rdemb)):
-            err = (got.float() - ref.float()).abs().max().item()
+        for what, got_, ref in (("dx", dx, rdx), ("demb", demb, rdemb)):
+            err = (got_.float() - ref.float()).abs().max().item()
             check(f"{tag} {what}", err / ref.float().abs().max().item(), tol)
             errs.append(err)
+        if route == "tc":
+            loss2, lse2 = lm_head_xent.lm_head_xent_forward(x, emb, lab)
+            dx2, demb2 = lm_head_xent.lm_head_xent_backward(x, emb, lab, lse,
+                                                            gm)
+            same = [torch.equal(a, b) for a, b in ((loss, loss2), (lse, lse2),
+                                                   (dx, dx2), (demb, demb2))]
+            print(f"  {tag} a second launch bit for bit (loss, lse, dx, "
+                  f"demb): {same}")
+            if not all(same):
+                raise AssertionError(f"{tag}: two launches differ")
         if (n, v, e, dtype) == (n0, v0, e0, bf16):
             main_err = (el[1], *errs)
         del x, emb, lab, dx, demb, rdx, rdemb
@@ -2355,17 +2454,16 @@ def lmx_phase(torch, lm_head_xent):
     _, lse = lm_head_xent.lm_head_xent_forward(x, emb, lab)
     few = dict(reps=3, inner=1, warmup=1)
     f_ms = median_ms(lambda: lm_head_xent.lm_head_xent_forward(x, emb, lab),
-                     **few)[0]
+                     reps=10, inner=3)[0]
     f_plain = median_ms(lambda: lm_head_xent.lm_head_xent_forward_reference(
         x, emb, lab), **few)[0]
     f_lib = median_ms(lambda: F.cross_entropy(F.linear(x, emb), ok,
                                               reduction="none"),
-                      reps=5, inner=2)[0]
+                      reps=10, inner=3)[0]
     fn = lambda: lm_head_xent.lm_head_xent_backward(  # noqa: E731
         x, emb, lab, lse, gm)
-    b_ms = median_ms(fn, **few)[0]
-    split = kernel_split_ms(torch, fn, ("lmx_dx_kernel", "lmx_dw_kernel"),
-                            calls=2)
+    b_ms = median_ms(fn, reps=10, inner=3)[0]
+    split = kernel_split_ms(torch, fn, LMX_TC_KERNELS[1:], calls=3)
     b_plain = median_ms(lambda: lm_head_xent.lm_head_xent_backward_reference(
         x, emb, lab, lse, gm), **few)[0]
     xl = x.detach().requires_grad_(True)
@@ -2373,31 +2471,43 @@ def lmx_phase(torch, lm_head_xent):
     ref = F.cross_entropy(F.linear(xl, el), ok, reduction="none")
     b_lib = median_ms(lambda: torch.autograd.grad(ref, (xl, el), gm,
                                                   retain_graph=True),
-                      reps=5, inner=2)[0]
+                      reps=10, inner=3)[0]
+    simt = _lmx_simt_ms(torch, lm_head_xent, x, emb, lab, lse, gm)
     nve, ne, ve = n0 * v0 * e0, n0 * e0 * 2, v0 * e0 * 2
     fb = bound_ms(ne + ve + 3 * n0 * 4, 2 * nve, BF16_FLOP_PER_S)
     dxb = bound_ms(2 * ne + ve + 3 * n0 * 4, 4 * nve, BF16_FLOP_PER_S)
     dwb = bound_ms(ne + 2 * ve + 3 * n0 * 4, 4 * nve, BF16_FLOP_PER_S)
-    bb = bound_ms(2 * ne + 2 * ve + 3 * n0 * 4, 8 * nve, BF16_FLOP_PER_S)
-    print(f"  time ({n0}, {v0}, {e0}) bf16: forward {f_ms:.3f} ms (bound "
-          f"{fb[0]:.4f}, {fb[1]}: {2 * nve / 1e12:.3f} TFLOP at the bf16 "
-          f"rate; plain {f_plain:.3f}; F.linear + F.cross_entropy "
-          f"{f_lib:.3f}); backward, both launches {b_ms:.3f} ms (dx "
-          f"{split['lmx_dx_kernel']:.3f}, demb {split['lmx_dw_kernel']:.3f};"
-          f" bound {bb[0]:.4f}, {bb[1]}; plain {b_plain:.3f}; their "
-          f"backward {b_lib:.3f})")
+    # the whole backward's least work: the logits once and both products
+    bb = bound_ms(2 * ne + 2 * ve + 3 * n0 * 4, 6 * nve, BF16_FLOP_PER_S)
+    dx_ms, dw_ms = split["lmx_dx_tc"], split["lmx_dw_tc"]
+    print(f"  time ({n0}, {v0}, {e0}) bf16, tensor cores: forward {f_ms:.4f} "
+          f"ms (bound {fb[0]:.4f}, {fb[1]}: {2 * nve / 1e12:.3f} TFLOP at the "
+          f"bf16 rate; plain {f_plain:.3f}; F.linear + F.cross_entropy "
+          f"{f_lib:.4f}; SIMT {simt['fwd']:.3f}); backward, both launches "
+          f"{b_ms:.4f} ms (dx {dx_ms:.4f}, demb {dw_ms:.4f}, each launch "
+          f"{8 * nve / 1e12:.3f} TFLOP with its recomputed logits: "
+          f"{8 * nve / dx_ms / 1e9:.1f} / {8 * nve / dw_ms / 1e9:.1f} "
+          f"TFLOP/s; bound a launch {dxb[0]:.4f} / {dwb[0]:.4f}, the whole "
+          f"backward {bb[0]:.4f}, {bb[1]}; plain {b_plain:.3f}; their "
+          f"backward {b_lib:.4f}; SIMT dx {simt['dx']:.3f}, demb "
+          f"{simt['demb']:.3f})")
     print(f"  ({n0}, {v0}, {e0}) bf16 max abs err: loss {main_err[0]:.3e}, "
           f"dx {main_err[1]:.3e}, demb {main_err[2]:.3e}")
     common = dict(plain_ms=b_plain, library_ms=b_lib, whole_ms=b_ms,
-                  whole_bound_ms=bb[0],
+                  whole_bound_ms=bb[0], kernel_route="tc",
                   scope="plain_ms and library_ms time the whole backward "
-                        "(both launches)")
+                        "(both launches); whole_bound_ms is its least "
+                        "work, 6NVE")
     return (dict(max_abs_err=main_err[0], ms=f_ms, plain_ms=f_plain,
-                 library_ms=f_lib, bound_ms=fb[0], bound_by=fb[1]),
-            dict(max_abs_err=main_err[1], ms=split["lmx_dx_kernel"],
-                 bound_ms=dxb[0], bound_by=dxb[1], **common),
-            dict(max_abs_err=main_err[2], ms=split["lmx_dw_kernel"],
-                 bound_ms=dwb[0], bound_by=dwb[1], **common))
+                 library_ms=f_lib, bound_ms=fb[0], bound_by=fb[1],
+                 kernel_route="tc", simt_ms=simt["fwd"],
+                 resources=res["lmx_fwd_tc"]),
+            dict(max_abs_err=main_err[1], ms=dx_ms, bound_ms=dxb[0],
+                 bound_by=dxb[1], simt_ms=simt["dx"],
+                 resources=res["lmx_dx_tc"], **common),
+            dict(max_abs_err=main_err[2], ms=dw_ms, bound_ms=dwb[0],
+                 bound_by=dwb[1], simt_ms=simt["demb"],
+                 resources=res["lmx_dw_tc"], **common))
 
 
 def llama_generate_path(torch, dispatch, gpt, llama):
@@ -2501,12 +2611,14 @@ def _kernel_lm_loss():
     return lm_loss
 
 
-def llama_train_path(torch, dispatch, llama, mode):
+def _llama_arm(torch, dispatch, llama, mode):
     """The JAX bench's Llama step (bench.py::build_llama_step) on
     llama_125m at the training shape with its ``chunked`` or ``kernel``
-    loss mode; returns the launch counts of one step, the step's ms and the
-    first step's loss."""
+    loss mode: 2 warm-up steps and one with its launch counts checked.
+    Returns the step, its batch, the counts and the losses so far."""
     from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
     torch.manual_seed(SEED)
     model = llama.LlamaModel(**LLAMA, max_positions=TRAIN_POS,
                              output_hidden=True, device="cuda")
@@ -2514,15 +2626,116 @@ def llama_train_path(torch, dispatch, llama, mode):
     if mode == "chunked":
         chunks = -(-rows // _chunk_rows(rows, LLAMA["vocab_size"], None))
         loss_fn = _chunked_lm_loss(LLAMA["vocab_size"])
-        want = dict(xent_forward=chunks, xent_backward=chunks)
+        xent_want = dict(xent_forward=chunks, xent_backward=chunks)
     else:
         loss_fn = _kernel_lm_loss()
-        want = dict(lm_head_xent_fwd=1, lm_head_xent_dx=1,
-                    lm_head_xent_demb=1)
-    out = train_path(torch, dispatch, model, loss_fn, f"{mode} loss", want,
-                     name="llama_125m", norms=RMS_NAMES)
-    del model
-    return out
+        xent_want = dict(lm_head_xent_fwd_tc=1, lm_head_xent_dx_tc=1,
+                         lm_head_xent_demb_tc=1)
+    opt = FusedAdam(list(model.parameters()), lr=LR, weight_decay=WD)
+    step = make_train_step(model, opt, loss_fn, half_dtype=torch.bfloat16,
+                           loss_scale=1.0)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    ids = torch.randint(0, model.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g, device="cuda")
+    losses = [step(ids, ids) for _ in range(2)]     # warm-up
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    counts = dispatch.counts()
+    layers = len(model.blocks)
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
+                flash_attention_bwd_dkv=layers, fused_adam=1, **xent_want)
+    want.update(dict.fromkeys(RMS_NAMES, 2 * layers + 1))
+    print(f"training path: make_train_step(llama_125m, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, {mode} "
+          f"loss)")
+    print(f"  launches in one step: {counts}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    return dict(step=step, ids=ids, counts=counts, losses=losses)
+
+
+def llama_train_turns(torch, dispatch, llama):
+    """Both loss modes of the Llama step from the same weights and batch,
+    timed in turns (chunked, kernel, kernel, chunked: 10 steps each, host
+    clock ending in a synchronize), each turn's peak memory read as if its
+    mode ran alone (the other mode's resident bytes taken off), a profiled
+    step of each with the LM-head kernels' share of the kernel step's
+    device time.  The first steps' losses agree within 1e-3 and the last
+    timed steps' within 1e-2 (the kernel step rounds dl to bf16, the
+    chunked step its logits).  Returns the launch counts of one step of
+    each mode and the numbers."""
+    arms = {}
+    for mode in ("chunked", "kernel"):
+        before = torch.cuda.memory_allocated()
+        arms[mode] = _llama_arm(torch, dispatch, llama, mode)
+        torch.cuda.synchronize()
+        arms[mode]["resident"] = torch.cuda.memory_allocated() - before
+    ms = {m: [] for m in arms}
+    peak = {m: [] for m in arms}
+    for mode in ("chunked", "kernel", "kernel", "chunked"):
+        arm = arms[mode]
+        other = arms["kernel" if mode == "chunked" else "chunked"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            arm["losses"].append(arm["step"](arm["ids"], arm["ids"]))
+        torch.cuda.synchronize()
+        ms[mode].append(1e3 * (time.perf_counter() - t0) / 10)
+        peak[mode].append(
+            (torch.cuda.max_memory_allocated() - other["resident"]) / 2 ** 30)
+    nums = {}
+    for mode, arm in arms.items():
+        other = arms["kernel" if mode == "chunked" else "chunked"]
+        values = [float(x) for x in arm["losses"]]
+        if not all(math.isfinite(x) for x in values):
+            raise AssertionError(f"{mode}: non-finite training loss: {values}")
+        if not values[-1] < values[0]:
+            raise AssertionError(f"{mode}: the loss did not fall: {values}")
+        step_ms = statistics.mean(ms[mode])
+        print(f"llama_125m {mode} step: {ms[mode][0]:.2f} / {ms[mode][1]:.2f} "
+              f"ms in its two turns = {TRAIN_BATCH * TRAIN_SEQ * 1e3 / step_ms:.1f}"
+              f" train tokens/s; peak memory {peak[mode][0]:.2f} / "
+              f"{peak[mode][1]:.2f} GiB (torch.cuda.max_memory_allocated, the "
+              f"other mode's {other['resident'] / 2 ** 30:.2f} GiB taken off)")
+        print(f"  losses of {len(values)} steps: "
+              f"{', '.join(f'{x:.4f}' for x in values)}")
+        step = arm["step"]
+        wall, busy, by_name, n_ops = _profiled(
+            torch, lambda: step(arm["ids"], arm["ids"]))
+        nums[mode] = dict(step_ms=ms[mode], tokens_per_s=TRAIN_BATCH
+                          * TRAIN_SEQ * 1e3 / step_ms, peak_gib=peak[mode],
+                          first_loss=values[0], last_loss=values[-1])
+        if busy is None:
+            print("  profiled step: device time not measured (the profiler "
+                  "saw no device activity)")
+            continue
+        lmx = sum(v for k, v in by_name.items()
+                  if any(name in k for name in LMX_TC_KERNELS))
+        print(f"  profiled step: wall {wall:.2f} ms, device busy {busy:.2f} "
+              f"ms, idle share {1 - busy / wall:.3f}, {n_ops} device "
+              f"operations; LM-head kernels {lmx:.3f} ms = "
+              f"{100 * lmx / busy:.1f}% of busy")
+        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"    {t:9.3f} ms  {100 * t / busy:5.1f}%  {name[:90]}")
+        nums[mode].update(busy_ms=busy, idle_share=1 - busy / wall,
+                          lm_head_kernels_ms=lmx)
+    c, k = nums["chunked"], nums["kernel"]
+    print(f"llama_125m train step ms in turns: chunked {ms['chunked']}, "
+          f"kernel {ms['kernel']}: kernel / chunked "
+          f"{statistics.mean(ms['kernel']) / statistics.mean(ms['chunked']):.4f}")
+    # the same function at the same weights and batch: the chunked mode
+    # rounds its logits to bf16, the kernel keeps them in fp32
+    check("llama_125m first-step loss, kernel vs chunked (relative)",
+          abs(k["first_loss"] - c["first_loss"]) / abs(c["first_loss"]), 1e-3)
+    check("llama_125m last timed step's loss, kernel vs chunked (relative)",
+          abs(k["last_loss"] - c["last_loss"]) / abs(c["last_loss"]), 1e-2)
+    counts = {m: arm["counts"] for m, arm in arms.items()}
+    del arms
+    return counts, nums
 
 
 # BERT-base masked-LM pretraining, the JAX bench's build_bert_step
@@ -2906,16 +3119,9 @@ def main():
           f"{drop_ms:.2f} ms against {chunked_ms:.2f} ms without in this "
           f"run ({drop_ms / chunked_ms - 1:+.1%})")
     pad_vocab_path(torch, gpt)
-    paths["llama_train_chunked"], l_chunked_ms, l_chunked_loss = \
-        llama_train_path(torch, dispatch, llama, "chunked")
-    paths["llama_train_kernel"], l_kernel_ms, l_kernel_loss = \
-        llama_train_path(torch, dispatch, llama, "kernel")
-    print(f"llama_125m train step ms in this run: chunked "
-          f"{l_chunked_ms:.2f}, kernel {l_kernel_ms:.2f}")
-    # the same function at the same weights and batch: the chunked mode
-    # rounds its logits to bf16, the kernel keeps them in fp32
-    check("llama_125m first-step loss, kernel vs chunked (relative)",
-          abs(l_kernel_loss - l_chunked_loss) / abs(l_chunked_loss), 1e-3)
+    llama_counts, llama_nums = llama_train_turns(torch, dispatch, llama)
+    paths["llama_train_chunked"] = llama_counts["chunked"]
+    paths["llama_train_kernel"] = llama_counts["kernel"]
     print(f"training phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     train_cpu_phase(torch, gpt, train_model)
@@ -3022,15 +3228,15 @@ def main():
         dict(name="lm_head_xent_fwd", route="cuda", source=lmx_src,
              replaces=f"{fb}lm_head_xent.py:183 (_fwd_impl via "
                       f"fused_lm_head_xent :172; _fwd_kernel :61, "
-                      f"pallas_call :192)", **launches("lm_head_xent_fwd"),
+                      f"pallas_call :192)", **launches("lm_head_xent_fwd_tc"),
              shape="(16368, 32000, 768) bf16", **lmx_f),
         dict(name="lm_head_xent_dx", route="cuda", source=lmx_src,
              replaces=f"{fb}lm_head_xent.py:214 (_bwd; _dx_kernel :96, "
-                      f"pallas_call :230)", **launches("lm_head_xent_dx"),
+                      f"pallas_call :230)", **launches("lm_head_xent_dx_tc"),
              shape="(16368, 32000, 768) bf16", **lmx_dx),
         dict(name="lm_head_xent_demb", route="cuda", source=lmx_src,
              replaces=f"{fb}lm_head_xent.py:214 (_bwd; _demb_kernel :121, "
-                      f"pallas_call :244)", **launches("lm_head_xent_demb"),
+                      f"pallas_call :244)", **launches("lm_head_xent_demb_tc"),
              shape="(16368, 32000, 768) bf16", **lmx_dw),
         dict(name="fused_adam", route="cuda",
              source="apex_tpu_torch/csrc/multi_tensor_adam.cu",
@@ -3047,6 +3253,7 @@ def main():
     print(json.dumps({"bert_base": dict(train=bert_nums,
                                         train_attn_dropout=bert_drop_nums,
                                         amp_o2_sequences_per_s=bert_amp_seq_s),
+                      "llama_125m_train": llama_nums,
                       "gpt2_small_chunked_step_ms": dict(
                           attn_dropout_0=chunked_ms,
                           attn_dropout_01=drop_ms)}))

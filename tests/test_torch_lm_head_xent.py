@@ -199,3 +199,63 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
         k._kernel_args(torch.zeros(8, 4).t(), emb, lab,
                        "lm_head_xent_forward")
     assert k._kernel_args(x, emb, lab, "f").dtype == torch.int32
+
+
+# the tensor-core route: which calls take it, and a model of its numerics
+
+@pytest.mark.parametrize("dtype,e,addresses,want", [
+    (torch.bfloat16, 768, (0, 1 << 20), "tc"),       # the Llama loss
+    (torch.bfloat16, 8, (16, 48), "tc"),
+    (torch.bfloat16, 520, (256, 4096), "tc"),         # a ragged last chunk
+    (torch.float32, 768, (0, 1 << 20), "simt"),       # tc would be TF32
+    (torch.float16, 768, (0, 1 << 20), "simt"),       # dl below fp16's range
+    (torch.bfloat16, 100, (0, 1 << 20), "simt"),      # E * 2 not a multiple of 16
+    (torch.bfloat16, 776, (0, 1 << 20), "simt"),      # own tile too wide
+    (torch.bfloat16, 2048, (0, 1 << 20), "simt"),
+    (torch.bfloat16, 768, (8, 1 << 20), "simt"),      # x's base misaligned
+    (torch.bfloat16, 768, (0, 2), "simt"),            # emb's base misaligned
+])
+def test_route_is_chosen_from_dtype_width_and_alignment(dtype, e, addresses,
+                                                        want):
+    assert k.lmx_route(dtype, e, *addresses) == want
+
+
+def test_every_route_and_kernel_has_a_counter():
+    names = {f"lm_head_xent_{kern}_{route}" for kern in ("fwd", "dx", "demb")
+             for route in k.ROUTES}
+    assert names <= set(counts())
+    assert k.ROUTES.index("simt") == 0 and k.ROUTES.index("tc") == 1
+
+
+def _tc_model(x, emb, lab, g):
+    """What the tensor-core kernels compute: fp32 logits of the bf16
+    inputs, loss and lse in fp32, dl in fp32 rounded to bf16 before both
+    products, which sum in fp32 and round to bf16."""
+    s = x.float() @ emb.float().t()
+    lse = torch.logsumexp(s, dim=1)
+    hit = (torch.arange(emb.shape[0])[None, :] == lab[:, None]).float()
+    loss = lse - (s * hit).sum(dim=1)
+    dl = (g[:, None] * (torch.exp(s - lse[:, None]) - hit)).bfloat16()
+    dx = (dl.float() @ emb.float()).bfloat16()
+    demb = (dl.float().t() @ x.float()).bfloat16()
+    return loss, lse, dx, demb
+
+
+@pytest.mark.parametrize("n,v,e", [(40, 301, 64), (77, 517, 104)])
+def test_tc_numerics_model_matches_pallas_kernels(n, v, e):
+    """The bf16 dl of the tensor-core route stays within the 1e-2 that the
+    card's checks hold dx and demb to, against the JAX kernels in interpret
+    mode, with labels -1 and V; g of the size a mean over N gives."""
+    x, emb, lab, _ = _case(n, v, e, "bfloat16", seed=3 * n + e)
+    g = np.full(n, 1.0 / n, np.float32)
+    per, gx, ge = _jax_side(x, emb, lab, g, jnp.bfloat16)
+    loss, lse, dx, demb = _tc_model(
+        torch.from_numpy(x).bfloat16(), torch.from_numpy(emb).bfloat16(),
+        torch.from_numpy(lab), torch.from_numpy(g))
+    _scaled(loss, per, 1e-5)
+    for i in (1, 3):
+        assert float(loss[i]) == float(lse[i])
+    for got, want in ((dx, gx), (demb, ge)):
+        want = np.asarray(want, np.float32)
+        err = float(np.abs(got.float().numpy() - want).max())
+        assert err <= 1e-2 * float(np.abs(want).max())
