@@ -29,9 +29,11 @@
 // one half-warp and are combined with shuffles.  K tiles entirely above the
 // diagonal, or entirely below the band, are never loaded.  Query tiles are
 // issued from the last (the longest under causal masking) to the first.
-// The products run as CUDA-core FMAs; wgmma and TMA are later work.  The
-// dropout hash costs ~12 integer operations per (row, key) pair against the
-// 2 * D FMAs of the two products.
+// The products run as CUDA-core FMAs: this is the "simt" route, which
+// takes fp32 and head dims other than 64; flash_attention_tc.cu is the
+// tensor-core route for the rest.  The dropout hash costs ~12 integer
+// operations per (row, key) pair against the 2 * D FMAs of the two
+// products.
 
 #include "flash_common.cuh"
 
@@ -86,7 +88,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   // the key tiles that hold an unmasked entry for some row of this tile
   int kbeg, kend;
-  key_range(q0, sk, causal, window, &kbeg, &kend);
+  key_range(q0, BQ, sk, causal, window, &kbeg, &kend);
   const int jt0 = kbeg / BK, jt1 = (kend + BK - 1) / BK;
 
   for (int jt = jt0; jt < jt1; ++jt) {

@@ -36,8 +36,9 @@
 // hits 16 banks); 86 KB (dq) and 108 KB (dk/dv) of shared memory at
 // D = 64, so two blocks fit on an SM.  Tiles with no unmasked entry are
 // never loaded; query tiles in dq, like the forward, run longest first.
-// The products are CUDA-core FMAs: simple and right first; wgmma and TMA
-// are later work.
+// The products are CUDA-core FMAs: this is the "simt" route, which takes
+// fp32 and head dims other than 64; flash_attention_tc.cu is the
+// tensor-core route for the rest.
 
 #include "flash_common.cuh"
 
@@ -113,7 +114,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int e = 0; e < NE; ++e) acc[r][e] = 0.f;
 
   int kbeg, kend;
-  key_range(q0, sk, causal, window, &kbeg, &kend);
+  key_range(q0, BQ, sk, causal, window, &kbeg, &kend);
   const int jt0 = kbeg / BK, jt1 = (kend + BK - 1) / BK;
   for (int jt = jt0; jt < jt1; ++jt) {
     const int k0 = jt * BK;
@@ -228,7 +229,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < NE; ++e) ak[r][e] = av[r][e] = 0.f;
 
   int qbeg, qend;
-  query_range(k0, sq, sk, causal, window, &qbeg, &qend);
+  query_range(k0, BK, sq, sk, causal, window, &qbeg, &qend);
   const int it0 = qbeg / BQ, it1 = (qend + BQ - 1) / BQ;
   for (int it = it0; it < it1; ++it) {
     const int q0 = it * BQ;

@@ -1,8 +1,9 @@
 // The masking convention of the flash-attention kernels, in one place: the
 // forward (flash_attention.cu) and both backward kernels
-// (flash_attention_bwd.cu) compute every score through score() and pick
-// their tiles through key_range() / query_range(), so the three cannot
-// drift apart.  The convention is apex_tpu/kernels/attention.py's
+// (flash_attention_bwd.cu), and the tensor-core route's three
+// (flash_attention_tc.cu), compute every score through score() and pick
+// their tiles through key_range() / query_range() at their own tile heights,
+// so the routes cannot drift apart.  The convention is apex_tpu/kernels/attention.py's
 // (_mask_block, _block_has_unmasked): the scale multiplies q.k^T, an
 // additive fp32 bias comes next, the causal mask is top-left aligned
 // (row >= col) and the Mistral band keeps col > row - window, masked
@@ -41,27 +42,36 @@ __device__ __forceinline__ float score(float dot, float scale, const float* brow
 }
 
 // the keys [*kbeg, *kend) that hold an unmasked entry for some row of the
-// query tile starting at q0
-__device__ __forceinline__ void key_range(int q0, int sk, int causal, int window, int* kbeg,
-                                          int* kend) {
+// query tile [q0, q0 + bq)
+__device__ __forceinline__ void key_range(int q0, int bq, int sk, int causal, int window,
+                                          int* kbeg, int* kend) {
   *kbeg = 0;
   *kend = sk;
   if (causal) {
-    *kend = min(sk, q0 + BQ);
+    *kend = min(sk, q0 + bq);
     if (window > 0) *kbeg = max(0, q0 - window + 1);
   }
 }
 
 // the query rows [*qbeg, *qend) that hold an unmasked entry for some key of
-// the key tile starting at k0
-__device__ __forceinline__ void query_range(int k0, int sq, int sk, int causal, int window,
-                                            int* qbeg, int* qend) {
+// the key tile [k0, k0 + bk)
+__device__ __forceinline__ void query_range(int k0, int bk, int sq, int sk, int causal,
+                                            int window, int* qbeg, int* qend) {
   *qbeg = 0;
   *qend = sq;
   if (causal) {
     *qbeg = min(sq, k0);
-    if (window > 0) *qend = min(sq, min(sk, k0 + BK) - 1 + window);
+    if (window > 0) *qend = min(sq, min(sk, k0 + bk) - 1 + window);
   }
+}
+
+// whether the tile of query rows [q0, q0 + bq) and keys [k0, k0 + bk) holds
+// an entry that score() masks or leaves out, or a row past Sq: false means
+// every score of the tile is the scaled product plus the bias
+__device__ __forceinline__ bool tile_masked(int q0, int bq, int k0, int bk, int sq, int sk,
+                                            int causal, int window) {
+  if (q0 + bq > sq || k0 + bk > sk) return true;
+  return causal && (k0 + bk - 1 > q0 || (window > 0 && k0 <= q0 + bq - 1 - window));
 }
 
 // the murmur3-style finaliser of (row, col, batch*head, seed), in wrapping

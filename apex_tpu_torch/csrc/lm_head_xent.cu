@@ -93,10 +93,9 @@
 // Token rows >= N and vocabulary rows >= V contribute nothing (the TPU
 // kernels' gm = 0 / lse = 1e30 padding and p = 0 pad columns).
 
-#include <cuda.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -367,7 +366,8 @@ cudaError_t dispatch_bwd(const void* x, const void* w, const int* lab, const flo
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core route (bf16): TMA, mbarriers and wgmma, written in PTX.
+// The tensor-core route (bf16): TMA, mbarriers and wgmma, written in PTX
+// (the primitives are hopper_common.cuh's).
 namespace tc {
 
 constexpr int BM = 128;      // own rows a CTA: two consumer warpgroups of 64
@@ -383,123 +383,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 enum Kind { FWD = 0, DX = 1, DW = 2 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a (BK x rows) box of a 2-D tensor map at column c0, row c1 into shared
-// memory, completing on the barrier's transaction count
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// The wgmma descriptor of a 128-byte-swizzled tile at a 1024-byte-aligned
-// shared address: 8-row groups 1024 bytes apart.  As a K-major operand the
-// leading offset is unused; as an MN-major operand 64 wide (one swizzle
-// atom) the stride between 8-row groups of K is 1024 bytes, which both
-// offset fields hold.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving register reads or writes across an
-// asynchronous wgmma (CUTLASS's warpgroup_fence_operand)
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
-}
-
-// d (64 x 64 fp32) (+)= A (64 x 16, shared, K-major) . B (64 x 16, shared,
-// K-major)^T; the sum restarts when acc is 0
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
-        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (64 x 64 fp32) += A (64 x 16 bf16 in registers, the accumulator
-// fragment layout) . B (16 x 64, shared, MN-major: trans-b)
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
-        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
+using namespace hop;
 
 // Shared memory, from a 1024-byte-aligned base: the own tile (kc chunks of
 // BM x BK), the ring (STAGES chunks of BN x BK), for dw the stream tile's
@@ -650,7 +534,7 @@ __device__ __forceinline__ void lmx_tc_body(const CUtensorMap& own_map,
         wg_fence();
         const uint64_t da = desc(own_s + c * OWN_CHUNK + a_off), db = desc(b);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) mma_ss(s, da + 2 * k, db + 2 * k, c > 0 || k > 0);
+        for (int k = 0; k < 4; ++k) mma_ss<__nv_bfloat16>(s, da + 2 * k, db + 2 * k, c > 0 || k > 0);
         next();
       }
       drain();
@@ -718,7 +602,7 @@ __device__ __forceinline__ void lmx_tc_body(const CUtensorMap& own_map,
               }
               d[u] = gg * (p - (hit ? 1.f : 0.f));
             }
-            a[k][i] = pack_bf16(d[0], d[1]);
+            a[k][i] = pack2<__nv_bfloat16>(d[0], d[1]);
           }
         // acc[q] += dl . (streamed rows x E columns [e0 + 64 q, + 64))
 #pragma unroll
@@ -727,7 +611,7 @@ __device__ __forceinline__ void lmx_tc_body(const CUtensorMap& own_map,
             const uint32_t b = take();
             wg_fence();
 #pragma unroll
-            for (int k = 0; k < 4; ++k) mma_rs(acc[q], a[k], desc(b + k * 2048));
+            for (int k = 0; k < 4; ++k) mma_rs<__nv_bfloat16>(acc[q], a[k], desc(b + k * 2048));
             next();
           }
         }
@@ -761,7 +645,7 @@ __device__ __forceinline__ void lmx_tc_body(const CUtensorMap& own_map,
             const long long row = own0 + r0 + 8 * ((j >> 1) & 1);
             const int col = e0 + 64 * q + 8 * (j >> 2) + cq;
             if (row < own_rows && col < e)
-              *reinterpret_cast<uint32_t*>(out + row * e + col) = pack_bf16(acc[q][j], acc[q][j + 1]);
+              *reinterpret_cast<uint32_t*>(out + row * e + col) = pack2<__nv_bfloat16>(acc[q][j], acc[q][j + 1]);
           }
         }
       }
@@ -789,30 +673,6 @@ lmx_dw_tc(__grid_constant__ const CUtensorMap own_map, __grid_constant__ const C
           const int* __restrict__ lab, const float* __restrict__ lse,
           const float* __restrict__ gm, __nv_bfloat16* __restrict__ dw, int n, int v, int e) {
   lmx_tc_body<DW>(own_map, str_map, lab, lse, gm, nullptr, nullptr, dw, n, v, e);
-}
-
-// cuTensorMapEncodeTiled is a driver-API call: reached through the runtime's
-// driver entry point, so the library needs no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // rows x e bf16, row-major, cut into boxes of BK columns x box_rows rows,

@@ -1,6 +1,7 @@
 """Flash attention, forward and backward: the CUDA kernels
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` and their
-plain PyTorch versions.
+``csrc/flash_attention_tc.cu`` (the ``tc`` route), ``csrc/flash_attention.cu``
+and ``csrc/flash_attention_bwd.cu`` (the ``simt`` route) and their plain
+PyTorch versions.
 
 Port of ``apex_tpu/kernels/attention.py::flash_attention_fwd``: q3 (BH, Sq,
 D), k3/v3 (BH, Sk, D), an additive bias broadcastable as (BH|1, Sq|1, Sk),
@@ -23,6 +24,30 @@ that the backward regenerates from the same seed.  Its plain version is
 (``_hash_keep_u32``, ``_mult_from_hash``).  The seed reaches the kernels as
 a device vector ``[seed, row_off, col_off]``, so drawing it on the card
 costs no host sync.
+
+Two routes of hand-written kernels, chosen by :func:`flash_route` before
+the launch from the dtype, the head dim and the base addresses: ``"tc"``
+(bf16 or fp16, D = 64, 16-byte-aligned bases) runs every product on the
+tensor cores (``wgmma`` fed by TMA); ``"simt"`` takes everything else with
+fp32 FMAs over the inputs widened to fp32 (fp32, where tensor cores would
+compute TF32; other head dims).  Each route and kernel has its own launch
+counter beside the three totals.  What the ``tc`` route rounds:
+
+- the scores q.k^T and dO.v^T are products of two 16-bit values, exact in
+  fp32, summed in fp32: the plain version's up to the order of the sums;
+- forward: the probabilities (times the dropout mask) are rounded to the
+  input dtype only as the operand of p.v; the row sum and ``lse`` keep the
+  fp32 probabilities;
+- backward: ``dv = round(p * mult)^T . dO``; ``ds = p * (dp * mult -
+  delta)`` in fp32, rounded to the input dtype as the operand of ``dq =
+  ds . k`` and ``dk = ds^T . q``; the scale is applied in fp32 at the end.
+
+FlashAttention-2/3 and cuDNN round the same operands; the JAX kernels keep
+them in fp32, so the route matches the plain versions within the rounding
+of those operands, not to the last bit.  Its plain model is
+:func:`flash_attention_tc_reference` / :func:`flash_attention_bwd_tc_reference`
+(the plain versions with those roundings; at fp32 input, the plain
+versions themselves).
 """
 from __future__ import annotations
 
@@ -36,11 +61,29 @@ from .. import _build
 from .dispatch import LAUNCHES, MASKED_FILL, check_dtype, dtype_code, \
     use_kernel
 
-MAX_HEAD_DIM = 128   # both sources keep D / 16 output columns a thread
+MAX_HEAD_DIM = 128   # the simt sources keep D / 16 output columns a thread
+TC_HEAD_DIM = 64     # the tc route's head dim: one 128-byte swizzle row
 
-LAUNCHES.setdefault("flash_attention_fwd", 0)
-LAUNCHES.setdefault("flash_attention_bwd_dq", 0)
-LAUNCHES.setdefault("flash_attention_bwd_dkv", 0)
+ROUTES = ("simt", "tc")
+KERNELS = ("fwd", "bwd_dq", "bwd_dkv")
+for _kernel in KERNELS:
+    LAUNCHES.setdefault(f"flash_attention_{_kernel}", 0)
+    for _route in ROUTES:
+        LAUNCHES.setdefault(f"flash_attention_{_kernel}_{_route}", 0)
+
+
+def flash_route(dtype, d, *addresses):
+    """The kernels' route for inputs of ``dtype`` and head dim ``d`` at the
+    given base addresses: ``"tc"`` or ``"simt"`` (see the module note)."""
+    if (dtype not in (torch.bfloat16, torch.float16) or d != TC_HEAD_DIM
+            or any(a % 16 for a in addresses)):
+        return "simt"
+    return "tc"
+
+
+def _count(kernel, route):
+    LAUNCHES[f"flash_attention_{kernel}"] += 1
+    LAUNCHES[f"flash_attention_{kernel}_{route}"] += 1
 
 
 def _scores(q3, k3, bias, scale, causal, window):
@@ -118,25 +161,67 @@ def _keep_mult(q3, k3, dropout_p, seed, row_off, col_off):
                                   device=q3.device)
 
 
+def _operand(x, dtype):
+    """``x`` rounded to ``dtype`` as a product's operand, back in fp32; as
+    it is without a dtype."""
+    return x if dtype is None else x.to(dtype).float()
+
+
+def _fwd(q3, k3, v3, bias, scale, causal, window, dropout, rounded):
+    s = _scores(q3, k3, bias, scale, causal, window)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    mult = _keep_mult(q3, k3, *dropout)
+    if mult is not None:
+        p = p * mult
+    out = torch.matmul(_operand(p, rounded), v3.float())
+    return out.to(q3.dtype), lse
+
+
 def flash_attention_reference(q3, k3, v3, bias, scale, causal, window=None,
                               dropout_p=0.0, dropout_seed=None,
                               dropout_row_off=0, dropout_col_off=0):
     """The plain version: materialised fp32 scores, softmax, the dropout
     mask on the probabilities, product; ``lse`` of the undropped scores."""
-    s = _scores(q3, k3, bias, scale, causal, window)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.softmax(s, dim=-1)
-    mult = _keep_mult(q3, k3, dropout_p, dropout_seed, dropout_row_off,
-                      dropout_col_off)
-    if mult is not None:
-        p = p * mult
-    out = torch.matmul(p, v3.float())
-    return out.to(q3.dtype), lse
+    return _fwd(q3, k3, v3, bias, scale, causal, window,
+                (dropout_p, dropout_seed, dropout_row_off, dropout_col_off),
+                None)
+
+
+def flash_attention_tc_reference(q3, k3, v3, bias, scale, causal,
+                                 window=None, dropout_p=0.0,
+                                 dropout_seed=None, dropout_row_off=0,
+                                 dropout_col_off=0):
+    """A model of the ``tc`` route's forward: the plain version with the
+    (dropped) probabilities rounded to q3's dtype as the operand of p.v.
+    The kernel rounds the probabilities of its running max, so the two
+    differ by that rounding; at fp32 input this is the plain version."""
+    return _fwd(q3, k3, v3, bias, scale, causal, window,
+                (dropout_p, dropout_seed, dropout_row_off, dropout_col_off),
+                q3.dtype)
 
 
 def _delta(g, out):
     """rowsum(g * out) in fp32, (BH, Sq)."""
     return (g.float() * out.float()).sum(dim=-1)
+
+
+def _bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window, dropout,
+         rounded):
+    p = torch.exp(_scores(q3, k3, bias, scale, causal, window)
+                  - lse[..., None])
+    mult = _keep_mult(q3, k3, *dropout)
+    gf = g.float()
+    dp = torch.matmul(gf, v3.float().transpose(1, 2))
+    pd = p
+    if mult is not None:
+        dp = dp * mult
+        pd = p * mult
+    ds = _operand(p * (dp - _delta(g, out)[..., None]), rounded)
+    dq = torch.matmul(ds, k3.float()) * scale
+    dk = torch.matmul(ds.transpose(1, 2), q3.float()) * scale
+    dv = torch.matmul(_operand(pd, rounded).transpose(1, 2), gf)
+    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
 def flash_attention_bwd_reference(q3, k3, v3, bias, out, lse, g, scale,
@@ -146,21 +231,21 @@ def flash_attention_bwd_reference(q3, k3, v3, bias, out, lse, g, scale,
     """The plain version of the backward: the fp32 probabilities recomputed
     from ``lse``, the mask replayed from the seed, then the five products,
     materialised."""
-    p = torch.exp(_scores(q3, k3, bias, scale, causal, window)
-                  - lse[..., None])
-    mult = _keep_mult(q3, k3, dropout_p, dropout_seed, dropout_row_off,
-                      dropout_col_off)
-    gf = g.float()
-    dp = torch.matmul(gf, v3.float().transpose(1, 2))
-    pd = p
-    if mult is not None:
-        dp = dp * mult
-        pd = p * mult
-    ds = p * (dp - _delta(g, out)[..., None])
-    dq = torch.matmul(ds, k3.float()) * scale
-    dk = torch.matmul(ds.transpose(1, 2), q3.float()) * scale
-    dv = torch.matmul(pd.transpose(1, 2), gf)
-    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
+    return _bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window,
+                (dropout_p, dropout_seed, dropout_row_off, dropout_col_off),
+                None)
+
+
+def flash_attention_bwd_tc_reference(q3, k3, v3, bias, out, lse, g, scale,
+                                     causal, window=None, dropout_p=0.0,
+                                     dropout_seed=None, dropout_row_off=0,
+                                     dropout_col_off=0):
+    """A model of the ``tc`` route's backward: the plain version with
+    ``p * mult`` rounded to q3's dtype as the operand of dv and ``ds`` as
+    the operand of dq and dk; at fp32 input, the plain version."""
+    return _bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window,
+                (dropout_p, dropout_seed, dropout_row_off, dropout_col_off),
+                q3.dtype)
 
 
 def check_dropout(dropout_p, dropout_seed):
@@ -224,30 +309,46 @@ def _validate_bwd(q3, k3, v3, bias, out, lse, g, window, dropout_p,
                          f"{tuple(lse.shape)}")
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("flash_attention")
-    p, i, ll, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_float, ctypes.c_uint
-    lib.apex_flash_fwd.argtypes = [
-        p, p, p, p, ll, ll, p, p, i, i, i, i, f, i, i, p, u, f, i, p]
-    lib.apex_flash_fwd.restype = ctypes.c_int
-    return lib
+_P, _I, _LL, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float, ctypes.c_uint
+# the C entry points' arguments, alike on both routes: q, k, v, bias and its
+# strides, then the kernel's own tensors, then the sizes, the scale, the
+# mask, the dropout, the dtype code and the stream
+_HEAD = [_P, _P, _P, _P, _LL, _LL]
+_TAIL = [_I, _I, _I, _I, _F, _I, _I, _P, _U, _F, _I, _P]
+_ARGTYPES = {"fwd": _HEAD + [_P, _P] + _TAIL,
+             "bwd_dq": _HEAD + [_P, _P, _P, _P] + _TAIL,
+             "bwd_dkv": _HEAD + [_P, _P, _P, _P, _P] + _TAIL}
+_SOURCES = {("fwd", "simt"): ("flash_attention", "apex_flash_fwd"),
+            ("bwd_dq", "simt"): ("flash_attention_bwd", "apex_flash_bwd_dq"),
+            ("bwd_dkv", "simt"): ("flash_attention_bwd",
+                                  "apex_flash_bwd_dkv"),
+            ("fwd", "tc"): ("flash_attention_tc", "apex_flash_tc_fwd"),
+            ("bwd_dq", "tc"): ("flash_attention_tc", "apex_flash_tc_bwd_dq"),
+            ("bwd_dkv", "tc"): ("flash_attention_tc",
+                                "apex_flash_tc_bwd_dkv")}
 
 
 @functools.lru_cache(maxsize=None)
-def _lib_bwd():
-    lib = _build.load("flash_attention_bwd")
-    p, i, ll, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-        ctypes.c_float, ctypes.c_uint
-    lib.apex_flash_bwd_dq.argtypes = [
-        p, p, p, p, ll, ll, p, p, p, p, i, i, i, i, f, i, i, p, u, f, i, p]
-    lib.apex_flash_bwd_dq.restype = i
-    lib.apex_flash_bwd_dkv.argtypes = [
-        p, p, p, p, ll, ll, p, p, p, p, p, i, i, i, i, f, i, i, p, u, f, i,
-        p]
-    lib.apex_flash_bwd_dkv.restype = i
+def _lib(name):
+    """The loaded library of ``csrc/<name>.cu`` with its entry points'
+    argument types set."""
+    lib = _build.load(name)
+    for (kernel, _), (src, fn) in _SOURCES.items():
+        if src == name:
+            getattr(lib, fn).argtypes = _ARGTYPES[kernel]
+            getattr(lib, fn).restype = _I
+    if name == "flash_attention_tc":
+        lib.apex_flash_tc_smem.argtypes = [_I]
+        lib.apex_flash_tc_smem.restype = _I
     return lib
+
+
+def _entry(kernel, route):
+    """``(library, C entry point)`` of one kernel on one route."""
+    src, fn = _SOURCES[(kernel, route)]
+    lib = _lib(src)
+    return lib, getattr(lib, fn)
 
 
 def _bias_layout(bias, sk):
@@ -303,17 +404,18 @@ def _launch(q3, k3, v3, bias, scale, causal, window, dropout_p, seed_vec):
     out = torch.empty_like(q3)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
     bias, bstride, qstride = _bias_layout(bias, sk)
-    lib = _lib()
+    route = flash_route(q3.dtype, d, q3.data_ptr(), k3.data_ptr(),
+                        v3.data_ptr())
+    lib, fn = _entry("fwd", route)
     with torch.cuda.device(q3.device):
-        err = lib.apex_flash_fwd(
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-            None if bias is None else bias.data_ptr(), bstride, qstride,
-            out.data_ptr(), lse.data_ptr(), bh, sq, sk, d, float(scale),
-            int(bool(causal)), int(window or 0),
-            *_dropout_args(dropout_p, seed_vec), dtype_code(q3.dtype),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "flash_attention_fwd")
-    LAUNCHES["flash_attention_fwd"] += 1
+        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+                 None if bias is None else bias.data_ptr(), bstride, qstride,
+                 out.data_ptr(), lse.data_ptr(), bh, sq, sk, d, float(scale),
+                 int(bool(causal)), int(window or 0),
+                 *_dropout_args(dropout_p, seed_vec), dtype_code(q3.dtype),
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, f"flash_attention_fwd ({route})")
+    _count("fwd", route)
     return out, lse
 
 
@@ -357,7 +459,8 @@ def _launch_bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window,
     dq = torch.empty_like(q3)
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
-    lib = _lib_bwd()
+    route = flash_route(q3.dtype, d, q3.data_ptr(), k3.data_ptr(),
+                        v3.data_ptr(), g.data_ptr())
     common = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
               None if bias is None else bias.data_ptr(), bstride, qstride,
               g.data_ptr(), lse.data_ptr(), delta.data_ptr())
@@ -365,13 +468,14 @@ def _launch_bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window,
             *_dropout_args(dropout_p, seed_vec), dtype_code(q3.dtype))
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.apex_flash_bwd_dq(*common, dq.data_ptr(), *tail, stream)
-        _build.check(lib, err, "flash_attention_bwd (dq)")
-        LAUNCHES["flash_attention_bwd_dq"] += 1
-        err = lib.apex_flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(),
-                                     *tail, stream)
-        _build.check(lib, err, "flash_attention_bwd (dk, dv)")
-        LAUNCHES["flash_attention_bwd_dkv"] += 1
+        lib, fn = _entry("bwd_dq", route)
+        err = fn(*common, dq.data_ptr(), *tail, stream)
+        _build.check(lib, err, f"flash_attention_bwd (dq, {route})")
+        _count("bwd_dq", route)
+        lib, fn = _entry("bwd_dkv", route)
+        err = fn(*common, dk.data_ptr(), dv.data_ptr(), *tail, stream)
+        _build.check(lib, err, f"flash_attention_bwd (dk, dv, {route})")
+        _count("bwd_dkv", route)
     return dq, dk, dv
 
 

@@ -13,7 +13,16 @@ Phases, each of which raises on failure:
    source, started together; cached builds are reused);
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few others (dtypes, masks, ragged sizes), with the
-   tolerance printed beside each error (the Adam kernel bit for bit); then
+   tolerance printed beside each error (the Adam kernel bit for bit); the
+   flash kernels on the route the wrapper picks, read from the per-route
+   launch counters: ``simt`` for fp32 and head dims other than 64, ``tc``
+   (tensor cores) for bf16 and fp16 at D = 64, at GPT's and Llama's (192,
+   1024, 64) causal, BERT's (768, 128, 64) without and with the
+   key-padding bias, a band of 128, ragged (48, 500) and (24, 300, 700)
+   with a full bias, and fp16 (48, 1024) causal; the ``tc`` kernels also
+   against their plain model (within 2 units in the last place of its
+   largest entry) and twice, bit for bit, with their registers, shared
+   memory and spills; then
    the kernel's, the plain version's and one library call's time at the
    main paths' shapes (CUDA events around back-to-back calls queued behind
    a device-side sleep, median over timed runs after warm-up), and, where
@@ -35,7 +44,9 @@ Phases, each of which raises on failure:
    ``torch.profiler``;
 5. training on the card against the CPU: the same weights in fp32,
    dropout 0, batch 2 x 128: the loss and every gradient of one backward,
-   then the losses and the fp32 masters of 3 train steps; and a
+   then the losses and the fp32 masters of 3 train steps, the launch
+   counts of the card's first step read around it (the fp32 path of the
+   simt flash backward: 12/12/12, LayerNorm 25/25/25, Adam 1); and a
    dynamic-scale fp16 run (batch 1 x 8) with a non-finite loss planted at
    step 2, which both devices must skip, halving the scale;
 6. the xentropy kernels against their plain versions (fp32, bf16, fp16,
@@ -111,11 +122,15 @@ Phases, each of which raises on failure:
 15. the dropout branch of the flash kernels (with phase 2): the forward's
    and the dk/dv kernel's masks read back entry by entry (fp32, q = 0, v =
    I, dO = I at (96, 64, 64)) against the plain mask for p 0.1 and 0.5, two
-   seeds and two pairs of offsets; then the kernels at p = 0.1 against the
-   plain versions at GPT's (192, 1024, 64) causal and BERT's (768, 128, 64)
-   key-padded shapes in bf16, and each kernel's time with and without
-   dropout at both; and, after phase 7, the GPT-2 small chunked step once
-   more at ``attn_dropout=0.1`` (the bench's ``--attn-dropout 0.1`` arm);
+   seeds and two pairs of offsets, and once more in bf16 on the tc route
+   (kept values within 2^-8 of 1/(1-p)); then the tc kernels at p = 0.1
+   against the plain versions and the tc model at GPT's (192, 1024, 64)
+   causal and BERT's (768, 128, 64) shapes in bf16, without and with the
+   key-padding bias, each kernel's time with and without dropout at each
+   beside the bound, SDPA's and the simt kernels' at the same inputs
+   (forced through their C entry points, and held to their own checks);
+   and, after phase 7, the GPT-2 small chunked step once more at
+   ``attn_dropout=0.1`` (the bench's ``--attn-dropout 0.1`` arm);
 16. the bench's BERT step (``bench.py::build_bert_step``): ``bert_base``
    (max_positions 128, dropout 0.1), ``FusedLAMB(lr=1e-3,
    weight_decay=0.01)``, bf16 half copies, static scale 1, batch 64 x 128
@@ -318,12 +333,95 @@ def _keypad_bias(torch, bh, sk):
     return torch.repeat_interleave(pad, bh // pad.shape[0], dim=0)
 
 
+def _flash_want(route, layers, backward=True):
+    """The flash kernels' launch counts of a path that runs ``layers``
+    attention layers on ``route``: the totals and the route's own counters
+    at ``layers``, the other route's at 0."""
+    want = {}
+    for kernel in ("fwd", "bwd_dq", "bwd_dkv") if backward else ("fwd",):
+        want[f"flash_attention_{kernel}"] = layers
+        want[f"flash_attention_{kernel}_{route}"] = layers
+    return want
+
+
+# The flash kernels' cases (bh, sq, sk, d, dtype, causal, bias, window).
+# The simt route takes fp32 and head dims other than 64; the tc route bf16
+# and fp16 at D = 64: GPT-2 small's and Llama's training shape, BERT's
+# without and with the key-padding bias, a band, ragged sizes, a full bias,
+# the amp loops' fp16.
+FLASH_TC_CASES = [
+    (TRAIN_BATCH * 12, TRAIN_SEQ, TRAIN_SEQ, 64, "bf16", True, None, None),
+    (BERT_BATCH * 12, BERT_SEQ, BERT_SEQ, 64, "bf16", False, None, None),
+    (BERT_BATCH * 12, BERT_SEQ, BERT_SEQ, 64, "bf16", False, "keypad", None),
+    (96, 1024, 1024, 64, "bf16", True, None, 128),
+    (48, 500, 500, 64, "bf16", True, None, None),
+    (24, 300, 700, 64, "bf16", False, "full", None),
+    (48, 1024, 1024, 64, "fp16", True, None, None),
+]
+
+
+def _flash_inputs(torch, g, bh, sq, sk, d, dtype, kind, grad=False):
+    """q, k, v (and dO with ``grad``) from ``g`` in ``dtype``, and the bias
+    ``kind`` names: None, "keypad" or "full" (1, Sq, Sk)."""
+    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device="cuda")
+                     .to(dtype) for s in (sq, sk, sk, sq))
+    bias = None
+    if kind == "keypad":
+        bias = _keypad_bias(torch, bh, sk)
+    elif kind == "full":
+        bias = torch.randn((1, sq, sk), generator=g, device="cuda")
+    return (q, k, v, dout, bias) if grad else (q, k, v, bias)
+
+
+def _route_of(torch, attention, kernel, fn):
+    """``fn()``'s result and the route on which it launched ``kernel``, read
+    from the per-route launch counters."""
+    before = dict(attention.LAUNCHES)
+    res = fn()
+    torch.cuda.synchronize()
+    rose = [r for r in attention.ROUTES
+            if attention.LAUNCHES[f"flash_attention_{kernel}_{r}"]
+            == before[f"flash_attention_{kernel}_{r}"] + 1]
+    if len(rose) != 1:
+        raise AssertionError(f"flash_attention_{kernel}: no single route "
+                             f"counter rose by one ({rose})")
+    return res, rose[0]
+
+
+def ulp_of_max(torch, ref):
+    """The unit in the last place of ``ref``'s dtype at max |ref|."""
+    _, e = math.frexp(ref.float().abs().max().item())
+    return torch.finfo(ref.dtype).eps * 2.0 ** (e - 1)
+
+
+def _check_tc_model(torch, what, got, model, again):
+    """The tc route against its plain model (the plain version with its
+    operands rounded as the route rounds them): within 2 units in the last
+    place of the model's largest entry, since the route rounds p and ds
+    where the model does not (per tile at its running max in the forward;
+    with ex2.approx) and entries with cancellation move by more than their
+    own unit; and a second launch bit for bit.  Returns the error in those
+    units."""
+    err = (got.float() - model.float()).abs().max().item() \
+        / ulp_of_max(torch, model)
+    check(f"{what} vs the tc model (err in units in the last place of max "
+          f"|model|)", err, 2)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two launches differ")
+    return err
+
+
 def flash_phase(torch, attention):
-    """Flash-attention kernel against its plain version; timings at the
-    main path's shape.  Returns the kernel line's numbers."""
+    """Flash-attention forward kernels against their plain version, each
+    case on the route the wrapper picks (read from the per-route counters):
+    the simt cases within 2e-5 (fp32) or 2e-2 (half) of max(1, |ref|), the
+    tc cases within 2e-2 and against the tc model; lse within 2e-5.  Timings
+    at the generate path's shape (simt).  Returns the kernel line's numbers
+    and the tc forward's largest errors."""
     from torch.nn import functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    dtypes = dict(bf16=bf16, fp16=f16)
     cases = [  # (bh, sq, sk, d, dtype, causal, bias, window)
         (96, 512, 512, 64, f32, True, None, None),
         (96, 512, 512, 64, bf16, True, None, None),
@@ -333,33 +431,46 @@ def flash_phase(torch, attention):
         (24, 300, 700, 64, f32, False, "full", None),
         (16, 256, 256, 128, f32, True, None, None),
         (8, 200, 200, 40, f16, True, "keypad", None),
-    ]
+    ] + [c[:4] + (dtypes[c[4]],) + c[5:] for c in FLASH_TC_CASES]
     print("flash-attention forward vs plain (err: max abs / max(1, max "
-          "|ref|)):")
+          "|ref|)), on the route the wrapper picks:")
     main_err = None
+    tc_err = dict(max_abs_err=None, out=0.0, lse=0.0, model_ulps=0.0)
     for bh, sq, sk, d, dtype, causal, kind, window in cases:
-        q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda")
-                   .to(dtype) for s in (sq, sk, sk))
-        bias = None
-        if kind == "keypad":
-            bias = _keypad_bias(torch, bh, sk)
-        elif kind == "full":
-            bias = torch.randn((1, sq, sk), generator=g, device="cuda")
+        q, k, v, bias = _flash_inputs(torch, g, bh, sq, sk, d, dtype, kind)
         scale = d ** -0.5
-        out, lse = attention.flash_attention_fwd(q, k, v, bias, scale,
-                                                 causal, window=window)
-        torch.cuda.synchronize()
+        (out, lse), route = _route_of(
+            torch, attention, "fwd", lambda: attention.flash_attention_fwd(
+                q, k, v, bias, scale, causal, window=window))
+        want = "tc" if dtype != f32 and d == 64 else "simt"
+        if route != want:
+            raise AssertionError(f"flash forward took {route}, not {want}")
         rout, rlse = attention.flash_attention_reference(
             q.float(), k.float(), v.float(), bias, scale, causal, window)
         tol = 2e-5 if dtype == f32 else 2e-2
-        tag = (f"({bh}, {sq}, {sk}, {d}) {str(dtype)[6:]} causal={causal} "
-               f"bias={kind} window={window}")
+        tag = (f"[{route}] ({bh}, {sq}, {sk}, {d}) {str(dtype)[6:]} "
+               f"causal={causal} bias={kind} window={window}")
         eo, eo_abs = scaled_err(out, rout)
         check(f"{tag} out", eo, tol)
-        check(f"{tag} lse", scaled_err(lse, rlse)[0], 2e-5)
+        el = scaled_err(lse, rlse)[0]
+        check(f"{tag} lse", el, 2e-5)
+        if route == "tc":
+            model, _ = attention.flash_attention_tc_reference(
+                q, k, v, bias, scale, causal, window)
+            again, _ = attention.flash_attention_fwd(q, k, v, bias, scale,
+                                                     causal, window=window)
+            ulps = _check_tc_model(torch, f"{tag} out", out, model, again)
+            tc_err.update(out=max(tc_err["out"], eo),
+                          lse=max(tc_err["lse"], el),
+                          model_ulps=max(tc_err["model_ulps"], ulps))
+            if (bh, sq, dtype, causal, kind) == (TRAIN_BATCH * 12, TRAIN_SEQ,
+                                                 bf16, True, None):
+                tc_err["max_abs_err"] = eo_abs
+            del model, again
         if (bh, sq, d, dtype, causal, kind, window) == \
                 (96, 512, 64, f32, True, None, None):
             main_err = eo_abs
+        del q, k, v, bias, out, lse, rout, rlse
 
     bh, s, d = 96, 512, 64
     q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda")
@@ -381,7 +492,7 @@ def flash_phase(torch, attention):
           f"{lib:.4f} ms, bound {bound:.4f} ms ({by}; {ops / 1e9:.3f} "
           f"GFLOP at the fp32 rate, {nbytes / 1e6:.1f} MB)")
     return dict(max_abs_err=main_err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bound, bound_by=by)
+                bound_ms=bound, bound_by=by), tc_err
 
 
 def main_path(torch, dispatch, gpt):
@@ -408,7 +519,7 @@ def main_path(torch, dispatch, gpt):
     print(f"  launches: {counts}")
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention_fwd=layers,
+    want.update(_flash_want("simt", layers, backward=False),
                 ln_forward=(2 * layers + 1) * NEW)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
@@ -531,19 +642,34 @@ def cpu_phase(torch, gpt, model, out, prefill_logits, step_logits):
 
 
 def kernel_split_ms(torch, fn, names, calls=5):
-    """Device ms per call of each kernel whose name contains one of
-    ``names``, from ``calls`` calls of ``fn`` under ``torch.profiler``."""
+    """Device ms of one launch of each kernel whose name contains one of
+    ``names`` (each launched once a call of ``fn``): the mean over the
+    launches that ``torch.profiler`` recorded in ``calls`` calls.  The
+    mean is over the launches seen, since the profiler has dropped some
+    from its window (one of three LM-head dx launches in one run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     fn()
-    _, _, by_name, _ = _profiled(torch, lambda: [fn() for _ in range(calls)])
-    if by_name is None:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not spans:
         raise AssertionError("torch.profiler saw no device activity")
     out = {}
     for key in names:
-        hits = [ms for name, ms in by_name.items() if key in name]
+        hits = [ms for name, ms in spans if key in name]
         if not hits:
             raise AssertionError(f"no device kernel named *{key}* in "
-                                 f"{sorted(by_name)[:8]}")
-        out[key] = sum(hits) / calls
+                                 f"{sorted({n for n, _ in spans})[:8]}")
+        if len(hits) != calls:
+            print(f"  (torch.profiler recorded {len(hits)} of {calls} "
+                  f"*{key}* launches)")
+        out[key] = sum(hits) / len(hits)
     return out
 
 
@@ -672,39 +798,39 @@ def ln_bwd_phase(torch, layer_norm):
 
 def flash_bwd_phase(torch, attention):
     """Flash-attention backward kernels against the plain version's
-    autograd (fp32 on the same inputs); timings at the training path's
-    shape.  Returns the two kernel lines' numbers."""
+    autograd (fp32 on the same inputs) and against the plain backward on
+    the same tensors, each case on the route the wrapper picks (read from
+    the per-route counters); the tc cases also against the tc model.
+    Timings at the training path's shape.  Returns the two kernel lines'
+    numbers and the tc backward's largest errors."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    dtypes = dict(bf16=bf16, fp16=f16)
     bh0, s0 = TRAIN_BATCH * 12, TRAIN_SEQ
     cases = [  # (bh, sq, sk, d, dtype, causal, bias, window)
-        (bh0, s0, s0, 64, bf16, True, None, None),
         (bh0, s0, s0, 64, f32, True, None, None),
         (96, 512, 512, 64, f32, False, "keypad", None),
-        (96, 1024, 1024, 64, bf16, True, None, 128),
         (48, 500, 500, 64, f32, True, None, None),
         (24, 300, 700, 64, f32, False, "full", None),
         (16, 256, 256, 128, f32, True, None, None),
         (8, 200, 200, 40, f16, True, "keypad", None),
-    ]
+    ] + [c[:4] + (dtypes[c[4]],) + c[5:] for c in FLASH_TC_CASES]
     print("flash-attention backward vs the plain version's autograd (fp32 "
-          "on the same inputs, TF32 off; err: max abs / max(1, max |ref|)):")
-    main_err = None
+          "on the same inputs, TF32 off; err: max abs / max(1, max |ref|)), "
+          "on the route the wrapper picks:")
+    main_err, tc_err = None, dict(grads=0.0, model_ulps=0.0)
     for bh, sq, sk, d, dtype, causal, kind, window in cases:
-        q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda")
-                   .to(dtype) for s in (sq, sk, sk))
-        dout = torch.randn((bh, sq, d), generator=g, device="cuda").to(dtype)
-        bias = None
-        if kind == "keypad":
-            bias = _keypad_bias(torch, bh, sk)
-        elif kind == "full":
-            bias = torch.randn((1, sq, sk), generator=g, device="cuda")
+        q, k, v, dout, bias = _flash_inputs(torch, g, bh, sq, sk, d, dtype,
+                                            kind, grad=True)
         scale = d ** -0.5
         out, lse = attention.flash_attention_fwd(q, k, v, bias, scale, causal,
                                                  window=window)
-        got = attention.flash_attention_bwd(q, k, v, bias, out, lse, dout,
-                                            scale, causal, window=window)
-        torch.cuda.synchronize()
+        bwd = lambda: attention.flash_attention_bwd(  # noqa: E731
+            q, k, v, bias, out, lse, dout, scale, causal, window=window)
+        got, route = _route_of(torch, attention, "bwd_dq", bwd)
+        want = "tc" if dtype != f32 and d == 64 else "simt"
+        if route != want:
+            raise AssertionError(f"flash backward took {route}, not {want}")
         leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
         ref_out, _ = attention.flash_attention_reference(
             *leaves, bias, scale, causal, window)
@@ -712,24 +838,39 @@ def flash_bwd_phase(torch, attention):
         # against fp32 autograd a half-precision case differs by the
         # rounding of its inputs' products (out is rounded before delta)
         tol = 5e-5 if dtype == f32 else 3e-2
-        tag = (f"({bh}, {sq}, {sk}, {d}) {str(dtype)[6:]} causal={causal} "
-               f"bias={kind} window={window}")
+        tag = (f"[{route}] ({bh}, {sq}, {sk}, {d}) {str(dtype)[6:]} "
+               f"causal={causal} bias={kind} window={window}")
         for name, a, r in zip(("dq", "dk", "dv"), got, ref):
             check(f"{tag} {name}", scaled_err(a, r)[0], tol)
         # against the plain version on the same tensors, which rounds the
-        # same fp32 math to the same dtype: within 1 unit in the last place
-        # in half precision, 1e-5 of max |ref| in fp32
+        # same fp32 math to the same dtype: within 1 unit in the last
+        # place in half precision, 1e-5 of max |ref| in fp32 (simt); within
+        # 1e-2 of max |ref| on the tc route, which rounds p and ds to the
+        # input dtype as operands
         plain = attention.flash_attention_bwd_reference(
             q, k, v, bias, out, lse, dout, scale, causal, window)
         for name, a, r in zip(("dq", "dk", "dv"), got, plain):
+            err = (a.float() - r.float()).abs().max().item() \
+                / r.float().abs().max().item()
             if dtype == f32:
-                err = (a - r).abs().max().item() / r.abs().max().item()
                 check(f"{tag} {name} vs flash_attention_bwd_reference (err: "
                       f"max abs / max |ref|)", err, 1e-5)
-            else:
+            elif route == "simt":
                 check(f"{tag} {name} vs flash_attention_bwd_reference (err "
                       f"in units in the last place)", ulp_err(a, r), 1)
-        if (bh, sq, dtype, window) == (bh0, s0, bf16, None):
+            else:
+                check(f"{tag} {name} vs flash_attention_bwd_reference (err: "
+                      f"max abs / max |ref|)", err, 1e-2)
+                tc_err["grads"] = max(tc_err["grads"], err)
+        if route == "tc":
+            model = attention.flash_attention_bwd_tc_reference(
+                q, k, v, bias, out, lse, dout, scale, causal, window)
+            again = bwd()
+            for name, a, m, a2 in zip(("dq", "dk", "dv"), got, model, again):
+                ulps = _check_tc_model(torch, f"{tag} {name}", a, m, a2)
+                tc_err["model_ulps"] = max(tc_err["model_ulps"], ulps)
+            del model, again
+        if (bh, sq, dtype, window, kind) == (bh0, s0, bf16, None, None):
             main_err = max(scaled_err(a, r)[1] for a, r in zip(got, plain))
         del leaves, ref_out, ref, got, plain
 
@@ -741,7 +882,13 @@ def flash_bwd_phase(torch, attention):
     fn = lambda: attention.flash_attention_bwd(  # noqa: E731
         q, k, v, None, out, lse, dout, scale, True)
     ms = median_ms(fn)[0]
-    split = kernel_split_ms(torch, fn, ("flash_bwd_dq", "flash_bwd_dkv"))
+    # each launch alone through its entry point, by CUDA events (the
+    # profiler's split has dropped launches from its window)
+    calls, keep = _entry_calls(torch, attention, "tc", q, k, v, None, dout,
+                               scale, True, {})
+    split = {"flash_bwd_dq": median_ms(calls["bwd_dq"])[0],
+             "flash_bwd_dkv": median_ms(calls["bwd_dkv"])[0]}
+    del calls, keep
     plain = median_ms(lambda: attention.flash_attention_bwd_reference(
         q, k, v, None, out, lse, dout, scale, True), reps=5, inner=2)[0]
     q4, k4, v4 = (t.view(TRAIN_BATCH, 12, s, d).detach().requires_grad_(True)
@@ -779,10 +926,55 @@ def flash_bwd_phase(torch, attention):
     return (dict(max_abs_err=main_err, ms=split["flash_bwd_dq"],
                  bound_ms=b_dq[0], bound_by=b_dq[1], **common),
             dict(max_abs_err=main_err, ms=split["flash_bwd_dkv"],
-                 bound_ms=b_dkv[0], bound_by=b_dkv[1], **common))
+                 bound_ms=b_dkv[0], bound_by=b_dkv[1], **common), tc_err)
 
 
 DROP_P = 0.1      # the original recipes' attention dropout (GPT-2, BERT)
+
+
+def _entry_calls(torch, attention, route, q, k, v, bias, dout, scale, causal,
+                 drop):
+    """The flash kernels of ``route`` at these inputs through their C entry
+    points, so that each launch is timed alone by CUDA events (and the simt
+    route can be forced where the wrapper picks tc, as ``_lmx_simt_ms`` does
+    for the LM head): ``{kernel: zero-argument call}`` and the outputs
+    (out, lse, dq, dk, dv, the seed vector), filled once here; the backward
+    reads this route's forward's out and lse."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    p = drop.get("dropout_p", 0.0)
+    seed_vec = attention.seed_vector(p, drop.get("dropout_seed"), 0, 0,
+                                     q.device)
+    b, bs, qs = attention._bias_layout(bias, sk)
+    out, dq = torch.empty_like(q), torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if b is None else b.data_ptr(), bs, qs)
+    tail = (bh, sq, sk, d, float(scale), int(causal), 0,
+            *attention._dropout_args(p, seed_vec),
+            attention.dtype_code(q.dtype),
+            torch.cuda.current_stream().cuda_stream)
+    fns = {k_: attention._entry(k_, route)[1]
+           for k_ in ("fwd", "bwd_dq", "bwd_dkv")}
+    calls = {"fwd": lambda: fns["fwd"](*head, out.data_ptr(),
+                                       lse.data_ptr(), *tail)}
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    calls["bwd_dq"] = lambda: fns["bwd_dq"](
+        *head, dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), *tail)
+    calls["bwd_dkv"] = lambda: fns["bwd_dkv"](
+        *head, dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *tail)
+    for kernel, call in calls.items():
+        err = call()
+        if err:
+            raise AssertionError(f"{route} flash {kernel}: CUDA error "
+                                 f"{err}")
+        if kernel == "fwd":
+            delta.copy_(attention._delta(dout, out))
+    torch.cuda.synchronize()
+    return calls, (out, lse, dq, dk, dv, seed_vec)
 
 
 def _flash_yardsticks(torch, attention, q, k, v, bias, out, lse, dout,
@@ -885,8 +1077,41 @@ def flash_dropout_phase(torch, attention):
                                   f"kept values within {r:.1e} of 1/(1-p)"
                                   for w, (n, r) in bad.items()))
 
+    # the tc route in bf16: q = 0 and v = I, dO = I are exact, and p = 1/64
+    # times 1/(1-p) is rounded to bf16 as the operand of p.v and p^T.dO
+    print("flash-attention dropout on the tc route: the exact mask (bf16, q "
+          "= 0, v = I, dO = I; (96, 64, 64) non-causal):")
+    kb, qb, eyeb = (t.to(torch.bfloat16) for t in (k, q, eye))
+    for p in (0.1, 0.5):
+        keep_scale = attention.dropout_constants(p)[1]
+        seed, ro, co = SEED, 1000, 37
+        drop = dict(dropout_p=p, dropout_seed=seed, dropout_row_off=ro,
+                    dropout_col_off=co)
+        (out, lse), route = _route_of(
+            torch, attention, "fwd", lambda: attention.flash_attention_fwd(
+                qb, kb, eyeb, None, 1.0, False, **drop))
+        (_, _, dv), broute = _route_of(
+            torch, attention, "bwd_dkv", lambda: attention.flash_attention_bwd(
+                qb, kb, eyeb, None, out, lse, eyeb, 1.0, False, **drop))
+        if (route, broute) != ("tc", "tc"):
+            raise AssertionError(f"bf16 mask check took {route}/{broute}")
+        kept = attention.dropout_keep_reference(
+            bh, s, s, seed, p, ro, co, device="cuda") != 0
+        for what, grid in (("forward (out * Sk)", out.float() * s),
+                           ("dk/dv (dv^T * Sk)", dv.float().transpose(1, 2)
+                            * s)):
+            n_bad = int(((grid != 0) != kept).sum())
+            rel = (grid[kept] - keep_scale).abs().max().item() / keep_scale
+            print(f"  p={p} seed={seed} offsets ({ro}, {co}) {what}: "
+                  f"{n_bad} entries off the plain mask, kept values within "
+                  f"{rel:.1e} of 1/(1-p) (tol 2^-8)")
+            if n_bad or rel > 2.0 ** -8:
+                raise AssertionError(f"tc dropout mask p={p} {what}: {n_bad}"
+                                     f" entries off, kept values {rel:.3e} "
+                                     f"from 1/(1-p)")
+
     print(f"flash-attention dropout p={DROP_P} against the plain versions "
-          f"(bf16; err: max abs / max(1, max |ref|)):")
+          f"(bf16, the tc route; err: max abs / max(1, max |ref|)):")
     shapes = (("gpt", TRAIN_BATCH * 12, TRAIN_SEQ, True, False),
               ("bert", BERT_BATCH * 12, BERT_SEQ, False, False),
               ("bert_keypad", BERT_BATCH * 12, BERT_SEQ, False, True))
@@ -898,11 +1123,14 @@ def flash_dropout_phase(torch, attention):
         scale = d ** -0.5
         drop = dict(dropout_p=DROP_P, dropout_seed=SEED + 21)
         tag = f"({bh}, {s}, {d}) bf16 causal={causal} keypad={keypad}"
-        out, lse = attention.flash_attention_fwd(q, k, v, bias, scale, causal,
-                                                 **drop)
-        got = attention.flash_attention_bwd(q, k, v, bias, out, lse, dout,
-                                            scale, causal, **drop)
-        torch.cuda.synchronize()
+        (out, lse), route = _route_of(
+            torch, attention, "fwd", lambda: attention.flash_attention_fwd(
+                q, k, v, bias, scale, causal, **drop))
+        got, broute = _route_of(
+            torch, attention, "bwd_dq", lambda: attention.flash_attention_bwd(
+                q, k, v, bias, out, lse, dout, scale, causal, **drop))
+        if (route, broute) != ("tc", "tc"):
+            raise AssertionError(f"{tag} took {route}/{broute}, not tc")
         leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
         ref_out, ref_lse = attention.flash_attention_reference(
             *leaves, bias, scale, causal, **drop)
@@ -917,15 +1145,57 @@ def flash_dropout_phase(torch, attention):
         plain = attention.flash_attention_bwd_reference(
             q, k, v, bias, out, lse, dout, scale, causal, **drop)
         for gname, a, r in zip(("dq", "dk", "dv"), got, plain):
-            check(f"{tag} {gname} vs flash_attention_bwd_reference (err in "
-                  f"units in the last place)", ulp_err(a, r), 1)
+            check(f"{tag} {gname} vs flash_attention_bwd_reference (err: max "
+                  f"abs / max |ref|)", (a.float() - r.float()).abs().max()
+                  .item() / r.float().abs().max().item(), 1e-2)
+        model, _ = attention.flash_attention_tc_reference(
+            q, k, v, bias, scale, causal, **drop)
+        again, _ = attention.flash_attention_fwd(q, k, v, bias, scale,
+                                                 causal, **drop)
+        _check_tc_model(torch, f"{tag} out", out, model, again)
+        model = attention.flash_attention_bwd_tc_reference(
+            q, k, v, bias, out, lse, dout, scale, causal, **drop)
+        again = attention.flash_attention_bwd(q, k, v, bias, out, lse, dout,
+                                              scale, causal, **drop)
+        for gname, a, m, a2 in zip(("dq", "dk", "dv"), got, model, again):
+            _check_tc_model(torch, f"{tag} {gname}", a, m, a2)
         err = max([eo_abs] + [scaled_err(a, r)[1]
                               for a, r in zip(got, plain)])
-        del plain, got
+        del plain, got, model, again
+
+        # the simt kernels at the same inputs, forced through their entry
+        # points: the checks they were held to (out 2e-2, lse 2e-5, dq/dk/dv
+        # within 1 unit in the last place of the plain backward on the simt
+        # forward's out and lse), then their times without and with dropout
+        simt = {}
+        for label, kw in (("", {}), ("dropout_", drop)):
+            calls, (so, sl, *sg, sv) = _entry_calls(
+                torch, attention, "simt", q, k, v, bias, dout, scale, causal,
+                kw)
+            ro_, rl_ = attention.flash_attention_reference(
+                q, k, v, bias, scale, causal, **kw)
+            stag = f"[simt] {tag}{' dropout' if kw else ''}"
+            check(f"{stag} out", scaled_err(so, ro_)[0], 2e-2)
+            check(f"{stag} lse", scaled_err(sl, rl_)[0], 2e-5)
+            splain = attention.flash_attention_bwd_reference(
+                q, k, v, bias, so, sl, dout, scale, causal, **kw)
+            for gname, a, r in zip(("dq", "dk", "dv"), sg, splain):
+                check(f"{stag} {gname} vs flash_attention_bwd_reference (err "
+                      f"in units in the last place)", ulp_err(a, r), 1)
+            if not kw:
+                simt["max_abs_err"] = max(
+                    [scaled_err(so, ro_)[1]] + [scaled_err(a, r)[1]
+                                                for a, r in zip(sg, splain)])
+            del ro_, rl_, splain
+            for kernel, call in calls.items():
+                simt[f"{label}{kernel}_ms"] = median_ms(call, reps=5,
+                                                        inner=3)[0]
+            del calls, so, sl, sg, sv
 
         # without and with dropout in turns (off, on, on, off), each number
-        # the mean of its two turns: the forward and the whole backward by
-        # CUDA events, the backward's two launches from torch.profiler
+        # the mean of its two turns: the forward and the whole backward
+        # through the wrappers (the backward with its delta), and each tc
+        # launch alone through its entry point, all by CUDA events
         times = {}
         arms = [("", {}), ("dropout_", drop)]
         for label, kw in arms + arms[::-1]:
@@ -933,14 +1203,17 @@ def flash_dropout_phase(torch, attention):
                 q, k, v, bias, scale, causal, **kw)
             bwd = lambda: attention.flash_attention_bwd(  # noqa: E731
                 q, k, v, bias, out, lse, dout, scale, causal, **kw)
-            split = kernel_split_ms(torch, bwd, ("flash_bwd_dq",
-                                                 "flash_bwd_dkv"), calls=10)
+            calls, keep = _entry_calls(torch, attention, "tc", q, k, v, bias,
+                                       dout, scale, causal, kw)
             for key, ms in (("fwd_ms", median_ms(fwd, reps=10)[0]),
                             ("bwd_ms", median_ms(bwd, reps=10)[0]),
-                            ("dq_ms", split["flash_bwd_dq"]),
-                            ("dkv_ms", split["flash_bwd_dkv"])):
+                            ("dq_ms", median_ms(calls["bwd_dq"],
+                                                reps=10)[0]),
+                            ("dkv_ms", median_ms(calls["bwd_dkv"],
+                                                 reps=10)[0])):
                 times.setdefault(label + key, []).append(ms)
-        row = dict(shape=tag, max_abs_err=err,
+            del calls, keep
+        row = dict(shape=tag, max_abs_err=err, simt=simt,
                    **{key: statistics.mean(v) for key, v in times.items()})
         print(f"  time {tag}, without -> with dropout: " + ", ".join(
             f"{what} {row[key]:.4f} -> {row['dropout_' + key]:.4f} ms "
@@ -962,6 +1235,12 @@ def flash_dropout_phase(torch, attention):
               f"{row['library_bwd_ms']:.4f} -> "
               f"{row['dropout_library_bwd_ms']:.4f} ms with its own "
               f"dropout")
+        print(f"  {tag}: the simt kernels forced at the same inputs, without "
+              f"-> with dropout: " + ", ".join(
+                  f"{what} {simt[k_ + '_ms']:.4f} -> "
+                  f"{simt['dropout_' + k_ + '_ms']:.4f} ms"
+                  for what, k_ in (("forward", "fwd"), ("dq", "bwd_dq"),
+                                   ("dk/dv", "bwd_dkv"))))
         numbers[name] = row
         del q, k, v, dout, out, lse
     return numbers
@@ -1569,8 +1848,7 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want,
     counts = dispatch.counts()
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
-                flash_attention_bwd_dkv=layers, fused_adam=1, **xent_want)
+    want.update(_flash_want("tc", layers), fused_adam=1, **xent_want)
     want.update(dict.fromkeys(norms, 2 * layers + 1))
     print(f"training path: make_train_step({name}, batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, "
@@ -1601,8 +1879,12 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want,
     return counts, 1e3 * step_s, values[0]
 
 
-def train_cpu_phase(torch, gpt, model):
-    """Training on the card against the CPU from the same weights."""
+def train_cpu_phase(torch, dispatch, gpt, model):
+    """Training on the card against the CPU from the same weights.  Returns
+    the launch counts of the card's first fp32 step, ``make_train_step``
+    without half copies: the path that runs the simt flash kernels
+    backward (12/12/12), the LayerNorm kernels (25/25/25) and one Adam
+    launch."""
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.training import make_train_step
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
@@ -1649,8 +1931,24 @@ def train_cpu_phase(torch, gpt, model):
                                             weight_decay=WD),
                                lm_loss, half_dtype=None, loss_scale=1.0)
         x = ids.to(dev)
-        runs.append(([float(step(x, x)) for _ in range(3)],
-                     [t.cpu() for t in step.state.master_params]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            dispatch.reset_counts()
+            first = float(step(x, x))
+            torch.cuda.synchronize()
+            counts = dispatch.counts()
+            layers = len(m.blocks)
+            want = dict.fromkeys(counts, 0)
+            want.update(_flash_want("simt", layers), fused_adam=1,
+                        **dict.fromkeys(LN_NAMES, 2 * layers + 1))
+            print(f"  launches in the card's first fp32 step: {counts}")
+            if counts != want:
+                raise AssertionError(f"launch counts {counts} != expected "
+                                     f"{want}")
+            losses = [first] + [float(step(x, x)) for _ in range(2)]
+        else:
+            losses = [float(step(x, x)) for _ in range(3)]
+        runs.append((losses, [t.cpu() for t in step.state.master_params]))
     for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
         check(f"train step {i + 1} loss (relative)", abs(a - b) / abs(b),
               1e-4)
@@ -1691,7 +1989,7 @@ def train_cpu_phase(torch, gpt, model):
             raise AssertionError(f"dynamic-scale skip on {dev.type}: skipped "
                                  f"{skips}, scales {scales}, unchanged "
                                  f"{unchanged}")
-
+    return counts
 
 
 def _xent_case(torch, g, rows, c, dtype, padding_idx, masked):
@@ -2097,8 +2395,7 @@ def amp_phase(torch, dispatch, gpt, model):
         counts[level] = dispatch.counts()
         layers = len(m.blocks)
         want = dict.fromkeys(counts[level], 0)
-        want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
-                    flash_attention_bwd_dkv=layers, ln_forward=2 * layers + 1,
+        want.update(_flash_want("tc", layers), ln_forward=2 * layers + 1,
                     ln_backward_rows=2 * layers + 1,
                     ln_backward_cols=2 * layers + 1, xent_forward=1,
                     xent_backward=1, fused_adam=1)
@@ -2316,34 +2613,66 @@ def _lmx_case(torch, g, n, v, e, dtype):
 LMX_TC_KERNELS = ("lmx_fwd_tc", "lmx_dx_tc", "lmx_dw_tc")
 
 
+def _res_usage(source, name, count=1):
+    """Registers, stack, local memory (spills) and static shared memory of
+    the ``count`` kernels of ``csrc/<source>.cu``'s built library whose
+    names contain ``name`` (``cuobjdump -res-usage``), in the order listed."""
+    from pathlib import Path
+    from apex_tpu_torch import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-res-usage",
+                          str(_build._lib_path(source))],
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    lines = res.stdout.splitlines()
+    hits = [lines[i + 1] for i, ln in enumerate(lines[:-1])
+            if ln.lstrip().startswith("Function") and name in ln]
+    if len(hits) != count:
+        raise AssertionError(f"cuobjdump lists {len(hits)} kernels named "
+                             f"*{name}*, not {count}")
+    out = []
+    for hit in hits:
+        f = dict(w.split(":", 1) for w in hit.split() if ":" in w)
+        out.append(dict(registers=int(f["REG"]), stack=int(f["STACK"]),
+                        local=int(f["LOCAL"]),
+                        static_shared=int(f["SHARED"])))
+    return out
+
+
 def lmx_resources(lm_head_xent):
     """Registers, static shared memory, stack and local memory (spills) of
     the tensor-core LM-head kernels (``cuobjdump -res-usage`` on the built
     library) and the dynamic shared memory each launch asks for at E =
     768.  The registers are the launch bound's cap (384 threads, one block
     an SM); ``setmaxnreg`` moves the consumer warpgroups to 232."""
-    from pathlib import Path
-    from apex_tpu_torch import _build
     lib = lm_head_xent._lib()
-    tool = Path(_build._nvcc()).with_name("cuobjdump")
-    res = subprocess.run([str(tool), "-res-usage",
-                          str(_build._lib_path("lm_head_xent"))],
-                         capture_output=True, text=True, check=True,
-                         timeout=120)
-    lines = res.stdout.splitlines()
     out = {}
     for kind, name in enumerate(LMX_TC_KERNELS):
-        hits = [lines[i + 1] for i, ln in enumerate(lines[:-1])
-                if ln.lstrip().startswith("Function") and name in ln]
-        if len(hits) != 1:
-            raise AssertionError(f"cuobjdump lists {len(hits)} kernels "
-                                 f"named *{name}*")
-        f = dict(w.split(":", 1) for w in hits[0].split() if ":" in w)
-        out[name] = dict(registers=int(f["REG"]), stack=int(f["STACK"]),
-                         local=int(f["LOCAL"]),
-                         static_shared=int(f["SHARED"]),
-                         dynamic_shared=lib.apex_lmx_tc_smem(kind, 768))
+        (out[name],) = _res_usage("lm_head_xent", name)
+        out[name]["dynamic_shared"] = lib.apex_lmx_tc_smem(kind, 768)
         print(f"  {name}: {out[name]}")
+    return out
+
+
+FLASH_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+
+
+def flash_resources(attention):
+    """The same for the tensor-core flash kernels, each instantiated for
+    bf16 and fp16 (one CTA an SM, 384 threads; ``setmaxnreg`` gives the
+    consumer warpgroups 232 registers)."""
+    lib = attention._lib("flash_attention_tc")
+    print("tensor-core flash kernels (cuobjdump -res-usage; dynamic shared "
+          "memory of a launch):")
+    out = {}
+    for kind, name in enumerate(FLASH_TC_KERNELS):
+        rows = _res_usage("flash_attention_tc", name, count=2)
+        for r in rows:
+            r["dynamic_shared"] = lib.apex_flash_tc_smem(kind)
+            if r["local"] or r["stack"]:
+                raise AssertionError(f"{name} spills: {r}")
+        out[name] = rows[0]
+        print(f"  {name} (both dtypes): {rows}")
     return out
 
 
@@ -2534,7 +2863,7 @@ def llama_generate_path(torch, dispatch, gpt, llama):
     print(f"  launches: {counts}")
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention_fwd=layers,
+    want.update(_flash_want("simt", layers, backward=False),
                 rms_forward=(2 * layers + 1) * NEW)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
@@ -2645,8 +2974,7 @@ def _llama_arm(torch, dispatch, llama, mode):
     counts = dispatch.counts()
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
-                flash_attention_bwd_dkv=layers, fused_adam=1, **xent_want)
+    want.update(_flash_want("tc", layers), fused_adam=1, **xent_want)
     want.update(dict.fromkeys(RMS_NAMES, 2 * layers + 1))
     print(f"training path: make_train_step(llama_125m, batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, {mode} "
@@ -2773,9 +3101,7 @@ def _bert_mlm_loss(torch):
 
 def _bert_want(counts, layers=12):
     want = dict.fromkeys(counts, 0)
-    want.update(flash_attention_fwd=layers, flash_attention_bwd_dq=layers,
-                flash_attention_bwd_dkv=layers, xent_forward=1,
-                xent_backward=1)
+    want.update(_flash_want("tc", layers), xent_forward=1, xent_backward=1)
     want.update(dict.fromkeys(LN_NAMES, BERT_LN))
     return want
 
@@ -3071,11 +3397,12 @@ def main():
     del rn
     t_phase = time.perf_counter()
     ln = ln_phase(torch, layer_norm)
-    fl = flash_phase(torch, attention)
+    fl, fl_tc_err = flash_phase(torch, attention)
     fl_train, ln_train = fwd_train_shapes(torch, attention, layer_norm)
     lnb_rows, lnb_cols = ln_bwd_phase(torch, layer_norm)
-    dq, dkv = flash_bwd_phase(torch, attention)
+    dq, dkv, bwd_tc_err = flash_bwd_phase(torch, attention)
     fdrop = flash_dropout_phase(torch, attention)
+    flash_res = flash_resources(attention)
     adam = adam_phase(torch, multi_tensor, shapes)
     adam_half = adam_half_phase(torch, multi_tensor, shapes)
     sgd = sgd_phase(torch, multi_tensor, rn_shapes, rn_bn)
@@ -3124,7 +3451,8 @@ def main():
     paths["llama_train_kernel"] = llama_counts["kernel"]
     print(f"training phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    train_cpu_phase(torch, gpt, train_model)
+    paths["train_step_fp32"] = train_cpu_phase(torch, dispatch, gpt,
+                                               train_model)
     train_modes_cpu_phase(torch, gpt, train_model)
     print(f"card-vs-CPU training phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -3155,7 +3483,7 @@ def main():
         by = {k: c[name] for k, c in paths.items() if c[name]}
         return dict(launches=sum(by.values()), launches_by_path=by)
     def dropout_numbers(kernel, whole):
-        """The dropout phase's numbers for one flash kernel at both
+        """The dropout phase's numbers for one tc flash kernel at both
         shapes; the bound, plain and library times are of the whole
         forward or backward."""
         return {k: dict(
@@ -3166,34 +3494,71 @@ def main():
             **{f"{arm}{what}_ms": r[f"{arm}{what}_{whole}_ms"]
                for arm in ("", "dropout_") for what in ("plain", "library")})
             for k, r in fdrop.items()}
+
+    def simt_numbers(kernel):
+        """The simt kernel's times at the dropout phase's shapes, forced
+        through its entry point, without and with dropout."""
+        return {k: dict(shape=r["shape"], ms=r["simt"][f"{kernel}_ms"],
+                        dropout_ms=r["simt"][f"dropout_{kernel}_ms"])
+                for k, r in fdrop.items()}
+
+    def yardsticks(r):
+        return {k: r[k] for k in ("plain_ms", "library_ms", "bound_ms",
+                                  "bound_by")}
+    gpt_simt = fdrop["gpt"]["simt"]
     fa, fb = "apex_tpu_torch/csrc/flash_attention", "apex_tpu/kernels/"
     ln_src = "apex_tpu_torch/csrc/layer_norm.cu"
     xe_src = "apex_tpu_torch/csrc/xentropy.cu"
     rms_src = "apex_tpu_torch/csrc/rms_norm.cu"
     lmx_src = "apex_tpu_torch/csrc/lm_head_xent.cu"
+    rep_fwd = f"{fb}attention.py:352 (_fwd_kernel :175, pallas_call :396)"
+    rep_dq = f"{fb}attention.py:420 (_dq_kernel :237, pallas_call :466)"
+    rep_dkv = f"{fb}attention.py:420 (_dkv_kernel :283, pallas_call :490)"
+    gpt_shape = f"({TRAIN_BATCH * 12}, {TRAIN_SEQ}, 64) bf16 causal"
     kernels = [
-        dict(name="flash_attention_fwd", route="cuda", source=f"{fa}.cu",
-             replaces=f"{fb}attention.py:352",
-             **launches("flash_attention_fwd"),
-             shape="(96, 512, 64) fp32 causal", **fl,
-             train_shape=fl_train, dropout_branch="ported",
+        # the tc route: bf16 and fp16 at D = 64, every training path
+        dict(name="flash_attention_fwd_tc", route="cuda", kernel_route="tc",
+             source=f"{fa}_tc.cu", replaces=rep_fwd,
+             **launches("flash_attention_fwd_tc"), shape=gpt_shape,
+             max_abs_err=fl_tc_err["max_abs_err"], ms=fl_train["ms"],
+             **yardsticks(fl_train), simt_ms=gpt_simt["fwd_ms"],
+             errors=fl_tc_err, resources=flash_res["flash_fwd_tc"],
              dropout=dropout_numbers("fwd", "fwd")),
-        dict(name="flash_attention_bwd_dq", route="cuda",
-             source=f"{fa}_bwd.cu",
-             replaces=f"{fb}attention.py:420 (_dq_kernel :237, "
-                      f"pallas_call :466)",
-             **launches("flash_attention_bwd_dq"),
-             shape="(192, 1024, 64) bf16 causal", **dq,
-             dropout_branch="ported",
+        dict(name="flash_attention_bwd_dq_tc", route="cuda",
+             kernel_route="tc", source=f"{fa}_tc.cu", replaces=rep_dq,
+             **launches("flash_attention_bwd_dq_tc"), shape=gpt_shape, **dq,
+             simt_ms=gpt_simt["bwd_dq_ms"], errors=bwd_tc_err,
+             resources=flash_res["flash_bwd_dq_tc"],
              dropout=dropout_numbers("dq", "bwd")),
-        dict(name="flash_attention_bwd_dkv", route="cuda",
-             source=f"{fa}_bwd.cu",
-             replaces=f"{fb}attention.py:420 (_dkv_kernel :283, "
-                      f"pallas_call :490)",
-             **launches("flash_attention_bwd_dkv"),
-             shape="(192, 1024, 64) bf16 causal", **dkv,
-             dropout_branch="ported",
+        dict(name="flash_attention_bwd_dkv_tc", route="cuda",
+             kernel_route="tc", source=f"{fa}_tc.cu", replaces=rep_dkv,
+             **launches("flash_attention_bwd_dkv_tc"), shape=gpt_shape,
+             **dkv, simt_ms=gpt_simt["bwd_dkv_ms"], errors=bwd_tc_err,
+             resources=flash_res["flash_bwd_dkv_tc"],
              dropout=dropout_numbers("dkv", "bwd")),
+        # the simt route: fp32 (generate, the fp32 train step) and other
+        # head dims; its times at the GPT shape with the route forced
+        dict(name="flash_attention_fwd", route="cuda", kernel_route="simt",
+             source=f"{fa}.cu", replaces=rep_fwd,
+             **launches("flash_attention_fwd_simt"),
+             shape="(96, 512, 64) fp32 causal", **fl,
+             train_shape=dict(fl_train, ms=gpt_simt["fwd_ms"],
+                              note="simt route forced"),
+             dropout_branch="ported", dropout=simt_numbers("fwd")),
+        dict(name="flash_attention_bwd_dq", route="cuda", kernel_route="simt",
+             source=f"{fa}_bwd.cu", replaces=rep_dq,
+             **launches("flash_attention_bwd_dq_simt"),
+             shape=f"{gpt_shape}, simt route forced",
+             max_abs_err=gpt_simt["max_abs_err"], ms=gpt_simt["bwd_dq_ms"],
+             **yardsticks(dq), dropout_branch="ported",
+             dropout=simt_numbers("bwd_dq")),
+        dict(name="flash_attention_bwd_dkv", route="cuda",
+             kernel_route="simt", source=f"{fa}_bwd.cu", replaces=rep_dkv,
+             **launches("flash_attention_bwd_dkv_simt"),
+             shape=f"{gpt_shape}, simt route forced",
+             max_abs_err=gpt_simt["max_abs_err"], ms=gpt_simt["bwd_dkv_ms"],
+             **yardsticks(dkv), dropout_branch="ported",
+             dropout=simt_numbers("bwd_dkv")),
         dict(name="ln_forward", route="cuda", source=ln_src,
              replaces=f"{fb}layer_norm.py:77", **launches("ln_forward"),
              shape="(4096, 768) fp32 affine", **ln, train_shape=ln_train),

@@ -192,7 +192,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_loaded", {})
     assert _build.sources() == ["flash_attention", "flash_attention_bwd",
-                                "layer_norm", "lm_head_xent",
+                                "flash_attention_tc", "layer_norm",
+                                "lm_head_xent",
                                 "multi_tensor_adam", "multi_tensor_sgd",
                                 "rms_norm", "xentropy"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
