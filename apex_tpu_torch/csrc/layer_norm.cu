@@ -5,10 +5,14 @@
 // _fwd_kernel): y = (x - mean) * rstd [* w + b] over the last dim, with the
 // two-pass fp32 statistics of the JAX kernel (mean first, then the mean of
 // the squared deviations; not Welford, not E[x^2] - E[x]^2) and
-// rstd = 1 / sqrt(var + eps).  y is in x's dtype; mean and rstd are fp32,
-// one per row.  And apex_tpu/kernels/layer_norm.py::ln_backward (Pallas
-// kernel _bwd_kernel): from the saved mean and rstd, xhat = (x - mean) *
-// rstd, gh = g * w, c1 = mean(gh), c2 = mean(gh * xhat) and
+// rstd = rsqrt(var + eps).  y is in x's dtype; mean and rstd are fp32,
+// one per row.  The forward takes each mean as a product with 1 / n and
+// rstd from the rsqrt instruction (within 2 units in the last place of
+// 1 / sqrt), as the JAX kernel's lax.rsqrt: IEEE division and square root
+// compile to out-of-line slow paths, around which ptxas saved live
+// registers to the stack.  And apex_tpu/kernels/layer_norm.py::ln_backward
+// (Pallas kernel _bwd_kernel): from the saved mean and rstd, xhat =
+// (x - mean) * rstd, gh = g * w, c1 = mean(gh), c2 = mean(gh * xhat) and
 // dx = (gh - c1 - xhat * c2) * rstd in x's dtype; dgamma = sum(g * xhat)
 // and dbeta = sum(g) over all rows, in fp32.
 //
@@ -18,14 +22,41 @@
 // card's ~20 fp32 operations per byte, so the least time is the bytes of x
 // and y (forward) or g, x and dx (backward) over 3.35 TB/s; the 8-row
 // decode shape is bound by launch latency.
+// The forward at the training shape moves 50 MB, which the 50 MB L2
+// cannot hold between calls; at 4096 x 768 fp32 its 25 MB can stay there,
+// so a warm call may beat the HBM bound.  What bounds it in practice is
+// bytes in flight: enough 16-byte loads issued ahead of their use.
 //
 // Design: the row stays in registers, so x (and g) are read from memory
 // once and both passes run out of registers.  A row of n <= 1024 belongs to
 // one warp (four rows per 128-thread block); a longer row to a 256- or
 // 1024-thread block, whose warps combine their partial sums through shared
-// memory.  Each thread holds VPT elements at a stride of the row's thread
-// count, so neighbouring threads read neighbouring addresses.  Up to
-// n = 16384.  The TPU kernel sums dgamma/dbeta across its sequential grid
+// memory.  Up to n = 16384.  The forward has two routes, which the caller
+// picks (kernels/layer_norm.py::norm_route):
+// - vec, for n a multiple of 16 bytes' worth of x's dtype and 16-byte
+//   aligned x, y, w and b: each thread holds 16-byte chunks of its row at a
+//   stride of the row's thread count (a 768-wide bf16 row is 96 chunks, 3 a
+//   lane), so a warp instruction moves 512 contiguous bytes, and y is
+//   written the same way.  The chunks stay packed in registers and are
+//   converted to fp32 in each pass.  Row streams walk rows at a grid stride
+//   over as many blocks as are resident at once, each loading its next
+//   row's chunks before it reduces the current one, so a row's worth of
+//   bytes stays in flight per warp.  w and b are read 16 bytes at a time
+//   in their own dtypes, once per block: into shared memory as fp32 where
+//   the streams walk several rows (in registers they cost the occupancy
+//   that keeps bytes in flight), laid out in planes of float4 so that a
+//   warp's reads are conflict-free; into registers where each stream takes
+//   one row (decode: the shared-memory round trip lengthened the launch),
+//   except in 1024-thread blocks, whose 64 registers a thread cannot hold
+//   them beside the row.  y goes to L2 by default (the next GEMM reads
+//   it).  Its launch bound names one block an SM: without it ptxas spilled
+//   a few bytes of some instances to reach the next occupancy step.
+// - scalar, for the rest: a block per four rows (or per row), each thread
+//   holding VPT elements at a stride of the row's thread count, one 2- or
+//   4-byte access each, the parameters read after the statistics in their
+//   dtypes (switched on once, around the row).
+// Both reduce with warp shuffles; lane 0 writes the row's statistics.
+// The TPU kernel sums dgamma/dbeta across its sequential grid
 // in one output block; CUDA blocks run in no order, so the backward runs a
 // fixed grid of a few blocks per SM, each walking rows at a grid stride and
 // keeping its threads' column sums in registers, and writes one fp32 row of
@@ -36,21 +67,17 @@
 
 namespace {
 
-template <typename T, int VPT, int TPR>
-__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC)
-ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ b, T* __restrict__ y,
-              float* __restrict__ mean_out, float* __restrict__ rstd_out,
-              int rows, int n, float eps) {
-  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR;
-  __shared__ float red[RPC][WPR];
+// the scalar route's row: one element per access, w and b (each of its
+// own type W, B; both null for the plain form) read after the statistics,
+// which are the vec kernel's (inv_n = 1 / n, the rsqrt instruction)
+template <typename T, int VPT, int TPR, typename W, typename B>
+__device__ __forceinline__ void ln_fwd_row(const T* __restrict__ xr, const W* __restrict__ w,
+                                           const B* __restrict__ b, T* __restrict__ yr,
+                                           float* __restrict__ mean_out,
+                                           float* __restrict__ rstd_out, long long row, int n,
+                                           float inv_n, float eps, float* red) {
+  constexpr int WPR = Shape<TPR>::WPR;
   const int tid = threadIdx.x;
-  const long long row = (long long)blockIdx.x * RPC + threadIdx.y;
-  // a block of several warps holds one row (RPC == 1), so a block either
-  // returns whole or not at all and the __syncthreads in row_sum are safe
-  if (row >= rows) return;
-  const T* xr = x + row * n;
-
   float v[VPT];
   float s = 0.f;
 #pragma unroll
@@ -59,7 +86,7 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     v[i] = c < n ? to_f(xr[c]) : 0.f;
     s += v[i];
   }
-  const float mu = row_sum<WPR>(s, red[threadIdx.y]) / n;
+  const float mu = row_sum<WPR>(s, red) * inv_n;
 
   float q = 0.f;
 #pragma unroll
@@ -70,16 +97,14 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
       q += dv * dv;
     }
   }
-  const float var = row_sum<WPR>(q, red[threadIdx.y]) / n;
-  const float rs = 1.f / sqrtf(var + eps);
+  const float rs = rsqrtf(row_sum<WPR>(q, red) * inv_n + eps);
 
-  T* yr = y + row * n;
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
     const int c = tid + i * TPR;
     if (c < n) {
       float o = (v[i] - mu) * rs;
-      if (w != nullptr) o = o * w[c] + b[c];
+      if (w != nullptr) o = o * to_f(w[c]) + to_f(b[c]);
       yr[c] = from_f<T>(o);
     }
   }
@@ -89,25 +114,195 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// the scalar route: any n and alignment; the parameters' dtypes switched
+// on once, around the whole row
 template <typename T, int VPT, int TPR>
-cudaError_t launch(const void* x, const float* w, const float* b, void* y, float* mean,
-                   float* rstd, int rows, int n, float eps, cudaStream_t st) {
+__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC)
+ln_fwd_kernel(const T* __restrict__ x, const void* __restrict__ w, int wdt,
+              const void* __restrict__ b, int bdt, T* __restrict__ y,
+              float* __restrict__ mean_out, float* __restrict__ rstd_out,
+              int rows, int n, float inv_n, float eps) {
+  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR;
+  __shared__ float red[RPC][WPR];
+  const long long row = (long long)blockIdx.x * RPC + threadIdx.y;
+  // a block of several warps holds one row (RPC == 1), so a block either
+  // returns whole or not at all and the __syncthreads in row_sum are safe
+  if (row >= rows) return;
+  APEX_PARAM_SWITCH(wdt, W, APEX_PARAM_SWITCH(bdt, B,
+      ln_fwd_row<T, VPT, TPR>(x + row * n, static_cast<const W*>(w),
+                              static_cast<const B*>(b), y + row * n, mean_out, rstd_out,
+                              row, n, inv_n, eps, red[threadIdx.y])));
+}
+
+// the vec route: 16-byte chunks, chunk tid + i * TPR of a row to each
+// thread; each row stream walks rows at a grid stride with the next row's
+// chunks in flight while it reduces the current one; the chunks stay
+// packed and are converted to fp32 in each pass (fewer registers).  w and
+// b, as fp32, are held as PARAMS says (see launch).  The means are products with
+// inv_n = 1 / n and rstd the rsqrt instruction's (as the JAX kernel's
+// lax.rsqrt, within 2 units in the last place of 1 / sqrt): no IEEE
+// division or square root, whose out-of-line slow paths make ptxas save
+// live registers to the stack
+template <typename T, int CPT, int TPR, int PARAMS>
+__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC, 1)
+ln_fwd_vec_kernel(const T* __restrict__ x, const void* __restrict__ w, int wdt,
+                  const void* __restrict__ b, int bdt, T* __restrict__ y,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  int rows, int n, float inv_n, float eps) {
+  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR, L = chunk_len<T>();
+  constexpr int RC = PARAMS == PARAMS_REGS ? CPT : 1, SLOTS = CPT * TPR;
+  __shared__ float red[RPC][WPR];
+  extern __shared__ float4 staged[];  // w's L / 4 planes, then b's
+  const float4* ws = staged;
+  const float4* bs = staged + L / 4 * SLOTS;
+  const int tid = threadIdx.x;
+  const int chunks = n / L;
+
+  // with RPC == 1 every thread of the block walks the same rows, so the
+  // __syncthreads in row_sum are reached by all of them
+  const long long stride = (long long)gridDim.x * RPC;
+  long long row = (long long)blockIdx.x * RPC + threadIdx.y;
+  uint4 cur[CPT];
+  float wr[RC][L], br[RC][L];
+  if (row < rows) load_row<CPT, TPR>(reinterpret_cast<const uint4*>(x + row * n), chunks, cur);
+  if constexpr (PARAMS == PARAMS_SHARED) {
+    APEX_PARAM_SWITCH(wdt, P,
+        stage_param<L, SLOTS, TPR * RPC>(static_cast<const P*>(w), chunks, staged));
+    APEX_PARAM_SWITCH(bdt, P,
+        stage_param<L, SLOTS, TPR * RPC>(static_cast<const P*>(b), chunks,
+                                         staged + L / 4 * SLOTS));
+    __syncthreads();
+  } else if constexpr (PARAMS == PARAMS_REGS) {
+    APEX_PARAM_SWITCH(wdt, P, load_param_row<L, CPT, TPR>(static_cast<const P*>(w), chunks, wr));
+    APEX_PARAM_SWITCH(bdt, P, load_param_row<L, CPT, TPR>(static_cast<const P*>(b), chunks, br));
+  }
+  for (; row < rows; row += stride) {
+    uint4 nxt[CPT];
+    if (row + stride < rows)
+      load_row<CPT, TPR>(reinterpret_cast<const uint4*>(x + (row + stride) * n), chunks, nxt);
+
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      if (tid + i * TPR < chunks) {
+        float v[L];
+        unpack_chunk<T>(cur[i], v);
+#pragma unroll
+        for (int j = 0; j < L; ++j) s += v[j];
+      }
+    }
+    const float mu = row_sum<WPR>(s, red[threadIdx.y]) * inv_n;
+
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      if (tid + i * TPR < chunks) {
+        float v[L];
+        unpack_chunk<T>(cur[i], v);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          const float dv = v[j] - mu;
+          q += dv * dv;
+        }
+      }
+    }
+    const float rs = rsqrtf(row_sum<WPR>(q, red[threadIdx.y]) * inv_n + eps);
+
+    uint4* yr = reinterpret_cast<uint4*>(y + row * n);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * TPR;
+      if (c < chunks) {
+        float o[L], wv[L], bv[L];
+        unpack_chunk<T>(cur[i], o);
+        if constexpr (PARAMS == PARAMS_SHARED) {
+          load_staged<L, SLOTS>(ws, c, wv);
+          load_staged<L, SLOTS>(bs, c, bv);
+        } else if constexpr (PARAMS == PARAMS_REGS) {
+#pragma unroll
+          for (int j = 0; j < L; ++j) wv[j] = wr[i][j], bv[j] = br[i][j];
+        }
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          o[j] = (o[j] - mu) * rs;
+          if constexpr (PARAMS != PARAMS_NONE) o[j] = o[j] * wv[j] + bv[j];
+        }
+        yr[c] = pack_chunk<T>(o);
+      }
+    }
+    if (tid == 0) {
+      mean_out[row] = mu;
+      rstd_out[row] = rs;
+    }
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) cur[i] = nxt[i];
+  }
+}
+
+struct FwdArgs {
+  const void* x;
+  const void* w;
+  int wdt;
+  const void* b;
+  int bdt;
+  void* y;
+  float* mean;
+  float* rstd;
+  int rows, n;
+  float eps;
+  int route;
+  cudaStream_t st;
+};
+
+template <typename T, int VPT, int TPR>
+cudaError_t launch(const FwdArgs& a) {
   constexpr int RPC = Shape<TPR>::RPC;
   const dim3 block(TPR, RPC);
-  const dim3 grid((rows + RPC - 1) / RPC);
-  ln_fwd_kernel<T, VPT, TPR><<<grid, block, 0, st>>>(
-      static_cast<const T*>(x), w, b, static_cast<T*>(y), mean, rstd, rows, n, eps);
+  if (a.route == NORM_SCALAR) {
+    ln_fwd_kernel<T, VPT, TPR><<<(a.rows + RPC - 1) / RPC, block, 0, a.st>>>(
+        static_cast<const T*>(a.x), a.w, a.wdt, a.b, a.bdt, static_cast<T*>(a.y), a.mean,
+        a.rstd, a.rows, a.n, 1.f / a.n, a.eps);
+    return cudaGetLastError();
+  }
+  constexpr int CPT = chunks_per_thread<T>(VPT), L = chunk_len<T>();
+  constexpr int SMEM_MAX = 2 * CPT * L * TPR * int(sizeof(float));
+  static const int per_sm = vec_blocks_per_sm(ln_fwd_vec_kernel<T, CPT, TPR, PARAMS_SHARED>,
+                                              TPR * RPC, SMEM_MAX);
+  int grid = 0;
+  const cudaError_t e = norm_vec_grid(a.rows, RPC, per_sm, &grid);
+  if (e != cudaSuccess) return e;
+  auto kernel = ln_fwd_vec_kernel<T, CPT, TPR, PARAMS_NONE>;
+  int smem = 0;
+  if (a.w != nullptr) {
+    kernel = ln_fwd_vec_kernel<T, CPT, TPR, PARAMS_SHARED>;
+    smem = SMEM_MAX;
+    // w and b in registers where each row stream takes one row (fewer
+    // rows than the resident blocks hold: decode, small batches), which
+    // saves the shared-memory round trip; not in a 1024-thread block,
+    // whose 64 registers a thread cannot hold them beside the row
+    if constexpr (TPR < 1024) {
+      if ((long long)grid * RPC >= a.rows) {
+        kernel = ln_fwd_vec_kernel<T, CPT, TPR, PARAMS_REGS>;
+        smem = 0;
+      }
+    }
+  }
+  kernel<<<grid, block, smem, a.st>>>(static_cast<const T*>(a.x), a.w, a.wdt, a.b, a.bdt,
+                                      static_cast<T*>(a.y), a.mean, a.rstd, a.rows, a.n,
+                                      1.f / a.n, a.eps);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const float* w, const float* b, void* y, float* mean,
-                     float* rstd, int rows, int n, float eps, cudaStream_t st) {
-#define APEX_LN_FWD(VPT, TPR) launch<T, VPT, TPR>(x, w, b, y, mean, rstd, rows, n, eps, st)
-  APEX_NORM_BY_ROW(n, APEX_LN_FWD);
+cudaError_t dispatch(const FwdArgs& a) {
+  if (a.route != NORM_SCALAR &&
+      (a.n % chunk_len<T>() != 0 || !aligned16(a.x) || !aligned16(a.y) ||
+       (a.w != nullptr && (!aligned16(a.w) || !aligned16(a.b)))))
+    return cudaErrorInvalidValue;
+#define APEX_LN_FWD(VPT, TPR) launch<T, VPT, TPR>(a)
+  APEX_NORM_BY_ROW(a.n, APEX_LN_FWD);
 #undef APEX_LN_FWD
 }
-
 
 // ---------------------------------------------------------------------------
 // backward
@@ -250,20 +445,25 @@ cudaError_t dispatch_bwd(const void* g, const void* x, const float* mean, const 
 }  // namespace
 
 // x (rows, n) contiguous in dtype (0 float32, 1 bfloat16, 2 float16);
-// w, b (n,) float32, both null for the non-affine form; y like x;
-// mean, rstd (rows,) float32.  Returns the cudaError_t of the launch.
-extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b, void* y, void* mean,
-                           void* rstd, int rows, int n, float eps, int dtype, void* stream) {
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  float* mf = static_cast<float*>(mean);
-  float* rf = static_cast<float*>(rstd);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || n <= 0 || (wf == nullptr) != (bf == nullptr)) return cudaErrorInvalidValue;
+// w, b (n,) in wdtype and bdtype (codes as dtype's, each independent of
+// x's), both null for the non-affine form; y like x; mean, rstd (rows,)
+// float32.  route: NORM_SCALAR (0) or NORM_VEC (1); vec takes n a
+// multiple of 16 / sizeof(x's dtype) and 16-byte aligned x, y, w and b.
+// Returns the cudaError_t of the launch.
+extern "C" int apex_ln_fwd(const void* x, const void* w, int wdtype, const void* b, int bdtype,
+                           void* y, void* mean, void* rstd, int rows, int n, float eps,
+                           int dtype, int route, void* stream) {
+  const FwdArgs a{x, w, wdtype, b, bdtype, y, static_cast<float*>(mean),
+                  static_cast<float*>(rstd), rows, n, eps, route,
+                  static_cast<cudaStream_t>(stream)};
+  if (rows <= 0 || n <= 0 || (w == nullptr) != (b == nullptr) || wdtype < DT_F32 ||
+      wdtype > DT_F16 || bdtype < DT_F32 || bdtype > DT_F16 ||
+      (route != NORM_SCALAR && route != NORM_VEC))
+    return cudaErrorInvalidValue;
   switch (dtype) {
-    case 0: return dispatch<float>(x, wf, bf, y, mf, rf, rows, n, eps, st);
-    case 1: return dispatch<__nv_bfloat16>(x, wf, bf, y, mf, rf, rows, n, eps, st);
-    case 2: return dispatch<__half>(x, wf, bf, y, mf, rf, rows, n, eps, st);
+    case DT_F32: return dispatch<float>(a);
+    case DT_BF16: return dispatch<__nv_bfloat16>(a);
+    case DT_F16: return dispatch<__half>(a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,8 +3,9 @@
 //
 // Replaces: apex_tpu/kernels/rms_norm.py::rms_forward (Pallas kernel
 // _fwd_kernel): y = x * rstd [* w] over the last dim, with
-// rstd = 1 / sqrt(mean(x^2) + eps) in fp32; y is in x's dtype, rstd fp32,
-// one per row.  And apex_tpu/kernels/rms_norm.py::rms_backward (Pallas
+// rstd = rsqrt(mean(x^2) + eps) in fp32 (the forward's mean a product with
+// 1 / n and its rsqrt the instruction's, as in layer_norm.cu); y is in x's
+// dtype, rstd fp32, one per row.  And apex_tpu/kernels/rms_norm.py::rms_backward (Pallas
 // kernel _bwd_kernel): from the saved rstd, xhat = x * rstd, gh = g * w,
 // c2 = mean(gh * xhat) and dx = (gh - xhat * c2) * rstd in x's dtype;
 // dw = sum(g * xhat) over all rows, in fp32.
@@ -15,14 +16,23 @@
 // ~20 fp32 operations per byte, so the least time is the bytes of x and y
 // (forward) or g, x and dx (backward) over 3.35 TB/s; the 8-row decode
 // shape is bound by launch latency.
+// The forward at the training shape moves 50 MB, which the 50 MB L2
+// cannot hold between calls; at 4096 x 768 fp32 its 25 MB can stay there,
+// so a warm call may beat the HBM bound.  What bounds it in practice is
+// bytes in flight: enough 16-byte loads issued ahead of their use.
 //
 // Design: layer_norm.cu's, without the mean, on the row layout of
 // norm_common.cuh.  The row stays in registers, so x (and g) are read from
 // memory once.  A row of n <= 1024 belongs to one warp (four rows per
 // 128-thread block); a longer row to a 256- or 1024-thread block whose warps
-// combine their partial sums through shared memory.  Each thread holds VPT
-// elements at a stride of the row's thread count, so neighbouring threads
-// read neighbouring addresses.  Up to n = 16384.  The TPU kernel sums dw in place across its sequential grid;
+// combine their partial sums through shared memory.  Up to n = 16384.  The
+// forward has layer_norm.cu's two routes: vec (16-byte chunks of x and y,
+// row streams walking rows at a grid stride with the next row in flight,
+// the weight read once per block in its own dtype, staged in shared
+// memory as fp32 planes or, where each stream takes one row, held in
+// registers) for n a multiple of 16 bytes' worth of x's dtype and 16-byte
+// aligned x, y and w; scalar (one element per access) for the rest.  The
+// TPU kernel sums dw in place across its sequential grid;
 // CUDA blocks run in no order, so the backward runs a fixed grid of a few
 // blocks per SM, each walking rows at a grid stride and keeping its
 // threads' column sums in registers, and writes one fp32 row of partial
@@ -33,19 +43,14 @@
 
 namespace {
 
-template <typename T, int VPT, int TPR>
-__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC)
-rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
-               float* __restrict__ rstd_out, int rows, int n, float eps) {
-  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR;
-  __shared__ float red[RPC][WPR];
+// the scalar route's row: one element per access, w (of its own type W;
+// null for the plain form) read after rstd, which is the vec kernel's
+template <typename T, int VPT, int TPR, typename W>
+__device__ __forceinline__ void rms_fwd_row(const T* __restrict__ xr, const W* __restrict__ w,
+                                            T* __restrict__ yr, float* __restrict__ rstd_out,
+                                            long long row, int n, float inv_n, float eps,
+                                            float* red) {
   const int tid = threadIdx.x;
-  const long long row = (long long)blockIdx.x * RPC + threadIdx.y;
-  // a block of several warps holds one row (RPC == 1), so a block either
-  // returns whole or not at all and the __syncthreads in row_sum are safe
-  if (row >= rows) return;
-  const T* xr = x + row * n;
-
   float v[VPT];
   float q = 0.f;
 #pragma unroll
@@ -54,38 +59,171 @@ rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restri
     v[i] = c < n ? to_f(xr[c]) : 0.f;
     q += v[i] * v[i];
   }
-  const float ms = row_sum<WPR>(q, red[threadIdx.y]) / n;
-  const float rs = 1.f / sqrtf(ms + eps);
+  const float rs = rsqrtf(row_sum<Shape<TPR>::WPR>(q, red) * inv_n + eps);
 
-  T* yr = y + row * n;
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
     const int c = tid + i * TPR;
     if (c < n) {
       float o = v[i] * rs;
-      if (w != nullptr) o = o * w[c];
+      if (w != nullptr) o = o * to_f(w[c]);
       yr[c] = from_f<T>(o);
     }
   }
   if (tid == 0) rstd_out[row] = rs;
 }
 
+// the scalar route: any n and alignment; the weight's dtype switched on
+// once, around the whole row
 template <typename T, int VPT, int TPR>
-cudaError_t launch(const void* x, const float* w, void* y, float* rstd, int rows, int n,
-                   float eps, cudaStream_t st) {
+__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC)
+rms_fwd_kernel(const T* __restrict__ x, const void* __restrict__ w, int wdt,
+               T* __restrict__ y, float* __restrict__ rstd_out, int rows, int n,
+               float inv_n, float eps) {
+  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR;
+  __shared__ float red[RPC][WPR];
+  const long long row = (long long)blockIdx.x * RPC + threadIdx.y;
+  // a block of several warps holds one row (RPC == 1), so a block either
+  // returns whole or not at all and the __syncthreads in row_sum are safe
+  if (row >= rows) return;
+  APEX_PARAM_SWITCH(wdt, W,
+      rms_fwd_row<T, VPT, TPR>(x + row * n, static_cast<const W*>(w), y + row * n, rstd_out,
+                               row, n, inv_n, eps, red[threadIdx.y]));
+}
+
+// the vec route: 16-byte chunks, chunk tid + i * TPR of a row to each
+// thread; each row stream walks rows at a grid stride with the next row's
+// chunks in flight while it reduces the current one; the chunks stay
+// packed and are converted to fp32 in each pass.  w, as fp32, is held as
+// PARAMS says (see launch).  rstd as layer_norm.cu's vec kernel: a
+// product with inv_n = 1 / n and the rsqrt instruction
+template <typename T, int CPT, int TPR, int PARAMS>
+__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC, 1)
+rms_fwd_vec_kernel(const T* __restrict__ x, const void* __restrict__ w, int wdt,
+                   T* __restrict__ y, float* __restrict__ rstd_out, int rows, int n,
+                   float inv_n, float eps) {
+  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR, L = chunk_len<T>();
+  constexpr int RC = PARAMS == PARAMS_REGS ? CPT : 1, SLOTS = CPT * TPR;
+  __shared__ float red[RPC][WPR];
+  extern __shared__ float4 staged[];  // w's L / 4 planes
+  const int tid = threadIdx.x;
+  const int chunks = n / L;
+
+  // with RPC == 1 every thread of the block walks the same rows, so the
+  // __syncthreads in row_sum are reached by all of them
+  const long long stride = (long long)gridDim.x * RPC;
+  long long row = (long long)blockIdx.x * RPC + threadIdx.y;
+  uint4 cur[CPT];
+  float wr[RC][L];
+  if (row < rows) load_row<CPT, TPR>(reinterpret_cast<const uint4*>(x + row * n), chunks, cur);
+  if constexpr (PARAMS == PARAMS_SHARED) {
+    APEX_PARAM_SWITCH(wdt, P,
+        stage_param<L, SLOTS, TPR * RPC>(static_cast<const P*>(w), chunks, staged));
+    __syncthreads();
+  } else if constexpr (PARAMS == PARAMS_REGS) {
+    APEX_PARAM_SWITCH(wdt, P, load_param_row<L, CPT, TPR>(static_cast<const P*>(w), chunks, wr));
+  }
+  for (; row < rows; row += stride) {
+    uint4 nxt[CPT];
+    if (row + stride < rows)
+      load_row<CPT, TPR>(reinterpret_cast<const uint4*>(x + (row + stride) * n), chunks, nxt);
+
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      if (tid + i * TPR < chunks) {
+        float v[L];
+        unpack_chunk<T>(cur[i], v);
+#pragma unroll
+        for (int j = 0; j < L; ++j) q += v[j] * v[j];
+      }
+    }
+    const float rs = rsqrtf(row_sum<WPR>(q, red[threadIdx.y]) * inv_n + eps);
+
+    uint4* yr = reinterpret_cast<uint4*>(y + row * n);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * TPR;
+      if (c < chunks) {
+        float o[L], wv[L];
+        unpack_chunk<T>(cur[i], o);
+        if constexpr (PARAMS == PARAMS_SHARED) {
+          load_staged<L, SLOTS>(staged, c, wv);
+        } else if constexpr (PARAMS == PARAMS_REGS) {
+#pragma unroll
+          for (int j = 0; j < L; ++j) wv[j] = wr[i][j];
+        }
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          o[j] = o[j] * rs;
+          if constexpr (PARAMS != PARAMS_NONE) o[j] = o[j] * wv[j];
+        }
+        yr[c] = pack_chunk<T>(o);
+      }
+    }
+    if (tid == 0) rstd_out[row] = rs;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) cur[i] = nxt[i];
+  }
+}
+
+struct FwdArgs {
+  const void* x;
+  const void* w;
+  int wdt;
+  void* y;
+  float* rstd;
+  int rows, n;
+  float eps;
+  int route;
+  cudaStream_t st;
+};
+
+template <typename T, int VPT, int TPR>
+cudaError_t launch(const FwdArgs& a) {
   constexpr int RPC = Shape<TPR>::RPC;
   const dim3 block(TPR, RPC);
-  const dim3 grid((rows + RPC - 1) / RPC);
-  rms_fwd_kernel<T, VPT, TPR><<<grid, block, 0, st>>>(
-      static_cast<const T*>(x), w, static_cast<T*>(y), rstd, rows, n, eps);
+  if (a.route == NORM_SCALAR) {
+    rms_fwd_kernel<T, VPT, TPR><<<(a.rows + RPC - 1) / RPC, block, 0, a.st>>>(
+        static_cast<const T*>(a.x), a.w, a.wdt, static_cast<T*>(a.y), a.rstd, a.rows, a.n,
+        1.f / a.n, a.eps);
+    return cudaGetLastError();
+  }
+  constexpr int CPT = chunks_per_thread<T>(VPT), L = chunk_len<T>();
+  constexpr int SMEM_MAX = CPT * L * TPR * int(sizeof(float));
+  static const int per_sm = vec_blocks_per_sm(rms_fwd_vec_kernel<T, CPT, TPR, PARAMS_SHARED>,
+                                              TPR * RPC, SMEM_MAX);
+  int grid = 0;
+  const cudaError_t e = norm_vec_grid(a.rows, RPC, per_sm, &grid);
+  if (e != cudaSuccess) return e;
+  auto kernel = rms_fwd_vec_kernel<T, CPT, TPR, PARAMS_NONE>;
+  int smem = 0;
+  if (a.w != nullptr) {
+    kernel = rms_fwd_vec_kernel<T, CPT, TPR, PARAMS_SHARED>;
+    smem = SMEM_MAX;
+    // w in registers where each row stream takes one row, not in a
+    // 1024-thread block (layer_norm.cu's launch)
+    if constexpr (TPR < 1024) {
+      if ((long long)grid * RPC >= a.rows) {
+        kernel = rms_fwd_vec_kernel<T, CPT, TPR, PARAMS_REGS>;
+        smem = 0;
+      }
+    }
+  }
+  kernel<<<grid, block, smem, a.st>>>(static_cast<const T*>(a.x), a.w, a.wdt,
+                                      static_cast<T*>(a.y), a.rstd, a.rows, a.n, 1.f / a.n,
+                                      a.eps);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const float* w, void* y, float* rstd, int rows, int n,
-                     float eps, cudaStream_t st) {
-#define APEX_RMS_FWD(VPT, TPR) launch<T, VPT, TPR>(x, w, y, rstd, rows, n, eps, st)
-  APEX_NORM_BY_ROW(n, APEX_RMS_FWD);
+cudaError_t dispatch(const FwdArgs& a) {
+  if (a.route != NORM_SCALAR &&
+      (a.n % chunk_len<T>() != 0 || !aligned16(a.x) || !aligned16(a.y) ||
+       (a.w != nullptr && !aligned16(a.w))))
+    return cudaErrorInvalidValue;
+#define APEX_RMS_FWD(VPT, TPR) launch<T, VPT, TPR>(a)
+  APEX_NORM_BY_ROW(a.n, APEX_RMS_FWD);
 #undef APEX_RMS_FWD
 }
 
@@ -211,18 +349,22 @@ cudaError_t dispatch_bwd(const void* g, const void* x, const float* rstd, const 
 }  // namespace
 
 // x (rows, n) contiguous in dtype (0 float32, 1 bfloat16, 2 float16);
-// w (n,) float32, or null for the non-affine form; y like x; rstd (rows,)
-// float32.  Returns the cudaError_t of the launch.
-extern "C" int apex_rms_fwd(const void* x, const void* w, void* y, void* rstd, int rows,
-                            int n, float eps, int dtype, void* stream) {
-  const float* wf = static_cast<const float*>(w);
-  float* rf = static_cast<float*>(rstd);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || n <= 0) return cudaErrorInvalidValue;
+// w (n,) in wdtype (codes as dtype's, independent of x's), or null for
+// the non-affine form; y like x; rstd (rows,) float32.  route as
+// apex_ln_fwd's (layer_norm.cu): NORM_SCALAR (0) or NORM_VEC (1); vec
+// takes n a multiple of 16 / sizeof(x's dtype) and 16-byte aligned x, y
+// and w.  Returns the cudaError_t of the launch.
+extern "C" int apex_rms_fwd(const void* x, const void* w, int wdtype, void* y, void* rstd,
+                            int rows, int n, float eps, int dtype, int route, void* stream) {
+  const FwdArgs a{x, w, wdtype, y, static_cast<float*>(rstd), rows, n, eps, route,
+                  static_cast<cudaStream_t>(stream)};
+  if (rows <= 0 || n <= 0 || wdtype < DT_F32 || wdtype > DT_F16 ||
+      (route != NORM_SCALAR && route != NORM_VEC))
+    return cudaErrorInvalidValue;
   switch (dtype) {
-    case DT_F32: return dispatch<float>(x, wf, y, rf, rows, n, eps, st);
-    case DT_BF16: return dispatch<__nv_bfloat16>(x, wf, y, rf, rows, n, eps, st);
-    case DT_F16: return dispatch<__half>(x, wf, y, rf, rows, n, eps, st);
+    case DT_F32: return dispatch<float>(a);
+    case DT_BF16: return dispatch<__nv_bfloat16>(a);
+    case DT_F16: return dispatch<__half>(a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -9,6 +9,15 @@ and ``mean``, ``rstd`` of shape ``(rows, 1)`` in fp32.  And of
 affine form, ``dgamma``/``dbeta`` summed over the rows in fp32.  A CUDA
 tensor launches the kernel; a CPU tensor takes the plain version
 (:func:`ln_forward_reference`, :func:`ln_backward_reference`).
+
+The forward kernel reads the affine parameters in their own dtypes (fp32,
+bf16 or fp16, each independent of x's) and has two routes, which
+:func:`norm_route` picks before the launch (the RMSNorm forward uses the
+same rule): ``vec``, 16-byte accesses of x, y and the parameters, for a
+width that is a multiple of 16 bytes' worth of x's dtype and 16-byte
+aligned bases; ``scalar``, one element per access, for the rest.  Each
+route has its own counter (``ln_forward_vec``, ``ln_forward_scalar``)
+beside the total ``ln_forward``.
 """
 from __future__ import annotations
 
@@ -22,11 +31,27 @@ from .dispatch import LAUNCHES, check_dtype, dtype_code, use_kernel
 
 MAX_N = 16384     # the longest row the kernel takes (csrc/layer_norm.cu)
 
+# the forward entry point's route codes (csrc/norm_common.cuh), in order
+ROUTES = ("scalar", "vec")
+VEC_BYTES = 16    # the vec route's access: one 16-byte chunk a thread
+
 LAUNCHES.setdefault("ln_forward", 0)
+for _route in ROUTES:
+    LAUNCHES.setdefault(f"ln_forward_{_route}", 0)
 # the backward is two launches: dx with per-block partial column sums, then
 # the column reduction of the partials into dgamma/dbeta (affine form only)
 LAUNCHES.setdefault("ln_backward_rows", 0)
 LAUNCHES.setdefault("ln_backward_cols", 0)
+
+
+def norm_route(dtype, n, *addresses):
+    """The norm forward kernels' route for x of ``dtype`` and width ``n``
+    at the given base addresses (x, y and the parameters): ``"vec"`` or
+    ``"scalar"`` (see the module note)."""
+    if (n % (VEC_BYTES // dtype.itemsize) or n > MAX_N
+            or any(a % VEC_BYTES for a in addresses)):
+        return "scalar"
+    return "vec"
 
 
 def ln_forward_reference(x2d, weight, bias, eps):
@@ -97,7 +122,8 @@ def _validate_bwd(g2d, x2d, mean, rstd, weight):
 def _lib():
     lib = _build.load("layer_norm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.apex_ln_fwd.argtypes = [p] * 6 + [i, i, ctypes.c_float, i, p]
+    lib.apex_ln_fwd.argtypes = [p, p, i, p, i, p, p, p, i, i, ctypes.c_float,
+                                i, i, p]
     lib.apex_ln_fwd.restype = i
     lib.apex_ln_bwd_parts.argtypes = [i, i]
     lib.apex_ln_bwd_parts.restype = i
@@ -123,21 +149,25 @@ def _launch(x2d, weight, bias, eps):
     rstd = torch.empty_like(mean)
     if rows == 0:
         return y, mean, rstd
-    if weight is not None:
-        # the kernel reads the affine parameters as fp32
-        weight = weight.to(torch.float32).contiguous()
-        bias = bias.to(torch.float32).contiguous()
+    affine = weight is not None
+    if affine:
+        # read in their own dtypes by the kernel: no cast
+        weight, bias = weight.contiguous(), bias.contiguous()
+    ptrs = [t.data_ptr() for t in (x2d, y, weight, bias) if t is not None]
+    route = norm_route(x2d.dtype, n, *ptrs)
     lib = _lib()
     with torch.cuda.device(x2d.device):
         err = lib.apex_ln_fwd(
-            x2d.data_ptr(),
-            None if weight is None else weight.data_ptr(),
-            None if bias is None else bias.data_ptr(),
+            x2d.data_ptr(), weight.data_ptr() if affine else None,
+            dtype_code(weight.dtype) if affine else 0,
+            bias.data_ptr() if affine else None,
+            dtype_code(bias.dtype) if affine else 0,
             y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), rows, n,
-            float(eps), dtype_code(x2d.dtype),
+            float(eps), dtype_code(x2d.dtype), ROUTES.index(route),
             torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "ln_forward")
+    _build.check(lib, err, f"ln_forward ({route} route)")
     LAUNCHES["ln_forward"] += 1
+    LAUNCHES[f"ln_forward_{route}"] += 1
     return y, mean, rstd
 
 

@@ -9,6 +9,12 @@ of shape ``(rows, 1)`` in fp32.  And of ``rms_backward``: from the saved
 the rows in fp32.  A CUDA tensor launches the kernel; a CPU tensor takes
 the plain version (:func:`rms_forward_reference`,
 :func:`rms_backward_reference`).
+
+The forward kernel reads the weight in its own dtype and takes the
+LayerNorm forward's two routes, ``vec`` and ``scalar``, by the same rule
+(:func:`~apex_tpu_torch.kernels.layer_norm.norm_route`), each with its own
+counter (``rms_forward_vec``, ``rms_forward_scalar``) beside the total
+``rms_forward``.
 """
 from __future__ import annotations
 
@@ -19,10 +25,13 @@ import torch
 
 from .. import _build
 from .dispatch import LAUNCHES, check_dtype, dtype_code, use_kernel
+from .layer_norm import ROUTES, norm_route
 
 MAX_N = 16384     # the longest row the kernel takes (csrc/rms_norm.cu)
 
 LAUNCHES.setdefault("rms_forward", 0)
+for _route in ROUTES:
+    LAUNCHES.setdefault(f"rms_forward_{_route}", 0)
 # the backward is two launches: dx with per-block partial column sums, then
 # the column reduction of the partials into dw (affine form only)
 LAUNCHES.setdefault("rms_backward_rows", 0)
@@ -87,7 +96,8 @@ def _validate_bwd(g2d, x2d, rstd, weight):
 def _lib():
     lib = _build.load("rms_norm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.apex_rms_fwd.argtypes = [p] * 4 + [i, i, ctypes.c_float, i, p]
+    lib.apex_rms_fwd.argtypes = [p, p, i, p, p, i, i, ctypes.c_float, i, i,
+                                 p]
     lib.apex_rms_fwd.restype = i
     lib.apex_rms_bwd_parts.argtypes = [i, i]
     lib.apex_rms_bwd_parts.restype = i
@@ -112,17 +122,21 @@ def _launch(x2d, weight, eps):
     rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
     if rows == 0:
         return y, rstd
-    if weight is not None:
-        # the kernel reads the weight as fp32
-        weight = weight.to(torch.float32).contiguous()
+    affine = weight is not None
+    if affine:
+        weight = weight.contiguous()   # read in its own dtype: no cast
+    ptrs = [t.data_ptr() for t in (x2d, y, weight) if t is not None]
+    route = norm_route(x2d.dtype, n, *ptrs)
     lib = _lib()
     with torch.cuda.device(x2d.device):
         err = lib.apex_rms_fwd(
-            x2d.data_ptr(), None if weight is None else weight.data_ptr(),
-            y.data_ptr(), rstd.data_ptr(), rows, n, float(eps),
-            dtype_code(x2d.dtype), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "rms_forward")
+            x2d.data_ptr(), weight.data_ptr() if affine else None,
+            dtype_code(weight.dtype) if affine else 0, y.data_ptr(),
+            rstd.data_ptr(), rows, n, float(eps), dtype_code(x2d.dtype),
+            ROUTES.index(route), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, f"rms_forward ({route} route)")
     LAUNCHES["rms_forward"] += 1
+    LAUNCHES[f"rms_forward_{route}"] += 1
     return y, rstd
 
 

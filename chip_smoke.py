@@ -27,7 +27,19 @@ Phases, each of which raises on failure:
    main paths' shapes (CUDA events around back-to-back calls queued behind
    a device-side sleep, median over timed runs after warm-up), and, where
    a function is two launches, each launch's device time from
-   ``torch.profiler``;
+   ``torch.profiler``; every instance of the LayerNorm and RMSNorm
+   forward kernels free of spills and stack (``cuobjdump -res-usage`` and
+   ``-sass``); those forwards on the route the
+   wrapper picks (read from the per-route counters: ``vec`` for widths
+   that are a multiple of 16 bytes' worth of x's dtype, ``scalar`` for the
+   rest), the vec cases once more on the scalar route forced through the C
+   entry point, with parameters in x's dtype and in others; and their times
+   at the train step's (16384, 768) bf16, BERT's (8192, 768) and (1280,
+   768) bf16, prefill's (4096, 768) and decode's (8, 768) fp32: each route
+   through its C entry point, the wrapper, the library call and
+   ``y.copy_(x)`` of the same bytes, each warm (back-to-back calls
+   on one input) and cold (rotating over inputs of 2 x the L2's size), and
+   the device operations of one wrapper call;
 3. the serving path: ``generate`` on GPT-2 small (hidden 768, 12 layers,
    12 heads, vocab 50257, max_positions 640, fp32, random weights from a
    seed) with a batch of 8 512-token prompts and 128 greedy new tokens,
@@ -91,7 +103,8 @@ Phases, each of which raises on failure:
    against BatchNorm2d; a
    planted overflow skipped alike on the card and on the CPU (gloo);
 12. the RMSNorm kernels against their plain versions (fp32, bf16 and fp16,
-   affine and not, rows of 768 to 12000, the (16384, 768) training shape),
+   affine and not, rows of 768 to 12000, the (16384, 768) training shape;
+   the forward on both routes and timed as the LayerNorm forward is),
    and the fused LM-head + cross-entropy kernels against theirs on the
    route the wrapper picks, read from the per-route launch counters: the
    tensor-core route at the Llama loss's (16368, 32000, 768) bf16 and at
@@ -147,7 +160,10 @@ Phases, each of which raises on failure:
    sequence): MLM logits, loss, gradients, and one LAMB step's masters and
    moments; one ``flash_attention`` call with dropout 0.1, card against CPU.
 
-It prints a JSON line of the BERT, Llama-step and dropout-arm numbers,
+Every main path's launch counts include the norm forwards' per-route
+counters (each path runs them on ``vec``), and every profiled step prints
+its device operations.  It prints a JSON line of the BERT, Llama-step,
+GPT profiled-step and dropout-arm numbers,
 one JSON line of per-kernel numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero before
@@ -156,6 +172,7 @@ printing a result.  TF32 is off for every comparison.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -254,12 +271,216 @@ def check(what, err, tol):
         raise AssertionError(f"{what}: error {err} above tolerance {tol}")
 
 
-def ln_phase(torch, layer_norm):
-    """LayerNorm kernel against its plain version; timings at the main
-    path's shapes.  Returns the kernel line's numbers."""
+L2_BYTES = 50e6                 # H100 SXM L2 cache
+# the norm forwards' timed shapes: the GPT / Llama train step, BERT's step
+# and its MLM head, prefill and one decode step of generate
+NORM_SHAPES = (((TRAIN_BATCH * TRAIN_SEQ, 768), "bfloat16"),
+               ((BERT_BATCH * BERT_SEQ, 768), "bfloat16"),
+               ((BERT_BATCH * BERT_MLM, 768), "bfloat16"),
+               ((BATCH * PROMPT, 768), "float32"), ((BATCH, 768), "float32"))
+# the forward entry points' routes as they are timed: (name, route code)
+NORM_VARIANTS = (("vec", 1), ("scalar", 0))
+
+
+def _norm_fns(kind, mod):
+    """The kind's ("ln" or "rms") wrapper and plain version, each as
+    f(x, w, b, eps) -> (y, mean or None, rstd)."""
+    if kind == "ln":
+        return mod.ln_forward, mod.ln_forward_reference
+
+    def wrap(f):
+        def g(x, w, b, eps):
+            y, rstd = f(x, w, eps)
+            return y, None, rstd
+        return g
+    return wrap(mod.rms_forward), wrap(mod.rms_forward_reference)
+
+
+def _norm_entry(torch, kind, mod, w, b, eps, route):
+    """fn(x, y, mean, rstd) launching the kind's forward through its C
+    entry point on ``route`` (the code, NORM_VARIANTS) into the given
+    outputs (``mean`` None for RMSNorm), with w and b in their own
+    dtypes."""
+    lib, code = mod._lib(), mod.dtype_code
+    st = torch.cuda.current_stream().cuda_stream
+    wp = None if w is None else w.data_ptr()
+    wc = 0 if w is None else code(w.dtype)
+
+    def fn(x, y, mean, rstd):
+        rows, n = x.shape
+        if kind == "ln":
+            err = lib.apex_ln_fwd(
+                x.data_ptr(), wp, wc, None if b is None else b.data_ptr(),
+                0 if b is None else code(b.dtype), y.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), rows, n, eps,
+                code(x.dtype), route, st)
+        else:
+            err = lib.apex_rms_fwd(x.data_ptr(), wp, wc, y.data_ptr(),
+                                   rstd.data_ptr(), rows, n, eps,
+                                   code(x.dtype), route, st)
+        if err:
+            raise AssertionError(f"{kind} forward entry point, route "
+                                 f"{route}: CUDA error {err}")
+    return fn
+
+
+def _norm_outputs(torch, kind, x):
+    rows = x.shape[0]
+    stat = lambda: torch.empty((rows, 1), device="cuda")  # noqa: E731
+    return torch.empty_like(x), stat() if kind == "ln" else None, stat()
+
+
+def _norm_check(kind, tag, got, ref, tol):
+    """The forward's outputs against the plain version's: y at ``tol`` of
+    max(1, max |ref|), the fp32 statistics at 1e-5."""
+    check(f"{tag} y", scaled_err(got[0], ref[0])[0], tol)
+    if kind == "ln":
+        check(f"{tag} mean", scaled_err(got[1], ref[1])[0], 1e-5)
+    check(f"{tag} rstd", scaled_err(got[2], ref[2])[0], 1e-5)
+
+
+def norm_route_cases(torch, kind, mod, dispatch, cases, make, eps, tol_of):
+    """Each case through the wrapper, its route read from the per-route
+    counters and held to ``norm_route``'s rule (vec where n is a multiple
+    of 16 bytes' worth of x's dtype: the tensors here are fresh, so
+    16-byte aligned), then, where the wrapper took vec, once more forced
+    onto the scalar route through the C entry point; both against the
+    plain version in fp32 on the same inputs.  ``make(case)`` gives (tag,
+    x, w, b).  Returns the routes taken."""
+    fwd, ref_fn = _norm_fns(kind, mod)
+    routes = []
+    for case in cases:
+        tag, x, w, b = make(case)
+        n = x.shape[1]
+        dispatch.reset_counts()
+        got = fwd(x, w, b, eps)
+        torch.cuda.synchronize()
+        c = dispatch.counts()
+        taken = [r for r in mod.ROUTES if c[f"{kind}_forward_{r}"]]
+        want = "vec" if n % (16 // x.element_size()) == 0 else "scalar"
+        if taken != [want] or c[f"{kind}_forward"] != 1:
+            raise AssertionError(f"{kind} forward {tag} took {taken}, not "
+                                 f"{want} ({c})")
+        ref = ref_fn(x.float(), None if w is None else w.float(),
+                     None if b is None else b.float(), eps)
+        tol = tol_of(x.dtype)
+        _norm_check(kind, f"{tag} [{want}]", got, ref, tol)
+        if want == "vec":
+            out = _norm_outputs(torch, kind, x)
+            _norm_entry(torch, kind, mod, w, b, eps, 0)(x, *out)
+            torch.cuda.synchronize()
+            _norm_check(kind, f"{tag} [scalar, forced]", out, ref, tol)
+        routes.append(want)
+    return routes
+
+
+def norm_times(torch, kind, mod, shape, dtype, g, eps):
+    """The kind's forward at ``shape`` in ``dtype`` with parameters in the
+    same dtype (as the steps and generate hold them): each route of
+    NORM_VARIANTS through its C entry point, the wrapper, the library call
+    (``F.layer_norm`` / ``F.rms_norm``) and ``y.copy_(x)`` of the same
+    bytes, each warm (back-to-back calls on one x/y pair) and cold
+    (rotating over enough distinct pairs that 2 x the 50 MB L2 lies between
+    two uses of one); the plain version warm; the bound.  Each entry route
+    is first held against the plain version on the same inputs, and five
+    wrapper calls are profiled for their device operations.  Returns the
+    numbers."""
+    import itertools
     from torch.nn import functional as F
+    rows, n = shape
+    dt = getattr(torch, dtype)
+    esize = torch.finfo(dt).bits // 8
+    pair_bytes = 2 * rows * n * esize
+    k = max(4, math.ceil(2 * L2_BYTES / pair_bytes))
+    xs = (torch.randn((k, rows, n), generator=g, device="cuda") * 2 + 1) \
+        .to(dt)
+    w = (torch.randn(n, generator=g, device="cuda") * 0.5 + 1).to(dt)
+    b = torch.randn(n, generator=g, device="cuda").to(dt) \
+        if kind == "ln" else None
+    pairs = [(xs[i],) + _norm_outputs(torch, kind, xs[i]) for i in range(k)]
+    fwd, ref_fn = _norm_fns(kind, mod)
+    ref = ref_fn(pairs[0][0], w, b, eps)
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    calls = {}
+    for name, route in NORM_VARIANTS:
+        e = _norm_entry(torch, kind, mod, w, b, eps, route)
+        e(*pairs[0])
+        torch.cuda.synchronize()
+        _norm_check(kind, f"{shape} {dtype} {name} (timed)",
+                    pairs[0][1:], ref, tol)
+        calls[name] = lambda p, e=e: e(*p)
+    calls["wrapper"] = lambda p: fwd(p[0], w, b, eps)
+    if kind == "ln":
+        calls["library"] = lambda p: F.layer_norm(p[0], (n,), w, b, eps)
+    else:
+        calls["library"] = lambda p: F.rms_norm(p[0], (n,), w, eps)
+    calls["copy"] = lambda p: p[1].copy_(p[0])
+    out = {}
+    for name, call in calls.items():
+        warm = median_ms(lambda: call(pairs[0]))[0]
+        it = itertools.cycle(pairs)
+        cold = median_ms(lambda: call(next(it)))[0]
+        out[f"{name}_ms"], out[f"{name}_cold_ms"] = warm, cold
+    out["plain_ms"] = median_ms(lambda: ref_fn(pairs[0][0], w, b, eps),
+                                reps=5, inner=4)[0]
+    stats = (2 if kind == "ln" else 1) * rows * 4
+    params = (2 if kind == "ln" else 1) * n * esize
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        pair_bytes + params + stats, (8 if kind == "ln" else 4) * rows * n,
+        FP32_FLOP_PER_S)
+    out["cold_pairs"] = k
+    # one wrapper call launches the kernel and nothing else (the parameters
+    # are read in their own dtype, not cast first); the profiler may drop
+    # an operation now and then, never add one
+    _, _, by_name, ops = _profiled(torch, lambda: [fwd(pairs[0][0], w, b, eps)
+                                                   for _ in range(5)])
+    others = [k for k in by_name or () if f"{kind}_fwd_" not in k]
+    if ops > 5 or others:
+        raise AssertionError(f"{kind} forward wrapper: {ops} device "
+                             f"operations in 5 calls, {others}")
+    out["device_ops_per_call"] = ops / 5
+    r = out
+    print(f"  time {shape} {dtype} affine, {dtype} parameters (ms warm / "
+          f"cold over {k} pairs): vec {r['vec_ms']:.4f} / "
+          f"{r['vec_cold_ms']:.4f}, scalar {r['scalar_ms']:.4f} / "
+          f"{r['scalar_cold_ms']:.4f}; wrapper {r['wrapper_ms']:.4f} / "
+          f"{r['wrapper_cold_ms']:.4f} ({r['device_ops_per_call']:g} device "
+          f"operations a call); library {r['library_ms']:.4f} / "
+          f"{r['library_cold_ms']:.4f}; y.copy_(x) {r['copy_ms']:.4f} / "
+          f"{r['copy_cold_ms']:.4f}; plain {r['plain_ms']:.4f}; bound "
+          f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    del xs, pairs
+    return out
+
+
+def _norm_main_err(torch, kind, mod, g, eps):
+    """Max abs error of the wrapper (vec) and the forced scalar route
+    against the plain version on the same bf16 tensors at the training
+    shape, bf16 parameters (y rounded to bf16 on both sides)."""
+    rows, n = TRAIN_BATCH * TRAIN_SEQ, 768
+    bf16 = torch.bfloat16
+    x = (torch.randn((rows, n), generator=g, device="cuda") * 2 + 1).to(bf16)
+    w = (torch.randn(n, generator=g, device="cuda") * 0.5 + 1).to(bf16)
+    b = torch.randn(n, generator=g, device="cuda").to(bf16) \
+        if kind == "ln" else None
+    fwd, ref_fn = _norm_fns(kind, mod)
+    ref = ref_fn(x, w, b, eps)
+    out = _norm_outputs(torch, kind, x)
+    _norm_entry(torch, kind, mod, w, b, eps, 0)(x, *out)
+    got = fwd(x, w, b, eps)
+    torch.cuda.synchronize()
+    return scaled_err(got[0], ref[0])[1], scaled_err(out[0], ref[0])[1]
+
+
+def ln_phase(torch, layer_norm, dispatch):
+    """LayerNorm forward against its plain version on the route the wrapper
+    picks and, where that is vec, on the scalar route forced too; the
+    routes' times at NORM_SHAPES.  Returns the kernel line's numbers."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    # (shape, x dtype, affine, parameter dtypes): the first cases with
+    # fp32 parameters, then the steps' half parameters, mixed dtypes, and a
+    # width that is no multiple of the vector (the scalar route)
     cases = [((4096, 768), f32, True), ((4096, 768), f32, False),
              ((4096, 768), bf16, True), ((4096, 768), bf16, False),
              ((8, 768), f32, True), ((8, 768), f32, False),
@@ -269,48 +490,43 @@ def ln_phase(torch, layer_norm):
              # BERT-base: the embeddings and the two norms of each layer,
              # then the MLM transform over the gathered positions
              ((BERT_BATCH * BERT_SEQ, 768), bf16, True),
-             ((BERT_BATCH * BERT_MLM, 768), bf16, True)]
-    print("LayerNorm forward vs plain (err: max abs / max(1, max |ref|)):")
-    main_err = None
-    for shape, dtype, affine in cases:
+             ((BERT_BATCH * BERT_MLM, 768), bf16, True),
+             ((TRAIN_BATCH * TRAIN_SEQ, 768), bf16, True, (bf16, bf16)),
+             ((BERT_BATCH * BERT_SEQ, 768), bf16, True, (bf16, bf16)),
+             ((4096, 768), f32, True, (bf16, f16)),
+             ((1280, 768), f16, True, (f32, f16)),
+             ((37, 1001), bf16, True, (bf16, bf16)),
+             ((37, 1001), f32, True, (f32, bf16)),
+             ((3, 12002), f16, False)]
+
+    def make(case):
+        shape, dtype, affine = case[:3]
+        pdt = case[3] if len(case) > 3 else (f32, f32)
         x = (torch.randn(shape, generator=g, device="cuda") * 2 + 1).to(dtype)
-        n = shape[1]
         w = b = None
         if affine:
-            w = torch.randn(n, generator=g, device="cuda")
-            b = torch.randn(n, generator=g, device="cuda")
-        y, mean, rstd = layer_norm.ln_forward(x, w, b, 1e-5)
-        torch.cuda.synchronize()
-        ry, rmean, rrstd = layer_norm.ln_forward_reference(x.float(), w, b,
-                                                           1e-5)
-        tol = 1e-5 if dtype == f32 else 2e-2
-        tag = f"{shape} {str(dtype)[6:]} affine={affine}"
-        ey, ey_abs = scaled_err(y, ry)
-        check(f"{tag} y", ey, tol)
-        check(f"{tag} mean", scaled_err(mean, rmean)[0], 1e-5)
-        check(f"{tag} rstd", scaled_err(rstd, rrstd)[0], 1e-5)
-        if shape == (4096, 768) and dtype == f32 and affine:
-            main_err = ey_abs
+            w = torch.randn(shape[1], generator=g, device="cuda").to(pdt[0])
+            b = torch.randn(shape[1], generator=g, device="cuda").to(pdt[1])
+        tag = (f"{shape} {str(dtype)[6:]} affine={affine}"
+               + (f" w {str(pdt[0])[6:]} b {str(pdt[1])[6:]}"
+                  if len(case) > 3 else ""))
+        return tag, x, w, b
 
-    numbers = {}
-    for shape in ((4096, 768), (8, 768)):
-        rows, n = shape
-        x = torch.randn(shape, generator=g, device="cuda")
-        w = torch.randn(n, generator=g, device="cuda")
-        b = torch.randn(n, generator=g, device="cuda")
-        ms, host = median_ms(lambda: layer_norm.ln_forward(x, w, b, 1e-5))
-        plain = median_ms(
-            lambda: layer_norm.ln_forward_reference(x, w, b, 1e-5))[0]
-        lib = median_ms(lambda: F.layer_norm(x, (n,), w, b, 1e-5))[0]
-        bound, by = bound_ms(2 * x.numel() * 4 + 2 * n * 4 + 2 * rows * 4,
-                             8 * x.numel(), FP32_FLOP_PER_S)
-        print(f"  time {shape} fp32 affine: kernel {ms:.4f} ms (host "
-              f"{host:.4f} ms a call), plain {plain:.4f} ms, F.layer_norm "
-              f"{lib:.4f} ms, bound {bound:.6f} ms ({by})")
-        numbers[shape] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=bound, bound_by=by)
-    return dict(max_abs_err=main_err, **numbers[(4096, 768)],
-                decode_shape_ms=numbers[(8, 768)]["ms"])
+    print("LayerNorm forward vs plain (err: max abs / max(1, max |ref|); "
+          "[route]):")
+    routes = norm_route_cases(torch, "ln", layer_norm, dispatch, cases, make,
+                              1e-5, lambda d: 1e-5 if d == f32 else 2e-2)
+    errs = _norm_main_err(torch, "ln", layer_norm, g, 1e-5)
+    print(f"  routes: {routes.count('vec')} cases vec, "
+          f"{routes.count('scalar')} scalar; ({TRAIN_BATCH * TRAIN_SEQ}, "
+          f"768) bf16, bf16 parameters, against the plain version on the "
+          f"same tensors: y max abs err {errs[0]:.3e} (vec), {errs[1]:.3e} "
+          f"(scalar)")
+    times = {f"{shape} {dtype}": norm_times(torch, "ln", layer_norm, shape,
+                                            dtype, g, 1e-5)
+             for shape, dtype in NORM_SHAPES}
+    return dict(max_abs_err=errs[0], scalar_max_abs_err=errs[1],
+                shapes=times)
 
 
 def _unmasked_pairs(sq, sk, causal, window):
@@ -517,10 +733,12 @@ def main_path(torch, dispatch, gpt):
     print("main path: generate(gpt2_small, batch 8, prompt 512, 128 new "
           "tokens, fp32, greedy)")
     print(f"  launches: {counts}")
+    print(f"  norm forwards by route: {_norm_routes(counts)}")
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
     want.update(_flash_want("simt", layers, backward=False),
-                ln_forward=(2 * layers + 1) * NEW)
+                ln_forward=(2 * layers + 1) * NEW,
+                ln_forward_vec=(2 * layers + 1) * NEW)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     if out.shape != (BATCH, PROMPT + NEW) or out.dtype != torch.long:
@@ -673,8 +891,8 @@ def kernel_split_ms(torch, fn, names, calls=5):
     return out
 
 
-def fwd_train_shapes(torch, attention, layer_norm):
-    """The forward kernels' times at the training path's shapes (bf16)."""
+def fwd_train_shapes(torch, attention):
+    """The flash forward's times at the training path's shape (bf16)."""
     from torch.nn import functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     bh, s, d = TRAIN_BATCH * 12, TRAIN_SEQ, 64
@@ -692,24 +910,10 @@ def fwd_train_shapes(torch, attention, layer_norm):
     bnd, by = bound_ms(4 * bh * s * d * 2 + bh * s * 4, ops, BF16_FLOP_PER_S)
     fl = dict(shape=f"({bh}, {s}, {d}) bf16 causal", ms=ms, plain_ms=plain,
               library_ms=lib, bound_ms=bnd, bound_by=by)
-    rows, n = TRAIN_BATCH * TRAIN_SEQ, 768
-    x = torch.randn((rows, n), generator=g, device="cuda").to(torch.bfloat16)
-    w = torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
-    b = torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
-    ms = median_ms(lambda: layer_norm.ln_forward(x, w, b, 1e-5))[0]
-    plain = median_ms(lambda: layer_norm.ln_forward_reference(x, w, b,
-                                                              1e-5))[0]
-    lib = median_ms(lambda: F.layer_norm(x, (n,), w, b, 1e-5))[0]
-    bnd, by = bound_ms(2 * rows * n * 2 + 2 * n * 2 + 2 * rows * 4,
-                       8 * rows * n, FP32_FLOP_PER_S)
-    ln = dict(shape=f"({rows}, {n}) bf16 affine", ms=ms, plain_ms=plain,
-              library_ms=lib, bound_ms=bnd, bound_by=by)
-    for what, r in (("flash_attention_fwd", fl), ("ln_forward", ln)):
-        print(f"  time {what} {r['shape']} (training shape): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})")
-    return fl, ln
+    print(f"  time flash_attention_fwd {fl['shape']} (training shape): "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by})")
+    return fl
 
 
 def ln_bwd_phase(torch, layer_norm):
@@ -1822,8 +2026,18 @@ def _lm_loss(torch):
     return lm_loss
 
 
-LN_NAMES = ("ln_forward", "ln_backward_rows", "ln_backward_cols")
-RMS_NAMES = ("rms_forward", "rms_backward_rows", "rms_backward_cols")
+# every train step runs each norm's forward (on the vec route), backward
+# and column sums once per norm
+LN_NAMES = ("ln_forward", "ln_forward_vec", "ln_backward_rows",
+            "ln_backward_cols")
+RMS_NAMES = ("rms_forward", "rms_forward_vec", "rms_backward_rows",
+             "rms_backward_cols")
+
+
+def _norm_routes(counts):
+    """The norm forwards' counters, totals and per route."""
+    return ", ".join(f"{k} {v}" for k, v in counts.items()
+                     if k.startswith(("ln_forward", "rms_forward")))
 
 
 def train_path(torch, dispatch, model, loss_fn, what, xent_want,
@@ -1831,7 +2045,7 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want,
     """make_train_step on ``model`` (GPT-2 small unless ``name`` says
     otherwise; ``norms`` names its norm kernels' counters) at the training
     shape, bf16 half copies, with ``loss_fn``; returns the launch counts of
-    one step, the step's ms and the first step's loss."""
+    one step, the step's ms and the profiled step's numbers."""
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.training import make_train_step
     opt = FusedAdam(list(model.parameters()), lr=LR, weight_decay=WD)
@@ -1854,6 +2068,7 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want,
           f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, "
           f"{what})")
     print(f"  launches in one step: {counts}")
+    print(f"  norm forwards by route: {_norm_routes(counts)}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     torch.cuda.reset_peak_memory_stats()
@@ -1874,9 +2089,9 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want,
           f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
     print(f"  losses of {len(values)} steps: "
           f"{', '.join(f'{x:.4f}' for x in values)}")
-    _print_profile(torch, lambda: step(ids, ids), 10)
+    prof = _print_profile(torch, lambda: step(ids, ids), 10)
     del step, opt
-    return counts, 1e3 * step_s, values[0]
+    return counts, 1e3 * step_s, prof
 
 
 def train_cpu_phase(torch, dispatch, gpt, model):
@@ -1942,6 +2157,7 @@ def train_cpu_phase(torch, dispatch, gpt, model):
             want.update(_flash_want("simt", layers), fused_adam=1,
                         **dict.fromkeys(LN_NAMES, 2 * layers + 1))
             print(f"  launches in the card's first fp32 step: {counts}")
+            print(f"  norm forwards by route: {_norm_routes(counts)}")
             if counts != want:
                 raise AssertionError(f"launch counts {counts} != expected "
                                      f"{want}")
@@ -2217,7 +2433,7 @@ def loss_mode_path(torch, dispatch, model, mode, note=""):
     """make_train_step on GPT-2 small at the training shape with the
     bench's chunked (default) or fused loss: launch counts around one step,
     10 timed steps, peak memory, one profiled step.  Returns (counts, step
-    ms)."""
+    ms, the profiled step's numbers)."""
     from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
     model.output_hidden = mode == "chunked"
     loss_fn = _chunked_lm_loss() if mode == "chunked" else \
@@ -2226,12 +2442,12 @@ def loss_mode_path(torch, dispatch, model, mode, note=""):
     n_chunks = -(-rows // _chunk_rows(rows, 50257, None)) \
         if mode == "chunked" else 1
     try:
-        counts, step_ms, _ = train_path(
+        counts, step_ms, prof = train_path(
             torch, dispatch, model, loss_fn, f"{mode} loss{note}",
             dict(xent_forward=n_chunks, xent_backward=n_chunks))
     finally:
         model.output_hidden = False
-    return counts, step_ms
+    return counts, step_ms, prof
 
 
 def pad_vocab_path(torch, gpt):
@@ -2270,15 +2486,19 @@ def pad_vocab_path(torch, gpt):
 
 
 def _print_profile(torch, fn, top):
+    """Profile one call of ``fn`` and print where its device time went;
+    returns its busy ms, idle share and device operations (None where the
+    profiler saw no device activity)."""
     wall, busy, by_name, n = _profiled(torch, fn)
     if busy is None:
         print(f"  profiled step: wall {wall:.2f} ms; device time not measured "
               f"(the profiler saw no device activity)")
-        return
+        return dict(busy_ms=None, idle_share=None, device_ops=n)
     print(f"  profiled step: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1 - busy / wall:.3f}, {n} device operations")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    return dict(busy_ms=busy, idle_share=1 - busy / wall, device_ops=n)
 
 
 def train_modes_cpu_phase(torch, gpt, model):
@@ -2395,10 +2615,9 @@ def amp_phase(torch, dispatch, gpt, model):
         counts[level] = dispatch.counts()
         layers = len(m.blocks)
         want = dict.fromkeys(counts[level], 0)
-        want.update(_flash_want("tc", layers), ln_forward=2 * layers + 1,
-                    ln_backward_rows=2 * layers + 1,
-                    ln_backward_cols=2 * layers + 1, xent_forward=1,
-                    xent_backward=1, fused_adam=1)
+        want.update(_flash_want("tc", layers), xent_forward=1,
+                    xent_backward=1, fused_adam=1,
+                    **dict.fromkeys(LN_NAMES, 2 * layers + 1))
         p0 = opt.param_groups[0]["params"][0]
         print(f"amp {level}: amp.initialize(gpt2_small, FusedAdam(eps={eps})"
               f") -> forward -> scale_loss -> backward -> step, batch "
@@ -2406,6 +2625,7 @@ def amp_phase(torch, dispatch, gpt, model):
               f"{len(opt.param_groups[0]['params'])} {p0.dtype} optimizer "
               f"params, moments {opt.state[p0]['exp_avg'].dtype}")
         print(f"  launches in iteration 3: {counts[level]}")
+        print(f"  norm forwards by route: {_norm_routes(counts[level])}")
         print(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; skipped "
               f"{skips}; loss scale {_amp_state.loss_scalers[0].loss_scale()}")
         if counts[level] != want:
@@ -2503,11 +2723,13 @@ LLAMA = dict(vocab_size=32000, hidden=768, layers=12, heads=12, kv_heads=4,
              intermediate=2048)
 
 
-def rms_phase(torch, rms_norm):
+def rms_phase(torch, rms_norm, dispatch):
     """The RMSNorm kernels against their plain versions (in fp32 on the
-    same inputs); timings at the Llama training shape (16384, 768) bf16.
-    Returns the three kernel lines' numbers: the forward, the backward's
-    row pass and its column sums."""
+    same inputs), the forward on the route the wrapper picks and, where
+    that is vec, on the scalar route forced too; the forward routes' times
+    at NORM_SHAPES, the backward's at the Llama training shape (16384, 768)
+    bf16.  Returns the three kernel lines' numbers: the forward, the
+    backward's row pass and its column sums."""
     from torch.nn import functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
@@ -2517,6 +2739,33 @@ def rms_phase(torch, rms_norm):
              ((BATCH, n), f32, True), ((37, 1000), f32, True),
              ((300, 2048), bf16, True), ((5, 4096), f16, True),
              ((3, 12000), f32, False)]
+    # the forward also with the weight in another dtype than x's, and at
+    # widths that are no multiple of the vector (the scalar route)
+    fwd_cases = cases + [((rows, n), bf16, True, f32),
+                         ((BATCH * PROMPT, n), f32, True, bf16),
+                         ((37, 1001), bf16, True, bf16),
+                         ((37, 1001), f32, True, f16),
+                         ((3, 12002), f16, False)]
+
+    def make(case):
+        shape, dtype, affine = case[:3]
+        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5) \
+            .to(dtype)
+        w = None
+        if affine:
+            w = (torch.randn(shape[1], generator=g, device="cuda") * 0.5
+                 + 1).to(case[3] if len(case) > 3 else dtype)
+        tag = f"{shape} {str(dtype)[6:]} affine={affine}" + (
+            f" w {str(case[3])[6:]}" if len(case) > 3 else "")
+        return tag, x, w, None
+
+    print("RMSNorm forward vs plain (err: max abs / max(1, max |ref|); "
+          "[route]):")
+    routes = norm_route_cases(torch, "rms", rms_norm, dispatch, fwd_cases,
+                              make, 1e-6,
+                              lambda d: 1e-5 if d == f32 else 2e-2)
+    print(f"  routes: {routes.count('vec')} cases vec, "
+          f"{routes.count('scalar')} scalar")
     print("RMSNorm forward/backward vs plain (the plain version in fp32 on "
           "the same inputs; err: max abs / max(1, max |ref|)):")
     main_err = None
@@ -2551,15 +2800,13 @@ def rms_phase(torch, rms_norm):
             main_err = (scaled_err(y, sy)[1], scaled_err(got[0], same[0])[1],
                         scaled_err(got[1], same[1])[1])
 
+    f_errs = _norm_main_err(torch, "rms", rms_norm, g, 1e-6)
+    f_times = {f"{shape} {dtype}": norm_times(torch, "rms", rms_norm, shape,
+                                              dtype, g, 1e-6)
+               for shape, dtype in NORM_SHAPES}
     x = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
     dy = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
     w = (torch.randn(n, generator=g, device="cuda") * 0.5 + 1).to(bf16)
-    f_ms = median_ms(lambda: rms_norm.rms_forward(x, w, 1e-6))[0]
-    f_plain = median_ms(lambda: rms_norm.rms_forward_reference(x, w,
-                                                               1e-6))[0]
-    f_lib = median_ms(lambda: F.rms_norm(x, (n,), w, 1e-6))[0]
-    fb = bound_ms(2 * rows * n * 2 + n * 2 + rows * 4, 4 * rows * n,
-                  FP32_FLOP_PER_S)
     _, rstd = rms_norm.rms_forward(x, w, 1e-6)
     fn = lambda: rms_norm.rms_backward(dy, x, rstd, w)  # noqa: E731
     b_ms = median_ms(fn)[0]
@@ -2577,22 +2824,22 @@ def rms_phase(torch, rms_norm):
     b_cols = bound_ms(parts * n * 4 + n * 4, parts * n, FP32_FLOP_PER_S)
     b_all = bound_ms(3 * rows * n * 2 + rows * 4 + n * 2 + n * 4,
                      8 * rows * n, FP32_FLOP_PER_S)
-    print(f"  time ({rows}, {n}) bf16 affine: forward {f_ms:.4f} ms (bound "
-          f"{fb[0]:.4f}, {fb[1]}; plain {f_plain:.4f}; F.rms_norm "
-          f"{f_lib:.4f}); backward, both launches {b_ms:.4f} ms (dx + "
+    print(f"  time ({rows}, {n}) bf16 affine: backward, both launches "
+          f"{b_ms:.4f} ms (dx + "
           f"partial sums {split['rms_bwd_kernel']:.4f} ms over {parts} "
           f"blocks, column sums {split['rms_bwd_cols']:.4f} ms; bound "
           f"{b_all[0]:.4f}, {b_all[1]}; plain {b_plain:.4f}; F.rms_norm "
           f"backward {b_lib:.4f})")
     print(f"  ({rows}, {n}) bf16 affine against the plain version on the "
-          f"same bf16 tensors: y max abs err {main_err[0]:.3e}, dx "
-          f"{main_err[1]:.3e}, dw {main_err[2]:.3e}")
+          f"same bf16 tensors: y max abs err {main_err[0]:.3e} (wrapper), "
+          f"{f_errs[0]:.3e} / {f_errs[1]:.3e} (vec / scalar, fresh "
+          f"inputs), dx {main_err[1]:.3e}, dw {main_err[2]:.3e}")
     common = dict(plain_ms=b_plain, library_ms=b_lib, whole_ms=b_ms,
                   whole_bound_ms=b_all[0],
                   scope="plain_ms and library_ms time the whole backward "
                         "(both launches)")
-    return (dict(max_abs_err=main_err[0], ms=f_ms, plain_ms=f_plain,
-                 library_ms=f_lib, bound_ms=fb[0], bound_by=fb[1]),
+    return (dict(max_abs_err=f_errs[0], scalar_max_abs_err=f_errs[1],
+                 shapes=f_times),
             dict(max_abs_err=main_err[1], ms=split["rms_bwd_kernel"],
                  bound_ms=b_rows[0], bound_by=b_rows[1], **common),
             dict(max_abs_err=main_err[2], ms=split["rms_bwd_cols"],
@@ -2615,8 +2862,9 @@ LMX_TC_KERNELS = ("lmx_fwd_tc", "lmx_dx_tc", "lmx_dw_tc")
 
 def _res_usage(source, name, count=1):
     """Registers, stack, local memory (spills) and static shared memory of
-    the ``count`` kernels of ``csrc/<source>.cu``'s built library whose
-    names contain ``name`` (``cuobjdump -res-usage``), in the order listed."""
+    the ``count`` kernels (any number, at least one, for None) of
+    ``csrc/<source>.cu``'s built library whose names contain ``name``
+    (``cuobjdump -res-usage``), in the order listed."""
     from pathlib import Path
     from apex_tpu_torch import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -2625,17 +2873,74 @@ def _res_usage(source, name, count=1):
                          capture_output=True, text=True, check=True,
                          timeout=120)
     lines = res.stdout.splitlines()
-    hits = [lines[i + 1] for i, ln in enumerate(lines[:-1])
+    hits = [(ln.split()[-1].rstrip(":"), lines[i + 1])
+            for i, ln in enumerate(lines[:-1])
             if ln.lstrip().startswith("Function") and name in ln]
-    if len(hits) != count:
+    if len(hits) != count and (count is not None or not hits):
         raise AssertionError(f"cuobjdump lists {len(hits)} kernels named "
-                             f"*{name}*, not {count}")
+                             f"*{name}*, not {count or 'one or more'}")
     out = []
-    for hit in hits:
+    for fn, hit in hits:
         f = dict(w.split(":", 1) for w in hit.split() if ":" in w)
         out.append(dict(registers=int(f["REG"]), stack=int(f["STACK"]),
                         local=int(f["LOCAL"]),
                         static_shared=int(f["SHARED"])))
+        if count is None:
+            out[-1]["function"] = fn
+    return out
+
+
+# the norm forwards' kernels, each instantiated for every x dtype and row
+# layout (and the vec route's parameter placement): (source, name)
+NORM_FWD_KERNELS = (("layer_norm", "ln_fwd_kernel"),
+                    ("layer_norm", "ln_fwd_vec_kernel"),
+                    ("rms_norm", "rms_fwd_kernel"),
+                    ("rms_norm", "rms_fwd_vec_kernel"))
+
+
+def _sass_spills(source):
+    """{function: its spill instructions (STL, LDL)} in ``csrc/<source>.cu``'s
+    built library (``cuobjdump -sass``)."""
+    from pathlib import Path
+    from apex_tpu_torch import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(_build._lib_path(source))],
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    out, fn = {}, None
+    for ln in res.stdout.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ", 1)[1].strip()
+            out[fn] = 0
+        elif fn is not None and re.search(r"\s(STL|LDL)[.\s]", ln):
+            out[fn] += 1
+    return out
+
+
+def norm_resources():
+    """Registers, stack and local memory (``cuobjdump -res-usage``) and
+    spill instructions (``cuobjdump -sass``) of every instance of the norm
+    forward kernels; raises if one spills or has a stack.  Returns {name:
+    {instances, registers: [least, most]}}."""
+    print("norm forward kernels (cuobjdump -res-usage, -sass):")
+    out, sass = {}, {}
+    for source, name in NORM_FWD_KERNELS:
+        if source not in sass:
+            sass[source] = _sass_spills(source)
+        rows = _res_usage(source, name, count=None)
+        regs = [r["registers"] for r in rows]
+        spills = {r["function"]: sass[source][r["function"]] for r in rows
+                  if sass[source].get(r["function"])}
+        stacks = {r["function"]: (r["stack"], r["local"]) for r in rows
+                  if r["stack"] or r["local"]}
+        out[name] = dict(instances=len(rows),
+                         registers=[min(regs), max(regs)])
+        print(f"  {name}: {len(rows)} instances, {min(regs)}-{max(regs)} "
+              f"registers, {len(spills)} spilling, {len(stacks)} with a "
+              f"stack or local memory")
+        if spills or stacks:
+            raise AssertionError(f"{name} spills: {spills}, stack and "
+                                 f"local bytes: {stacks}")
     return out
 
 
@@ -2861,10 +3166,12 @@ def llama_generate_path(torch, dispatch, gpt, llama):
     print(f"Llama serving path: generate(llama_125m, batch {BATCH}, prompt "
           f"{PROMPT}, {NEW} new tokens, fp32, greedy)")
     print(f"  launches: {counts}")
+    print(f"  norm forwards by route: {_norm_routes(counts)}")
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
     want.update(_flash_want("simt", layers, backward=False),
-                rms_forward=(2 * layers + 1) * NEW)
+                rms_forward=(2 * layers + 1) * NEW,
+                rms_forward_vec=(2 * layers + 1) * NEW)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     if out.shape != (BATCH, PROMPT + NEW) or out.dtype != torch.long:
@@ -2980,6 +3287,7 @@ def _llama_arm(torch, dispatch, llama, mode):
           f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, {mode} "
           f"loss)")
     print(f"  launches in one step: {counts}")
+    print(f"  norm forwards by route: {_norm_routes(counts)}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     return dict(step=step, ids=ids, counts=counts, losses=losses)
@@ -3050,6 +3358,7 @@ def llama_train_turns(torch, dispatch, llama):
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
             print(f"    {t:9.3f} ms  {100 * t / busy:5.1f}%  {name[:90]}")
         nums[mode].update(busy_ms=busy, idle_share=1 - busy / wall,
+                          device_ops=n_ops,
                           lm_head_kernels_ms=lmx)
     c, k = nums["chunked"], nums["kernel"]
     print(f"llama_125m train step ms in turns: chunked {ms['chunked']}, "
@@ -3135,6 +3444,7 @@ def bert_train_path(torch, dispatch, bert, attn_dropout):
           f"FusedLAMB lr {BERT_LR} wd {BERT_WD}, attn_dropout "
           f"{attn_dropout}, dropout 0.1)")
     print(f"  launches in one step: {counts}")
+    print(f"  norm forwards by route: {_norm_routes(counts)}")
     if counts != _bert_want(counts):
         raise AssertionError(f"BERT launch counts {counts} != expected "
                              f"{_bert_want(counts)}")
@@ -3170,7 +3480,8 @@ def bert_train_path(torch, dispatch, bert, attn_dropout):
             print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
     del step, opt, model
     return counts, dict(step_ms=1e3 * step_s, sequences_per_s=seq_s,
-                        peak_gib=peak, idle_share=idle,
+                        peak_gib=peak, busy_ms=busy, idle_share=idle,
+                        device_ops=n,
                         top=[(name[:60], ms) for name, ms in top[:4]],
                         first_loss=values[0], last_loss=values[-1])
 
@@ -3221,6 +3532,7 @@ def bert_amp_path(torch, dispatch, bert):
           f"{len(opt.param_groups[0]['params'])} {p0.dtype} optimizer "
           f"params, moments {opt.state[p0]['exp_avg'].dtype}")
     print(f"  launches in iteration 3: {counts}")
+    print(f"  norm forwards by route: {_norm_routes(counts)}")
     print(f"  losses {', '.join(f'{v:.4f}' for v in losses)}; skipped "
           f"{skips}; loss scale {_amp_state.loss_scalers[0].loss_scale()}; "
           f"iterations 3-10: {seq_s:.1f} sequences/s (host clock, the loss "
@@ -3396,9 +3708,10 @@ def main():
              for pn, _ in m.named_parameters(recurse=False)}
     del rn
     t_phase = time.perf_counter()
-    ln = ln_phase(torch, layer_norm)
+    norm_res = norm_resources()
+    ln = ln_phase(torch, layer_norm, dispatch)
     fl, fl_tc_err = flash_phase(torch, attention)
-    fl_train, ln_train = fwd_train_shapes(torch, attention, layer_norm)
+    fl_train = fwd_train_shapes(torch, attention)
     lnb_rows, lnb_cols = ln_bwd_phase(torch, layer_norm)
     dq, dkv, bwd_tc_err = flash_bwd_phase(torch, attention)
     fdrop = flash_dropout_phase(torch, attention)
@@ -3407,7 +3720,7 @@ def main():
     adam_half = adam_half_phase(torch, multi_tensor, shapes)
     sgd = sgd_phase(torch, multi_tensor, rn_shapes, rn_bn)
     xf, xb = xent_phase(torch, xentropy)
-    rms_f, rms_rows, rms_cols = rms_phase(torch, rms_norm)
+    rms_f, rms_rows, rms_cols = rms_phase(torch, rms_norm, dispatch)
     lmx_f, lmx_dx, lmx_dw = lmx_phase(torch, lm_head_xent)
     print(f"kernel phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -3424,12 +3737,13 @@ def main():
     print(f"serving phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     paths = {"generate": serve, "llama_generate": llama_serve}
-    paths["train_step"], plain_ms, _ = train_path(
+    gpt_prof = {}
+    paths["train_step"], plain_ms, gpt_prof["plain"] = train_path(
         torch, dispatch, train_model, _lm_loss(torch), "plain cross entropy",
         {})
-    paths["train_step_chunked"], chunked_ms = loss_mode_path(
-        torch, dispatch, train_model, "chunked")
-    paths["train_step_fused"], fused_ms = loss_mode_path(
+    paths["train_step_chunked"], chunked_ms, gpt_prof["chunked"] = \
+        loss_mode_path(torch, dispatch, train_model, "chunked")
+    paths["train_step_fused"], fused_ms, gpt_prof["fused"] = loss_mode_path(
         torch, dispatch, train_model, "fused")
     print(f"train step ms in this run: plain {plain_ms:.2f}, chunked "
           f"{chunked_ms:.2f}, fused {fused_ms:.2f}")
@@ -3437,7 +3751,7 @@ def main():
     # attention dropout of the original GPT-2 recipe in the flash kernels
     for blk in train_model.blocks:
         blk.attn.dropout = DROP_P
-    paths["train_step_chunked_attn_dropout"], drop_ms = loss_mode_path(
+    paths["train_step_chunked_attn_dropout"], drop_ms, _ = loss_mode_path(
         torch, dispatch, train_model, "chunked",
         f", attn_dropout {DROP_P}")
     for blk in train_model.blocks:
@@ -3515,6 +3829,30 @@ def main():
     rep_dq = f"{fb}attention.py:420 (_dq_kernel :237, pallas_call :466)"
     rep_dkv = f"{fb}attention.py:420 (_dkv_kernel :283, pallas_call :490)"
     gpt_shape = f"({TRAIN_BATCH * 12}, {TRAIN_SEQ}, 64) bf16 causal"
+
+    def norm_numbers(kind, r, source, replaces):
+        """A norm forward's line: the vec route (every main path) at the
+        training shape, warm and cold, with the scalar route's numbers,
+        which no main path launches, beside it, and every timed shape."""
+        t = r["shapes"][f"{(TRAIN_BATCH * TRAIN_SEQ, 768)} bfloat16"]
+        res = {k: v for k, v in norm_res.items() if k.startswith(kind)}
+        common = {k: t[k] for k in ("plain_ms", "library_ms",
+                                    "library_cold_ms", "bound_ms",
+                                    "bound_by", "copy_ms", "copy_cold_ms")}
+        return dict(
+            name=f"{kind}_forward", route="cuda", kernel_route="vec",
+            source=source, replaces=replaces,
+            **launches(f"{kind}_forward_vec"),
+            shape=f"({TRAIN_BATCH * TRAIN_SEQ}, 768) bf16 affine, bf16 "
+                  f"parameters", max_abs_err=r["max_abs_err"],
+            ms=t["vec_ms"], cold_ms=t["vec_cold_ms"],
+            wrapper_ms=t["wrapper_ms"], resources=res, **common,
+            other_routes=dict(scalar=dict(
+                kernel_route="scalar", **launches(f"{kind}_forward_scalar"),
+                max_abs_err=r["scalar_max_abs_err"], ms=t["scalar_ms"],
+                cold_ms=t["scalar_cold_ms"], **common)),
+            shapes=r["shapes"])
+
     kernels = [
         # the tc route: bf16 and fp16 at D = 64, every training path
         dict(name="flash_attention_fwd_tc", route="cuda", kernel_route="tc",
@@ -3559,9 +3897,8 @@ def main():
              max_abs_err=gpt_simt["max_abs_err"], ms=gpt_simt["bwd_dkv_ms"],
              **yardsticks(dkv), dropout_branch="ported",
              dropout=simt_numbers("bwd_dkv")),
-        dict(name="ln_forward", route="cuda", source=ln_src,
-             replaces=f"{fb}layer_norm.py:77", **launches("ln_forward"),
-             shape="(4096, 768) fp32 affine", **ln, train_shape=ln_train),
+        norm_numbers("ln", ln, ln_src, f"{fb}layer_norm.py:77 (_fwd_kernel "
+                                       f":39, pallas_call :94)"),
         dict(name="ln_backward", route="cuda", source=ln_src,
              replaces=f"{fb}layer_norm.py:109",
              **launches("ln_backward_rows"),
@@ -3578,10 +3915,8 @@ def main():
              replaces=f"{fb}xentropy.py:160 (_bwd_kernel :117, pallas_call "
                       f":185)", **launches("xent_backward"),
              shape="(16368, 50257) bf16", **xb),
-        dict(name="rms_forward", route="cuda", source=rms_src,
-             replaces=f"{fb}rms_norm.py:60 (_fwd_kernel :26, pallas_call "
-                      f":77)", **launches("rms_forward"),
-             shape="(16384, 768) bf16 affine", **rms_f),
+        norm_numbers("rms", rms_f, rms_src, f"{fb}rms_norm.py:60 (_fwd_kernel "
+                                            f":26, pallas_call :77)"),
         dict(name="rms_backward", route="cuda", source=rms_src,
              replaces=f"{fb}rms_norm.py:91 (_bwd_kernel :41, pallas_call "
                       f":115)", **launches("rms_backward_rows"),
@@ -3619,6 +3954,7 @@ def main():
                                         train_attn_dropout=bert_drop_nums,
                                         amp_o2_sequences_per_s=bert_amp_seq_s),
                       "llama_125m_train": llama_nums,
+                      "gpt2_small_profiled_step": gpt_prof,
                       "gpt2_small_chunked_step_ms": dict(
                           attn_dropout_0=chunked_ms,
                           attn_dropout_01=drop_ms)}))
