@@ -36,6 +36,16 @@ __device__ __forceinline__ float load_as_f(const void* p, long long i, int dtype
   }
 }
 
+// element i of an array whose dtype is known only at run time := v,
+// rounded once to nearest even (as torch's .to(dtype))
+__device__ __forceinline__ void store_from_f(void* p, long long i, float v, int dtype) {
+  switch (dtype) {
+    case DT_BF16: static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v); break;
+    case DT_F16: static_cast<__half*>(p)[i] = __float2half(v); break;
+    default: static_cast<float*>(p)[i] = v;
+  }
+}
+
 }  // namespace
 
 extern "C" const char* apex_strerror(int err) {

@@ -56,12 +56,27 @@
 //   4-byte access each, the parameters read after the statistics in their
 //   dtypes (switched on once, around the row).
 // Both reduce with warp shuffles; lane 0 writes the row's statistics.
-// The TPU kernel sums dgamma/dbeta across its sequential grid
-// in one output block; CUDA blocks run in no order, so the backward runs a
-// fixed grid of a few blocks per SM, each walking rows at a grid stride and
-// keeping its threads' column sums in registers, and writes one fp32 row of
-// partial sums per block into a workspace; a second kernel sums the
-// workspace by column in a fixed order.  Deterministic, no float atomics.
+// The TPU kernel sums dgamma/dbeta across its sequential grid in one
+// output block; CUDA blocks run in no order, so the backward runs a fixed
+// grid of blocks, each walking rows at a grid stride and keeping its
+// threads' column sums in registers, and writes one fp32 row of partial
+// sums per block into a workspace; a second kernel sums the workspace by
+// column in a fixed order and rounds each sum once to the dtype asked for
+// (the weight's, for the autograd Function).  Deterministic, no float
+// atomics: the grid, and so the order of every sum, depends only on the
+// shape, dtype, route and card.  The backward has the forward's two routes:
+// - vec: 16-byte chunks of g, x and dx in the forward's row layout, row
+//   streams over as many blocks as are resident at once, each loading its
+//   next row's chunks and statistics before it reduces the current row, so
+//   about two rows of g and x are in flight a warp; w staged once a block
+//   as fp32 planes from its own dtype; c1 and c2 products with 1 / n; at
+//   the end the block's row streams add their column sums in a fixed order
+//   through shared memory.  In 1024-thread blocks (n > 8192) the 64
+//   registers a thread hold the column sums but not the row, so there the
+//   row is read again for dx (from L1) and not loaded ahead.
+// - scalar, for the rest: one element per access, two blocks an SM, w
+//   held in registers, the statistics' means IEEE divisions by n; the same
+//   1024-thread exception, where w is read at each use.
 
 #include "norm_common.cuh"
 
@@ -318,13 +333,29 @@ ln_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
   __shared__ float red[RPC][WPR];
   const int tid = threadIdx.x;
 
-  float wv[VPT], aw[VPT], ab[VPT];
+  // a 1024-thread block (n > 8192) has 64 registers a thread, too few for
+  // w, g, xhat and the column sums: there the dx pass reads g and x again
+  // (from L1), w is read where it is used and the column sums sit in
+  // shared memory (each thread's own: sw[i * TPR + tid], sb likewise, so
+  // no synchronisation)
+  constexpr bool HOLD = TPR < 1024;
+  constexpr int HV = HOLD ? VPT : 1;
+  // unrolled only where registers hold the row: rolled, the compiler can
+  // neither keep the first pass's loads for the second nor hoist them all
+  constexpr int UNROLL = HOLD ? VPT : 1;
+  extern __shared__ float sums[];
+  float* sw = sums;
+  float* sb = sums + VPT * TPR;
+  auto weight = [&](int c) { return (w != nullptr && c < n) ? load_as_f(w, c, wdtype) : 1.f; };
+  float wv[HV], aw[HV], ab[HV];
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
-    const int c = tid + i * TPR;
-    wv[i] = (w != nullptr && c < n) ? load_as_f(w, c, wdtype) : 1.f;
-    aw[i] = 0.f;
-    ab[i] = 0.f;
+    if constexpr (HOLD) {
+      wv[i] = weight(tid + i * TPR);
+      aw[i] = ab[i] = 0.f;
+    } else {
+      sw[i * TPR + tid] = sb[i * TPR + tid] = 0.f;
+    }
   }
 
   // with RPC == 1 every thread of the block walks the same rows, so the
@@ -334,30 +365,49 @@ ln_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
     const T* gr = g + row * n;
     const T* xr = x + row * n;
     const float mu = mean[row], rs = rstd[row];
-    float gv[VPT], xh[VPT];
+    float gv[HV], xh[HV];
     float s1 = 0.f, s2 = 0.f;
-#pragma unroll
+#pragma unroll(UNROLL)
     for (int i = 0; i < VPT; ++i) {
       const int c = tid + i * TPR;
-      gv[i] = 0.f;
-      xh[i] = 0.f;
+      float gi = 0.f, xi = 0.f, wi;
       if (c < n) {
-        gv[i] = to_f(gr[c]);
-        xh[i] = (to_f(xr[c]) - mu) * rs;
+        gi = to_f(gr[c]);
+        xi = (to_f(xr[c]) - mu) * rs;
       }
-      const float gh = gv[i] * wv[i];
+      if constexpr (HOLD) {
+        gv[i] = gi, xh[i] = xi, wi = wv[i];
+      } else {
+        wi = weight(c);
+      }
+      const float gh = gi * wi;
       s1 += gh;
-      s2 += gh * xh[i];
+      s2 += gh * xi;
     }
     const float c1 = row_sum<WPR>(s1, red[threadIdx.y]) / n;
     const float c2 = row_sum<WPR>(s2, red[threadIdx.y]) / n;
     T* dxr = dx + row * n;
-#pragma unroll
+#pragma unroll(UNROLL)
     for (int i = 0; i < VPT; ++i) {
       const int c = tid + i * TPR;
-      if (c < n) dxr[c] = from_f<T>((gv[i] * wv[i] - c1 - xh[i] * c2) * rs);
-      aw[i] += gv[i] * xh[i];
-      ab[i] += gv[i];
+      float gi = 0.f, xi = 0.f, wi;
+      if constexpr (HOLD) {
+        gi = gv[i], xi = xh[i], wi = wv[i];
+      } else {
+        if (c < n) {
+          gi = to_f(gr[c]);
+          xi = (to_f(xr[c]) - mu) * rs;
+        }
+        wi = weight(c);
+      }
+      if (c < n) dxr[c] = from_f<T>((gi * wi - c1 - xi * c2) * rs);
+      if constexpr (HOLD) {
+        aw[i] += gi * xi;
+        ab[i] += gi;
+      } else {
+        sw[i * TPR + tid] += gi * xi;
+        sb[i * TPR + tid] += gi;
+      }
     }
   }
   if (part_w == nullptr) return;  // the plain (non-affine) form
@@ -369,8 +419,11 @@ ln_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
     for (int i = 0; i < VPT; ++i) {
       const int c = tid + i * TPR;
       if (c < n) {
-        pw[c] = aw[i];
-        pb[c] = ab[i];
+        if constexpr (HOLD) {
+          pw[c] = aw[i], pb[c] = ab[i];
+        } else {
+          pw[c] = sw[i * TPR + tid], pb[c] = sb[i * TPR + tid];
+        }
       }
     }
   } else {
@@ -396,50 +449,275 @@ ln_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-// dw[c] = sum over p of part_w[p, c] (blockIdx.y == 0), db likewise
-// (blockIdx.y == 1): 32 columns a block, 32 threads down each column, then
-// a fixed-order sum of the 32 through shared memory
-__global__ void __launch_bounds__(1024)
-ln_bwd_cols_kernel(const float* __restrict__ part_w, const float* __restrict__ part_b,
-                   float* __restrict__ dw, float* __restrict__ db, int parts, int n) {
-  __shared__ float red[32][33];
-  const float* src = blockIdx.y == 0 ? part_w : part_b;
-  float* dst = blockIdx.y == 0 ? dw : db;
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (c < n) {
-#pragma unroll 4
-    for (int p = threadIdx.y; p < parts; p += 32) s += src[(long long)p * n + c];
+// the vec route's backward: layer_norm.cu's forward layout (16-byte
+// chunks of g, x and dx, chunk tid + i * TPR of a row to each thread), row
+// streams walking rows at a grid stride with the next row's chunks and
+// statistics in flight while the current row is reduced, the chunks kept
+// packed and converted to fp32 in each pass.  w (AFFINE) is read once a
+// block in its own dtype and staged as fp32 planes (stage_param).  c1 and
+// c2 are products with inv_n = 1 / n (no IEEE division).  Each thread keeps
+// its columns' fp32 sums of g * xhat and g in registers over its rows; at
+// the end the block's streams add theirs in a fixed order and write one
+// row of partials (write_col_partials).
+template <typename T, int CPT, int TPR, bool AFFINE>
+__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC, 1)
+ln_bwd_vec_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                  const float* __restrict__ mean, const float* __restrict__ rstd,
+                  const void* __restrict__ w, int wdt, T* __restrict__ dx,
+                  float* __restrict__ part_w, float* __restrict__ part_b, int rows, int n,
+                  float inv_n) {
+  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR, L = chunk_len<T>();
+  constexpr int SLOTS = CPT * TPR, AC = AFFINE ? CPT : 1;
+  __shared__ float red[RPC][WPR];
+  extern __shared__ float4 smem[];  // w's L / 4 planes, then the column sums
+  const int tid = threadIdx.x;
+  const int chunks = n / L;
+  // the column sums, launched as this grid's programmatic dependent, may be
+  // scheduled now: they wait for the whole grid before they read
+  asm volatile("griddepcontrol.launch_dependents;");
+
+  // a 1024-thread block (n > 8192) has 64 registers a thread, which hold
+  // the column sums but not the row beside them: there each pass reads its
+  // chunks from memory (the dx pass from L1) and nothing of the next row is
+  // loaded ahead (the block's 32 warps keep bytes in flight)
+  constexpr bool HOLD = TPR < 1024;
+  constexpr int HC = HOLD ? CPT : 1;
+  // unrolled only where registers hold the row: rolled, the compiler can
+  // neither keep the first pass's loads for the second nor hoist them all
+  constexpr int UNROLL = HOLD ? CPT : 1;
+
+  // with RPC == 1 every thread of the block walks the same rows, so the
+  // __syncthreads in row_sum are reached by all of them
+  const long long stride = (long long)gridDim.x * RPC;
+  long long row = (long long)blockIdx.x * RPC + threadIdx.y;
+  uint4 cg[HC], cx[HC];
+  float mu = 0.f, rs = 0.f;
+  if (row < rows) {
+    if constexpr (HOLD) {
+      load_row<CPT, TPR>(reinterpret_cast<const uint4*>(g + row * n), chunks, cg);
+      load_row<CPT, TPR>(reinterpret_cast<const uint4*>(x + row * n), chunks, cx);
+    }
+    mu = mean[row], rs = rstd[row];
   }
-  red[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < n) {
-    float t = 0.f;
+  // the column sums: in registers, or, in a 1024-thread block, in shared
+  // memory after the staged w (each thread's own, value j of its chunk i at
+  // (i * L + j) * TPR + tid: no synchronisation, no bank conflicts), as its
+  // 64 registers a thread cannot hold them beside the loads
+  constexpr int AR = HOLD ? AC : 1;
+  float* sw = reinterpret_cast<float*>(smem + L / 4 * SLOTS);
+  float* sb = sw + CPT * L * TPR;
+  float aw[AR][L], ab[AR][L];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) t += red[i][threadIdx.x];
-    dst[c] = t;
+  for (int i = 0; i < AC; ++i) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if constexpr (HOLD) {
+        aw[i][j] = ab[i][j] = 0.f;
+      } else if constexpr (AFFINE) {
+        sw[(i * L + j) * TPR + tid] = sb[(i * L + j) * TPR + tid] = 0.f;
+      }
+    }
   }
+  if constexpr (AFFINE) {
+    APEX_PARAM_SWITCH(wdt, P,
+        stage_param<L, SLOTS, TPR * RPC>(static_cast<const P*>(w), chunks, smem));
+    __syncthreads();
+  }
+  for (; row < rows; row += stride) {
+    const uint4* gr = reinterpret_cast<const uint4*>(g + row * n);
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * n);
+    uint4 ng[HC], nx[HC];
+    float nmu = 0.f, nrs = 0.f;
+    const long long next = row + stride;
+    if (next < rows) {
+      if constexpr (HOLD) {
+        load_row<CPT, TPR>(reinterpret_cast<const uint4*>(g + next * n), chunks, ng);
+        load_row<CPT, TPR>(reinterpret_cast<const uint4*>(x + next * n), chunks, nx);
+      }
+      nmu = mean[next], nrs = rstd[next];
+    }
+
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll(UNROLL)
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * TPR;
+      if (c < chunks) {
+        float gv[L], xv[L], wv[L];
+        if constexpr (HOLD) {
+          unpack_chunk<T>(cg[i], gv);
+          unpack_chunk<T>(cx[i], xv);
+        } else {
+          unpack_chunk<T>(__ldg(gr + c), gv);
+          unpack_chunk<T>(__ldg(xr + c), xv);
+        }
+        if constexpr (AFFINE) load_staged<L, SLOTS>(smem, c, wv);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          const float xh = (xv[j] - mu) * rs;
+          float gh = gv[j];
+          if constexpr (AFFINE) gh *= wv[j];
+          s1 += gh;
+          s2 += gh * xh;
+          if constexpr (AFFINE && HOLD) {
+            aw[i][j] += gv[j] * xh;
+            ab[i][j] += gv[j];
+          } else if constexpr (AFFINE) {
+            sw[(i * L + j) * TPR + tid] += gv[j] * xh;
+            sb[(i * L + j) * TPR + tid] += gv[j];
+          }
+        }
+      }
+    }
+    const float c1 = row_sum<WPR>(s1, red[threadIdx.y]) * inv_n;
+    const float c2 = row_sum<WPR>(s2, red[threadIdx.y]) * inv_n;
+
+    uint4* dr = reinterpret_cast<uint4*>(dx + row * n);
+#pragma unroll(UNROLL)
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * TPR;
+      if (c < chunks) {
+        float gv[L], xv[L], wv[L], o[L];
+        if constexpr (HOLD) {
+          unpack_chunk<T>(cg[i], gv);
+          unpack_chunk<T>(cx[i], xv);
+        } else {
+          unpack_chunk<T>(__ldg(gr + c), gv);
+          unpack_chunk<T>(__ldg(xr + c), xv);
+        }
+        if constexpr (AFFINE) load_staged<L, SLOTS>(smem, c, wv);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          const float xh = (xv[j] - mu) * rs;
+          float gh = gv[j];
+          if constexpr (AFFINE) gh *= wv[j];
+          o[j] = (gh - c1 - xh * c2) * rs;
+        }
+        dr[c] = pack_chunk<T>(o);
+      }
+    }
+    if constexpr (HOLD) {
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) cg[i] = ng[i], cx[i] = nx[i];
+    }
+    mu = nmu, rs = nrs;
+  }
+  if constexpr (AFFINE) {
+    __syncthreads();  // every stream is done with the staged w
+    const long long off = (long long)blockIdx.x * n;
+    if constexpr (HOLD) {
+      write_col_partials<L, CPT, TPR, RPC>(aw, smem, part_w + off, chunks);
+      write_col_partials<L, CPT, TPR, RPC>(ab, smem, part_b + off, chunks);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float* src = k == 0 ? sw : sb;
+        float t[CPT][L];
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) {
+#pragma unroll
+          for (int j = 0; j < L; ++j) t[i][j] = src[(i * L + j) * TPR + tid];
+        }
+        write_col_partials<L, CPT, TPR, RPC>(t, smem, (k == 0 ? part_w : part_b) + off, chunks);
+      }
+    }
+  }
+}
+
+// dgamma (blockIdx.y == 0) and dbeta (1): the column sums of part_w and
+// part_b, rounded once to odt (sum_columns)
+__global__ void __launch_bounds__(SUM_COLS * SUM_ROWS)
+ln_bwd_cols_kernel(const float* __restrict__ part_w, const float* __restrict__ part_b,
+                   void* __restrict__ dw, void* __restrict__ db, int parts, int n, int odt) {
+  sum_columns(blockIdx.y == 0 ? part_w : part_b, blockIdx.y == 0 ? dw : db, parts, n, odt);
+}
+
+// the vec backward's dynamic shared memory: norm_bwd_vec_smem's, and in a
+// 1024-thread block as much again for each of the two column sums
+template <typename T, int CPT, int TPR>
+constexpr int bwd_vec_smem() {
+  return (TPR < 1024 ? 1 : 3) * norm_bwd_vec_smem<T, CPT, TPR>();
+}
+
+struct BwdArgs {
+  const void* g;
+  const void* x;
+  const float* mean;
+  const float* rstd;
+  const void* w;
+  int wdt;
+  void* dx;
+  float* pw;
+  float* pb;
+  int parts, rows, n, route;
+  cudaStream_t st;
+};
+
+// The backward's grid, which is also the number of rows of partial column
+// sums, for a (rows, n) input of T on `route` on the current device (0 if
+// the runtime refuses): scalar, norm_bwd_parts; vec, as many blocks as are
+// resident at once (of the affine kernel), and no more than the rows need.
+template <typename T, int VPT, int TPR>
+int bwd_grid(int rows, int n, int route) {
+  if (route == NORM_SCALAR) return norm_bwd_parts(rows, n);
+  constexpr int RPC = Shape<TPR>::RPC, CPT = chunks_per_thread<T>(VPT);
+  static const int per_sm = vec_blocks_per_sm(ln_bwd_vec_kernel<T, CPT, TPR, true>, TPR * RPC,
+                                              bwd_vec_smem<T, CPT, TPR>());
+  int grid = 0;
+  return norm_vec_grid(rows, RPC, per_sm, &grid) == cudaSuccess ? grid : 0;
 }
 
 template <typename T, int VPT, int TPR>
-cudaError_t launch_bwd(const void* g, const void* x, const float* mean, const float* rstd,
-                       const void* w, int wdtype, void* dx, float* pw, float* pb, int parts,
-                       int rows, int n, cudaStream_t st) {
-  const dim3 block(TPR, Shape<TPR>::RPC);
-  ln_bwd_kernel<T, VPT, TPR><<<parts, block, 0, st>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), mean, rstd, w, wdtype,
-      static_cast<T*>(dx), pw, pb, rows, n);
+cudaError_t launch_bwd(const BwdArgs& a) {
+  constexpr int RPC = Shape<TPR>::RPC, CPT = chunks_per_thread<T>(VPT);
+  const int grid = bwd_grid<T, VPT, TPR>(a.rows, a.n, a.route);
+  if (grid <= 0) return cudaErrorInvalidConfiguration;
+  if (a.parts != grid) return cudaErrorInvalidValue;  // the workspace's rows
+  const dim3 block(TPR, RPC);
+  const T* g = static_cast<const T*>(a.g);
+  const T* x = static_cast<const T*>(a.x);
+  T* dx = static_cast<T*>(a.dx);
+  if (a.route == NORM_SCALAR) {
+    // the column sums of a 1024-thread block, in shared memory
+    constexpr int SMEM = TPR < 1024 ? 0 : 2 * VPT * TPR * int(sizeof(float));
+    static const cudaError_t set =
+        SMEM > 48 * 1024 ? cudaFuncSetAttribute(ln_bwd_kernel<T, VPT, TPR>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM)
+                         : cudaSuccess;
+    if (set != cudaSuccess) return set;
+    ln_bwd_kernel<T, VPT, TPR><<<grid, block, SMEM, a.st>>>(g, x, a.mean, a.rstd, a.w, a.wdt,
+                                                            dx, a.pw, a.pb, a.rows, a.n);
+  } else if (a.w != nullptr) {
+    ln_bwd_vec_kernel<T, CPT, TPR, true><<<grid, block, bwd_vec_smem<T, CPT, TPR>(), a.st>>>(
+        g, x, a.mean, a.rstd, a.w, a.wdt, dx, a.pw, a.pb, a.rows, a.n, 1.f / a.n);
+  } else {
+    ln_bwd_vec_kernel<T, CPT, TPR, false><<<grid, block, 0, a.st>>>(
+        g, x, a.mean, a.rstd, nullptr, 0, dx, nullptr, nullptr, a.rows, a.n, 1.f / a.n);
+  }
   return cudaGetLastError();
 }
 
+// whether the vec route takes these arguments (n a multiple of the chunk,
+// 16-byte aligned rows, weight and workspaces)
 template <typename T>
-cudaError_t dispatch_bwd(const void* g, const void* x, const float* mean, const float* rstd,
-                         const void* w, int wdtype, void* dx, float* pw, float* pb, int parts,
-                         int rows, int n, cudaStream_t st) {
-#define APEX_LN_BWD(VPT, TPR) \
-  launch_bwd<T, VPT, TPR>(g, x, mean, rstd, w, wdtype, dx, pw, pb, parts, rows, n, st)
-  APEX_NORM_BY_ROW(n, APEX_LN_BWD);
+bool vec_takes(const BwdArgs& a) {
+  return a.n % chunk_len<T>() == 0 && aligned16(a.g) && aligned16(a.x) && aligned16(a.dx) &&
+         (a.w == nullptr || (aligned16(a.w) && aligned16(a.pw) && aligned16(a.pb)));
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const BwdArgs& a) {
+  if (a.route != NORM_SCALAR && !vec_takes<T>(a)) return cudaErrorInvalidValue;
+#define APEX_LN_BWD(VPT, TPR) launch_bwd<T, VPT, TPR>(a)
+  APEX_NORM_BY_ROW(a.n, APEX_LN_BWD);
 #undef APEX_LN_BWD
+}
+
+template <typename T>
+int dispatch_parts(int rows, int n, int route) {
+  if (n > 16384) return 0;
+#define APEX_LN_PARTS(VPT, TPR) bwd_grid<T, VPT, TPR>(rows, n, route)
+  APEX_NORM_BY_ROW(n, APEX_LN_PARTS);
+#undef APEX_LN_PARTS
 }
 
 }  // namespace
@@ -469,41 +747,52 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, int wdtype, const void*
 }
 
 // The number of blocks (and rows of partial sums) apex_ln_bwd runs for a
-// (rows, n) input on the current device (norm_bwd_parts).  The caller
-// allocates the (parts, n) fp32 workspaces from it.
-extern "C" int apex_ln_bwd_parts(int rows, int n) { return norm_bwd_parts(rows, n); }
+// (rows, n) input in dtype on route on the current device (bwd_grid), 0
+// for arguments no launch takes.  The caller allocates the (parts, n) fp32
+// workspaces from it.
+extern "C" int apex_ln_bwd_parts(int rows, int n, int dtype, int route) {
+  if (rows <= 0 || n <= 0 || (route != NORM_SCALAR && route != NORM_VEC)) return 0;
+  switch (dtype) {
+    case DT_F32: return dispatch_parts<float>(rows, n, route);
+    case DT_BF16: return dispatch_parts<__nv_bfloat16>(rows, n, route);
+    case DT_F16: return dispatch_parts<__half>(rows, n, route);
+    default: return 0;
+  }
+}
 
 // g, x, dx (rows, n) contiguous in dtype; mean, rstd (rows,) float32; w (n,)
 // in wdtype, or null for the plain form, whose part_w and part_b are null
-// too; part_w, part_b (parts, n) float32 with parts from apex_ln_bwd_parts.
-// Returns the cudaError_t of the launch.
+// too; part_w, part_b (parts, n) float32 with parts from apex_ln_bwd_parts
+// for the same rows, n, dtype and route.  route: NORM_SCALAR (0) or
+// NORM_VEC (1); vec takes n a multiple of 16 / sizeof(dtype) and 16-byte
+// aligned g, x, dx, w, part_w and part_b.  Returns the cudaError_t of the
+// launch.
 extern "C" int apex_ln_bwd(const void* g, const void* x, const void* mean, const void* rstd,
                            const void* w, int wdtype, void* dx, void* part_w, void* part_b,
-                           int parts, int rows, int n, int dtype, void* stream) {
-  const float* mf = static_cast<const float*>(mean);
-  const float* rf = static_cast<const float*>(rstd);
-  float* pw = static_cast<float*>(part_w);
-  float* pb = static_cast<float*>(part_b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || n <= 0 || parts <= 0 || (w == nullptr) != (pw == nullptr) ||
-      (pw == nullptr) != (pb == nullptr) || wdtype < 0 || wdtype > 2)
+                           int parts, int rows, int n, int dtype, int route, void* stream) {
+  const BwdArgs a{g, x, static_cast<const float*>(mean), static_cast<const float*>(rstd),
+                  w, wdtype, dx, static_cast<float*>(part_w), static_cast<float*>(part_b),
+                  parts, rows, n, route, static_cast<cudaStream_t>(stream)};
+  if (rows <= 0 || n <= 0 || parts <= 0 || (w == nullptr) != (a.pw == nullptr) ||
+      (a.pw == nullptr) != (a.pb == nullptr) || wdtype < DT_F32 || wdtype > DT_F16 ||
+      (route != NORM_SCALAR && route != NORM_VEC))
     return cudaErrorInvalidValue;
   switch (dtype) {
-    case DT_F32: return dispatch_bwd<float>(g, x, mf, rf, w, wdtype, dx, pw, pb, parts, rows, n, st);
-    case DT_BF16: return dispatch_bwd<__nv_bfloat16>(g, x, mf, rf, w, wdtype, dx, pw, pb, parts, rows, n, st);
-    case DT_F16: return dispatch_bwd<__half>(g, x, mf, rf, w, wdtype, dx, pw, pb, parts, rows, n, st);
+    case DT_F32: return dispatch_bwd<float>(a);
+    case DT_BF16: return dispatch_bwd<__nv_bfloat16>(a);
+    case DT_F16: return dispatch_bwd<__half>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// dw, db (n,) float32 = the column sums of part_w, part_b (parts, n).
-// Returns the cudaError_t of the launch.
+// dw, db (n,) in odtype (codes as dtype's) = the column sums of part_w,
+// part_b (parts, n), each summed in fp32 and rounded once.  Returns the
+// cudaError_t of the launch.
 extern "C" int apex_ln_bwd_cols(const void* part_w, const void* part_b, void* dw, void* db,
-                                int parts, int n, void* stream) {
-  if (parts <= 0 || n <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((n + 31) / 32, 2), block(32, 32);
-  ln_bwd_cols_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_w), static_cast<const float*>(part_b),
-      static_cast<float*>(dw), static_cast<float*>(db), parts, n);
-  return cudaGetLastError();
+                                int parts, int n, int odtype, void* stream) {
+  if (parts <= 0 || n <= 0 || odtype < DT_F32 || odtype > DT_F16) return cudaErrorInvalidValue;
+  const dim3 grid((n + SUM_COLS - 1) / SUM_COLS, 2), block(SUM_COLS, SUM_ROWS);
+  return launch_dependent(ln_bwd_cols_kernel, grid, block, static_cast<cudaStream_t>(stream),
+                          static_cast<const float*>(part_w), static_cast<const float*>(part_b),
+                          dw, db, parts, n, odtype);
 }

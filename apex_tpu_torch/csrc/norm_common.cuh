@@ -2,8 +2,8 @@
 // (layer_norm.cu, rms_norm.cu): a row of n <= 1024 belongs to one warp,
 // four rows to a 128-thread block; a longer row to a 256- or 1024-thread
 // block.  The scalar route's threads hold VPT values at a stride of the
-// row's TPR threads; the vec route's (forward only) hold 16-byte chunks at
-// a stride of TPR chunks.
+// row's TPR threads; the vec route's hold 16-byte chunks at a stride of TPR
+// chunks.
 #pragma once
 
 #include <cstdint>
@@ -12,10 +12,10 @@
 
 namespace {
 
-// route codes of the forward entry points (apex_ln_fwd, apex_rms_fwd):
+// route codes of the entry points (apex_{ln,rms}_{fwd,bwd,bwd_parts}):
 // scalar, one element per access, any n and alignment; vec, 16-byte
 // accesses, for n a multiple of 16 bytes' worth of x's dtype and 16-byte
-// aligned x, y and parameters
+// aligned rows (x, y; g, dx) and parameters
 constexpr int NORM_SCALAR = 0, NORM_VEC = 1;
 
 // where a vec kernel holds the affine parameters (a template argument, so
@@ -62,9 +62,10 @@ struct Shape {
   if ((n) <= 16384) return LAUNCH(16, 1024); \
   return cudaErrorInvalidValue
 
-// The number of blocks (and rows of partial column sums) a backward kernel
-// runs for a (rows, n) input on the current device: two per SM, so that
-// all are resident at once, and no more than the rows need.
+// The number of blocks (and rows of partial column sums) the scalar
+// route's backward kernel runs for a (rows, n) input on the current device:
+// two per SM, so that all are resident at once, and no more than the rows
+// need.
 inline int norm_bwd_parts(int rows, int n) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -232,6 +233,116 @@ __device__ __forceinline__ void load_staged(const float4* s, int c, float* f) {
     const float4 q = s[j * SLOTS + c];
     f[4 * j] = q.x, f[4 * j + 1] = q.y, f[4 * j + 2] = q.z, f[4 * j + 3] = q.w;
   }
+}
+
+// The vec backward's dynamic shared memory: the weight's staged planes
+// (stage_param) while the row streams walk their rows, then the RPC
+// streams' column sums of one accumulator (write_col_partials), the larger.
+template <typename T, int CPT, int TPR>
+constexpr int norm_bwd_vec_smem() {
+  return Shape<TPR>::RPC * CPT * TPR * chunk_len<T>() * int(sizeof(float));
+}
+
+// One row of a vec backward block's partial column sums: each row stream
+// (threadIdx.y) holds the fp32 sums a[i][j] of columns (tid + i * TPR) * L
+// + j over its rows; the block's RPC streams add theirs in a fixed order
+// (stream 0 first) and write them to `part` (n fp32 values, 16-byte
+// aligned) in 16-byte stores.  `buf` is the block's norm_bwd_vec_smem
+// bytes, free on entry (the caller synchronises first) and on exit; the
+// streams' sums go through it as float4 planes (stage_param's layout), so
+// the writes and the sums' reads are conflict-free.
+template <int L, int CPT, int TPR, int RPC>
+__device__ __forceinline__ void write_col_partials(const float (&a)[CPT][L], float4* buf,
+                                                   float* __restrict__ part, int chunks) {
+  constexpr int SLOTS = CPT * TPR, Q = L / 4 * SLOTS;  // float4s a stream
+  const int tid = threadIdx.x;
+  float4* out = reinterpret_cast<float4*>(part);
+  if constexpr (RPC == 1) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * TPR;
+      if (c < chunks) {
+#pragma unroll
+        for (int j = 0; j < L / 4; ++j)
+          out[c * (L / 4) + j] =
+              make_float4(a[i][4 * j], a[i][4 * j + 1], a[i][4 * j + 2], a[i][4 * j + 3]);
+      }
+    }
+  } else {
+    float4* mine = buf + threadIdx.y * Q;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+#pragma unroll
+      for (int j = 0; j < L / 4; ++j)
+        mine[j * SLOTS + tid + i * TPR] =
+            make_float4(a[i][4 * j], a[i][4 * j + 1], a[i][4 * j + 2], a[i][4 * j + 3]);
+    }
+    __syncthreads();
+    for (int q = threadIdx.y * TPR + tid; q < Q; q += RPC * TPR) {
+      const int c = q % SLOTS, j = q / SLOTS;
+      if (c < chunks) {
+        float4 s = buf[q];
+#pragma unroll
+        for (int r = 1; r < RPC; ++r) {
+          const float4 t = buf[r * Q + q];
+          s.x += t.x, s.y += t.y, s.z += t.z, s.w += t.w;
+        }
+        out[c * (L / 4) + j] = s;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The backwards' column sums: dst[c] = the sum over p of src[p, c] for a
+// (parts, n) fp32 workspace, rounded once to odt.  SUM_COLS columns a
+// block, SUM_ROWS threads down each column (a warp reads two 64-byte row
+// segments), then a fixed-order tree over the SUM_ROWS partial sums through
+// shared memory: deterministic, and twice the blocks and half the chain of
+// dependent loads a thread that 32 columns of 32 threads give.
+constexpr int SUM_COLS = 16, SUM_ROWS = 64;
+
+__device__ __forceinline__ void sum_columns(const float* __restrict__ src, void* __restrict__ dst,
+                                            int parts, int n, int odt) {
+  __shared__ float red[SUM_ROWS][SUM_COLS + 1];
+  // launched as the row kernel's programmatic dependent (launch_dependent):
+  // wait until that grid is complete and its partials are visible (a no-op
+  // for an ordinary launch)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int c = blockIdx.x * SUM_COLS + threadIdx.x;
+  float s = 0.f;
+  if (c < n) {
+#pragma unroll 4
+    for (int p = threadIdx.y; p < parts; p += SUM_ROWS) s += src[(long long)p * n + c];
+  }
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+#pragma unroll
+  for (int h = SUM_ROWS / 2; h > 0; h >>= 1) {
+    if (threadIdx.y < h) red[threadIdx.y][threadIdx.x] += red[threadIdx.y + h][threadIdx.x];
+    __syncthreads();
+  }
+  if (threadIdx.y == 0 && c < n) store_from_f(dst, c, red[0][threadIdx.x], odt);
+}
+
+// Launch a column-sum kernel as a programmatic dependent of the kernel
+// before it on the stream (Hopper's programmatic dependent launch): its
+// blocks may be scheduled while the row kernel's last blocks run, and wait
+// in sum_columns until that grid is complete.  No state is left behind.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t st,
+                             Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // The resident blocks an SM holds of a vec kernel at `threads` a block and

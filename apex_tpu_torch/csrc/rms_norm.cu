@@ -32,12 +32,16 @@
 // memory as fp32 planes or, where each stream takes one row, held in
 // registers) for n a multiple of 16 bytes' worth of x's dtype and 16-byte
 // aligned x, y and w; scalar (one element per access) for the rest.  The
-// TPU kernel sums dw in place across its sequential grid;
-// CUDA blocks run in no order, so the backward runs a fixed grid of a few
-// blocks per SM, each walking rows at a grid stride and keeping its
-// threads' column sums in registers, and writes one fp32 row of partial
-// sums per block into a workspace; a second kernel sums the workspace by
-// column in a fixed order.  Deterministic, no float atomics.
+// TPU kernel sums dw in place across its sequential grid; CUDA blocks run
+// in no order, so the backward runs a fixed grid of blocks, each walking
+// rows at a grid stride and keeping its threads' column sums in registers,
+// and writes one fp32 row of partial sums per block into a workspace; a
+// second kernel sums the workspace by column in a fixed order and rounds
+// dw once to the dtype asked for.  Deterministic, no float atomics.  The
+// backward has layer_norm.cu's two routes, on the same rules: vec (16-byte
+// chunks of g, x and dx, row streams over the resident blocks with the
+// next row in flight, w staged once a block, the column sums added over a
+// block's streams through shared memory) and scalar.
 
 #include "norm_common.cuh"
 
@@ -241,11 +245,16 @@ rms_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
   __shared__ float red[RPC][WPR];
   const int tid = threadIdx.x;
 
-  float wv[VPT], aw[VPT];
+  // a 1024-thread block (n > 8192) has 64 registers a thread, which hold
+  // the column sums but not w, g and xhat beside them: there the dx pass
+  // reads g and x again (from L1) and w is read where it is used
+  constexpr bool HOLD = TPR < 1024;
+  constexpr int HV = HOLD ? VPT : 1;
+  auto weight = [&](int c) { return (w != nullptr && c < n) ? load_as_f(w, c, wdtype) : 1.f; };
+  float wv[HV], aw[VPT];
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
-    const int c = tid + i * TPR;
-    wv[i] = (w != nullptr && c < n) ? load_as_f(w, c, wdtype) : 1.f;
+    if constexpr (HOLD) wv[i] = weight(tid + i * TPR);
     aw[i] = 0.f;
   }
 
@@ -256,26 +265,40 @@ rms_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
     const T* gr = g + row * n;
     const T* xr = x + row * n;
     const float rs = rstd[row];
-    float gv[VPT], xh[VPT];
+    float gv[HV], xh[HV];
     float s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < VPT; ++i) {
       const int c = tid + i * TPR;
-      gv[i] = 0.f;
-      xh[i] = 0.f;
+      float gi = 0.f, xi = 0.f, wi;
       if (c < n) {
-        gv[i] = to_f(gr[c]);
-        xh[i] = to_f(xr[c]) * rs;
+        gi = to_f(gr[c]);
+        xi = to_f(xr[c]) * rs;
       }
-      s2 += gv[i] * wv[i] * xh[i];
+      if constexpr (HOLD) {
+        gv[i] = gi, xh[i] = xi, wi = wv[i];
+      } else {
+        wi = weight(c);
+      }
+      s2 += gi * wi * xi;
     }
     const float c2 = row_sum<WPR>(s2, red[threadIdx.y]) / n;
     T* dxr = dx + row * n;
 #pragma unroll
     for (int i = 0; i < VPT; ++i) {
       const int c = tid + i * TPR;
-      if (c < n) dxr[c] = from_f<T>((gv[i] * wv[i] - xh[i] * c2) * rs);
-      aw[i] += gv[i] * xh[i];
+      float gi = 0.f, xi = 0.f, wi;
+      if constexpr (HOLD) {
+        gi = gv[i], xi = xh[i], wi = wv[i];
+      } else {
+        if (c < n) {
+          gi = to_f(gr[c]);
+          xi = to_f(xr[c]) * rs;
+        }
+        wi = weight(c);
+      }
+      if (c < n) dxr[c] = from_f<T>((gi * wi - xi * c2) * rs);
+      aw[i] += gi * xi;
     }
   }
   if (part_w == nullptr) return;  // the plain (non-affine) form
@@ -303,47 +326,213 @@ rms_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-// dw[c] = sum over p of part_w[p, c]: 32 columns a block, 32 threads down
-// each column, then a fixed-order sum of the 32 through shared memory
-__global__ void __launch_bounds__(1024)
-rms_bwd_cols_kernel(const float* __restrict__ part_w, float* __restrict__ dw, int parts,
-                    int n) {
-  __shared__ float red[32][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (c < n) {
-#pragma unroll 4
-    for (int p = threadIdx.y; p < parts; p += 32) s += part_w[(long long)p * n + c];
+// the vec route's backward: layer_norm.cu's ln_bwd_vec_kernel without the
+// mean: 16-byte chunks of g, x and dx, row streams at a grid stride with the
+// next row's chunks and rstd in flight, w (AFFINE) staged once a block as
+// fp32 planes from its own dtype, c2 a product with inv_n = 1 / n, and the
+// columns' fp32 sums of g * xhat kept in registers and written as one row
+// of partials a block (write_col_partials)
+template <typename T, int CPT, int TPR, bool AFFINE>
+__global__ void __launch_bounds__(TPR * Shape<TPR>::RPC, 1)
+rms_bwd_vec_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                   const float* __restrict__ rstd, const void* __restrict__ w, int wdt,
+                   T* __restrict__ dx, float* __restrict__ part_w, int rows, int n,
+                   float inv_n) {
+  constexpr int RPC = Shape<TPR>::RPC, WPR = Shape<TPR>::WPR, L = chunk_len<T>();
+  constexpr int SLOTS = CPT * TPR, AC = AFFINE ? CPT : 1;
+  __shared__ float red[RPC][WPR];
+  extern __shared__ float4 smem[];  // w's L / 4 planes, then the column sums
+  const int tid = threadIdx.x;
+  const int chunks = n / L;
+  // the column sums may be scheduled now (ln_bwd_vec_kernel's note)
+  asm volatile("griddepcontrol.launch_dependents;");
+
+  // a 1024-thread block (n > 8192) holds the column sums but not the row
+  // beside them in its 64 registers a thread: ln_bwd_vec_kernel's HOLD
+  constexpr bool HOLD = TPR < 1024;
+  constexpr int HC = HOLD ? CPT : 1;
+
+  // with RPC == 1 every thread of the block walks the same rows, so the
+  // __syncthreads in row_sum are reached by all of them
+  const long long stride = (long long)gridDim.x * RPC;
+  long long row = (long long)blockIdx.x * RPC + threadIdx.y;
+  uint4 cg[HC], cx[HC];
+  float rs = 0.f;
+  if (row < rows) {
+    if constexpr (HOLD) {
+      load_row<CPT, TPR>(reinterpret_cast<const uint4*>(g + row * n), chunks, cg);
+      load_row<CPT, TPR>(reinterpret_cast<const uint4*>(x + row * n), chunks, cx);
+    }
+    rs = rstd[row];
   }
-  red[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < n) {
-    float t = 0.f;
+  float aw[AC][L];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) t += red[i][threadIdx.x];
-    dw[c] = t;
+  for (int i = 0; i < AC; ++i) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) aw[i][j] = 0.f;
   }
+  if constexpr (AFFINE) {
+    APEX_PARAM_SWITCH(wdt, P,
+        stage_param<L, SLOTS, TPR * RPC>(static_cast<const P*>(w), chunks, smem));
+    __syncthreads();
+  }
+  for (; row < rows; row += stride) {
+    const uint4* gr = reinterpret_cast<const uint4*>(g + row * n);
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * n);
+    uint4 ng[HC], nx[HC];
+    float nrs = 0.f;
+    const long long next = row + stride;
+    if (next < rows) {
+      if constexpr (HOLD) {
+        load_row<CPT, TPR>(reinterpret_cast<const uint4*>(g + next * n), chunks, ng);
+        load_row<CPT, TPR>(reinterpret_cast<const uint4*>(x + next * n), chunks, nx);
+      }
+      nrs = rstd[next];
+    }
+
+    float s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * TPR;
+      if (c < chunks) {
+        float gv[L], xv[L], wv[L];
+        if constexpr (HOLD) {
+          unpack_chunk<T>(cg[i], gv);
+          unpack_chunk<T>(cx[i], xv);
+        } else {
+          unpack_chunk<T>(__ldg(gr + c), gv);
+          unpack_chunk<T>(__ldg(xr + c), xv);
+        }
+        if constexpr (AFFINE) load_staged<L, SLOTS>(smem, c, wv);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          const float xh = xv[j] * rs;
+          float gh = gv[j];
+          if constexpr (AFFINE) {
+            gh *= wv[j];
+            aw[i][j] += gv[j] * xh;
+          }
+          s2 += gh * xh;
+        }
+      }
+    }
+    const float c2 = row_sum<WPR>(s2, red[threadIdx.y]) * inv_n;
+
+    uint4* dr = reinterpret_cast<uint4*>(dx + row * n);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * TPR;
+      if (c < chunks) {
+        float gv[L], xv[L], wv[L], o[L];
+        if constexpr (HOLD) {
+          unpack_chunk<T>(cg[i], gv);
+          unpack_chunk<T>(cx[i], xv);
+        } else {
+          unpack_chunk<T>(__ldg(gr + c), gv);
+          unpack_chunk<T>(__ldg(xr + c), xv);
+        }
+        if constexpr (AFFINE) load_staged<L, SLOTS>(smem, c, wv);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          const float xh = xv[j] * rs;
+          float gh = gv[j];
+          if constexpr (AFFINE) gh *= wv[j];
+          o[j] = (gh - xh * c2) * rs;
+        }
+        dr[c] = pack_chunk<T>(o);
+      }
+    }
+    if constexpr (HOLD) {
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) cg[i] = ng[i], cx[i] = nx[i];
+    }
+    rs = nrs;
+  }
+  if constexpr (AFFINE) {
+    __syncthreads();  // every stream is done with the staged w
+    write_col_partials<L, CPT, TPR, RPC>(aw, smem, part_w + (long long)blockIdx.x * n, chunks);
+  }
+}
+
+// dw: the column sums of part_w, rounded once to odt (sum_columns)
+__global__ void __launch_bounds__(SUM_COLS * SUM_ROWS)
+rms_bwd_cols_kernel(const float* __restrict__ part_w, void* __restrict__ dw, int parts, int n,
+                    int odt) {
+  sum_columns(part_w, dw, parts, n, odt);
+}
+
+struct BwdArgs {
+  const void* g;
+  const void* x;
+  const float* rstd;
+  const void* w;
+  int wdt;
+  void* dx;
+  float* pw;
+  int parts, rows, n, route;
+  cudaStream_t st;
+};
+
+// The backward's grid, which is also the number of rows of partial column
+// sums (layer_norm.cu's bwd_grid): scalar, norm_bwd_parts; vec, as many
+// blocks as are resident at once (of the affine kernel), no more than the
+// rows need; 0 if the runtime refuses.
+template <typename T, int VPT, int TPR>
+int bwd_grid(int rows, int n, int route) {
+  if (route == NORM_SCALAR) return norm_bwd_parts(rows, n);
+  constexpr int RPC = Shape<TPR>::RPC, CPT = chunks_per_thread<T>(VPT);
+  static const int per_sm = vec_blocks_per_sm(rms_bwd_vec_kernel<T, CPT, TPR, true>, TPR * RPC,
+                                              norm_bwd_vec_smem<T, CPT, TPR>());
+  int grid = 0;
+  return norm_vec_grid(rows, RPC, per_sm, &grid) == cudaSuccess ? grid : 0;
 }
 
 template <typename T, int VPT, int TPR>
-cudaError_t launch_bwd(const void* g, const void* x, const float* rstd, const void* w,
-                       int wdtype, void* dx, float* pw, int parts, int rows, int n,
-                       cudaStream_t st) {
-  const dim3 block(TPR, Shape<TPR>::RPC);
-  rms_bwd_kernel<T, VPT, TPR><<<parts, block, 0, st>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), rstd, w, wdtype,
-      static_cast<T*>(dx), pw, rows, n);
+cudaError_t launch_bwd(const BwdArgs& a) {
+  constexpr int RPC = Shape<TPR>::RPC, CPT = chunks_per_thread<T>(VPT);
+  const int grid = bwd_grid<T, VPT, TPR>(a.rows, a.n, a.route);
+  if (grid <= 0) return cudaErrorInvalidConfiguration;
+  if (a.parts != grid) return cudaErrorInvalidValue;  // the workspace's rows
+  const dim3 block(TPR, RPC);
+  const T* g = static_cast<const T*>(a.g);
+  const T* x = static_cast<const T*>(a.x);
+  T* dx = static_cast<T*>(a.dx);
+  if (a.route == NORM_SCALAR) {
+    rms_bwd_kernel<T, VPT, TPR><<<grid, block, 0, a.st>>>(g, x, a.rstd, a.w, a.wdt, dx, a.pw,
+                                                          a.rows, a.n);
+  } else if (a.w != nullptr) {
+    rms_bwd_vec_kernel<T, CPT, TPR, true>
+        <<<grid, block, norm_bwd_vec_smem<T, CPT, TPR>(), a.st>>>(
+            g, x, a.rstd, a.w, a.wdt, dx, a.pw, a.rows, a.n, 1.f / a.n);
+  } else {
+    rms_bwd_vec_kernel<T, CPT, TPR, false><<<grid, block, 0, a.st>>>(
+        g, x, a.rstd, nullptr, 0, dx, nullptr, a.rows, a.n, 1.f / a.n);
+  }
   return cudaGetLastError();
 }
 
+// whether the vec route takes these arguments (n a multiple of the chunk,
+// 16-byte aligned rows, weight and workspace)
 template <typename T>
-cudaError_t dispatch_bwd(const void* g, const void* x, const float* rstd, const void* w,
-                         int wdtype, void* dx, float* pw, int parts, int rows, int n,
-                         cudaStream_t st) {
-#define APEX_RMS_BWD(VPT, TPR) \
-  launch_bwd<T, VPT, TPR>(g, x, rstd, w, wdtype, dx, pw, parts, rows, n, st)
-  APEX_NORM_BY_ROW(n, APEX_RMS_BWD);
+bool vec_takes(const BwdArgs& a) {
+  return a.n % chunk_len<T>() == 0 && aligned16(a.g) && aligned16(a.x) && aligned16(a.dx) &&
+         (a.w == nullptr || (aligned16(a.w) && aligned16(a.pw)));
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const BwdArgs& a) {
+  if (a.route != NORM_SCALAR && !vec_takes<T>(a)) return cudaErrorInvalidValue;
+#define APEX_RMS_BWD(VPT, TPR) launch_bwd<T, VPT, TPR>(a)
+  APEX_NORM_BY_ROW(a.n, APEX_RMS_BWD);
 #undef APEX_RMS_BWD
+}
+
+template <typename T>
+int dispatch_parts(int rows, int n, int route) {
+  if (n > 16384) return 0;
+#define APEX_RMS_PARTS(VPT, TPR) bwd_grid<T, VPT, TPR>(rows, n, route)
+  APEX_NORM_BY_ROW(n, APEX_RMS_PARTS);
+#undef APEX_RMS_PARTS
 }
 
 }  // namespace
@@ -370,39 +559,49 @@ extern "C" int apex_rms_fwd(const void* x, const void* w, int wdtype, void* y, v
 }
 
 // The number of blocks (and rows of partial sums) apex_rms_bwd runs for a
-// (rows, n) input on the current device (norm_bwd_parts).  The caller
-// allocates the (parts, n) fp32 workspace from it.
-extern "C" int apex_rms_bwd_parts(int rows, int n) { return norm_bwd_parts(rows, n); }
+// (rows, n) input in dtype on route on the current device (bwd_grid), 0
+// for arguments no launch takes.  The caller allocates the (parts, n) fp32
+// workspace from it.
+extern "C" int apex_rms_bwd_parts(int rows, int n, int dtype, int route) {
+  if (rows <= 0 || n <= 0 || (route != NORM_SCALAR && route != NORM_VEC)) return 0;
+  switch (dtype) {
+    case DT_F32: return dispatch_parts<float>(rows, n, route);
+    case DT_BF16: return dispatch_parts<__nv_bfloat16>(rows, n, route);
+    case DT_F16: return dispatch_parts<__half>(rows, n, route);
+    default: return 0;
+  }
+}
 
 // g, x, dx (rows, n) contiguous in dtype; rstd (rows,) float32; w (n,) in
 // wdtype, or null for the plain form, whose part_w is null too; part_w
-// (parts, n) float32 with parts from apex_rms_bwd_parts.  Returns the
-// cudaError_t of the launch.
+// (parts, n) float32 with parts from apex_rms_bwd_parts for the same rows,
+// n, dtype and route.  route as apex_ln_bwd's: vec takes n a multiple of
+// 16 / sizeof(dtype) and 16-byte aligned g, x, dx, w and part_w.  Returns
+// the cudaError_t of the launch.
 extern "C" int apex_rms_bwd(const void* g, const void* x, const void* rstd, const void* w,
                             int wdtype, void* dx, void* part_w, int parts, int rows, int n,
-                            int dtype, void* stream) {
-  const float* rf = static_cast<const float*>(rstd);
-  float* pw = static_cast<float*>(part_w);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || n <= 0 || parts <= 0 || (w == nullptr) != (pw == nullptr) ||
-      wdtype < 0 || wdtype > 2)
+                            int dtype, int route, void* stream) {
+  const BwdArgs a{g, x, static_cast<const float*>(rstd), w, wdtype, dx,
+                  static_cast<float*>(part_w), parts, rows, n, route,
+                  static_cast<cudaStream_t>(stream)};
+  if (rows <= 0 || n <= 0 || parts <= 0 || (w == nullptr) != (a.pw == nullptr) ||
+      wdtype < DT_F32 || wdtype > DT_F16 || (route != NORM_SCALAR && route != NORM_VEC))
     return cudaErrorInvalidValue;
   switch (dtype) {
-    case DT_F32: return dispatch_bwd<float>(g, x, rf, w, wdtype, dx, pw, parts, rows, n, st);
-    case DT_BF16:
-      return dispatch_bwd<__nv_bfloat16>(g, x, rf, w, wdtype, dx, pw, parts, rows, n, st);
-    case DT_F16: return dispatch_bwd<__half>(g, x, rf, w, wdtype, dx, pw, parts, rows, n, st);
+    case DT_F32: return dispatch_bwd<float>(a);
+    case DT_BF16: return dispatch_bwd<__nv_bfloat16>(a);
+    case DT_F16: return dispatch_bwd<__half>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// dw (n,) float32 = the column sums of part_w (parts, n).  Returns the
-// cudaError_t of the launch.
-extern "C" int apex_rms_bwd_cols(const void* part_w, void* dw, int parts, int n,
+// dw (n,) in odtype (codes as dtype's) = the column sums of part_w (parts,
+// n), summed in fp32 and rounded once.  Returns the cudaError_t of the
+// launch.
+extern "C" int apex_rms_bwd_cols(const void* part_w, void* dw, int parts, int n, int odtype,
                                  void* stream) {
-  if (parts <= 0 || n <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((n + 31) / 32), block(32, 32);
-  rms_bwd_cols_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_w), static_cast<float*>(dw), parts, n);
-  return cudaGetLastError();
+  if (parts <= 0 || n <= 0 || odtype < DT_F32 || odtype > DT_F16) return cudaErrorInvalidValue;
+  const dim3 grid((n + SUM_COLS - 1) / SUM_COLS), block(SUM_COLS, SUM_ROWS);
+  return launch_dependent(rms_bwd_cols_kernel, grid, block, static_cast<cudaStream_t>(stream),
+                          static_cast<const float*>(part_w), dw, parts, n, odtype);
 }

@@ -10,14 +10,19 @@ affine form, ``dgamma``/``dbeta`` summed over the rows in fp32.  A CUDA
 tensor launches the kernel; a CPU tensor takes the plain version
 (:func:`ln_forward_reference`, :func:`ln_backward_reference`).
 
-The forward kernel reads the affine parameters in their own dtypes (fp32,
-bf16 or fp16, each independent of x's) and has two routes, which
-:func:`norm_route` picks before the launch (the RMSNorm forward uses the
-same rule): ``vec``, 16-byte accesses of x, y and the parameters, for a
-width that is a multiple of 16 bytes' worth of x's dtype and 16-byte
-aligned bases; ``scalar``, one element per access, for the rest.  Each
-route has its own counter (``ln_forward_vec``, ``ln_forward_scalar``)
-beside the total ``ln_forward``.
+The kernels read the affine parameters in their own dtypes (fp32, bf16 or
+fp16, each independent of x's) and have two routes, which
+:func:`norm_route` picks before the launch (the RMSNorm kernels use the
+same rule): ``vec``, 16-byte accesses of the rows (x and y; g, x and dx)
+and the parameters, for a width that is a multiple of 16 bytes' worth of
+x's dtype and 16-byte aligned bases; ``scalar``, one element per access,
+for the rest.  Each route has its own counter (``ln_forward_vec``,
+``ln_forward_scalar``; ``ln_backward_rows_vec``,
+``ln_backward_rows_scalar``) beside the totals ``ln_forward`` and
+``ln_backward_rows``.  The backward's column-sum kernel rounds each fp32
+sum once to the dtype asked for: fp32 from :func:`ln_backward`, the
+weight's dtype from ``_backward`` (the autograd Function's path, as
+the JAX ``custom_vjp`` casts them).
 """
 from __future__ import annotations
 
@@ -38,16 +43,19 @@ VEC_BYTES = 16    # the vec route's access: one 16-byte chunk a thread
 LAUNCHES.setdefault("ln_forward", 0)
 for _route in ROUTES:
     LAUNCHES.setdefault(f"ln_forward_{_route}", 0)
-# the backward is two launches: dx with per-block partial column sums, then
-# the column reduction of the partials into dgamma/dbeta (affine form only)
+# the backward is two launches: dx with per-block partial column sums (on
+# either route), then the column reduction of the partials into
+# dgamma/dbeta (affine form only)
 LAUNCHES.setdefault("ln_backward_rows", 0)
+for _route in ROUTES:
+    LAUNCHES.setdefault(f"ln_backward_rows_{_route}", 0)
 LAUNCHES.setdefault("ln_backward_cols", 0)
 
 
 def norm_route(dtype, n, *addresses):
-    """The norm forward kernels' route for x of ``dtype`` and width ``n``
-    at the given base addresses (x, y and the parameters): ``"vec"`` or
-    ``"scalar"`` (see the module note)."""
+    """The norm kernels' route for x of ``dtype`` and width ``n`` at the
+    given base addresses (x and y, or g, x and dx, and the parameters):
+    ``"vec"`` or ``"scalar"`` (see the module note)."""
     if (n % (VEC_BYTES // dtype.itemsize) or n > MAX_N
             or any(a % VEC_BYTES for a in addresses)):
         return "scalar"
@@ -67,9 +75,11 @@ def ln_forward_reference(x2d, weight, bias, eps):
     return y.to(x2d.dtype), mean, rstd
 
 
-def ln_backward_reference(g2d, x2d, mean, rstd, weight):
+def ln_backward_reference(g2d, x2d, mean, rstd, weight,
+                          sum_dtype=torch.float32):
     """The plain version of the backward, the same arithmetic in PyTorch
-    operations: ``(dx,)`` or ``(dx, dgamma, dbeta)``, the sums fp32."""
+    operations: ``(dx,)`` or ``(dx, dgamma, dbeta)``, the sums taken in fp32
+    and rounded once to ``sum_dtype``."""
     g = g2d.float()
     xhat = (x2d.float() - mean) * rstd
     gh = g * weight.float() if weight is not None else g
@@ -78,7 +88,8 @@ def ln_backward_reference(g2d, x2d, mean, rstd, weight):
     dx = ((gh - c1 - xhat * c2) * rstd).to(x2d.dtype)
     if weight is None:
         return (dx,)
-    return dx, (g * xhat).sum(dim=0), g.sum(dim=0)
+    return (dx, (g * xhat).sum(dim=0).to(sum_dtype),
+            g.sum(dim=0).to(sum_dtype))
 
 
 def _validate(x2d, weight, bias, what="ln_forward"):
@@ -125,21 +136,27 @@ def _lib():
     lib.apex_ln_fwd.argtypes = [p, p, i, p, i, p, p, p, i, i, ctypes.c_float,
                                 i, i, p]
     lib.apex_ln_fwd.restype = i
-    lib.apex_ln_bwd_parts.argtypes = [i, i]
+    lib.apex_ln_bwd_parts.argtypes = [i] * 4
     lib.apex_ln_bwd_parts.restype = i
-    lib.apex_ln_bwd.argtypes = [p] * 5 + [i] + [p] * 3 + [i] * 4 + [p]
+    lib.apex_ln_bwd.argtypes = [p] * 5 + [i] + [p] * 3 + [i] * 5 + [p]
     lib.apex_ln_bwd.restype = i
-    lib.apex_ln_bwd_cols.argtypes = [p] * 4 + [i, i, p]
+    lib.apex_ln_bwd_cols.argtypes = [p] * 4 + [i] * 3 + [p]
     lib.apex_ln_bwd_cols.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_parts(device_index, rows, n):
-    """Rows of partial sums the backward kernel writes for this shape (its
-    grid size on this device)."""
+def _bwd_parts(device_index, rows, n, dtype, route):
+    """Rows of partial sums the backward kernel writes for this shape, x's
+    dtype and route (its grid on this device, from the function that sizes
+    the launch)."""
     with torch.cuda.device(device_index):
-        return _lib().apex_ln_bwd_parts(rows, n)
+        parts = _lib().apex_ln_bwd_parts(rows, n, dtype_code(dtype),
+                                         ROUTES.index(route))
+    if parts <= 0:
+        raise RuntimeError(f"ln_backward ({route} route): no grid for "
+                           f"({rows}, {n}) {dtype}")
+    return parts
 
 
 def _launch(x2d, weight, bias, eps):
@@ -180,52 +197,62 @@ def ln_forward(x2d, weight, bias, eps):
     return ln_forward_reference(x2d, weight, bias, eps)
 
 
-def _launch_bwd(g2d, x2d, mean, rstd, weight):
+def _launch_bwd(g2d, x2d, mean, rstd, weight, sum_dtype):
     rows, n = x2d.shape
     dx = torch.empty_like(x2d)
     affine = weight is not None
     if rows == 0:
         if not affine:
             return (dx,)
-        z = torch.zeros(n, dtype=torch.float32, device=x2d.device)
+        z = torch.zeros(n, dtype=sum_dtype, device=x2d.device)
         return dx, z, z.clone()
     g2d = g2d.to(x2d.dtype).contiguous()
+    if affine:
+        weight = weight.contiguous()    # read in its own dtype: no cast
+    ptrs = [t.data_ptr() for t in (g2d, x2d, dx, weight) if t is not None]
+    route = norm_route(x2d.dtype, n, *ptrs)
     dev = x2d.device
     lib = _lib()
-    parts = _bwd_parts(dev.index, rows, n)
+    parts = _bwd_parts(dev.index, rows, n, x2d.dtype, route)
     pw = pb = None
     if affine:
-        weight = weight.contiguous()
         pw = torch.empty((parts, n), dtype=torch.float32, device=dev)
         pb = torch.empty_like(pw)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_ln_bwd(
             g2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            None if weight is None else weight.data_ptr(),
+            weight.data_ptr() if affine else None,
             dtype_code(weight.dtype) if affine else 0, dx.data_ptr(),
-            None if pw is None else pw.data_ptr(),
-            None if pb is None else pb.data_ptr(), parts, rows, n,
-            dtype_code(x2d.dtype), stream)
-        _build.check(lib, err, "ln_backward")
+            pw.data_ptr() if affine else None,
+            pb.data_ptr() if affine else None, parts, rows, n,
+            dtype_code(x2d.dtype), ROUTES.index(route), stream)
+        _build.check(lib, err, f"ln_backward ({route} route)")
         LAUNCHES["ln_backward_rows"] += 1
+        LAUNCHES[f"ln_backward_rows_{route}"] += 1
         if not affine:
             return (dx,)
-        dw = torch.empty(n, dtype=torch.float32, device=dev)
+        dw = torch.empty(n, dtype=sum_dtype, device=dev)
         db = torch.empty_like(dw)
         err = lib.apex_ln_bwd_cols(pw.data_ptr(), pb.data_ptr(),
                                    dw.data_ptr(), db.data_ptr(), parts, n,
-                                   stream)
+                                   dtype_code(sum_dtype), stream)
         _build.check(lib, err, "ln_backward (column sums)")
         LAUNCHES["ln_backward_cols"] += 1
     return dx, dw, db
+
+
+def _backward(g2d, x2d, mean, rstd, weight, sum_dtype):
+    """:func:`ln_backward` with dgamma/dbeta rounded once to ``sum_dtype``
+    (the kernel writes them so, no cast after it)."""
+    _validate_bwd(g2d, x2d, mean, rstd, weight)
+    if use_kernel(g2d, x2d, mean, rstd, weight):
+        return _launch_bwd(g2d, x2d, mean, rstd, weight, sum_dtype)
+    return ln_backward_reference(g2d, x2d, mean, rstd, weight, sum_dtype)
 
 
 def ln_backward(g2d, x2d, mean, rstd, weight):
     """g2d, x2d (rows, N); mean, rstd (rows, 1) fp32 from the forward;
     weight (N,) or None.  -> ``(dx,)`` in x's dtype, or ``(dx, dgamma,
     dbeta)`` with the sums fp32 of shape (N,)."""
-    _validate_bwd(g2d, x2d, mean, rstd, weight)
-    if use_kernel(g2d, x2d, mean, rstd, weight):
-        return _launch_bwd(g2d, x2d, mean, rstd, weight)
-    return ln_backward_reference(g2d, x2d, mean, rstd, weight)
+    return _backward(g2d, x2d, mean, rstd, weight, torch.float32)

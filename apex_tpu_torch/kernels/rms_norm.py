@@ -10,11 +10,15 @@ the rows in fp32.  A CUDA tensor launches the kernel; a CPU tensor takes
 the plain version (:func:`rms_forward_reference`,
 :func:`rms_backward_reference`).
 
-The forward kernel reads the weight in its own dtype and takes the
-LayerNorm forward's two routes, ``vec`` and ``scalar``, by the same rule
+The kernels read the weight in its own dtype and take the LayerNorm
+kernels' two routes, ``vec`` and ``scalar``, by the same rule
 (:func:`~apex_tpu_torch.kernels.layer_norm.norm_route`), each with its own
-counter (``rms_forward_vec``, ``rms_forward_scalar``) beside the total
-``rms_forward``.
+counter (``rms_forward_vec``, ``rms_forward_scalar``;
+``rms_backward_rows_vec``, ``rms_backward_rows_scalar``) beside the totals
+``rms_forward`` and ``rms_backward_rows``.  The backward's column-sum
+kernel rounds dw once to the dtype asked for: fp32 from
+:func:`rms_backward`, the weight's dtype from ``_backward`` (the autograd
+Function's path).
 """
 from __future__ import annotations
 
@@ -32,9 +36,12 @@ MAX_N = 16384     # the longest row the kernel takes (csrc/rms_norm.cu)
 LAUNCHES.setdefault("rms_forward", 0)
 for _route in ROUTES:
     LAUNCHES.setdefault(f"rms_forward_{_route}", 0)
-# the backward is two launches: dx with per-block partial column sums, then
-# the column reduction of the partials into dw (affine form only)
+# the backward is two launches: dx with per-block partial column sums (on
+# either route), then the column reduction of the partials into dw (affine
+# form only)
 LAUNCHES.setdefault("rms_backward_rows", 0)
+for _route in ROUTES:
+    LAUNCHES.setdefault(f"rms_backward_rows_{_route}", 0)
 LAUNCHES.setdefault("rms_backward_cols", 0)
 
 
@@ -48,9 +55,9 @@ def rms_forward_reference(x2d, weight, eps):
     return y.to(x2d.dtype), rstd
 
 
-def rms_backward_reference(g2d, x2d, rstd, weight):
+def rms_backward_reference(g2d, x2d, rstd, weight, sum_dtype=torch.float32):
     """The plain version of the backward: ``(dx,)`` or ``(dx, dw)``, the
-    sum fp32."""
+    sum taken in fp32 and rounded once to ``sum_dtype``."""
     g = g2d.float()
     xhat = x2d.float() * rstd
     gh = g * weight.float() if weight is not None else g
@@ -58,7 +65,7 @@ def rms_backward_reference(g2d, x2d, rstd, weight):
     dx = ((gh - xhat * c2) * rstd).to(x2d.dtype)
     if weight is None:
         return (dx,)
-    return dx, (g * xhat).sum(dim=0)
+    return dx, (g * xhat).sum(dim=0).to(sum_dtype)
 
 
 def _validate(x2d, weight, what="rms_forward"):
@@ -99,21 +106,27 @@ def _lib():
     lib.apex_rms_fwd.argtypes = [p, p, i, p, p, i, i, ctypes.c_float, i, i,
                                  p]
     lib.apex_rms_fwd.restype = i
-    lib.apex_rms_bwd_parts.argtypes = [i, i]
+    lib.apex_rms_bwd_parts.argtypes = [i] * 4
     lib.apex_rms_bwd_parts.restype = i
-    lib.apex_rms_bwd.argtypes = [p] * 4 + [i, p, p] + [i] * 4 + [p]
+    lib.apex_rms_bwd.argtypes = [p] * 4 + [i, p, p] + [i] * 5 + [p]
     lib.apex_rms_bwd.restype = i
-    lib.apex_rms_bwd_cols.argtypes = [p, p, i, i, p]
+    lib.apex_rms_bwd_cols.argtypes = [p, p] + [i] * 3 + [p]
     lib.apex_rms_bwd_cols.restype = i
     return lib
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_parts(device_index, rows, n):
-    """Rows of partial sums the backward kernel writes for this shape (its
-    grid size on this device)."""
+def _bwd_parts(device_index, rows, n, dtype, route):
+    """Rows of partial sums the backward kernel writes for this shape, x's
+    dtype and route (its grid on this device, from the function that sizes
+    the launch)."""
     with torch.cuda.device(device_index):
-        return _lib().apex_rms_bwd_parts(rows, n)
+        parts = _lib().apex_rms_bwd_parts(rows, n, dtype_code(dtype),
+                                          ROUTES.index(route))
+    if parts <= 0:
+        raise RuntimeError(f"rms_backward ({route} route): no grid for "
+                           f"({rows}, {n}) {dtype}")
+    return parts
 
 
 def _launch(x2d, weight, eps):
@@ -149,47 +162,57 @@ def rms_forward(x2d, weight, eps):
     return rms_forward_reference(x2d, weight, eps)
 
 
-def _launch_bwd(g2d, x2d, rstd, weight):
+def _launch_bwd(g2d, x2d, rstd, weight, sum_dtype):
     rows, n = x2d.shape
     dx = torch.empty_like(x2d)
     affine = weight is not None
     if rows == 0:
         if not affine:
             return (dx,)
-        return dx, torch.zeros(n, dtype=torch.float32, device=x2d.device)
+        return dx, torch.zeros(n, dtype=sum_dtype, device=x2d.device)
     g2d = g2d.to(x2d.dtype).contiguous()
+    if affine:
+        weight = weight.contiguous()    # read in its own dtype: no cast
+    ptrs = [t.data_ptr() for t in (g2d, x2d, dx, weight) if t is not None]
+    route = norm_route(x2d.dtype, n, *ptrs)
     dev = x2d.device
     lib = _lib()
-    parts = _bwd_parts(dev.index, rows, n)
+    parts = _bwd_parts(dev.index, rows, n, x2d.dtype, route)
     pw = None
     if affine:
-        weight = weight.contiguous()
         pw = torch.empty((parts, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_rms_bwd(
             g2d.data_ptr(), x2d.data_ptr(), rstd.data_ptr(),
-            None if weight is None else weight.data_ptr(),
+            weight.data_ptr() if affine else None,
             dtype_code(weight.dtype) if affine else 0, dx.data_ptr(),
-            None if pw is None else pw.data_ptr(), parts, rows, n,
-            dtype_code(x2d.dtype), stream)
-        _build.check(lib, err, "rms_backward")
+            pw.data_ptr() if affine else None, parts, rows, n,
+            dtype_code(x2d.dtype), ROUTES.index(route), stream)
+        _build.check(lib, err, f"rms_backward ({route} route)")
         LAUNCHES["rms_backward_rows"] += 1
+        LAUNCHES[f"rms_backward_rows_{route}"] += 1
         if not affine:
             return (dx,)
-        dw = torch.empty(n, dtype=torch.float32, device=dev)
+        dw = torch.empty(n, dtype=sum_dtype, device=dev)
         err = lib.apex_rms_bwd_cols(pw.data_ptr(), dw.data_ptr(), parts, n,
-                                    stream)
+                                    dtype_code(sum_dtype), stream)
         _build.check(lib, err, "rms_backward (column sums)")
         LAUNCHES["rms_backward_cols"] += 1
     return dx, dw
+
+
+def _backward(g2d, x2d, rstd, weight, sum_dtype):
+    """:func:`rms_backward` with dw rounded once to ``sum_dtype`` (the
+    kernel writes it so, no cast after it)."""
+    _validate_bwd(g2d, x2d, rstd, weight)
+    if use_kernel(g2d, x2d, rstd, weight):
+        return _launch_bwd(g2d, x2d, rstd, weight, sum_dtype)
+    return rms_backward_reference(g2d, x2d, rstd, weight, sum_dtype)
 
 
 def rms_backward(g2d, x2d, rstd, weight):
     """g2d, x2d (rows, N); rstd (rows, 1) fp32 from the forward; weight
     (N,) or None.  -> ``(dx,)`` in x's dtype, or ``(dx, dw)`` with dw fp32
     of shape (N,)."""
-    _validate_bwd(g2d, x2d, rstd, weight)
-    if use_kernel(g2d, x2d, rstd, weight):
-        return _launch_bwd(g2d, x2d, rstd, weight)
-    return rms_backward_reference(g2d, x2d, rstd, weight)
+    return _backward(g2d, x2d, rstd, weight, torch.float32)

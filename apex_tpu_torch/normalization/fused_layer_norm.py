@@ -6,7 +6,8 @@ The functional forms run the LayerNorm forward kernel
 ``torch.autograd.Function`` whose backward runs the backward kernel
 (:func:`~apex_tpu_torch.kernels.layer_norm.ln_backward`) on the saved input
 and statistics, as the JAX package's ``custom_vjp`` does: ``dx`` in x's
-dtype, ``dgamma``/``dbeta`` summed in fp32 and cast to the weight's dtype.
+dtype, ``dgamma``/``dbeta`` summed in fp32 and rounded to the weight's
+dtype by the column-sum kernel.
 Note the two default eps values, as in the JAX package: 1e-6 for the
 functions, 1e-5 for the module.
 """
@@ -45,8 +46,10 @@ class _LayerNorm(torch.autograd.Function):
         if weight is None:
             (dx,) = _k.ln_backward(g, x2d, mean, rstd, None)
             return dx, None, None, None
-        dx, dw, db = _k.ln_backward(g, x2d, mean, rstd, weight)
-        return dx, dw.to(weight.dtype), db.to(weight.dtype), None
+        # the column-sum kernel writes dgamma and dbeta in the weight's
+        # dtype (fp32 sums rounded once): no cast launch after it
+        dx, dw, db = _k._backward(g, x2d, mean, rstd, weight, weight.dtype)
+        return dx, dw, db, None
 
 
 def _layer_norm(x2d, weight, bias, eps):

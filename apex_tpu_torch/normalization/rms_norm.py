@@ -7,7 +7,8 @@ The functional forms run the RMSNorm forward kernel
 ``torch.autograd.Function`` whose backward runs the backward kernel
 (:func:`~apex_tpu_torch.kernels.rms_norm.rms_backward`) on the saved input
 and fp32 ``rstd``, as the JAX package's ``custom_vjp`` does: ``dx`` in x's
-dtype, ``dw`` summed in fp32 and cast to the weight's dtype.  The default
+dtype, ``dw`` summed in fp32 and rounded to the weight's dtype by the
+column-sum kernel.  The default
 eps is 1e-6 everywhere (the Llama convention).
 """
 from __future__ import annotations
@@ -33,8 +34,10 @@ class _RMSNorm(torch.autograd.Function):
         if weight is None:
             (dx,) = _k.rms_backward(g, x2d, rstd, None)
             return dx, None, None
-        dx, dw = _k.rms_backward(g, x2d, rstd, weight)
-        return dx, dw.to(weight.dtype), None
+        # the column-sum kernel writes dw in the weight's dtype (the fp32
+        # sum rounded once): no cast launch after it
+        dx, dw = _k._backward(g, x2d, rstd, weight, weight.dtype)
+        return dx, dw, None
 
 
 def _rms_norm(x2d, weight, eps):

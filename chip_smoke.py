@@ -28,8 +28,8 @@ Phases, each of which raises on failure:
    a device-side sleep, median over timed runs after warm-up), and, where
    a function is two launches, each launch's device time from
    ``torch.profiler``; every instance of the LayerNorm and RMSNorm
-   forward kernels free of spills and stack (``cuobjdump -res-usage`` and
-   ``-sass``); those forwards on the route the
+   forward and backward kernels free of spills and stack (``cuobjdump
+   -res-usage`` and ``-sass``); those forwards on the route the
    wrapper picks (read from the per-route counters: ``vec`` for widths
    that are a multiple of 16 bytes' worth of x's dtype, ``scalar`` for the
    rest), the vec cases once more on the scalar route forced through the C
@@ -39,7 +39,14 @@ Phases, each of which raises on failure:
    through its C entry point, the wrapper, the library call and
    ``y.copy_(x)`` of the same bytes, each warm (back-to-back calls
    on one input) and cold (rotating over inputs of 2 x the L2's size), and
-   the device operations of one wrapper call;
+   the device operations of one wrapper call; the backwards likewise: on
+   the route the wrapper picks, each route forced through the C entry
+   points (twice, bit for bit; the sums in the weight's dtype bit for bit
+   the fp32 sums rounded), with widths and bases that take the scalar
+   route, and each route's row kernel, the column sums, the whole
+   backward, the library call and ``torch.add(g, x, out=dx)`` timed warm
+   and cold at the train step's (16384, 768) bf16, BERT's (8192, 768) and
+   (1280, 768) bf16 and amp O2's (16384, 768) fp16 with an fp32 weight;
 3. the serving path: ``generate`` on GPT-2 small (hidden 768, 12 layers,
    12 heads, vocab 50257, max_positions 640, fp32, random weights from a
    seed) with a batch of 8 512-token prompts and 128 greedy new tokens,
@@ -160,10 +167,12 @@ Phases, each of which raises on failure:
    sequence): MLM logits, loss, gradients, and one LAMB step's masters and
    moments; one ``flash_attention`` call with dropout 0.1, card against CPU.
 
-Every main path's launch counts include the norm forwards' per-route
-counters (each path runs them on ``vec``), and every profiled step prints
-its device operations.  It prints a JSON line of the BERT, Llama-step,
-GPT profiled-step and dropout-arm numbers,
+Every main path's launch counts include the norm kernels' per-route
+counters (each path runs its forwards and backwards on ``vec``), and every
+profiled step prints its device operations (the train steps beside their
+count when the backward's sums were cast after the kernels).  It prints a
+JSON line of the BERT, Llama-step, GPT profiled-step and dropout-arm
+numbers,
 one JSON line of per-kernel numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero before
@@ -733,7 +742,7 @@ def main_path(torch, dispatch, gpt):
     print("main path: generate(gpt2_small, batch 8, prompt 512, 128 new "
           "tokens, fp32, greedy)")
     print(f"  launches: {counts}")
-    print(f"  norm forwards by route: {_norm_routes(counts)}")
+    print(f"  norm kernels by route: {_norm_routes(counts)}")
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
     want.update(_flash_want("simt", layers, backward=False),
@@ -916,88 +925,360 @@ def fwd_train_shapes(torch, attention):
     return fl
 
 
-def ln_bwd_phase(torch, layer_norm):
-    """LayerNorm backward kernels against their plain version (fp32 on the
-    same inputs); timings at the training path's shape.  Returns the two
-    kernel lines' numbers."""
+# the norm backwards' timed shapes, (shape, x dtype, weight dtype): the GPT
+# / Llama train step, BERT's step and its MLM head, and amp O2's fp16
+# activations with an fp32 weight
+NORM_BWD_SHAPES = (((TRAIN_BATCH * TRAIN_SEQ, 768), "bfloat16", "bfloat16"),
+                   ((BERT_BATCH * BERT_SEQ, 768), "bfloat16", "bfloat16"),
+                   ((BERT_BATCH * BERT_MLM, 768), "bfloat16", "bfloat16"),
+                   ((TRAIN_BATCH * TRAIN_SEQ, 768), "float16", "float32"))
+
+
+def _norm_bwd_fns(kind, mod):
+    """The kind's backward wrapper, its weight-dtype path (the autograd
+    Function's) and its plain version, each f(g, x, stats, w[, dtype])."""
+    if kind == "ln":
+        return (lambda g, x, s, w: mod.ln_backward(g, x, *s, w),
+                lambda g, x, s, w, dt: mod._backward(g, x, *s, w, dt),
+                lambda g, x, s, w, dt=None: mod.ln_backward_reference(
+                    g, x, *s, w, *(() if dt is None else (dt,))))
+    return (lambda g, x, s, w: mod.rms_backward(g, x, *s, w),
+            lambda g, x, s, w, dt: mod._backward(g, x, *s, w, dt),
+            lambda g, x, s, w, dt=None: mod.rms_backward_reference(
+                g, x, *s, w, *(() if dt is None else (dt,))))
+
+
+def _norm_stats(kind, mod, x, eps=1e-5):
+    """The statistics the kind's backward takes for x, from the plain
+    forward in fp32: (mean, rstd) or (rstd,)."""
+    if kind == "ln":
+        return mod.ln_forward_reference(x, None, None, eps)[1:]
+    return mod.rms_forward_reference(x, None, eps)[1:]
+
+
+def _norm_bwd_entry(torch, kind, mod, w, route, shape, dtype):
+    """The kind's backward through its C entry points with the route
+    forced (its name): (rows_fn, cols_fn).  rows_fn(g, x, stats, dx)
+    launches the row kernel into dx and a workspace of the rows
+    ``_bwd_parts`` gives for (shape, dtype, route); cols_fn(out) the column
+    sums of that workspace into ``out`` (dgamma, dbeta or dw: new tensors
+    of one dtype)."""
+    lib, code = mod._lib(), mod.dtype_code
+    st = torch.cuda.current_stream().cuda_stream
+    rows, n = shape
+    parts = mod._bwd_parts(torch.cuda.current_device(), rows, n, dtype, route)
+    nacc = 0 if w is None else 2 if kind == "ln" else 1
+    ws = [torch.empty((parts, n), device="cuda") for _ in range(nacc)] \
+        + [None] * (2 - nacc)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    wc = 0 if w is None else code(w.dtype)
+    rc = mod.ROUTES.index(route)
+
+    def done(err, what):
+        if err:
+            raise AssertionError(f"{kind} backward {what} entry point, "
+                                 f"{route} route: CUDA error {err}")
+
+    def rows_fn(g, x, stats, dx):
+        if kind == "ln":
+            err = lib.apex_ln_bwd(ptr(g), ptr(x), ptr(stats[0]),
+                                  ptr(stats[1]), ptr(w), wc, ptr(dx),
+                                  ptr(ws[0]), ptr(ws[1]), parts, rows, n,
+                                  code(x.dtype), rc, st)
+        else:
+            err = lib.apex_rms_bwd(ptr(g), ptr(x), ptr(stats[0]), ptr(w), wc,
+                                   ptr(dx), ptr(ws[0]), parts, rows, n,
+                                   code(x.dtype), rc, st)
+        done(err, "row")
+
+    def cols_fn(out):
+        if kind == "ln":
+            err = lib.apex_ln_bwd_cols(ptr(ws[0]), ptr(ws[1]), ptr(out[0]),
+                                       ptr(out[1]), parts, n,
+                                       code(out[0].dtype), st)
+        else:
+            err = lib.apex_rms_bwd_cols(ptr(ws[0]), ptr(out[0]), parts, n,
+                                        code(out[0].dtype), st)
+        done(err, "column")
+    return rows_fn, cols_fn
+
+
+def _norm_bwd_forced(torch, kind, mod, route, g, x, stats, w, sum_dtype):
+    """(dx, sums in sum_dtype...) through the C entry points on route."""
+    rows_fn, cols_fn = _norm_bwd_entry(torch, kind, mod, w, route,
+                                       tuple(x.shape), x.dtype)
+    dx = torch.empty_like(x)
+    rows_fn(g, x, stats, dx)
+    if w is None:
+        return (dx,)
+    out = [torch.empty(x.shape[1], dtype=sum_dtype, device="cuda")
+           for _ in range(2 if kind == "ln" else 1)]
+    cols_fn(out)
+    return (dx, *out)
+
+
+def _norm_bwd_check(tag, got, ref, tol):
+    """The backward's outputs against the plain version's in fp32: dx at
+    ``tol`` of max(1, max |ref|), the fp32 column sums at 1e-5 of it."""
+    check(f"{tag} dx", scaled_err(got[0], ref[0])[0], tol)
+    for name, a, b in zip(("dgamma" if len(got) == 3 else "dw", "dbeta"),
+                          got[1:], ref[1:]):
+        check(f"{tag} {name}", scaled_err(a, b)[0], 1e-5)
+
+
+def _same(a, b):
+    """Whether two tuples of tensors are equal bit for bit, dtypes too."""
+    return len(a) == len(b) and all(u.dtype == v.dtype and u.equal(v)
+                                    for u, v in zip(a, b))
+
+
+def norm_bwd_case(torch, kind, mod, dispatch, tag, g, x, stats, w, tol, want):
+    """One backward case.  Through the wrapper, its route read from the
+    per-route counters and held to ``want``; then each route the entry
+    points take (vec where the wrapper took it, scalar always) forced
+    through them.  Each against the plain version in fp32 on the same
+    inputs (_norm_bwd_check); each forced route launched twice, bit for
+    bit; the sums in the weight's dtype, through the wrapper's
+    weight-dtype path and through each forced route, bit for bit the fp32
+    sums rounded.  Returns {route: outputs with fp32 sums}."""
+    bwd, bwd_in, ref_fn = _norm_bwd_fns(kind, mod)
+    dispatch.reset_counts()
+    got = bwd(g, x, stats, w)
+    torch.cuda.synchronize()
+    c = dispatch.counts()
+    taken = [r for r in mod.ROUTES if c[f"{kind}_backward_rows_{r}"]]
+    if (taken != [want] or c[f"{kind}_backward_rows"] != 1
+            or c[f"{kind}_backward_cols"] != (w is not None)):
+        raise AssertionError(f"{kind} backward {tag} took {taken}, not "
+                             f"{want} ({c})")
+    ref = ref_fn(g.float(), x.float(), stats,
+                 None if w is None else w.float())
+    _norm_bwd_check(f"{tag} [{want}]", got, ref, tol)
+    outs = {want: got}
+    if w is not None:
+        low = bwd_in(g, x, stats, w, w.dtype)
+        torch.cuda.synchronize()
+        if not _same(low, (got[0], *(s.to(w.dtype) for s in got[1:]))):
+            raise AssertionError(f"{kind} backward {tag}: the weight-dtype "
+                                 f"sums are not the fp32 sums rounded")
+    for route in (("vec", "scalar") if want == "vec" else ("scalar",)):
+        a = _norm_bwd_forced(torch, kind, mod, route, g, x, stats, w,
+                             torch.float32)
+        b = _norm_bwd_forced(torch, kind, mod, route, g, x, stats, w,
+                             torch.float32)
+        torch.cuda.synchronize()
+        _norm_bwd_check(f"{tag} [{route}, entry point]", a, ref, tol)
+        if not _same(a, b):
+            raise AssertionError(f"{kind} backward {tag} [{route}]: two "
+                                 f"launches differ")
+        if w is not None:
+            low = _norm_bwd_forced(torch, kind, mod, route, g, x, stats, w,
+                                   w.dtype)
+            torch.cuda.synchronize()
+            if not _same(low, (a[0], *(s.to(w.dtype) for s in a[1:]))):
+                raise AssertionError(f"{kind} backward {tag} [{route}]: "
+                                     f"the weight-dtype sums are not the "
+                                     f"fp32 sums rounded")
+        outs[route] = a
+    return outs
+
+
+def _misaligned(torch, t):
+    """A copy of the contiguous 2-byte (rows, n) ``t`` whose base lies 2
+    bytes past a 16-byte boundary."""
+    rows, n = t.shape
+    base = torch.empty(rows * n + 8, dtype=t.dtype, device=t.device)
+    out = base[1:1 + rows * n].view(rows, n)
+    out.copy_(t)
+    return out
+
+
+def norm_bwd_cases(torch, kind, mod, dispatch, cases, g, scale=2.0,
+                   shift=1.0):
+    """The kind's backward at each case (shape, x dtype, weight dtype or
+    None[, "misaligned"]), with norm_bwd_case: the route the wrapper must
+    take is vec where n is a multiple of 16 bytes' worth of x's dtype and
+    every base is 16-byte aligned (a misaligned case's x lies 2 bytes past
+    a boundary).  dx's tolerance is 1e-5 in fp32, 1e-2 (LayerNorm) or 2e-2
+    (RMSNorm) in half precision, rounded to its dtype on one side.
+    Returns, at the training shape in bf16 with a bf16 weight, each
+    route's max abs errors against the plain version on the same bf16
+    tensors (dx, the sums)."""
+    f32 = torch.float32
+    half_tol = 1e-2 if kind == "ln" else 2e-2
+    routes, main = [], {}
+    for case in cases:
+        shape, dtype, wdt = case[:3]
+        odd = len(case) > 3
+        x = (torch.randn(shape, generator=g, device="cuda") * scale
+             + shift).to(dtype)
+        if odd:
+            x = _misaligned(torch, x)
+        dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        w = None if wdt is None else (
+            torch.randn(shape[1], generator=g, device="cuda") * 0.5
+            + 1).to(wdt)
+        stats = _norm_stats(kind, mod, x)
+        want = ("vec" if shape[1] % (16 // x.element_size()) == 0 and not odd
+                else "scalar")
+        tag = (f"{shape} {str(dtype)[6:]} w {str(wdt)[6:] if wdt else None}"
+               + (" base +2 bytes" if odd else ""))
+        outs = norm_bwd_case(torch, kind, mod, dispatch, tag, dy, x, stats,
+                             w, 1e-5 if dtype == f32 else half_tol, want)
+        routes.append(want)
+        if shape == (TRAIN_BATCH * TRAIN_SEQ, 768) and dtype == wdt \
+                == torch.bfloat16:
+            same = _norm_bwd_fns(kind, mod)[2](dy, x, stats, w)
+            main = {r: (scaled_err(o[0], same[0])[1],
+                        max(scaled_err(a, b)[1]
+                            for a, b in zip(o[1:], same[1:])))
+                    for r, o in outs.items()}
+    print(f"  routes: {routes.count('vec')} cases vec, "
+          f"{routes.count('scalar')} scalar; ({TRAIN_BATCH * TRAIN_SEQ}, "
+          f"768) bf16, bf16 weight, against the plain version on the same "
+          f"bf16 tensors: " + "; ".join(
+              f"{r} dx max abs err {e[0]:.3e}, sums {e[1]:.3e}"
+              for r, e in main.items()))
+    return main
+
+
+def norm_bwd_times(torch, kind, mod, shape, dtype, wdtype, g):
+    """The kind's backward at ``shape``, x in ``dtype``, the weight in
+    ``wdtype``: each route's row kernel through its C entry point, the
+    whole backward through the wrapper's weight-dtype path (the autograd
+    Function's: both launches), the library call
+    (``aten.native_layer_norm_backward``; ``F.rms_norm``'s backward under
+    autograd; at amp O2's shape with the weight in x's dtype, which the
+    library takes) and ``torch.add(g, x, out=dx)`` (two reads and one write
+    of the same bytes), each warm (back-to-back calls on one set of
+    inputs) and cold (rotating over enough sets that 2 x the 50 MB L2 lies
+    between two uses of one); the column-sum kernel and the plain version
+    warm; the bound of the whole function (g, x, the statistics and w read
+    once, dx and the sums written once).  Each route is first held against
+    the plain version on the same inputs.  Returns the numbers."""
+    import itertools
+    from torch.nn import functional as F
+    rows, n = shape
+    dt, wdt = getattr(torch, dtype), getattr(torch, wdtype)
+    esize, wsize = (torch.finfo(t).bits // 8 for t in (dt, wdt))
+    set_bytes = 3 * rows * n * esize
+    k = max(4, math.ceil(2 * L2_BYTES / set_bytes))
+    xs = (torch.randn((k, rows, n), generator=g, device="cuda") * 2 + 1) \
+        .to(dt)
+    gs = torch.randn((k, rows, n), generator=g, device="cuda").to(dt)
+    w = (torch.randn(n, generator=g, device="cuda") * 0.5 + 1).to(wdt)
+    sets = [(gs[i], xs[i], _norm_stats(kind, mod, xs[i]),
+             torch.empty_like(xs[i])) for i in range(k)]
+    bwd, bwd_in, ref_fn = _norm_bwd_fns(kind, mod)
+    ref = ref_fn(*sets[0][:3], w)
+    tol = 1e-2 if kind == "ln" else 2e-2
+    calls = {}
+    sums = [torch.empty(n, dtype=wdt, device="cuda")
+            for _ in range(2 if kind == "ln" else 1)]
+    for route in mod.ROUTES[::-1]:
+        rows_fn, cols_fn = _norm_bwd_entry(torch, kind, mod, w, route, shape,
+                                           dt)
+        rows_fn(*sets[0])
+        out = [torch.empty(n, device="cuda") for _ in sums]
+        cols_fn(out)
+        torch.cuda.synchronize()
+        _norm_bwd_check(f"{shape} {dtype} w {wdtype} {route} (timed)",
+                        (sets[0][3], *out), ref, tol)
+        calls[route] = lambda s, f=rows_fn: f(*s)
+        if route == "vec":
+            calls["cols"] = lambda s, f=cols_fn: f(sums)
+    calls["wrapper"] = lambda s: bwd_in(*s[:3], w, wdt)
+    lw = w.to(dt)
+    if kind == "ln":
+        lb = torch.zeros(n, device="cuda", dtype=dt)
+        aten = {}
+        for s in sets:
+            _, am, ar = torch.ops.aten.native_layer_norm(s[1], [n], lw, lb,
+                                                         1e-5)
+            aten[id(s)] = (am, ar)
+        calls["library"] = lambda s: \
+            torch.ops.aten.native_layer_norm_backward(
+                s[0], s[1], [n], *aten[id(s)], lw, lb, [True, True, True])
+    else:
+        graphs = {}
+        for s in sets:
+            xl = s[1].detach().requires_grad_(True)
+            wl = lw.detach().requires_grad_(True)
+            graphs[id(s)] = (F.rms_norm(xl, (n,), wl, 1e-6), xl, wl)
+        calls["library"] = lambda s: torch.autograd.grad(
+            graphs[id(s)][0], graphs[id(s)][1:], s[0], retain_graph=True)
+    calls["add"] = lambda s: torch.add(s[0], s[1], out=s[3])
+    out = {}
+    for name, call in calls.items():
+        out[f"{name}_ms"] = median_ms(lambda: call(sets[0]))[0]
+        if name != "cols":
+            it = itertools.cycle(sets)
+            out[f"{name}_cold_ms"] = median_ms(lambda: call(next(it)))[0]
+    out["plain_ms"] = median_ms(lambda: ref_fn(*sets[0][:3], w), reps=5,
+                                inner=4)[0]
+    # each launch's device time alone (torch.profiler), as the kernel
+    # lines gave it before the routes were timed through the entry points
+    split = kernel_split_ms(
+        torch, lambda: [calls[r](sets[0]) for r in ("vec", "scalar", "cols")],
+        (f"{kind}_bwd_vec_kernel", f"{kind}_bwd_kernel", f"{kind}_bwd_cols"))
+    out["profiled_ms"] = dict(zip(("vec", "scalar", "cols"), split.values()))
+    nacc = len(sums)
+    stat_bytes = (2 if kind == "ln" else 1) * rows * 4
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        set_bytes + stat_bytes + n * wsize + nacc * n * wsize,
+        (12 if kind == "ln" else 8) * rows * n, FP32_FLOP_PER_S)
+    parts = mod._bwd_parts(torch.cuda.current_device(), rows, n, dt, "vec")
+    out["cols_bound_ms"], out["cols_bound_by"] = bound_ms(
+        nacc * (parts * n * 4 + n * wsize), nacc * parts * n,
+        FP32_FLOP_PER_S)
+    out["vec_parts"] = parts
+    out["cold_sets"] = k
+    r = out
+    print(f"  time {kind} backward {shape} {dtype}, {wdtype} weight (ms warm "
+          f"/ cold over {k} sets): row kernel vec {r['vec_ms']:.4f} / "
+          f"{r['vec_cold_ms']:.4f} ({parts} blocks), scalar "
+          f"{r['scalar_ms']:.4f} / {r['scalar_cold_ms']:.4f}; column sums "
+          f"{r['cols_ms']:.4f}; whole backward (wrapper, weight-dtype sums) "
+          f"{r['wrapper_ms']:.4f} / {r['wrapper_cold_ms']:.4f}; library "
+          f"{r['library_ms']:.4f} / {r['library_cold_ms']:.4f}; "
+          f"torch.add(g, x, out=dx) {r['add_ms']:.4f} / "
+          f"{r['add_cold_ms']:.4f}; plain {r['plain_ms']:.4f}; bound "
+          f"{r['bound_ms']:.4f} ({r['bound_by']}); device time a launch "
+          f"(torch.profiler): vec {r['profiled_ms']['vec']:.4f}, scalar "
+          f"{r['profiled_ms']['scalar']:.4f}, column sums "
+          f"{r['profiled_ms']['cols']:.4f}")
+    del xs, gs, sets
+    return out
+
+
+def ln_bwd_phase(torch, layer_norm, dispatch):
+    """LayerNorm backward against its plain version (fp32 on the same
+    inputs) on the route the wrapper picks and on each route forced
+    through the C entry points (norm_bwd_case); the routes' times at
+    NORM_BWD_SHAPES.  Returns the two kernel lines' numbers."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     rows, n = TRAIN_BATCH * TRAIN_SEQ, 768
-    cases = [((rows, n), bf16, True), ((rows, n), bf16, False),
-             ((rows, n), f32, True), ((rows, n), f32, False),
-             ((1001, 1000), f32, True), ((37, 768), bf16, True),
-             ((300, 4000), f16, True), ((5, 12000), f32, False),
-             ((BERT_BATCH * BERT_SEQ, n), bf16, True),     # BERT-base
-             ((BERT_BATCH * BERT_MLM, n), bf16, True)]
+    # (shape, x dtype, weight dtype or None[, misaligned]): the steps'
+    # shapes (GPT, BERT's step and MLM head, amp O2's fp16 x with an fp32
+    # weight), other widths and dtypes, then cases the scalar route takes
+    cases = [((rows, n), bf16, bf16), ((rows, n), bf16, None),
+             ((rows, n), f32, f32), ((rows, n), f32, None),
+             ((rows, n), f16, f32), ((4096, n), f32, bf16),
+             ((1001, 1000), f32, f32), ((37, 768), bf16, bf16),
+             ((300, 4000), f16, f16), ((5, 12000), f32, None),
+             ((BERT_BATCH * BERT_SEQ, n), bf16, bf16),
+             ((BERT_BATCH * BERT_MLM, n), bf16, bf16),
+             ((37, 1001), bf16, bf16), ((37, 1001), f32, f16),
+             ((64, n), bf16, bf16, "misaligned")]
     print("LayerNorm backward vs plain (the plain version in fp32 on the "
-          "same inputs, TF32 off; err: max abs / max(1, max |ref|)):")
-    main_err = None
-    for shape, dtype, affine in cases:
-        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 1).to(dtype)
-        dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        w = None
-        if affine:
-            w = (torch.randn(shape[1], generator=g, device="cuda") * 0.5
-                 + 1).to(dtype)
-        _, mean, rstd = layer_norm.ln_forward_reference(x, None, None, 1e-5)
-        got = layer_norm.ln_backward(dy, x, mean, rstd, w)
-        torch.cuda.synchronize()
-        ref = layer_norm.ln_backward_reference(
-            dy.float(), x.float(), mean, rstd, None if w is None else w.float())
-        tag = f"{shape} {str(dtype)[6:]} affine={affine}"
-        err, err_abs = scaled_err(got[0], ref[0])
-        # dx is rounded to its dtype; dgamma / dbeta are fp32 sums over the
-        # rows in another order
-        check(f"{tag} dx", err, 1e-5 if dtype == f32 else 1e-2)
-        if affine:
-            check(f"{tag} dgamma", scaled_err(got[1], ref[1])[0], 1e-5)
-            check(f"{tag} dbeta", scaled_err(got[2], ref[2])[0], 1e-5)
-        if shape == (rows, n) and dtype == bf16 and affine:
-            # the kernel line's errors: against the plain version on the
-            # same bf16 tensors (dx rounded to bf16 on both sides)
-            same = layer_norm.ln_backward_reference(dy, x, mean, rstd, w)
-            main_err = (scaled_err(got[0], same[0])[1],
-                        max(scaled_err(a, b)[1]
-                            for a, b in zip(got[1:], same[1:])))
-
-    x = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
-    dy = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
-    w = torch.randn(n, generator=g, device="cuda").to(bf16)
-    b = torch.zeros(n, device="cuda", dtype=bf16)
-    _, mean, rstd = layer_norm.ln_forward_reference(x, None, None, 1e-5)
-    fn = lambda: layer_norm.ln_backward(dy, x, mean, rstd, w)  # noqa: E731
-    ms = median_ms(fn)[0]
-    split = kernel_split_ms(torch, fn, ("ln_bwd_kernel", "ln_bwd_cols"))
-    plain = median_ms(lambda: layer_norm.ln_backward_reference(
-        dy, x, mean, rstd, w))[0]
-    # aten's backward takes the statistics in the layout of its own forward
-    _, amean, arstd = torch.ops.aten.native_layer_norm(x, [n], w, b, 1e-5)
-    lib = median_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-        dy, x, [n], amean, arstd, w, b, [True, True, True]))[0]
-    parts = layer_norm._bwd_parts(0, rows, n)
-    b_rows = bound_ms(3 * rows * n * 2 + 2 * rows * 4 + n * 2
-                      + 2 * parts * n * 4, 12 * rows * n, FP32_FLOP_PER_S)
-    b_cols = bound_ms(2 * parts * n * 4 + 2 * n * 4, 2 * parts * n,
-                      FP32_FLOP_PER_S)
-    b_all = bound_ms(3 * rows * n * 2 + 2 * rows * 4 + n * 2 + 2 * n * 4,
-                     12 * rows * n, FP32_FLOP_PER_S)
-    print(f"  time ({rows}, {n}) bf16 affine: both launches {ms:.4f} ms "
-          f"(dx + partial sums {split['ln_bwd_kernel']:.4f} ms over "
-          f"{parts} blocks, column sums {split['ln_bwd_cols']:.4f} ms), "
-          f"plain {plain:.4f} ms, aten native_layer_norm_backward "
-          f"{lib:.4f} ms, bound {b_all[0]:.4f} ms ({b_all[1]}; whole "
-          f"function)")
-    common = dict(plain_ms=plain, library_ms=lib, whole_ms=ms,
-                  whole_bound_ms=b_all[0],
-                  scope="plain_ms and library_ms time the whole backward "
-                        "(both launches)")
-    print(f"  ({rows}, {n}) bf16 affine against the plain version on the "
-          f"same bf16 tensors: dx max abs err {main_err[0]:.3e}, "
-          f"dgamma/dbeta {main_err[1]:.3e}")
-    return (dict(max_abs_err=main_err[0], ms=split["ln_bwd_kernel"],
-                 bound_ms=b_rows[0], bound_by=b_rows[1], **common),
-            dict(max_abs_err=main_err[1], ms=split["ln_bwd_cols"],
-                 bound_ms=b_cols[0], bound_by=b_cols[1], **common))
+          "same inputs, TF32 off; err: max abs / max(1, max |ref|); "
+          "[route]):")
+    main = norm_bwd_cases(torch, "ln", layer_norm, dispatch, cases, g)
+    times = {f"{shape} {dt} w {wdt}": norm_bwd_times(
+        torch, "ln", layer_norm, shape, dt, wdt, g)
+        for shape, dt, wdt in NORM_BWD_SHAPES}
+    return main, times
 
 
 def flash_bwd_phase(torch, attention):
@@ -2026,18 +2307,40 @@ def _lm_loss(torch):
     return lm_loss
 
 
-# every train step runs each norm's forward (on the vec route), backward
-# and column sums once per norm
+# every train step runs each norm's forward and backward (both on the vec
+# route) and column sums once per norm
 LN_NAMES = ("ln_forward", "ln_forward_vec", "ln_backward_rows",
-            "ln_backward_cols")
+            "ln_backward_rows_vec", "ln_backward_cols")
 RMS_NAMES = ("rms_forward", "rms_forward_vec", "rms_backward_rows",
-             "rms_backward_cols")
+             "rms_backward_rows_vec", "rms_backward_cols")
+
+
+# the profiled steps' device operations on an H100 80GB HBM3 at 700 W when
+# the norm backwards' autograd Functions still cast the fp32 column sums to
+# the weight's dtype after the kernels (one launch a sum: 2 a LayerNorm, 1
+# an RMSNorm); the kernels now write them in that dtype
+OPS_WITH_SUM_CASTS = {"gpt2_small plain cross entropy": "1042",
+                      "llama_125m chunked": "1617",
+                      "llama_125m kernel": "1423",
+                      "bert_base attn_dropout 0.0": "6102-6103",
+                      "bert_base attn_dropout 0.1": "6150-6151"}
+
+
+def _ops_beside_casts(label, n):
+    """Print a profiled step's device operations beside OPS_WITH_SUM_CASTS'
+    count for the same step, where it has one."""
+    if label in OPS_WITH_SUM_CASTS:
+        print(f"  {label}: {n} device operations; "
+              f"{OPS_WITH_SUM_CASTS[label]} with the sums cast after the "
+              f"kernels")
 
 
 def _norm_routes(counts):
-    """The norm forwards' counters, totals and per route."""
+    """The norm kernels' counters, totals and per route."""
     return ", ".join(f"{k} {v}" for k, v in counts.items()
-                     if k.startswith(("ln_forward", "rms_forward")))
+                     if k.startswith(("ln_forward", "rms_forward",
+                                      "ln_backward_rows",
+                                      "rms_backward_rows")))
 
 
 def train_path(torch, dispatch, model, loss_fn, what, xent_want,
@@ -2068,7 +2371,7 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want,
           f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, "
           f"{what})")
     print(f"  launches in one step: {counts}")
-    print(f"  norm forwards by route: {_norm_routes(counts)}")
+    print(f"  norm kernels by route: {_norm_routes(counts)}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     torch.cuda.reset_peak_memory_stats()
@@ -2090,6 +2393,7 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want,
     print(f"  losses of {len(values)} steps: "
           f"{', '.join(f'{x:.4f}' for x in values)}")
     prof = _print_profile(torch, lambda: step(ids, ids), 10)
+    _ops_beside_casts(f"{name} {what}", prof["device_ops"])
     del step, opt
     return counts, 1e3 * step_s, prof
 
@@ -2157,7 +2461,7 @@ def train_cpu_phase(torch, dispatch, gpt, model):
             want.update(_flash_want("simt", layers), fused_adam=1,
                         **dict.fromkeys(LN_NAMES, 2 * layers + 1))
             print(f"  launches in the card's first fp32 step: {counts}")
-            print(f"  norm forwards by route: {_norm_routes(counts)}")
+            print(f"  norm kernels by route: {_norm_routes(counts)}")
             if counts != want:
                 raise AssertionError(f"launch counts {counts} != expected "
                                      f"{want}")
@@ -2625,7 +2929,7 @@ def amp_phase(torch, dispatch, gpt, model):
               f"{len(opt.param_groups[0]['params'])} {p0.dtype} optimizer "
               f"params, moments {opt.state[p0]['exp_avg'].dtype}")
         print(f"  launches in iteration 3: {counts[level]}")
-        print(f"  norm forwards by route: {_norm_routes(counts[level])}")
+        print(f"  norm kernels by route: {_norm_routes(counts[level])}")
         print(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; skipped "
               f"{skips}; loss scale {_amp_state.loss_scalers[0].loss_scale()}")
         if counts[level] != want:
@@ -2726,11 +3030,10 @@ LLAMA = dict(vocab_size=32000, hidden=768, layers=12, heads=12, kv_heads=4,
 def rms_phase(torch, rms_norm, dispatch):
     """The RMSNorm kernels against their plain versions (in fp32 on the
     same inputs), the forward on the route the wrapper picks and, where
-    that is vec, on the scalar route forced too; the forward routes' times
-    at NORM_SHAPES, the backward's at the Llama training shape (16384, 768)
-    bf16.  Returns the three kernel lines' numbers: the forward, the
-    backward's row pass and its column sums."""
-    from torch.nn import functional as F
+    that is vec, on the scalar route forced too, the backward as
+    ln_bwd_phase holds LayerNorm's; the forward routes' times at
+    NORM_SHAPES, the backward's at NORM_BWD_SHAPES.  Returns the forward's
+    numbers, the backward's errors at the training shape and its times."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 20)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     rows, n = TRAIN_BATCH * TRAIN_SEQ, 768
@@ -2766,84 +3069,23 @@ def rms_phase(torch, rms_norm, dispatch):
                               lambda d: 1e-5 if d == f32 else 2e-2)
     print(f"  routes: {routes.count('vec')} cases vec, "
           f"{routes.count('scalar')} scalar")
-    print("RMSNorm forward/backward vs plain (the plain version in fp32 on "
-          "the same inputs; err: max abs / max(1, max |ref|)):")
-    main_err = None
-    for shape, dtype, affine in cases:
-        x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.5) \
-            .to(dtype)
-        dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        w = None
-        if affine:
-            w = (torch.randn(shape[1], generator=g, device="cuda") * 0.5
-                 + 1).to(dtype)
-        wf = None if w is None else w.float()
-        y, rstd = rms_norm.rms_forward(x, w, 1e-6)
-        got = rms_norm.rms_backward(dy, x, rstd, w)
-        torch.cuda.synchronize()
-        ry, rrstd = rms_norm.rms_forward_reference(x.float(), wf, 1e-6)
-        ref = rms_norm.rms_backward_reference(dy.float(), x.float(), rstd, wf)
-        tag = f"{shape} {str(dtype)[6:]} affine={affine}"
-        # y and dx are rounded to their dtype; rstd and dw are fp32 sums in
-        # another order
-        tol = 1e-5 if dtype == f32 else 2e-2
-        check(f"{tag} y", scaled_err(y, ry)[0], tol)
-        check(f"{tag} rstd", scaled_err(rstd, rrstd)[0], 1e-5)
-        check(f"{tag} dx", scaled_err(got[0], ref[0])[0], tol)
-        if affine:
-            check(f"{tag} dw", scaled_err(got[1], ref[1])[0], 1e-5)
-        if shape == (rows, n) and dtype == bf16 and affine:
-            # the kernel lines' errors: against the plain version on the
-            # same bf16 tensors (y and dx rounded to bf16 on both sides)
-            sy, _ = rms_norm.rms_forward_reference(x, w, 1e-6)
-            same = rms_norm.rms_backward_reference(dy, x, rstd, w)
-            main_err = (scaled_err(y, sy)[1], scaled_err(got[0], same[0])[1],
-                        scaled_err(got[1], same[1])[1])
-
     f_errs = _norm_main_err(torch, "rms", rms_norm, g, 1e-6)
     f_times = {f"{shape} {dtype}": norm_times(torch, "rms", rms_norm, shape,
                                               dtype, g, 1e-6)
                for shape, dtype in NORM_SHAPES}
-    x = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
-    dy = torch.randn((rows, n), generator=g, device="cuda").to(bf16)
-    w = (torch.randn(n, generator=g, device="cuda") * 0.5 + 1).to(bf16)
-    _, rstd = rms_norm.rms_forward(x, w, 1e-6)
-    fn = lambda: rms_norm.rms_backward(dy, x, rstd, w)  # noqa: E731
-    b_ms = median_ms(fn)[0]
-    split = kernel_split_ms(torch, fn, ("rms_bwd_kernel", "rms_bwd_cols"))
-    b_plain = median_ms(lambda: rms_norm.rms_backward_reference(
-        dy, x, rstd, w))[0]
-    xl = x.detach().requires_grad_(True)
-    wl = w.detach().requires_grad_(True)
-    yl = F.rms_norm(xl, (n,), wl, 1e-6)
-    b_lib = median_ms(lambda: torch.autograd.grad(yl, (xl, wl), dy,
-                                                  retain_graph=True))[0]
-    parts = rms_norm._bwd_parts(0, rows, n)
-    b_rows = bound_ms(3 * rows * n * 2 + rows * 4 + n * 2 + parts * n * 4,
-                      8 * rows * n, FP32_FLOP_PER_S)
-    b_cols = bound_ms(parts * n * 4 + n * 4, parts * n, FP32_FLOP_PER_S)
-    b_all = bound_ms(3 * rows * n * 2 + rows * 4 + n * 2 + n * 4,
-                     8 * rows * n, FP32_FLOP_PER_S)
-    print(f"  time ({rows}, {n}) bf16 affine: backward, both launches "
-          f"{b_ms:.4f} ms (dx + "
-          f"partial sums {split['rms_bwd_kernel']:.4f} ms over {parts} "
-          f"blocks, column sums {split['rms_bwd_cols']:.4f} ms; bound "
-          f"{b_all[0]:.4f}, {b_all[1]}; plain {b_plain:.4f}; F.rms_norm "
-          f"backward {b_lib:.4f})")
-    print(f"  ({rows}, {n}) bf16 affine against the plain version on the "
-          f"same bf16 tensors: y max abs err {main_err[0]:.3e} (wrapper), "
-          f"{f_errs[0]:.3e} / {f_errs[1]:.3e} (vec / scalar, fresh "
-          f"inputs), dx {main_err[1]:.3e}, dw {main_err[2]:.3e}")
-    common = dict(plain_ms=b_plain, library_ms=b_lib, whole_ms=b_ms,
-                  whole_bound_ms=b_all[0],
-                  scope="plain_ms and library_ms time the whole backward "
-                        "(both launches)")
+    print("RMSNorm backward vs plain (the plain version in fp32 on the same "
+          "inputs; err: max abs / max(1, max |ref|); [route]):")
+    bwd_cases = [(shape, dtype, dtype if affine else None)
+                 for shape, dtype, affine in cases] + [
+        ((rows, n), f16, f32), ((37, 1001), bf16, bf16),
+        ((37, 1001), f32, f16), ((64, n), bf16, bf16, "misaligned")]
+    main = norm_bwd_cases(torch, "rms", rms_norm, dispatch, bwd_cases, g,
+                          shift=0.5)
+    times = {f"{shape} {dt} w {wdt}": norm_bwd_times(
+        torch, "rms", rms_norm, shape, dt, wdt, g)
+        for shape, dt, wdt in NORM_BWD_SHAPES}
     return (dict(max_abs_err=f_errs[0], scalar_max_abs_err=f_errs[1],
-                 shapes=f_times),
-            dict(max_abs_err=main_err[1], ms=split["rms_bwd_kernel"],
-                 bound_ms=b_rows[0], bound_by=b_rows[1], **common),
-            dict(max_abs_err=main_err[2], ms=split["rms_bwd_cols"],
-                 bound_ms=b_cols[0], bound_by=b_cols[1], **common))
+                 shapes=f_times), main, times)
 
 
 def _lmx_case(torch, g, n, v, e, dtype):
@@ -2890,12 +3132,13 @@ def _res_usage(source, name, count=1):
     return out
 
 
-# the norm forwards' kernels, each instantiated for every x dtype and row
-# layout (and the vec route's parameter placement): (source, name)
-NORM_FWD_KERNELS = (("layer_norm", "ln_fwd_kernel"),
-                    ("layer_norm", "ln_fwd_vec_kernel"),
-                    ("rms_norm", "rms_fwd_kernel"),
-                    ("rms_norm", "rms_fwd_vec_kernel"))
+# the norm kernels, each instantiated for every x dtype and row layout (and
+# the vec route's parameter placement, or the affine form): (source, name)
+NORM_KERNELS = tuple((src, f"{kind}_{way}_kernel")
+                     for src, kind in (("layer_norm", "ln"),
+                                       ("rms_norm", "rms"))
+                     for way in ("fwd", "fwd_vec", "bwd", "bwd_vec",
+                                 "bwd_cols"))
 
 
 def _sass_spills(source):
@@ -2920,11 +3163,11 @@ def _sass_spills(source):
 def norm_resources():
     """Registers, stack and local memory (``cuobjdump -res-usage``) and
     spill instructions (``cuobjdump -sass``) of every instance of the norm
-    forward kernels; raises if one spills or has a stack.  Returns {name:
-    {instances, registers: [least, most]}}."""
-    print("norm forward kernels (cuobjdump -res-usage, -sass):")
+    forward and backward kernels; raises if one spills or has a stack.
+    Returns {name: {instances, registers: [least, most]}}."""
+    print("norm kernels (cuobjdump -res-usage, -sass):")
     out, sass = {}, {}
-    for source, name in NORM_FWD_KERNELS:
+    for source, name in NORM_KERNELS:
         if source not in sass:
             sass[source] = _sass_spills(source)
         rows = _res_usage(source, name, count=None)
@@ -3166,7 +3409,7 @@ def llama_generate_path(torch, dispatch, gpt, llama):
     print(f"Llama serving path: generate(llama_125m, batch {BATCH}, prompt "
           f"{PROMPT}, {NEW} new tokens, fp32, greedy)")
     print(f"  launches: {counts}")
-    print(f"  norm forwards by route: {_norm_routes(counts)}")
+    print(f"  norm kernels by route: {_norm_routes(counts)}")
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
     want.update(_flash_want("simt", layers, backward=False),
@@ -3287,7 +3530,7 @@ def _llama_arm(torch, dispatch, llama, mode):
           f"{TRAIN_SEQ}, bf16 half copies, FusedAdam lr {LR} wd {WD}, {mode} "
           f"loss)")
     print(f"  launches in one step: {counts}")
-    print(f"  norm forwards by route: {_norm_routes(counts)}")
+    print(f"  norm kernels by route: {_norm_routes(counts)}")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     return dict(step=step, ids=ids, counts=counts, losses=losses)
@@ -3357,6 +3600,7 @@ def llama_train_turns(torch, dispatch, llama):
               f"{100 * lmx / busy:.1f}% of busy")
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
             print(f"    {t:9.3f} ms  {100 * t / busy:5.1f}%  {name[:90]}")
+        _ops_beside_casts(f"llama_125m {mode}", n_ops)
         nums[mode].update(busy_ms=busy, idle_share=1 - busy / wall,
                           device_ops=n_ops,
                           lm_head_kernels_ms=lmx)
@@ -3444,7 +3688,7 @@ def bert_train_path(torch, dispatch, bert, attn_dropout):
           f"FusedLAMB lr {BERT_LR} wd {BERT_WD}, attn_dropout "
           f"{attn_dropout}, dropout 0.1)")
     print(f"  launches in one step: {counts}")
-    print(f"  norm forwards by route: {_norm_routes(counts)}")
+    print(f"  norm kernels by route: {_norm_routes(counts)}")
     if counts != _bert_want(counts):
         raise AssertionError(f"BERT launch counts {counts} != expected "
                              f"{_bert_want(counts)}")
@@ -3478,6 +3722,7 @@ def bert_train_path(torch, dispatch, bert, attn_dropout):
               f"ms, idle share {idle:.3f}, {n} device operations")
         for name, ms in top:
             print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+        _ops_beside_casts(f"bert_base attn_dropout {attn_dropout}", n)
     del step, opt, model
     return counts, dict(step_ms=1e3 * step_s, sequences_per_s=seq_s,
                         peak_gib=peak, busy_ms=busy, idle_share=idle,
@@ -3532,7 +3777,7 @@ def bert_amp_path(torch, dispatch, bert):
           f"{len(opt.param_groups[0]['params'])} {p0.dtype} optimizer "
           f"params, moments {opt.state[p0]['exp_avg'].dtype}")
     print(f"  launches in iteration 3: {counts}")
-    print(f"  norm forwards by route: {_norm_routes(counts)}")
+    print(f"  norm kernels by route: {_norm_routes(counts)}")
     print(f"  losses {', '.join(f'{v:.4f}' for v in losses)}; skipped "
           f"{skips}; loss scale {_amp_state.loss_scalers[0].loss_scale()}; "
           f"iterations 3-10: {seq_s:.1f} sequences/s (host clock, the loss "
@@ -3712,7 +3957,7 @@ def main():
     ln = ln_phase(torch, layer_norm, dispatch)
     fl, fl_tc_err = flash_phase(torch, attention)
     fl_train = fwd_train_shapes(torch, attention)
-    lnb_rows, lnb_cols = ln_bwd_phase(torch, layer_norm)
+    lnb_err, lnb_times = ln_bwd_phase(torch, layer_norm, dispatch)
     dq, dkv, bwd_tc_err = flash_bwd_phase(torch, attention)
     fdrop = flash_dropout_phase(torch, attention)
     flash_res = flash_resources(attention)
@@ -3720,7 +3965,7 @@ def main():
     adam_half = adam_half_phase(torch, multi_tensor, shapes)
     sgd = sgd_phase(torch, multi_tensor, rn_shapes, rn_bn)
     xf, xb = xent_phase(torch, xentropy)
-    rms_f, rms_rows, rms_cols = rms_phase(torch, rms_norm, dispatch)
+    rms_f, rmsb_err, rmsb_times = rms_phase(torch, rms_norm, dispatch)
     lmx_f, lmx_dx, lmx_dw = lmx_phase(torch, lm_head_xent)
     print(f"kernel phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -3835,7 +4080,8 @@ def main():
         training shape, warm and cold, with the scalar route's numbers,
         which no main path launches, beside it, and every timed shape."""
         t = r["shapes"][f"{(TRAIN_BATCH * TRAIN_SEQ, 768)} bfloat16"]
-        res = {k: v for k, v in norm_res.items() if k.startswith(kind)}
+        res = {k: v for k, v in norm_res.items()
+               if k.startswith(f"{kind}_fwd")}
         common = {k: t[k] for k in ("plain_ms", "library_ms",
                                     "library_cold_ms", "bound_ms",
                                     "bound_by", "copy_ms", "copy_cold_ms")}
@@ -3852,6 +4098,51 @@ def main():
                 max_abs_err=r["scalar_max_abs_err"], ms=t["scalar_ms"],
                 cold_ms=t["scalar_cold_ms"], **common)),
             shapes=r["shapes"])
+
+    def norm_bwd_numbers(kind, err, times, source, replaces, cols_replaces):
+        """A norm backward's two lines: the row kernel on the vec route
+        (every main path) at the training shape, warm and cold, with the
+        scalar route's numbers, which no main path launches, beside it, and
+        every timed shape; then the column sums.  plain_ms, library_ms and
+        whole_ms time the whole backward (both launches)."""
+        t = times[f"{(TRAIN_BATCH * TRAIN_SEQ, 768)} bfloat16 w bfloat16"]
+        res = {k: v for k, v in norm_res.items()
+               if k.startswith(f"{kind}_bwd")}
+        shape = f"({TRAIN_BATCH * TRAIN_SEQ}, 768) bf16, bf16 weight"
+        common = {k: t[k] for k in ("plain_ms", "library_ms",
+                                    "library_cold_ms", "bound_ms",
+                                    "bound_by", "add_ms", "add_cold_ms")}
+        common.update(whole_ms=t["wrapper_ms"],
+                      whole_cold_ms=t["wrapper_cold_ms"],
+                      scope="plain_ms, library_ms and whole_ms time the "
+                            "whole backward (both launches, the sums in "
+                            "the weight's dtype); bound_ms is the whole "
+                            "function's; add_ms is torch.add(g, x, out=dx)")
+        rows = dict(
+            name=f"{kind}_backward", route="cuda", kernel_route="vec",
+            source=source, replaces=replaces,
+            **launches(f"{kind}_backward_rows_vec"), shape=shape,
+            max_abs_err=err["vec"][0], ms=t["vec_ms"],
+            cold_ms=t["vec_cold_ms"], parts=t["vec_parts"],
+            profiled_ms=t["profiled_ms"], resources=res, **common,
+            other_routes=dict(scalar=dict(
+                kernel_route="scalar",
+                **launches(f"{kind}_backward_rows_scalar"),
+                max_abs_err=err["scalar"][0], ms=t["scalar_ms"],
+                cold_ms=t["scalar_cold_ms"], **common)),
+            shapes=times)
+        cols = dict(
+            name=f"{kind}_backward_cols", route="cuda", source=source,
+            replaces=cols_replaces, **launches(f"{kind}_backward_cols"),
+            shape=shape, max_abs_err=err["vec"][1], ms=t["cols_ms"],
+            bound_ms=t["cols_bound_ms"], bound_by=t["cols_bound_by"],
+            **{k: v for k, v in common.items()
+               if k not in ("bound_ms", "bound_by", "scope")},
+            scope="plain_ms, library_ms and whole_ms time the whole "
+                  "backward (both launches); bound_ms is this kernel's: "
+                  "the vec route's partial rows read once, the sums "
+                  "written once")
+        return rows, cols
 
     kernels = [
         # the tc route: bf16 and fp16 at D = 64, every training path
@@ -3899,14 +4190,10 @@ def main():
              dropout=simt_numbers("bwd_dkv")),
         norm_numbers("ln", ln, ln_src, f"{fb}layer_norm.py:77 (_fwd_kernel "
                                        f":39, pallas_call :94)"),
-        dict(name="ln_backward", route="cuda", source=ln_src,
-             replaces=f"{fb}layer_norm.py:109",
-             **launches("ln_backward_rows"),
-             shape="(16384, 768) bf16 affine", **lnb_rows),
-        dict(name="ln_backward_cols", route="cuda", source=ln_src,
-             replaces=f"{fb}layer_norm.py:109 (dgamma/dbeta, :68-74)",
-             **launches("ln_backward_cols"),
-             shape="(16384, 768) bf16 affine", **lnb_cols),
+        *norm_bwd_numbers("ln", lnb_err, lnb_times, ln_src,
+                          f"{fb}layer_norm.py:109 (_bwd_kernel :57, "
+                          f"pallas_call :133)",
+                          f"{fb}layer_norm.py:109 (dgamma/dbeta, :68-74)"),
         dict(name="xent_forward", route="cuda", source=xe_src,
              replaces=f"{fb}xentropy.py:134 (_fwd_kernel :73, pallas_call "
                       f":147)", **launches("xent_forward"),
@@ -3917,14 +4204,9 @@ def main():
              shape="(16368, 50257) bf16", **xb),
         norm_numbers("rms", rms_f, rms_src, f"{fb}rms_norm.py:60 (_fwd_kernel "
                                             f":26, pallas_call :77)"),
-        dict(name="rms_backward", route="cuda", source=rms_src,
-             replaces=f"{fb}rms_norm.py:91 (_bwd_kernel :41, pallas_call "
-                      f":115)", **launches("rms_backward_rows"),
-             shape="(16384, 768) bf16 affine", **rms_rows),
-        dict(name="rms_backward_cols", route="cuda", source=rms_src,
-             replaces=f"{fb}rms_norm.py:91 (dw, :53-57)",
-             **launches("rms_backward_cols"),
-             shape="(16384, 768) bf16 affine", **rms_cols),
+        *norm_bwd_numbers("rms", rmsb_err, rmsb_times, rms_src,
+                          f"{fb}rms_norm.py:91 (_bwd_kernel :41, pallas_call "
+                          f":115)", f"{fb}rms_norm.py:91 (dw, :53-57)"),
         dict(name="lm_head_xent_fwd", route="cuda", source=lmx_src,
              replaces=f"{fb}lm_head_xent.py:183 (_fwd_impl via "
                       f"fused_lm_head_xent :172; _fwd_kernel :61, "

@@ -183,8 +183,8 @@ def test_a_failed_launch_raises_and_counts_nothing(stub):
 
 def test_argtypes_match_the_entry_points(monkeypatch):
     """The ctypes signatures the wrappers declare: pointers as void*, the
-    dtype codes and route as int (the library itself is built on the
-    card)."""
+    dtype codes, route, sizes and workspace rows as int (the library itself
+    is built on the card)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     libs = {}
     monkeypatch.setattr(layer_norm._build, "load",
@@ -205,6 +205,17 @@ def test_argtypes_match_the_entry_points(monkeypatch):
         p, p, i, p, i, p, p, p, i, i, f, i, i, p]
     assert libs["rms_norm"].apex_rms_fwd.argtypes == [
         p, p, i, p, p, i, i, f, i, i, p]
+    # the backwards: (rows, n, dtype, route) -> parts; the row kernel with
+    # its route; the column sums with the dtype they are written in
+    assert libs["layer_norm"].apex_ln_bwd_parts.argtypes == [i, i, i, i]
+    assert libs["layer_norm"].apex_ln_bwd.argtypes == [
+        p, p, p, p, p, i, p, p, p, i, i, i, i, i, p]
+    assert libs["layer_norm"].apex_ln_bwd_cols.argtypes == [
+        p, p, p, p, i, i, i, p]
+    assert libs["rms_norm"].apex_rms_bwd_parts.argtypes == [i, i, i, i]
+    assert libs["rms_norm"].apex_rms_bwd.argtypes == [
+        p, p, p, p, i, p, p, i, i, i, i, i, p]
+    assert libs["rms_norm"].apex_rms_bwd_cols.argtypes == [p, p, i, i, i, p]
 
 
 def _np(t):
