@@ -26,11 +26,15 @@ kernel, with data parallelism and SyncBatchNorm on ``torch.distributed``
 SwiGLU, grouped-query attention), served through ``generate`` and trained
 through ``make_train_step``, whose RMSNorms run the RMSNorm kernels
 (``normalization.FusedRMSNorm``) and whose loss may run the fused LM-head +
-cross-entropy kernels (``kernels.lm_head_xent.fused_lm_head_xent``).
+cross-entropy kernels (``kernels.lm_head_xent.fused_lm_head_xent``); amp
+O1 (a per-op cast policy applied to every module call), the legacy
+``amp.init`` API and ``fp16_utils``; and the GAN iteration
+(``training.make_gan_train_step``).
 """
-from . import (amp, contrib, inference, kernels, models, multi_tensor_apply,
-               nn, normalization, ops, optimizers, parallel, training)
+from . import (amp, contrib, fp16_utils, inference, kernels, models,
+               multi_tensor_apply, nn, normalization, ops, optimizers,
+               parallel, training)
 
-__all__ = ["amp", "contrib", "inference", "kernels", "models",
+__all__ = ["amp", "contrib", "fp16_utils", "inference", "kernels", "models",
            "multi_tensor_apply", "nn", "normalization", "ops", "optimizers",
            "parallel", "training"]

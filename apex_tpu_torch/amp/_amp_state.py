@@ -14,16 +14,26 @@ class AmpState:
         self.loss_scalers = []
         self.min_loss_scale = None
         self.max_loss_scale = 2.0 ** 24
+        # O1: the session's policy (amp.initialize) or the legacy handle
+        # (amp.init), and the policy every module call without one of its
+        # own runs under (the reference patches torch globally)
+        self.handle = None
+        self.ambient_policy = None
 
 
 _amp_state = AmpState()
 
 
 def reset():
-    """Clear what ``amp.initialize`` set, so a fresh ``initialize`` can run
-    in the same process (tests, notebooks)."""
+    """Clear what ``amp.initialize`` or ``amp.init`` set, so a fresh
+    session can run in the same process (tests, notebooks): the scalers,
+    the O1 policy and the module hooks that apply it."""
+    from .policy import remove_module_hooks
     _amp_state.opt_properties = None
     _amp_state.loss_scalers = []
+    _amp_state.handle = None
+    _amp_state.ambient_policy = None
+    remove_module_hooks()
 
 
 def warn_or_err(msg):

@@ -10,6 +10,12 @@ floating positional inputs to the half dtype and a forward hook that casts
 a floating tensor output to fp32 (or ``cast_model_outputs``); a tuple
 output, such as an ``output_hidden`` GPT's ``(hidden, table)``, is left as
 it is, as there.  ``model.state_dict()`` reports fp32 values.
+
+O1 builds the session's ``CastPolicy`` (the default half dtype, the
+registrations made so far replayed onto it), tags each model with it as
+``_amp_policy``, makes it the ambient policy of every other module call
+(criterions included) and installs the module hooks that apply it
+(``policy.py``).  The model stays fp32.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from ._amp_state import _amp_state, warn_or_err
 from ._process_optimizer import _process_optimizer
+from .policy import CastPolicy, install_module_hooks, replay_registrations
 from .scaler import LossScaler
 
 
@@ -134,6 +141,9 @@ def _initialize(models, optimizers, properties, num_losses=1,
             _install_casts(model, cast, cast_model_outputs
                            if cast_model_outputs is not None
                            else torch.float32)
+            # the JAX package's tag, which keeps the ambient O1 policy of
+            # a legacy handle off this model
+            model._amp_input_cast_dtype = cast
             model._register_state_dict_hook(_fp32_state_dict_hook)
     elif cast_model_outputs is not None:
         for model in models:
@@ -152,6 +162,17 @@ def _initialize(models, optimizers, properties, num_losses=1,
                    min_loss_scale=_amp_state.min_loss_scale,
                    max_loss_scale=_amp_state.max_loss_scale, device=dev)
         for _ in range(num_losses)]
+
+    if properties.patch_torch_functions:
+        from .frontend import get_default_half_dtype
+        policy = CastPolicy(half_dtype=get_default_half_dtype(), enabled=True,
+                            verbose=_amp_state.verbosity == 2)
+        replay_registrations(policy)
+        _amp_state.handle = policy
+        _amp_state.ambient_policy = policy
+        for model in models:
+            model._amp_policy = policy
+        install_module_hooks()
 
     if optimizers_was_list:
         return (models if models_was_list else models[0]), optimizers

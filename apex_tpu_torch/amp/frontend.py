@@ -6,10 +6,10 @@ The presets default to float16, as the reference's do;
 picks bf16.  Dtypes may be given as ``torch.dtype``s or strings
 ("float16", "fp16", "half", "bfloat16", "bf16", "float32", ...).
 
-O1 (casts inserted around each operation by the cast policy of
-``apex_tpu/amp/policy.py`` and ``amp/lists/``) is not ported yet:
-``initialize(opt_level="O1")`` raises ``NotImplementedError``.  So does
-``defer_scale_update=True``, which needs the runtime executor.
+O1 keeps the model in fp32 and casts around each operation by the cast
+policy of ``policy.py`` and ``lists/``, applied to every module call of
+the session (``_initialize.py``).  ``defer_scale_update=True`` needs the
+runtime executor and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from collections import OrderedDict
 import torch
 
 from ._amp_state import _amp_state, maybe_print, warn_or_err
+from .policy import remove_module_hooks
 
 _DTYPE_ALIASES = {
     "float16": torch.float16, "fp16": torch.float16, "half": torch.float16,
@@ -192,8 +193,11 @@ def initialize(models, optimizers=None, enabled=True, opt_level="O1",
 
     _amp_state.opt_properties = Properties()
     _amp_state.verbosity = verbosity
+    _amp_state.ambient_policy = None
+    remove_module_hooks()
 
     if not enabled:
+        _amp_state.handle = None
         if optimizers is None:
             return models
         return models, optimizers
@@ -203,11 +207,6 @@ def initialize(models, optimizers=None, enabled=True, opt_level="O1",
             f"Unexpected optimization level {opt_level}. Options are 'O0', "
             "'O1', 'O2', 'O3'.  Note that in `O0`, `O1`, etc., the prefix O "
             "is the letter O, not the number zero.")
-    if opt_level == "O1":
-        raise NotImplementedError(
-            "amp opt_level O1 is not ported yet: its per-operation cast "
-            "policy (apex_tpu/amp/policy.py, amp/lists/) comes with a later "
-            "slice; use O0, O2 or O3")
     if defer_scale_update:
         raise NotImplementedError(
             "amp defer_scale_update=True needs the runtime executor, which "

@@ -14,8 +14,13 @@ exchanged before the unscale, so that every rank decides alike.
 ``scale_loss`` (or ``step()``, which finalizes them) to unscale once.
 ``delay_overflow_check=True`` skips the scale update.  The JAX package's
 deferred mode (``defer_scale_update``) needs the runtime executor and is
-refused at ``initialize``; the legacy ``AmpHandle``/``init`` API comes with
-O1.
+refused at ``initialize``.
+
+Beside it, the legacy API: ``init`` returns an ``AmpHandle`` whose
+construction makes an O1 policy the ambient one of every module call (or
+a ``NoOpHandle``), ``handle.wrap_optimizer`` gives an ``OptimWrapper``
+with a scaler per loss, and ``disable_casts`` / ``handle._disable_casts``
+turn the casts off for a block.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import contextlib
 
 import torch
 
+from . import policy as _policy
 from ._amp_state import _amp_state, maybe_print
 from ._process_optimizer import exchange_before_unscale, reset_fused_sgd_scale
 
@@ -100,3 +106,128 @@ def scale_loss(loss, optimizers, loss_id=0, model=None, delay_unscale=False,
                 optimizer.step = _patch_step_skip(optimizer, loss_scaler,
                                                   loss_id)
                 optimizer._amp_stash.already_patched = True
+
+
+#: the free cast-disable scope (the reference handle's ``disable_casts``)
+disable_casts = _policy.disable_casts
+
+
+class AmpHandle:
+    """The legacy handle :func:`init` returns.  Constructing it makes an O1
+    ``CastPolicy`` the ambient policy of every module call and installs
+    the module hooks that apply it; ``_deactivate`` takes it away.  The
+    cast cache of the reference (``has_cache``, ``cache``,
+    ``remove_cache``) is kept for its API but holds nothing: every cast is
+    made anew at each op, as in the JAX package.  Each
+    ``wrap_optimizer`` makes the wrapper's scalers on the optimizer's
+    device."""
+
+    def __init__(self, loss_scale="dynamic", enable_caching=True,
+                 verbose=False, allow_banned=False):
+        from .frontend import get_default_half_dtype
+        self._enable_caching = enable_caching
+        self._verbose = verbose
+        self._cache = {}
+        self._loss_scale = loss_scale
+        self._is_active = True
+        self._policy = _policy.CastPolicy(
+            half_dtype=get_default_half_dtype(), enabled=True,
+            allow_banned=allow_banned, verbose=verbose)
+        _policy.replay_registrations(self._policy)
+        _amp_state.handle = self._policy
+        _amp_state.ambient_policy = self._policy
+        _policy.install_module_hooks()
+
+    def is_active(self):
+        return self._is_active and _amp_state.ambient_policy is self._policy
+
+    @contextlib.contextmanager
+    def _disable_casts(self):
+        self._is_active = False
+        try:
+            with _policy.disable_casts():
+                yield
+        finally:
+            self._is_active = True
+
+    def wrap_optimizer(self, optimizer, num_loss=1):
+        from .opt import OptimWrapper
+        return OptimWrapper(optimizer, self, num_loss,
+                            loss_scale=self._loss_scale)
+
+    def scale_loss(self, loss, optimizer):
+        raise RuntimeError(
+            "The old Amp API's handle.scale_loss is no longer supported.  "
+            "Use handle.wrap_optimizer(optimizer).scale_loss(loss), or move "
+            "to the amp.initialize API.")
+
+    def _clear_cache(self):
+        self._cache.clear()
+
+    def _deactivate(self):
+        """Take the ambient policy and its module hooks away (the
+        reference restores the torch functions it patched)."""
+        if _amp_state.ambient_policy is self._policy:
+            _amp_state.ambient_policy = None
+            _amp_state.handle = None
+            _policy.remove_module_hooks()
+
+    @property
+    def has_cache(self):
+        return self._enable_caching
+
+    @property
+    def cache(self):
+        return self._cache
+
+    def remove_cache(self, param):
+        if self.has_cache and param in self.cache:
+            del self.cache[param]
+
+    @property
+    def verbose(self):
+        return self._verbose
+
+
+class NoOpHandle:
+    """What ``init(enabled=False)`` returns: casts nothing, scales
+    nothing."""
+
+    def is_active(self):
+        return False
+
+    @contextlib.contextmanager
+    def _disable_casts(self):
+        yield
+
+    def wrap_optimizer(self, optimizer, num_loss=1):
+        from .opt import OptimWrapper
+        return OptimWrapper(optimizer, self, num_loss)
+
+    @contextlib.contextmanager
+    def scale_loss(self, loss, optimizer):
+        yield loss
+
+    @property
+    def has_cache(self):
+        return False
+
+    @property
+    def verbose(self):
+        return False
+
+    def _clear_cache(self):
+        pass
+
+    def _deactivate(self):
+        pass
+
+
+def init(enabled=True, loss_scale="dynamic", enable_caching=True,
+         verbose=False, allow_banned=False):
+    """The legacy entry point: an ``AmpHandle`` whose construction turns
+    O1's casts on for every module call (or a ``NoOpHandle`` when not
+    ``enabled``).  ``amp.initialize`` is the current API."""
+    if not enabled:
+        return NoOpHandle()
+    return AmpHandle(loss_scale, enable_caching, verbose, allow_banned)

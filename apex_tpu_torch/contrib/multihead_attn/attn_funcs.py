@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from ...amp.policy import no_casts
 from ...kernels import attention as _k
 from ...kernels.dispatch import MASKED_FILL
 
@@ -86,6 +87,7 @@ def draw_dropout_seed(generator=None, device=None):
                          device=device, dtype=torch.int32)
 
 
+@no_casts
 def flash_attention(q4, k4, v4, bias=None, causal=False, scale=None,
                     sliding_window=None, dropout_p=0.0, dropout_seed=None):
     """Fused scaled-dot-product attention, (B, H, S, D) layout.
@@ -169,6 +171,7 @@ def _attn_with_dropout(q3, k3, v3, bias, heads, scale, dropout_prob,
     return torch.einsum("bts,bsd->btd", p, v3.float()).to(q3.dtype)
 
 
+@no_casts
 def self_attn_func(use_time_mask, is_training, heads, scale, inputs,
                    input_weights, output_weights, input_biases=None,
                    output_biases=None, mask=None, dropout_prob=0.0,

@@ -21,6 +21,9 @@ from .attn_funcs import self_attn_func
 
 
 class SelfMultiheadAttn(nn.Module):
+    # one op to amp O1, as in the JAX package: its body runs with casts off
+    _amp_no_casts = True
+
     def __init__(self, embed_dim, num_heads, dropout=0.0, bias=False,
                  include_norm_add=False, impl="fast", causal=False,
                  seq_parallel_axis=None, seq_parallel_impl="ring",

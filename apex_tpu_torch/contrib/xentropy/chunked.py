@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ...amp.policy import no_casts
 from ...kernels import xentropy as _k
 from ...kernels.dispatch import MASKED_FILL
 
@@ -105,6 +106,7 @@ class _ChunkedLMHeadLoss(torch.autograd.Function):
         return dx[:n], dw, None, None, None, None, None
 
 
+@no_casts
 def chunked_lm_head_loss(hidden, head_weight, labels, smoothing=0.0,
                          padding_idx=-100, logical_vocab=None,
                          chunk_rows=None):

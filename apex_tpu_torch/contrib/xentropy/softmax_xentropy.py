@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp.policy import no_casts
 from ...kernels import xentropy as _k
 
 
@@ -53,6 +54,7 @@ class _SoftmaxXentropy(torch.autograd.Function):
         return dx.reshape(logits.shape), None, None, None, None
 
 
+@no_casts
 def softmax_cross_entropy_loss(logits, labels, smoothing=0.0, padding_idx=0,
                                half_to_float=False):
     """Per-row label-smoothed cross entropy of ``logits (..., C)`` against

@@ -1,5 +1,6 @@
 from .bert import (BertForMaskedLM, BertLayer, BertModel, bert_base,
                    bert_large)
+from . import dcgan
 from .convert import from_jax_state_dict, to_numpy_state_dict
 from .gpt import (GptBlock, GptModel, generate, gpt2_large, gpt2_medium,
                   gpt2_small, gpt2_xl, make_sampler, nucleus_filter)

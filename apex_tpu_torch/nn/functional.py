@@ -1,12 +1,14 @@
 """Functional ops, the PyTorch counterpart of ``apex_tpu/nn/functional.py``
 (so far the loss of the training paths and the batch norm that
-``parallel.SyncBatchNorm`` runs across ranks)."""
+``parallel.SyncBatchNorm`` runs across ranks).  Under amp O1 each is one
+op, as there: its arguments are cast by the policy, its body is not."""
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
 from .._unported import PARALLEL, accept_defaults
+from ..amp.policy import policied
 from ..kernels.dispatch import MASKED_LOGIT_THR
 
 
@@ -21,6 +23,7 @@ def _reduce(v, reduction):
                      f"{reduction!r}")
 
 
+@policied("cross_entropy")
 def cross_entropy(logits, target, weight=None, reduction="mean",
                   label_smoothing=0.0):
     """Softmax cross entropy with integer class targets, the JAX package's
@@ -75,6 +78,7 @@ class _AllGather(torch.autograd.Function):
         return grad[dist.get_rank(ctx.group)], None
 
 
+@policied("batch_norm")
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.1, eps=1e-5, axis_name=None,
                axis_index_groups=None, return_stats=False, channel_axis=1,

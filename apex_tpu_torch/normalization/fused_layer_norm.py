@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..amp.policy import no_casts
 from ..kernels import layer_norm as _k
 from ..kernels.dispatch import resolve_device
 
@@ -60,12 +61,14 @@ def _layer_norm(x2d, weight, bias, eps):
     return _k.ln_forward(x2d, weight, bias, eps)[0]
 
 
+@no_casts
 def fused_layer_norm_affine(input, weight, bias, normalized_shape, eps=1e-6):
     x2d, n = _flatten(input, normalized_shape)
     y = _layer_norm(x2d, weight.reshape(n), bias.reshape(n), eps)
     return y.reshape(input.shape)
 
 
+@no_casts
 def fused_layer_norm(input, normalized_shape, eps=1e-6):
     x2d, _ = _flatten(input, normalized_shape)
     return _layer_norm(x2d, None, None, eps).reshape(input.shape)
@@ -73,7 +76,10 @@ def fused_layer_norm(input, normalized_shape, eps=1e-6):
 
 class FusedLayerNorm(nn.Module):
     """LayerNorm over the trailing ``normalized_shape`` dims through the
-    fused kernel; fp32 statistics for half inputs."""
+    fused kernel; fp32 statistics for half inputs.  One op to amp O1, as
+    in the JAX package: its body runs with casts off."""
+
+    _amp_no_casts = True
 
     def __init__(self, normalized_shape, eps=1e-5, elementwise_affine=True,
                  device=None, dtype=torch.float32):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..amp.policy import no_casts
 from ..kernels import rms_norm as _k
 from ..kernels.dispatch import resolve_device
 from .fused_layer_norm import _flatten
@@ -48,11 +49,13 @@ def _rms_norm(x2d, weight, eps):
     return _k.rms_forward(x2d, weight, eps)[0]
 
 
+@no_casts
 def fused_rms_norm_affine(input, weight, normalized_shape, eps=1e-6):
     x2d, n = _flatten(input, normalized_shape)
     return _rms_norm(x2d, weight.reshape(n), eps).reshape(input.shape)
 
 
+@no_casts
 def fused_rms_norm(input, normalized_shape, eps=1e-6):
     x2d, _ = _flatten(input, normalized_shape)
     return _rms_norm(x2d, None, eps).reshape(input.shape)
@@ -61,7 +64,10 @@ def fused_rms_norm(input, normalized_shape, eps=1e-6):
 class FusedRMSNorm(nn.Module):
     """RMSNorm over the trailing ``normalized_shape`` dims through the fused
     kernel; fp32 statistics for half inputs, a weight of ones (fp32 unless
-    ``dtype`` says otherwise) and no bias."""
+    ``dtype`` says otherwise) and no bias.  One op to amp O1, as in the
+    JAX package: its body runs with casts off."""
+
+    _amp_no_casts = True
 
     def __init__(self, normalized_shape, eps=1e-6, elementwise_affine=True,
                  device=None, dtype=torch.float32):

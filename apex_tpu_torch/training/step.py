@@ -27,6 +27,7 @@ from torch.func import functional_call
 from torch.utils._pytree import tree_leaves, tree_map
 
 from .. import ops
+from ..amp.policy import disable_casts
 from ..amp.scaler import ScalerState, update_scale_state
 from ..ops.multi_tensor import nonfinite_flag
 from .._unported import PARALLEL, refuse
@@ -424,7 +425,9 @@ def make_train_step(model, optimizer, loss_fn: Callable,
             gen = torch.Generator(device=dev)
             gen.manual_seed(dropout_seed(rng_seed, pass_index))
             kwargs["generator"] = gen
-        with torch.enable_grad():
+        # O1's casts stay off: half_dtype is this step's only cast, as the
+        # JAX step runs its forward outside the tape's policy
+        with disable_casts(), torch.enable_grad():
             out = functional_call(model, dict(zip(names, leaves)), (x,),
                                   kwargs)
             loss = loss_fn(out, *b[1:])

@@ -165,15 +165,36 @@ Phases, each of which raises on failure:
    a planted overflow skipped alike on the card and on the CPU;
 18. BERT-base on the card against the CPU (fp32, dropout 0, a padded
    sequence): MLM logits, loss, gradients, and one LAMB step's masters and
-   moments; one ``flash_attention`` call with dropout 0.1, card against CPU.
+   moments; one ``flash_attention`` call with dropout 0.1, card against CPU;
+19. amp O1 (a per-op cast policy over fp32 models, fp16, dynamic scale):
+   the SGD kernel at ResNet-18's 62 fp32 tensors (depth 3) and the Adam
+   kernel at the DCGAN networks' (depth 4), bit for bit against their
+   plain versions and timed beside their bounds, plain versions and
+   ``torch.optim.SGD/Adam(fused=True)``; then ``BASELINE.json``'s config 1
+   as ``examples/simple/distributed`` runs it: NCCL at world size 1,
+   ``resnet18(num_classes=10, small_input=True)``, ``FusedSGD(lr 0.1,
+   momentum 0.9, weight_decay 5e-4)``, ``amp.initialize(O1)``,
+   ``DistributedDataParallel``, batch 128 x 3 x 32 x 32, 10 iterations
+   (one SGD launch in the last and nothing else, falling losses, conv and
+   linear outputs fp16, BatchNorm outputs and the loss fp32, fp32 weights
+   and gradients, images/s, a profiled iteration with its dtype-conversion
+   copies counted apart), card against CPU (the op-dtype trace of one
+   forward, the first loss), the example's toy loop and one iteration of
+   the legacy ``amp.init`` / ``OptimWrapper`` API;
+20. ``BASELINE.json``'s config 5, ``examples/dcgan/main_amp.py``'s loop at
+   nz 100, ngf = ndf = 64, batch 64: two ``FusedAdam``, ``amp.initialize(
+   [netD, netG], [optD, optG], O1, num_losses=3)``, 10 iterations with an
+   inf planted in one D-fake backward (two Adam launches an iteration, one
+   there; only scaler 1 halves), iterations/s; card against CPU (traces,
+   the skip history, the first losses); 1 + 3 iterations of
+   ``make_gan_train_step`` (two Adam launches each).
 
 Every main path's launch counts include the norm kernels' per-route
 counters (each path runs its forwards and backwards on ``vec``), and every
 profiled step prints its device operations (the train steps beside their
 count when the backward's sums were cast after the kernels).  It prints a
-JSON line of the BERT, Llama-step, GPT profiled-step and dropout-arm
-numbers,
-one JSON line of per-kernel numbers, the card's name and power limit, and
+JSON line of the BERT, Llama-step, GPT profiled-step, dropout-arm and
+amp O1 numbers, one JSON line of per-kernel numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero before
 printing a result.  TF32 is off for every comparison.
@@ -788,11 +809,12 @@ def main_path(torch, dispatch, gpt):
     return model, out, counts, prefill_logits, step_logits
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, counts=None):
     """Run ``fn`` under ``torch.profiler``; returns the window's wall ms,
     the device's busy ms (union of kernel and copy intervals on the card),
     the device ms per kernel name (None and None where the profiler saw no
-    device activity) and the number of device operations."""
+    device activity) and the number of device operations.  A ``counts``
+    dict receives the device operations per kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -809,6 +831,8 @@ def _profiled(torch, fn):
     busy, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1
         if e > end:
             busy += e - max(s, end)
             end = e
@@ -878,13 +902,20 @@ def kernel_split_ms(torch, fn, names, calls=5):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the profiler now and then records no device activity at all in a
+    # window: such a window is taken again, twice at most
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if spans:
+            break
+        print(f"  (torch.profiler saw no device activity in window "
+              f"{attempt + 1}; taken again)")
     if not spans:
         raise AssertionError("torch.profiler saw no device activity")
     out = {}
@@ -3916,6 +3947,610 @@ def bert_cpu_phase(torch, bert, attn_funcs):
               f"key-padded, card vs CPU: {name}", scaled_err(a, b)[0], 1e-5)
 
 
+# ---------------------------------------------------------------------------
+# amp O1: BASELINE.json's configs 1 (examples/simple, ResNet-18 on CIFAR-10
+# sized images) and 5 (examples/dcgan, three losses on two networks)
+# ---------------------------------------------------------------------------
+
+O1_BATCH, O1_ITERS, O1_CPU_BATCH = 128, 10, 8
+O1_SGD = dict(lr=0.1, momentum=0.9, weight_decay=5e-4)
+DCGAN_NZ, DCGAN_NGF, DCGAN_NDF = 100, 64, 64
+DCGAN_BATCH, DCGAN_ITERS, DCGAN_PLANT = 64, 10, 4
+DCGAN_ADAM = dict(lr=2e-4, betas=(0.5, 0.999))
+# from amp's 2^16 the discriminator's last fp16 weight gradient can
+# overflow by itself at this batch (a sum of 64 products near 2^9 each);
+# under 2^12 the planted gradient is the only overflow of a run
+DCGAN_MAX_SCALE = 2.0 ** 12
+
+
+def _o1_trace(torch, fn):
+    """Run ``fn`` with the port's ``CastPolicy.cast_args`` recorded as
+    ``tests/test_torch_amp_o1.py`` records it: each op whose category fixes
+    a dtype (half, float, banned) and each promote or sequence op over mixed
+    float dtypes, with the dtypes its arguments leave with.  Returns (fn's
+    result, the trace, the number of tensors the policy cast)."""
+    from apex_tpu_torch.amp import policy
+    trace, cast, orig = [], [0], policy.CastPolicy.cast_args
+
+    def rec(self, op, args, kwargs=None):
+        a, k = orig(self, op, args, kwargs)
+        ins = policy._float_leaves((args, kwargs), [])
+        outs = policy._float_leaves((a, k), [])
+        cast[0] += sum(x.dtype != y.dtype for x, y in zip(ins, outs))
+        if self.category_of(op) in ("half", "float", "banned") \
+                or len({x.dtype for x in ins}) > 1:
+            trace.append((op, tuple(sorted({str(y.dtype)[6:]
+                                            for y in outs}))))
+        return a, k
+    policy.CastPolicy.cast_args = rec
+    try:
+        return fn(), trace, cast[0]
+    finally:
+        policy.CastPolicy.cast_args = orig
+
+
+def o1_kernel_phase(torch, multi_tensor, models, dcgan):
+    """The SGD kernel at ResNet-18's parameters (depth 3, fp32, the O1
+    path's hyperparameters) and the Adam kernel at the DCGAN generator's
+    and discriminator's (depth 4, fp32, the example's betas), each against
+    its plain version bit for bit and with a set noop flag, then timed
+    beside its bound, its plain version and one library call.  Returns
+    the numbers of each case."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+
+    def randn(s, k=1.0):
+        return torch.randn(s, generator=g, device="cuda") * k
+
+    def same(a, b):
+        return all(torch.equal(x, y) for la, lb in zip(a[1:], b[1:])
+                   for x, y in zip(la, lb))
+
+    def clone(lists):
+        return [lists[0]] + [[t.clone() for t in lst] for lst in lists[1:]]
+
+    def held(tag, lists, kernel, plain):
+        ka, ra = clone(lists), clone(lists)
+        kernel(zero, ka)
+        plain(zero, ra)
+        torch.cuda.synchronize()
+        if not same(ka, ra):
+            raise AssertionError(f"{tag}: kernel != plain version")
+        if same(ka, lists):
+            raise AssertionError(f"{tag}: nothing was updated")
+        ka = clone(lists)
+        kernel(one, ka)
+        torch.cuda.synchronize()
+        if not same(ka, lists):
+            raise AssertionError(f"{tag}: a set noop flag changed a tensor")
+        print(f"  {tag}: bitwise equal; with the noop flag set every tensor "
+              f"unchanged")
+
+    out = {}
+    rn = models.resnet18(num_classes=10, small_input=True, device="cpu")
+    shapes = [tuple(p.shape) for p in rn.parameters()]
+    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
+    lists = [[randn(s) for s in shapes], [randn(s) for s in shapes],
+             [randn(s, 0.1) for s in shapes]]
+    lr, wd, mom = O1_SGD["lr"], O1_SGD["weight_decay"], O1_SGD["momentum"]
+    args = (wd, mom, 0.0, lr, False, False, False, 1.0)
+    scal = multi_tensor.sgd_scalars(lr, wd, 1.0, mom, 0.0, "cuda")
+
+    def sgd(flag, ls):
+        multi_tensor.fused_sgd(flag, ls, *args)
+
+    def sgd_plain(flag, ls):
+        multi_tensor.fused_sgd_reference(flag, ls, scal, True, False, False,
+                                         False, True)
+    print(f"SGD and Adam kernels at the amp O1 paths' tensor lists:")
+    tag = (f"SGD, ResNet-18 (10 classes, CIFAR stem): {len(shapes)} fp32 "
+           f"tensors, {n_el} elements, depth 3")
+    held(tag, lists, sgd, sgd_plain)
+    ms = median_ms(lambda: sgd(zero, lists), reps=15, inner=5)[0]
+    plain = median_ms(lambda: sgd_plain(zero, lists), reps=3, inner=1,
+                      warmup=1)[0]
+    params = [p.clone().requires_grad_(True) for p in lists[1]]
+    for p, gr in zip(params, lists[0]):
+        p.grad = gr
+    lib_opt = torch.optim.SGD(params, **O1_SGD, fused=True)
+    lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
+    # g read; p and the momentum read and written, all fp32
+    bnd, by = bound_ms(20 * n_el, 8 * n_el, FP32_FLOP_PER_S)
+    print(f"  time {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"torch.optim.SGD(fused=True).step {lib:.4f} ms, bound {bnd:.4f} "
+          f"ms ({by}: {20 * n_el / 1e9:.3f} GB)")
+    out["sgd_resnet18"] = dict(shape=tag, max_abs_err=0.0, ms=ms,
+                               plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                               bound_by=by)
+    del lists, params, lib_opt
+
+    b1, b2 = DCGAN_ADAM["betas"]
+    scal = multi_tensor.adam_scalars(DCGAN_ADAM["lr"], b1, b2, 1e-8, 7,
+                                     True, 0.0, "cuda")
+
+    def adam(flag, ls):
+        multi_tensor.fused_adam(flag, ls, DCGAN_ADAM["lr"], b1, b2, 1e-8, 7,
+                                1, True, 0.0)
+
+    def adam_plain(flag, ls):
+        multi_tensor.fused_adam_reference(flag, ls, scal, 1, False)
+    for name, net in (
+            ("generator", dcgan.build_generator(DCGAN_NZ, DCGAN_NGF,
+                                                device="cpu")),
+            ("discriminator", dcgan.build_discriminator(DCGAN_NDF,
+                                                        device="cpu"))):
+        shapes = [tuple(p.shape) for p in net.parameters()]
+        n_el = sum(int(torch.Size(s).numel()) for s in shapes)
+        lists = [[randn(s) for s in shapes], [randn(s) for s in shapes],
+                 [randn(s, 0.1) for s in shapes],
+                 [torch.rand(s, generator=g, device="cuda") * 0.01
+                  for s in shapes]]
+        tag = (f"Adam, DCGAN {name}: {len(shapes)} fp32 tensors, {n_el} "
+               f"elements, depth 4")
+        held(tag, lists, adam, adam_plain)
+        ms = median_ms(lambda: adam(zero, lists), reps=15, inner=5)[0]
+        plain = median_ms(lambda: adam_plain(zero, lists), reps=3, inner=1,
+                          warmup=1)[0]
+        params = [p.clone().requires_grad_(True) for p in lists[1]]
+        for p, gr in zip(params, lists[0]):
+            p.grad = gr
+        lib_opt = torch.optim.Adam(params, **DCGAN_ADAM, fused=True)
+        lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
+        # g read; p, m and v read and written, all fp32
+        bnd, by = bound_ms(28 * n_el, 15 * n_el, FP32_FLOP_PER_S)
+        print(f"  time {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"torch.optim.Adam(fused=True).step {lib:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}: {28 * n_el / 1e9:.4f} GB)")
+        out[f"adam_dcgan_{name}"] = dict(
+            shape=tag, max_abs_err=0.0, ms=ms, plain_ms=plain,
+            library_ms=lib, bound_ms=bnd, bound_by=by)
+        del lists, params, lib_opt
+    return out
+
+
+def _o1_resnet(torch, models, dev, sd=None):
+    """The example's set-up on ``dev``: resnet18 (10 classes, CIFAR stem) ->
+    FusedSGD -> amp.initialize(O1)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp._amp_state import reset
+    from apex_tpu_torch.optimizers import FusedSGD
+    reset()
+    torch.manual_seed(SEED + 32)
+    model = models.resnet18(num_classes=10, small_input=True, device=dev)
+    if sd is not None:
+        model.load_state_dict(sd)
+    opt = FusedSGD(list(model.parameters()), **O1_SGD)
+    return amp.initialize(model, opt, opt_level="O1", verbosity=0)
+
+
+def _o1_step(torch, amp, model, opt, loss_fn, x, y):
+    """One iteration of examples/simple's loop; returns (loss, skipped)."""
+    loss = loss_fn(model(x), y)
+    opt.zero_grad()
+    with amp.scale_loss(loss, opt) as scaled:
+        scaled.backward()
+    skipped = opt._amp_stash.already_patched
+    opt.step()
+    return loss, skipped
+
+
+def o1_resnet_path(torch, dispatch, models):
+    """BASELINE.json's config 1 as examples/simple/distributed runs it:
+    torch.distributed (NCCL, world size 1) -> resnet18 -> FusedSGD ->
+    amp.initialize(O1) (fp16, dynamic scale) -> DistributedDataParallel,
+    cross entropy, batch 128 x 3 x 32 x 32, 10 iterations: one SGD launch
+    in the last and no other hand kernel, the losses falling; every conv
+    and linear output fp16, every BatchNorm output and the loss fp32, the
+    weights and their gradients fp32; images/s and a profiled iteration
+    with its dtype-conversion copies counted apart.  Then the same weights
+    on the card and on the CPU (batch 8): the op-dtype traces of one
+    forward equal, the first iteration's losses within 1e-2; the example's
+    toy loop (Linear(10, 32) -> ReLU -> Linear(32, 2), MSE, 20 steps); and
+    one iteration of the legacy API (amp.init -> wrap_optimizer ->
+    OptimWrapper.scale_loss).  Returns (counts, numbers)."""
+    import numpy as np
+    import torch.distributed as dist
+    from apex_tpu_torch import amp, parallel
+    from apex_tpu_torch.amp._amp_state import _amp_state, reset
+    from apex_tpu_torch.optimizers import FusedSGD
+    nn = torch.nn
+    parallel.init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1,
+                              process_id=0, timeout_s=120)
+    print(f"amp O1 ResNet-18 path: torch.distributed {dist.get_backend()} "
+          f"(world size {dist.get_world_size()}) -> resnet18(num_classes=10, "
+          f"small_input=True) -> FusedSGD {O1_SGD} -> amp.initialize(O1) -> "
+          f"DistributedDataParallel, CrossEntropyLoss; batch {O1_BATCH} x 3 "
+          f"x 32 x 32 (synthetic, numpy seed 3), {O1_ITERS} iterations")
+    try:
+        model, opt = _o1_resnet(torch, models, "cuda")
+        sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        ddp = parallel.DistributedDataParallel(model)
+        criterion = nn.CrossEntropyLoss()
+        rng = np.random.default_rng(3)
+        x = torch.from_numpy(rng.standard_normal(
+            (O1_BATCH, 3, 32, 32)).astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.integers(0, 10, (O1_BATCH,))).cuda()
+        n_params = sum(p.numel() for p in model.parameters())
+        losses, skips = [], []
+        for i in range(O1_ITERS):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if i == O1_ITERS - 1:
+                torch.cuda.synchronize()
+                dispatch.reset_counts()
+            loss, skipped = _o1_step(torch, amp, ddp, opt, criterion, x, y)
+            if i == O1_ITERS - 1:
+                torch.cuda.synchronize()
+                counts = dispatch.counts()
+            losses.append(float(loss.detach()))
+            skips.append(skipped)
+        img_s = (O1_ITERS - 2) * O1_BATCH / (time.perf_counter() - t0)
+        want = dict.fromkeys(counts, 0)
+        want.update(fused_sgd=1)
+        print(f"  {len(list(model.parameters()))} fp32 parameters, "
+              f"{n_params} values; launches in iteration {O1_ITERS}: "
+              f"{counts}")
+        print(f"  losses {', '.join(f'{v:.4f}' for v in losses)}; skipped "
+              f"{skips}; loss scale "
+              f"{_amp_state.loss_scalers[0].loss_scale()}")
+        print(f"  {img_s:.1f} images/s (iterations 3-{O1_ITERS}, host clock, "
+              f"the loss read back each iteration)")
+        if counts != want or skips[-1]:
+            raise AssertionError(f"O1 ResNet-18 launch counts {counts} != "
+                                 f"{want}, or the last iteration skipped")
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"O1 ResNet-18 losses did not fall: "
+                                 f"{losses}")
+        bad = [n for n, p in model.named_parameters()
+               if p.dtype != torch.float32 or p.grad is None
+               or p.grad.dtype != torch.float32]
+        if bad:
+            raise AssertionError(f"O1: weights or gradients not fp32: {bad}")
+        seen = {}
+
+        def note(mod, args, out):
+            seen.setdefault(type(mod).__name__, set()).add(out.dtype)
+        kinds = (nn.Conv2d, nn.Linear, nn.BatchNorm2d)
+        hooks = [m.register_forward_hook(note) for m in model.modules()
+                 if isinstance(m, kinds)]
+        try:
+            loss, trace, n_cast = _o1_trace(torch,
+                                            lambda: criterion(ddp(x), y))
+        finally:
+            for h in hooks:
+                h.remove()
+        f16, f32 = torch.float16, torch.float32
+        want_dtypes = {"Conv2d": {f16}, "Linear": {f16}, "BatchNorm2d": {f32}}
+        print(f"  output dtypes by module kind {seen}, loss {loss.dtype}; "
+              f"{len(trace)} policied ops, {n_cast} tensors cast in one "
+              f"forward")
+        if seen != want_dtypes or loss.dtype != f32:
+            raise AssertionError(f"O1 output dtypes {seen}, loss "
+                                 f"{loss.dtype}: expected {want_dtypes}")
+        by_count = {}
+        wall, busy, _, n_ops = _profiled(
+            torch, lambda: _o1_step(torch, amp, ddp, opt, criterion, x, y),
+            counts=by_count)
+        copies = sum(c for name, c in by_count.items()
+                     if "copy_kernel" in name)
+        prof = dict(wall_ms=wall, busy_ms=busy, device_ops=n_ops,
+                    copy_kernels=copies, forward_casts=n_cast,
+                    idle_share=None if busy is None else 1 - busy / wall)
+        if busy is None:
+            print(f"  profiled iteration: wall {wall:.2f} ms; device time not "
+                  f"measured (the profiler saw no device activity)")
+        else:
+            print(f"  profiled iteration: wall {wall:.2f} ms, device busy "
+                  f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}, {n_ops} "
+                  f"device operations, of which {copies} dtype-conversion "
+                  f"copy kernels (O1's {n_cast} forward casts, their "
+                  f"backwards and any other conversion), "
+                  f"{copies / max(n_ops, 1):.3f} of them")
+        del ddp, model, opt
+
+        print(f"amp O1 ResNet-18 on the card against the CPU, the same "
+              f"weights, batch {O1_CPU_BATCH}:")
+        torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+        traces, first = {}, {}
+        for dev in ("cuda", "cpu"):
+            m, o = _o1_resnet(torch, models, dev, sd)
+            xs, ys = x[:O1_CPU_BATCH].to(dev), y[:O1_CPU_BATCH].to(dev)
+            _, traces[dev], _ = _o1_trace(torch, lambda: m(xs))
+            loss, _ = _o1_step(torch, amp, m, o, criterion, xs, ys)
+            first[dev] = float(loss.detach())
+            del m, o
+        print(f"  forward trace: {len(traces['cuda'])} ops on the card, "
+              f"{len(traces['cpu'])} on the CPU, "
+              f"{'identical' if traces['cuda'] == traces['cpu'] else 'DIFFERENT'}"
+              f"; first iteration's loss card {first['cuda']:.6f}, CPU "
+              f"{first['cpu']:.6f}")
+        if traces["cuda"] != traces["cpu"]:
+            raise AssertionError(f"O1 traces differ: {traces}")
+        check("O1 ResNet-18 loss, card vs CPU (relative)",
+              abs(first["cuda"] - first["cpu"]) / abs(first["cpu"]), 1e-2)
+
+        # examples/simple/distributed's own loop
+        reset()
+        torch.manual_seed(SEED + 33)
+        toy = nn.Sequential(nn.Linear(10, 32), nn.ReLU(),
+                            nn.Linear(32, 2)).cuda()
+        topt = FusedSGD(list(toy.parameters()), lr=0.1, momentum=0.9)
+        toy, topt = amp.initialize(toy, topt, opt_level="O1", verbosity=0)
+        toy_ddp = parallel.DistributedDataParallel(toy)
+        mse = nn.MSELoss()
+        tx = torch.from_numpy(rng.standard_normal((32, 10)).astype(
+            np.float32)).cuda()
+        ty = torch.from_numpy(rng.standard_normal((32, 2)).astype(
+            np.float32)).cuda()
+        torch.cuda.synchronize()
+        dispatch.reset_counts()
+        toy_losses, toy_skips = [], []
+        for _ in range(20):
+            loss, skipped = _o1_step(torch, amp, toy_ddp, topt, mse, tx, ty)
+            toy_losses.append(float(loss.detach()))
+            toy_skips.append(skipped)
+        torch.cuda.synchronize()
+        toy_counts = dispatch.counts()
+        print(f"  examples/simple toy loop (O1 + DDP + FusedSGD, MSE, 20 "
+              f"steps): losses {toy_losses[0]:.5f} -> {toy_losses[-1]:.5f}, "
+              f"{sum(toy_skips)} skipped, SGD launches "
+              f"{toy_counts['fused_sgd']}")
+        if toy_counts["fused_sgd"] != 20 - sum(toy_skips) \
+                or not toy_losses[-1] < toy_losses[0] \
+                or sum(toy_counts.values()) != toy_counts["fused_sgd"]:
+            raise AssertionError(f"toy loop: {toy_losses}, {toy_counts}")
+        del toy_ddp, toy, topt
+
+        # the legacy API: amp.init -> wrap_optimizer -> OptimWrapper
+        reset()
+        handle = amp.init()
+        torch.manual_seed(SEED + 34)
+        lm = nn.Sequential(nn.Linear(10, 32), nn.ReLU(),
+                           nn.Linear(32, 2)).cuda()
+        lopt = handle.wrap_optimizer(FusedSGD(list(lm.parameters()), lr=0.1,
+                                              momentum=0.9))
+        torch.cuda.synchronize()
+        dispatch.reset_counts()
+        out = lm(tx)
+        loss = mse(out, ty)
+        with lopt.scale_loss(loss) as scaled:
+            scaled.backward()
+        skipped = lopt._skip_next[0]
+        lopt.step()
+        torch.cuda.synchronize()
+        lcounts = dispatch.counts()
+        handle._deactivate()
+        print(f"  legacy amp.init -> wrap_optimizer -> OptimWrapper.scale_loss"
+              f": output {out.dtype}, loss {float(loss.detach()):.5f}, "
+              f"skipped {skipped}, SGD launches {lcounts['fused_sgd']}")
+        if out.dtype != torch.float16 or \
+                lcounts["fused_sgd"] != (0 if skipped else 1):
+            raise AssertionError(f"legacy API: {out.dtype}, {lcounts}")
+        reset()
+        return counts, dict(images_per_s=img_s, losses=losses,
+                            profiled=prof, toy_losses=toy_losses)
+    finally:
+        reset()
+        dist.destroy_process_group()
+
+
+def _dcgan_iteration(torch, amp, nets, opts, crit, real, noise, plant=False):
+    """One iteration of examples/dcgan/main_amp.py: D on real (loss_id 0),
+    D on the detached fake (loss_id 1; ``plant`` puts an inf in D's first
+    gradient there), D's step, G through the updated D (loss_id 2), G's
+    step.  Returns (the three losses, D skipped, G skipped)."""
+    netD, netG = nets
+    optD, optG = opts
+    ones = torch.ones(real.shape[0], device=real.device)
+    optD.zero_grad()
+    errD_real = crit(netD(real), ones)
+    with amp.scale_loss(errD_real, optD, loss_id=0) as scaled:
+        scaled.backward()
+    fake = netG(noise)
+    errD_fake = crit(netD(fake.detach()), torch.zeros_like(ones))
+    with amp.scale_loss(errD_fake, optD, loss_id=1) as scaled:
+        scaled.backward()
+        if plant:
+            p = next(netD.parameters())
+            p.grad[(0,) * p.grad.dim()] = float("inf")
+    d_skip = optD._amp_stash.already_patched
+    optD.step()
+    optG.zero_grad()
+    errG = crit(netD(fake), ones)
+    with amp.scale_loss(errG, optG, loss_id=2) as scaled:
+        scaled.backward()
+    g_skip = optG._amp_stash.already_patched
+    optG.step()
+    return (errD_real, errD_fake, errG), d_skip, g_skip
+
+
+def _o1_dcgan(torch, dcgan, dev, sds=None):
+    """The example's set-up on ``dev``: both networks from a seed, two
+    FusedAdam, amp.initialize([netD, netG], [optD, optG], O1,
+    num_losses=3)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp._amp_state import reset
+    from apex_tpu_torch.optimizers import FusedAdam
+    reset()
+    torch.manual_seed(SEED + 41)
+    netG = dcgan.build_generator(DCGAN_NZ, DCGAN_NGF, device=dev)
+    netD = dcgan.build_discriminator(DCGAN_NDF, device=dev)
+    if sds is not None:
+        netG.load_state_dict(sds[0])
+        netD.load_state_dict(sds[1])
+    optD = FusedAdam(list(netD.parameters()), **DCGAN_ADAM)
+    optG = FusedAdam(list(netG.parameters()), **DCGAN_ADAM)
+    return amp.initialize([netD, netG], [optD, optG], opt_level="O1",
+                          num_losses=3, verbosity=0,
+                          max_loss_scale=DCGAN_MAX_SCALE)
+
+
+def o1_dcgan_path(torch, dispatch, dcgan):
+    """BASELINE.json's config 5, the examples/dcgan/main_amp.py loop at the
+    public DCGAN widths (nz 100, ngf = ndf = 64, batch 64 of 3 x 32 x 32
+    synthetic images): two FusedAdam, amp.initialize O1 with num_losses=3
+    (fp16, dynamic scale), BCE with logits, 10 iterations with an inf
+    planted in the D-fake backward of iteration 5: two Adam launches an
+    iteration (one where D skips), only scaler 1 halves, only there, and G
+    steps.  Then the same weights on the card and on the CPU (batch 8, 5
+    iterations, the plant at iteration 3): the op-dtype traces of one
+    forward equal, the (skipped, scales) histories equal, the first
+    iteration's losses within 1e-2; and 3 iterations of
+    make_gan_train_step (the --fused path's O1 mapping: no half copies, a
+    dynamic scale), two Adam launches each, after one more.  Returns (the
+    last iteration's counts, the GAN step's, numbers)."""
+    import numpy as np
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp._amp_state import _amp_state, reset
+    from apex_tpu_torch.training import make_gan_train_step
+    nn = torch.nn
+    F = torch.nn.functional
+    print(f"amp O1 DCGAN path: build_generator(nz {DCGAN_NZ}, ngf "
+          f"{DCGAN_NGF}), build_discriminator(ndf {DCGAN_NDF}) -> FusedAdam "
+          f"{DCGAN_ADAM} x 2 -> amp.initialize([netD, netG], [optD, optG], "
+          f"O1, num_losses=3, max_loss_scale 2^12), BCEWithLogitsLoss; batch "
+          f"{DCGAN_BATCH} x 3 x 32 x 32 (synthetic, numpy seed 5), "
+          f"{DCGAN_ITERS} iterations, an inf planted in the D-fake backward "
+          f"of iteration {DCGAN_PLANT + 1}")
+    try:
+        [netD, netG], opts = _o1_dcgan(torch, dcgan, "cuda")
+        sds = tuple({k: v.detach().clone() for k, v in n.state_dict().items()}
+                    for n in (netG, netD))
+        crit = nn.BCEWithLogitsLoss()
+        rng = np.random.default_rng(5)
+        reals = torch.from_numpy(rng.standard_normal(
+            (DCGAN_ITERS, DCGAN_BATCH, 3, 32, 32)).astype(np.float32)).cuda()
+        noises = torch.from_numpy(rng.standard_normal(
+            (DCGAN_ITERS, DCGAN_BATCH, DCGAN_NZ, 1, 1)).astype(
+            np.float32)).cuda()
+        n_g = sum(p.numel() for p in netG.parameters())
+        n_d = sum(p.numel() for p in netD.parameters())
+        main_rows, counts, losses = [], [], []
+        for i in range(DCGAN_ITERS):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            dispatch.reset_counts()
+            ls, d_skip, g_skip = _dcgan_iteration(
+                torch, amp, (netD, netG), opts, crit, reals[i], noises[i],
+                plant=i == DCGAN_PLANT)
+            torch.cuda.synchronize()
+            counts.append(dispatch.counts())
+            main_rows.append((d_skip, g_skip, tuple(
+                s.loss_scale() for s in _amp_state.loss_scalers)))
+            losses.append(tuple(float(v.detach()) for v in ls))
+        it_s = (DCGAN_ITERS - 2) / (time.perf_counter() - t0)
+        print(f"  generator {n_g} and discriminator {n_d} fp32 values; Adam "
+              f"launches per iteration "
+              f"{[c['fused_adam'] for c in counts]}")
+        print(f"  (D skipped, G skipped, scales 0/1/2) per iteration: "
+              f"{main_rows}")
+        print(f"  losses D-real/D-fake/G: "
+              f"{[tuple(round(v, 4) for v in r) for r in losses]}")
+        print(f"  {it_s:.2f} iterations/s ({it_s * DCGAN_BATCH:.1f} images/s; "
+              f"iterations 3-{DCGAN_ITERS}, host clock, synchronised each "
+              f"iteration to read the launch counts)")
+        s0 = DCGAN_MAX_SCALE
+        for i, (c, row) in enumerate(zip(counts, main_rows)):
+            want = dict.fromkeys(c, 0)
+            want.update(fused_adam=1 if i == DCGAN_PLANT else 2)
+            scales = (s0, s0 / 2 if i >= DCGAN_PLANT else s0, s0)
+            if c != want or row != (i == DCGAN_PLANT, False, scales):
+                raise AssertionError(
+                    f"DCGAN iteration {i + 1}: counts {c} (expected {want}), "
+                    f"history {row} (expected "
+                    f"{(i == DCGAN_PLANT, False, scales)})")
+        if not all(math.isfinite(v) for r in losses for v in r):
+            raise AssertionError(f"DCGAN losses not finite: {losses}")
+
+        def d_loss(out_r, out_f):
+            return (F.binary_cross_entropy_with_logits(
+                out_r, torch.ones_like(out_r))
+                + F.binary_cross_entropy_with_logits(
+                    out_f, torch.zeros_like(out_f)))
+
+        def g_loss(out_f):
+            return F.binary_cross_entropy_with_logits(
+                out_f, torch.ones_like(out_f))
+        step = make_gan_train_step(netD, netG, opts[0], opts[1], d_loss,
+                                   g_loss, half_dtype=None,
+                                   loss_scale="dynamic",
+                                   max_loss_scale=DCGAN_MAX_SCALE)
+        gan_counts, gan_losses = [], []
+        for i in range(4):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            dispatch.reset_counts()
+            errD, errG = step(reals[i], noises[i])
+            torch.cuda.synchronize()
+            gan_counts.append(dispatch.counts())
+            gan_losses.append((float(errD), float(errG)))
+        gan_it_s = 3 / (time.perf_counter() - t0)
+        print(f"  make_gan_train_step (half_dtype None, dynamic scale): Adam "
+              f"launches {[c['fused_adam'] for c in gan_counts]}, losses "
+              f"{[tuple(round(v, 4) for v in r) for r in gan_losses]}, "
+              f"skipped D {int(step.state.d.scaler.overflow)} G "
+              f"{int(step.state.g.scaler.overflow)} in the last; first call "
+              f"{step.compile_s * 1e3:.1f} ms, then {gan_it_s:.2f} "
+              f"iterations/s (calls 2-4, host clock, synchronised each call "
+              f"to read the launch counts)")
+        for c in gan_counts:
+            want = dict.fromkeys(c, 0)
+            want.update(fused_adam=2)
+            if c != want:
+                raise AssertionError(f"GAN step launch counts {c} != {want}")
+        if not all(math.isfinite(v) for r in gan_losses for v in r):
+            raise AssertionError(f"GAN step losses: {gan_losses}")
+        del step, netD, netG, opts
+
+        print(f"amp O1 DCGAN on the card against the CPU, the same weights, "
+              f"batch {O1_CPU_BATCH}, 5 iterations, an inf planted at "
+              f"iteration 3:")
+        torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+        rng = np.random.default_rng(6)
+        creal = torch.from_numpy(rng.standard_normal(
+            (5, O1_CPU_BATCH, 3, 32, 32)).astype(np.float32))
+        cnoise = torch.from_numpy(rng.standard_normal(
+            (5, O1_CPU_BATCH, DCGAN_NZ, 1, 1)).astype(np.float32))
+        traces, hist, first = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            [d, g], o = _o1_dcgan(torch, dcgan, dev, sds)
+            r, z = creal.to(dev), cnoise.to(dev)
+            _, traces[dev], _ = _o1_trace(torch, lambda: crit(
+                d(g(z[0])), torch.ones(O1_CPU_BATCH, device=dev)))
+            rows = []
+            for i in range(5):
+                ls, d_skip, g_skip = _dcgan_iteration(
+                    torch, amp, (d, g), o, crit, r[i], z[i], plant=i == 2)
+                rows.append((d_skip, g_skip, tuple(
+                    s.loss_scale() for s in _amp_state.loss_scalers)))
+                if i == 0:
+                    first[dev] = [float(v.detach()) for v in ls]
+            hist[dev] = rows
+            print(f"  {dev}: (D skipped, G skipped, scales) {rows}; first "
+                  f"losses {[round(v, 6) for v in first[dev]]}")
+            del d, g, o
+        print(f"  forward trace (G, D, loss): {len(traces['cuda'])} ops, "
+              f"{'identical' if traces['cuda'] == traces['cpu'] else 'DIFFERENT'}"
+              f" on the card and the CPU")
+        if traces["cuda"] != traces["cpu"] or hist["cuda"] != hist["cpu"]:
+            raise AssertionError(f"DCGAN card vs CPU: traces {traces}, "
+                                 f"histories {hist}")
+        check("O1 DCGAN first iteration's losses, card vs CPU (relative)",
+              max(abs(a - b) / abs(b) for a, b in zip(first["cuda"],
+                                                      first["cpu"])), 1e-2)
+        return counts[-1], gan_counts[-1], dict(
+            iterations_per_s=it_s, gan_step_iterations_per_s=gan_it_s,
+            history=main_rows, losses=losses)
+    finally:
+        reset()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3926,7 +4561,7 @@ def main():
         lm_head_xent, multi_tensor, rms_norm, xentropy
     from apex_tpu_torch import models
     from apex_tpu_torch.contrib.multihead_attn import attn_funcs
-    from apex_tpu_torch.models import bert, gpt, llama
+    from apex_tpu_torch.models import bert, dcgan, gpt, llama
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4037,6 +4672,12 @@ def main():
                                                          bert)
     bert_cpu_phase(torch, bert, attn_funcs)
     print(f"BERT phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    o1_kernels = o1_kernel_phase(torch, multi_tensor, models, dcgan)
+    paths["o1_resnet18"], o1_resnet = o1_resnet_path(torch, dispatch, models)
+    paths["o1_dcgan"], paths["o1_gan_step"], o1_dcgan = o1_dcgan_path(
+        torch, dispatch, dcgan)
+    print(f"amp O1 phases: {time.perf_counter() - t_phase:.1f} s")
 
     def launches(name):
         by = {k: c[name] for k, c in paths.items() if c[name]}
@@ -4224,18 +4865,32 @@ def main():
              source="apex_tpu_torch/csrc/multi_tensor_adam.cu",
              replaces=f"{fb}multi_tensor.py:207", **launches("fused_adam"),
              shape=f"{len(shapes)} tensors, bf16 grads, AdamW", **adam,
-             o3_case=adam_half),
+             o3_case=adam_half,
+             o1_dcgan_cases={k[11:]: v for k, v in o1_kernels.items()
+                             if k.startswith("adam_dcgan_")},
+             o1_dcgan_iterations_per_s=o1_dcgan["iterations_per_s"],
+             o1_gan_step_iterations_per_s=o1_dcgan[
+                 "gan_step_iterations_per_s"]),
         dict(name="fused_sgd", route="cuda",
              source="apex_tpu_torch/csrc/multi_tensor_sgd.cu",
              replaces=f"{fb}multi_tensor.py:129 (_sgd_kernel :106, "
                       f"pallas_call :156)", **launches("fused_sgd"),
              **sgd["step"], amp_case=sgd["amp"],
-             resnet_step_ms=resnet_ms, imagenet_images_per_s=imagenet_img_s),
+             resnet_step_ms=resnet_ms, imagenet_images_per_s=imagenet_img_s,
+             o1_resnet18_case=o1_kernels["sgd_resnet18"],
+             o1_resnet18_images_per_s=o1_resnet["images_per_s"]),
     ]
     print(json.dumps({"bert_base": dict(train=bert_nums,
                                         train_attn_dropout=bert_drop_nums,
                                         amp_o2_sequences_per_s=bert_amp_seq_s),
                       "llama_125m_train": llama_nums,
+                      "amp_o1": dict(
+                          resnet18_images_per_s=o1_resnet["images_per_s"],
+                          resnet18_profiled_iteration=o1_resnet["profiled"],
+                          dcgan_iterations_per_s=o1_dcgan[
+                              "iterations_per_s"],
+                          gan_step_iterations_per_s=o1_dcgan[
+                              "gan_step_iterations_per_s"]),
                       "gpt2_small_profiled_step": gpt_prof,
                       "gpt2_small_chunked_step_ms": dict(
                           attn_dropout_0=chunked_ms,

@@ -7,8 +7,8 @@ eager loop (forward, ``scale_loss``, backward, ``step``, ``zero_grad``):
 O0 within 1e-5, O2 and O3 within the JAX amp test's ``rtol=0.05``, and the
 tensors the optimizer updates (O2's fp32 masters, O3's half parameters and
 moments) within fp16 rounding of the JAX optimizer's.  Beside it: O2's structure, the overflow skip and the scale halving (the same
-history on both sides), ``delay_unscale``, the amp checkpoint state, and
-what is not ported (O1).
+history on both sides), ``delay_unscale``, the amp checkpoint state, O1
+accepted, and what is not ported (``defer_scale_update``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -334,8 +334,13 @@ def test_o1_and_deferred_updates_raise_and_options_resolve():
     _, tm = _models()
     port_reset()
     opt = FusedAdam(list(tm.parameters()), lr=LR)
-    with pytest.raises(NotImplementedError, match="O1"):
-        amp.initialize(tm, opt, opt_level="O1", verbosity=0)
+    # O1 is accepted: the model stays fp32 under the session's cast policy
+    # (its casts are held against JAX in tests/test_torch_amp_o1.py)
+    m1, _ = amp.initialize(tm, FusedAdam(list(tm.parameters()), lr=LR),
+                           opt_level="O1", verbosity=0)
+    assert m1 is tm and tm._amp_policy is _amp_state.ambient_policy
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+    port_reset()
     with pytest.raises(NotImplementedError, match="defer_scale_update"):
         amp.initialize(tm, opt, opt_level="O2", defer_scale_update=True,
                        verbosity=0)

@@ -2,10 +2,12 @@
 
 For each callable of the port that has a JAX twin on this slice's paths
 (the models, the attention module and functions, the flash kernels'
-wrappers, the LAMB optimizer and op, and the data-parallel surface), every
-parameter of the JAX signature exists in the port's with the same default;
-the port may add ``device``, ``dtype`` and ``generator`` parameters, and
-the kernels' ``interpret`` switch has no counterpart.  A value other than
+wrappers, the LAMB optimizer and op, the data-parallel surface, the legacy
+amp and fp16_utils API, O1's registry and the GAN step), every parameter
+of the JAX signature exists in the port's with the same default (a dtype
+default by its name); the port may add ``device``, ``dtype`` and
+``generator`` parameters, and the kernels' ``interpret`` switch has no
+counterpart.  A value other than
 the default of an argument that asks for something not ported yet (a mesh
 axis, tensor or sequence parallelism, experts, rematerialisation) raises
 ``NotImplementedError`` naming the ROADMAP item that owns it.
@@ -24,10 +26,22 @@ import apex_tpu.models.llama as jax_llama
 import apex_tpu.nn.functional as jax_F
 import apex_tpu.ops.multi_tensor as jax_ops
 import apex_tpu.optimizers as jax_optimizers
+import apex_tpu.amp as jax_amp
+import apex_tpu.amp.handle as jax_handle
+import apex_tpu.amp.opt as jax_opt
+import apex_tpu.amp.policy as jax_policy
+import apex_tpu.fp16_utils as jax_fp16_utils
 import apex_tpu.parallel as jax_parallel
 import apex_tpu.parallel.distributed as jax_distributed
+import apex_tpu.training as jax_training
 
+import apex_tpu_torch.amp as amp
+import apex_tpu_torch.amp.handle as handle
+import apex_tpu_torch.amp.opt as opt
+import apex_tpu_torch.amp.policy as policy
 import apex_tpu_torch.contrib.multihead_attn as mha
+import apex_tpu_torch.fp16_utils as fp16_utils
+import apex_tpu_torch.training as training
 import apex_tpu_torch.contrib.multihead_attn.attn_funcs as attn_funcs
 import apex_tpu_torch.kernels.attention as attention
 import apex_tpu_torch.models.bert as bert
@@ -61,8 +75,28 @@ PAIRS = [
     (jax_parallel, parallel, "SyncBatchNorm"),
     (jax_parallel, parallel, "convert_syncbn_model"),
     (jax_F, F, "batch_norm"),
+    (jax_amp, amp, "init"), (jax_handle, handle, "AmpHandle"),
+    (jax_opt, opt, "OptimWrapper"), (jax_policy, policy, "CastPolicy"),
+    (jax_policy, policy, "register_half_function"),
+    (jax_policy, policy, "register_float_function"),
+    (jax_policy, policy, "register_promote_function"),
+    (jax_fp16_utils, fp16_utils, "FP16_Optimizer"),
+    (jax_fp16_utils, fp16_utils, "network_to_half"),
+    (jax_fp16_utils, fp16_utils, "prep_param_lists"),
+    (jax_training, training, "make_gan_train_step"),
 ]
 NO_COUNTERPART = {"interpret"}
+
+
+def _default_key(value):
+    """A default as compared across the packages: a dtype by its name
+    (``jnp.bfloat16`` is ``torch.bfloat16``), anything else as it is."""
+    if isinstance(value, torch.dtype):
+        return ("dtype", str(value).replace("torch.", ""))
+    if isinstance(value, type) and hasattr(value, "dtype"):
+        import jax.numpy as jnp
+        return ("dtype", jnp.dtype(value).name)
+    return value
 
 
 @pytest.mark.parametrize("jax_mod,port_mod,name", PAIRS,
@@ -75,7 +109,8 @@ def test_every_jax_parameter_exists_with_its_default(jax_mod, port_mod, name):
         if pname in NO_COUNTERPART or pname.startswith("_"):
             continue
         assert pname in got, f"{name}: no parameter {pname!r}"
-        assert got[pname].default == param.default, \
+        assert _default_key(got[pname].default) == _default_key(
+            param.default), \
             f"{name}({pname}=...): default {got[pname].default!r} != " \
             f"{param.default!r}"
 
