@@ -31,38 +31,37 @@
 //
 // Design: the reference CUDA design (multi_tensor_apply.cuh), as in
 // multi_tensor_adam.cu, not the Pallas copy of every tensor into one packed
-// panel.  Each tensor is cut into chunks of 65536 elements and one
-// 256-thread block takes a chunk.  A device table holds each tensor's p, m
-// and model-copy addresses, its size and the chunk -> (tensor, offset) map;
-// the caller builds it once per list and keeps it, since the in-place
-// updates keep those addresses.  The gradients are new tensors every step,
-// so their addresses travel in the launch's parameters, each with its own
-// dtype code: one launch takes a list whose gradients mix dtypes (under
-// keep_batchnorm_fp32 ResNet's conv and fc gradients are bf16 and its
-// BatchNorm gradients fp32) without a widening pass.  A chunk lies in one
-// tensor, so the switch on the gradient's dtype is uniform over a block.
-// The kernel is a template on the params' dtype (fp32, bf16, fp16) and the
-// model copy's (none, bf16, fp16): 9 instances, each with three gradient
-// paths.  A thread takes four consecutive elements with one vector load and
-// store per array where every address of the chunk allows it, and the rest
-// one by one.
-
-#include <stdint.h>
+// panel, with the geometry of multi_tensor_common.cuh: chunks of a size the
+// wrapper picks per list and card (2048 elements at ResNet-18's and
+// ResNet-50's fp32 lists), one 256-thread block a chunk.  A device table holds
+// each tensor's p, m and model-copy addresses, its size and the chunk ->
+// (tensor, offset) map; the caller builds it once per list and chunk and
+// keeps it, since the in-place updates keep those addresses.  The
+// gradients are new tensors every step, so their addresses travel in the
+// launch's parameters, each with its own dtype code: one launch takes a
+// list whose gradients mix dtypes (under keep_batchnorm_fp32 ResNet's conv
+// and fc gradients are bf16 and its BatchNorm gradients fp32) without a
+// widening pass.  A chunk lies in one tensor, so the switch on the
+// gradient's dtype is uniform over a block.  The kernel is a template on
+// the params' dtype (fp32, bf16, fp16) and the model copy's (none, bf16,
+// fp16): 9 instances, each with three gradient paths.  Where every address
+// of a chunk allows it, a thread loads four consecutive elements of each
+// array with one vector access (g through the read-only path), all in
+// flight before it computes and stores them; the rest, and misaligned
+// chunks, go one element at a time.  The update is elementwise, so no
+// chunking changes a bit of it.
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "multi_tensor_common.cuh"
 
 namespace {
 
-constexpr int CHUNK = 65536;   // elements per chunk (one block's work)
-constexpr int NT = 256;        // threads per block
-constexpr int MAXT = 256;      // tensors per launch
 enum { LR, WD, SCALE, MOM, OMD };
 
 struct GradList {
-  const void* g[MAXT];
-  unsigned char dt[MAXT];      // dtype code of each gradient
+  const void* g[MT_MAX_TENSORS];
+  unsigned char dt[MT_MAX_TENSORS];   // dtype code of each gradient
 };
 
 struct Scalars {
@@ -86,54 +85,6 @@ __device__ __forceinline__ void sgd_elem(float g, float& p, float& m, const Scal
   p = __fsub_rn(p, __fmul_rn(s.lr, u));
 }
 
-// four consecutive elements of T as fp32, loaded from and stored to an
-// address aligned to ALIGN; a store rounds to nearest, as from_f<T> does
-template <typename T> struct Vec4;
-template <> struct Vec4<float> {
-  static constexpr uintptr_t ALIGN = 16;
-  __device__ static void load(const float* a, float o[4]) {
-    const float4 t = *reinterpret_cast<const float4*>(a);
-    o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
-  }
-  __device__ static void store(float* a, const float o[4]) {
-    *reinterpret_cast<float4*>(a) = make_float4(o[0], o[1], o[2], o[3]);
-  }
-};
-template <> struct Vec4<__nv_bfloat16> {
-  static constexpr uintptr_t ALIGN = 8;
-  __device__ static void load(const __nv_bfloat16* a, float o[4]) {
-    const uint2 u = *reinterpret_cast<const uint2*>(a);
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    o[0] = x.x; o[1] = x.y; o[2] = y.x; o[3] = y.y;
-  }
-  __device__ static void store(__nv_bfloat16* a, const float o[4]) {
-    const __nv_bfloat162 x = __floats2bfloat162_rn(o[0], o[1]);
-    const __nv_bfloat162 y = __floats2bfloat162_rn(o[2], o[3]);
-    *reinterpret_cast<uint2*>(a) = make_uint2(*reinterpret_cast<const unsigned*>(&x),
-                                              *reinterpret_cast<const unsigned*>(&y));
-  }
-};
-template <> struct Vec4<__half> {
-  static constexpr uintptr_t ALIGN = 8;
-  __device__ static void load(const __half* a, float o[4]) {
-    const uint2 u = *reinterpret_cast<const uint2*>(a);
-    const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
-    const float2 y = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
-    o[0] = x.x; o[1] = x.y; o[2] = y.x; o[3] = y.y;
-  }
-  __device__ static void store(__half* a, const float o[4]) {
-    const __half2 x = __floats2half2_rn(o[0], o[1]);
-    const __half2 y = __floats2half2_rn(o[2], o[3]);
-    *reinterpret_cast<uint2*>(a) = make_uint2(*reinterpret_cast<const unsigned*>(&x),
-                                              *reinterpret_cast<const unsigned*>(&y));
-  }
-};
-
-template <typename T> __device__ __forceinline__ bool vec_aligned(const T* a) {
-  return reinterpret_cast<uintptr_t>(a) % Vec4<T>::ALIGN == 0;
-}
-
 // the model copy's type, or NoCopy at depth 3
 struct NoCopy {};
 
@@ -144,26 +95,44 @@ __device__ __forceinline__ void sgd_chunk(const G* __restrict__ g, P* __restrict
                                           float* __restrict__ m, C* __restrict__ c, int n,
                                           const Scalars& s, const Mode& md) {
   constexpr bool COPY = !std::is_same<C, NoCopy>::value;
+  const bool read_m = md.has_mom && !md.first_run;
   bool aligned = vec_aligned(g) && vec_aligned(p) && (!md.has_mom || vec_aligned(m));
   if constexpr (COPY) aligned = aligned && vec_aligned(c);
   int tail = 0;
   if (aligned) {
     const int n4 = n / 4;
-    for (int i = threadIdx.x; i < n4; i += NT) {
-      float gv[4], pv[4], mv[4] = {0.f, 0.f, 0.f, 0.f};
-      Vec4<G>::load(g + 4 * i, gv);
-      Vec4<P>::load(p + 4 * i, pv);
-      if (md.has_mom && !md.first_run) Vec4<float>::load(m + 4 * i, mv);
+    for (int i0 = threadIdx.x; i0 < n4; i0 += MT_UNROLL * MT_THREADS) {
+      float gv[MT_UNROLL][4], pv[MT_UNROLL][4], mv[MT_UNROLL][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sgd_elem(gv[e], pv[e], mv[e], s, md);
-      Vec4<P>::store(p + 4 * i, pv);
-      if (md.has_mom) Vec4<float>::store(m + 4 * i, mv);
-      if constexpr (COPY) Vec4<C>::store(c + 4 * i, pv);
+      for (int u = 0; u < MT_UNROLL; ++u) {
+        const int i = i0 + u * MT_THREADS;
+        if (i < n4) {
+          Vec4<G>::load_ro(g + 4 * i, gv[u]);
+          Vec4<P>::load(p + 4 * i, pv[u]);
+          if (read_m) {
+            Vec4<float>::load(m + 4 * i, mv[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mv[u][e] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < MT_UNROLL; ++u) {
+        const int i = i0 + u * MT_THREADS;
+        if (i < n4) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sgd_elem(gv[u][e], pv[u][e], mv[u][e], s, md);
+          Vec4<P>::store(p + 4 * i, pv[u]);
+          if (md.has_mom) Vec4<float>::store(m + 4 * i, mv[u]);
+          if constexpr (COPY) Vec4<C>::store(c + 4 * i, pv[u]);
+        }
+      }
     }
     tail = n4 * 4;
   }
-  for (int i = tail + threadIdx.x; i < n; i += NT) {
-    float pv = to_f(p[i]), mv = (md.has_mom && !md.first_run) ? m[i] : 0.f;
+  for (int i = tail + threadIdx.x; i < n; i += MT_THREADS) {
+    float pv = to_f(p[i]), mv = read_m ? m[i] : 0.f;
     sgd_elem(to_f(g[i]), pv, mv, s, md);
     p[i] = from_f<P>(pv);
     if (md.has_mom) m[i] = mv;
@@ -174,17 +143,12 @@ __device__ __forceinline__ void sgd_chunk(const G* __restrict__ g, P* __restrict
 // table (int64): p, m, model-copy addresses [3 * nt], sizes [nt], then per
 // chunk (tensor index, element offset) [2 * nc]
 template <typename P, typename C>
-__global__ void __launch_bounds__(NT)
-sgd_kernel(GradList gl, const long long* __restrict__ table, int nt, int nc,
+__global__ void __launch_bounds__(MT_THREADS)
+sgd_kernel(GradList gl, const long long* __restrict__ table, int nt, int nc, int chunk,
            const float* __restrict__ scal, const int* __restrict__ flag, Mode md) {
   if (flag != nullptr && *flag != 0) return;  // a skipped step: nothing changes
   const Scalars s{scal[LR], scal[WD], scal[SCALE], scal[MOM], scal[OMD]};
-  const long long* sizes = table + 3 * nt;
-  const long long* chunks = table + 4 * nt;
-  for (int ch = blockIdx.x; ch < nc; ch += gridDim.x) {
-    const int t = (int)chunks[2 * ch];
-    const long long off = chunks[2 * ch + 1];
-    const int n = (int)min((long long)CHUNK, sizes[t] - off);
+  for_each_chunk(table, nt, nc, chunk, [&](int t, long long off, int n) {
     P* p = reinterpret_cast<P*>(table[t]) + off;
     float* m = reinterpret_cast<float*>(table[nt + t]) + off;
     C* c = reinterpret_cast<C*>(table[2 * nt + t]) + off;
@@ -199,21 +163,7 @@ sgd_kernel(GradList gl, const long long* __restrict__ table, int nt, int nc,
         sgd_chunk(static_cast<const float*>(gl.g[t]) + off, p, m, c, n, s, md);
         break;
     }
-  }
-}
-
-template <typename T> struct Tag {
-  using type = T;
-};
-
-// f(Tag<T>{}) for the type T of a dtype code
-template <typename F> cudaError_t with_dtype(int code, F&& f) {
-  switch (code) {
-    case DT_F32: return f(Tag<float>{});
-    case DT_BF16: return f(Tag<__nv_bfloat16>{});
-    case DT_F16: return f(Tag<__half>{});
-    default: return cudaErrorInvalidValue;
-  }
+  });
 }
 
 // f(Tag<C>{}) for the model copy's dtype code, -1 for none
@@ -229,27 +179,27 @@ template <typename F> cudaError_t with_copy_dtype(int code, F&& f) {
 }  // namespace
 
 // The most tensors one apex_sgd call takes.
-extern "C" int apex_sgd_max_tensors() { return MAXT; }
+extern "C" int apex_sgd_max_tensors() { return MT_MAX_TENSORS; }
 
-// The chunk size in elements that the table's chunk map uses.
-extern "C" int apex_sgd_chunk() { return CHUNK; }
+// The largest chunk, in elements, that one apex_sgd call takes.
+extern "C" int apex_sgd_chunk() { return MT_MAX_CHUNK; }
 
 // grads: host array of nt device addresses of the gradients; gdtypes: host
 // array of their nt dtype codes (0 float32, 1 bfloat16, 2 float16); table:
-// the device table above (nc chunks) for p of pdtype, fp32 m and a model
-// copy of cdtype (1 or 2; -1 at depth 3, its addresses then unused); scal: 5
-// fp32 device values (lr, wd, scale, momentum, 1 - dampening); flag: device
-// int32, or null; nothing changes when it is non-zero.  use_wd: 0 leaves
-// weight decay out, else it enters after momentum when wd_after is 1 and
-// before it otherwise; has_mom: 0 for momentum 0 (m untouched); first_run:
-// m = gf; nesterov: u = gf + momentum * m.  Returns the cudaError_t of the
-// launch.
+// the device table above (nc chunks of `chunk` elements, 1 <= chunk <=
+// apex_sgd_chunk()) for p of pdtype, fp32 m and a model copy of cdtype (1
+// or 2; -1 at depth 3, its addresses then unused); scal: 5 fp32 device
+// values (lr, wd, scale, momentum, 1 - dampening); flag: device int32, or
+// null; nothing changes when it is non-zero.  use_wd: 0 leaves weight
+// decay out, else it enters after momentum when wd_after is 1 and before it
+// otherwise; has_mom: 0 for momentum 0 (m untouched); first_run: m = gf;
+// nesterov: u = gf + momentum * m.  Returns the cudaError_t of the launch.
 extern "C" int apex_sgd(const void* const* grads, const unsigned char* gdtypes,
-                        const void* table, int nt, int nc, const void* scal, const void* flag,
-                        int pdtype, int cdtype, int use_wd, int wd_after, int has_mom,
-                        int first_run, int nesterov, void* stream) {
-  if (nt <= 0 || nt > MAXT || nc <= 0 || grads == nullptr || gdtypes == nullptr ||
-      table == nullptr || scal == nullptr)
+                        const void* table, int nt, int nc, int chunk, const void* scal,
+                        const void* flag, int pdtype, int cdtype, int use_wd, int wd_after,
+                        int has_mom, int first_run, int nesterov, void* stream) {
+  if (nt <= 0 || nt > MT_MAX_TENSORS || nc <= 0 || chunk <= 0 || chunk > MT_MAX_CHUNK ||
+      grads == nullptr || gdtypes == nullptr || table == nullptr || scal == nullptr)
     return cudaErrorInvalidValue;
   GradList gl;
   for (int i = 0; i < nt; ++i) {
@@ -257,7 +207,7 @@ extern "C" int apex_sgd(const void* const* grads, const unsigned char* gdtypes,
     gl.g[i] = grads[i];
     gl.dt[i] = gdtypes[i];
   }
-  for (int i = nt; i < MAXT; ++i) {
+  for (int i = nt; i < MT_MAX_TENSORS; ++i) {
     gl.g[i] = nullptr;
     gl.dt[i] = 0;
   }
@@ -269,8 +219,8 @@ extern "C" int apex_sgd(const void* const* grads, const unsigned char* gdtypes,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_dtype(pdtype, [&](auto tp) {
     return with_copy_dtype(cdtype, [&](auto tc) {
-      sgd_kernel<typename decltype(tp)::type, typename decltype(tc)::type>
-          <<<nc, NT, 0, st>>>(gl, tb, nt, nc, sc, fl, md);
+      const auto kernel = sgd_kernel<typename decltype(tp)::type, typename decltype(tc)::type>;
+      kernel<<<nc, MT_THREADS, 0, st>>>(gl, tb, nt, nc, chunk, sc, fl, md);
       return cudaGetLastError();
     });
   });

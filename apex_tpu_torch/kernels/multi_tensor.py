@@ -27,6 +27,13 @@ own dtype, as the JAX functions cast their results back.  A CUDA tensor
 launches the kernel, one launch per list of up to 256 tensors; a CPU tensor
 takes the plain version (:func:`fused_adam_reference`,
 :func:`fused_sgd_reference`).
+
+Both kernels cut each tensor into chunks of one size, one 256-thread block
+a chunk, which :func:`_chunk_for` picks per list and card: a power of two
+of elements that moves at most ``CHUNK_BYTES``, halved where the list would
+give the card fewer than ``CHUNKS_PER_SM`` chunks an SM, down to
+``MIN_CHUNK``.  Both updates are elementwise, so the chunk changes no bit
+of the result.
 """
 from __future__ import annotations
 
@@ -45,6 +52,18 @@ LAUNCHES.setdefault("fused_sgd", 0)
 
 # the slots of the fp32 scalar vector the kernel reads
 LR, WD, B1, OMB1, B2, OMB2, EPS, BC1, BC2 = range(9)
+
+# the chunk a list is cut into: the largest power of two of elements whose
+# reads and writes come to at most CHUNK_BYTES (2048 elements in fp32, 4096
+# with half parameters and moments: the sizes that timed fastest on the
+# H100 at every list from DCGAN's 0.66 M values to GPT-2 small's 124 M; a
+# smaller block of work shortens the last wave of blocks; PERF.md), halved
+# while the list gives fewer than CHUNKS_PER_SM chunks an SM, down to
+# MIN_CHUNK; each a multiple of 8, so an aligned tensor keeps every chunk's
+# vector accesses aligned in every dtype
+CHUNK_BYTES = 65536
+CHUNKS_PER_SM = 4
+MIN_CHUNK = 1024
 
 
 def _static_nonzero(x) -> bool:
@@ -186,10 +205,44 @@ def _adam_lib():
     lib.apex_adam_max_tensors.restype = i
     lib.apex_adam_chunk.argtypes = []
     lib.apex_adam_chunk.restype = i
-    lib.apex_adam.argtypes = [ctypes.POINTER(p), p, i, i, p, p] + [i] * 6 \
-        + [p]
+    lib.apex_adam.argtypes = [ctypes.POINTER(p), p, i, i, i, p, p] \
+        + [i] * 6 + [p]
     lib.apex_adam.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index) -> int:
+    """The SM count of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _step_bytes(tensor_lists):
+    """The bytes an update moves per element of ``tensor_lists`` ([grads,
+    ...]), near enough to size its chunks by: the widest gradient read, and
+    each other list read and written."""
+    return max(g.element_size() for g in tensor_lists[0]) \
+        + 2 * sum(lst[0].element_size() for lst in tensor_lists[1:])
+
+
+@functools.lru_cache(maxsize=256)
+def _chunk_cached(sizes, sms, step_bytes, largest):
+    chunk = 1 << (min(largest, CHUNK_BYTES // step_bytes).bit_length() - 1)
+    while chunk > MIN_CHUNK and \
+            sum(-(-n // chunk) for n in sizes) < CHUNKS_PER_SM * sms:
+        chunk //= 2
+    return chunk
+
+
+def _chunk_for(sizes, sms, step_bytes, largest=65536):
+    """The chunk, in elements, that a launch over tensors of ``sizes``
+    elements, moving ``step_bytes`` bytes per element, on a card of ``sms``
+    SMs cuts them into: the largest power of two at most ``largest`` (the
+    most the library takes) and ``CHUNK_BYTES / step_bytes`` at which they
+    give at least ``CHUNKS_PER_SM * sms`` chunks, or ``MIN_CHUNK`` where
+    none does."""
+    return _chunk_cached(tuple(int(n) for n in sizes), int(sms),
+                         int(step_bytes), int(largest))
 
 
 _TABLES: collections.OrderedDict = collections.OrderedDict()
@@ -199,15 +252,15 @@ def _table(first, second, third, chunk):
     """A kernel's device table for one list of tensors (the addresses of
     the tensors of ``first``, ``second`` and ``third``, a ``None`` list
     giving null addresses; the sizes of ``first``; the chunk -> (tensor,
-    offset) map) and its chunk count, kept across calls (at most 64
-    lists): the in-place updates keep the addresses, so a train step builds
-    it once."""
+    offset) map, for chunks of ``chunk`` elements) and its chunk count,
+    kept across calls (at most 64 lists): the in-place updates keep the
+    addresses, so a train step builds it once."""
     lists = (first, second, third)
     addrs = np.array([[0] * len(first) if lst is None else
                       [t.data_ptr() for t in lst] for lst in lists],
                      np.int64)
     key = (first[0].device.index, addrs.tobytes(),
-           tuple(t.numel() for t in first))
+           tuple(t.numel() for t in first), chunk)
     hit = _TABLES.get(key)
     if hit is not None:
         _TABLES.move_to_end(key)
@@ -229,13 +282,17 @@ def _table(first, second, third, chunk):
 
 def _launch_adam(noop_flag, tensor_lists, scal, mode, use_wd):
     lib = _adam_lib()
-    maxt, chunk = lib.apex_adam_max_tensors(), lib.apex_adam_chunk()
+    maxt, largest = lib.apex_adam_max_tensors(), lib.apex_adam_chunk()
     gs, ps, ms, vs = tensor_lists
     flag = noop_flag.reshape(())
+    sms = _sms(ps[0].device.index)
     with torch.cuda.device(ps[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         for i in range(0, len(gs), maxt):
             sub = slice(i, i + maxt)
+            chunk = _chunk_for([t.numel() for t in ps[sub]], sms,
+                               _step_bytes([lst[sub] for lst in tensor_lists]),
+                               largest)
             table, nc = _table(ps[sub], ms[sub], vs[sub], chunk)
             if nc == 0:
                 continue            # every tensor of the list is empty
@@ -243,7 +300,7 @@ def _launch_adam(noop_flag, tensor_lists, scal, mode, use_wd):
             grads = (ctypes.c_void_p * len(gsub))(
                 *[g.data_ptr() for g in gsub])
             err = lib.apex_adam(grads, table.data_ptr(), len(gsub), nc,
-                                scal.data_ptr(), flag.data_ptr(),
+                                chunk, scal.data_ptr(), flag.data_ptr(),
                                 dtype_code(gsub[0].dtype), int(use_wd),
                                 int(mode == 1), dtype_code(ps[0].dtype),
                                 dtype_code(ms[0].dtype),
@@ -393,7 +450,7 @@ def _sgd_lib():
     lib.apex_sgd_chunk.argtypes = []
     lib.apex_sgd_chunk.restype = i
     lib.apex_sgd.argtypes = [ctypes.POINTER(p), ctypes.POINTER(ctypes.c_ubyte),
-                             p, i, i, p, p] + [i] * 7 + [p]
+                             p, i, i, i, p, p] + [i] * 7 + [p]
     lib.apex_sgd.restype = i
     return lib
 
@@ -401,15 +458,19 @@ def _sgd_lib():
 def _launch_sgd(noop_flag, tensor_lists, scal, has_mom, nesterov, first_run,
                 wd_after_momentum, use_wd):
     lib = _sgd_lib()
-    maxt, chunk = lib.apex_sgd_max_tensors(), lib.apex_sgd_chunk()
+    maxt, largest = lib.apex_sgd_max_tensors(), lib.apex_sgd_chunk()
     gs, ps, ms = tensor_lists[:3]
     cs = tensor_lists[3] if len(tensor_lists) == 4 else None
     cdtype = -1 if cs is None else dtype_code(cs[0].dtype)
     flag = noop_flag.reshape(())
+    sms = _sms(ps[0].device.index)
     with torch.cuda.device(ps[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         for i in range(0, len(gs), maxt):
             sub = slice(i, i + maxt)
+            chunk = _chunk_for([t.numel() for t in ps[sub]], sms,
+                               _step_bytes([lst[sub] for lst in tensor_lists]),
+                               largest)
             table, nc = _table(ps[sub], ms[sub],
                                None if cs is None else cs[sub], chunk)
             if nc == 0:
@@ -420,7 +481,7 @@ def _launch_sgd(noop_flag, tensor_lists, scal, has_mom, nesterov, first_run,
             codes = (ctypes.c_ubyte * len(gsub))(
                 *[dtype_code(g.dtype) for g in gsub])
             err = lib.apex_sgd(grads, codes, table.data_ptr(), len(gsub), nc,
-                               scal.data_ptr(), flag.data_ptr(),
+                               chunk, scal.data_ptr(), flag.data_ptr(),
                                dtype_code(ps[0].dtype), cdtype, int(use_wd),
                                int(wd_after_momentum), int(has_mom),
                                int(first_run), int(nesterov), stream)

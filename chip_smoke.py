@@ -13,7 +13,11 @@ Phases, each of which raises on failure:
    source, started together; cached builds are reused);
 2. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and a few others (dtypes, masks, ragged sizes), with the
-   tolerance printed beside each error (the Adam kernel bit for bit); the
+   tolerance printed beside each error (the Adam kernel bit for bit, also
+   beside tensors that straddle the edges of the chunk each list picks,
+   aligned and one element off, and with the noop flag set; timed warm and
+   cold, with the host ms of a call, beside ``torch.optim.AdamW(fused=
+   True)``); the
    flash kernels on the route the wrapper picks, read from the per-route
    launch counters: ``simt`` for fp32 and head dims other than 64, ``tc``
    (tensor cores) for bf16 and fp16 at D = 64, at GPT's and Llama's (192,
@@ -72,8 +76,9 @@ Phases, each of which raises on failure:
    smoothing 0 and 0.1, padding rows, masked columns, C 50257 and 50304,
    ragged row counts), at the bench shape in fp32 also against
    ``F.cross_entropy`` under autograd, with times at the fused (16368,
-   50257) and the chunked (1023, 50257) shape; and the Adam kernel on half
-   params and moments (amp O3), bit for bit (these run with phase 2);
+   50257), the chunked (1023, 50257) and BERT's MLM (1280, 30522) shape;
+   and the Adam kernel on half params and moments (amp O3), bit for bit,
+   with the chunk's edges, timed warm and cold (these run with phase 2);
 7. the bench's loss modes on the training path: the default chunked loss
    (``output_hidden`` GPT, ``make_chunked_lm_loss``, 16 chunks of 1023
    rows: 16 forward and 16 backward xentropy launches a step) and the
@@ -92,7 +97,8 @@ Phases, each of which raises on failure:
    161 parameter shapes (depth 3 with the fused step's mixed bf16/fp32
    gradients, depth 4 with an fp16 and a bf16 model copy, ``first_run``,
    nesterov with weight decay after momentum, momentum 0, a set noop flag,
-   ragged and misaligned tensors), with its time, its bound, the plain
+   ragged and misaligned tensors, the chunk's edges aligned and one element
+   off), with its time warm and cold, its host ms, its bound, the plain
    version's and ``torch.optim.SGD(fused=True)``'s (this runs with phase 2);
 10. the bench's ResNet path: ``make_train_step(resnet50, FusedSGD(lr 0.1,
    momentum 0.9, weight_decay 1e-4), cross entropy, bf16 half copies)`` at
@@ -169,8 +175,10 @@ Phases, each of which raises on failure:
 19. amp O1 (a per-op cast policy over fp32 models, fp16, dynamic scale):
    the SGD kernel at ResNet-18's 62 fp32 tensors (depth 3) and the Adam
    kernel at the DCGAN networks' (depth 4), bit for bit against their
-   plain versions and timed beside their bounds, plain versions and
-   ``torch.optim.SGD/Adam(fused=True)``; then ``BASELINE.json``'s config 1
+   plain versions (with the chunk's edges, aligned and one element off, and
+   a set noop flag) and timed warm and cold, device and host ms, beside
+   their bounds, plain versions and ``torch.optim.SGD/Adam(fused=True)``;
+   then ``BASELINE.json``'s config 1
    as ``examples/simple/distributed`` runs it: NCCL at world size 1,
    ``resnet18(num_classes=10, small_input=True)``, ``FusedSGD(lr 0.1,
    momentum 0.9, weight_decay 5e-4)``, ``amp.initialize(O1)``,
@@ -1762,6 +1770,120 @@ def flash_dropout_phase(torch, attention):
     return numbers
 
 
+def _placed(torch, x, offset):
+    """A copy of ``x`` that starts ``offset`` elements into its buffer:
+    with offset > 0 no address allows a vector access."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    return buf[offset:].view(x.shape).copy_(x)
+
+
+def _updated_equal(a, b):
+    """Whether two [grads, ...] list sets agree bit for bit in every list
+    the update writes (all but the gradients)."""
+    import torch
+    return all(torch.equal(x, y) for la, lb in zip(a[1:], b[1:])
+               for x, y in zip(la, lb))
+
+
+def mt_chunk(torch, multi_tensor, lists):
+    """The chunk, in elements, that the multi-tensor wrappers cut a
+    [grads, ...] list set into on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return multi_tensor._chunk_for([t.numel() for t in lists[1]], sms,
+                                   multi_tensor._step_bytes(lists))
+
+
+def straddle_shapes(chunk):
+    """Tensor sizes at each edge of a chunk: one element short of it, one
+    over, two chunks and five, and 1 to 7 elements."""
+    return [(chunk - 1,), (chunk + 1,), (2 * chunk + 5,)] \
+        + [(k,) for k in range(1, 8)]
+
+
+def mt_edge_cases(torch, multi_tensor, tag, shapes, make, kernel, plain):
+    """A multi-tensor kernel against its plain version, bit for bit, over
+    ``shapes`` and tensors that straddle every edge of the chunk that list
+    picks on this card (the list's own chunk is checked to stay the same),
+    with every tensor aligned and then one element off alignment (each
+    access then scalar), each once more with the noop flag set (every
+    tensor unchanged).  ``make(shapes, offset)`` gives a fresh [grads, ...]
+    list set placed ``offset`` elements into its buffers; ``kernel(flag,
+    lists)`` and ``plain(flag, lists)`` update every list but the first in
+    place.  Returns the chunk."""
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    full = make([tuple(s) for s in shapes], 0)
+    chunk = mt_chunk(torch, multi_tensor, full)
+    del full
+    case = [tuple(s) for s in shapes] + straddle_shapes(chunk)
+    for offset in (0, 1):
+        base = make(case, offset)
+        if mt_chunk(torch, multi_tensor, base) != chunk:
+            raise AssertionError(f"{tag}: the edge tensors moved the list's "
+                                 f"chunk off {chunk}")
+
+        def copy(off):
+            return [base[0]] + [[_placed(torch, t, off) for t in lst]
+                                for lst in base[1:]]
+        ka, ra = copy(offset), copy(0)
+        kernel(zero, ka)
+        plain(zero, ra)
+        torch.cuda.synchronize()
+        what = (f"{tag} and chunk {chunk}'s edges ({len(case)} tensors), "
+                f"offset {offset}")
+        if not _updated_equal(ka, ra):
+            raise AssertionError(f"{what}: kernel != plain version")
+        if _updated_equal(ka, base):
+            raise AssertionError(f"{what}: nothing was updated")
+        ka = copy(offset)
+        kernel(one, ka)
+        torch.cuda.synchronize()
+        if not _updated_equal(ka, base):
+            raise AssertionError(f"{what}: a set noop flag changed a tensor")
+        print(f"  {what}: bitwise equal; with the noop flag set every tensor "
+              f"unchanged")
+        del base, ka, ra
+    return chunk
+
+
+def mt_times(torch, make, kernel, library, nbytes, ops):
+    """The device ms of ``kernel(flag, lists)`` warm (back-to-back calls on
+    one list set) and cold (rotating over enough sets that 2 x the L2 lies
+    between two uses of one; a set larger than that is one), the host ms of
+    enqueueing one call, and the device ms with the noop flag set (every
+    block returns at once: the launch's fixed cost); the same of
+    ``library(lists)``, which builds a PyTorch optimizer over a copy of the
+    set and returns its step; the bound of ``nbytes`` and ``ops``.
+    ``make()`` gives a fresh list set."""
+    import itertools
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    k = max(1, math.ceil(2 * L2_BYTES / nbytes))
+    sets = [make() for _ in range(k)]
+    out = dict(cold_sets=k)
+    for name, fns in (("", [lambda s=s: kernel(zero, s) for s in sets]),
+                      ("library_", [library(s) for s in sets])):
+        out[f"{name}ms"], out[f"{name}host_ms"] = median_ms(fns[0])
+        it = itertools.cycle(fns)
+        out[f"{name}cold_ms"] = median_ms(lambda: next(it)())[0]
+    out["skipped_ms"] = median_ms(lambda: kernel(one, sets[0]))[0]
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops, FP32_FLOP_PER_S)
+    del sets, fns
+    return out
+
+
+def mt_line(what, r, plain_ms):
+    """One printed line of mt_times' numbers."""
+    share = r["bound_ms"] / r["cold_ms"]
+    print(f"  time {what}: kernel {r['ms']:.4f} / {r['cold_ms']:.4f} ms "
+          f"warm / cold over {r['cold_sets']} sets ({share:.0%} of the bound "
+          f"cold), host {r['host_ms']:.4f} ms, noop flag set "
+          f"{r['skipped_ms']:.4f} ms; library "
+          f"{r['library_ms']:.4f} / {r['library_cold_ms']:.4f} ms, host "
+          f"{r['library_host_ms']:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def adam_phase(torch, multi_tensor, shapes):
     """The Adam kernel against its plain version, bit for bit, over the
     parameter shapes of GPT-2 small; timing of the training path's
@@ -1843,26 +1965,45 @@ def adam_phase(torch, multi_tensor, shapes):
     print("  eager FusedAdam.step, two param groups, 3 steps: card and CPU "
           "bitwise equal")
 
-    lists = make(bf16)
-    fn = lambda: multi_tensor.fused_adam(  # noqa: E731
-        zero, lists, LR, 0.9, 0.999, 1e-8, dev_step, 1, True, WD)
-    ms = median_ms(fn, reps=15, inner=5)[0]
     scal = multi_tensor.adam_scalars(LR, 0.9, 0.999, 1e-8, dev_step, True,
                                      WD, "cuda")
-    plain = median_ms(lambda: multi_tensor.fused_adam_reference(
-        zero, lists, scal, 1, True), reps=3, inner=1, warmup=1)[0]
-    params = [p.clone().requires_grad_(True) for p in lists[1]]
-    for p, gr in zip(params, lists[0]):
-        p.grad = gr.float()
-    lib_opt = torch.optim.AdamW(params, lr=LR, weight_decay=WD, fused=True)
-    lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
-    bnd, by = bound_ms(n_el * (2 + 12 + 12), 15 * n_el, FP32_FLOP_PER_S)
-    print(f"  time {len(shapes)} tensors, bf16 grads, AdamW: kernel {ms:.4f} "
-          f"ms, plain {plain:.4f} ms, torch.optim.AdamW(fused=True).step "
-          f"(fp32 grads) {lib:.4f} ms, bound {bnd:.4f} ms ({by}: "
-          f"{n_el * 26 / 1e9:.3f} GB)")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bnd, bound_by=by)
+
+    def adam(flag, ls):
+        multi_tensor.fused_adam(flag, ls, LR, 0.9, 0.999, 1e-8, dev_step, 1,
+                                True, WD)
+
+    def adam_plain(flag, ls):
+        multi_tensor.fused_adam_reference(flag, ls, scal, 1, True)
+
+    def make_at(shps, offset):
+        lists = [[torch.randn(s, generator=g, device="cuda").to(bf16)
+                  for s in shps],
+                 [torch.randn(s, generator=g, device="cuda") for s in shps],
+                 [torch.randn(s, generator=g, device="cuda") * 0.1
+                  for s in shps],
+                 [torch.rand(s, generator=g, device="cuda") * 0.01
+                  for s in shps]]
+        return [[_placed(torch, t, offset) for t in lst] for lst in lists]
+    chunk = mt_edge_cases(torch, multi_tensor,
+                          "bf16 grads, AdamW, device step", shapes, make_at,
+                          adam, adam_plain)
+
+    def library(lists):
+        params = [p.clone().requires_grad_(True) for p in lists[1]]
+        for p, gr in zip(params, lists[0]):
+            p.grad = gr.float()
+        return torch.optim.AdamW(params, lr=LR, weight_decay=WD,
+                                 fused=True).step
+    lists = make(bf16)
+    plain = median_ms(lambda: adam_plain(zero, lists), reps=3, inner=1,
+                      warmup=1)[0]
+    del lists
+    r = mt_times(torch, lambda: make(bf16), adam, library,
+                 n_el * (2 + 12 + 12), 15 * n_el)
+    mt_line(f"{len(shapes)} tensors, bf16 grads, AdamW (library: "
+            f"torch.optim.AdamW(fused=True), fp32 grads; "
+            f"{n_el * 26 / 1e9:.3f} GB)", r, plain)
+    return dict(max_abs_err=0.0, plain_ms=plain, chunk=chunk, **r)
 
 
 RESNET_BATCH, AMP_RESNET_BATCH, IMAGENET_ITERS = 128, 64, 10
@@ -1888,10 +2029,7 @@ def sgd_phase(torch, multi_tensor, named_shapes, bn_names):
     n_el = sum(int(torch.Size(s).numel()) for s in shapes)
 
     def place(x, offset):
-        # a copy of x that starts offset elements into its buffer: with
-        # offset > 0 no address allows a vector access
-        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device="cuda")
-        return buf[offset:].view(x.shape).copy_(x)
+        return _placed(torch, x, offset)
 
     def make(gds, shps, copy=None, offset=0):
         lists = [[place(torch.randn(s, generator=g, device="cuda").to(d),
@@ -1964,37 +2102,57 @@ def sgd_phase(torch, multi_tensor, named_shapes, bn_names):
               f"unchanged")
         del base, ka, ra
 
+    # the fused step's list and the amp list beside the chunk's edges
+    args = (1e-4, 0.9, 0.0, 0.1, False, False, False, 1.0)
+    scal = multi_tensor.sgd_scalars(0.1, 1e-4, 1.0, 0.9, 0.0, "cuda")
+
+    def sgd(flag, ls):
+        multi_tensor.fused_sgd(flag, ls, *args)
+
+    def sgd_plain(flag, ls):
+        multi_tensor.fused_sgd_reference(flag, ls, scal, True, False, False,
+                                         False, True)
+    chunks = {}
+    for key, tag, gd, copy in (
+            ("step", "depth 3, bf16 and fp32 grads", None, None),
+            ("amp", "depth 4, fp32 grads, fp16 copy", f32, f16)):
+        def make_at(shps, offset, gd=gd, copy=copy):
+            # ResNet-50's tensors take the fused step's dtypes; the edge
+            # tensors alternate bf16 and fp32 gradients
+            gds = [gd or d for d in step_gd] + [
+                gd or (bf16, f32)[i % 2]
+                for i in range(len(shps) - len(shapes))]
+            return make(gds, shps, copy, offset)
+        chunks[key] = mt_edge_cases(torch, multi_tensor, f"SGD {tag}",
+                                    shapes, make_at, sgd, sgd_plain)
+
     numbers = {}
     for key, gds, copy in (("step", step_gd, None),
                            ("amp", [f32] * len(shapes), f16)):
         lists = make(gds, shapes, copy)
-        args = (1e-4, 0.9, 0.0, 0.1, False, False, False, 1.0)
-        ms = median_ms(lambda: multi_tensor.fused_sgd(zero, lists, *args),
-                       reps=15, inner=5)[0]
-        scal = multi_tensor.sgd_scalars(0.1, 1e-4, 1.0, 0.9, 0.0, "cuda")
-        plain = median_ms(lambda: multi_tensor.fused_sgd_reference(
-            zero, lists, scal, True, False, False, False, True),
-            reps=3, inner=1, warmup=1)[0]
-        params = [p.clone().requires_grad_(True) for p in lists[1]]
-        for p, gr in zip(params, lists[0]):
-            p.grad = gr.float()
-        lib_opt = torch.optim.SGD(params, **SGD_HYPER, fused=True)
-        lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
+        plain = median_ms(lambda: sgd_plain(zero, lists), reps=3, inner=1,
+                          warmup=1)[0]
         nbytes = sum(t.numel() * t.element_size() for t in lists[0]) \
             + 2 * sum(t.numel() * 4 for t in lists[1] + lists[2]) \
             + (sum(t.numel() * t.element_size() for t in lists[3])
                if copy is not None else 0)
-        bnd, by = bound_ms(nbytes, 8 * n_el, FP32_FLOP_PER_S)
+        del lists
+
+        def library(ls):
+            params = [p.clone().requires_grad_(True) for p in ls[1]]
+            for p, gr in zip(params, ls[0]):
+                p.grad = gr.float()
+            return torch.optim.SGD(params, **SGD_HYPER, fused=True).step
+        r = mt_times(torch, lambda: make(gds, shapes, copy), sgd, library,
+                     nbytes, 8 * n_el)
         what = ("depth 3, bf16 conv/fc and fp32 BatchNorm grads, fp32 p/m"
                 if key == "step" else "depth 4, fp32 grads and p/m, fp16 copy")
-        print(f"  time {len(shapes)} tensors, {what}: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, torch.optim.SGD(fused=True).step (fp32 "
-              f"grads) {lib:.4f} ms, bound {bnd:.4f} ms ({by}: "
-              f"{nbytes / 1e9:.3f} GB)")
+        mt_line(f"{len(shapes)} tensors, {what} (library: "
+                f"torch.optim.SGD(fused=True), fp32 grads; "
+                f"{nbytes / 1e9:.3f} GB)", r, plain)
         numbers[key] = dict(shape=f"{len(shapes)} tensors, {what}",
-                            max_abs_err=0.0, ms=ms, plain_ms=plain,
-                            library_ms=lib, bound_ms=bnd, bound_by=by)
-        del lists, params, lib_opt
+                            max_abs_err=0.0, plain_ms=plain,
+                            chunk=chunks[key], **r)
     return numbers
 
 
@@ -2560,8 +2718,8 @@ def _xent_case(torch, g, rows, c, dtype, padding_idx, masked):
 def xent_phase(torch, xentropy):
     """The xentropy kernels against their plain versions on the same
     inputs; at the bench shape in fp32 also against F.cross_entropy under
-    autograd; timings at the fused and the chunked shape.  Returns the two
-    kernel lines' numbers."""
+    autograd; timings at the fused and the chunked shape and at BERT's MLM
+    head.  Returns the two kernel lines' numbers."""
     from torch.nn import functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
@@ -2622,8 +2780,8 @@ def xent_phase(torch, xentropy):
         del x, lab, dx, rdx
 
     numbers = {}
-    for rows in (rows0, 1023):
-        c = 50257
+    bert_rows = BERT_BATCH * BERT_MLM
+    for rows, c in ((rows0, 50257), (1023, 50257), (bert_rows, BERT_VOCAB)):
         x = torch.randn((rows, c), generator=g, device="cuda").to(bf16)
         lab = torch.randint(0, c, (rows,), generator=g, device="cuda")
         gm = torch.full((rows,), 1.0 / rows, device="cuda")
@@ -2659,12 +2817,15 @@ def xent_phase(torch, xentropy):
             dict(ms=b_ms, plain_ms=b_plain, library_ms=b_lib, bound_ms=bb[0],
                  bound_by=bb[1]))
         del x, xl, ref
+    bert_shape = f"({bert_rows}, {BERT_VOCAB}) bf16"
     fwd = dict(max_abs_err=main_err[0], **numbers[rows0][0],
                chunk_shape=dict(shape="(1023, 50257) bf16",
-                                **numbers[1023][0]))
+                                **numbers[1023][0]),
+               bert_shape=dict(shape=bert_shape, **numbers[bert_rows][0]))
     bwd = dict(max_abs_err=main_err[1], **numbers[rows0][1],
                chunk_shape=dict(shape="(1023, 50257) bf16",
-                                **numbers[1023][1]))
+                                **numbers[1023][1]),
+               bert_shape=dict(shape=bert_shape, **numbers[bert_rows][1]))
     return fwd, bwd
 
 
@@ -2678,10 +2839,7 @@ def adam_half_phase(torch, multi_tensor, shapes):
     print("Adam kernel with half params and moments vs plain (bit for bit):")
 
     def place(x, offset):
-        # a copy of x that starts offset elements into its buffer: with
-        # offset > 0 no address allows a vector access
-        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device="cuda")
-        return buf[offset:].view(x.shape).copy_(x)
+        return _placed(torch, x, offset)
 
     def make(pmv, gd, shps=shapes, offset=0):
         def rnd(s, dt, scale, pos=False):
@@ -2693,7 +2851,7 @@ def adam_half_phase(torch, multi_tensor, shapes):
                 [rnd(s, pmv[1], 0.1) for s in shps],
                 [rnd(s, pmv[2], 0.01, pos=True) for s in shps]]
 
-    # sizes that are no multiple of 4, one past a chunk boundary (65536)
+    # sizes that are no multiple of 4, one spanning many chunks
     odd = [(1003,), (7, 5), (2 * 65536 + 5,), (3, 333)]
     cases = [((f16, f16, f16), f16, shapes, 0),
              ((bf16, bf16, bf16), bf16, shapes, 0),
@@ -2723,29 +2881,38 @@ def adam_half_phase(torch, multi_tensor, shapes):
                 raise AssertionError(f"Adam {tag}: nothing was updated")
             print(f"  {tag}: bitwise equal")
         del base, ka, ra
-    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
-    lists = make((f16, f16, f16), f16)
-    ms = median_ms(lambda: multi_tensor.fused_adam(
-        zero, lists, LR, 0.9, 0.999, 1e-4, 5, 1, True, WD),
-        reps=15, inner=5)[0]
     scal = multi_tensor.adam_scalars(LR, 0.9, 0.999, 1e-4, 5, True, WD,
                                      "cuda")
-    plain = median_ms(lambda: multi_tensor.fused_adam_reference(
-        zero, lists, scal, 1, True), reps=3, inner=1, warmup=1)[0]
-    params = [p.clone().requires_grad_(True) for p in lists[1]]
-    for p, gr in zip(params, lists[0]):
-        p.grad = gr
-    lib_opt = torch.optim.AdamW(params, lr=LR, eps=1e-4, weight_decay=WD,
-                                fused=True)
-    lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
-    bnd, by = bound_ms(n_el * 14, 15 * n_el, FP32_FLOP_PER_S)
-    print(f"  time {len(shapes)} tensors, fp16 p/m/v and grads, AdamW: "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"torch.optim.AdamW(fused=True) {lib:.4f} ms, bound {bnd:.4f} ms "
-          f"({by}: {n_el * 14 / 1e9:.3f} GB)")
+
+    def adam(flag, ls):
+        multi_tensor.fused_adam(flag, ls, LR, 0.9, 0.999, 1e-4, 5, 1, True,
+                                WD)
+
+    def adam_plain(flag, ls):
+        multi_tensor.fused_adam_reference(flag, ls, scal, 1, True)
+    chunk = mt_edge_cases(torch, multi_tensor, "fp16 p/m/v and grads, AdamW",
+                          shapes, lambda shps, offset: make(
+                              (f16, f16, f16), f16, shps, offset),
+                          adam, adam_plain)
+    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
+    lists = make((f16, f16, f16), f16)
+    plain = median_ms(lambda: adam_plain(zero, lists), reps=3, inner=1,
+                      warmup=1)[0]
+    del lists
+
+    def library(ls):
+        params = [p.clone().requires_grad_(True) for p in ls[1]]
+        for p, gr in zip(params, ls[0]):
+            p.grad = gr
+        return torch.optim.AdamW(params, lr=LR, eps=1e-4, weight_decay=WD,
+                                 fused=True).step
+    r = mt_times(torch, lambda: make((f16, f16, f16), f16), adam, library,
+                 n_el * 14, 15 * n_el)
+    mt_line(f"{len(shapes)} tensors, fp16 p/m/v and grads, AdamW (library: "
+            f"torch.optim.AdamW(fused=True); {n_el * 14 / 1e9:.3f} GB)", r,
+            plain)
     return dict(shape=f"{len(shapes)} tensors, fp16 p/m/v and grads, AdamW",
-                max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=bnd, bound_by=by)
+                max_abs_err=0.0, plain_ms=plain, chunk=chunk, **r)
 
 
 def _fused_lm_loss(torch):
@@ -3993,46 +4160,35 @@ def o1_kernel_phase(torch, multi_tensor, models, dcgan):
     """The SGD kernel at ResNet-18's parameters (depth 3, fp32, the O1
     path's hyperparameters) and the Adam kernel at the DCGAN generator's
     and discriminator's (depth 4, fp32, the example's betas), each against
-    its plain version bit for bit and with a set noop flag, then timed
-    beside its bound, its plain version and one library call.  Returns
-    the numbers of each case."""
+    its plain version bit for bit, with a set noop flag, and beside tensors
+    that straddle the edges of the chunk the list picks, aligned and one
+    element off; then timed warm and cold beside its bound, its plain
+    version and one library call (device and host ms).  Returns the
+    numbers of each case."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 31)
     zero = torch.zeros((), dtype=torch.int32, device="cuda")
-    one = torch.ones((), dtype=torch.int32, device="cuda")
 
     def randn(s, k=1.0):
         return torch.randn(s, generator=g, device="cuda") * k
 
-    def same(a, b):
-        return all(torch.equal(x, y) for la, lb in zip(a[1:], b[1:])
-                   for x, y in zip(la, lb))
+    def lists_of(shapes, offset=0, depth=3):
+        ls = [[randn(s) for s in shapes], [randn(s) for s in shapes],
+              [randn(s, 0.1) for s in shapes]]
+        if depth == 4:
+            ls.append([torch.rand(s, generator=g, device="cuda") * 0.01
+                       for s in shapes])
+        return [[_placed(torch, t, offset) for t in lst] for lst in ls]
 
-    def clone(lists):
-        return [lists[0]] + [[t.clone() for t in lst] for lst in lists[1:]]
-
-    def held(tag, lists, kernel, plain):
-        ka, ra = clone(lists), clone(lists)
-        kernel(zero, ka)
-        plain(zero, ra)
-        torch.cuda.synchronize()
-        if not same(ka, ra):
-            raise AssertionError(f"{tag}: kernel != plain version")
-        if same(ka, lists):
-            raise AssertionError(f"{tag}: nothing was updated")
-        ka = clone(lists)
-        kernel(one, ka)
-        torch.cuda.synchronize()
-        if not same(ka, lists):
-            raise AssertionError(f"{tag}: a set noop flag changed a tensor")
-        print(f"  {tag}: bitwise equal; with the noop flag set every tensor "
-              f"unchanged")
+    def params_of(ls):
+        params = [p.clone().requires_grad_(True) for p in ls[1]]
+        for p, gr in zip(params, ls[0]):
+            p.grad = gr
+        return params
 
     out = {}
     rn = models.resnet18(num_classes=10, small_input=True, device="cpu")
     shapes = [tuple(p.shape) for p in rn.parameters()]
     n_el = sum(int(torch.Size(s).numel()) for s in shapes)
-    lists = [[randn(s) for s in shapes], [randn(s) for s in shapes],
-             [randn(s, 0.1) for s in shapes]]
     lr, wd, mom = O1_SGD["lr"], O1_SGD["weight_decay"], O1_SGD["momentum"]
     args = (wd, mom, 0.0, lr, False, False, False, 1.0)
     scal = multi_tensor.sgd_scalars(lr, wd, 1.0, mom, 0.0, "cuda")
@@ -4046,35 +4202,32 @@ def o1_kernel_phase(torch, multi_tensor, models, dcgan):
     print(f"SGD and Adam kernels at the amp O1 paths' tensor lists:")
     tag = (f"SGD, ResNet-18 (10 classes, CIFAR stem): {len(shapes)} fp32 "
            f"tensors, {n_el} elements, depth 3")
-    held(tag, lists, sgd, sgd_plain)
-    ms = median_ms(lambda: sgd(zero, lists), reps=15, inner=5)[0]
+    chunk = mt_edge_cases(torch, multi_tensor, tag, shapes, lists_of, sgd,
+                          sgd_plain)
+    lists = lists_of(shapes)
     plain = median_ms(lambda: sgd_plain(zero, lists), reps=3, inner=1,
                       warmup=1)[0]
-    params = [p.clone().requires_grad_(True) for p in lists[1]]
-    for p, gr in zip(params, lists[0]):
-        p.grad = gr
-    lib_opt = torch.optim.SGD(params, **O1_SGD, fused=True)
-    lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
+    del lists
     # g read; p and the momentum read and written, all fp32
-    bnd, by = bound_ms(20 * n_el, 8 * n_el, FP32_FLOP_PER_S)
-    print(f"  time {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"torch.optim.SGD(fused=True).step {lib:.4f} ms, bound {bnd:.4f} "
-          f"ms ({by}: {20 * n_el / 1e9:.3f} GB)")
-    out["sgd_resnet18"] = dict(shape=tag, max_abs_err=0.0, ms=ms,
-                               plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                               bound_by=by)
-    del lists, params, lib_opt
+    r = mt_times(torch, lambda: lists_of(shapes), sgd,
+                 lambda ls: torch.optim.SGD(params_of(ls), **O1_SGD,
+                                            fused=True).step,
+                 20 * n_el, 8 * n_el)
+    mt_line(f"{tag}, chunk {chunk} (library: torch.optim.SGD(fused=True); "
+            f"{20 * n_el / 1e9:.3f} GB)", r, plain)
+    out["sgd_resnet18"] = dict(shape=tag, chunk=chunk, max_abs_err=0.0,
+                               plain_ms=plain, **r)
 
     b1, b2 = DCGAN_ADAM["betas"]
-    scal = multi_tensor.adam_scalars(DCGAN_ADAM["lr"], b1, b2, 1e-8, 7,
-                                     True, 0.0, "cuda")
+    scal_a = multi_tensor.adam_scalars(DCGAN_ADAM["lr"], b1, b2, 1e-8, 7,
+                                       True, 0.0, "cuda")
 
     def adam(flag, ls):
         multi_tensor.fused_adam(flag, ls, DCGAN_ADAM["lr"], b1, b2, 1e-8, 7,
                                 1, True, 0.0)
 
     def adam_plain(flag, ls):
-        multi_tensor.fused_adam_reference(flag, ls, scal, 1, False)
+        multi_tensor.fused_adam_reference(flag, ls, scal_a, 1, False)
     for name, net in (
             ("generator", dcgan.build_generator(DCGAN_NZ, DCGAN_NGF,
                                                 device="cpu")),
@@ -4082,30 +4235,24 @@ def o1_kernel_phase(torch, multi_tensor, models, dcgan):
                                                         device="cpu"))):
         shapes = [tuple(p.shape) for p in net.parameters()]
         n_el = sum(int(torch.Size(s).numel()) for s in shapes)
-        lists = [[randn(s) for s in shapes], [randn(s) for s in shapes],
-                 [randn(s, 0.1) for s in shapes],
-                 [torch.rand(s, generator=g, device="cuda") * 0.01
-                  for s in shapes]]
         tag = (f"Adam, DCGAN {name}: {len(shapes)} fp32 tensors, {n_el} "
                f"elements, depth 4")
-        held(tag, lists, adam, adam_plain)
-        ms = median_ms(lambda: adam(zero, lists), reps=15, inner=5)[0]
+        chunk = mt_edge_cases(
+            torch, multi_tensor, tag, shapes,
+            lambda shps, offset: lists_of(shps, offset, 4), adam, adam_plain)
+        lists = lists_of(shapes, depth=4)
         plain = median_ms(lambda: adam_plain(zero, lists), reps=3, inner=1,
                           warmup=1)[0]
-        params = [p.clone().requires_grad_(True) for p in lists[1]]
-        for p, gr in zip(params, lists[0]):
-            p.grad = gr
-        lib_opt = torch.optim.Adam(params, **DCGAN_ADAM, fused=True)
-        lib = median_ms(lib_opt.step, reps=15, inner=5)[0]
+        del lists
         # g read; p, m and v read and written, all fp32
-        bnd, by = bound_ms(28 * n_el, 15 * n_el, FP32_FLOP_PER_S)
-        print(f"  time {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"torch.optim.Adam(fused=True).step {lib:.4f} ms, bound "
-              f"{bnd:.4f} ms ({by}: {28 * n_el / 1e9:.4f} GB)")
-        out[f"adam_dcgan_{name}"] = dict(
-            shape=tag, max_abs_err=0.0, ms=ms, plain_ms=plain,
-            library_ms=lib, bound_ms=bnd, bound_by=by)
-        del lists, params, lib_opt
+        r = mt_times(torch, lambda: lists_of(shapes, depth=4), adam,
+                     lambda ls: torch.optim.Adam(params_of(ls), **DCGAN_ADAM,
+                                                 fused=True).step,
+                     28 * n_el, 15 * n_el)
+        mt_line(f"{tag}, chunk {chunk} (library: torch.optim.Adam(fused="
+                f"True); {28 * n_el / 1e9:.4f} GB)", r, plain)
+        out[f"adam_dcgan_{name}"] = dict(shape=tag, chunk=chunk,
+                                         max_abs_err=0.0, plain_ms=plain, **r)
     return out
 
 
