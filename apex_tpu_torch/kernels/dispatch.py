@@ -68,6 +68,26 @@ def use_kernel(*tensors) -> bool:
     raise ValueError(f"no kernel or plain version for device {dev}")
 
 
+def is_dense(t: torch.Tensor) -> bool:
+    """Whether ``t``'s elements fill ``t.numel()`` consecutive places of its
+    storage, each once, in some order of its dims: a contiguous tensor, a
+    ``torch.channels_last`` one, any permutation of a contiguous one."""
+    if t.is_contiguous() or t.is_contiguous(memory_format=torch.channels_last):
+        return True
+    order = sorted(range(t.dim()), key=t.stride, reverse=True)
+    return t.permute(order).is_contiguous()
+
+
+def same_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` have one shape and put each element at the
+    same place of their storage (strides equal along every dim longer than
+    1: a size-1 dim's stride places nothing)."""
+    if a.stride() == b.stride():
+        return a.shape == b.shape
+    return a.shape == b.shape and all(
+        x == y for x, y, n in zip(a.stride(), b.stride(), a.shape) if n > 1)
+
+
 def check_dtype(t: torch.Tensor, what: str) -> None:
     if t.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{what}: dtype {t.dtype} not supported (float32, "

@@ -28,6 +28,12 @@ launches the kernel, one launch per list of up to 256 tensors; a CPU tensor
 takes the plain version (:func:`fused_adam_reference`,
 :func:`fused_sgd_reference`).
 
+The kernels walk each tensor as one span of its elements, so any dense
+layout is theirs: a list of ``torch.channels_last`` conv weights, with
+their gradients, slots and copies in the same layout, is updated where it
+lies.  The wrappers take exactly that (:func:`check_layouts`) and raise on
+anything else; no gradient is copied into another layout.
+
 Both kernels cut each tensor into chunks of one size, one 256-thread block
 a chunk, which :func:`_chunk_for` picks per list and card: a power of two
 of elements that moves at most ``CHUNK_BYTES``, halved where the list would
@@ -45,7 +51,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from .dispatch import LAUNCHES, KERNEL_DTYPES, dtype_code, use_kernel
+from .dispatch import (LAUNCHES, KERNEL_DTYPES, dtype_code, is_dense,
+                       same_layout, use_kernel)
 
 LAUNCHES.setdefault("fused_adam", 0)
 LAUNCHES.setdefault("fused_sgd", 0)
@@ -159,6 +166,30 @@ def fused_adam_reference(noop_flag, tensor_lists, scal, mode, use_wd):
                 dst.copy_(torch.where(skip, dst, new.to(dst.dtype)))
 
 
+def check_layouts(op, i, param, others):
+    """The layout rule of both kernels, which walk each tensor as one span
+    of ``numel`` elements from its first: param ``i`` must be dense (any
+    order of its dims: contiguous, ``torch.channels_last``, ...), and each
+    ``(name, tensor)`` of ``others``, the i-th tensor of each other list,
+    must have its layout.  Nothing is copied into another layout: a
+    channels-last list is updated where it lies, anything else raises,
+    naming the tensor."""
+    stride = param.stride()
+    if all(t.stride() == stride for _, t in others) and is_dense(param):
+        return                  # the common case, in few calls
+    if not is_dense(param):
+        raise ValueError(
+            f"{op}: param {i} (shape {tuple(param.shape)}, strides "
+            f"{param.stride()}) is not dense; it is updated in place as "
+            f"one span of its elements")
+    for name, t in others:
+        if not same_layout(t, param):
+            raise ValueError(
+                f"{op}: {name} {i} has strides {t.stride()}, param {i} "
+                f"{param.stride()} (shape {tuple(param.shape)}): every "
+                f"tensor of the i-th place takes the param's layout")
+
+
 def _validate_adam(noop_flag, tensor_lists, mode):
     if len(tensor_lists) != 4:
         raise ValueError(f"fused_adam takes [grads, params, exp_avgs, "
@@ -192,9 +223,8 @@ def _validate_adam(noop_flag, tensor_lists, mode):
                 raise ValueError(f"fused_adam: {name} {i} shape "
                                  f"{tuple(t.shape)} != gradient shape "
                                  f"{tuple(g.shape)}")
-            if not t.is_contiguous():
-                raise ValueError(f"fused_adam: {name} {i} must be "
-                                 f"contiguous (it is updated in place)")
+        check_layouts("fused_adam", i, p, [("gradient", g), ("exp_avg", m),
+                                           ("exp_avg_sq", v)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -296,7 +326,7 @@ def _launch_adam(noop_flag, tensor_lists, scal, mode, use_wd):
             table, nc = _table(ps[sub], ms[sub], vs[sub], chunk)
             if nc == 0:
                 continue            # every tensor of the list is empty
-            gsub = [g.contiguous() for g in gs[sub]]
+            gsub = gs[sub]
             grads = (ctypes.c_void_p * len(gsub))(
                 *[g.data_ptr() for g in gsub])
             err = lib.apex_adam(grads, table.data_ptr(), len(gsub), nc,
@@ -436,9 +466,8 @@ def _validate_sgd(noop_flag, tensor_lists):
                 raise ValueError(f"fused_sgd: {name} {i} shape "
                                  f"{tuple(t.shape)} != gradient shape "
                                  f"{tuple(g.shape)}")
-            if not t.is_contiguous():
-                raise ValueError(f"fused_sgd: {name} {i} must be contiguous "
-                                 f"(it is updated in place)")
+        check_layouts("fused_sgd", i, p, [("gradient", g), ("momentum", m)]
+                      + [("model param", x) for x in c])
 
 
 @functools.lru_cache(maxsize=None)
@@ -475,7 +504,7 @@ def _launch_sgd(noop_flag, tensor_lists, scal, has_mom, nesterov, first_run,
                                None if cs is None else cs[sub], chunk)
             if nc == 0:
                 continue            # every tensor of the list is empty
-            gsub = [g.contiguous() for g in gs[sub]]
+            gsub = gs[sub]
             grads = (ctypes.c_void_p * len(gsub))(
                 *[g.data_ptr() for g in gsub])
             codes = (ctypes.c_ubyte * len(gsub))(

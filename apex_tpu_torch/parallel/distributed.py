@@ -40,7 +40,7 @@ import torch
 import torch.distributed as dist
 
 from .._unported import PARALLEL, accept_defaults
-from ..kernels.dispatch import resolve_device
+from ..kernels.dispatch import is_dense, resolve_device
 
 
 class DistributedInitError(RuntimeError):
@@ -157,14 +157,34 @@ def split_by_type(tensors):
     return list(buckets.values())
 
 
+def _flat(t):
+    """``t``'s elements as one 1-d tensor in the order they lie in memory:
+    a view of a dense tensor of any layout (a channels-last gradient is not
+    transposed into logical order), else a copy in logical order."""
+    if is_dense(t):
+        return t.as_strided((t.numel(),), (1,))
+    return t.reshape(-1)
+
+
+def _like(piece, t):
+    """The 1-d ``piece`` that :func:`_flat` made of ``t``, as a tensor of
+    ``t``'s shape and layout (a view; logical order where ``t`` is not
+    dense)."""
+    if is_dense(t):
+        return piece.as_strided(t.shape, t.stride())
+    return piece.view(t.shape)
+
+
 def apply_flat_dist_call(bucket, call, extra_args=None):
     """Apply ``call`` to one flattened buffer of ``bucket`` (one dtype) and
-    return the results cut back into the tensors' shapes."""
-    flat = torch.cat([t.reshape(-1) for t in bucket])
+    return the results cut back into the tensors' shapes and layouts; each
+    tensor enters the buffer in its memory order, so a channels-last one
+    is neither transposed in nor out."""
+    flat = torch.cat([_flat(t) for t in bucket])
     flat = call(flat) if extra_args is None else call(flat, *extra_args)
     out, offset = [], 0
     for t in bucket:
-        out.append(flat[offset:offset + t.numel()].view_as(t))
+        out.append(_like(flat[offset:offset + t.numel()], t))
         offset += t.numel()
     return out
 
@@ -422,7 +442,7 @@ class DistributedDataParallel(torch.nn.Module):
         params = [p for p in bucket if p.grad is not None]
         if not params:
             return
-        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        flat = torch.cat([_flat(p.grad) for p in params])
         work, finish = _exchange(
             flat, self.process_group, self.allreduce_always_fp32,
             self.gradient_predivide_factor, self.gradient_average,
@@ -440,7 +460,7 @@ class DistributedDataParallel(torch.nn.Module):
             with torch.no_grad():
                 for p in params:
                     n = p.grad.numel()
-                    p.grad.copy_(out[offset:offset + n].view_as(p.grad))
+                    p.grad.copy_(_like(out[offset:offset + n], p.grad))
                     offset += n
 
     def _finish_backward(self):

@@ -11,8 +11,13 @@ the counts, so ranks may hold batches of different sizes
 ``welford_parallel`` scheme.  With one rank, or without
 ``torch.distributed``, it computes what ``torch.nn.BatchNorm2d`` computes
 (the JAX package's unbound-axis case); in eval mode it uses the running
-statistics and no collective.  ``channel_last=True`` (NHWC activations) is
-owed to the channels-last slice and raises until then.  The JAX package's
+statistics and no collective.  ``channel_last=True`` takes and returns
+(N, H, W, C) tensors, statistics over the last axis: with one rank its
+permuted (N, C, H, W) view, which has ``torch.channels_last`` strides, goes
+through torch's batch norm and comes back permuted (no copy at either
+end); across ranks the merge runs over the last axis directly.  As in the
+JAX package, ``channel_last`` and ``channels_last`` (the flag that
+``nn.to_channels_last`` sets) are one flag.  The JAX package's
 ``axis_name`` (the mesh axis the statistics are merged over) is taken at
 its default or None: ``process_group`` plays its part.
 """
@@ -43,16 +48,23 @@ class SyncBatchNorm(_BatchNorm):
                  channel_last=False, fuse_relu=False, axis_name="data",
                  device=None, dtype=None):
         check_axis_name("SyncBatchNorm", axis_name)
-        if channel_last:
-            raise NotImplementedError(
-                "SyncBatchNorm(channel_last=True) is not ported yet (the "
-                "channels-last slice decides the port's NHWC layout)")
         super().__init__(num_features, eps=eps, momentum=momentum,
                          affine=affine,
                          track_running_stats=track_running_stats,
                          device=device, dtype=dtype)
         self.process_group = process_group
+        self.channel_last = channel_last
         self.fuse_relu = fuse_relu
+
+    # one flag, two spellings: the reference API says channel_last,
+    # nn.to_channels_last says channels_last
+    @property
+    def channel_last(self):
+        return self.channels_last
+
+    @channel_last.setter
+    def channel_last(self, v):
+        self.channels_last = bool(v)
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
@@ -73,7 +85,8 @@ class SyncBatchNorm(_BatchNorm):
                                         and self.running_var is None)
         group = self._group() if bn_training else None
         if group is None:
-            y = super().forward(x)
+            y = super().forward(x.movedim(-1, 1)).movedim(1, -1) \
+                if self.channels_last else super().forward(x)
         else:
             track = self.training and self.track_running_stats
             if track:
@@ -85,6 +98,7 @@ class SyncBatchNorm(_BatchNorm):
                 x, self.running_mean if track else None,
                 self.running_var if track else None, self.weight,
                 self.bias, training=True, momentum=momentum, eps=self.eps,
+                channel_axis=-1 if self.channels_last else 1,
                 process_group=group)
             if track:
                 with torch.no_grad():

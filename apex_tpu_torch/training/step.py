@@ -29,6 +29,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 from .. import ops
 from ..amp.policy import disable_casts
 from ..amp.scaler import ScalerState, update_scale_state
+from ..kernels.dispatch import same_layout
 from ..ops.multi_tensor import nonfinite_flag
 from .._unported import PARALLEL, refuse
 from ..optimizers import FusedAdam, FusedLAMB, FusedSGD
@@ -195,8 +196,7 @@ def build_opt_update(optimizer, params, group_idxs,
                     opt.wd_after_momentum, 1.0)
 
         def opt_init():
-            return {"momentum": [torch.zeros(p.shape, dtype=_f32,
-                                             device=p.device)
+            return {"momentum": [torch.zeros_like(p, dtype=_f32)
                                  for p in params]}
         return opt_update, opt_init
     if isinstance(opt, FusedLAMB):
@@ -227,8 +227,8 @@ def build_opt_update(optimizer, params, group_idxs,
                                   for o, n in zip(old, new)])
 
         def opt_init():
-            return {k: [torch.zeros(p.shape, dtype=_f32, device=p.device)
-                        for p in params] for k in ("m", "v")}
+            return {k: [torch.zeros_like(p, dtype=_f32) for p in params]
+                    for k in ("m", "v")}
         return opt_update, opt_init
     if not isinstance(opt, FusedAdam):
         refuse(f"{caller}: only FusedAdam, FusedSGD and FusedLAMB are "
@@ -251,8 +251,8 @@ def build_opt_update(optimizer, params, group_idxs,
                 bool(group["bias_correction"]), group["weight_decay"])
 
     def opt_init():
-        return {k: [torch.zeros(p.shape, dtype=_f32, device=p.device)
-                    for p in params] for k in ("m", "v")}
+        return {k: [torch.zeros_like(p, dtype=_f32) for p in params]
+                for k in ("m", "v")}
 
     return opt_update, opt_init
 
@@ -266,7 +266,16 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
     of the 1-based device step count), the half copies re-made from the
     masters, the step count and the loss-scale update.  A static scale of
     1.0 (the bf16 recipe) neither unscales nor checks, and never skips, as
-    in the JAX package.  Returns the new state."""
+    in the JAX package.  A gradient that autograd returned in another
+    layout than its master (the transposed product of a matmul, cuDNN's
+    channels-last weight gradient beside an OIHW weight) is copied into
+    the master's layout first, as ``.grad`` accumulation does, since the
+    kernels take each list in its param's layout; where the two agree
+    (channels-last weights and their gradients) nothing is copied.
+    Returns the new state."""
+    grads = [g if same_layout(g, m) else
+             torch.empty_like(m, dtype=g.dtype).copy_(g)
+             for g, m in zip(grads, state.master_params)]
     check_overflow = dynamic or init_scale != 1.0
     if check_overflow:
         inv = 1.0 / state.scaler.loss_scale
@@ -484,8 +493,7 @@ def make_train_step(model, optimizer, loss_fn: Callable,
         else:
             # the JAX step's scan: fp32 sums of each microbatch's scaled
             # gradients and loss, then their means
-            acc = [torch.zeros(v.shape, dtype=_f32, device=dev)
-                   for v in leaves]
+            acc = [torch.zeros_like(v, dtype=_f32) for v in leaves]
             loss_sum = torch.zeros((), dtype=_f32, device=dev)
             for i, mb in enumerate(microbatches(batch)):
                 loss_i, g_i = grads_of(leaves, call_index * k_acc + i, scale,

@@ -99,22 +99,37 @@ Phases, each of which raises on failure:
    nesterov with weight decay after momentum, momentum 0, a set noop flag,
    ragged and misaligned tensors, the chunk's edges aligned and one element
    off), with its time warm and cold, its host ms, its bound, the plain
-   version's and ``torch.optim.SGD(fused=True)``'s (this runs with phase 2);
+   version's and ``torch.optim.SGD(fused=True)``'s; then the two timed
+   lists again with every 4-d tensor channels-last (the NHWC arms' lists),
+   bit for bit against the plain version and the contiguous list, timed
+   the same way, and a contiguous momentum beside a channels-last param
+   refused (this runs with phase 2);
 10. the bench's ResNet path: ``make_train_step(resnet50, FusedSGD(lr 0.1,
    momentum 0.9, weight_decay 1e-4), cross entropy, bf16 half copies)`` at
-   batch 128 of 3 x 224 x 224 from ``numpy.random.default_rng(0)``: the
-   launch counts of one step (one SGD launch), 10 timed steps (step ms,
-   images/s, peak memory, losses falling) and one profiled step; the same
-   step on the card and on the CPU in fp32 (``cudnn.deterministic``,
-   default initialisation, batch 2 of 3 x 64 x 64, 3 steps), each held
-   against a plain fp64 loop on the CPU at step 1;
+   batch 128 of 224 x 224 from ``numpy.random.default_rng(0)``, in three
+   arms run in turns (nchw, nhwc, nhwc_oihw, nhwc_oihw, nhwc, nchw): the
+   NCHW step, and the bench's ``nhwc`` arm (``nn.to_channels_last``, the
+   same images as (B, H, W, C)) with the conv weights channels-last and
+   left OIHW-contiguous; each arm's launch counts of one step (one SGD
+   launch), the layout its conv weights, masters, momenta and bf16 copies
+   keep, 10 timed steps (step ms, images/s, peak memory, losses falling),
+   and one profiled step (busy ms, idle share, device operations,
+   BatchNorm's share, and the layout-conversion kernels by class: cuDNN's
+   NCHW <-> NHWC conversions, copies, transposes); the same step on the
+   card and on the CPU in fp32 (``cudnn.deterministic``, default
+   initialisation, batch 2 of 64 x 64, 3 steps), NCHW and NHWC, each held
+   against a plain NCHW fp64 loop on the CPU at step 1;
 11. ``examples/imagenet/main_amp.py``'s loop: ``torch.distributed`` (NCCL,
    world size 1), ``convert_syncbn_model``, ``amp.initialize(O2)`` (fp16,
    dynamic scale), ``DistributedDataParallel``, ``FusedSGD``, batch 64 of
-   3 x 224 x 224, 10 iterations (two SGD launches each, depth 4 and depth
-   3; DDP's exchanges; images/s; a profiled iteration); SyncBatchNorm
-   against BatchNorm2d; a
-   planted overflow skipped alike on the card and on the CPU (gloo);
+   224 x 224, 10 iterations (two SGD launches each, depth 4 and depth
+   3; DDP's exchanges; images/s; a profiled iteration with its layout
+   kernels); SyncBatchNorm against BatchNorm2d; a planted overflow skipped
+   alike on the card and on the CPU (gloo); all of it once more as the
+   example's ``--channels-last --sync_bn`` arm
+   (``convert_syncbn_model(channel_last=True)``, ``nn.to_channels_last``,
+   (B, H, W, C) input; every conv weight, master and momentum
+   channels-last after the loop);
 12. the RMSNorm kernels against their plain versions (fp32, bf16 and fp16,
    affine and not, rows of 768 to 12000, the (16384, 768) training shape;
    the forward on both routes and timed as the LayerNorm forward is),
@@ -201,8 +216,8 @@ Every main path's launch counts include the norm kernels' per-route
 counters (each path runs its forwards and backwards on ``vec``), and every
 profiled step prints its device operations (the train steps beside their
 count when the backward's sums were cast after the kernels).  It prints a
-JSON line of the BERT, Llama-step, GPT profiled-step, dropout-arm and
-amp O1 numbers, one JSON line of per-kernel numbers, the card's name and power limit, and
+JSON line of the BERT, Llama-step, GPT profiled-step, dropout-arm,
+amp O1, ResNet-50 layout-turn and imagenet-arm numbers, one JSON line of per-kernel numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero before
 printing a result.  TF32 is off for every comparison.
@@ -1785,6 +1800,15 @@ def _updated_equal(a, b):
                for x, y in zip(la, lb))
 
 
+def _as_format(torch, lists, memory_format=None):
+    """A copy of a [grads, ...] list set with every 4-d tensor in
+    ``memory_format`` (each tensor's own layout kept where None)."""
+    fmt = memory_format or torch.preserve_format
+    return [[t.clone(memory_format=fmt if t.dim() == 4
+                     else torch.preserve_format) for t in lst]
+            for lst in lists]
+
+
 def mt_chunk(torch, multi_tensor, lists):
     """The chunk, in elements, that the multi-tensor wrappers cut a
     [grads, ...] list set into on this card."""
@@ -2126,6 +2150,54 @@ def sgd_phase(torch, multi_tensor, named_shapes, bn_names):
         chunks[key] = mt_edge_cases(torch, multi_tensor, f"SGD {tag}",
                                     shapes, make_at, sgd, sgd_plain)
 
+    # the NHWC arms' lists: every 4-d tensor (conv weights, their
+    # gradients, momenta and half copies) in torch.channels_last memory
+    cl_cases = (("step", "depth 3, bf16 and fp32 grads", step_gd, None),
+                ("amp", "depth 4, fp32 grads, fp16 copy", [f32] * len(shapes),
+                 f16))
+    for key, tag, gds, copy in cl_cases:
+        base = make(gds, shapes, copy)
+        cl = _as_format(torch, base, torch.channels_last)
+        n_cl = sum(t.dim() == 4 for t in cl[1])
+        ka, ra = _as_format(torch, cl), _as_format(torch, cl)
+        kn = _as_format(torch, base, torch.contiguous_format)
+        sgd(zero, ka)
+        sgd_plain(zero, ra)
+        sgd(zero, kn)
+        torch.cuda.synchronize()
+        what = f"SGD {tag}, {n_cl} channels-last conv tensors a list"
+        if not same(ka, ra):
+            raise AssertionError(f"{what}: kernel != plain version")
+        if not same(ka, kn):
+            raise AssertionError(f"{what}: != the contiguous list's result")
+        if not all(t.is_contiguous(memory_format=torch.channels_last)
+                   for lst in ka for t in lst if t.dim() == 4):
+            raise AssertionError(f"{what}: a tensor left channels-last")
+        ka = _as_format(torch, cl)
+        sgd(one, ka)
+        torch.cuda.synchronize()
+        if not same(ka, cl):
+            raise AssertionError(f"{what}: a set noop flag changed a tensor")
+        bad = _as_format(torch, cl)
+        i4 = next(i for i, t in enumerate(bad[2]) if t.dim() == 4
+                  and not t.is_contiguous())
+        bad[2][i4] = bad[2][i4].contiguous()
+        try:
+            sgd(zero, bad)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError(f"{what}: a contiguous momentum beside a "
+                                 f"channels-last param was not refused")
+        if f"momentum {i4}" not in refusal:
+            raise AssertionError(f"{what}: the refusal does not name the "
+                                 f"momentum: {refusal}")
+        print(f"  {what}: bitwise equal to the plain version and to the "
+              f"contiguous list; every tensor stays channels-last; with the "
+              f"noop flag set every tensor unchanged; a contiguous momentum "
+              f"refused: {refusal[:90]}...")
+        del base, cl, ka, ra, kn, bad
+
     numbers = {}
     for key, gds, copy in (("step", step_gd, None),
                            ("amp", [f32] * len(shapes), f16)):
@@ -2153,25 +2225,88 @@ def sgd_phase(torch, multi_tensor, named_shapes, bn_names):
         numbers[key] = dict(shape=f"{len(shapes)} tensors, {what}",
                             max_abs_err=0.0, plain_ms=plain,
                             chunk=chunks[key], **r)
+        # the same list with every 4-d tensor channels-last: the same bytes
+        r = mt_times(torch, lambda: _as_format(
+            torch, make(gds, shapes, copy), torch.channels_last), sgd,
+            library, nbytes, 8 * n_el)
+        mt_line(f"the same list, every 4-d tensor channels-last", r, plain)
+        numbers[key]["channels_last"] = dict(
+            shape=f"{len(shapes)} tensors, {what}, 4-d tensors "
+                  f"channels-last", max_abs_err=0.0, plain_ms=plain, **r)
     return numbers
 
 
-def resnet_train_path(torch, dispatch, models):
-    """The bench's ResNet step (``bench.py::build_resnet_step``):
+# the ResNet-50 arms, run in turns: the bench's NCHW step, and its nhwc
+# arm (nn.to_channels_last, (B, H, W, C) input) with the conv weights in
+# torch.channels_last memory (option (i), what to_channels_last keeps) and
+# left OIHW-contiguous (option (ii))
+RESNET_ARMS = {"nchw": (False, None), "nhwc": (True, "channels_last"),
+               "nhwc_oihw": (True, "contiguous_format")}
+RESNET_TURNS = ("nchw", "nhwc", "nhwc_oihw", "nhwc_oihw", "nhwc", "nchw")
+
+# kernels that only move a tensor into another layout, by name: cuDNN's
+# NCHW <-> NHWC conversions, torch's same-dtype copies (``direct_copy``:
+# a .contiguous() or a copy_ between layouts; its dtype casts are other
+# kernels, ``bfloat16_copy_kernel`` and the like), and transposes (not the
+# convolutions whose template arguments name one)
+LAYOUT_KERNELS = (("cudnn_nchw_nhwc", re.compile(
+    r"nchwToNhwc|nhwcToNchw|NchwToNhwc|NhwcToNchw|nchw2nhwc|nhwc2nchw")),
+    ("copy", re.compile(r"direct_copy_kernel|copy_device_to_device")),
+    ("transpose", re.compile(r"^(?!.*(?:gemm|conv)).*(?:transpose|permute)",
+                             re.I)))
+BATCHNORM_KERNEL = re.compile(r"batch_norm|batchnorm|bn_fw|bn_bw|bn_bwd|"
+                              r"bn_fwd|welford", re.I)
+
+
+def layout_profile(by_name, counts, busy):
+    """The layout-conversion kernels of a profiled step (each class's
+    count and ms, with the names seen) and BatchNorm's share of the busy
+    time, from ``_profiled``'s per-name ms and counts."""
+    out = {}
+    for cls, pat in LAYOUT_KERNELS:
+        names = {n: (counts[n], ms) for n, ms in by_name.items()
+                 if pat.search(n)}
+        out[cls] = dict(count=sum(c for c, _ in names.values()),
+                        ms=sum(ms for _, ms in names.values()),
+                        kernels={n[:160]: dict(count=c, ms=ms)
+                                 for n, (c, ms) in sorted(
+                                     names.items(), key=lambda kv: -kv[1][1])
+                                 [:6]})
+    bn = sum(ms for n, ms in by_name.items() if BATCHNORM_KERNEL.search(n))
+    out["batchnorm_ms"] = bn
+    out["batchnorm_share"] = bn / busy if busy else None
+    return out
+
+
+def resnet_arm(torch, dispatch, models, arm):
+    """One arm of the bench's ResNet step (``bench.py::build_resnet_step``):
     make_train_step(resnet50, FusedSGD(lr 0.1, momentum 0.9, wd 1e-4),
     cross entropy, bf16 half copies, static scale 1) at batch 128 of
-    3 x 224 x 224.  Returns the launch counts of one step and its ms."""
+    224 x 224 from ``numpy.random.default_rng(0)`` (the nhwc arms take the
+    same values as (B, H, W, C)), weights from ``torch.manual_seed(SEED)``.
+    Returns its numbers: the launch counts of one step, step ms and
+    images/s over 10 steps, peak memory, the losses, and a profiled step's
+    busy ms, idle share, device operations, BatchNorm share and
+    layout-conversion kernels."""
     import numpy as np
+    from apex_tpu_torch import nn
+    from apex_tpu_torch.nn.modules import conv_weights_to
     from apex_tpu_torch.optimizers import FusedSGD
     from apex_tpu_torch.training import make_train_step
+    nhwc, fmt = RESNET_ARMS[arm]
     torch.manual_seed(SEED)
     model = models.resnet50(num_classes=1000, device="cuda")
+    if nhwc:
+        conv_weights_to(nn.to_channels_last(model),
+                        getattr(torch, fmt))
     opt = FusedSGD(list(model.parameters()), **SGD_HYPER)
     step = make_train_step(model, opt, _resnet_loss(torch),
                            half_dtype=torch.bfloat16, loss_scale=1.0)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal(
         (RESNET_BATCH, 3, 224, 224)).astype(np.float32)).cuda()
+    if nhwc:
+        x = x.permute(0, 2, 3, 1).contiguous()
     y = torch.from_numpy(rng.integers(0, 1000, (RESNET_BATCH,))).cuda()
     losses = [step(x, y) for _ in range(2)]     # warm-up
     torch.cuda.synchronize()
@@ -2181,12 +2316,22 @@ def resnet_train_path(torch, dispatch, models):
     counts = dispatch.counts()
     want = dict.fromkeys(counts, 0)
     want.update(fused_sgd=1)
-    print(f"ResNet training path: make_train_step(resnet50, batch "
-          f"{RESNET_BATCH} x 3 x 224 x 224, bf16 half copies, BatchNorm "
-          f"fp32, FusedSGD {SGD_HYPER}, cross entropy)")
-    print(f"  launches in one step: {counts}")
     if counts != want:
-        raise AssertionError(f"launch counts {counts} != expected {want}")
+        raise AssertionError(f"ResNet {arm}: launch counts {counts} != "
+                             f"expected {want}")
+    conv_w = [p for p in model.parameters() if p.dim() == 4]
+    st = step.state
+    kept = {"weights": conv_w, "masters": [
+        m for m in st.master_params if m.dim() == 4],
+        "momenta": [m for m in st.opt_state["momentum"] if m.dim() == 4],
+        "bf16 copies": [h for h in st.model_params
+                        if h is not None and h.dim() == 4]}
+    mf = torch.channels_last if fmt == "channels_last" else \
+        torch.contiguous_format
+    for what, ts in kept.items():
+        if not all(t.is_contiguous(memory_format=mf) for t in ts):
+            raise AssertionError(f"ResNet {arm}: the conv {what} left "
+                                 f"{mf}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(10):
@@ -2196,28 +2341,92 @@ def resnet_train_path(torch, dispatch, models):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     values = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in values):
-        raise AssertionError(f"non-finite ResNet loss: {values}")
+        raise AssertionError(f"non-finite ResNet {arm} loss: {values}")
     if not values[-1] < values[0]:
-        raise AssertionError(f"the ResNet loss did not fall: {values}")
-    print(f"  step {1e3 * step_s:.2f} ms = {RESNET_BATCH / step_s:.1f} "
-          f"images/s (10 steps, host clock, ending in a synchronize); peak "
-          f"memory {peak:.2f} GiB (torch.cuda.max_memory_allocated)")
-    print(f"  losses of {len(values)} steps: "
+        raise AssertionError(f"the ResNet {arm} loss did not fall: {values}")
+    shown = {k: v for k, v in counts.items() if v}
+    print(f"  {arm}: launches in one step {shown}; step {1e3 * step_s:.2f} "
+          f"ms = {RESNET_BATCH / step_s:.1f} images/s (10 steps, host clock, "
+          f"ending in a synchronize); peak memory {peak:.2f} GiB; losses "
           f"{', '.join(f'{v:.4f}' for v in values)}")
-    _print_profile(torch, lambda: step(x, y), 10)
+    out = dict(layout="nhwc" if nhwc else "nchw", conv_weights=fmt or
+               "contiguous_format", counts=counts, step_ms=1e3 * step_s,
+               images_per_s=RESNET_BATCH / step_s, peak_gib=peak,
+               losses=values,
+               **layout_profiled(torch, lambda: step(x, y), f"  {arm}"))
     del step, opt, model
-    return counts, 1e3 * step_s
+    return out
+
+
+def layout_profiled(torch, fn, tag, top=6):
+    """Profile one call of ``fn`` and print where its device time went:
+    busy ms, idle share, device operations, BatchNorm's share and the
+    layout-conversion kernels (``layout_profile``); returns those numbers
+    (device numbers None where the profiler saw no device activity)."""
+    kcounts = {}
+    wall, busy, by_name, n = _profiled(torch, fn, kcounts)
+    out = dict(profiled_wall_ms=wall, busy_ms=busy, device_ops=n,
+               idle_share=None if busy is None else 1 - busy / wall)
+    if busy is None:
+        print(f"{tag}: profiled step: wall {wall:.2f} ms; device time not "
+              f"measured (the profiler saw no device activity)")
+        return out
+    out.update(layout_profile(by_name, kcounts, busy))
+    print(f"{tag}: profiled step: wall {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms, idle share {out['idle_share']:.3f}, {n} device "
+          f"operations, BatchNorm {out['batchnorm_ms']:.2f} ms "
+          f"({out['batchnorm_share']:.1%} of busy)")
+    for cls, _ in LAYOUT_KERNELS:
+        c = out[cls]
+        print(f"    layout kernels, {cls}: {c['count']} launches, "
+              f"{c['ms']:.3f} ms")
+        for name, k in c["kernels"].items():
+            print(f"      {k['count']:4d} x {k['ms']:8.3f} ms  {name[:110]}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
+    return out
+
+
+def resnet_train_turns(torch, dispatch, models):
+    """The ResNet-50 arms in turns (``RESNET_TURNS``); the first step's
+    loss of every arm agrees with the NCHW arm's within 2e-2 (bf16
+    activations, rounded in another order).  Returns the launch counts of
+    the NCHW and NHWC (kept option) steps and every turn's numbers."""
+    print(f"ResNet training path: make_train_step(resnet50, batch "
+          f"{RESNET_BATCH} of 224 x 224, bf16 half copies, BatchNorm fp32, "
+          f"FusedSGD {SGD_HYPER}, cross entropy); arms in turns "
+          f"{RESNET_TURNS}: nchw, nhwc (nn.to_channels_last, conv weights "
+          f"channels-last), nhwc_oihw (conv weights OIHW-contiguous)")
+    turns = [(arm, resnet_arm(torch, dispatch, models, arm))
+             for arm in RESNET_TURNS]
+    first = {arm: r["losses"][0] for arm, r in turns}
+    for arm, loss in first.items():
+        if abs(loss - first["nchw"]) > 2e-2 * abs(first["nchw"]):
+            raise AssertionError(f"ResNet {arm}: first loss {loss} against "
+                                 f"the nchw arm's {first['nchw']}")
+    by_arm = {}
+    for arm, r in turns:
+        by_arm.setdefault(arm, []).append(r)
+    for arm, rs in by_arm.items():
+        steps = ", ".join("%.2f" % r["step_ms"] for r in rs)
+        busy = ", ".join("not measured" if r["busy_ms"] is None
+                         else "%.2f" % r["busy_ms"] for r in rs)
+        print(f"  {arm} in turns: step ms {steps}; busy ms {busy}")
+    return by_arm["nchw"][0]["counts"], by_arm["nhwc"][0]["counts"], \
+        [dict(arm=arm, **r) for arm, r in turns]
 
 
 def resnet_cpu_phase(torch, models):
     """make_train_step + FusedSGD (the bench's lr 0.1, momentum 0.9, weight
     decay 1e-4) on ResNet-50 at full width and depth from torch's default
     initialisation, batch 2 of 3 x 64 x 64, 3 steps: on the card and on the
-    CPU in fp32 (TF32 off, ``cudnn.deterministic``), each held against a
-    plain fp64 loop on the CPU (same weights, same batch, and
-    ``torch.optim.SGD`` in place of the port's train step and FusedSGD; the
-    model's wiring is held against the JAX package's by
-    ``tests/test_torch_resnet.py``).
+    CPU in fp32 (TF32 off, ``cudnn.deterministic``), in NCHW and flipped to
+    NHWC by ``nn.to_channels_last`` (the same images as (B, H, W, C)), each
+    held against a plain NCHW fp64 loop on the CPU (same weights, same
+    batch, and ``torch.optim.SGD`` in place of the port's train step and
+    FusedSGD; the model's wiring is held against the JAX package's by
+    ``tests/test_torch_resnet.py``, its NHWC flip by
+    ``tests/test_torch_channels_last.py``).
 
     This network's backward is ill-conditioned: fp32 gradients of this batch
     lie about 1e-2 (CPU) to 3e-2 (card, cuDNN) from the fp64 ones, in norm,
@@ -2233,6 +2442,7 @@ def resnet_cpu_phase(torch, models):
     losses, which must be finite, and leave ``num_batches_tracked`` at 3 in
     every run."""
     import numpy as np
+    from apex_tpu_torch import nn
     from apex_tpu_torch.optimizers import FusedSGD
     from apex_tpu_torch.training import make_train_step
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
@@ -2244,20 +2454,26 @@ def resnet_cpu_phase(torch, models):
         np.float32))
     y = torch.from_numpy(rng.integers(0, 1000, (2,)))
     runs = {}
-    for tag, dev in (("card", "cuda"), ("CPU", "cpu")):
+    for tag, dev, nhwc in (("card", "cuda", False), ("CPU", "cpu", False),
+                           ("card NHWC", "cuda", True),
+                           ("CPU NHWC", "cpu", True)):
         m = models.resnet50(device=dev)
         m.load_state_dict(sd)
+        xin = x
+        if nhwc:
+            nn.to_channels_last(m)
+            xin = x.permute(0, 2, 3, 1).contiguous()
         step = make_train_step(m, FusedSGD(list(m.parameters()),
                                            **SGD_HYPER),
                                _resnet_loss(torch), loss_scale=1.0)
-        losses = [float(step(x.to(dev), y.to(dev)))]
+        losses = [float(step(xin.to(dev), y.to(dev)))]
         # copies: on the CPU, .cpu() would alias what steps 2-3 update
         first = ([t.to("cpu", copy=True) for t in step.state.master_params],
                  [t.to("cpu", copy=True)
                   for t in step.state.opt_state["momentum"]],
                  {n: b.to("cpu", copy=True) for n, b in m.named_buffers()
                   if b.is_floating_point()})
-        losses += [float(step(x.to(dev), y.to(dev))) for _ in range(2)]
+        losses += [float(step(xin.to(dev), y.to(dev))) for _ in range(2)]
         runs[tag] = (losses,) + first + (
             {n: int(b) for n, b in m.named_buffers()
              if not b.is_floating_point()},)
@@ -2297,9 +2513,11 @@ def resnet_cpu_phase(torch, models):
           f"CPU fp32 (TF32 off, cudnn.deterministic) against a CPU fp64 loop "
           f"(torch.optim.SGD); batch 2 x 3 x 64 x 64, FusedSGD {SGD_HYPER}, "
           f"3 steps:")
-    print(f"  losses: card {runs['card'][0]}, CPU {runs['CPU'][0]}, fp64 "
-          f"{ref[0]} (steps 2-3 part, fp32 from fp64, on either device)")
-    for tag in ("card", "CPU"):
+    for tag in ("card", "CPU", "card NHWC", "CPU NHWC"):
+        print(f"  losses: {tag} {runs[tag][0]}")
+    print(f"  losses: fp64 (NCHW) {ref[0]} (steps 2-3 part, fp32 from fp64, "
+          f"on either device, in either layout)")
+    for tag in ("card", "CPU", "card NHWC", "CPU NHWC"):
         run = runs[tag]
         check(f"{tag}: step 1 loss vs fp64 (relative)",
               abs(run[0][0] - ref[0][0]) / abs(ref[0][0]), 1e-4)
@@ -2337,14 +2555,21 @@ def _free_port():
 
 
 def _imagenet_model(torch, models, parallel, amp, dev, group=None,
-                    max_loss_scale=2.0 ** 24, seed=SEED + 23):
+                    max_loss_scale=2.0 ** 24, seed=SEED + 23,
+                    channels_last=False):
     """``examples/imagenet/main_amp.py``'s set-up: resnet50 ->
     convert_syncbn_model -> FusedSGD -> amp.initialize(O2, fp16, dynamic
-    scale) -> DistributedDataParallel."""
+    scale) -> DistributedDataParallel; with ``channels_last`` (the
+    example's ``--channels-last --sync_bn``) convert_syncbn_model(
+    channel_last=True) -> nn.to_channels_last before FusedSGD."""
+    from apex_tpu_torch import nn
     from apex_tpu_torch.optimizers import FusedSGD
     torch.manual_seed(seed)
     model = models.resnet50(device=dev)
-    model = parallel.convert_syncbn_model(model, process_group=group)
+    model = parallel.convert_syncbn_model(model, process_group=group,
+                                          channel_last=channels_last)
+    if channels_last:
+        model = nn.to_channels_last(model)
     opt = FusedSGD(list(model.parameters()), **SGD_HYPER)
     model, opt = amp.initialize(model, opt, opt_level="O2", verbosity=0,
                                 max_loss_scale=max_loss_scale)
@@ -2365,33 +2590,48 @@ def _amp_iteration(amp, model, opt, criterion, x, y, plant=False):
     return loss, skipped
 
 
-def imagenet_amp_path(torch, dispatch, models):
+def imagenet_amp_path(torch, dispatch, models, channels_last=False):
     """The example's loop on the card: torch.distributed with NCCL at world
     size 1, SyncBatchNorm, amp O2 (fp16, dynamic scale), DDP, FusedSGD;
-    batch 64 of 3 x 224 x 224, 10 iterations.  Then SyncBatchNorm against
-    BatchNorm2d, and a planted overflow on the card and on the CPU (a gloo
-    group).  Returns the launch counts of one iteration and images/s."""
+    batch 64 of 224 x 224, 10 iterations; with ``channels_last`` its
+    ``--channels-last --sync_bn`` arm ((B, H, W, C) input, every conv
+    weight, fp32 master and momentum channels-last after the loop).  Then
+    SyncBatchNorm against BatchNorm2d, and a planted overflow on the card
+    and on the CPU (a gloo group).  Returns the launch counts of one
+    iteration, images/s and the profiled iteration's numbers."""
     import numpy as np
     import torch.distributed as dist
     from apex_tpu_torch import amp, parallel
     from apex_tpu_torch.amp._amp_state import _amp_state, reset
     parallel.init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1,
                               process_id=0, timeout_s=120)
-    print(f"imagenet amp path: torch.distributed {dist.get_backend()} "
-          f"(world size {dist.get_world_size()}) -> resnet50 -> "
-          f"convert_syncbn_model -> FusedSGD {SGD_HYPER} -> "
-          f"amp.initialize(O2) -> DistributedDataParallel; batch "
-          f"{AMP_RESNET_BATCH} x 3 x 224 x 224, {IMAGENET_ITERS} iterations")
+    cl = channels_last
+    layout = "(B, H, W, C) = " if cl else "(B, C, H, W) = "
+    shape = (AMP_RESNET_BATCH, 224, 224, 3) if cl else \
+        (AMP_RESNET_BATCH, 3, 224, 224)
+
+    def images(a):
+        """NCHW numpy images as the arm feeds them."""
+        t = torch.from_numpy(a)
+        return t.permute(0, 2, 3, 1).contiguous() if cl else t
+    print(f"imagenet amp path{' --channels-last --sync_bn' if cl else ''}: "
+          f"torch.distributed {dist.get_backend()} (world size "
+          f"{dist.get_world_size()}) -> resnet50 -> convert_syncbn_model("
+          f"channel_last={cl}) -> {'nn.to_channels_last -> ' if cl else ''}"
+          f"FusedSGD {SGD_HYPER} -> amp.initialize(O2) -> "
+          f"DistributedDataParallel; batch {layout}{shape}, "
+          f"{IMAGENET_ITERS} iterations")
     try:
         reset()
         # a dynamic scale capped at 2^10: from amp's default 2^16 a random
         # ResNet-50's first-layer gradients overflow fp16 for the first
         # few iterations, each a skipped step
         model, opt = _imagenet_model(torch, models, parallel, amp, "cuda",
-                                     max_loss_scale=2.0 ** 10)
+                                     max_loss_scale=2.0 ** 10,
+                                     channels_last=cl)
         criterion = _resnet_loss(torch)
         rng = np.random.default_rng(2)
-        x = torch.from_numpy(rng.standard_normal(
+        x = images(rng.standard_normal(
             (AMP_RESNET_BATCH, 3, 224, 224)).astype(np.float32)).cuda()
         y = torch.from_numpy(rng.integers(0, 1000, (AMP_RESNET_BATCH,))
                              ).cuda()
@@ -2436,15 +2676,37 @@ def imagenet_amp_path(torch, dispatch, models):
         if min(exchanges) < 1:
             raise AssertionError(f"an iteration exchanged no gradient: "
                                  f"{exchanges}")
-        _print_profile(torch, lambda: _amp_iteration(amp, model, opt,
-                                                     criterion, x, y), 8)
+        if cl:
+            stash = opt._amp_stash
+            four = [(h, m) for h, m in zip(stash.all_fp16_params,
+                                           stash.all_fp32_from_fp16_params)
+                    if h.dim() == 4]
+            if not all(t.is_contiguous(memory_format=torch.channels_last)
+                       for h, m in four
+                       for t in (h, m, opt.state[m]["momentum_buffer"])):
+                raise AssertionError("imagenet --channels-last: a conv "
+                                     "weight, master or momentum left "
+                                     "channels-last")
+            print(f"  {len(four)} conv weights: fp16 weight, fp32 master "
+                  f"and momentum channels-last after {IMAGENET_ITERS} "
+                  f"iterations")
+        prof = layout_profiled(torch, lambda: _amp_iteration(
+            amp, model, opt, criterion, x, y), " ", 8)
         del model, opt
 
         ref_bn = torch.nn.BatchNorm2d(64).cuda()
         sbn = parallel.convert_syncbn_model(
-            torch.nn.Sequential(torch.nn.BatchNorm2d(64).cuda()))[0]
+            torch.nn.Sequential(torch.nn.BatchNorm2d(64).cuda()),
+            channel_last=cl)[0]
         xb = torch.randn(8, 64, 28, 28, device="cuda") * 2 + 1
-        yb, ysb = ref_bn(xb), sbn(xb)
+        if cl:
+            # SyncBatchNorm(channel_last) takes NHWC; BatchNorm2d its
+            # permuted (channels-last) view, the path the flip takes
+            xb = xb.permute(0, 2, 3, 1).contiguous()
+            yb = ref_bn(xb.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            ysb = sbn(xb)
+        else:
+            yb, ysb = ref_bn(xb), sbn(xb)
         # one rank: SyncBatchNorm takes BatchNorm2d's own path, so the two
         # agree to the last bit
         check("SyncBatchNorm (world size 1) vs BatchNorm2d, output (max abs "
@@ -2459,14 +2721,14 @@ def imagenet_amp_path(torch, dispatch, models):
               "x 64, loss scale 2^6, a non-finite gradient planted at "
               "iteration 2:")
         hist = {}
-        xs = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)).astype(
-            np.float32))
+        xs = images(rng.standard_normal((2, 3, 64, 64)).astype(np.float32))
         ys = torch.from_numpy(rng.integers(0, 1000, (2,)))
         gloo = dist.new_group([0], backend="gloo")
         for dev, group in (("cuda", None), ("cpu", gloo)):
             reset()
             m, o = _imagenet_model(torch, models, parallel, amp, dev, group,
-                                   max_loss_scale=2.0 ** 6, seed=SEED + 24)
+                                   max_loss_scale=2.0 ** 6, seed=SEED + 24,
+                                   channels_last=cl)
             rows = []
             for i in range(3):
                 _, skipped = _amp_iteration(amp, m, o, criterion, xs.to(dev),
@@ -2481,7 +2743,7 @@ def imagenet_amp_path(torch, dispatch, models):
                 (False, 64.0), (True, 32.0), (False, 32.0)]:
             raise AssertionError(f"imagenet skip history differs: {hist}")
         reset()
-        return counts, img_s
+        return counts, img_s, prof
     finally:
         dist.destroy_process_group()
 
@@ -4801,11 +5063,20 @@ def main():
     paths["amp_O2"], paths["amp_O3"] = amp_counts["O2"], amp_counts["O3"]
     print(f"amp phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    paths["resnet_train_step"], resnet_ms = resnet_train_path(
-        torch, dispatch, models)
+    paths["resnet_train_step"], paths["resnet_train_step_nhwc"], \
+        resnet_turns = resnet_train_turns(torch, dispatch, models)
+    resnet_ms = resnet_turns[0]["step_ms"]
     resnet_cpu_phase(torch, models)
-    paths["imagenet_amp"], imagenet_img_s = imagenet_amp_path(
-        torch, dispatch, models)
+    imagenet = {}
+    for cl, key in ((False, "imagenet_amp"),
+                    (True, "imagenet_amp_channels_last")):
+        paths[key], img_s, prof = imagenet_amp_path(torch, dispatch, models,
+                                                    channels_last=cl)
+        imagenet[key] = dict(images_per_s=img_s, profiled_iteration=prof)
+    imagenet_img_s = imagenet["imagenet_amp"]["images_per_s"]
+    print(f"imagenet amp O2 images/s in this run: NCHW {imagenet_img_s:.1f}, "
+          f"--channels-last --sync_bn "
+          f"{imagenet['imagenet_amp_channels_last']['images_per_s']:.1f}")
     print(f"ResNet phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     paths["bert_train"], bert_nums = bert_train_path(torch, dispatch, bert,
@@ -5024,6 +5295,8 @@ def main():
                       f"pallas_call :156)", **launches("fused_sgd"),
              **sgd["step"], amp_case=sgd["amp"],
              resnet_step_ms=resnet_ms, imagenet_images_per_s=imagenet_img_s,
+             imagenet_channels_last_images_per_s=imagenet[
+                 "imagenet_amp_channels_last"]["images_per_s"],
              o1_resnet18_case=o1_kernels["sgd_resnet18"],
              o1_resnet18_images_per_s=o1_resnet["images_per_s"]),
     ]
@@ -5039,6 +5312,8 @@ def main():
                           gan_step_iterations_per_s=o1_dcgan[
                               "gan_step_iterations_per_s"]),
                       "gpt2_small_profiled_step": gpt_prof,
+                      "resnet50_train_turns": resnet_turns,
+                      "imagenet_amp_o2": imagenet,
                       "gpt2_small_chunked_step_ms": dict(
                           attn_dropout_0=chunked_ms,
                           attn_dropout_01=drop_ms)}))

@@ -92,13 +92,40 @@ def _drop(p, offsets, seed=-99):
                 dropout_col_off=offsets[1])
 
 
+@pytest.fixture
+def one_scores_tensor(monkeypatch):
+    """Every call of the plain versions' ``_scores`` on the same inputs
+    returns one tensor, so the two models under comparison share their
+    q.k^T product.  The rest of their arithmetic is theirs: the tc model
+    differs from the plain version only in what it does to p and ds.
+
+    (Without it, some whole runs of the suite found the first case's
+    ``lse`` apart between the two models with ``out`` equal: the mark of
+    a last-bit difference in a row's largest score, which the softmax's
+    shift cancels and ``lse`` keeps.  CPU matrix products are not promised
+    to give the same bits twice.)"""
+    real, memo = attention._scores, {}
+
+    def scores(*args):
+        key = tuple(id(a) if isinstance(a, torch.Tensor) else a
+                    for a in args)
+        if key not in memo:
+            memo[key] = (args, real(*args))    # args keep the ids alive
+        return memo[key][1]
+    monkeypatch.setattr(attention, "_scores", scores)
+
+
 @pytest.mark.parametrize("case", CASES, ids=_ids)
-def test_tc_models_are_the_plain_versions_at_fp32(case):
+def test_tc_models_are_the_plain_versions_at_fp32(case, one_scores_tensor):
     bh, sq, sk, causal, bias, window, p, offsets = case
     q, k, v, g, b = map(lambda a: None if a is None else torch.from_numpy(a),
                         _case(sq + sk, bh, sq, sk, bias=bias))
     drop = _drop(p, offsets)
     args = (q, k, v, b, 0.125, causal, window)
+    # the tc model's one rounding, of p (forward) and ds (backward) to the
+    # input dtype, is no rounding at fp32
+    probe = torch.rand(3, 5)
+    assert attention._operand(probe, q.dtype) is probe
     out, lse = attention.flash_attention_reference(*args, **drop)
     tout, tlse = attention.flash_attention_tc_reference(*args, **drop)
     assert torch.equal(out, tout) and torch.equal(lse, tlse)

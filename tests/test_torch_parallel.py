@@ -384,8 +384,7 @@ def test_ddp_option_errors_and_syncbn_group_errors():
             parallel.DistributedDataParallel(m, **kw)
     with pytest.raises(RuntimeError, match="needs torch.distributed"):
         parallel.DistributedDataParallel(m)
-    with pytest.raises(NotImplementedError, match="channel_last"):
-        parallel.SyncBatchNorm(4, channel_last=True)
+    assert parallel.SyncBatchNorm(4, channel_last=True).channel_last
     for size, msg in ((-1, "non-negative"), (8, "exceeds world size"),
                       (3, "must be divisible")):
         with pytest.raises(ValueError, match=msg):

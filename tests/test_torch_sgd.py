@@ -170,9 +170,19 @@ def test_sgd_scalars_and_wrapper_refusals():
     with pytest.raises(ValueError, match="shape"):
         multi_tensor.fused_sgd(flag, [tl[0], [tl[1][1]] + tl[1][1:], tl[2]],
                                *args)
-    with pytest.raises(ValueError, match="contiguous"):
+    # a dense layout that the param's place in every list shares (here
+    # transposed) is updated where it lies, as a contiguous list is; a
+    # gradient in another layout than its param is refused, not copied
+    moved = [[tl[0][1].t()], [tl[1][1].clone().t()], [tl[2][1].clone().t()]]
+    flat = [[t.contiguous() for t in lst] for lst in moved]
+    multi_tensor.fused_sgd(flag, moved, *args)
+    multi_tensor.fused_sgd(flag, flat, *args)
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(moved, flat))
+    assert not moved[1][0].is_contiguous()
+    with pytest.raises(ValueError, match="gradient 0 has strides"):
         multi_tensor.fused_sgd(
-            flag, [[tl[0][1].t()], [tl[1][1].t()], [tl[2][1].t()]], *args)
+            flag, [[tl[0][1].t().contiguous()], [tl[1][1].t()],
+                   [tl[2][1].t()]], *args)
     assert multi_tensor.fused_sgd(flag, [[], [], []], *args) == (flag, [], [])
 
 

@@ -23,6 +23,8 @@ import apex_tpu.kernels.attention as jax_attention
 import apex_tpu.models.bert as jax_bert
 import apex_tpu.models.gpt as jax_gpt
 import apex_tpu.models.llama as jax_llama
+import apex_tpu.contrib.groupbn as jax_groupbn
+import apex_tpu.nn as jax_nn
 import apex_tpu.nn.functional as jax_F
 import apex_tpu.ops.multi_tensor as jax_ops
 import apex_tpu.optimizers as jax_optimizers
@@ -47,6 +49,8 @@ import apex_tpu_torch.kernels.attention as attention
 import apex_tpu_torch.models.bert as bert
 import apex_tpu_torch.models.gpt as gpt
 import apex_tpu_torch.models.llama as llama
+import apex_tpu_torch.contrib.groupbn as groupbn
+import apex_tpu_torch.nn as nn
 import apex_tpu_torch.nn.functional as F
 import apex_tpu_torch.ops.multi_tensor as ops
 import apex_tpu_torch.optimizers as optimizers
@@ -74,7 +78,10 @@ PAIRS = [
     (jax_distributed, distributed, "all_reduce_mean"),
     (jax_parallel, parallel, "SyncBatchNorm"),
     (jax_parallel, parallel, "convert_syncbn_model"),
-    (jax_F, F, "batch_norm"),
+    (jax_F, F, "batch_norm"), (jax_F, F, "conv2d"), (jax_F, F, "max_pool2d"),
+    (jax_F, F, "avg_pool2d"), (jax_F, F, "adaptive_avg_pool2d"),
+    (jax_nn, nn, "to_channels_last"),
+    (jax_groupbn, groupbn, "BatchNorm2d_NHWC"),
     (jax_amp, amp, "init"), (jax_handle, handle, "AmpHandle"),
     (jax_opt, opt, "OptimWrapper"), (jax_policy, policy, "CastPolicy"),
     (jax_policy, policy, "register_half_function"),
@@ -188,12 +195,8 @@ REFUSED = [
     (lambda **kw: F.batch_norm(torch.zeros(2, 3, 4), None, None,
                                training=True, **kw),
      dict(axis_index_groups=[[0]]), A9),
-    (lambda **kw: F.batch_norm(torch.zeros(2, 3, 4), None, None,
-                               training=True, **kw),
-     dict(channel_axis=-1), "ROADMAP A2"),
-    (lambda **kw: F.batch_norm(torch.zeros(2, 3, 4), None, None,
-                               training=True, **kw),
-     dict(return_stats=True), "ROADMAP A2"),
+    (lambda **kw: groupbn.BatchNorm2d_NHWC(4, device="cpu", **kw),
+     dict(axis_name="batch"), A9),
 ]
 
 
