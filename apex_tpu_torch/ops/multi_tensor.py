@@ -13,9 +13,9 @@ blind to the flag.  ``multi_tensor_sgd`` is the hand-written SGD kernel
 (depth 3, or depth 4 with the half model copy) in the same way, skipping
 itself on a set flag; ``sgd_unfused`` is the JAX package's per-tensor SGD
 loop: functional, returning the old tensors on a set flag.
-``multi_tensor_axpby``, ``multi_tensor_l2norm``, ``multi_tensor_maxnorm``
-and ``multi_tensor_lamb`` are jnp in the JAX package and plain PyTorch
-here.  ``multi_tensor_novograd`` comes with the slice that runs it.
+``multi_tensor_axpby``, ``multi_tensor_l2norm``, ``multi_tensor_maxnorm``,
+``multi_tensor_lamb`` and ``multi_tensor_novograd`` are jnp in the JAX
+package and plain PyTorch here.
 """
 from __future__ import annotations
 
@@ -239,3 +239,79 @@ def multi_tensor_lamb(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
         new_ms.append(mf.to(m.dtype))
         new_vs.append(vf.to(v.dtype))
     return noop_flag, new_ps, new_ms, new_vs
+
+
+NOVOGRAD_MOMENT_MODE_0 = 0   # L2: g' = g / denom + wd * p into the momentum
+NOVOGRAD_MOMENT_MODE_1 = 1   # decoupled: wd * p added to the update
+
+
+def _novograd_local(gs, norm_type: int):
+    """What NovoGrad blends of each gradient, in fp32 as the JAX package
+    takes it: ``max|g|`` for ``norm_type`` 0, ``sum(g^2)`` for 2.  (The
+    sum of squares, not ``torch.linalg.vector_norm``: the CPU's fp32 norm
+    of a large tensor can be 2.6e-4 off on some hosts.)"""
+    if norm_type not in (0, 2):
+        raise RuntimeError("FusedNovoGrad only support l2/inf norm now.")
+    gfs = [g.float() for g in gs]
+    if norm_type == 0:
+        return [gf.abs().max() for gf in gfs]
+    return [sq.sum() for sq in torch._foreach_mul(gfs, gfs)]
+
+
+def novograd_norms(gs, norm_type: int):
+    """Each gradient's fp32 norm as NovoGrad blends it: ``max|g|`` for
+    ``norm_type`` 0, ``|g|_2`` for 2."""
+    local = _novograd_local(gs, norm_type)
+    return local if norm_type == 0 else list(torch._foreach_sqrt(local))
+
+
+def multi_tensor_novograd(noop_flag, tensor_lists, lr, beta1, beta2, eps,
+                          step, bias_correction: bool, weight_decay,
+                          grad_averaging: int, moment_mode: int,
+                          norm_type: int):
+    """NovoGrad over ``[grads, params, exp_avgs, grad_norms]``, where
+    ``grad_norms`` holds one fp32 running norm scalar per tensor; plain
+    PyTorch, as the JAX package's op is jnp (no hand kernel).
+
+    The norm blend: L2 (``norm_type`` 2) ``n = sqrt(beta2 n^2 + (1 - beta2)
+    |g|^2)``; L-inf (0) ``n = beta2 n + (1 - beta2) max|g|``, a linear
+    blend, not a running max.  With
+    ``denom = n / bc2 + eps``, ``bc2 =
+    sqrt(1 - beta2^step)`` and ``beta3 = 1 - beta1`` under
+    ``grad_averaging`` (else 1): moment mode 0 takes ``m = beta1 m + beta3
+    (g / denom + wd p)``, ``p -= lr m / bc1``; mode 1 ``m = beta1 m +
+    beta3 g``, ``p -= lr ((m / bc1) / denom + wd p)``, per tensor in
+    fp32.  Functional: returns ``(noop_flag, new_params, new_exp_avgs,
+    new_grad_norms)`` in the inputs' dtypes; the flag is neither read nor
+    written (non-finite values propagate)."""
+    gs, ps, ms, norms = tensor_lists
+    if not gs:
+        return noop_flag, [], [], []
+    dev = ps[0].device
+    if bias_correction:
+        bc1 = _bias_correction(beta1, step)
+        bc2 = _bias_correction(beta2, step)
+        bc2 = bc2 ** 0.5 if isinstance(bc2, float) else torch.sqrt(bc2)
+    else:
+        bc1 = bc2 = 1.0
+    beta3 = (1.0 - beta1) if grad_averaging else 1.0
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    local = _novograd_local(gs, norm_type)
+    new_ps, new_ms, new_norms = [], [], []
+    for g, p, m, vn, loc in zip(gs, ps, ms, norms, local):
+        gf, pf, mf, vf = g.float(), p.float(), m.float(), vn.float()
+        if norm_type == 0:
+            gn = beta2 * vf + (1.0 - beta2) * loc
+        else:
+            gn = torch.sqrt(beta2 * vf * vf + (1.0 - beta2) * loc)
+        denom = gn / bc2 + eps
+        if moment_mode == NOVOGRAD_MOMENT_MODE_0:
+            mf = beta1 * mf + beta3 * (gf / denom + weight_decay * pf)
+            pf = pf - lr * (mf / bc1)
+        else:
+            mf = beta1 * mf + beta3 * gf
+            pf = pf - lr * ((mf / bc1) / denom + weight_decay * pf)
+        new_ps.append(pf.to(p.dtype))
+        new_ms.append(mf.to(m.dtype))
+        new_norms.append(gn.to(vn.dtype))
+    return noop_flag, new_ps, new_ms, new_norms

@@ -15,7 +15,8 @@ live on the device, so the step reads nothing back.
 Gradient accumulation (``accum_steps``) and lr schedules (``lr_schedule``)
 run as in the JAX step.  What the JAX step does beyond that is owed to
 later slices and refused here with ``NotImplementedError``: data, tensor
-and ZeRO parallelism, flat masters, telemetry and ``FusedNovoGrad``.
+and ZeRO parallelism, flat masters and telemetry.  An optimizer other than
+the four fused ones raises ``TypeError``, as in the JAX step.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from ..amp.scaler import ScalerState, update_scale_state
 from ..kernels.dispatch import same_layout
 from ..ops.multi_tensor import nonfinite_flag
 from .._unported import PARALLEL, refuse
-from ..optimizers import FusedAdam, FusedLAMB, FusedSGD
+from ..optimizers import FusedAdam, FusedLAMB, FusedNovoGrad, FusedSGD
 
 _f32 = torch.float32
 
@@ -163,13 +164,25 @@ def model_vals_of(state: StepState):
             for i, mp in enumerate(state.model_params)]
 
 
+def _keep_where_clear(skip, olds, news):
+    """Each new value over its old one in place, where the device flag
+    ``skip`` is clear (the JAX step's select)."""
+    with torch.no_grad():
+        for old, new in zip(olds, news):
+            torch._foreach_copy_(old, [torch.where(skip, o, n)
+                                       for o, n in zip(old, new)])
+
+
 def build_opt_update(optimizer, params, group_idxs,
                      caller="make_train_step"):
     """The optimizer as an update over flat lists, one kernel launch per
     param group (``ops.multi_tensor_adam`` or ``ops.multi_tensor_sgd``), or
     for ``FusedLAMB`` each group's gradient norm and
-    ``ops.multi_tensor_lamb``, whose new values replace the old in place
-    where the flag is clear, as the JAX step selects them.
+    ``ops.multi_tensor_lamb``, for ``FusedNovoGrad``
+    ``ops.multi_tensor_novograd`` over one fp32 running norm a parameter
+    (seeded on the device at step 1 unless ``init_zero``), whose new values
+    replace the old in place where the flag is clear, as the JAX step
+    selects them.
     Returns ``(opt_update, opt_init)``; ``opt_update(flag, grads, masters,
     slots, step, lr_scale=None)`` updates masters and slots in place and
     leaves them untouched on a set flag; a device ``lr_scale`` multiplies
@@ -220,20 +233,51 @@ def build_opt_update(optimizer, params, group_idxs,
                     bool(group["bias_correction"]), group["weight_decay"],
                     1 if group["grad_averaging"] else 0, opt.adam_w_mode,
                     gnorm, group["max_grad_norm"])
-                with torch.no_grad():
-                    for old, new in zip(olds, news):
-                        torch._foreach_copy_(
-                            old, [torch.where(skip, o, n)
-                                  for o, n in zip(old, new)])
+                _keep_where_clear(skip, olds, news)
 
         def opt_init():
             return {k: [torch.zeros_like(p, dtype=_f32) for p in params]
                     for k in ("m", "v")}
         return opt_update, opt_init
+    if isinstance(opt, FusedNovoGrad):
+        def opt_update(flag, grads, masters, slots, step, lr_scale=None):
+            skip = flag.reshape(()) > 0
+            for group, idxs in zip(opt.param_groups, group_idxs):
+                if not idxs:
+                    continue
+                b1, b2 = group["betas"]
+                lr = group["lr"] if lr_scale is None \
+                    else group["lr"] * lr_scale
+                g = [grads[i] for i in idxs]
+                olds = [[masters[i] for i in idxs],
+                        [slots["m"][i] for i in idxs],
+                        [slots["grad_norms"][i] for i in idxs]]
+                norms = olds[2]
+                if not group["init_zero"]:
+                    # the first step seeds each running norm with its
+                    # gradient's, so the first blend is a no-op
+                    first = step.reshape(()) == 1
+                    norms = [torch.where(first, s, n) for s, n in zip(
+                        ops.multi_tensor.novograd_norms(
+                            g, group["norm_type"]), norms)]
+                _, *news = ops.multi_tensor_novograd(
+                    flag, [g, olds[0], olds[1], norms], lr, b1, b2,
+                    group["eps"], step, bool(group["bias_correction"]),
+                    group["weight_decay"],
+                    1 if group["grad_averaging"] else 0, opt.moment_mode,
+                    group["norm_type"])
+                _keep_where_clear(skip, olds, news)
+
+        def opt_init():
+            return {"m": [torch.zeros_like(p, dtype=_f32) for p in params],
+                    "grad_norms": [torch.zeros((), dtype=_f32,
+                                               device=p.device)
+                                   for p in params]}
+        return opt_update, opt_init
     if not isinstance(opt, FusedAdam):
-        refuse(f"{caller}: only FusedAdam, FusedSGD and FusedLAMB are "
-               f"ported so far; {type(optimizer).__name__}",
-               "ROADMAP A3, FusedNovoGrad and contrib/optimizers")
+        raise TypeError(
+            f"{caller} does not support {type(optimizer).__name__}; "
+            f"supported: FusedSGD, FusedAdam, FusedLAMB, FusedNovoGrad")
 
     def opt_update(flag, grads, masters, slots, step, lr_scale=None):
         if len({g.dtype for g in grads}) > 1:
@@ -365,10 +409,10 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     (:mod:`apex_tpu_torch.optimizers.schedules`) scales each group's lr by
     its value at the 1-based device step count, on the device.
 
-    ``FusedAdam``, ``FusedSGD`` and ``FusedLAMB`` are ported.  A model's
-    buffers (BatchNorm's running statistics) are its own, updated in place
-    by its forward, as the JAX step carries them through a skipped step
-    too.  ``axis_name``, ``tp_axis``, the DDP knobs, ``zero_sharding``,
+    ``FusedAdam``, ``FusedSGD``, ``FusedLAMB`` and ``FusedNovoGrad`` are
+    ported.  A model's buffers (BatchNorm's running statistics) are its
+    own, updated in place by its forward, as the JAX step carries them
+    through a skipped step too.  ``axis_name``, ``tp_axis``, the DDP knobs, ``zero_sharding``,
     ``flat_master``, ``parallel`` and ``telemetry`` raise
     ``NotImplementedError`` naming their ROADMAP item.  ``donate_state`` has
     nothing to choose: the state is always updated in place."""

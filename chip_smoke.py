@@ -210,14 +210,49 @@ Phases, each of which raises on failure:
    inf planted in one D-fake backward (two Adam launches an iteration, one
    there; only scaler 1 halves), iterations/s; card against CPU (traces,
    the skip history, the first losses); 1 + 3 iterations of
-   ``make_gan_train_step`` (two Adam launches each).
+   ``make_gan_train_step`` (two Adam launches each);
+21. (after phase 18) the BERT step of phase 16 (attention dropout 0) with
+   ``FusedNovoGrad(lr=1e-3, weight_decay=0.01)`` in place of FusedLAMB:
+   the launch counts of one step (flash 12/12/12, LayerNorm 26/26/26,
+   xentropy 1/1; NovoGrad is plain PyTorch), then the NovoGrad and the
+   LAMB step from the same weights timed in turns (novograd, lamb, lamb,
+   novograd: 10 steps each, peak memory, falling losses, a profiled step
+   of each); one iteration of the eager amp O2 loop with FusedNovoGrad;
+   and in phase 18 two NovoGrad steps of a 2-layer cut, card against CPU;
+22. LoRA fine-tuning of llama_125m at full width: ``apply_lora`` (r 8,
+   alpha 16) on every q_proj and v_proj weight, ``FusedAdam(
+   lora_parameters(model), lr 1e-3, weight_decay 0)``, the phase 14 step
+   with the chunked loss at 16 x 1024: the Adam kernel at the 48 factor
+   tensors against its plain version (with the chunk's edges) and timed
+   beside ``torch.optim.Adam(fused=True)``; the launch counts of one step
+   (RMSNorm 25/25/25, flash 12/12/12, xentropy 16/16, Adam 1), 10 timed
+   steps, a profiled step with the frozen weights' gradient GEMMs' share
+   of busy time (those GEMMs timed alone at the step's shapes), frozen
+   weights unmoved and factors moved; the merge
+   (``remove_reparameterization``) against the adapted model's prefill
+   logits; greedy ``generate`` of 32 tokens (batch 8, prompt 512, fp32)
+   from the merged model with its launch counts; and a 2-layer cut of the
+   merged weights on the card and the CPU (the same greedy tokens,
+   matching logits);
+23. the deprecated-API optimizers (``contrib.optimizers``: the legacy
+   FusedAdam in both eps modes with a loss scale, fp16 gradients and
+   output copies and the norm clip; the two-stage FusedLAMB;
+   FP16_Optimizer with an overflow planted) at GPT-2 small's 124 tensors,
+   3 steps each on the card and the CPU, with the host ms of each step and
+   a step's device busy ms;
+24. ``mlp.MLP`` ([480, 1024, 1024, 1] and [1024, 4096, 4096, 1024]) and
+   the same under ``apply_weight_norm``: forward and backward in fp32 and
+   under amp O1's half policy, card against CPU on 128 rows, then timed on
+   the card at batch 4096.
 
 Every main path's launch counts include the norm kernels' per-route
 counters (each path runs its forwards and backwards on ``vec``), and every
 profiled step prints its device operations (the train steps beside their
 count when the backward's sums were cast after the kernels).  It prints a
-JSON line of the BERT, Llama-step, GPT profiled-step, dropout-arm,
-amp O1, ResNet-50 layout-turn and imagenet-arm numbers, one JSON line of per-kernel numbers, the card's name and power limit, and
+JSON line of the BERT, NovoGrad-turn, Llama-step, LoRA, legacy-optimizer,
+layer, GPT profiled-step, dropout-arm, amp O1, ResNet-50 layout-turn and
+imagenet-arm numbers, its own wall time, one JSON line of per-kernel
+numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero before
 printing a result.  TF32 is off for every comparison.
@@ -4119,6 +4154,19 @@ def _bert_want(counts, layers=12):
     return want
 
 
+def _bert_step(torch, bert, opt_cls, attn_dropout=0.0):
+    """The bench's BERT step (bert_base, bf16 half copies, static scale 1,
+    dropout 0.1, attention dropout ``attn_dropout``) with
+    ``opt_cls(lr, weight_decay)``, the weights from SEED."""
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED)
+    model = bert.bert_base(max_positions=BERT_SEQ, attn_dropout=attn_dropout,
+                           device="cuda")
+    opt = opt_cls(list(model.parameters()), lr=BERT_LR, weight_decay=BERT_WD)
+    return make_train_step(model, opt, _bert_mlm_loss(torch),
+                           half_dtype=torch.bfloat16, loss_scale=1.0)
+
+
 def bert_train_path(torch, dispatch, bert, attn_dropout):
     """make_train_step(bert_base, FusedLAMB) with bf16 half copies and a
     static scale of 1 at batch 64 x 128, gathered MLM over 20 positions a
@@ -4128,14 +4176,7 @@ def bert_train_path(torch, dispatch, bert, attn_dropout):
     10 timed steps, peak memory, a profiled step.  Returns (counts,
     numbers)."""
     from apex_tpu_torch.optimizers import FusedLAMB
-    from apex_tpu_torch.training import make_train_step
-    torch.manual_seed(SEED)
-    model = bert.bert_base(max_positions=BERT_SEQ, attn_dropout=attn_dropout,
-                           device="cuda")
-    opt = FusedLAMB(list(model.parameters()), lr=BERT_LR,
-                    weight_decay=BERT_WD)
-    step = make_train_step(model, opt, _bert_mlm_loss(torch),
-                           half_dtype=torch.bfloat16, loss_scale=1.0)
+    step = _bert_step(torch, bert, FusedLAMB, attn_dropout)
     x, labels = _bert_batch(torch, BERT_BATCH, BERT_SEQ, "cuda")
     losses = [step(x, labels) for _ in range(2)]      # warm-up
     torch.cuda.synchronize()
@@ -4183,7 +4224,7 @@ def bert_train_path(torch, dispatch, bert, attn_dropout):
         for name, ms in top:
             print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
         _ops_beside_casts(f"bert_base attn_dropout {attn_dropout}", n)
-    del step, opt, model
+    del step
     return counts, dict(step_ms=1e3 * step_s, sequences_per_s=seq_s,
                         peak_gib=peak, busy_ms=busy, idle_share=idle,
                         device_ops=n,
@@ -4279,8 +4320,9 @@ def bert_cpu_phase(torch, bert, attn_funcs):
     TF32 off, every dropout 0, batch 2 x 128 with the second sequence
     padded from position 100, 20 MLM positions a sequence): the logits,
     the loss and every gradient of one backward, then one fused LAMB step's
-    loss, masters and moments; and one ``flash_attention`` call with
-    dropout 0.1 and its gradients, card against CPU."""
+    loss, masters and moments; one ``flash_attention`` call with dropout
+    0.1 and its gradients, card against CPU; and two FusedNovoGrad train
+    steps of a 2-layer cut (``_bert_novograd_cpu_steps``)."""
     from apex_tpu_torch.optimizers import FusedLAMB
     from apex_tpu_torch.training import make_train_step
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
@@ -4374,6 +4416,7 @@ def bert_cpu_phase(torch, bert, attn_funcs):
     for name, a, b in zip(("out", "dq", "dk", "dv"), *res):
         check(f"flash_attention dropout {DROP_P}, (2, 12, 128, 64) fp32 "
               f"key-padded, card vs CPU: {name}", scaled_err(a, b)[0], 1e-5)
+    _bert_novograd_cpu_steps(torch, bert, loss_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -4960,6 +5003,701 @@ def o1_dcgan_path(torch, dispatch, dcgan):
         reset()
 
 
+# ---------------------------------------------------------------------------
+# NovoGrad, the contrib optimizers, the MLP and the reparameterizations:
+# BERT-base on FusedNovoGrad, LoRA fine-tuning of llama_125m, the legacy
+# optimizers at GPT-2 small's parameter list, MLP and WeightNorm layers
+# ---------------------------------------------------------------------------
+
+NOVOGRAD_TURNS = ("novograd", "lamb", "lamb", "novograd")
+
+
+def bert_novograd_path(torch, dispatch, bert):
+    """bert_train_path's step with FusedNovoGrad in place of FusedLAMB: the
+    launch counts of one step (flash 12/12/12 on tc, LayerNorm 26/26/26 on
+    vec, xentropy 1/1, no hand kernel in the NovoGrad update); then the
+    NovoGrad and the LAMB step from the same weights and batch, timed in
+    turns (NOVOGRAD_TURNS, 10 steps a turn, host clock ending in a
+    synchronize; both steps' state resident), each turn's peak memory and a
+    profiled step of each; the losses must fall.  Returns (the NovoGrad
+    step's counts, numbers)."""
+    from apex_tpu_torch.optimizers import FusedLAMB, FusedNovoGrad
+    x, labels = _bert_batch(torch, BERT_BATCH, BERT_SEQ, "cuda")
+    arms = {}
+    print(f"BERT NovoGrad path: make_train_step(bert_base, batch "
+          f"{BERT_BATCH} x {BERT_SEQ}, gathered MLM, bf16 half copies, lr "
+          f"{BERT_LR} wd {BERT_WD}, dropout 0.1, attn_dropout 0), "
+          f"FusedNovoGrad against FusedLAMB from the same weights")
+    for name, cls in (("novograd", FusedNovoGrad), ("lamb", FusedLAMB)):
+        step = _bert_step(torch, bert, cls)
+        losses = [step(x, labels) for _ in range(2)]      # warm-up
+        torch.cuda.synchronize()
+        dispatch.reset_counts()
+        losses.append(step(x, labels))
+        torch.cuda.synchronize()
+        counts = dispatch.counts()
+        print(f"  {name}: launches in one step: {counts}")
+        if counts != _bert_want(counts):
+            raise AssertionError(f"BERT {name} launch counts {counts} != "
+                                 f"expected {_bert_want(counts)}")
+        arms[name] = dict(step=step, counts=counts, losses=losses)
+    ms = {k: [] for k in arms}
+    peak = {k: [] for k in arms}
+    for name in NOVOGRAD_TURNS:
+        arm = arms[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            arm["losses"].append(arm["step"](x, labels))
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / 10)
+        peak[name].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    nums = {}
+    for name, arm in arms.items():
+        values = [float(v) for v in arm["losses"]]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"non-finite BERT {name} loss: {values}")
+        if not values[-1] < values[0]:
+            raise AssertionError(f"the BERT {name} loss did not fall: "
+                                 f"{values}")
+        step_ms = statistics.mean(ms[name])
+        print(f"  {name}: step {ms[name][0]:.2f} / {ms[name][1]:.2f} ms in "
+              f"its two turns = {BERT_BATCH * 1e3 / step_ms:.1f} sequences/s;"
+              f" peak memory {peak[name][0]:.2f} / {peak[name][1]:.2f} GiB "
+              f"(both steps resident)")
+        print(f"    losses of {len(values)} steps: "
+              f"{', '.join(f'{v:.4f}' for v in values)}")
+        step = arm["step"]
+        wall, busy, by_name, n = _profiled(torch, lambda: step(x, labels))
+        nums[name] = dict(step_ms=ms[name], sequences_per_s=BERT_BATCH * 1e3
+                          / step_ms, peak_gib=peak[name],
+                          first_loss=values[0], last_loss=values[-1])
+        if busy is None:
+            print("    profiled step: device time not measured (the "
+                  "profiler saw no device activity)")
+            continue
+        print(f"    profiled step: wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f}, {n} device "
+              f"operations")
+        for kname, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"      {t:9.3f} ms  {100 * t / busy:5.1f}%  {kname[:80]}")
+        nums[name].update(wall_ms=wall, busy_ms=busy,
+                          idle_share=1 - busy / wall, device_ops=n)
+    print(f"bert_base step ms in turns: novograd {ms['novograd']}, lamb "
+          f"{ms['lamb']}: novograd / lamb "
+          f"{statistics.mean(ms['novograd']) / statistics.mean(ms['lamb']):.4f}")
+    counts = arms["novograd"]["counts"]
+    del arms
+    return counts, nums
+
+
+def bert_novograd_amp_iteration(torch, dispatch, bert):
+    """One iteration of the eager amp O2 loop (fp16, dynamic scale capped at
+    2^12) on bert_base with FusedNovoGrad at batch 64 x 128: the launch
+    counts (as the step's), no skip, a finite loss, every half parameter
+    the fp32 master rounded, and the masters moved.  Returns the counts."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp._amp_state import reset
+    from apex_tpu_torch.optimizers import FusedNovoGrad
+    reset()
+    torch.manual_seed(SEED)
+    model = bert.bert_base(max_positions=BERT_SEQ, device="cuda")
+    opt = FusedNovoGrad(list(model.parameters()), lr=BERT_LR,
+                        weight_decay=BERT_WD)
+    model, opt = amp.initialize(model, opt, opt_level="O2", verbosity=0,
+                                max_loss_scale=2.0 ** 12)
+    x, labels = _bert_batch(torch, BERT_BATCH, BERT_SEQ, "cuda")
+    before = [p.detach().float() for p in model.parameters()]
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    loss, skipped = _amp_iteration(amp, model, opt, _bert_mlm_loss(torch), x,
+                                   labels)
+    torch.cuda.synchronize()
+    counts = dispatch.counts()
+    stash = opt._amp_stash
+    halves, masters = stash.all_fp16_params, stash.all_fp32_from_fp16_params
+    moved = sum(not torch.equal(p.detach().float(), b)
+                for p, b in zip(model.parameters(), before))
+    loss = float(loss.detach())
+    print(f"BERT amp O2 with FusedNovoGrad, one iteration: loss "
+          f"{loss:.4f}, skipped {skipped}, {len(masters)} fp32 masters "
+          f"of {halves[0].dtype} params, {moved} of {len(before)} params "
+          f"moved; launches {counts}")
+    if counts != _bert_want(counts):
+        raise AssertionError(f"BERT amp NovoGrad launch counts {counts} != "
+                             f"expected {_bert_want(counts)}")
+    if skipped or not math.isfinite(loss) or moved < len(before) // 2:
+        raise AssertionError(f"BERT amp NovoGrad: skipped {skipped}, loss "
+                             f"{loss}, {moved} params moved")
+    if not all(torch.equal(h, m.detach().to(h.dtype))
+               for h, m in zip(halves, masters)):
+        raise AssertionError("BERT amp NovoGrad: a half param is not its "
+                             "master rounded")
+    if not all(opt.state[m]["exp_avg_sq"].shape == () for m in masters):
+        raise AssertionError("BERT amp NovoGrad: a running norm is not a "
+                             "scalar")
+    del model, opt
+    reset()
+    return counts
+
+
+def _bert_novograd_cpu_steps(torch, bert, loss_fn):
+    """A 2-layer bert_base (fp32, dropout 0) and 2 FusedNovoGrad train steps
+    on the card and on the CPU from the same weights and batch: the losses,
+    the masters, the moments and the running norms."""
+    from apex_tpu_torch.optimizers import FusedNovoGrad
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED + 3)
+    kw = dict(max_positions=BERT_SEQ, dropout=0.0, attn_dropout=0.0,
+              layers=2)
+    mc = bert.bert_base(**kw, device="cuda")
+    mh = bert.bert_base(**kw, device="cpu")
+    mh.load_state_dict({k: v.cpu() for k, v in mc.state_dict().items()})
+    (ids, pos), labels = _bert_batch(torch, 2, BERT_SEQ, "cpu", seed=3)
+    runs = []
+    for m in (mc, mh):
+        dev = m.decoder_bias.device
+        step = make_train_step(m, FusedNovoGrad(list(m.parameters()),
+                                                lr=BERT_LR,
+                                                weight_decay=BERT_WD),
+                               loss_fn, half_dtype=None, loss_scale=1.0)
+        losses = [float(step((ids.to(dev), pos.to(dev)), labels.to(dev)))
+                  for _ in range(2)]
+        st = step.state
+        runs.append((losses, [[t.cpu() for t in lst] for lst in (
+            st.master_params, st.opt_state["m"],
+            st.opt_state["grad_norms"])]))
+    print("BERT 2 layers, FusedNovoGrad make_train_step, card vs CPU (fp32, "
+          "same weights, 2 steps):")
+    check("losses (relative)", max(abs(a - b) / abs(b) for a, b in zip(
+        runs[0][0], runs[1][0])), 1e-4)
+    check("fp32 masters after 2 steps (max abs diff)",
+          max((a - b).abs().max().item()
+              for a, b in zip(runs[0][1][0], runs[1][1][0])), 1e-5)
+    check("first moments, worst tensor (max abs err / max |ref|)",
+          max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+              for a, b in zip(runs[0][1][1], runs[1][1][1])), 2e-3)
+    check("running norms, worst tensor (relative)",
+          max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+              for a, b in zip(runs[0][1][2], runs[1][1][2])), 1e-4)
+
+
+LORA_R, LORA_ALPHA, LORA_LR = 8, 16.0, 1e-3
+LORA_NEW = 32
+
+
+def _frozen_grad_gemms_ms(torch, model, rows, chunks):
+    """The device ms of one step's weight-gradient GEMMs that no LoRA
+    factor needs, each timed alone at the step's shapes in bf16 (dY^T X
+    over ``rows`` tokens): k_proj, o_proj and the three FFN projections of
+    every block, and the LM head's, one a chunk of the chunked loss.  (The
+    q and v projections' weight gradients feed their factors.)"""
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    shapes = [tuple(getattr(blk, proj).weight.shape)
+              for blk in model.blocks
+              for proj in ("k_proj", "o_proj", "gate_proj", "up_proj",
+                           "down_proj")]
+    per = {}
+    for out_f, in_f in sorted(set(shapes)):
+        dy = torch.randn(rows, out_f, generator=g, device="cuda", dtype=bf16)
+        x = torch.randn(rows, in_f, generator=g, device="cuda", dtype=bf16)
+        per[(out_f, in_f)] = median_ms(lambda: torch.matmul(x.t(), dy),
+                                       reps=5, inner=5, warmup=2)[0]
+        del dy, x
+    v, e = model.lm_head.weight.shape
+    c_rows = -(-rows // chunks)
+    dl = torch.randn(c_rows, v, generator=g, device="cuda", dtype=bf16)
+    h = torch.randn(c_rows, e, generator=g, device="cuda", dtype=bf16)
+    head = median_ms(lambda: torch.matmul(dl.t(), h), reps=5, inner=5,
+                     warmup=2)[0]
+    del dl, h
+    return sum(per[s] for s in shapes) + chunks * head, per, head
+
+
+def lora_adam_case(torch, multi_tensor, shapes):
+    """B12 at the LoRA step's list: the factors' shapes, bf16 gradients,
+    fp32 params and moments (depth 4), AdamW at the path's lr and no
+    weight decay; bit for bit against its plain version with the chunk's
+    edges, aligned and one element off, and a set noop flag; timed warm
+    and cold beside its bound, its plain version and
+    ``torch.optim.Adam(fused=True)`` (fp32 gradients), with the step count
+    a host number; then the wrapper as the train step calls it, the step
+    count a device scalar (the bias corrections computed on the device
+    first), warm.  Returns the numbers."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    bf16 = torch.bfloat16
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
+    scal = multi_tensor.adam_scalars(LORA_LR, 0.9, 0.999, 1e-8, 3, True,
+                                     0.0, "cuda")
+
+    def adam(flag, ls, step=3):
+        multi_tensor.fused_adam(flag, ls, LORA_LR, 0.9, 0.999, 1e-8, step, 1,
+                                True, 0.0)
+
+    def adam_plain(flag, ls):
+        multi_tensor.fused_adam_reference(flag, ls, scal, 1, False)
+
+    def lists_of(shps, offset=0):
+        ls = [[torch.randn(s, generator=g, device="cuda").to(bf16)
+               for s in shps],
+              [torch.randn(s, generator=g, device="cuda") * 0.02
+               for s in shps],
+              [torch.randn(s, generator=g, device="cuda") * 1e-3
+               for s in shps],
+              [torch.rand(s, generator=g, device="cuda") * 1e-6
+               for s in shps]]
+        return [[_placed(torch, t, offset) for t in lst] for lst in ls]
+
+    def library(ls):
+        params = [p.clone().requires_grad_(True) for p in ls[1]]
+        for p, gr in zip(params, ls[0]):
+            p.grad = gr.float()
+        return torch.optim.Adam(params, lr=LORA_LR, fused=True).step
+    tag = (f"Adam, llama_125m LoRA factors (r {LORA_R} on q_proj and v_proj):"
+           f" {len(shapes)} tensors, {n_el} fp32 values, bf16 grads, depth 4")
+    print("Adam kernel at the LoRA step's list:")
+    chunk = mt_edge_cases(torch, multi_tensor, tag, shapes, lists_of, adam,
+                          adam_plain)
+    lists = lists_of(shapes)
+    plain = median_ms(lambda: adam_plain(zero, lists), reps=3, inner=1,
+                      warmup=1)[0]
+    del lists
+    # g read (bf16); p, m and v read and written (fp32)
+    r = mt_times(torch, lambda: lists_of(shapes), adam, library, 26 * n_el,
+                 15 * n_el)
+    mt_line(f"{tag}, chunk {chunk} (library: torch.optim.Adam(fused=True), "
+            f"fp32 grads; {26 * n_el / 1e6:.2f} MB)", r, plain)
+    lists = lists_of(shapes)
+    dev_step = torch.tensor(3, dtype=torch.int32, device="cuda")
+    wrapper_ms, wrapper_host_ms = median_ms(
+        lambda: adam(zero, lists, dev_step))
+    print(f"  the wrapper with a device step count (as the train step calls "
+          f"it): {wrapper_ms:.4f} ms device, {wrapper_host_ms:.4f} ms host")
+    return dict(shape=tag, chunk=chunk, max_abs_err=0.0, plain_ms=plain,
+                wrapper_device_step_ms=wrapper_ms,
+                wrapper_device_step_host_ms=wrapper_host_ms, **r)
+
+
+def llama_lora_path(torch, dispatch, gpt, llama, multi_tensor):
+    """LoRA fine-tuning of llama_125m at full width (the bench's Llama step,
+    chunked loss, bf16 half copies, 16 x 1024): ``apply_lora`` (r 8, alpha
+    16) on every block's q_proj and v_proj weight, ``FusedAdam(
+    lora_parameters(model), lr 1e-3, weight_decay 0)``: the launch counts
+    of one step (RMSNorm 25/25/25, flash 12/12/12, xentropy 16/16, Adam 1),
+    10 timed steps, a profiled step with the share of busy time that the
+    frozen weights' gradient GEMMs take (timed alone at the same shapes),
+    the frozen weights unmoved and the factors moved; the merge
+    (``remove_reparameterization(model, LoRA, remove_all=True)``) against
+    the adapted model's prefill logits (fp32); greedy ``generate`` (batch
+    8, prompt 512, 32 new tokens, fp32) from the merged model with its
+    launch counts; and a 2-layer cut of the merged model on the card and
+    on the CPU: the same greedy tokens and matching logits.  Returns
+    (train counts, generate counts, numbers)."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.reparameterization import (LoRA, apply_lora,
+                                                   lora_parameters,
+                                                   remove_reparameterization)
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED)
+    model = llama.LlamaModel(**LLAMA, max_positions=TRAIN_POS,
+                             output_hidden=True, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 43)
+    for blk in model.blocks:
+        for proj in ("q_proj", "v_proj"):
+            apply_lora(blk, f"{proj}.weight", r=LORA_R, alpha=LORA_ALPHA,
+                       generator=gen)
+    factors = lora_parameters(model)
+    names = [n for n, _ in model.named_parameters()]
+    initial = [p.detach().clone() for p in model.parameters()]
+    adam_case = lora_adam_case(torch, multi_tensor,
+                               [tuple(p.shape) for p in factors])
+    rows = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
+    chunks = -(-rows // _chunk_rows(rows, LLAMA["vocab_size"], None))
+    opt = FusedAdam(factors, lr=LORA_LR, weight_decay=0.0)
+    step = make_train_step(model, opt, _chunked_lm_loss(LLAMA["vocab_size"]),
+                           half_dtype=torch.bfloat16, loss_scale=1.0)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    ids = torch.randint(0, LLAMA["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g, device="cuda")
+    losses = [step(ids, ids) for _ in range(2)]      # warm-up
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    counts = dispatch.counts()
+    layers = len(model.blocks)
+    want = dict.fromkeys(counts, 0)
+    want.update(_flash_want("tc", layers), fused_adam=1, xent_forward=chunks,
+                xent_backward=chunks)
+    want.update(dict.fromkeys(RMS_NAMES, 2 * layers + 1))
+    print(f"LoRA path: make_train_step(llama_125m + LoRA r {LORA_R} alpha "
+          f"{LORA_ALPHA:g} on q_proj and v_proj, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, bf16 half copies, FusedAdam(lora_parameters: "
+          f"{len(factors)} tensors, {sum(p.numel() for p in factors)} "
+          f"values) lr {LORA_LR} wd 0, chunked loss)")
+    print(f"  launches in one step: {counts}")
+    if counts != want:
+        raise AssertionError(f"LoRA launch counts {counts} != expected "
+                             f"{want}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        losses.append(step(ids, ids))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 10
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    values = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite LoRA loss: {values}")
+    if not values[-1] < values[0]:
+        raise AssertionError(f"the LoRA loss did not fall: {values}")
+    print(f"  step {step_ms:.2f} ms = {rows * 1e3 / step_ms:.1f} train "
+          f"tokens/s (10 steps, host clock ending in a synchronize); peak "
+          f"memory {peak:.2f} GiB")
+    print(f"  losses of {len(values)} steps: "
+          f"{', '.join(f'{v:.4f}' for v in values)}")
+    wall, busy, by_name, n_ops = _profiled(torch, lambda: step(ids, ids))
+    frozen_ms, per_shape, head_ms = _frozen_grad_gemms_ms(
+        torch, model, TRAIN_BATCH * TRAIN_SEQ, chunks)
+    nums = dict(step_ms=step_ms, tokens_per_s=rows * 1e3 / step_ms,
+                peak_gib=peak, first_loss=values[0], last_loss=values[-1],
+                frozen_grad_gemms_ms=frozen_ms,
+                frozen_grad_gemm_ms_by_shape={
+                    f"{o}x{i}": t for (o, i), t in per_shape.items()},
+                lm_head_grad_gemm_ms_a_chunk=head_ms)
+    if busy is None:
+        print("  profiled step: device time not measured (the profiler saw "
+              "no device activity)")
+    else:
+        print(f"  profiled step: wall {wall:.2f} ms, device busy {busy:.2f} "
+              f"ms, idle share {1 - busy / wall:.3f}, {n_ops} device "
+              f"operations; the frozen weights' gradient GEMMs, timed alone "
+              f"at the step's shapes: {frozen_ms:.3f} ms = "
+              f"{100 * frozen_ms / busy:.1f}% of busy")
+        for kname, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {t:9.3f} ms  {100 * t / busy:5.1f}%  {kname[:80]}")
+        nums.update(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                    device_ops=n_ops, frozen_grad_share=frozen_ms / busy)
+    st = step.state
+    moved_frozen = [n for n, m, p0 in zip(names, st.master_params, initial)
+                    if "_lora_" not in n and not torch.equal(m, p0.float())]
+    still = [n for n, m, p0 in zip(names, st.master_params, initial)
+             if "_lora_b" in n and torch.equal(m, p0.float())]
+    if moved_frozen or still:
+        raise AssertionError(f"LoRA: frozen weights moved {moved_frozen[:4]},"
+                             f" factors B unmoved {still[:4]}")
+    print(f"  after {len(values) + 1} steps: {len(names) - len(factors)} "
+          f"frozen tensors bit for bit their initial values, all "
+          f"{len(factors) // 2} B factors moved from zero")
+
+    # the trained fp32 masters into the model, then the merge
+    with torch.no_grad():
+        for p, m in zip(model.parameters(), st.master_params):
+            p.copy_(m)
+    del step, opt, st
+    model.eval()
+    prompt = torch.randint(0, LLAMA["vocab_size"], (BATCH, PROMPT),
+                           generator=g, device="cuda")
+    with torch.inference_mode():
+        caches = model.init_caches(BATCH, PROMPT)
+        adapted, _ = model.prefill(prompt, caches)
+    remove_reparameterization(model, LoRA, remove_all=True)
+    left = [n for n in model.state_dict() if "_lora_" in n or "_w0" in n]
+    if left:
+        raise AssertionError(f"LoRA merge left {left[:4]}")
+    with torch.inference_mode():
+        merged, _ = model.prefill(prompt, model.init_caches(BATCH, PROMPT))
+    # the merged weight is the adapted weight's own fp32 value, so the
+    # logits differ by the GEMMs' summation order at most
+    print("LoRA merge (fp32, TF32 off):")
+    check(f"prefill logits ({BATCH}, {PROMPT}, {LLAMA['vocab_size']}), "
+          f"merged vs adapted (max abs diff)",
+          (merged - adapted).abs().max().item(), 1e-4)
+    del adapted, merged
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    t0 = time.perf_counter()
+    out = gpt.generate(model, prompt, LORA_NEW)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    gen_counts = dispatch.counts()
+    want = dict.fromkeys(gen_counts, 0)
+    want.update(_flash_want("simt", layers, backward=False),
+                rms_forward=(2 * layers + 1) * LORA_NEW,
+                rms_forward_vec=(2 * layers + 1) * LORA_NEW)
+    print(f"  generate(merged model, batch {BATCH}, prompt {PROMPT}, "
+          f"{LORA_NEW} new tokens, fp32, greedy): {wall_s:.3f} s; launches "
+          f"{gen_counts}")
+    if gen_counts != want:
+        raise AssertionError(f"LoRA generate launch counts {gen_counts} != "
+                             f"expected {want}")
+    if out.shape != (BATCH, PROMPT + LORA_NEW) or \
+            not torch.equal(out[:, :PROMPT], prompt):
+        raise AssertionError("LoRA generate: bad output")
+    nums["generate_s"] = wall_s
+
+    # a 2-layer cut of the merged weights, card against CPU
+    cut = {**LLAMA, "layers": 2}
+    sd = {k: v for k, v in model.state_dict().items()
+          if not k.startswith("blocks.") or int(k.split(".")[1]) < 2}
+    del model, out
+    res = []
+    for dev in ("cuda", "cpu"):
+        m = llama.LlamaModel(**cut, max_positions=TRAIN_POS,
+                             device=dev).eval()
+        m.load_state_dict({k: v.to(dev) for k, v in sd.items()})
+        p = prompt[:2, :64].to(dev)
+        with torch.inference_mode():
+            logits, _ = m.prefill(p, m.init_caches(2, 64))
+            toks = gpt.generate(m, p, 8)
+        res.append((logits.float().cpu(), toks.cpu()))
+        del m
+    print("LoRA-merged llama_125m cut to 2 layers, card vs CPU (fp32, same "
+          "weights):")
+    check("prefill logits (2, 64, 32000) (max abs diff)",
+          (res[0][0] - res[1][0]).abs().max().item(), 1e-3)
+    if not torch.equal(res[0][1], res[1][1]):
+        raise AssertionError(f"LoRA cut: greedy tokens differ: {res[0][1]} "
+                             f"vs {res[1][1]}")
+    print("  8 greedy tokens for 2 prompts: equal on card and CPU")
+    return counts, gen_counts, dict(nums, adam=adam_case)
+
+
+def _allclose_check(what, got, ref, rtol, atol):
+    """Every tensor of ``got`` within ``atol + rtol |ref|`` of ``ref``
+    (the JAX tests' tolerances); prints the worst excess."""
+    worst = 0.0
+    for a, b in zip(got, ref):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        worst = max(worst, ((a - b).abs() - rtol * b.abs()).max().item())
+    check(f"{what} (max of |card - CPU| - {rtol:g} |CPU|)", worst, atol)
+
+
+def legacy_optimizer_phase(torch, shapes):
+    """The deprecated-API optimizers at GPT-2 small's parameter list
+    (``shapes``), 3 steps each on the card and on the CPU from the same
+    values: the legacy FusedAdam with the sqrt(v) + eps denominator, a loss
+    scale of 1024 on fp16 gradients given as ``grads=``, fp16
+    ``output_params`` and the ``max_grad_norm`` clip fed by ``grad_norms``;
+    with eps inside the sqrt on the params' own fp32 ``.grad``; the contrib
+    FusedLAMB (global-norm clip); and FP16_Optimizer over a legacy
+    FusedAdam of fp16 params (dynamic scale from 2^10) with an inf planted
+    at step 2, which both devices must skip, halving the scale.  Each is
+    held to the JAX tests' tolerances; the host ms of each ``step()`` call
+    on the card and one more step's device busy ms (``torch.profiler``)
+    are printed.  Returns the numbers."""
+    from apex_tpu_torch.contrib.optimizers import (FP16_Optimizer, FusedAdam,
+                                                   FusedLAMB)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    f16 = torch.float16
+    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
+    init = [torch.randn(s, generator=g, device="cuda") * 0.02
+            for s in shapes]
+    grads = {"cuda": [[torch.randn(s, generator=g, device="cuda")
+                       for s in shapes] for _ in range(3)]}
+    grads["cpu"] = [[t.cpu() for t in gs] for gs in grads["cuda"]]
+    print(f"legacy optimizers at GPT-2 small's {len(shapes)} tensors "
+          f"({n_el} values), card vs CPU, 3 steps each:")
+
+    def params_on(dev, dtype=torch.float32):
+        return [torch.nn.Parameter(t.to(dev, dtype, copy=True))
+                for t in init]
+
+    # each maker gives (the tensors the steps write, prepare(i), step())
+    def adam_scaled(dev):
+        ps = params_on(dev)
+        outs = [p.detach().to(f16) for p in ps]
+        opt = FusedAdam(ps, lr=1e-3, weight_decay=0.01, max_grad_norm=1.0)
+        args = {}
+
+        def prepare(i):
+            gs = [(t * 1024.0).to(f16) for t in grads[dev][i % 3]]
+            norm = torch.sqrt(torch.stack(
+                [x.float().square().sum() for x in gs]).sum())
+            args.update(grads=gs, output_params=outs, scale=1024.0,
+                        grad_norms=[norm])
+        return ps + outs, prepare, lambda: opt.step(**args)
+
+    def with_grads(ps, dev, scale=None):
+        def prepare(i):
+            for p, t in zip(ps, grads[dev][i % 3]):
+                p.grad = t if scale is None else (t * scale()).to(f16)
+        return prepare
+
+    def adam_eps_inside(dev):
+        ps = params_on(dev)
+        opt = FusedAdam(ps, lr=1e-3, eps_inside_sqrt=True)
+        return ps, with_grads(ps, dev), opt.step
+
+    def lamb(dev):
+        ps = params_on(dev)
+        opt = FusedLAMB(ps, lr=1e-3, weight_decay=0.01, max_grad_norm=1.0)
+        return ps, with_grads(ps, dev), opt.step
+
+    hist = {}
+
+    def fp16_opt(dev):
+        ps = params_on(dev, f16)
+        opt = FP16_Optimizer(FusedAdam(ps, lr=1e-3, max_grad_norm=1.0),
+                             dynamic_loss_scale=True,
+                             dynamic_loss_args={"init_scale": 2.0 ** 10},
+                             verbose=False)
+        rows = hist.setdefault(dev, [])
+        fill = with_grads(ps, dev, lambda: opt.loss_scale)
+
+        def prepare(i):
+            fill(i)
+            if i == 1:
+                ps[0].grad.view(-1)[0] = float("inf")
+
+        def step():
+            opt.step()
+            rows.append((opt.overflow, opt.loss_scale))
+            opt.zero_grad()
+        return ps + [m for grp in opt.fp32_groups for m in grp], prepare, \
+            step
+
+    out = {}
+    for name, make, rtol, atol in (
+            ("FusedAdam scale 1024, fp16 grads and output_params, clip",
+             adam_scaled, 2e-5, 2e-6),
+            ("FusedAdam eps_inside_sqrt", adam_eps_inside, 2e-5, 2e-6),
+            ("contrib FusedLAMB, clip", lamb, 3e-5, 3e-6),
+            ("FP16_Optimizer(FusedAdam), dynamic scale, inf at step 2",
+             fp16_opt, 2e-5, 2e-6)):
+        res, host = {}, []
+        for dev in ("cuda", "cpu"):
+            tensors, prepare, step = make(dev)
+            for i in range(3):
+                prepare(i)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                if dev == "cuda":
+                    host.append(1e3 * (time.perf_counter() - t0))
+            res[dev] = [t.detach().cpu() for t in tensors]
+            if dev == "cuda":
+                prepare(3)
+                _, busy, _, n_ops = _profiled(torch, step)
+            del tensors, prepare, step
+        half = [i for i, t in enumerate(res["cpu"]) if t.dtype == f16]
+        full = [i for i in range(len(res["cpu"])) if i not in half]
+        print(f"  {name}: host {', '.join(f'{t:.2f}' for t in host)} ms a "
+              f"step() on the card; a 4th step's device busy "
+              f"{'not measured' if busy is None else f'{busy:.3f} ms'}, "
+              f"{n_ops} device operations")
+        _allclose_check(f"{name}: fp32 tensors",
+                        [res["cuda"][i] for i in full],
+                        [res["cpu"][i] for i in full], rtol, atol)
+        if half:
+            # the fp16 copies round the fp32 values: one fp16 unit apart
+            # at most where the two devices' values straddle a rounding
+            _allclose_check(f"{name}: fp16 tensors",
+                            [res["cuda"][i] for i in half],
+                            [res["cpu"][i] for i in half], 1e-3, 1e-6)
+        out[name] = dict(host_ms=host, busy_ms=busy, device_ops=n_ops)
+        del res
+    print(f"  FP16_Optimizer (overflow, scale) per step: {hist}")
+    want = [(False, 1024.0), (True, 512.0), (False, 512.0)]
+    if hist["cuda"][:3] != want or hist["cpu"] != want:
+        raise AssertionError(f"FP16_Optimizer skip history {hist} != {want}")
+    del init, grads
+    return out
+
+
+def _fwd_bwd(torch, model, x):
+    """The output and the gradients of ``mean(out^2)`` for every
+    parameter (by name)."""
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    out = model(x)
+    grads = torch.autograd.grad(out.float().square().mean(), params)
+    return out, dict(zip(names, grads))
+
+
+def _worst_grad(torch, got, ref):
+    """The worst parameter's |got - ref| / |ref| in norm, and its name."""
+    errs = {k: (torch.linalg.vector_norm(got[k].float().cpu() - v.float())
+                / torch.linalg.vector_norm(v.float()).clamp_min(1e-30)).item()
+            for k, v in ref.items()}
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+LAYERS_CHECK_ROWS = 128
+
+
+def layers_phase(torch):
+    """apex.mlp's MLP at ([480, 1024, 1024, 1]) and ([1024, 4096, 4096,
+    1024]), then the same with ``apply_weight_norm`` over it: forward and
+    backward on the card and on the CPU from the same weights on the first
+    LAYERS_CHECK_ROWS rows of the batch, in fp32 and under amp O1's half
+    policy (the "mlp" entry casts the whole MLP to fp16, on both devices),
+    then the card's ms for each at batch 4096 (library GEMMs; no hand
+    kernel).  The CPU's fp16 GEMMs are slow on the card's host, hence the
+    rows.  Gradients are held per parameter in norm: the first layer's
+    sums products of zero-mean inputs, whose cancellation magnifies
+    rounding (at 4096 rows about 1000-fold: fp32 against fp64 on the CPU
+    4.3e-4 in norm, 8.5e-3 at the worst element).  Returns the numbers."""
+    from apex_tpu_torch.amp import policy
+    from apex_tpu_torch.mlp import MLP
+    from apex_tpu_torch.reparameterization import apply_weight_norm
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    out = {}
+    g = torch.Generator().manual_seed(SEED + 60)
+
+    def o1(model, x):
+        with policy.autocast(policy.CastPolicy(half_dtype=torch.float16)):
+            return _fwd_bwd(torch, model, x)
+    print(f"layers: MLP and WeightNorm, card vs CPU (TF32 off) at "
+          f"{LAYERS_CHECK_ROWS} rows, timed at 4096:")
+    for sizes in ([480, 1024, 1024, 1], [1024, 4096, 4096, 1024]):
+        torch.manual_seed(SEED)
+        card = MLP(sizes, device="cuda")
+        cpu = MLP(sizes, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        x = torch.randn(4096, sizes[0], generator=g)
+        xc = x.cuda()
+        for wn in (False, True):
+            if wn:
+                apply_weight_norm(card)
+                apply_weight_norm(cpu)
+            tag = f"MLP({sizes}){' + WeightNorm' if wn else ''}"
+            rows = x[:LAYERS_CHECK_ROWS]
+            for arm, run, tol_out, tol_g in (("fp32", _fwd_bwd, 1e-4, 2e-3),
+                                             ("O1 fp16", o1, 1e-2, 5e-2)):
+                ref_out, ref_g = run(torch, cpu, rows) if arm == "fp32" \
+                    else run(cpu, rows)
+                got_out, got_g = run(torch, card, rows.cuda()) \
+                    if arm == "fp32" else run(card, rows.cuda())
+                want = torch.float32 if arm == "fp32" else torch.float16
+                if got_out.dtype != want or ref_out.dtype != want or any(
+                        t.dtype != torch.float32 for t in got_g.values()):
+                    raise AssertionError(f"{tag} {arm}: output "
+                                         f"{got_out.dtype}, CPU "
+                                         f"{ref_out.dtype}")
+                check(f"{tag} {arm} output (max abs err / max(1, |ref|))",
+                      scaled_err(got_out.cpu(), ref_out)[0], tol_out)
+                err, name = _worst_grad(torch, got_g, ref_g)
+                check(f"{tag} {arm} gradients, worst {name} (|card - CPU| "
+                      f"/ |CPU| in norm)", err, tol_g)
+            t32 = median_ms(lambda: _fwd_bwd(torch, card, xc), reps=5,
+                            inner=3, warmup=2)[0]
+            t16 = median_ms(lambda: o1(card, xc), reps=5, inner=3,
+                            warmup=2)[0]
+            print(f"  {tag}: forward + backward at batch 4096 {t32:.3f} ms "
+                  f"fp32, {t16:.3f} ms under O1 (fp16)")
+            out[tag] = dict(fp32_ms=t32, o1_ms=t16)
+        del card, cpu, x, xc
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4972,6 +5710,7 @@ def main():
     from apex_tpu_torch.contrib.multihead_attn import attn_funcs
     from apex_tpu_torch.models import bert, dcgan, gpt, llama
 
+    t_all = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -5088,8 +5827,21 @@ def main():
           f"{bert_drop_nums['step_ms']:.2f}")
     paths["bert_amp_O2"], bert_amp_seq_s = bert_amp_path(torch, dispatch,
                                                          bert)
+    paths["bert_novograd"], novograd_nums = bert_novograd_path(
+        torch, dispatch, bert)
+    paths["bert_novograd_amp_O2"] = bert_novograd_amp_iteration(
+        torch, dispatch, bert)
     bert_cpu_phase(torch, bert, attn_funcs)
     print(f"BERT phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    paths["llama_lora_train"], paths["llama_lora_generate"], lora_nums = \
+        llama_lora_path(torch, dispatch, gpt, llama, multi_tensor)
+    print(f"LoRA phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    legacy = legacy_optimizer_phase(torch, shapes)
+    layers = layers_phase(torch)
+    print(f"legacy optimizer and layer phases: "
+          f"{time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     o1_kernels = o1_kernel_phase(torch, multi_tensor, models, dcgan)
     paths["o1_resnet18"], o1_resnet = o1_resnet_path(torch, dispatch, models)
@@ -5288,7 +6040,9 @@ def main():
                              if k.startswith("adam_dcgan_")},
              o1_dcgan_iterations_per_s=o1_dcgan["iterations_per_s"],
              o1_gan_step_iterations_per_s=o1_dcgan[
-                 "gan_step_iterations_per_s"]),
+                 "gan_step_iterations_per_s"],
+             lora_case=lora_nums["adam"],
+             lora_step_tokens_per_s=lora_nums["tokens_per_s"]),
         dict(name="fused_sgd", route="cuda",
              source="apex_tpu_torch/csrc/multi_tensor_sgd.cu",
              replaces=f"{fb}multi_tensor.py:129 (_sgd_kernel :106, "
@@ -5303,7 +6057,11 @@ def main():
     print(json.dumps({"bert_base": dict(train=bert_nums,
                                         train_attn_dropout=bert_drop_nums,
                                         amp_o2_sequences_per_s=bert_amp_seq_s),
+                      "bert_base_novograd_turns": novograd_nums,
                       "llama_125m_train": llama_nums,
+                      "llama_125m_lora": {k: v for k, v in lora_nums.items()
+                                          if k != "adam"},
+                      "legacy_optimizers": legacy, "layers": layers,
                       "amp_o1": dict(
                           resnet18_images_per_s=o1_resnet["images_per_s"],
                           resnet18_profiled_iteration=o1_resnet["profiled"],
@@ -5317,6 +6075,7 @@ def main():
                       "gpt2_small_chunked_step_ms": dict(
                           attn_dropout_0=chunked_ms,
                           attn_dropout_01=drop_ms)}))
+    print(f"chip_smoke wall time: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

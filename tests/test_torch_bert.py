@@ -29,6 +29,7 @@ from apex_tpu_torch.models import BertForMaskedLM, bert_base, \
     from_jax_state_dict
 from apex_tpu_torch.optimizers import FusedLAMB
 from apex_tpu_torch.training import make_train_step
+from torch_products import value_products
 
 torch.set_num_threads(2)
 
@@ -86,8 +87,10 @@ def test_logits_loss_and_gradients_match_jax(pair):
                                rtol=1e-5, atol=1e-5)
     # the gathered head equals the full head gathered, and arrives either
     # as a keyword or inside the (ids, positions) model input
-    gathered = tm((t[0], t[3]), t[1], t[2])
-    assert torch.equal(gathered, tm(t[0], t[1], t[2], mlm_positions=t[3]))
+    with value_products():      # the two forwards' products alike
+        gathered = tm((t[0], t[3]), t[1], t[2])
+        again = tm(t[0], t[1], t[2], mlm_positions=t[3])
+    assert torch.equal(gathered, again)
     want = torch.gather(tfull, 1, t[3][..., None].expand(-1, -1, V))
     np.testing.assert_allclose(gathered.detach().numpy(),
                                want.detach().numpy(), rtol=1e-5, atol=1e-6)
@@ -170,15 +173,16 @@ def test_attention_dropout_training_is_reproducible():
     ids, types, mask, pos, labels = (torch.from_numpy(a)
                                      for a in _batch(2))
     losses = []
-    for seed in (9, 9, 10):
-        m.zero_grad()
-        out = m(ids, types, mask, mlm_positions=pos,
-                generator=torch.Generator().manual_seed(seed))
-        loss = _torch_mlm_loss(out, labels)
-        loss.backward()
-        losses.append((float(loss.detach()),
-                       m.bert.layers[0].attn.in_proj_weight
-                       .grad.clone()))
+    with value_products():      # the runs' products alike
+        for seed in (9, 9, 10):
+            m.zero_grad()
+            out = m(ids, types, mask, mlm_positions=pos,
+                    generator=torch.Generator().manual_seed(seed))
+            loss = _torch_mlm_loss(out, labels)
+            loss.backward()
+            losses.append((float(loss.detach()),
+                           m.bert.layers[0].attn.in_proj_weight
+                           .grad.clone()))
     assert np.isfinite(losses[0][0])
     assert losses[0][0] == losses[1][0]
     assert torch.equal(losses[0][1], losses[1][1])

@@ -21,6 +21,7 @@ from apex_tpu.kernels.dispatch import force_mode
 
 from apex_tpu_torch.kernels import attention
 from apex_tpu_torch.kernels.dispatch import counts
+from torch_products import value_products
 
 torch.set_num_threads(2)
 
@@ -93,30 +94,23 @@ def _drop(p, offsets, seed=-99):
 
 
 @pytest.fixture
-def one_scores_tensor(monkeypatch):
-    """Every call of the plain versions' ``_scores`` on the same inputs
-    returns one tensor, so the two models under comparison share their
-    q.k^T product.  The rest of their arithmetic is theirs: the tc model
-    differs from the plain version only in what it does to p and ds.
+def products_by_value():
+    """Every matrix product in the attention module's plain versions and
+    tc models (q.k^T, p.v, dp, dq, dk, dv) is a pure function of its
+    operands' values for the test (``torch_products``), so the two models
+    under comparison take the same bits wherever they multiply the same
+    values, and differ wherever their operands do.  The rest of their
+    arithmetic is theirs.
 
-    (Without it, some whole runs of the suite found the first case's
-    ``lse`` apart between the two models with ``out`` equal: the mark of
-    a last-bit difference in a row's largest score, which the softmax's
-    shift cancels and ``lse`` keeps.  CPU matrix products are not promised
-    to give the same bits twice.)"""
-    real, memo = attention._scores, {}
-
-    def scores(*args):
-        key = tuple(id(a) if isinstance(a, torch.Tensor) else a
-                    for a in args)
-        if key not in memo:
-            memo[key] = (args, real(*args))    # args keep the ids alive
-        return memo[key][1]
-    monkeypatch.setattr(attention, "_scores", scores)
+    (CPU matrix products are not promised to give the same bits twice:
+    whole runs of the suite found the first case's ``lse`` apart with
+    ``out`` equal when only q.k^T was shared between the models.)"""
+    with value_products():
+        yield
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
-def test_tc_models_are_the_plain_versions_at_fp32(case, one_scores_tensor):
+def test_tc_models_are_the_plain_versions_at_fp32(case, products_by_value):
     bh, sq, sk, causal, bias, window, p, offsets = case
     q, k, v, g, b = map(lambda a: None if a is None else torch.from_numpy(a),
                         _case(sq + sk, bh, sq, sk, bias=bias))

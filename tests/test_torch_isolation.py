@@ -39,11 +39,20 @@ def test_importing_the_port_loads_no_jax_module():
         f"{FORBIDDEN!r})\n"
         "print(len([n for n in sys.modules if n.startswith("
         "'apex_tpu_torch.')]), bad)\n"
+        "print(' '.join(n for n in sys.modules if n.startswith("
+        "'apex_tpu_torch.')))\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 12     # every module was imported
+    loaded = set(res.stdout.splitlines()[1].split())
+    for name in ("optimizers.fused_novograd", "contrib.optimizers.fused_adam",
+                 "contrib.optimizers.fused_lamb",
+                 "contrib.optimizers.fp16_optimizer", "mlp.mlp",
+                 "reparameterization.reparameterization",
+                 "reparameterization.weight_norm", "reparameterization.lora"):
+        assert f"apex_tpu_torch.{name}" in loaded, name
 
 
 def test_port_sources_import_nothing_of_jax():

@@ -216,9 +216,13 @@ def test_train_step_with_fused_lamb_skips_an_overflow():
 
 
 def test_other_optimizers_are_refused_naming_their_owner():
+    """An optimizer other than the four fused ones raises the JAX step's
+    TypeError, which names the supported ones (every fused optimizer of
+    the JAX step is ported)."""
     tm = GptModel(**CFG, device="cpu")
     sgd = torch.optim.SGD(tm.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(TypeError, match="supported: FusedSGD, FusedAdam, "
+                                        "FusedLAMB, FusedNovoGrad"):
         make_train_step(tm, sgd, _torch_loss)
 
 

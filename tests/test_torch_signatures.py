@@ -3,7 +3,8 @@
 For each callable of the port that has a JAX twin on this slice's paths
 (the models, the attention module and functions, the flash kernels'
 wrappers, the LAMB optimizer and op, the data-parallel surface, the legacy
-amp and fp16_utils API, O1's registry and the GAN step), every parameter
+amp and fp16_utils API, O1's registry, the GAN step, NovoGrad, the contrib
+optimizers, the MLP and the reparameterizations), every parameter
 of the JAX signature exists in the port's with the same default (a dtype
 default by its name); the port may add ``device``, ``dtype`` and
 ``generator`` parameters, and the kernels' ``interpret`` switch has no
@@ -24,6 +25,9 @@ import apex_tpu.models.bert as jax_bert
 import apex_tpu.models.gpt as jax_gpt
 import apex_tpu.models.llama as jax_llama
 import apex_tpu.contrib.groupbn as jax_groupbn
+import apex_tpu.contrib.optimizers as jax_contrib_optimizers
+import apex_tpu.mlp as jax_mlp
+import apex_tpu.reparameterization as jax_reparam
 import apex_tpu.nn as jax_nn
 import apex_tpu.nn.functional as jax_F
 import apex_tpu.ops.multi_tensor as jax_ops
@@ -50,6 +54,9 @@ import apex_tpu_torch.models.bert as bert
 import apex_tpu_torch.models.gpt as gpt
 import apex_tpu_torch.models.llama as llama
 import apex_tpu_torch.contrib.groupbn as groupbn
+import apex_tpu_torch.contrib.optimizers as contrib_optimizers
+import apex_tpu_torch.mlp as mlp
+import apex_tpu_torch.reparameterization as reparam
 import apex_tpu_torch.nn as nn
 import apex_tpu_torch.nn.functional as F
 import apex_tpu_torch.ops.multi_tensor as ops
@@ -91,24 +98,57 @@ PAIRS = [
     (jax_fp16_utils, fp16_utils, "network_to_half"),
     (jax_fp16_utils, fp16_utils, "prep_param_lists"),
     (jax_training, training, "make_gan_train_step"),
+    (jax_optimizers, optimizers, "FusedNovoGrad"),
+    (jax_ops, ops, "multi_tensor_novograd"),
+    (jax_contrib_optimizers, contrib_optimizers, "FusedAdam"),
+    (jax_contrib_optimizers, contrib_optimizers, "FusedLAMB"),
+    (jax_contrib_optimizers, contrib_optimizers, "FP16_Optimizer"),
+    (jax_contrib_optimizers.FusedAdam, contrib_optimizers.FusedAdam, "step"),
+    (jax_mlp, mlp, "MLP"), (jax_mlp, mlp, "mlp_function"),
+    (jax_reparam, reparam, "apply_weight_norm"),
+    (jax_reparam, reparam, "remove_weight_norm"),
+    (jax_reparam, reparam, "apply_reparameterization"),
+    (jax_reparam, reparam, "remove_reparameterization"),
+    (jax_reparam, reparam, "apply_lora"),
+    (jax_reparam, reparam, "lora_parameters"),
+    (jax_reparam, reparam, "WeightNorm"), (jax_reparam, reparam, "LoRA"),
+    (jax_reparam.Reparameterization, reparam.Reparameterization, "apply"),
+    (jax_reparam.Reparameterization, reparam.Reparameterization,
+     "get_module_and_name"),
+    (jax_reparam.Reparameterization, reparam.Reparameterization, "remove"),
 ]
 NO_COUNTERPART = {"interpret"}
 
 
 def _default_key(value):
     """A default as compared across the packages: a dtype by its name
-    (``jnp.bfloat16`` is ``torch.bfloat16``), anything else as it is."""
+    (``jnp.bfloat16`` is ``torch.bfloat16``), a class of either package
+    by its name, anything else as it is."""
     if isinstance(value, torch.dtype):
         return ("dtype", str(value).replace("torch.", ""))
     if isinstance(value, type) and hasattr(value, "dtype"):
         import jax.numpy as jnp
         return ("dtype", jnp.dtype(value).name)
+    if isinstance(value, type) and value.__module__.split(".")[0] in (
+            "apex_tpu", "apex_tpu_torch"):
+        # a class of either package by its name (Reparameterization)
+        return ("class", value.__qualname__)
     return value
 
 
-@pytest.mark.parametrize("jax_mod,port_mod,name", PAIRS,
-                         ids=[f"{p[1].__name__.split('.')[-1]}.{p[2]}"
-                              for p in PAIRS])
+def _ids(pairs):
+    """``module.name``, with the module's path in the port where two
+    modules share their last name (``optimizers`` and
+    ``contrib.optimizers``)."""
+    out = []
+    for _, mod, name in pairs:
+        short = f"{mod.__name__.split('.')[-1]}.{name}"
+        out.append(short if short not in out else
+                   f"{mod.__name__.replace('apex_tpu_torch.', '')}.{name}")
+    return out
+
+
+@pytest.mark.parametrize("jax_mod,port_mod,name", PAIRS, ids=_ids(PAIRS))
 def test_every_jax_parameter_exists_with_its_default(jax_mod, port_mod, name):
     want = inspect.signature(getattr(jax_mod, name)).parameters
     got = inspect.signature(getattr(port_mod, name)).parameters

@@ -313,8 +313,11 @@ def test_unported_make_train_step_options_raise():
                dict(telemetry=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_train_step(tm, opt, _torch_loss, **kw)
+    # every fused optimizer of the JAX step is ported; another one raises
+    # the JAX step's TypeError
     sgd = torch.optim.SGD(tm.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="only FusedAdam"):
+    with pytest.raises(TypeError, match="supported: FusedSGD, FusedAdam, "
+                                        "FusedLAMB, FusedNovoGrad"):
         make_train_step(tm, sgd, _torch_loss)
 
 

@@ -32,6 +32,7 @@ from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
 from apex_tpu_torch.multi_tensor_apply import multi_tensor_applier
 from apex_tpu_torch.normalization import fused_layer_norm, \
     fused_layer_norm_affine
+from torch_products import value_products
 
 torch.set_num_threads(2)
 
@@ -235,14 +236,18 @@ def test_grad_off_forward_saves_nothing_and_matches():
     q, k, v = (torch.from_numpy(r.normal(size=(2, 3, 9, 8))
                                 .astype(np.float32)).requires_grad_(True)
                for _ in range(3))
-    with_grad = (fused_layer_norm_affine(x, w, b, (32,)),
-                 attn_funcs.flash_attention(q, k, v, causal=True))
+    with value_products():      # the calls' products alike
+        with_grad = (fused_layer_norm_affine(x, w, b, (32,)),
+                     attn_funcs.flash_attention(q, k, v, causal=True))
+        got = {}
+        for mode in (torch.no_grad, torch.inference_mode):
+            with mode():
+                got[mode] = (fused_layer_norm_affine(x, w, b, (32,)),
+                             attn_funcs.flash_attention(q, k, v,
+                                                        causal=True))
     assert all(t.grad_fn is not None for t in with_grad)
-    for mode in (torch.no_grad, torch.inference_mode):
-        with mode():
-            got = (fused_layer_norm_affine(x, w, b, (32,)),
-                   attn_funcs.flash_attention(q, k, v, causal=True))
-        for a, want in zip(got, with_grad):
+    for outs in got.values():
+        for a, want in zip(outs, with_grad):
             assert a.grad_fn is None
             assert torch.equal(a, want.detach())
 
