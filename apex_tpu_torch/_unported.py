@@ -2,13 +2,12 @@
 
 The port's callables take every keyword argument of their JAX twins, under
 the same names and defaults.  A value that asks for something not ported
-(a mesh axis, tensor or sequence parallelism, experts, rematerialisation)
-raises ``NotImplementedError`` naming the ROADMAP item that owns it.
+(a mesh axis, tensor or sequence parallelism, experts) raises
+``NotImplementedError`` naming the ROADMAP item that owns it.
 """
 from __future__ import annotations
 
 PARALLEL = "ROADMAP A9, parallelism beyond single-process DP"
-REMAT = "ROADMAP A4, remat"
 
 
 def refuse(what, owner):

@@ -11,11 +11,13 @@ Attention dropout rides inside the kernels, its mask the hash of
 which the backward replays from the seed vector the Function saves.
 ``self_attn_func`` keeps the JAX package's per-head INTERLEAVED QKV layout:
 the in-projection output is reshaped to (T, B*H, 3, D), so weight rows
-group as [q_h, k_h, v_h] per head, not torch's [Q; K; V] blocks.  On the
-flash path its dropout seed is one int32 drawn from the caller's
-``generator`` on the inputs' device (:func:`draw_dropout_seed`), a fresh
-one per call, as each JAX layer draws from a key of its own.  The tensor-
-and sequence-parallel branches come with later slices.
+group as [q_h, k_h, v_h] per head, not torch's [Q; K; V] blocks;
+``encdec_attn_func`` projects q from the decoder stream and an interleaved
+(k, v) pair per head from the encoder stream.  On the flash path their
+dropout seed is one int32 drawn from the caller's ``generator`` on the
+inputs' device (:func:`draw_dropout_seed`), a fresh one per call, as each
+JAX layer draws from a key of its own.  The tensor- and sequence-parallel
+branches come with later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import math
 
 import torch
 
+from ..._unported import PARALLEL, accept_defaults
 from ...amp.policy import no_casts
 from ...kernels import attention as _k
 from ...kernels.dispatch import MASKED_FILL
@@ -209,3 +212,46 @@ def self_attn_func(use_time_mask, is_training, heads, scale, inputs,
     if output_biases is not None:
         out = out + output_biases
     return out
+
+
+@no_casts
+def encdec_attn_func(use_time_mask, is_training, heads, scale, inputs_q,
+                     inputs_kv, input_weights_q, input_weights_kv,
+                     output_weights, mask=None, dropout_prob=0.0,
+                     generator=None, use_flash=False,
+                     tensor_parallel_axis=None):
+    """Encoder-decoder attention: q from ``inputs_q (Tq, B, E)``, an
+    interleaved (k, v) projection of ``inputs_kv (Tk, B, E)`` (weight rows
+    grouped [k_h, v_h] per head), attention over the encoder positions
+    (never causal; ``mask`` a key-padding (B, Tk) or time (Tq, Tk) mask),
+    output projection.  ``use_flash`` and ``generator`` as in
+    :func:`self_attn_func`.  ``tensor_parallel_axis`` is taken at its
+    default and refused otherwise."""
+    accept_defaults("encdec_attn_func: tensor parallelism", PARALLEL,
+                    tensor_parallel_axis=(tensor_parallel_axis, None))
+    tq, b, e = inputs_q.shape
+    tk = inputs_kv.shape[0]
+    head_dim = e // heads
+    q = torch.matmul(inputs_q, input_weights_q.t())
+    kv = torch.matmul(inputs_kv, input_weights_kv.t())
+    kv = kv.reshape(tk, b * heads, 2, head_dim)
+    q3 = q.reshape(tq, b * heads, head_dim).transpose(0, 1)
+    k3, v3 = kv[:, :, 0].transpose(0, 1), kv[:, :, 1].transpose(0, 1)
+    bias = _masks_to_bias(mask, use_time_mask, b, heads, tq, tk)
+    if bias is not None:
+        bias = bias.to(inputs_q.device)
+    dropout = dropout_prob if is_training else 0.0
+    if use_flash:
+        seed = draw_dropout_seed(generator, inputs_q.device) \
+            if dropout > 0.0 else None
+        ctx4 = flash_attention(q3.reshape(b, heads, tq, head_dim),
+                               k3.reshape(b, heads, tk, head_dim),
+                               v3.reshape(b, heads, tk, head_dim),
+                               bias=bias, causal=False, scale=scale,
+                               dropout_p=dropout, dropout_seed=seed)
+        ctx3 = ctx4.reshape(b * heads, tq, head_dim)
+    else:
+        ctx3 = _attn_with_dropout(q3, k3, v3, bias, heads, scale, dropout,
+                                  generator)
+    ctx = ctx3.transpose(0, 1).reshape(tq, b, e)
+    return torch.matmul(ctx, output_weights.t())

@@ -13,8 +13,9 @@ layout.  In training mode the embedding, residual and attention dropout draw
 from the ``generator`` passed to ``forward`` (the attention dropout as the
 seed of the flash kernels' hash mask).  Parameter names are the JAX
 package's, so :func:`apex_tpu_torch.models.convert.from_jax_state_dict`
-carries weights across one to one.  ``remat``, ``sp_axis`` and ``tp_axis``
-are taken at their defaults and refused otherwise.
+carries weights across one to one.  ``remat`` runs each encoder layer
+through :func:`apex_tpu_torch.nn.checkpoint_forward`; ``sp_axis`` and
+``tp_axis`` are taken at their defaults and refused otherwise.
 """
 from __future__ import annotations
 
@@ -22,9 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._unported import PARALLEL, REMAT, accept_defaults
+from .._unported import PARALLEL, accept_defaults
 from ..contrib.multihead_attn import SelfMultiheadAttn
 from ..kernels.dispatch import resolve_device
+from ..nn.modules import checkpoint_forward
 from ..normalization import FusedLayerNorm
 from .gpt import dropout
 
@@ -75,14 +77,13 @@ class BertModel(nn.Module):
                  dropout=0.1, attn_dropout=0.1, remat=False, sp_axis=None,
                  tp_axis=None, device=None, dtype=torch.float32):
         super().__init__()
-        accept_defaults("BertModel: rematerialisation", REMAT,
-                        remat=(remat, False))
         accept_defaults("BertModel: tensor and sequence parallelism",
                         PARALLEL, sp_axis=(sp_axis, None),
                         tp_axis=(tp_axis, None))
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.hidden = hidden
         self.max_positions = max_positions
+        self.remat = remat
         self.tok_emb = nn.Embedding(vocab_size, hidden, **kw)
         self.pos_emb = nn.Embedding(max_positions, hidden, **kw)
         self.type_emb = nn.Embedding(type_vocab, hidden, **kw)
@@ -110,7 +111,10 @@ class BertModel(nn.Module):
         x = x.transpose(0, 1)                  # (S, B, E)
         kpm = None if attention_mask is None else attention_mask == 0
         for layer in self.layers:
-            x = layer(x, key_padding_mask=kpm, generator=generator)
+            if self.remat:
+                x = checkpoint_forward(layer, x, kpm, generator)
+            else:
+                x = layer(x, key_padding_mask=kpm, generator=generator)
         return x.transpose(0, 1)
 
 

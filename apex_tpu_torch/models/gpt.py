@@ -23,10 +23,12 @@ tied head itself and the ``(B, S, V)`` logits never exist whole; the cached
 paths apply the head themselves and are unaffected.
 
 Attention dropout (``attn_dropout``, 0.1 by default) runs inside the flash
-kernels, seeded from the same ``generator``.  The JAX package's
-mixture-of-experts, tensor- and sequence-parallel and rematerialisation
-arguments are taken at their defaults and refused otherwise
-(``NotImplementedError`` naming the ROADMAP item that owns them).
+kernels, seeded from the same ``generator``.  ``remat`` runs each block
+through :func:`apex_tpu_torch.nn.checkpoint_forward`, its activations
+recomputed in the backward.  The JAX package's mixture-of-experts, tensor-
+and sequence-parallel arguments are taken at their defaults and refused
+otherwise (``NotImplementedError`` naming the ROADMAP item that owns
+them).
 """
 from __future__ import annotations
 
@@ -34,11 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._unported import PARALLEL, REMAT, accept_defaults
+from .._unported import PARALLEL, accept_defaults
 from ..contrib.multihead_attn import SelfMultiheadAttn
 from ..contrib.multihead_attn.attn_funcs import flash_attention
 from ..inference.quant import kv_value, kv_write, make_kv_cache
 from ..kernels.dispatch import MASKED_FILL, resolve_device
+from ..nn.modules import checkpoint_forward
 from ..normalization import FusedLayerNorm
 
 
@@ -167,8 +170,6 @@ class GptModel(nn.Module):
                  pad_vocab_multiple=None, output_hidden=False, device=None,
                  dtype=torch.float32):
         super().__init__()
-        accept_defaults("GptModel: rematerialisation", REMAT,
-                        remat=(remat, False))
         accept_defaults("GptModel: tensor and sequence parallelism",
                         PARALLEL, sp_axis=(sp_axis, None),
                         tp_axis=(tp_axis, None), tp_vocab=(tp_vocab, False))
@@ -181,6 +182,7 @@ class GptModel(nn.Module):
             moe_top_k=(moe_top_k, 1), moe_aux_weight=(moe_aux_weight, 0.01))
         device = resolve_device(device)
         self.output_hidden = output_hidden
+        self.remat = remat
         intermediate = intermediate or 4 * hidden
         # pad_vocab_multiple rounds the table up to a multiple; the pad
         # columns of the logits are masked to -1e30
@@ -215,7 +217,8 @@ class GptModel(nn.Module):
                     self.drop.p, self.training, generator)
         x = x.transpose(0, 1)                  # (S, B, E)
         for blk in self.blocks:
-            x = blk(x, generator)
+            x = checkpoint_forward(blk, x, generator) if self.remat \
+                else blk(x, generator)
         x = self.ln_f(x).transpose(0, 1)       # (B, S, E)
         emb = self.tok_emb.weight
         if self.output_hidden:

@@ -24,8 +24,8 @@ head itself.
 
 Owed to later slices, and refused with ``NotImplementedError``: tensor and
 sequence parallelism (``tp_axis``, ``sp_axis``) and the mixture of experts
-(``moe_axis``, ``moe_num_experts`` and its knobs), ROADMAP A9;
-rematerialisation (``remat``), A4; cached decode with ``sliding_window``
+(``moe_axis``, ``moe_num_experts`` and its knobs), ROADMAP A9; cached
+decode with ``sliding_window``
 (the rolling window cache of ``inference/rolling.py`` and the chunked
 prefill over it), A5.  Each is taken at its JAX default.
 """
@@ -35,10 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._unported import PARALLEL, REMAT, accept_defaults, refuse
+from .._unported import PARALLEL, accept_defaults, refuse
 from ..contrib.multihead_attn.attn_funcs import flash_attention
 from ..inference.quant import kv_value, kv_write, make_kv_cache
 from ..kernels.dispatch import MASKED_FILL, resolve_device
+from ..nn.modules import checkpoint_forward
 from ..normalization import FusedRMSNorm
 
 
@@ -226,13 +227,12 @@ class LlamaModel(nn.Module):
             moe_every=(moe_every, 2),
             moe_capacity_factor=(moe_capacity_factor, 1.25),
             moe_top_k=(moe_top_k, 1), moe_aux_weight=(moe_aux_weight, 0.01))
-        accept_defaults("LlamaModel: rematerialisation", REMAT,
-                        remat=(remat, False))
         if sliding_window is not None and sliding_window < 1:
             raise ValueError(f"sliding_window must be >= 1, got "
                              f"{sliding_window}")
         device = resolve_device(device)
         self.output_hidden = output_hidden
+        self.remat = remat
         self.vocab_size = vocab_size
         self.hidden = hidden
         self.max_positions = max_positions
@@ -266,7 +266,8 @@ class LlamaModel(nn.Module):
                                self.blocks[0].head_dim, self.rope_theta)
         x = self.tok_emb(input_ids)
         for blk in self.blocks:
-            x = blk(x, cos, sin)
+            x = checkpoint_forward(blk, x, cos, sin) if self.remat \
+                else blk(x, cos, sin)
         x = self.norm(x)
         if self.output_hidden:
             return x, self.lm_head.weight

@@ -1,4 +1,4 @@
 from . import functional
-from .modules import to_channels_last
+from .modules import checkpoint_forward, to_channels_last
 
-__all__ = ["functional", "to_channels_last"]
+__all__ = ["checkpoint_forward", "functional", "to_channels_last"]

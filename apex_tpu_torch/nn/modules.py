@@ -1,5 +1,6 @@
-"""``to_channels_last``, the PyTorch counterpart of
-``apex_tpu/nn/modules.py::to_channels_last``.
+"""``to_channels_last`` and ``checkpoint_forward``, the PyTorch
+counterparts of ``apex_tpu/nn/modules.py::to_channels_last`` and
+``::checkpoint_forward``.
 
 The port's layers are ``torch.nn``'s own, whose 2-d convolutions, batch
 norms and pools take (B, C, H, W) tensors.  Flipped, each takes and returns
@@ -11,11 +12,16 @@ permutes its output back, so no layer boundary copies.  The port's
 ``SyncBatchNorm`` has its own NHWC path (``channel_last``) and is switched
 through that flag.  Parameters, buffers and the state dict keep their
 names and shapes; a conv weight stays OIHW, in ``CONV_WEIGHT_FORMAT``.
+
+``checkpoint_forward`` runs a module with its activations recomputed in
+the backward (``torch.utils.checkpoint``, non-reentrant), the models'
+``remat``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.nn.modules.batchnorm import _BatchNorm
 from torch.nn.modules.conv import _ConvTransposeNd
 from torch.nn.modules.instancenorm import _InstanceNorm
@@ -87,3 +93,56 @@ def to_channels_last(module, enabled=True):
                 m.register_forward_hook(_to_nhwc))
     return conv_weights_to(module, CONV_WEIGHT_FORMAT if enabled
                            else torch.contiguous_format)
+
+
+def checkpoint_forward(module, *inputs, **kwargs):
+    """``module(*inputs, **kwargs)`` with the activations inside it
+    recomputed in the backward instead of saved
+    (``torch.utils.checkpoint``, non-reentrant), trading operations for
+    device memory.
+
+    The recomputation runs when autograd reaches the module, which may be
+    after the caller's parameter substitution has ended (the fused train
+    step differentiates its half-precision leaves after
+    ``torch.func.functional_call`` returns).  So the parameters and buffers
+    the module holds at the call are captured and substituted again, by
+    ``functional_call``, in the recomputation, as the JAX function passes
+    their values as arguments.  A ``torch.Generator`` among the arguments
+    (the dropout masks' and the flash kernels' seeds) is rewound to its
+    state at the call for the recomputation, so it draws the same masks,
+    and put back after it, as the JAX function replays its key counter;
+    amp O1's active cast policy is restored for it too.  A module that
+    would write running statistics (a batch norm in training) is refused,
+    as in the JAX package."""
+    from torch.utils.checkpoint import checkpoint
+
+    from ..amp.policy import autocast, current_policy
+    if any(m.training and getattr(m, "running_mean", None) is not None
+           for m in module.modules()):
+        raise ValueError(
+            "checkpoint_forward: module writes running statistics "
+            "(BatchNorm?) — stat updates cannot cross the remat boundary; "
+            "exclude such modules from checkpointing")
+    held = dict(module.named_parameters())
+    held.update(module.named_buffers())
+    gens = [a for a in (*inputs, *kwargs.values())
+            if isinstance(a, torch.Generator)]
+    at_call = [g.get_state() for g in gens]
+    policy = current_policy()
+    ran = []
+
+    def run(*xs):
+        if not ran:             # the forward: the module as it stands
+            ran.append(True)
+            return module(*xs, **kwargs)
+        after = [g.get_state() for g in gens]
+        for g, state in zip(gens, at_call):
+            g.set_state(state)
+        try:
+            with autocast(policy):
+                return functional_call(module, held, xs, kwargs)
+        finally:
+            for g, state in zip(gens, after):
+                g.set_state(state)
+
+    return checkpoint(run, *inputs, use_reentrant=False)

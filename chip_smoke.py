@@ -243,15 +243,44 @@ Phases, each of which raises on failure:
 24. ``mlp.MLP`` ([480, 1024, 1024, 1] and [1024, 4096, 4096, 1024]) and
    the same under ``apply_weight_norm``: forward and backward in fp32 and
    under amp O1's half policy, card against CPU on 128 rows, then timed on
-   the card at batch 4096.
+   the card at batch 4096;
+25. (after phase 20) encoder-decoder attention, seq2seq, ViT, remat and
+   the RNNs.  With phase 2 the flash pair is held at the seq2seq step's
+   (512, 128, 128, 64) bf16 encoder, causal decoder and key-padded
+   cross-attention and ViT-S/16's (192, 197, 197, 64), and on the simt
+   route at ``seq2seq_generate``'s fp32 (64, 65, 128) cross-attention with
+   and without padding, its (64, 65, 65) causal decoder and its padded
+   encoder; LayerNorm forward and backward at (8192, 512), (6304, 384) and
+   (32, 384) bf16 (and the fp32 decode buffer's (520, 512) forward).  Here:
+   those flash shapes timed beside the plain versions, SDPA forward and
+   backward and their bounds; the bench's seq2seq step
+   (``transformer_seq2seq``: vocab 32000, 6 + 6 layers, hidden 512,
+   ``FusedAdam(lr 1e-3)``, bf16, chunked loss, batch 64 x 128 copy-task
+   pairs: flash 18/18/18, LayerNorm 31/31/31, 10 timed steps, a profiled
+   step, one step at attention dropout 0.1 with a padded source);
+   ``seq2seq_generate`` (fp32, batch 8, source 128 half padded after 96, 64
+   greedy tokens: flash 774 on simt, LayerNorm 1228), its tokens/s and
+   encoder ms, and a 2 + 2-layer cut, card against CPU (equal tokens, or a
+   first difference at a near-tie of the CPU's logits); the bench's ViT-S/16
+   step (batch 32 x 224 x 224, AdamW wd 0.05, bf16) without and with remat:
+   each arm's launch counts (remat runs each block's forward again:
+   flash 24/12/12, LayerNorm 49/25/25), the masters after one step compared,
+   10 steps an arm in turns (no, yes, yes, no) with peak memory and a
+   profiled step; the Adam kernel at the seq2seq and ViT lists beside
+   ``torch.optim.AdamW(fused=True)``; GPT-2 small's remat arm (chunked loss,
+   16 x 1024, attention dropout 0.1) the same way, and llama_125m and
+   BERT-base cut to 2 layers one step each way; the port's LSTM (2 x 1500,
+   sequence 35, batch 20) and mLSTM (4096 over 64-wide inputs, sequence 64,
+   batch 32) forward and backward timed, and each on the card against the
+   CPU at batch 2.
 
 Every main path's launch counts include the norm kernels' per-route
 counters (each path runs its forwards and backwards on ``vec``), and every
 profiled step prints its device operations (the train steps beside their
 count when the backward's sums were cast after the kernels).  It prints a
 JSON line of the BERT, NovoGrad-turn, Llama-step, LoRA, legacy-optimizer,
-layer, GPT profiled-step, dropout-arm, amp O1, ResNet-50 layout-turn and
-imagenet-arm numbers, its own wall time, one JSON line of per-kernel
+layer, GPT profiled-step, dropout-arm, amp O1, ResNet-50 layout-turn,
+imagenet-arm, seq2seq, ViT, remat and RNN numbers, its own wall time, one JSON line of per-kernel
 numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero before
@@ -276,6 +305,18 @@ AMP_BATCH = 4
 BERT_BATCH, BERT_SEQ = 64, 128
 BERT_MLM = -(-15 * BERT_SEQ // 100)   # gathered MLM positions a sequence
 LR, WD = 6e-4, 0.1
+# the transformer-base seq2seq step (bench.py --seq2seq) and its greedy
+# decode; ViT-S/16's step (bench.py --vit)
+S2S_VOCAB, S2S_BATCH, S2S_SEQ, S2S_LR = 32000, 64, 128, 1e-3
+# rows of one chunk of the seq2seq step's chunked loss (8192 rows in 8)
+S2S_XENT_ROWS = 1024
+GEN_BATCH, GEN_NEW, GEN_PAD_AT = 8, 64, 96
+VIT_BATCH, VIT_TOKENS, VIT_LR, VIT_WD = 32, (224 // 16) ** 2 + 1, 1e-3, 0.05
+# the LayerNorm shapes of the seq2seq step (width 512) and of ViT-S/16's
+# blocks and CLS norm (384), timed beside NORM_SHAPES
+LN_SLICE_SHAPES = (((S2S_BATCH * S2S_SEQ, 512), "bfloat16"),
+                   ((VIT_BATCH * VIT_TOKENS, 384), "bfloat16"),
+                   ((VIT_BATCH, 384), "bfloat16"))
 
 
 def card_line():
@@ -585,7 +626,13 @@ def ln_phase(torch, layer_norm, dispatch):
              ((1280, 768), f16, True, (f32, f16)),
              ((37, 1001), bf16, True, (bf16, bf16)),
              ((37, 1001), f32, True, (f32, bf16)),
-             ((3, 12002), f16, False)]
+             ((3, 12002), f16, False),
+             # the seq2seq step (width 512), ViT-S/16's blocks and CLS
+             # norm (384), seq2seq_generate's fp32 target buffer
+             ((S2S_BATCH * S2S_SEQ, 512), bf16, True, (bf16, bf16)),
+             ((VIT_BATCH * VIT_TOKENS, 384), bf16, True, (bf16, bf16)),
+             ((VIT_BATCH, 384), bf16, True, (bf16, bf16)),
+             ((GEN_BATCH * (GEN_NEW + 1), 512), f32, True)]
 
     def make(case):
         shape, dtype, affine = case[:3]
@@ -612,7 +659,7 @@ def ln_phase(torch, layer_norm, dispatch):
           f"(scalar)")
     times = {f"{shape} {dtype}": norm_times(torch, "ln", layer_norm, shape,
                                             dtype, g, 1e-5)
-             for shape, dtype in NORM_SHAPES}
+             for shape, dtype in NORM_SHAPES + LN_SLICE_SHAPES}
     return dict(max_abs_err=errs[0], scalar_max_abs_err=errs[1],
                 shapes=times)
 
@@ -628,10 +675,10 @@ def _unmasked_pairs(sq, sk, causal, window):
     return total
 
 
-def _keypad_bias(torch, bh, sk):
-    """A key-padding bias (BH, 1, Sk): per batch of 12 heads, the last keys
-    masked at -1e30, a different count for each batch."""
-    pad = torch.zeros((bh // 12 or 1, 1, sk), device="cuda")
+def _keypad_bias(torch, bh, sk, heads=12):
+    """A key-padding bias (BH, 1, Sk): per batch of ``heads`` heads, the
+    last keys masked at -1e30, a different count for each batch."""
+    pad = torch.zeros((bh // heads or 1, 1, sk), device="cuda")
     for i in range(pad.shape[0]):
         pad[i, 0, sk - 1 - (17 * i) % (sk // 2):] = -1e30
     return torch.repeat_interleave(pad, bh // pad.shape[0], dim=0)
@@ -652,7 +699,9 @@ def _flash_want(route, layers, backward=True):
 # The simt route takes fp32 and head dims other than 64; the tc route bf16
 # and fp16 at D = 64: GPT-2 small's and Llama's training shape, BERT's
 # without and with the key-padding bias, a band, ragged sizes, a full bias,
-# the amp loops' fp16.
+# the amp loops' fp16; then the seq2seq step's encoder, decoder (causal) and
+# cross-attention (8 heads, key-padded: "keypad8") and ViT-S/16's 197
+# tokens, whose last tile of keys and rows is partial.
 FLASH_TC_CASES = [
     (TRAIN_BATCH * 12, TRAIN_SEQ, TRAIN_SEQ, 64, "bf16", True, None, None),
     (BERT_BATCH * 12, BERT_SEQ, BERT_SEQ, 64, "bf16", False, None, None),
@@ -661,17 +710,22 @@ FLASH_TC_CASES = [
     (48, 500, 500, 64, "bf16", True, None, None),
     (24, 300, 700, 64, "bf16", False, "full", None),
     (48, 1024, 1024, 64, "fp16", True, None, None),
+    (S2S_BATCH * 8, S2S_SEQ, S2S_SEQ, 64, "bf16", False, None, None),
+    (S2S_BATCH * 8, S2S_SEQ, S2S_SEQ, 64, "bf16", True, None, None),
+    (S2S_BATCH * 8, S2S_SEQ, S2S_SEQ, 64, "bf16", False, "keypad8", None),
+    (VIT_BATCH * 6, VIT_TOKENS, VIT_TOKENS, 64, "bf16", False, None, None),
 ]
 
 
 def _flash_inputs(torch, g, bh, sq, sk, d, dtype, kind, grad=False):
     """q, k, v (and dO with ``grad``) from ``g`` in ``dtype``, and the bias
-    ``kind`` names: None, "keypad" or "full" (1, Sq, Sk)."""
+    ``kind`` names: None, "keypad" (per batch of 12 heads), "keypad8" (of
+    8) or "full" (1, Sq, Sk)."""
     q, k, v, dout = (torch.randn((bh, s, d), generator=g, device="cuda")
                      .to(dtype) for s in (sq, sk, sk, sq))
     bias = None
-    if kind == "keypad":
-        bias = _keypad_bias(torch, bh, sk)
+    if kind in ("keypad", "keypad8"):
+        bias = _keypad_bias(torch, bh, sk, 8 if kind == "keypad8" else 12)
     elif kind == "full":
         bias = torch.randn((1, sq, sk), generator=g, device="cuda")
     return (q, k, v, dout, bias) if grad else (q, k, v, bias)
@@ -735,6 +789,16 @@ def flash_phase(torch, attention):
         (24, 300, 700, 64, f32, False, "full", None),
         (16, 256, 256, 128, f32, True, None, None),
         (8, 200, 200, 40, f16, True, "keypad", None),
+        # seq2seq_generate (fp32, 8 heads): the encoder over the padded
+        # source, the decoder's causal self-attention over its target
+        # buffer and its cross-attention over the source, with and
+        # without the padding
+        (GEN_BATCH * 8, S2S_SEQ, S2S_SEQ, 64, f32, False, "keypad8", None),
+        (GEN_BATCH * 8, GEN_NEW + 1, GEN_NEW + 1, 64, f32, True, None,
+         None),
+        (GEN_BATCH * 8, GEN_NEW + 1, S2S_SEQ, 64, f32, False, None, None),
+        (GEN_BATCH * 8, GEN_NEW + 1, S2S_SEQ, 64, f32, False, "keypad8",
+         None),
     ] + [c[:4] + (dtypes[c[4]],) + c[5:] for c in FLASH_TC_CASES]
     print("flash-attention forward vs plain (err: max abs / max(1, max "
           "|ref|)), on the route the wrapper picks:")
@@ -1359,14 +1423,16 @@ def ln_bwd_phase(torch, layer_norm, dispatch):
              ((BERT_BATCH * BERT_SEQ, n), bf16, bf16),
              ((BERT_BATCH * BERT_MLM, n), bf16, bf16),
              ((37, 1001), bf16, bf16), ((37, 1001), f32, f16),
-             ((64, n), bf16, bf16, "misaligned")]
+             ((64, n), bf16, bf16, "misaligned")] \
+        + [(shape, bf16, bf16) for shape, _ in LN_SLICE_SHAPES]
     print("LayerNorm backward vs plain (the plain version in fp32 on the "
           "same inputs, TF32 off; err: max abs / max(1, max |ref|); "
           "[route]):")
     main = norm_bwd_cases(torch, "ln", layer_norm, dispatch, cases, g)
     times = {f"{shape} {dt} w {wdt}": norm_bwd_times(
         torch, "ln", layer_norm, shape, dt, wdt, g)
-        for shape, dt, wdt in NORM_BWD_SHAPES}
+        for shape, dt, wdt in NORM_BWD_SHAPES + tuple(
+            (shape, dt, dt) for shape, dt in LN_SLICE_SHAPES)}
     return main, times
 
 
@@ -1552,12 +1618,13 @@ def _entry_calls(torch, attention, route, q, k, v, bias, dout, scale, causal,
 
 
 def _flash_yardsticks(torch, attention, q, k, v, bias, out, lse, dout,
-                      scale, causal, drop):
+                      scale, causal, drop=None, heads=12):
     """The least time of the flash forward and backward at these inputs
     (bf16 tensor-core rate, each input read and each output written once),
     the plain versions' times, and ``F.scaled_dot_product_attention``'s
-    forward and backward (its own dropout in the dropout arm; the bias as
-    its additive mask), each without and with dropout."""
+    forward and backward (the bias as its additive mask; batches of
+    ``heads`` heads), each without dropout and, given ``drop``, with it
+    (SDPA's own dropout in that arm)."""
     from torch.nn import functional as F
     bh, s, d = q.shape
     io, extra = bh * s * d * 2, bh * s * 4 + (0 if bias is None
@@ -1570,11 +1637,14 @@ def _flash_yardsticks(torch, attention, q, k, v, bias, out, lse, dout,
         8 * io + extra, 10 * d * pairs, BF16_FLOP_PER_S)
     b4 = s4 = None
     if bias is not None:     # (BH, 1, Sk) -> (B, H, 1, Sk)
-        b4 = bias.view(bh // 12, 12, 1, s).to(q.dtype)
-    q4, k4, v4 = (t.view(bh // 12, 12, s, d).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    g4 = dout.view(bh // 12, 12, s, d)
-    for label, kw, p in (("", {}, 0.0), ("dropout_", drop, drop["dropout_p"])):
+        b4 = bias.view(bh // heads, heads, 1, s).to(q.dtype)
+    q4, k4, v4 = (t.view(bh // heads, heads, s, d).detach()
+                  .requires_grad_(True) for t in (q, k, v))
+    g4 = dout.view(bh // heads, heads, s, d)
+    arms = [("", {}, 0.0)]
+    if drop is not None:
+        arms.append(("dropout_", drop, drop["dropout_p"]))
+    for label, kw, p in arms:
         out_d[label + "plain_fwd_ms"] = median_ms(
             lambda: attention.flash_attention_reference(  # noqa: E731
                 q, k, v, bias, scale, causal, **kw), reps=5, inner=2)[0]
@@ -3015,8 +3085,9 @@ def _xent_case(torch, g, rows, c, dtype, padding_idx, masked):
 def xent_phase(torch, xentropy):
     """The xentropy kernels against their plain versions on the same
     inputs; at the bench shape in fp32 also against F.cross_entropy under
-    autograd; timings at the fused and the chunked shape and at BERT's MLM
-    head.  Returns the two kernel lines' numbers."""
+    autograd; timings at the fused and the chunked shape, at BERT's MLM
+    head and at one chunk of the seq2seq step's chunked loss.  Returns the
+    two kernel lines' numbers."""
     from torch.nn import functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
@@ -3028,7 +3099,8 @@ def xent_phase(torch, xentropy):
         (777, 50304, f16, 0.1, 0, 47), (1001, 50304, f32, 0.1, -1, 47),
         (513, 50257, bf16, 0.1, 0, 0), (37, 1003, f16, 0.0, -1, 0),
         (5, 12345, f32, 0.1, 0, 100),
-        (BERT_BATCH * BERT_MLM, BERT_VOCAB, bf16, 0.0, -1, 0)]  # BERT MLM
+        (BERT_BATCH * BERT_MLM, BERT_VOCAB, bf16, 0.0, -1, 0),  # BERT MLM
+        (S2S_XENT_ROWS, S2S_VOCAB, bf16, 0.0, -1, 0)]  # a seq2seq chunk
     print("xentropy forward/backward vs plain (losses, lse: max abs / max(1, "
           "max |ref|); dx: units in the last place (half) or max abs / max "
           "|ref| (fp32)):")
@@ -3078,7 +3150,8 @@ def xent_phase(torch, xentropy):
 
     numbers = {}
     bert_rows = BERT_BATCH * BERT_MLM
-    for rows, c in ((rows0, 50257), (1023, 50257), (bert_rows, BERT_VOCAB)):
+    for rows, c in ((rows0, 50257), (1023, 50257), (bert_rows, BERT_VOCAB),
+                    (S2S_XENT_ROWS, S2S_VOCAB)):
         x = torch.randn((rows, c), generator=g, device="cuda").to(bf16)
         lab = torch.randint(0, c, (rows,), generator=g, device="cuda")
         gm = torch.full((rows,), 1.0 / rows, device="cuda")
@@ -3123,6 +3196,10 @@ def xent_phase(torch, xentropy):
                chunk_shape=dict(shape="(1023, 50257) bf16",
                                 **numbers[1023][1]),
                bert_shape=dict(shape=bert_shape, **numbers[bert_rows][1]))
+    s2s_shape = f"({S2S_XENT_ROWS}, {S2S_VOCAB}) bf16"
+    for line, i in ((fwd, 0), (bwd, 1)):
+        line["seq2seq_chunk_shape"] = dict(shape=s2s_shape,
+                                           **numbers[S2S_XENT_ROWS][i])
     return fwd, bwd
 
 
@@ -5216,29 +5293,32 @@ def _frozen_grad_gemms_ms(torch, model, rows, chunks):
     return sum(per[s] for s in shapes) + chunks * head, per, head
 
 
-def lora_adam_case(torch, multi_tensor, shapes):
-    """B12 at the LoRA step's list: the factors' shapes, bf16 gradients,
-    fp32 params and moments (depth 4), AdamW at the path's lr and no
-    weight decay; bit for bit against its plain version with the chunk's
-    edges, aligned and one element off, and a set noop flag; timed warm
-    and cold beside its bound, its plain version and
-    ``torch.optim.Adam(fused=True)`` (fp32 gradients), with the step count
-    a host number; then the wrapper as the train step calls it, the step
-    count a device scalar (the bias corrections computed on the device
-    first), warm.  Returns the numbers."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+def adam_list_case(torch, multi_tensor, shapes, what, lr, weight_decay,
+                   library_cls, seed):
+    """B12 at a train step's list: ``shapes`` with bf16 gradients, fp32
+    params and moments (depth 4), AdamW (mode 1) at ``lr`` and
+    ``weight_decay``; bit for bit against its plain version with the
+    chunk's edges, aligned and one element off, and a set noop flag; timed
+    warm and cold beside its bound, its plain version and
+    ``library_cls(fused=True)`` (``torch.optim.Adam`` or ``AdamW``; fp32
+    gradients), with the step count a host number; then the wrapper as the
+    train step calls it, the step count a device scalar (the bias
+    corrections computed on the device first), warm.  Returns the
+    numbers."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     bf16 = torch.bfloat16
     zero = torch.zeros((), dtype=torch.int32, device="cuda")
     n_el = sum(int(torch.Size(s).numel()) for s in shapes)
-    scal = multi_tensor.adam_scalars(LORA_LR, 0.9, 0.999, 1e-8, 3, True,
-                                     0.0, "cuda")
+    scal = multi_tensor.adam_scalars(lr, 0.9, 0.999, 1e-8, 3, True,
+                                     weight_decay, "cuda")
 
     def adam(flag, ls, step=3):
-        multi_tensor.fused_adam(flag, ls, LORA_LR, 0.9, 0.999, 1e-8, step, 1,
-                                True, 0.0)
+        multi_tensor.fused_adam(flag, ls, lr, 0.9, 0.999, 1e-8, step, 1,
+                                True, weight_decay)
 
     def adam_plain(flag, ls):
-        multi_tensor.fused_adam_reference(flag, ls, scal, 1, False)
+        multi_tensor.fused_adam_reference(flag, ls, scal, 1,
+                                          weight_decay != 0.0)
 
     def lists_of(shps, offset=0):
         ls = [[torch.randn(s, generator=g, device="cuda").to(bf16)
@@ -5255,10 +5335,11 @@ def lora_adam_case(torch, multi_tensor, shapes):
         params = [p.clone().requires_grad_(True) for p in ls[1]]
         for p, gr in zip(params, ls[0]):
             p.grad = gr.float()
-        return torch.optim.Adam(params, lr=LORA_LR, fused=True).step
-    tag = (f"Adam, llama_125m LoRA factors (r {LORA_R} on q_proj and v_proj):"
-           f" {len(shapes)} tensors, {n_el} fp32 values, bf16 grads, depth 4")
-    print("Adam kernel at the LoRA step's list:")
+        return library_cls(params, lr=lr, weight_decay=weight_decay,
+                           fused=True).step
+    tag = (f"Adam, {what}: {len(shapes)} tensors, {n_el} fp32 values, bf16 "
+           f"grads, depth 4, lr {lr}, weight decay {weight_decay}")
+    print(f"Adam kernel at {what}:")
     chunk = mt_edge_cases(torch, multi_tensor, tag, shapes, lists_of, adam,
                           adam_plain)
     lists = lists_of(shapes)
@@ -5268,17 +5349,28 @@ def lora_adam_case(torch, multi_tensor, shapes):
     # g read (bf16); p, m and v read and written (fp32)
     r = mt_times(torch, lambda: lists_of(shapes), adam, library, 26 * n_el,
                  15 * n_el)
-    mt_line(f"{tag}, chunk {chunk} (library: torch.optim.Adam(fused=True), "
-            f"fp32 grads; {26 * n_el / 1e6:.2f} MB)", r, plain)
+    mt_line(f"{tag}, chunk {chunk} (library: {library_cls.__module__}."
+            f"{library_cls.__name__}(fused=True), fp32 grads; "
+            f"{26 * n_el / 1e6:.2f} MB)", r, plain)
     lists = lists_of(shapes)
     dev_step = torch.tensor(3, dtype=torch.int32, device="cuda")
     wrapper_ms, wrapper_host_ms = median_ms(
         lambda: adam(zero, lists, dev_step))
     print(f"  the wrapper with a device step count (as the train step calls "
           f"it): {wrapper_ms:.4f} ms device, {wrapper_host_ms:.4f} ms host")
+    del lists
     return dict(shape=tag, chunk=chunk, max_abs_err=0.0, plain_ms=plain,
                 wrapper_device_step_ms=wrapper_ms,
                 wrapper_device_step_host_ms=wrapper_host_ms, **r)
+
+
+def lora_adam_case(torch, multi_tensor, shapes):
+    """B12 at the LoRA step's list (``adam_list_case``): the factors'
+    shapes, no weight decay, beside ``torch.optim.Adam(fused=True)``."""
+    return adam_list_case(
+        torch, multi_tensor, shapes,
+        f"the LoRA step's list (llama_125m factors, r {LORA_R} on q_proj "
+        f"and v_proj)", LORA_LR, 0.0, torch.optim.Adam, SEED + 42)
 
 
 def llama_lora_path(torch, dispatch, gpt, llama, multi_tensor):
@@ -5698,6 +5790,718 @@ def layers_phase(torch):
     return out
 
 
+# --- encoder-decoder attention, seq2seq, ViT, remat and RNN ---------------
+
+# the slice's flash shapes, bf16 on the tc route: (tag, bh, s, causal, bias
+# kind, heads)
+SLICE_FLASH = (
+    ("vit_s16", VIT_BATCH * 6, VIT_TOKENS, False, None, 6),
+    ("seq2seq_encoder_and_cross", S2S_BATCH * 8, S2S_SEQ, False, None, 8),
+    ("seq2seq_decoder_causal", S2S_BATCH * 8, S2S_SEQ, True, None, 8),
+    ("seq2seq_cross_key_padded", S2S_BATCH * 8, S2S_SEQ, False, "keypad8",
+     8))
+# LayerNorm launches of one seq2seq forward: 2 an encoder layer, 3 a
+# decoder layer and the decoder's final norm
+S2S_LN = 2 * 6 + 3 * 6 + 1
+REMAT_TURNS = (False, True, True, False)
+
+
+def slice_flash_times(torch, attention):
+    """The flash pair at SLICE_FLASH's shapes: the forward and the whole
+    backward (both launches and delta) through the wrappers, with the plain
+    versions', SDPA's and the bounds (``_flash_yardsticks``) beside them.
+    Returns {tag: numbers}."""
+    from torch.nn import functional as F
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    out, d = {}, 64
+    print("flash pair at the seq2seq and ViT shapes (bf16, tc route; ms, "
+          "median of back-to-back calls):")
+    for tag, bh, s, causal, kind, heads in SLICE_FLASH:
+        q, k, v, dout, bias = _flash_inputs(torch, g, bh, s, s, d,
+                                            torch.bfloat16, kind, grad=True)
+        scale = d ** -0.5
+        o, lse = attention.flash_attention_fwd(q, k, v, bias, scale, causal)
+        r = dict(shape=f"({bh}, {s}, {s}, {d}) bf16 causal={causal} "
+                       f"bias={kind}")
+        r["fwd_ms"] = median_ms(lambda: attention.flash_attention_fwd(
+            q, k, v, bias, scale, causal))[0]
+        r["bwd_ms"] = median_ms(lambda: attention.flash_attention_bwd(
+            q, k, v, bias, o, lse, dout, scale, causal))[0]
+        r.update(_flash_yardsticks(torch, attention, q, k, v, bias, o, lse,
+                                   dout, scale, causal, heads=heads))
+        print(f"  {tag} {r['shape']}: forward {r['fwd_ms']:.4f} (plain "
+              f"{r['plain_fwd_ms']:.4f}, SDPA {r['library_fwd_ms']:.4f}, "
+              f"bound {r['bound_fwd_ms']:.4f} {r['bound_fwd_by']}); "
+              f"backward {r['bwd_ms']:.4f} (plain {r['plain_bwd_ms']:.4f}, "
+              f"SDPA {r['library_bwd_ms']:.4f}, bound "
+              f"{r['bound_bwd_ms']:.4f} {r['bound_bwd_by']})")
+        out[tag] = r
+        del q, k, v, dout, bias, o, lse
+    # seq2seq_generate's cross-attention: fp32 on the simt route, the
+    # 65-row target buffer over the key-padded 128-token source
+    bh, sq, sk = GEN_BATCH * 8, GEN_NEW + 1, S2S_SEQ
+    q, k, v, bias = _flash_inputs(torch, g, bh, sq, sk, d, torch.float32,
+                                  "keypad8")
+    scale = d ** -0.5
+    r = dict(shape=f"({bh}, {sq}, {sk}, {d}) fp32 non-causal key-padded")
+    r["fwd_ms"] = median_ms(lambda: attention.flash_attention_fwd(
+        q, k, v, bias, scale, False))[0]
+    r["plain_fwd_ms"] = median_ms(lambda: attention.flash_attention_reference(
+        q, k, v, bias, scale, False))[0]
+    m4 = bias.view(GEN_BATCH, 8, 1, sk)
+    q4, k4, v4 = (t.view(GEN_BATCH, 8, -1, d) for t in (q, k, v))
+    r["library_fwd_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=m4, scale=scale))[0]
+    nbytes = (2 * bh * sq * d + 2 * bh * sk * d + bh * sq
+              + bias.numel()) * 4
+    r["bound_fwd_ms"], r["bound_fwd_by"] = bound_ms(
+        nbytes, 4 * d * bh * sq * sk, FP32_FLOP_PER_S)
+    print(f"  seq2seq_generate_cross {r['shape']} (simt): forward "
+          f"{r['fwd_ms']:.4f} (plain {r['plain_fwd_ms']:.4f}, SDPA "
+          f"{r['library_fwd_ms']:.4f}, bound {r['bound_fwd_ms']:.4f} "
+          f"{r['bound_fwd_by']})")
+    out["seq2seq_generate_cross"] = r
+    return out
+
+
+def _timed_steps(torch, step, batch, n):
+    """``n`` steps of ``step(*batch)`` on the host clock ending in a
+    synchronize: (ms a step, peak GiB, the peak's rise in GiB over what was
+    allocated at the start, the losses).  The rise is the steps' own
+    transient memory (activations, gradients, workspaces): it leaves out
+    whatever else the process holds, as other step objects' state."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    losses = [step(*batch) for _ in range(n)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated()
+    return ms, peak / 2 ** 30, (peak - held) / 2 ** 30, \
+        [float(x) for x in losses]
+
+
+def _check_losses(what, values):
+    if not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"{what}: non-finite loss {values}")
+    if not values[-1] < values[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {values}")
+
+
+def _one_step_counts(torch, dispatch, step, batch):
+    """The launch counts of one ``step(*batch)`` and its loss."""
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    loss = step(*batch)
+    torch.cuda.synchronize()
+    return dispatch.counts(), float(loss)
+
+
+def _want(counts, layers, norms, n_norm, again=0, **others):
+    """Expected launch counts of one train step: ``layers`` attention
+    layers on the tc route, ``n_norm`` norms through ``norms`` (LN_NAMES or
+    RMS_NAMES), ``others`` as given, everything else 0; each of ``again``
+    blocks recomputed under remat runs its flash forward and its two norm
+    forwards once more."""
+    want = dict.fromkeys(counts, 0)
+    want.update(_flash_want("tc", layers), **others)
+    want.update(_flash_want("tc", layers + again, backward=False))
+    want.update({k: n_norm + (2 * again if "forward" in k else 0)
+                 for k in norms})
+    return want
+
+
+def _expect(what, counts, want):
+    print(f"  {what}: launches {({k: v for k, v in counts.items() if v})}")
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts} != expected "
+                             f"{want}")
+
+
+def _s2s_batch(torch, dev):
+    """The bench's copy-task pairs from ``numpy.random.default_rng(0)``:
+    ``((src, tgt_in), src)``, src (64, 128) in [1, V), tgt_in = BOS (0)
+    then src[:, :-1]."""
+    import numpy as np
+    src = np.random.default_rng(0).integers(1, S2S_VOCAB,
+                                            (S2S_BATCH, S2S_SEQ))
+    tgt_in = np.concatenate([np.zeros((S2S_BATCH, 1), src.dtype),
+                             src[:, :-1]], axis=1)
+    src, tgt_in = (torch.from_numpy(a).to(dev) for a in (src, tgt_in))
+    return (src, tgt_in), src
+
+
+def _s2s_loss(torch):
+    """The bench's chunked loss over the decoder states and the tied
+    table."""
+    from apex_tpu_torch.contrib.xentropy import chunked_lm_head_loss
+
+    def loss_fn(out, tgt_out):
+        hidden, table = out
+        return chunked_lm_head_loss(hidden, table, tgt_out,
+                                    padding_idx=-1).mean()
+    return loss_fn
+
+
+def seq2seq_train_path(torch, dispatch, models):
+    """The bench's seq2seq step (``bench.py --seq2seq``): transformer-base
+    (vocab 32000, hidden 512, 6 + 6 layers, 8 heads, FFN 2048,
+    max_positions 128, dropout 0.1, attention dropout 0, ``output_hidden``),
+    ``FusedAdam(lr 1e-3)``, bf16 half copies, static scale 1, the chunked
+    loss, batch 64 x 128 copy-task pairs: the launch counts of one step
+    (flash 18/18/18 on tc, LayerNorm 31/31/31, xentropy, Adam 1), 10 timed
+    steps, peak memory, a profiled step; then one step at attention dropout
+    0.1 (all three attentions) with a padded source (lengths 64-128).
+    Returns (counts, dropout-step counts, numbers, parameter shapes)."""
+    import numpy as np
+    from apex_tpu_torch.contrib.multihead_attn import (EncdecMultiheadAttn,
+                                                       SelfMultiheadAttn)
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED)
+    model = models.transformer_seq2seq(
+        vocab_size=S2S_VOCAB, max_positions=S2S_SEQ, attn_dropout=0.0,
+        output_hidden=True, device="cuda")
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(model, FusedAdam(list(model.parameters()),
+                                            lr=S2S_LR),
+                           _s2s_loss(torch), half_dtype=torch.bfloat16,
+                           loss_scale=1.0)
+    batch = _s2s_batch(torch, "cuda")
+    print(f"seq2seq path: make_train_step(transformer_seq2seq, {n_params} "
+          f"parameters in {len(shapes)} tensors, batch {S2S_BATCH} x "
+          f"{S2S_SEQ} copy-task pairs, bf16 half copies, FusedAdam lr "
+          f"{S2S_LR}, chunked loss)")
+    first = [float(step(*batch)) for _ in range(2)]
+    counts, loss = _one_step_counts(torch, dispatch, step, batch)
+    xent = counts["xent_forward"]
+    _expect("one step", counts, _want(counts, 18, LN_NAMES, S2S_LN,
+                                      fused_adam=1, xent_forward=xent,
+                                      xent_backward=xent))
+    if not xent:
+        raise AssertionError("the chunked loss launched no xentropy kernel")
+    ms, peak, rise, losses = _timed_steps(torch, step, batch, 10)
+    values = first + [loss] + losses
+    _check_losses("seq2seq", values)
+    seq_s = S2S_BATCH / ms * 1e3
+    print(f"  step {ms:.2f} ms = {seq_s:.1f} sequences/s "
+          f"({2 * S2S_SEQ * seq_s:.0f} source + target tokens/s; 10 steps, "
+          f"host clock); peak memory {peak:.2f} GiB ({rise:.2f} above "
+          f"what was held before the steps); losses "
+          f"{', '.join(f'{x:.4f}' for x in values)}")
+    prof = _print_profile(torch, lambda: step(*batch), 10)
+    # the in-kernel dropout of all three attentions, the key-padded
+    # encoder and cross-attention
+    attns = [m for m in model.modules()
+             if isinstance(m, (SelfMultiheadAttn, EncdecMultiheadAttn))]
+    for m in attns:
+        m.dropout = DROP_P
+    lengths = np.random.default_rng(3).integers(S2S_SEQ // 2, S2S_SEQ + 1,
+                                                S2S_BATCH)
+    mask = torch.from_numpy((np.arange(S2S_SEQ)[None, :] < lengths[:, None])
+                            .astype(np.int64)).to("cuda")
+    (src, tgt_in), tgt_out = batch
+    drop_counts, drop_loss = _one_step_counts(
+        torch, dispatch, step, ((src, tgt_in, mask), tgt_out))
+    _expect(f"one step at attention dropout {DROP_P}, padded source",
+            drop_counts, _want(drop_counts, 18, LN_NAMES, S2S_LN,
+                               fused_adam=1, xent_forward=xent,
+                               xent_backward=xent))
+    if not math.isfinite(drop_loss):
+        raise AssertionError(f"seq2seq dropout step: loss {drop_loss}")
+    print(f"  loss {drop_loss:.4f}")
+    for m in attns:
+        m.dropout = 0.0
+    del step
+    return counts, drop_counts, dict(
+        step_ms=ms, sequences_per_s=seq_s, peak_gib=peak, rise_gib=rise,
+        parameters=n_params, tensors=len(shapes), losses=values,
+        dropout_padded_loss=drop_loss, profiled_step=prof), shapes
+
+
+def _gen_source(torch, dev):
+    """Batch 8 x 128 source ids from ``numpy.random.default_rng(1)``, the
+    second half of the rows padded after 96 tokens: (src, mask)."""
+    import numpy as np
+    src = np.random.default_rng(1).integers(1, S2S_VOCAB,
+                                            (GEN_BATCH, S2S_SEQ))
+    mask = np.ones_like(src)
+    mask[GEN_BATCH // 2:, GEN_PAD_AT:] = 0
+    return torch.from_numpy(src).to(dev), torch.from_numpy(mask).to(dev)
+
+
+GEN_TIE_TOL = 1e-4      # fp32 logits of the card and the CPU (TF32 off)
+
+
+def seq2seq_generate_path(torch, dispatch, models):
+    """``seq2seq_generate`` on transformer-base (fp32, random weights from a
+    seed): batch 8, source 128 (half the rows padded after 96), 64 greedy
+    new tokens; the launch counts of that call (flash 6 + 12 a token on
+    simt, LayerNorm 12 + 19 a token on vec), tokens/s and the encoder
+    pass's ms; then a 2 + 2-layer cut of the same geometry on the card and
+    the CPU: the tokens equal, or where a row first differs the CPU's top
+    two logits within GEN_TIE_TOL.  Returns (counts, numbers)."""
+    from apex_tpu_torch.models import seq2seq_generate
+    torch.manual_seed(SEED + 1)
+    model = models.transformer_seq2seq(vocab_size=S2S_VOCAB,
+                                       max_positions=S2S_SEQ,
+                                       device="cuda").eval()
+    src, mask = _gen_source(torch, "cuda")
+    seq2seq_generate(model, src, 2, src_attention_mask=mask)     # warm-up
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    t0 = time.perf_counter()
+    toks = seq2seq_generate(model, src, GEN_NEW, src_attention_mask=mask)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dispatch.counts()
+    want = dict.fromkeys(counts, 0)
+    n_attn, n_ln = 6 + 12 * GEN_NEW, 12 + 19 * GEN_NEW
+    want.update(flash_attention_fwd=n_attn, flash_attention_fwd_simt=n_attn,
+                ln_forward=n_ln, ln_forward_vec=n_ln)
+    print(f"seq2seq_generate path: transformer_seq2seq (fp32), batch "
+          f"{GEN_BATCH}, source {S2S_SEQ} (rows {GEN_BATCH // 2}.. padded "
+          f"after {GEN_PAD_AT}), {GEN_NEW} greedy new tokens")
+    _expect("one call", counts, want)
+    if toks.shape != (GEN_BATCH, GEN_NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= S2S_VOCAB:
+        raise AssertionError(f"generated ids {toks.shape} out of range")
+    kpm = mask == 0
+    with torch.no_grad():
+        enc_ms = median_ms(lambda: model._encode(src, kpm), reps=5,
+                           inner=2)[0]
+    tok_s = GEN_BATCH * GEN_NEW / wall
+    print(f"  wall {wall:.3f} s = {tok_s:.1f} tokens/s; the encoder pass "
+          f"{enc_ms:.3f} ms")
+    del model
+    torch.manual_seed(SEED + 2)
+    cut = dict(vocab_size=S2S_VOCAB, max_positions=S2S_SEQ, enc_layers=2,
+               dec_layers=2)
+    card = models.transformer_seq2seq(**cut, device="cuda").eval()
+    cpu = models.transformer_seq2seq(**cut, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    got = seq2seq_generate(card, src, GEN_NEW, src_attention_mask=mask).cpu()
+    src_c, mask_c = src.cpu(), mask.cpu()
+    ref = seq2seq_generate(cpu, src_c, GEN_NEW, src_attention_mask=mask_c)
+    rows_equal, ties = 0, []
+    for row in range(GEN_BATCH):
+        diff = (got[row] != ref[row]).nonzero()
+        if not len(diff):
+            rows_equal += 1
+            continue
+        t = int(diff[0])
+        buf = torch.zeros((1, GEN_NEW + 1), dtype=torch.long)
+        buf[0, 1:t + 1] = ref[row, :t]
+        kpm_r = mask_c[row:row + 1] == 0
+        with torch.no_grad():
+            x = cpu._decode(buf, cpu._encode(src_c[row:row + 1], kpm_r),
+                            kpm_r)[:, t]
+            top2 = torch.topk(x @ cpu.tok_emb.weight.t(), 2).values[0]
+        gap = float(top2[0] - top2[1])
+        ties.append((row, t, gap))
+        if not gap <= GEN_TIE_TOL:
+            raise AssertionError(
+                f"seq2seq_generate row {row}: the card's token {t} differs "
+                f"from the CPU's, whose top two logits are {gap} apart "
+                f"(tolerance {GEN_TIE_TOL})")
+    print(f"  2 + 2 layers, card against CPU: {rows_equal} of {GEN_BATCH} "
+          f"rows equal; first differences at near-ties (row, token, top-two "
+          f"gap): {ties}")
+    return counts, dict(tokens_per_s=tok_s, wall_s=wall, encoder_ms=enc_ms,
+                        cpu_rows_equal=rows_equal, cpu_near_ties=ties)
+
+
+# the largest relative difference (per tensor, in norm) of two steps'
+# gradients that counts as the same gradient: one bf16 ulp (the gradients
+# are bf16, so fp32 sums taken in another order can flip elements by one)
+REMAT_GRAD_TOL = 2.0 ** -7
+
+
+def _state_gap(torch, a, b):
+    """Two step states after one step: whether their masters and optimizer
+    slots are equal bit for bit, their largest absolute difference, and
+    the slots' largest relative difference ||x - y|| / ||y|| over tensors.
+    After one step the first moment is (1 - beta1) times the gradient (and
+    the second its square), so the slots hold the gradients themselves: a
+    wrong or zero gradient shows there even where the masters' first Adam
+    step (lr times about the gradient's sign) hides it."""
+    pairs = list(zip(a.master_params, b.master_params))
+    slots = [p for k, v in a.opt_state.items()
+             for p in zip(v, b.opt_state[k])]
+    same = all(torch.equal(x, y) for x, y in pairs + slots)
+    gap = max((x - y).abs().max().item() for x, y in pairs + slots)
+    rel = 0.0
+    for x, y in slots:
+        d, n = (x - y).norm().item(), y.norm().item()
+        rel = max(rel, d / n if n else (0.0 if not d else math.inf))
+    return same, gap, rel
+
+
+def _remat_host_split(torch, step, batch, block_cls, n=3):
+    """Where a step's host time goes under remat: ``n`` steps with timers
+    around ``torch.utils.checkpoint.checkpoint``, around the
+    ``functional_call`` that substitutes the parameters for the
+    recomputation (it runs on autograd's device thread), and around
+    ``block_cls.forward`` in the step's forward and in the recomputation.
+    Returns ms a step: the step (host clock, ending in a synchronize) and
+    each timer's total, with each wrapper's own time beside the block
+    forwards inside it."""
+    import threading
+    import torch.utils.checkpoint as tuc
+    from apex_tpu_torch.nn import modules
+    acc = dict.fromkeys(("checkpoint", "functional_call", "block_forward",
+                         "block_recompute"), 0.0)
+    inner = threading.local()
+
+    def timed(key, fn, flag=False):
+        def wrapper(*a, **k):
+            inner.on = flag or getattr(inner, "on", False)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[key] += time.perf_counter() - t0
+                if flag:
+                    inner.on = False
+        return wrapper
+
+    fwd, ckpt, fcall = block_cls.forward, tuc.checkpoint, \
+        modules.functional_call
+
+    def block_forward(self, *a, **k):
+        key = "block_recompute" if getattr(inner, "on", False) \
+            else "block_forward"
+        return timed(key, fwd)(self, *a, **k)
+    block_cls.forward, tuc.checkpoint = block_forward, timed("checkpoint",
+                                                             ckpt)
+    modules.functional_call = timed("functional_call", fcall, flag=True)
+    try:
+        step(*batch)
+        torch.cuda.synchronize()
+        acc.update(dict.fromkeys(acc, 0.0))
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(*batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        block_cls.forward, tuc.checkpoint = fwd, ckpt
+        modules.functional_call = fcall
+    out = {k: 1e3 * v / n for k, v in acc.items()}
+    out["step_ms"] = 1e3 * wall / n
+    out["checkpoint_own_ms"] = out["checkpoint"] - out["block_forward"] \
+        if out["checkpoint"] else 0.0
+    out["functional_call_own_ms"] = out["functional_call"] \
+        - out["block_recompute"]
+    return out
+
+
+def _remat_arms(torch, dispatch, what, model, make_step, batch, n_blocks,
+                want_of, turns=True, split_block=None):
+    """``model`` without and with ``remat`` (the flag toggled, one step
+    object an arm, both from the model's weights): the launch counts of
+    each arm's first step (with remat every block's forward runs again in
+    the backward: its flash forward and norm forwards twice); the first
+    losses equal, and the masters and optimizer slots after that step equal
+    bit for bit or, where the step itself is not reproducible bit for bit
+    (shown by the arm without remat run again), their gradients within
+    REMAT_GRAD_TOL, which the arm without remat at another dropout seed
+    must exceed where the model draws masks (what a recomputation that
+    redrew them would see);
+    with ``turns``, REMAT_TURNS of 10 timed steps (step ms, peak memory and
+    its rise over what the process held before them, a turn) and a
+    profiled step an arm; with ``split_block`` (the block's class), each
+    arm's host time split by ``_remat_host_split``.  Returns the
+    numbers."""
+    steps, first = {}, {}
+    for remat in (False, True):
+        model.remat = remat
+        steps[remat] = make_step()
+        counts, loss = _one_step_counts(torch, dispatch, steps[remat], batch)
+        _expect(f"{what} remat={remat}, one step", counts,
+                want_of(counts, n_blocks if remat else 0))
+        first[remat] = loss
+    model.remat = False
+    others = {}
+    for tag, kw in (("again", {}), ("redrawn", dict(rng_seed=1))):
+        step = make_step(**kw)
+        step(*batch)
+        others[tag] = _state_gap(torch, steps[False].state, step.state)
+        del step
+    same, gap, rel = _state_gap(torch, steps[False].state, steps[True].state)
+    again, redrawn = others["again"], others["redrawn"][2]
+    print(f"  {what}: after one step from the same weights, remat and not: "
+          f"losses {first[False]:.9g} / {first[True]:.9g}, masters and "
+          f"optimizer slots {'equal bit for bit' if same else 'differ'} "
+          f"(largest gap {gap:.3e}, gradients {rel:.3e} apart, tolerance "
+          f"{REMAT_GRAD_TOL:.3e}); no remat run again: "
+          f"{'equal bit for bit' if again[0] else 'differs'} ({again[1]:.3e}"
+          f", {again[2]:.3e}); at another dropout seed: gradients "
+          f"{redrawn:.3e} apart")
+    if first[False] != first[True] or not (same or rel <= REMAT_GRAD_TOL):
+        raise AssertionError(
+            f"{what}: remat's first step differs from no remat: losses "
+            f"{first[False]!r} / {first[True]!r}, masters and slots "
+            f"{gap} apart, gradients {rel} (tolerance {REMAT_GRAD_TOL})")
+    if redrawn and not redrawn > REMAT_GRAD_TOL:
+        raise AssertionError(
+            f"{what}: other dropout masks move the gradients by only "
+            f"{redrawn}: the tolerance {REMAT_GRAD_TOL} cannot tell them")
+    out = dict(first_losses=[first[False], first[True]],
+               state_equal=same, state_gap=gap, grad_rel_gap=rel,
+               again_equal=again[0], again_gap=again[1],
+               again_grad_rel_gap=again[2], redrawn_grad_rel_gap=redrawn)
+    if not turns:
+        model.remat = False
+        return out
+    runs = {False: [], True: []}
+    for remat in REMAT_TURNS:
+        model.remat = remat
+        ms, peak, rise, losses = _timed_steps(torch, steps[remat], batch, 10)
+        _check_losses(f"{what} remat={remat}", losses)
+        runs[remat].append(dict(step_ms=ms, peak_gib=peak, rise_gib=rise))
+        print(f"  {what} remat={remat}: step {ms:.2f} ms, peak memory "
+              f"{peak:.2f} GiB, {rise:.2f} above what was held before the "
+              f"steps")
+    for remat in (False, True):
+        model.remat = remat
+        print(f"  {what} remat={remat}:")
+        runs[remat].append(_print_profile(
+            torch, lambda: steps[remat](*batch), 8))
+    if split_block is not None:
+        out["host_split"] = {}
+        for remat in (False, True):
+            model.remat = remat
+            sp = _remat_host_split(torch, steps[remat], batch, split_block)
+            out["host_split"][str(remat)] = sp
+            print(f"  {what} remat={remat}, host ms a step (3 steps): step "
+                  f"{sp['step_ms']:.2f}; block forwards "
+                  f"{sp['block_forward']:.2f}; checkpoint's own "
+                  f"{sp['checkpoint_own_ms']:.2f}; "
+                  f"recomputation: block forwards "
+                  f"{sp['block_recompute']:.2f}, functional_call's own "
+                  f"{sp['functional_call_own_ms']:.2f}")
+    model.remat = False
+    out.update(turns={str(k): v for k, v in runs.items()})
+    return out
+
+
+def vit_train_turns(torch, dispatch, models):
+    """The bench's ViT step (``bench.py --vit``): ``vit_small(num_classes
+    1000)``, ``FusedAdam(lr 1e-3, adam_w_mode, weight_decay 0.05)``, bf16
+    half copies, static scale 1, ``F.cross_entropy``, batch 32 x 3 x 224 x
+    224 from ``numpy.random.default_rng(0)``: without and with remat
+    (_remat_arms), with images/s.  Returns (counts without remat, with,
+    numbers, parameter shapes)."""
+    import numpy as np
+    from apex_tpu_torch.nn import functional as F
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED)
+    model = models.vit_small(num_classes=1000, device="cuda")
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (VIT_BATCH, 3, 224, 224)).astype(np.float32)).to("cuda")
+    y = torch.from_numpy(rng.integers(0, 1000, (VIT_BATCH,))).to("cuda")
+
+    def make_step(**kw):
+        return make_train_step(
+            model, FusedAdam(list(model.parameters()), lr=VIT_LR,
+                             adam_w_mode=True, weight_decay=VIT_WD),
+            lambda out, yy: F.cross_entropy(out, yy),
+            half_dtype=torch.bfloat16, loss_scale=1.0, **kw)
+    seen = {}
+
+    def want_of(counts, again):
+        seen[bool(again)] = counts
+        return _want(counts, 12, LN_NAMES, 25, again, fused_adam=1)
+    print(f"ViT path: make_train_step(vit_small, {n_params} parameters in "
+          f"{len(shapes)} tensors, batch {VIT_BATCH} x 3 x 224 x 224, bf16 "
+          f"half copies, FusedAdam lr {VIT_LR} adam_w_mode weight decay "
+          f"{VIT_WD}, cross entropy)")
+    nums = _remat_arms(torch, dispatch, "vit_s16", model, make_step, (x, y),
+                       12, want_of, split_block=type(model.blocks[0]))
+    for runs in nums["turns"].values():
+        for r in runs:
+            if "step_ms" in r:
+                r["images_per_s"] = VIT_BATCH / r["step_ms"] * 1e3
+    nums.update(parameters=n_params, tensors=len(shapes))
+    return seen[False], seen[True], nums, shapes
+
+
+def lm_remat_phase(torch, dispatch, gpt_model, llama, bert):
+    """The bench's ``--remat`` arm: GPT-2 small (chunked loss, 16 x 1024,
+    attention dropout 0.1) without and with remat in turns; llama_125m and
+    BERT-base (attention dropout 0.1) cut to 2 layers, one step each way,
+    compared.  Returns (GPT counts with remat, numbers)."""
+    from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from apex_tpu_torch.training import make_train_step
+    out = {}
+    rows = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    ids = torch.randint(0, gpt_model.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g, device="cuda")
+    for blk in gpt_model.blocks:
+        blk.attn.dropout = DROP_P
+    gpt_model.output_hidden = True
+    seen = {}
+    chunks = -(-rows // _chunk_rows(rows, gpt_model.vocab_size, None))
+
+    def gpt_want(counts, again):
+        seen[bool(again)] = counts
+        return _want(counts, 12, LN_NAMES, 25, again, fused_adam=1,
+                     xent_forward=chunks, xent_backward=chunks)
+
+    def gpt_step(**kw):
+        return make_train_step(
+            gpt_model, FusedAdam(list(gpt_model.parameters()), lr=LR,
+                                 weight_decay=WD),
+            _chunked_lm_loss(), half_dtype=torch.bfloat16, loss_scale=1.0,
+            **kw)
+    print(f"remat path: gpt2_small, chunked loss, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, attention dropout {DROP_P}, bf16 half copies, "
+          f"FusedAdam lr {LR} wd {WD}")
+    out["gpt2_small"] = _remat_arms(torch, dispatch, "gpt2_small", gpt_model,
+                                    gpt_step, (ids, ids), 12, gpt_want)
+    for blk in gpt_model.blocks:
+        blk.attn.dropout = 0.0
+    gpt_model.output_hidden = False
+    torch.manual_seed(SEED)
+    chunks = -(-rows // _chunk_rows(rows, LLAMA["vocab_size"], None))
+    lm = llama.LlamaModel(**{**LLAMA, "layers": 2}, output_hidden=True,
+                          device="cuda")
+
+    def llama_want(counts, again):
+        return _want(counts, 2, RMS_NAMES, 5, again, fused_adam=1,
+                     xent_forward=chunks, xent_backward=chunks)
+
+    def llama_step(**kw):
+        return make_train_step(
+            lm, FusedAdam(list(lm.parameters()), lr=LR, weight_decay=WD),
+            _chunked_lm_loss(vocab=LLAMA["vocab_size"]),
+            half_dtype=torch.bfloat16, loss_scale=1.0, **kw)
+    lid = torch.randint(0, LLAMA["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g, device="cuda")
+    out["llama_125m_2_layers"] = _remat_arms(
+        torch, dispatch, "llama_125m (2 layers)", lm, llama_step, (lid, lid),
+        2, llama_want, turns=False)
+    del lm
+    torch.manual_seed(SEED)
+    bm = bert.bert_base(layers=2, max_positions=BERT_SEQ,
+                        attn_dropout=DROP_P, device="cuda")
+
+    def bert_want(counts, again):
+        return _want(counts, 2, LN_NAMES, 6, again, xent_forward=1,
+                     xent_backward=1)
+
+    def bert_step(**kw):
+        return make_train_step(
+            bm, FusedLAMB(list(bm.parameters()), lr=BERT_LR,
+                          weight_decay=BERT_WD),
+            _bert_mlm_loss(torch), half_dtype=torch.bfloat16, loss_scale=1.0,
+            **kw)
+    out["bert_base_2_layers"] = _remat_arms(
+        torch, dispatch, "bert_base (2 layers)", bm.bert, bert_step,
+        _bert_batch(torch, BERT_BATCH, BERT_SEQ, "cuda"), 2, bert_want,
+        turns=False)
+    del bm
+    return seen[True], out
+
+
+def rnn_path(torch, rnn):
+    """The port's ``RNN`` on the card (plain PyTorch, no kernel): the
+    "large" LSTM of Zaremba et al. 2014 (2 layers, 1500 hidden over
+    1500-wide embeddings, sequence 35, batch 20) and the mLSTM of Radford
+    et al. 2017 (4096 hidden over 64-wide byte embeddings; sequence 64,
+    batch 32), forward and backward timed (median of 5 on the host clock,
+    ending in a synchronize), peak memory; then each on the card and the
+    CPU from the same weights at batch 2, sequence 10: the output, the
+    final states and every gradient within 1e-4 of the largest value
+    (fp32, TF32 off).  Returns the numbers."""
+    out = {}
+    for name, build, seq, batch, width in (
+            ("lstm_2x1500", lambda dev: rnn.LSTM(1500, 1500, 2, device=dev),
+             35, 20, 1500),
+            ("mlstm_4096", lambda dev: rnn.mLSTM(64, 4096, 1, device=dev),
+             64, 32, 64)):
+        torch.manual_seed(SEED)
+        card = build("cuda")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+        x = torch.randn((seq, batch, width), generator=g, device="cuda")
+
+        def fwd_bwd(m, xx):
+            m.reset_hidden(xx.shape[1])
+            m.zero_grad(set_to_none=True)
+            xx = xx.detach().requires_grad_(True)
+            y, hid = m(xx)
+            loss = y.square().mean() + sum(h.square().mean() for h in hid)
+            loss.backward()
+            return y, hid, xx.grad
+        fwd_bwd(card, x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fwd_bwd(card, x)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = statistics.median(times)
+        cpu = build("cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        xs = x[:10, :2]
+        got, ref = fwd_bwd(card, xs), fwd_bwd(cpu, xs.cpu())
+        errs = [scaled_err(got[0].cpu(), ref[0])[0]]
+        errs += [scaled_err(a.cpu(), b)[0] for a, b in zip(got[1], ref[1])]
+        errs.append(scaled_err(got[2].cpu(), ref[2])[0])
+        cp = dict(cpu.named_parameters())
+        errs += [scaled_err(p.grad.cpu(), cp[n].grad)[0]
+                 for n, p in card.named_parameters()]
+        print(f"RNN {name}: sequence {seq}, batch {batch}: forward + "
+              f"backward {ms:.2f} ms (host clock), peak memory {peak:.2f} "
+              f"GiB")
+        check(f"  {name} card vs CPU (batch 2, sequence 10: output, final "
+              f"states, input and weight gradients)", max(errs), 1e-4)
+        out[name] = dict(sequence=seq, batch=batch, fwd_bwd_ms=ms,
+                         peak_gib=peak, cpu_max_err=max(errs))
+        del card, cpu, x
+    return out
+
+
+def slice_paths(torch, dispatch, models, multi_tensor, attention, rnn,
+                llama, bert, gpt_model):
+    """The slice's phases after the earlier ones: the flash pair's times at
+    the seq2seq and ViT shapes, the seq2seq step and greedy decode, the
+    Adam kernel at the seq2seq and ViT lists, the ViT step without and with
+    remat, the language models' remat arms and the RNNs.  Returns (paths'
+    launch counts, numbers)."""
+    paths, nums = {}, {}
+    nums["flash"] = slice_flash_times(torch, attention)
+    paths["seq2seq_train"], paths["seq2seq_train_dropout_padded"], \
+        nums["seq2seq_train"], s2s_shapes = seq2seq_train_path(
+            torch, dispatch, models)
+    paths["seq2seq_generate"], nums["seq2seq_generate"] = \
+        seq2seq_generate_path(torch, dispatch, models)
+    paths["vit_train"], paths["vit_train_remat"], nums["vit_train"], \
+        vit_shapes = vit_train_turns(torch, dispatch, models)
+    nums["adam_seq2seq"] = adam_list_case(
+        torch, multi_tensor, s2s_shapes, "the seq2seq-base step's list",
+        S2S_LR, 0.0, torch.optim.AdamW, SEED + 43)
+    nums["adam_vit"] = adam_list_case(
+        torch, multi_tensor, vit_shapes, "the ViT-S/16 step's list", VIT_LR,
+        VIT_WD, torch.optim.AdamW, SEED + 44)
+    paths["gpt2_small_remat"], nums["remat"] = lm_remat_phase(
+        torch, dispatch, gpt_model, llama, bert)
+    nums["rnn"] = rnn_path(torch, rnn)
+    return paths, nums
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5706,7 +6510,7 @@ def main():
     from apex_tpu_torch import _build
     from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
         lm_head_xent, multi_tensor, rms_norm, xentropy
-    from apex_tpu_torch import models
+    from apex_tpu_torch import RNN, models
     from apex_tpu_torch.contrib.multihead_attn import attn_funcs
     from apex_tpu_torch.models import bert, dcgan, gpt, llama
 
@@ -5848,6 +6652,13 @@ def main():
     paths["o1_dcgan"], paths["o1_gan_step"], o1_dcgan = o1_dcgan_path(
         torch, dispatch, dcgan)
     print(f"amp O1 phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    slice_counts, slice_nums = slice_paths(
+        torch, dispatch, models, multi_tensor, attention, RNN, llama, bert,
+        train_model)
+    paths.update(slice_counts)
+    print(f"seq2seq, ViT, remat and RNN phases: "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
     def launches(name):
         by = {k: c[name] for k, c in paths.items() if c[name]}
@@ -5963,7 +6774,11 @@ def main():
              max_abs_err=fl_tc_err["max_abs_err"], ms=fl_train["ms"],
              **yardsticks(fl_train), simt_ms=gpt_simt["fwd_ms"],
              errors=fl_tc_err, resources=flash_res["flash_fwd_tc"],
-             dropout=dropout_numbers("fwd", "fwd")),
+             dropout=dropout_numbers("fwd", "fwd"),
+             slice_shapes=slice_nums["flash"],
+             slice_scope="slice_shapes: the forward (fwd_ms) and the whole "
+                         "backward (bwd_ms: both launches and delta) at the "
+                         "seq2seq and ViT shapes"),
         dict(name="flash_attention_bwd_dq_tc", route="cuda",
              kernel_route="tc", source=f"{fa}_tc.cu", replaces=rep_dq,
              **launches("flash_attention_bwd_dq_tc"), shape=gpt_shape, **dq,
@@ -6042,7 +6857,9 @@ def main():
              o1_gan_step_iterations_per_s=o1_dcgan[
                  "gan_step_iterations_per_s"],
              lora_case=lora_nums["adam"],
-             lora_step_tokens_per_s=lora_nums["tokens_per_s"]),
+             lora_step_tokens_per_s=lora_nums["tokens_per_s"],
+             seq2seq_case=slice_nums["adam_seq2seq"],
+             vit_case=slice_nums["adam_vit"]),
         dict(name="fused_sgd", route="cuda",
              source="apex_tpu_torch/csrc/multi_tensor_sgd.cu",
              replaces=f"{fb}multi_tensor.py:129 (_sgd_kernel :106, "
@@ -6074,7 +6891,12 @@ def main():
                       "imagenet_amp_o2": imagenet,
                       "gpt2_small_chunked_step_ms": dict(
                           attn_dropout_0=chunked_ms,
-                          attn_dropout_01=drop_ms)}))
+                          attn_dropout_01=drop_ms),
+                      "seq2seq_base_train": slice_nums["seq2seq_train"],
+                      "seq2seq_generate": slice_nums["seq2seq_generate"],
+                      "vit_s16_train": slice_nums["vit_train"],
+                      "remat": slice_nums["remat"],
+                      "rnn": slice_nums["rnn"]}))
     print(f"chip_smoke wall time: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

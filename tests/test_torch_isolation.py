@@ -9,8 +9,11 @@ import sys
 import pytest
 import torch
 
-from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
-from apex_tpu_torch.models import GptModel, gpt2_small
+from apex_tpu_torch.RNN import LSTM
+from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn, \
+    SelfMultiheadAttn
+from apex_tpu_torch.models import GptModel, TransformerSeq2Seq, VitModel, \
+    gpt2_small
 from apex_tpu_torch.normalization import FusedLayerNorm
 
 torch.set_num_threads(2)
@@ -51,7 +54,10 @@ def test_importing_the_port_loads_no_jax_module():
                  "contrib.optimizers.fused_lamb",
                  "contrib.optimizers.fp16_optimizer", "mlp.mlp",
                  "reparameterization.reparameterization",
-                 "reparameterization.weight_norm", "reparameterization.lora"):
+                 "reparameterization.weight_norm", "reparameterization.lora",
+                 "contrib.multihead_attn.encdec_multihead_attn",
+                 "models.seq2seq", "models.vit", "nn.modules", "RNN.cells",
+                 "RNN.RNNBackend", "RNN.models"):
         assert f"apex_tpu_torch.{name}" in loaded, name
 
 
@@ -112,6 +118,13 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                   lambda: gpt2_small(**small),
                   lambda: FusedLayerNorm(16),
                   lambda: SelfMultiheadAttn(16, 2),
+                  lambda: EncdecMultiheadAttn(16, 2),
+                  lambda: TransformerSeq2Seq(vocab_size=32, hidden=16,
+                                             enc_layers=1, dec_layers=1,
+                                             heads=2, max_positions=8),
+                  lambda: VitModel(image_size=8, patch_size=4, hidden=16,
+                                   layers=1, heads=2),
+                  lambda: LSTM(4, 8, 1),
                   lambda: GptModel(**small, device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()

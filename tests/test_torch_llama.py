@@ -235,10 +235,10 @@ def test_unported_options_raise():
                  max_positions=8, device="cpu")
     for kw, what in ((dict(tp_axis="model"), "tensor and sequence"),
                      (dict(sp_axis="seq"), "tensor and sequence"),
-                     (dict(moe_axis="data"), "mixture of experts"),
-                     (dict(remat=True), "rematerialisation")):
+                     (dict(moe_axis="data"), "mixture of experts")):
         with pytest.raises(NotImplementedError, match=what):
             LlamaModel(**small, **kw)
+    assert LlamaModel(**small, remat=True).remat     # ported: it builds
     banded = LlamaModel(**small, sliding_window=4)
     ids = torch.zeros((1, 3), dtype=torch.long)
     with torch.no_grad():
