@@ -29,12 +29,15 @@ through ``make_train_step``, whose RMSNorms run the RMSNorm kernels
 cross-entropy kernels (``kernels.lm_head_xent.fused_lm_head_xent``); amp
 O1 (a per-op cast policy applied to every module call), the legacy
 ``amp.init`` API and ``fp16_utils``; and the GAN iteration
-(``training.make_gan_train_step``).
+(``training.make_gan_train_step``); and the runtime (``runtime``: the
+step cache, the executor that captures each train step as a CUDA graph
+and replays it, the input prefetcher) and the Hugging Face and
+torchvision state-dict converters (``models.hf``).
 """
 from . import (amp, contrib, fp16_utils, inference, kernels, models,
                multi_tensor_apply, nn, normalization, ops, optimizers,
-               parallel, training)
+               parallel, runtime, training)
 
 __all__ = ["amp", "contrib", "fp16_utils", "inference", "kernels", "models",
            "multi_tensor_apply", "nn", "normalization", "ops", "optimizers",
-           "parallel", "training"]
+           "parallel", "runtime", "training"]

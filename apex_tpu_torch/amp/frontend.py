@@ -8,8 +8,9 @@ picks bf16.  Dtypes may be given as ``torch.dtype``s or strings
 
 O1 keeps the model in fp32 and casts around each operation by the cast
 policy of ``policy.py`` and ``lists/``, applied to every module call of
-the session (``_initialize.py``).  ``defer_scale_update=True`` needs the
-runtime executor and raises ``NotImplementedError``.
+the session (``_initialize.py``).  ``defer_scale_update=True`` moves the
+overflow skip and the loss-scale update into the optimizer's step, on the
+device (``handle.py``).
 """
 from __future__ import annotations
 
@@ -207,10 +208,6 @@ def initialize(models, optimizers=None, enabled=True, opt_level="O1",
             f"Unexpected optimization level {opt_level}. Options are 'O0', "
             "'O1', 'O2', 'O3'.  Note that in `O0`, `O1`, etc., the prefix O "
             "is the letter O, not the number zero.")
-    if defer_scale_update:
-        raise NotImplementedError(
-            "amp defer_scale_update=True needs the runtime executor, which "
-            "is not ported yet")
 
     _amp_state.opt_properties = opt_levels[opt_level](
         _amp_state.opt_properties)
@@ -230,7 +227,8 @@ def initialize(models, optimizers=None, enabled=True, opt_level="O1",
                         ("patch_torch_functions", patch_torch_functions),
                         ("keep_batchnorm_fp32", keep_batchnorm_fp32),
                         ("master_weights", master_weights),
-                        ("loss_scale", loss_scale)):
+                        ("loss_scale", loss_scale),
+                        ("defer_scale_update", defer_scale_update)):
         if value is not None:
             setattr(_amp_state.opt_properties, name, value)
 

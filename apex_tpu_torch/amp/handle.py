@@ -12,9 +12,14 @@ exchanged before the unscale, so that every rank decides alike.
 
 ``delay_unscale=True`` leaves the gradients scaled for a later
 ``scale_loss`` (or ``step()``, which finalizes them) to unscale once.
-``delay_overflow_check=True`` skips the scale update.  The JAX package's
-deferred mode (``defer_scale_update``) needs the runtime executor and is
-refused at ``initialize``.
+``delay_overflow_check=True`` skips the scale update.  In the deferred
+mode (``amp.initialize(..., defer_scale_update=True)``) with one optimizer
+that can take it (``FusedAdam``, ``FusedLAMB``, ``FusedNovoGrad``: the
+optimizers with ``_step_cache_scaler_ok``), leaving reads nothing: the
+scaler is handed to the optimizer, whose next ``step()`` takes the
+scaler's device overflow flag as its skip flag and updates the loss scale
+on the device, so no iteration reads the card (and nothing prints
+"Gradient overflow"; read ``loss_scale()`` to see the scale).
 
 Beside it, the legacy API: ``init`` returns an ``AmpHandle`` whose
 construction makes an O1 policy the ambient one of every module call (or
@@ -73,7 +78,10 @@ def scale_loss(loss, optimizers, loss_id=0, model=None, delay_unscale=False,
         optimizers = [optimizers]
 
     loss_scaler = _amp_state.loss_scalers[loss_id]
-    loss_scale = loss_scaler.loss_scale()
+    # a dynamic scale multiplies on the device: reading it back would be a
+    # host sync every iteration
+    loss_scale = loss_scaler.device_scale if loss_scaler.dynamic \
+        else loss_scaler.loss_scale()
 
     if ((not _amp_state.opt_properties.master_weights)
             and (not loss_scaler.dynamic) and loss_scale == 1.0):
@@ -98,6 +106,13 @@ def scale_loss(loss, optimizers, loss_id=0, model=None, delay_unscale=False,
         optimizer._post_amp_backward(loss_scaler)
         optimizer._amp_stash.params_have_scaled_gradients = False
         optimizer._amp_stash._delayed_scaler = None
+    # the deferred mode: the scale update runs in the optimizer's step,
+    # exactly once, so only with one optimizer
+    if (not delay_overflow_check and len(optimizers) == 1
+            and _amp_state.opt_properties.defer_scale_update
+            and getattr(optimizers[0], "_step_cache_scaler_ok", False)):
+        optimizers[0]._amp_stash._deferred_scaler = loss_scaler
+        return
     should_skip = False if delay_overflow_check \
         else loss_scaler.update_scale()
     if should_skip:

@@ -47,8 +47,8 @@ def _logits(xc, w, logical_vocab):
     if logical_vocab is not None and logical_vocab < v:
         cols = torch.arange(v, device=logits.device)
         logits = torch.where(cols < logical_vocab, logits,
-                             torch.tensor(MASKED_FILL, dtype=logits.dtype,
-                                          device=logits.device))
+                             torch.full((), MASKED_FILL, dtype=logits.dtype,
+                                        device=logits.device))
     return logits
 
 

@@ -8,6 +8,9 @@ threshold measured on a TPU decides anything on the card.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 # the masked-vocabulary convention of the JAX package: a logit at
@@ -31,6 +34,35 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return dict(LAUNCHES)
+
+
+# the list that keeps, for the CUDA graph being captured on this thread,
+# the cached device tensors it reads (see hold)
+_holder = threading.local()
+
+
+@contextlib.contextmanager
+def holding(keep: list):
+    """While the block runs, :func:`hold` appends to ``keep``: a graph's
+    capture, whose owner holds ``keep`` as long as the graph lives."""
+    prev = getattr(_holder, "keep", None)
+    _holder.keep = keep
+    try:
+        yield keep
+    finally:
+        _holder.keep = prev
+
+
+def hold(t):
+    """``t``, a device tensor a wrapper keeps in a cache of its own and
+    hands to a kernel, kept alive for as long as the CUDA graph being
+    captured lives (inside :func:`holding`; elsewhere nothing is kept): a
+    graph bakes in the addresses it read, and a cache that drops ``t``
+    later must not free memory the graph still reads."""
+    keep = getattr(_holder, "keep", None)
+    if keep is not None:
+        keep.append(t)
+    return t
 
 
 def resolve_device(device=None) -> torch.device:

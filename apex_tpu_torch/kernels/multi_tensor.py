@@ -51,8 +51,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from .dispatch import (LAUNCHES, KERNEL_DTYPES, dtype_code, is_dense,
-                       same_layout, use_kernel)
+from .dispatch import (LAUNCHES, KERNEL_DTYPES, dtype_code, hold,
+                       is_dense, same_layout, use_kernel)
 
 LAUNCHES.setdefault("fused_adam", 0)
 LAUNCHES.setdefault("fused_sgd", 0)
@@ -85,9 +85,15 @@ _SCALARS: collections.OrderedDict = collections.OrderedDict()
 
 def _cached_vector(values, device):
     """An fp32 vector of ``values`` on ``device``, kept across calls (at
-    most 64 of them), so a repeated call copies nothing to the card."""
+    most 64 of them), so a repeated call copies nothing to the card; a
+    CUDA graph that reads it holds it (``hold``)."""
     key = (tuple(values), str(device))
     t = _SCALARS.get(key)
+    if t is None and _capturing(device):
+        # a copy from the host cannot be captured into a CUDA graph: the
+        # graph fills the vector itself
+        return torch.stack([torch.full((), v, dtype=torch.float32,
+                                       device=device) for v in values])
     if t is None:
         t = torch.tensor(values, dtype=torch.float32).to(device)
         _SCALARS[key] = t
@@ -95,7 +101,12 @@ def _cached_vector(values, device):
             _SCALARS.popitem(last=False)
     else:
         _SCALARS.move_to_end(key)
-    return t
+    return hold(t)
+
+
+def _capturing(device) -> bool:
+    return torch.device(device).type == "cuda" and \
+        torch.cuda.is_current_stream_capturing()
 
 
 def adam_scalars(lr, beta1, beta2, eps, step, bias_correction, weight_decay,
@@ -284,7 +295,8 @@ def _table(first, second, third, chunk):
     giving null addresses; the sizes of ``first``; the chunk -> (tensor,
     offset) map, for chunks of ``chunk`` elements) and its chunk count,
     kept across calls (at most 64 lists): the in-place updates keep the
-    addresses, so a train step builds it once."""
+    addresses, so a train step builds it once.  A CUDA graph that reads a
+    table holds it (``hold``)."""
     lists = (first, second, third)
     addrs = np.array([[0] * len(first) if lst is None else
                       [t.data_ptr() for t in lst] for lst in lists],
@@ -294,6 +306,7 @@ def _table(first, second, third, chunk):
     hit = _TABLES.get(key)
     if hit is not None:
         _TABLES.move_to_end(key)
+        hold(hit[0])
         return hit
     nt = len(first)
     sizes = np.array([t.numel() for t in first], np.int64)
@@ -307,6 +320,7 @@ def _table(first, second, third, chunk):
     _TABLES[key] = hit
     if len(_TABLES) > 64:
         _TABLES.popitem(last=False)
+    hold(hit[0])
     return hit
 
 
@@ -340,18 +354,27 @@ def _launch_adam(noop_flag, tensor_lists, scal, mode, use_wd):
 
 
 def fused_adam(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
-               mode: int, bias_correction: bool, weight_decay):
+               mode: int, bias_correction: bool, weight_decay, *,
+               bias_corrections=None):
     """Adam (``mode`` 0, L2) or AdamW (``mode`` 1, decoupled) over
     ``tensor_lists = [grads, params, exp_avgs, exp_avg_sqs]``, in place;
     nothing changes when ``noop_flag`` (a one-element int32 tensor) is set.
-    ``step`` is the 1-based step count, a Python int or a device tensor.
-    Returns ``(noop_flag, params, exp_avgs, exp_avg_sqs)``."""
+    ``step`` is the 1-based step count, a Python int or a device tensor;
+    ``bias_corrections``, two fp32 device scalars, replace its ``1 - beta
+    ** step`` (amp's deferred mode).  Returns ``(noop_flag, params,
+    exp_avgs, exp_avg_sqs)``."""
     _validate_adam(noop_flag, tensor_lists, mode)
     gs, ps, ms, vs = tensor_lists
     if not gs:
         return noop_flag, [], [], []
-    scal = adam_scalars(lr, beta1, beta2, eps, step, bias_correction,
-                        weight_decay, ps[0].device)
+    if bias_correction and bias_corrections is not None:
+        head = adam_scalars(lr, beta1, beta2, eps, 1, False, weight_decay,
+                            ps[0].device)
+        scal = torch.cat([head[:BC1], torch.stack(
+            [b.reshape(()).float() for b in bias_corrections])])
+    else:
+        scal = adam_scalars(lr, beta1, beta2, eps, step, bias_correction,
+                            weight_decay, ps[0].device)
     use_wd = _static_nonzero(weight_decay)
     if use_kernel(noop_flag, *gs, *ps, *ms, *vs):
         _launch_adam(noop_flag, tensor_lists, scal, mode, use_wd)
@@ -388,7 +411,7 @@ def sgd_scalars(lr, weight_decay, scale, momentum, dampening, device):
     return torch.stack([
         v.to(device=device, dtype=torch.float32).reshape(())
         if isinstance(v, torch.Tensor)
-        else torch.tensor(v, dtype=torch.float32, device=device)
+        else torch.full((), v, dtype=torch.float32, device=device)
         for v in vals])
 
 

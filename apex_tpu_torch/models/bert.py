@@ -62,6 +62,17 @@ class BertLayer(nn.Module):
         return self.out_ln(x + dropout(h, p, self.training, generator))
 
 
+def segment_embedding(table, ids):
+    """The rows of the small segment table ``(type_vocab, E)`` at ``ids``,
+    as a product of the ids' one-hot rows with the table.  Its gradient is
+    the transposed product, summed in a fixed order on the card;
+    ``F.embedding``'s backward on the card adds the 8192 rows of a 64 x 128
+    batch into one table row in an order that varies from run to run
+    (ROADMAP C6), so two runs of the train step differed there.  Each
+    forward row is its table row exactly (one nonzero product)."""
+    return torch.matmul(F.one_hot(ids, table.shape[0]).to(table.dtype), table)
+
+
 class BertModel(nn.Module):
     """Token/position/segment embeddings + N encoder layers.
 
@@ -105,7 +116,7 @@ class BertModel(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = self.tok_emb(input_ids) + self.pos_emb(pos) \
-            + self.type_emb(token_type_ids)
+            + segment_embedding(self.type_emb.weight, token_type_ids)
         x = dropout(self.emb_ln(x), self.emb_drop.p, self.training,
                     generator)
         x = x.transpose(0, 1)                  # (S, B, E)

@@ -231,8 +231,8 @@ class GptModel(nn.Module):
         if self.padded_vocab == self.vocab_size:
             return logits
         cols = torch.arange(logits.shape[-1], device=logits.device)
-        fill = torch.tensor(MASKED_FILL, dtype=logits.dtype,
-                            device=logits.device)
+        fill = torch.full((), MASKED_FILL, dtype=logits.dtype,
+                          device=logits.device)
         return torch.where(cols < self.vocab_size, logits, fill)
 
     def init_caches(self, batch, s_max, dtype=torch.float32):

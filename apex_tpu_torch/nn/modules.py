@@ -111,7 +111,11 @@ def checkpoint_forward(module, *inputs, **kwargs):
     (the dropout masks' and the flash kernels' seeds) is rewound to its
     state at the call for the recomputation, so it draws the same masks,
     and put back after it, as the JAX function replays its key counter;
-    amp O1's active cast policy is restored for it too.  A module that
+    amp O1's active cast policy is restored for it too.  Inside a train
+    step's CUDA graph capture the recomputation draws instead from twins of
+    the generators that the runtime executor seeds, before every replay, to
+    the generators' states at the call (and torch's default generators are
+    not rewound).  A module that
     would write running statistics (a batch norm in training) is refused,
     as in the JAX package."""
     from torch.utils.checkpoint import checkpoint
@@ -123,11 +127,16 @@ def checkpoint_forward(module, *inputs, **kwargs):
             "checkpoint_forward: module writes running statistics "
             "(BatchNorm?) — stat updates cannot cross the remat boundary; "
             "exclude such modules from checkpointing")
+    from ..runtime.executor import rewind_twins
     held = dict(module.named_parameters())
     held.update(module.named_buffers())
     gens = [a for a in (*inputs, *kwargs.values())
             if isinstance(a, torch.Generator)]
-    at_call = [g.get_state() for g in gens]
+    # inside a step's CUDA graph capture a generator's state cannot be
+    # read or set: the recomputation draws from twins of the generators
+    # that the executor keeps at the call's offsets
+    twins = rewind_twins(gens) if gens else None
+    at_call = None if twins is not None else [g.get_state() for g in gens]
     policy = current_policy()
     ran = []
 
@@ -135,6 +144,12 @@ def checkpoint_forward(module, *inputs, **kwargs):
         if not ran:             # the forward: the module as it stands
             ran.append(True)
             return module(*xs, **kwargs)
+        if twins is not None:
+            swap = {id(g): t for g, t in zip(gens, twins)}
+            xs = tuple(swap.get(id(a), a) for a in xs)
+            kw = {k: swap.get(id(v), v) for k, v in kwargs.items()}
+            with autocast(policy):
+                return functional_call(module, held, xs, kw)
         after = [g.get_state() for g in gens]
         for g, state in zip(gens, at_call):
             g.set_state(state)
@@ -145,4 +160,13 @@ def checkpoint_forward(module, *inputs, **kwargs):
             for g, state in zip(gens, after):
                 g.set_state(state)
 
-    return checkpoint(run, *inputs, use_reentrant=False)
+    # the default generators' states (torch's own rewind) cannot be taken
+    # inside a capture either; the port's models draw only from the
+    # generator they are given
+    return checkpoint(run, *inputs, use_reentrant=False,
+                      preserve_rng_state=not _capturing())
+
+
+def _capturing():
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()

@@ -39,6 +39,15 @@ def zero_flag(device=None) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=resolve_device(device))
 
 
+def _device_scalar(x, device):
+    """``x`` (a number or a device scalar) as an fp32 scalar on ``device``:
+    a number is written by a fill there, which a CUDA graph can capture (a
+    copy from the host it cannot)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
 def nonfinite_flag(noop_flag, xs):
     """``noop_flag`` raised to 1 where any of ``xs`` holds an inf or nan,
     all on the device."""
@@ -104,12 +113,16 @@ def multi_tensor_maxnorm(noop_flag, tensor_lists, per_tensor: bool = False):
 
 
 def multi_tensor_adam(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
-                      mode: int, bias_correction: bool, weight_decay):
+                      mode: int, bias_correction: bool, weight_decay, *,
+                      bias_corrections=None):
     """Adam / AdamW over ``[grads, params, exp_avgs, exp_avg_sqs]`` in one
     kernel launch per list, in place; nothing changes when the flag is
-    set.  Returns ``(noop_flag, params, exp_avgs, exp_avg_sqs)``."""
+    set.  ``bias_corrections``, two fp32 device scalars, replace ``1 -
+    beta ** step`` (amp's deferred mode).  Returns ``(noop_flag, params,
+    exp_avgs, exp_avg_sqs)``."""
     return _k.fused_adam(noop_flag, tensor_lists, lr, beta1, beta2, eps,
-                         step, mode, bias_correction, weight_decay)
+                         step, mode, bias_correction, weight_decay,
+                         bias_corrections=bias_corrections)
 
 
 def adam_unfused(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
@@ -176,6 +189,14 @@ def sgd_unfused(noop_flag, tensor_lists, wd, momentum, dampening, lr,
     return (noop_flag,) + outs
 
 
+def _device_corrections(bc1, bc2, device):
+    """The bias corrections as fp32 device scalars: a host number would
+    divide on the card as a product with its reciprocal (PyTorch's CUDA
+    division by a host scalar), which the deferred scale update's device
+    corrections do not; on the CPU both divide."""
+    return tuple(_device_scalar(b, device) for b in (bc1, bc2))
+
+
 def _bias_correction(beta, step):
     """``1 - beta**step``: in double on the host for a Python ``step``, in
     fp32 on the device for a tensor one, as the JAX package computes it."""
@@ -187,7 +208,8 @@ def _bias_correction(beta, step):
 
 def multi_tensor_lamb(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
                       bias_correction: bool, weight_decay, grad_averaging: int,
-                      mode: int, global_grad_norm, max_grad_norm):
+                      mode: int, global_grad_norm, max_grad_norm, *,
+                      bias_corrections=None):
     """LAMB over ``[grads, params, exp_avgs, exp_avg_sqs]``, plain PyTorch
     per tensor, as the JAX package's op is jnp (no hand kernel).
 
@@ -203,13 +225,15 @@ def multi_tensor_lamb(noop_flag, tensor_lists, lr, beta1, beta2, eps, step,
     if not gs:
         return noop_flag, [], [], []
     dev = ps[0].device
-    if bias_correction:
-        bc1 = _bias_correction(beta1, step)
-        bc2 = _bias_correction(beta2, step)
+    if bias_correction and bias_corrections is not None:
+        bc1, bc2 = bias_corrections
+    elif bias_correction:
+        bc1, bc2 = _device_corrections(_bias_correction(beta1, step),
+                                       _bias_correction(beta2, step), dev)
     else:
         bc1 = bc2 = 1.0
     beta3 = (1.0 - beta1) if grad_averaging else 1.0
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    lr = _device_scalar(lr, dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     if max_grad_norm is not None and max_grad_norm > 0:
         gnorm = torch.as_tensor(global_grad_norm, dtype=torch.float32,
@@ -268,7 +292,7 @@ def novograd_norms(gs, norm_type: int):
 def multi_tensor_novograd(noop_flag, tensor_lists, lr, beta1, beta2, eps,
                           step, bias_correction: bool, weight_decay,
                           grad_averaging: int, moment_mode: int,
-                          norm_type: int):
+                          norm_type: int, *, bias_corrections=None):
     """NovoGrad over ``[grads, params, exp_avgs, grad_norms]``, where
     ``grad_norms`` holds one fp32 running norm scalar per tensor; plain
     PyTorch, as the JAX package's op is jnp (no hand kernel).
@@ -283,19 +307,24 @@ def multi_tensor_novograd(noop_flag, tensor_lists, lr, beta1, beta2, eps,
     beta3 g``, ``p -= lr ((m / bc1) / denom + wd p)``, per tensor in
     fp32.  Functional: returns ``(noop_flag, new_params, new_exp_avgs,
     new_grad_norms)`` in the inputs' dtypes; the flag is neither read nor
-    written (non-finite values propagate)."""
+    written (non-finite values propagate).  ``bias_corrections``, fp32
+    device scalars ``(bc1, bc2)`` with ``bc2`` the square root, replace
+    the ones of ``step`` (amp's deferred mode)."""
     gs, ps, ms, norms = tensor_lists
     if not gs:
         return noop_flag, [], [], []
     dev = ps[0].device
-    if bias_correction:
+    if bias_correction and bias_corrections is not None:
+        bc1, bc2 = bias_corrections         # bc2 already the square root
+    elif bias_correction:
         bc1 = _bias_correction(beta1, step)
         bc2 = _bias_correction(beta2, step)
         bc2 = bc2 ** 0.5 if isinstance(bc2, float) else torch.sqrt(bc2)
+        bc1, bc2 = _device_corrections(bc1, bc2, dev)
     else:
         bc1 = bc2 = 1.0
     beta3 = (1.0 - beta1) if grad_averaging else 1.0
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    lr = _device_scalar(lr, dev)
     local = _novograd_local(gs, norm_type)
     new_ps, new_ms, new_norms = [], [], []
     for g, p, m, vn, loc in zip(gs, ps, ms, norms, local):

@@ -9,19 +9,25 @@ moments, per-tensor trust ratios.  LAMB is jnp in the JAX package, so it is
 plain PyTorch here, one tensor at a time, and the new values are copied
 into the params and moments in place.  The moments take each parameter's
 dtype, as in the JAX package.  The step count is a Python int per group,
-so the bias corrections are computed on the host.
+so the bias corrections are computed on the host.  Under amp's deferred
+scale update the step keeps its old values where the scaler's device flag
+is set and its step counts on the device (``base.deferred_update``).
 """
 from __future__ import annotations
 
 import torch
 
 from .. import ops
-from .base import group_buckets
+from .base import (bias_correction, deferred_update, group_buckets,
+                   take_deferred_scaler)
 
 
 class FusedLAMB(torch.optim.Optimizer):
     """LAMB with global-grad-norm clipping and per-tensor trust ratios
     (``adam_w_mode=True`` decouples the weight decay)."""
+
+    #: amp's deferred scale update may run in this optimizer's step
+    _step_cache_scaler_ok = True
 
     def __init__(self, params, lr=1e-3, bias_correction=True,
                  betas=(0.9, 0.999), eps=1e-6, weight_decay=0.01,
@@ -55,25 +61,43 @@ class FusedLAMB(torch.optim.Optimizer):
         buckets = group_buckets(self.param_groups)
         if not buckets:
             return loss
-        for group in self.param_groups:
-            group["step"] = group.get("step", 0) + 1
-        flag = self._overflow_buf
-        for gi, plist in buckets:
-            group = self.param_groups[gi]
+        for _, plist in buckets:
             for p in plist:
                 state = self.state[p]
                 if len(state) == 0:
                     state["exp_avg"] = torch.zeros_like(p)
                     state["exp_avg_sq"] = torch.zeros_like(p)
-            grads = [p.grad for p in plist]
-            ms = [self.state[p]["exp_avg"] for p in plist]
-            vs = [self.state[p]["exp_avg_sq"] for p in plist]
-            _, grad_norm, _ = ops.multi_tensor_l2norm(flag, [grads])
-            beta1, beta2 = group["betas"]
-            _, new_ps, new_ms, new_vs = ops.multi_tensor_lamb(
-                flag, [grads, plist, ms, vs], group["lr"], beta1, beta2,
-                group["eps"], group["step"], bool(group["bias_correction"]),
-                group["weight_decay"], 1 if group["grad_averaging"] else 0,
-                self.adam_w_mode, grad_norm, group["max_grad_norm"])
-            torch._foreach_copy_(plist + ms + vs, new_ps + new_ms + new_vs)
+
+        def update(flag, step_of, bc_of):
+            skip = None if bc_of is None else flag.reshape(()) > 0
+            for gi, plist in buckets:
+                group = self.param_groups[gi]
+                grads = [p.grad for p in plist]
+                ms = [self.state[p]["exp_avg"] for p in plist]
+                vs = [self.state[p]["exp_avg_sq"] for p in plist]
+                _, grad_norm, _ = ops.multi_tensor_l2norm(flag, [grads])
+                beta1, beta2 = group["betas"]
+                bcs = None if bc_of is None or not group["bias_correction"] \
+                    else (bc_of(bias_correction, beta1, group),
+                          bc_of(bias_correction, beta2, group))
+                _, new_ps, new_ms, new_vs = ops.multi_tensor_lamb(
+                    flag, [grads, plist, ms, vs], group["lr"], beta1, beta2,
+                    group["eps"], step_of(group),
+                    bool(group["bias_correction"]), group["weight_decay"],
+                    1 if group["grad_averaging"] else 0, self.adam_w_mode,
+                    grad_norm, group["max_grad_norm"], bias_corrections=bcs)
+                olds, news = plist + ms + vs, new_ps + new_ms + new_vs
+                if skip is not None:
+                    # the deferred mode's skip, on the device
+                    news = [torch.where(skip, o, n) for o, n in zip(olds,
+                                                                    news)]
+                torch._foreach_copy_(olds, news)
+
+        scaler = take_deferred_scaler(self)
+        if scaler is not None:
+            deferred_update(self, scaler, update)
+            return loss
+        for group in self.param_groups:
+            group["step"] = group.get("step", 0) + 1
+        update(self._overflow_buf, lambda g: g["step"], None)
         return loss

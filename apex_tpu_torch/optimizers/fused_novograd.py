@@ -14,19 +14,26 @@ first blend leaves it there, or with zero under ``init_zero``.  The step
 count is a Python int per group, so the bias corrections are computed on
 the host.  Under amp with master weights the step updates the fp32
 masters and amp's patched step copies them into the half model params, as
-for ``FusedAdam`` and ``FusedLAMB``.
+for ``FusedAdam`` and ``FusedLAMB``.  Under amp's deferred scale update the
+step keeps its old values where the scaler's device flag is set, its step
+counts on the device (``base.deferred_update``), and seeds a new norm at
+the parameter's first step that the device keeps.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import ops
-from .base import group_buckets
+from .base import (bias_correction, deferred_update, group_buckets,
+                   sqrt_bias_correction, take_deferred_scaler)
 
 
 class FusedNovoGrad(torch.optim.Optimizer):
     """NovoGrad: per-tensor second-moment norms, Adam-style first moments
     (``reg_inside_moment=True`` puts the weight decay inside the moment)."""
+
+    #: amp's deferred scale update may run in this optimizer's step
+    _step_cache_scaler_ok = True
 
     def __init__(self, params, lr=1e-3, bias_correction=True,
                  betas=(0.95, 0.98), eps=1e-8, weight_decay=0.0,
@@ -69,24 +76,60 @@ class FusedNovoGrad(torch.optim.Optimizer):
         buckets = group_buckets(self.param_groups)
         if not buckets:
             return loss
+        scaler = take_deferred_scaler(self)
+
+        def update(flag, step_of, bc_of):
+            skip = None if bc_of is None else flag.reshape(()) > 0
+            for gi, plist in buckets:
+                group = self.param_groups[gi]
+                grads = [p.grad for p in plist]
+                seed = []
+                for p in plist:
+                    state = self.state[p]
+                    if len(state) == 0:
+                        state["exp_avg"] = torch.zeros_like(p)
+                        if skip is None:
+                            state["exp_avg_sq"] = self._init_norm(p, group)
+                        else:
+                            # seeded by the first step the device keeps
+                            state["exp_avg_sq"] = torch.zeros(
+                                (), dtype=torch.float32, device=p.device)
+                            if not group["init_zero"]:
+                                state["norm_seeded"] = torch.zeros(
+                                    (), dtype=torch.bool, device=p.device)
+                    seed.append(state.get("norm_seeded"))
+                ms = [self.state[p]["exp_avg"] for p in plist]
+                ns = [self.state[p]["exp_avg_sq"] for p in plist]
+                ns_in = ns
+                if skip is not None and any(x is not None for x in seed):
+                    own = ops.multi_tensor.novograd_norms(grads,
+                                                          group["norm_type"])
+                    ns_in = [n if sd is None else torch.where(sd, n, o)
+                             for n, o, sd in zip(ns, own, seed)]
+                beta1, beta2 = group["betas"]
+                bcs = None if bc_of is None or not group["bias_correction"] \
+                    else (bc_of(bias_correction, beta1, group),
+                          bc_of(sqrt_bias_correction, beta2, group))
+                _, new_ps, new_ms, new_ns = ops.multi_tensor_novograd(
+                    flag, [grads, plist, ms, ns_in], group["lr"], beta1,
+                    beta2, group["eps"], step_of(group),
+                    bool(group["bias_correction"]), group["weight_decay"],
+                    1 if group["grad_averaging"] else 0, self.moment_mode,
+                    group["norm_type"], bias_corrections=bcs)
+                olds, news = plist + ms + ns, new_ps + new_ms + new_ns
+                if skip is not None:
+                    # the deferred mode's skip, on the device
+                    news = [torch.where(skip, o, n) for o, n in zip(olds,
+                                                                    news)]
+                    for sd in seed:
+                        if sd is not None:
+                            sd.logical_or_(~skip)
+                torch._foreach_copy_(olds, news)
+
+        if scaler is not None:
+            deferred_update(self, scaler, update)
+            return loss
         for group in self.param_groups:
             group["step"] = group.get("step", 0) + 1
-        flag = self._overflow_buf
-        for gi, plist in buckets:
-            group = self.param_groups[gi]
-            for p in plist:
-                state = self.state[p]
-                if len(state) == 0:
-                    state["exp_avg"] = torch.zeros_like(p)
-                    state["exp_avg_sq"] = self._init_norm(p, group)
-            ms = [self.state[p]["exp_avg"] for p in plist]
-            ns = [self.state[p]["exp_avg_sq"] for p in plist]
-            beta1, beta2 = group["betas"]
-            _, new_ps, new_ms, new_ns = ops.multi_tensor_novograd(
-                flag, [[p.grad for p in plist], plist, ms, ns], group["lr"],
-                beta1, beta2, group["eps"], group["step"],
-                bool(group["bias_correction"]), group["weight_decay"],
-                1 if group["grad_averaging"] else 0, self.moment_mode,
-                group["norm_type"])
-            torch._foreach_copy_(plist + ms + ns, new_ps + new_ms + new_ns)
+        update(self._overflow_buf, lambda g: g["step"], None)
         return loss

@@ -79,10 +79,16 @@ def step_decay(boundaries, factors):
             f"boundaries must be ascending, got {boundaries}")
     bs = torch.tensor(boundaries, dtype=torch.float32)
     fs = torch.tensor([1.0] + list(factors), dtype=torch.float32)
+    # the tables on each device, copied once: a train step captured as a
+    # CUDA graph cannot copy from the host inside the capture
+    on = {}
 
     def schedule(step):
         s = _as_f32(step)
-        idx = (s >= bs.to(s.device)).sum()
-        return fs.to(s.device)[idx]
+        if s.device not in on:
+            on[s.device] = (bs.to(s.device), fs.to(s.device))
+        b_dev, f_dev = on[s.device]
+        idx = (s >= b_dev).sum()
+        return f_dev[idx]
 
     return schedule

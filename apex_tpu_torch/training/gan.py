@@ -20,14 +20,20 @@ times (real, fake, the G step), as there.  Each network keeps its own
 ``StepState`` (fp32 masters, optional half copies, optimizer slots, loss
 scaler, step count) on the device, and the updates run the port's
 multi-tensor kernels (``FusedAdam``: one Adam launch per network and dtype
-group).  The step runs eagerly, as ``make_train_step`` does; the runtime
-executor the JAX step dispatches through is not ported (ROADMAP A7).  The
-forwards run with O1's casts off, as the JAX step runs its model forwards
-outside the tape's policy: ``half_dtype`` is its only cast.
+group).  The iteration is submitted through the runtime executor as kind
+``gan_train_step``, as the JAX builder submits it: on the card its second
+call captures it as one CUDA graph, which later calls replay
+(``make_train_step``'s rules: the state updated in place, the four
+forwards' dropout generators seeded on the host before each call).  The
+un-captured iteration is ``GanTrainStep._raw_step_fn(state, call_index,
+real, z)``.  The forwards run with O1's casts off, as the JAX step runs
+its model forwards outside the tape's policy: ``half_dtype`` is its only
+cast.
 """
 from __future__ import annotations
 
 import inspect
+import itertools
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -35,6 +41,7 @@ import torch
 from torch.func import functional_call
 
 from ..amp.policy import disable_casts
+from ..runtime import executor as _executor
 from .step import (StepState, _model_dtypes, apply_fused_update,
                    build_opt_update, dropout_seed, init_step_state,
                    match_param_groups, model_vals_of)
@@ -45,16 +52,23 @@ class GanStepState(NamedTuple):
     g: StepState
 
 
+_GAN_TOKENS = itertools.count()
+
+
 class GanTrainStep:
     """Built by :func:`make_gan_train_step`; ``step(real, z) -> (errD,
-    errG)`` runs one iteration and returns both losses as device
-    scalars."""
+    errG)`` runs one iteration through the executor and returns both
+    losses as device scalars."""
 
-    def __init__(self, netD, netG, optD, optG, step_fn, d_parts, g_parts,
-                 init_state):
+    def __init__(self, netD, netG, optD, optG, program, seed_fn,
+                 raw_step_fn, d_parts, g_parts, init_state):
         self.netD, self.netG = netD, netG
         self.optD, self.optG = optD, optG
-        self._step_fn = step_fn
+        self._program = program
+        self._seed = seed_fn
+        #: the un-captured iteration, ``(state, call_index, real, z) ->
+        #: (state, (errD, errG))``, updating ``state`` in place
+        self._raw_step_fn = raw_step_fn
         self._d_parts, self._g_parts = d_parts, g_parts
         self.state = init_state
         #: host seconds of the first call (the JAX step's compile time)
@@ -63,11 +77,17 @@ class GanTrainStep:
 
     def __call__(self, real, z):
         t0 = time.perf_counter() if self.compile_s is None else None
-        self.state, losses = self._step_fn(self.state, self.calls, real, z)
+        self._seed(self.calls)
+        losses = _executor.executor.submit(
+            self._program, (self.state, real, z), step=self.calls + 1)
         self.calls += 1
         if t0 is not None:
             self.compile_s = time.perf_counter() - t0
         return losses
+
+    def graph_stats(self):
+        """The captured graphs of this step (see ``TrainStep``)."""
+        return _executor.graph_stats(self._program)
 
     def sync_to_objects(self):
         """Write each network's parameters back into its modules: the half
@@ -100,14 +120,11 @@ class _Net:
         self.takes_generator = "generator" in inspect.signature(
             model.forward).parameters
 
-    def run(self, vals, x, seed):
+    def run(self, vals, x, gen):
         """One forward of the network with parameter values ``vals`` (its
-        buffers are updated in place, as a training forward does)."""
-        kwargs = {}
-        if self.takes_generator:
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(seed)
-            kwargs["generator"] = gen
+        buffers are updated in place, as a training forward does), drawing
+        from ``gen`` if it takes a generator."""
+        kwargs = {"generator": gen} if self.takes_generator else {}
         return functional_call(self.model, dict(zip(self.names, vals)), (x,),
                                kwargs)
 
@@ -138,7 +155,8 @@ def make_gan_train_step(netD, netG, optD, optG,
     value at that network's 1-based step count.  A network whose
     ``forward`` takes a ``generator`` gets one per forward, seeded from
     ``rng_seed`` and the call index.  ``donate_state`` has nothing to
-    choose: the state is always updated in place."""
+    choose: the state is always updated in place.  The iteration runs
+    through the runtime executor (see the module docstring)."""
     d = _Net(netD, optD, half_dtype, keep_batchnorm_fp32,
              "make_gan_train_step(netD)")
     g = _Net(netG, optG, half_dtype, keep_batchnorm_fp32,
@@ -167,34 +185,49 @@ def make_gan_train_step(netD, netG, optD, optG,
         return [torch.zeros_like(v) if gr is None else gr
                 for v, gr in zip(leaves, grads)]
 
-    def step_fn(state: GanStepState, call_index, real, z):
+    # the four forwards' generators, seeded on the host before every call
+    gens = [torch.Generator(device=dev) for _ in range(4)] \
+        if d.takes_generator or g.takes_generator else []
+
+    def seed_calls(call_index):
+        for i, gen in enumerate(gens):
+            gen.manual_seed(dropout_seed(rng_seed, 4 * call_index + i))
+
+    def body(state: GanStepState, real, z):
         real, z = cast(real), cast(z)
-        seeds = [dropout_seed(rng_seed, 4 * call_index + i) for i in range(4)]
+        gs = gens or [None] * 4
         g_leaves = [v.detach().requires_grad_(True)
                     for v in model_vals_of(state.g)]
         d_leaves = [v.detach().requires_grad_(True)
                     for v in model_vals_of(state.d)]
         with disable_casts(), torch.enable_grad():
             # 1) the generator forward, kept for the generator step
-            fake = g.run(g_leaves, z, seeds[0])
+            fake = g.run(g_leaves, z, gs[0])
             # 2) the discriminator step on real and detached fake
-            errD = d_loss_fn(d.run(d_leaves, real, seeds[1]),
-                             d.run(d_leaves, fake.detach(), seeds[2]))
+            errD = d_loss_fn(d.run(d_leaves, real, gs[1]),
+                             d.run(d_leaves, fake.detach(), gs[2]))
             d_grads = grads_of(errD, state.d.scaler.loss_scale, d_leaves)
-        d_new = finish(state.d, d_grads, d)
+        finish(state.d, d_grads, d)
         # 3) the generator step through the updated discriminator
         with disable_casts(), torch.enable_grad():
-            d_vals = [v.detach() for v in model_vals_of(d_new)]
-            errG = g_loss_fn(d.run(d_vals, fake, seeds[3]))
+            d_vals = [v.detach() for v in model_vals_of(state.d)]
+            errG = g_loss_fn(d.run(d_vals, fake, gs[3]))
             g_grads = grads_of(errG, state.g.scaler.loss_scale, g_leaves)
-        g_new = finish(state.g, g_grads, g)
-        return GanStepState(d_new, g_new), (errD.detach(), errG.detach())
+        finish(state.g, g_grads, g)
+        return errD.detach(), errG.detach()
+
+    def raw_step_fn(state: GanStepState, call_index, real, z):
+        seed_calls(call_index)
+        return state, body(state, real, z)
 
     init_state = GanStepState(
         d=init_step_state(d.params, d.buffers, d.dtypes, d.opt_init,
                           init_scale),
         g=init_step_state(g.params, g.buffers, g.dtypes, g.opt_init,
                           init_scale))
-    return GanTrainStep(netD, netG, optD, optG, step_fn,
-                        (d.params, d.buffers), (g.params, g.buffers),
-                        init_state)
+    program = _executor.Program(
+        "gan_train_step", (next(_GAN_TOKENS),), body, donate_argnums=(0,),
+        generators=gens)
+    return GanTrainStep(netD, netG, optD, optG, program, seed_calls,
+                        raw_step_fn, (d.params, d.buffers),
+                        (g.params, g.buffers), init_state)

@@ -12,6 +12,18 @@ state is device tensors updated in place, which is what buffer donation
 buys the JAX package; the ``noop`` skip, the step count and the scaler
 live on the device, so the step reads nothing back.
 
+As the JAX step submits its compiled window through the runtime
+executor, this step submits its body through
+:mod:`apex_tpu_torch.runtime.executor`: on the card the first call of a
+batch signature runs eagerly, the second captures the whole step (forward,
+backward, update, scale update) as one CUDA graph and every later call
+replays it; ``runtime.step_cache.stats()`` counts one compile and one
+dispatch a window, as the JAX package's does.  The dropout generators are
+the graph's own, seeded on the host before each call from ``rng_seed`` and
+the call index, so a replay draws the masks an eager call draws.  The
+un-captured step is kept as ``TrainStep._raw_step_fn(state, call_index,
+*batch)``.
+
 Gradient accumulation (``accum_steps``) and lr schedules (``lr_schedule``)
 run as in the JAX step.  What the JAX step does beyond that is owed to
 later slices and refused here with ``NotImplementedError``: data, tensor
@@ -21,6 +33,7 @@ the four fused ones raises ``TypeError``, as in the JAX step.
 from __future__ import annotations
 
 import inspect
+import itertools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -32,6 +45,7 @@ from ..amp.policy import disable_casts
 from ..amp.scaler import ScalerState, update_scale_state
 from ..kernels.dispatch import same_layout
 from ..ops.multi_tensor import nonfinite_flag
+from ..runtime import executor as _executor
 from .._unported import PARALLEL, refuse
 from ..optimizers import FusedAdam, FusedLAMB, FusedNovoGrad, FusedSGD
 
@@ -66,27 +80,42 @@ def dropout_seed(rng_seed: int, step: int) -> int:
     return x ^ (x >> 31)
 
 
+_STEP_TOKENS = itertools.count()
+
+
 class TrainStep:
     """Built by :func:`make_train_step`; ``step(*batch) -> loss`` runs one
-    iteration and returns the loss as a device scalar."""
+    iteration through the executor and returns the loss as a device
+    scalar (a fresh one each call)."""
 
-    def __init__(self, model, optimizer, loss_fn, step_fn, params,
-                 init_state):
+    def __init__(self, model, optimizer, loss_fn, program, seed_fn,
+                 raw_step_fn, params, init_state):
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
-        self._step_fn = step_fn
+        self._program = program
+        self._seed = seed_fn
+        #: the un-captured step, ``(state, call_index, *batch) -> (state,
+        #: loss)``: the same body, run eagerly, updating ``state`` in place
+        self._raw_step_fn = raw_step_fn
         self._params = params
         self.state = init_state
         #: 0-based count of calls; with ``rng_seed`` it seeds the dropout
-        #: generator of each call (a host integer: reading the device step
+        #: generators of each call (a host integer: reading the device step
         #: count would be a host sync)
         self.calls = 0
 
     def __call__(self, *batch):
-        self.state, loss = self._step_fn(self.state, self.calls, *batch)
+        self._seed(self.calls)
+        loss = _executor.executor.submit(self._program, (self.state,) + batch,
+                                         step=self.calls + 1)
         self.calls += 1
         return loss
+
+    def graph_stats(self):
+        """The captured graphs of this step: entries (batch signatures),
+        captures, replays, capture seconds and pool bytes."""
+        return _executor.graph_stats(self._program)
 
     @property
     def last_step_skipped(self):
@@ -310,13 +339,14 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
     of the 1-based device step count), the half copies re-made from the
     masters, the step count and the loss-scale update.  A static scale of
     1.0 (the bf16 recipe) neither unscales nor checks, and never skips, as
-    in the JAX package.  A gradient that autograd returned in another
+    in the JAX package.  The masters, slots, half copies, scaler and step
+    count are updated in place.  A gradient that autograd returned in another
     layout than its master (the transposed product of a matmul, cuDNN's
     channels-last weight gradient beside an OIHW weight) is copied into
     the master's layout first, as ``.grad`` accumulation does, since the
     kernels take each list in its param's layout; where the two agree
     (channels-last weights and their gradients) nothing is copied.
-    Returns the new state."""
+    Returns ``state``."""
     grads = [g if same_layout(g, m) else
              torch.empty_like(m, dtype=g.dtype).copy_(g)
              for g, m in zip(grads, state.master_params)]
@@ -343,10 +373,17 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
         ScalerState(state.scaler.loss_scale, state.scaler.unskipped, flag),
         dynamic=dynamic, scale_window=scale_window,
         min_loss_scale=min_loss_scale, max_loss_scale=max_loss_scale)
-    # carry this step's skip flag out in the scaler state, as the JAX step
-    # does, so last_step_skipped reads it without a host sync
-    return state._replace(scaler=new_scaler._replace(overflow=flag),
-                          step=torch.where(skip, state.step, step_count))
+    # written into the state's own tensors, so that a captured step's
+    # outputs are its inputs; this step's skip flag is carried out in the
+    # scaler state, as the JAX step does, so last_step_skipped reads it
+    # without a host sync
+    with torch.no_grad():
+        sc = state.scaler
+        sc.loss_scale.copy_(new_scaler.loss_scale)
+        sc.unskipped.copy_(new_scaler.unskipped)
+        sc.overflow.copy_(flag.reshape(sc.overflow.shape))
+        state.step.copy_(torch.where(skip, state.step, step_count))
+    return state
 
 
 def _refuse(what, owner):
@@ -396,8 +433,11 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     halves on an overflow (the step is skipped: masters, slots and step
     count unchanged) and doubles after ``scale_window`` clean steps; a
     number is a static scale.  A model whose ``forward`` takes a
-    ``generator`` gets one on its device per call, seeded from
-    :func:`dropout_seed` (``rng_seed``, call index), for its dropout masks.
+    ``generator`` gets one on its device for each forward, seeded from
+    :func:`dropout_seed` (``rng_seed``, the forward's index), for its
+    dropout masks.  The step runs through the runtime executor: on the card
+    its second call captures it as a CUDA graph, which later calls replay
+    (see the module docstring).
 
     A model output may be a tuple, such as ``(hidden, table)`` from an
     ``output_hidden`` GPT with a chunked loss.  ``accum_steps`` (or
@@ -469,15 +509,22 @@ def make_train_step(model, optimizer, loss_fn: Callable,
 
     k_acc = grad_accum_steps
 
-    def grads_of(leaves, pass_index, scale, *b):
+    # one dropout generator a forward of the window, seeded on the host
+    # before every call (seed_calls), so a captured step's replays draw
+    # what an eager call draws
+    gens = [torch.Generator(device=dev) for _ in range(grad_accum_steps)] \
+        if takes_generator else []
+
+    def seed_calls(call_index):
+        for i, gen in enumerate(gens):
+            gen.manual_seed(dropout_seed(rng_seed,
+                                         call_index * grad_accum_steps + i))
+
+    def grads_of(leaves, gen, scale, *b):
         """The loss and the gradients of ``loss.float() * scale`` for one
-        forward over the batch ``b``."""
+        forward over the batch ``b``, drawing from ``gen``."""
         x = b[0] if half_dtype is None else tree_map(cast, b[0])
-        kwargs = {}
-        if takes_generator:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(dropout_seed(rng_seed, pass_index))
-            kwargs["generator"] = gen
+        kwargs = {} if gen is None else {"generator": gen}
         # O1's casts stay off: half_dtype is this step's only cast, as the
         # JAX step runs its forward outside the tape's policy
         with disable_casts(), torch.enable_grad():
@@ -528,29 +575,44 @@ def make_train_step(model, optimizer, loss_fn: Callable,
                       for b, sp in zip(batch, splits))
                 for i in range(k_acc)]
 
-    def step_fn(state: StepState, call_index, *batch):
+    def step_body(state: StepState, *batch):
+        """One window on the state in place, drawing from ``gens`` as
+        seeded; returns the loss."""
         leaves = [v.detach().requires_grad_(True)
                   for v in model_vals_of(state)]
         scale = state.scaler.loss_scale
         if k_acc == 1:
-            loss, grads = grads_of(leaves, call_index, scale, *batch)
+            loss, grads = grads_of(leaves, gens[0] if gens else None, scale,
+                                   *batch)
         else:
             # the JAX step's scan: fp32 sums of each microbatch's scaled
             # gradients and loss, then their means
             acc = [torch.zeros_like(v, dtype=_f32) for v in leaves]
             loss_sum = torch.zeros((), dtype=_f32, device=dev)
             for i, mb in enumerate(microbatches(batch)):
-                loss_i, g_i = grads_of(leaves, call_index * k_acc + i, scale,
-                                       *mb)
+                loss_i, g_i = grads_of(leaves, gens[i] if gens else None,
+                                       scale, *mb)
                 acc = [a + g.float() for a, g in zip(acc, g_i)]
                 loss_sum = loss_sum + loss_i.float()
             grads = [a / k_acc for a in acc]
             loss = loss_sum / k_acc
-        new_state = apply_fused_update(
+        apply_fused_update(
             state, grads, opt_update, dynamic=dynamic,
             init_scale=init_scale, scale_window=scale_window,
             min_loss_scale=min_loss_scale, max_loss_scale=max_loss_scale,
             zero_flag=zero_flag, lr_schedule=lr_schedule)
-        return new_state, loss
+        return loss
 
-    return TrainStep(model, optimizer, loss_fn, step_fn, params, init_state)
+    def raw_step_fn(state: StepState, call_index, *batch):
+        seed_calls(call_index)
+        return state, step_body(state, *batch)
+
+    # the window program, keyed as the JAX step keys it: a per-builder
+    # token, K, the stacking and telemetry (the batch signature completes
+    # the key); the state is held and updated in place
+    program = _executor.Program(
+        "train_step", (next(_STEP_TOKENS), grad_accum_steps, accum_stacked,
+                       bool(telemetry)),
+        step_body, donate_argnums=(0,), generators=gens)
+    return TrainStep(model, optimizer, loss_fn, program, seed_calls,
+                     raw_step_fn, params, init_state)

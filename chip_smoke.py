@@ -272,7 +272,29 @@ Phases, each of which raises on failure:
    BERT-base cut to 2 layers one step each way; the port's LSTM (2 x 1500,
    sequence 35, batch 20) and mLSTM (4096 over 64-wide inputs, sequence 64,
    batch 32) forward and backward timed, and each on the card against the
-   CPU at batch 2.
+   CPU at batch 2;
+26. (after phase 25) the runtime executor: every ``make_train_step`` and
+   GAN step above already runs through it (call 1 eager, call 2 captured
+   as one CUDA graph, then replays; a train path's launch counts are
+   its eager call 1's, which the wrappers count, and its graph's kernel
+   nodes, read back by name, must be the same, each kernel also in
+   torch.profiler's trace of a replay); ``graph_phase`` holds a replayed step against its
+   ``_raw_step_fn`` from the same weights on three batches (eager,
+   capture + replay, then, after the multi-tensor wrappers' caches were
+   emptied of what the capture read, a replay), bit for bit in every
+   loss, launch count and state tensor: BERT-base FusedLAMB, ViT-S/16 without and with
+   remat and seq2seq-base at full width and dropout 0.1, each then timed
+   in turns (wall, busy and idle share, capture s, pool GiB); GPT-2 small
+   (chunked, attention dropout 0.1, also with remat and with accum_steps 4
+   and a cosine schedule), llama_125m's kernel loss, ResNet-50 FusedSGD
+   and the DCGAN step (cudnn.deterministic; the eager step twice with
+   cuDNN's default algorithms printed) at 2 layers; amp O2 BERT-base with
+   ``defer_scale_update`` in turns with the default mode, an overflow
+   planted (the same bits; no synchronizing call in a deferred iteration
+   under ``torch.cuda.set_sync_debug_mode``); ``Executor.drive`` into the
+   NHWC ResNet-50 step at depth 2 and 1 in turns; and
+   ``models.gpt2_from_hf`` over a GPT-2-small-shaped HF state dict, card
+   against CPU.
 
 Every main path's launch counts include the norm kernels' per-route
 counters (each path runs its forwards and backwards on ``vec``), and every
@@ -280,7 +302,8 @@ profiled step prints its device operations (the train steps beside their
 count when the backward's sums were cast after the kernels).  It prints a
 JSON line of the BERT, NovoGrad-turn, Llama-step, LoRA, legacy-optimizer,
 layer, GPT profiled-step, dropout-arm, amp O1, ResNet-50 layout-turn,
-imagenet-arm, seq2seq, ViT, remat and RNN numbers, its own wall time, one JSON line of per-kernel
+imagenet-arm, seq2seq, ViT, remat, RNN and graph numbers, its own wall
+time, one JSON line of per-kernel
 numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero before
@@ -959,6 +982,127 @@ def _profiled(torch, fn, counts=None):
             busy += e - max(s, end)
             end = e
     return wall_ms, busy / 1e3, by_name, len(spans)
+
+
+# the hand-written kernels by their function's name, each with the
+# wrappers' counters that one launch of it adds to (apex_tpu_torch/kernels)
+KERNEL_COUNTERS = {
+    **{f"flash_{k}_{sym}": (f"flash_attention_{k}",
+                            f"flash_attention_{k}_{route}")
+       for k in ("fwd", "bwd_dq", "bwd_dkv")
+       for sym, route in (("kernel", "simt"), ("tc", "tc"))},
+    **{f"{norm}_{k}_{sym}kernel": (f"{kind}_{name}", f"{kind}_{name}_{route}")
+       for norm, kind in (("ln", "ln"), ("rms", "rms"))
+       for k, name in (("fwd", "forward"), ("bwd", "backward_rows"))
+       for sym, route in (("", "scalar"), ("vec_", "vec"))},
+    "ln_bwd_cols_kernel": ("ln_backward_cols",),
+    "rms_bwd_cols_kernel": ("rms_backward_cols",),
+    "xent_fwd_kernel": ("xent_forward",),
+    "xent_bwd_kernel": ("xent_backward",),
+    **{f"lmx_{k}_{sym}": (f"lm_head_xent_{name}_{route}",)
+       for k, name in (("fwd", "fwd"), ("dx", "dx"), ("dw", "demb"))
+       for sym, route in (("kernel", "simt"), ("tc", "tc"))},
+    "adam_kernel": ("fused_adam",),
+    "sgd_kernel": ("fused_sgd",),
+}
+_KERNEL_NAME = re.compile(
+    r"(?<![A-Za-z_])(" + "|".join(sorted(KERNEL_COUNTERS, key=len,
+                                         reverse=True)) + r")(?![a-z0-9_])")
+
+
+_DOT_NODE = re.compile(r'^\s*"?graph_\d+_node_\d+"?\s*\[', re.M)
+
+
+def _dot_kernel_counts(texts, keys):
+    """The hand-written kernels among the nodes of captured graphs, given
+    as the DOT text ``runtime.executor.graph_dot`` reads back (each node
+    counted once, by the first kernel name in its statement), under the
+    wrappers' counters (KERNEL_COUNTERS); ``keys`` are the counters."""
+    counts = dict.fromkeys(keys, 0)
+    for text in texts:
+        starts = [m.start() for m in _DOT_NODE.finditer(text)] + [len(text)]
+        for a, b in zip(starts, starts[1:]):
+            m = _KERNEL_NAME.search(text, a, b)
+            for counter in KERNEL_COUNTERS[m.group(1)] if m else ():
+                counts[counter] += 1
+    return counts
+
+
+def _kernel_counts(torch, dispatch, fn):
+    """``fn()`` once under torch.profiler, the launch counters set to 0
+    first: (the hand-written kernels the card ran, counted by their names
+    in the trace under the wrappers' counters (KERNEL_COUNTERS), the
+    wrappers' own counts, ``fn``'s result).  A replayed CUDA graph runs no
+    Python, so its wrappers count nothing: the trace is what shows the
+    kernels a replay launched."""
+    out, seen = [], {}
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    _, busy, _, _ = _profiled(torch, lambda: out.append(fn()), counts=seen)
+    wrappers = dispatch.counts()
+    if busy is None:
+        raise AssertionError("the profiler saw no device activity: the "
+                             "kernels of a replay cannot be counted")
+    traced = dict.fromkeys(wrappers, 0)
+    for name, n in seen.items():
+        m = _KERNEL_NAME.search(name)
+        for counter in KERNEL_COUNTERS[m.group(1)] if m else ():
+            traced[counter] += n
+    return traced, wrappers, out[0]
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _replay_counts(torch, dispatch, what, step, fn, want):
+    """One replay ``fn()`` of ``step``'s captured graph, its launches read
+    two ways.  The graph's kernel nodes, which every replay launches
+    (``runtime.executor.graph_dot``, _dot_kernel_counts), must be
+    ``want``, the launches of an eager call.  Under torch.profiler
+    (_kernel_counts) the wrappers must count nothing, and every kernel of
+    ``want`` must show in the trace, none more often than in ``want``: the
+    profiler now and then loses a record of a long replay (one
+    ln_fwd_vec_kernel of a BERT step's ~6000 device operations, the same
+    one in every trace of a process), so a shortfall is printed, not
+    failed.  Returns ``fn``'s result."""
+    from apex_tpu_torch.runtime import executor
+    texts = executor.graph_dot(step._program)
+    nodes = _dot_kernel_counts(texts, want)
+    traced, wrappers, out = _kernel_counts(torch, dispatch, fn)
+    missing = [k for k, v in want.items() if v and not traced[k]]
+    over = {k: v for k, v in traced.items() if v > want[k]}
+    if len(texts) != 1 or nodes != want or any(wrappers.values()) \
+            or missing or over:
+        raise AssertionError(
+            f"{what}: {len(texts)} graph(s) with the kernel nodes "
+            f"{_nonzero(nodes)}; a replay ran {_nonzero(traced)} (the "
+            f"profiler's trace) and its wrappers counted "
+            f"{_nonzero(wrappers)}; the eager call launched "
+            f"{_nonzero(want)}")
+    if traced != want:
+        short = {k: want[k] - v for k, v in traced.items() if v != want[k]}
+        print(f"  {what}: the graph's kernel nodes are the eager call's "
+              f"launches; the profiler's trace of a replay lost records "
+              f"{short}")
+    return out
+
+
+def _counted_calls(torch, dispatch, what, step, *batch):
+    """A captured step's first three calls on ``batch``: call 1 runs
+    eagerly, its launches counted by the wrappers (the counts set to 0
+    just before it and read just after); call 2 is captured and replayed;
+    call 3, a replay, must launch call 1's kernels (_replay_counts).
+    Returns (call 1's launch counts, the three losses)."""
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    losses = [step(*batch)]
+    torch.cuda.synchronize()
+    counts = dispatch.counts()
+    losses.append(step(*batch))
+    losses.append(_replay_counts(torch, dispatch, what, step,
+                                 lambda: step(*batch), counts))
+    return counts, losses
 
 
 def profile_phase(torch, model, out, steps=8):
@@ -2413,12 +2557,10 @@ def resnet_arm(torch, dispatch, models, arm):
     if nhwc:
         x = x.permute(0, 2, 3, 1).contiguous()
     y = torch.from_numpy(rng.integers(0, 1000, (RESNET_BATCH,))).cuda()
-    losses = [step(x, y) for _ in range(2)]     # warm-up
-    torch.cuda.synchronize()
-    dispatch.reset_counts()
-    losses.append(step(x, y))
-    torch.cuda.synchronize()
-    counts = dispatch.counts()
+    # call 1 eager (its launches counted), call 2 captured, call 3 a
+    # replay whose kernels the profiler's trace counts
+    counts, losses = _counted_calls(torch, dispatch, "ResNet step", step,
+                                    x, y)
     want = dict.fromkeys(counts, 0)
     want.update(fused_sgd=1)
     if counts != want:
@@ -2687,8 +2829,10 @@ def _amp_iteration(amp, model, opt, criterion, x, y, plant=False):
     with amp.scale_loss(loss, opt) as scaled:
         scaled.backward()
         if plant:
+            # a fill on the card (an assignment of a host number would
+            # copy it from the host)
             p16 = opt._amp_stash.all_fp16_params[0]
-            p16.grad[(0,) * p16.grad.dim()] = float("inf")
+            p16.grad[(0,) * (p16.grad.dim() - 1)][:1].fill_(float("inf"))
     skipped = opt._amp_stash.already_patched   # scale_loss patched a skip
     opt.step()
     opt.zero_grad()
@@ -2913,12 +3057,10 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want,
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     ids = torch.randint(0, model.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
                         generator=g, device="cuda")
-    losses = [step(ids, ids) for _ in range(2)]     # warm-up
-    torch.cuda.synchronize()
-    dispatch.reset_counts()
-    losses.append(step(ids, ids))
-    torch.cuda.synchronize()
-    counts = dispatch.counts()
+    # call 1 eager (its launches counted), call 2 captured, call 3 a
+    # replay whose kernels the profiler's trace counts
+    counts, losses = _counted_calls(torch, dispatch, "train step", step,
+                                    ids, ids)
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
     want.update(_flash_want("tc", layers), fused_adam=1, **xent_want)
@@ -4088,12 +4230,10 @@ def _llama_arm(torch, dispatch, llama, mode):
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     ids = torch.randint(0, model.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
                         generator=g, device="cuda")
-    losses = [step(ids, ids) for _ in range(2)]     # warm-up
-    torch.cuda.synchronize()
-    dispatch.reset_counts()
-    losses.append(step(ids, ids))
-    torch.cuda.synchronize()
-    counts = dispatch.counts()
+    # call 1 eager (its launches counted), call 2 captured, call 3 a
+    # replay whose kernels the profiler's trace counts
+    counts, losses = _counted_calls(torch, dispatch, "Llama train step",
+                                    step, ids, ids)
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
     want.update(_flash_want("tc", layers), fused_adam=1, **xent_want)
@@ -4255,12 +4395,10 @@ def bert_train_path(torch, dispatch, bert, attn_dropout):
     from apex_tpu_torch.optimizers import FusedLAMB
     step = _bert_step(torch, bert, FusedLAMB, attn_dropout)
     x, labels = _bert_batch(torch, BERT_BATCH, BERT_SEQ, "cuda")
-    losses = [step(x, labels) for _ in range(2)]      # warm-up
-    torch.cuda.synchronize()
-    dispatch.reset_counts()
-    losses.append(step(x, labels))
-    torch.cuda.synchronize()
-    counts = dispatch.counts()
+    # call 1 eager (its launches counted), call 2 captured, call 3 a
+    # replay whose kernels the profiler's trace counts
+    counts, losses = _counted_calls(torch, dispatch, "BERT step", step,
+                                    x, labels)
     print(f"BERT training path: make_train_step(bert_base, batch "
           f"{BERT_BATCH} x {BERT_SEQ}, gathered MLM, bf16 half copies, "
           f"FusedLAMB lr {BERT_LR} wd {BERT_WD}, attn_dropout "
@@ -5010,8 +5148,12 @@ def o1_dcgan_path(torch, dispatch, dcgan):
                                    loss_scale="dynamic",
                                    max_loss_scale=DCGAN_MAX_SCALE)
         gan_counts, gan_losses = [], []
-        for i in range(4):
-            if i == 1:
+        # call 1 runs eagerly and call 2 is captured as a CUDA graph, each
+        # counted by the wrappers; the replays of calls 3-6, which run no
+        # wrapper, are timed; call 7, a replay, is counted from the
+        # profiler's trace
+        for i in range(6):
+            if i == 2:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
             dispatch.reset_counts()
@@ -5019,20 +5161,30 @@ def o1_dcgan_path(torch, dispatch, dcgan):
             torch.cuda.synchronize()
             gan_counts.append(dispatch.counts())
             gan_losses.append((float(errD), float(errG)))
-        gan_it_s = 3 / (time.perf_counter() - t0)
+        gan_it_s = 4 / (time.perf_counter() - t0)
+        want = dict.fromkeys(gan_counts[0], 0)
+        want.update(fused_adam=2)
+        errD, errG = _replay_counts(torch, dispatch, "GAN step, call 7",
+                                    step, lambda: step(reals[6], noises[6]),
+                                    want)
+        gan_losses.append((float(errD), float(errG)))
         print(f"  make_gan_train_step (half_dtype None, dynamic scale): Adam "
-              f"launches {[c['fused_adam'] for c in gan_counts]}, losses "
+              f"launches {[c['fused_adam'] for c in gan_counts]} counted by "
+              f"the wrappers (calls 1-6: eager, capture, 4 replays), "
+              f"{want['fused_adam']} in the graph and in a replay's trace "
+              f"(call 7); losses "
               f"{[tuple(round(v, 4) for v in r) for r in gan_losses]}, "
               f"skipped D {int(step.state.d.scaler.overflow)} G "
               f"{int(step.state.g.scaler.overflow)} in the last; first call "
-              f"{step.compile_s * 1e3:.1f} ms, then {gan_it_s:.2f} "
-              f"iterations/s (calls 2-4, host clock, synchronised each call "
-              f"to read the launch counts)")
-        for c in gan_counts:
-            want = dict.fromkeys(c, 0)
-            want.update(fused_adam=2)
-            if c != want:
-                raise AssertionError(f"GAN step launch counts {c} != {want}")
+              f"{step.compile_s * 1e3:.1f} ms, the capture "
+              f"{step.graph_stats()['capture_s'] * 1e3:.1f} ms, then "
+              f"{gan_it_s:.2f} iterations/s (the replays of calls 3-6, host "
+              f"clock, synchronised each call to read the launch counts)")
+        replayed = dict.fromkeys(want, 0)
+        for i, c in enumerate(gan_counts):
+            if c != (want if i < 2 else replayed):
+                raise AssertionError(f"GAN step call {i + 1}: the wrappers "
+                                     f"counted {c}")
         if not all(math.isfinite(v) for r in gan_losses for v in r):
             raise AssertionError(f"GAN step losses: {gan_losses}")
         del step, netD, netG, opts
@@ -5073,7 +5225,7 @@ def o1_dcgan_path(torch, dispatch, dcgan):
         check("O1 DCGAN first iteration's losses, card vs CPU (relative)",
               max(abs(a - b) / abs(b) for a, b in zip(first["cuda"],
                                                       first["cpu"])), 1e-2)
-        return counts[-1], gan_counts[-1], dict(
+        return counts[-1], gan_counts[0], dict(
             iterations_per_s=it_s, gan_step_iterations_per_s=gan_it_s,
             history=main_rows, losses=losses)
     finally:
@@ -5107,12 +5259,10 @@ def bert_novograd_path(torch, dispatch, bert):
           f"FusedNovoGrad against FusedLAMB from the same weights")
     for name, cls in (("novograd", FusedNovoGrad), ("lamb", FusedLAMB)):
         step = _bert_step(torch, bert, cls)
-        losses = [step(x, labels) for _ in range(2)]      # warm-up
-        torch.cuda.synchronize()
-        dispatch.reset_counts()
-        losses.append(step(x, labels))
-        torch.cuda.synchronize()
-        counts = dispatch.counts()
+        # call 1 eager (its launches counted), call 2 captured, call 3 a
+        # replay whose kernels the profiler's trace counts
+        counts, losses = _counted_calls(torch, dispatch,
+                                        f"BERT {name} step", step, x, labels)
         print(f"  {name}: launches in one step: {counts}")
         if counts != _bert_want(counts):
             raise AssertionError(f"BERT {name} launch counts {counts} != "
@@ -5415,12 +5565,10 @@ def llama_lora_path(torch, dispatch, gpt, llama, multi_tensor):
     g = torch.Generator(device="cuda").manual_seed(SEED + 44)
     ids = torch.randint(0, LLAMA["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ),
                         generator=g, device="cuda")
-    losses = [step(ids, ids) for _ in range(2)]      # warm-up
-    torch.cuda.synchronize()
-    dispatch.reset_counts()
-    losses.append(step(ids, ids))
-    torch.cuda.synchronize()
-    counts = dispatch.counts()
+    # call 1 eager (its launches counted), call 2 captured, call 3 a
+    # replay whose kernels the profiler's trace counts
+    counts, losses = _counted_calls(torch, dispatch, "LoRA step", step,
+                                    ids, ids)
     layers = len(model.blocks)
     want = dict.fromkeys(counts, 0)
     want.update(_flash_want("tc", layers), fused_adam=1, xent_forward=chunks,
@@ -5890,7 +6038,9 @@ def _check_losses(what, values):
 
 
 def _one_step_counts(torch, dispatch, step, batch):
-    """The launch counts of one ``step(*batch)`` and its loss."""
+    """The launch counts of one ``step(*batch)`` and its loss: the step's
+    first call at this batch's signature, which runs eagerly (a replay
+    runs no wrapper; _counted_calls counts one)."""
     torch.cuda.synchronize()
     dispatch.reset_counts()
     loss = step(*batch)
@@ -5974,8 +6124,9 @@ def seq2seq_train_path(torch, dispatch, models):
           f"parameters in {len(shapes)} tensors, batch {S2S_BATCH} x "
           f"{S2S_SEQ} copy-task pairs, bf16 half copies, FusedAdam lr "
           f"{S2S_LR}, chunked loss)")
-    first = [float(step(*batch)) for _ in range(2)]
-    counts, loss = _one_step_counts(torch, dispatch, step, batch)
+    counts, three = _counted_calls(torch, dispatch, "seq2seq step", step,
+                                   *batch)
+    first, loss = [float(v) for v in three[:2]], float(three[2])
     xent = counts["xent_forward"]
     _expect("one step", counts, _want(counts, 18, LN_NAMES, S2S_LN,
                                       fused_adam=1, xent_forward=xent,
@@ -6116,9 +6267,6 @@ def seq2seq_generate_path(torch, dispatch, models):
 # the largest relative difference (per tensor, in norm) of two steps'
 # gradients that counts as the same gradient: one bf16 ulp (the gradients
 # are bf16, so fp32 sums taken in another order can flip elements by one)
-REMAT_GRAD_TOL = 2.0 ** -7
-
-
 def _state_gap(torch, a, b):
     """Two step states after one step: whether their masters and optimizer
     slots are equal bit for bit, their largest absolute difference, and
@@ -6140,7 +6288,8 @@ def _state_gap(torch, a, b):
 
 
 def _remat_host_split(torch, step, batch, block_cls, n=3):
-    """Where a step's host time goes under remat: ``n`` steps with timers
+    """Where an eager step's host time goes under remat: ``n`` calls of
+    the step's ``_raw_step_fn`` (a replayed graph runs no Python) with timers
     around ``torch.utils.checkpoint.checkpoint``, around the
     ``functional_call`` that substitutes the parameters for the
     recomputation (it runs on autograd's device thread), and around
@@ -6177,13 +6326,19 @@ def _remat_host_split(torch, step, batch, block_cls, n=3):
     block_cls.forward, tuc.checkpoint = block_forward, timed("checkpoint",
                                                              ckpt)
     modules.functional_call = timed("functional_call", fcall, flag=True)
+    calls = [step.calls]
+
+    def eager():
+        # the un-captured step: a replayed graph runs no Python
+        step._raw_step_fn(step.state, calls[0], *batch)
+        calls[0] += 1
     try:
-        step(*batch)
+        eager()
         torch.cuda.synchronize()
         acc.update(dict.fromkeys(acc, 0.0))
         t0 = time.perf_counter()
         for _ in range(n):
-            step(*batch)
+            eager()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -6205,11 +6360,10 @@ def _remat_arms(torch, dispatch, what, model, make_step, batch, n_blocks,
     each arm's first step (with remat every block's forward runs again in
     the backward: its flash forward and norm forwards twice); the first
     losses equal, and the masters and optimizer slots after that step equal
-    bit for bit or, where the step itself is not reproducible bit for bit
-    (shown by the arm without remat run again), their gradients within
-    REMAT_GRAD_TOL, which the arm without remat at another dropout seed
-    must exceed where the model draws masks (what a recomputation that
-    redrew them would see);
+    bit for bit, as are those of the arm without remat run again (the step
+    is reproducible); the arm without remat at another dropout seed is
+    printed beside them (how far a recomputation that redrew its masks
+    would be);
     with ``turns``, REMAT_TURNS of 10 timed steps (step ms, peak memory and
     its rise over what the process held before them, a turn) and a
     profiled step an arm; with ``split_block`` (the block's class), each
@@ -6235,20 +6389,20 @@ def _remat_arms(torch, dispatch, what, model, make_step, batch, n_blocks,
     print(f"  {what}: after one step from the same weights, remat and not: "
           f"losses {first[False]:.9g} / {first[True]:.9g}, masters and "
           f"optimizer slots {'equal bit for bit' if same else 'differ'} "
-          f"(largest gap {gap:.3e}, gradients {rel:.3e} apart, tolerance "
-          f"{REMAT_GRAD_TOL:.3e}); no remat run again: "
+          f"(largest gap {gap:.3e}, gradients {rel:.3e} apart); no remat "
+          f"run again: "
           f"{'equal bit for bit' if again[0] else 'differs'} ({again[1]:.3e}"
           f", {again[2]:.3e}); at another dropout seed: gradients "
           f"{redrawn:.3e} apart")
-    if first[False] != first[True] or not (same or rel <= REMAT_GRAD_TOL):
+    if first[False] != first[True] or not same:
         raise AssertionError(
             f"{what}: remat's first step differs from no remat: losses "
             f"{first[False]!r} / {first[True]!r}, masters and slots "
-            f"{gap} apart, gradients {rel} (tolerance {REMAT_GRAD_TOL})")
-    if redrawn and not redrawn > REMAT_GRAD_TOL:
+            f"{gap} apart, gradients {rel}")
+    if not again[0]:
         raise AssertionError(
-            f"{what}: other dropout masks move the gradients by only "
-            f"{redrawn}: the tolerance {REMAT_GRAD_TOL} cannot tell them")
+            f"{what}: the step run again from the same weights differs: "
+            f"masters and slots {again[1]} apart, gradients {again[2]}")
     out = dict(first_losses=[first[False], first[True]],
                state_equal=same, state_gap=gap, grad_rel_gap=rel,
                again_equal=again[0], again_gap=again[1],
@@ -6502,6 +6656,603 @@ def slice_paths(torch, dispatch, models, multi_tensor, attention, rnn,
     return paths, nums
 
 
+# ---------------------------------------------------------------------------
+# the runtime executor: train steps captured as CUDA graphs and replayed
+# ---------------------------------------------------------------------------
+
+GRAPH_TURNS = ("graph", "eager", "eager", "graph")
+GRAPH_STEPS = 10
+DEFER_ITERS, DEFER_PLANT = 4, 1
+DRIVE_BATCH, DRIVE_WINDOWS = 64, 8
+HF_TOL = 1e-3       # fp32 logits of the card and the CPU, as cpu_phase's
+
+
+def _state_tensors(torch, state):
+    from torch.utils._pytree import tree_leaves
+    return [t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _evict_caches(torch):
+    """65 eager FusedAdam updates of other small lists, each at a host
+    step of its own: 65 new scalar vectors and chunk tables, which push
+    every earlier entry out of the multi-tensor wrappers' caches (64
+    entries each), then small tensors of NaN that take what the caches
+    freed.  A graph that did not hold the cached tensors it reads would
+    replay NaN or stray addresses after this.  Returns the tensors to keep
+    alive until the replay."""
+    from apex_tpu_torch.kernels import multi_tensor
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    junk = []
+    for i in range(65):
+        p = torch.zeros(8 * (i + 1), device="cuda")
+        lists = [[torch.ones_like(p)], [p], [torch.zeros_like(p)],
+                 [torch.zeros_like(p)]]
+        multi_tensor.fused_adam(flag, lists, 1e-3, 0.9, 0.999, 1e-8, i + 1,
+                                1, True, 0.0)
+        junk.append(lists)
+    junk += [torch.full((256,), float("nan"), device="cuda")
+             for _ in range(512)]
+    torch.cuda.synchronize()
+    return junk
+
+
+def _graph_pair(torch, dispatch, what, make_step, batches):
+    """Two steps from the same weights: ``g`` through the executor (its
+    first call eager, its second captured and replayed, the rest replayed)
+    and ``e`` through ``_raw_step_fn``, the un-captured step, each batch in
+    turn.  Every call's losses must be equal, and its launches: the
+    wrappers' counts of calls 1 (eager) and 2 (the capture) the eager
+    arm's, none in call 3 (a replay runs no wrapper).  Before call 3 the
+    multi-tensor wrappers' caches are emptied of what the capture read
+    (_evict_caches).  After the last batch every tensor of the two states
+    (masters, half copies, optimizer slots, scaler, step count) must be
+    equal bit for bit, with one capture and a replay a later call; then
+    the graph's kernel nodes and a further replay's trace must show the
+    eager arm's launches (_replay_counts).  Returns (g, e, numbers)."""
+    g, e = make_step(), make_step()
+    losses, counts, junk = [], [], None
+    for i, batch in enumerate(batches):
+        if i == 2:
+            junk = _evict_caches(torch)
+        torch.cuda.synchronize()
+        dispatch.reset_counts()
+        lg = _as_tuple(g(*batch))
+        torch.cuda.synchronize()
+        cg = dispatch.counts()
+        dispatch.reset_counts()
+        _, le = e._raw_step_fn(e.state, i, *batch)
+        torch.cuda.synchronize()
+        ce = dispatch.counts()
+        le = _as_tuple(le)
+        # calls 1 and 2 run the wrappers (eagerly, then into the capture);
+        # a replay runs none
+        if not all(torch.equal(a, b) for a, b in zip(lg, le)) or \
+                cg != (ce if i < 2 else dict.fromkeys(ce, 0)):
+            raise AssertionError(
+                f"{what}, call {i + 1}: graph losses {lg} / eager {le}, "
+                f"launches {_nonzero(cg)} / {_nonzero(ce)}")
+        losses.append([float(x) for x in lg])
+        counts.append(ce)
+    del junk
+    ga, ea = _state_tensors(torch, g.state), _state_tensors(torch, e.state)
+    bad = [i for i, (a, b) in enumerate(zip(ga, ea)) if not torch.equal(a, b)]
+    gs = g.graph_stats()
+    print(f"  {what}: {len(batches)} batches, graph (eager, capture + "
+          f"replay, replay after the kernels' caches were emptied) against "
+          f"_raw_step_fn: losses "
+          f"{[[round(v, 5) for v in r] for r in losses]} equal bit for bit, "
+          f"launches a call equal (the wrappers' counts, then the "
+          f"graph's kernel nodes) {_nonzero(counts[0])}"
+          f"; {len(ga)} state tensors "
+          f"{'equal bit for bit' if not bad else f'differ at {bad[:8]}'}; "
+          f"{gs['captures']} capture ({gs['capture_s']:.2f} s, pool "
+          f"{gs['pool_bytes'] / 2 ** 30:.3f} GiB), {gs['replays']} replays")
+    if bad or len(ga) != len(ea):
+        raise AssertionError(f"{what}: graph and eager states differ at "
+                             f"tensors {bad}")
+    if gs["captures"] != 1 or gs["replays"] != len(batches) - 1:
+        raise AssertionError(f"{what}: graph stats {gs}")
+    if any(c != counts[0] for c in counts):
+        raise AssertionError(f"{what}: the eager calls' launches differ: "
+                             f"{[_nonzero(c) for c in counts]}")
+    # a replay's kernels, from the graph and the profiler's trace (the
+    # states were compared above; the step's later calls are timed only)
+    _replay_counts(torch, dispatch, what, g, lambda: g(*batches[-1]),
+                   counts[0])
+    return g, e, dict(losses=losses, launches=counts[0], graph=gs)
+
+
+def _event_ms(torch, fn):
+    """Device ms between CUDA events around one call."""
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def _graph_turns(torch, what, g, e, batch):
+    """GRAPH_TURNS of GRAPH_STEPS steps of the replayed step and of its
+    ``_raw_step_fn``: host-clock ms a step; then one profiled step an arm
+    (busy ms, idle share, device operations, or "not seen" where the
+    profiler saw no device activity) and one step between CUDA events."""
+    k = [g.calls]           # the eager arm's next call index
+
+    def eager():
+        e._raw_step_fn(e.state, k[0], *batch)
+        k[0] += 1
+    arms = {"graph": lambda: g(*batch), "eager": eager}
+    walls = {a: [] for a in arms}
+    for arm in GRAPH_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_STEPS):
+            arms[arm]()
+        torch.cuda.synchronize()
+        walls[arm].append(1e3 * (time.perf_counter() - t0) / GRAPH_STEPS)
+    out = {}
+    for arm, fn in arms.items():
+        wall, busy, _, n = _profiled(torch, fn)
+        ev = _event_ms(torch, fn)
+        out[arm] = dict(step_ms=walls[arm], profiled_wall_ms=wall,
+                        busy_ms=busy, idle_share=None if busy is None
+                        else 1 - busy / wall, device_ops=n, event_ms=ev)
+        seen = "not seen by the profiler" if busy is None else \
+            f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f}, " \
+            f"{n} device operations"
+        steps = ", ".join(f"{v:.2f}" for v in walls[arm])
+        print(f"  {what} {arm}: step {steps}"
+              f" ms ({GRAPH_STEPS} steps a turn, host clock); profiled step "
+              f"{wall:.2f} ms, {seen}; one step between CUDA events "
+              f"{ev:.2f} ms")
+    return out
+
+
+def _vit_batches(torch, n, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(torch.from_numpy(rng.standard_normal(
+        (VIT_BATCH, 3, 224, 224)).astype(np.float32)).cuda(),
+        torch.from_numpy(rng.integers(0, 1000, (VIT_BATCH,))).cuda())
+        for _ in range(n)]
+
+
+def _s2s_batches(torch, n):
+    import numpy as np
+    rng = np.random.default_rng(3)
+    out = []
+    for _ in range(n):
+        src = rng.integers(1, S2S_VOCAB, (S2S_BATCH, S2S_SEQ))
+        tgt_in = np.concatenate([np.zeros((S2S_BATCH, 1), src.dtype),
+                                 src[:, :-1]], axis=1)
+        src, tgt_in = (torch.from_numpy(a).cuda() for a in (src, tgt_in))
+        out.append(((src, tgt_in), src))
+    return out
+
+
+def graph_full_width(torch, dispatch, models, bert):
+    """The slice's main path at full width: BERT-base on FusedLAMB (64 x
+    128, bf16, dropout and attention dropout 0.1), ViT-S/16 (32 x 224^2,
+    dropout and attention dropout 0.1, without and with remat) and
+    seq2seq-base (64 x 128, dropout and attention dropout 0.1), each
+    replayed against its ``_raw_step_fn`` on three batches (_graph_pair),
+    then GRAPH_TURNS of timed steps (_graph_turns).  Returns the
+    numbers."""
+    from apex_tpu_torch.nn import functional as F
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from apex_tpu_torch.training import make_train_step
+    out = {}
+    print(f"graph phase, full width (NVIDIA H100; make_train_step through "
+          f"the runtime executor):")
+    bert_batches = [_bert_batch(torch, BERT_BATCH, BERT_SEQ, "cuda", seed=s)
+                    for s in range(3)]
+    g, e, nums = _graph_pair(
+        torch, dispatch, "bert_base FusedLAMB",
+        lambda: _bert_step(torch, bert, FusedLAMB, DROP_P), bert_batches)
+    nums["turns"] = _graph_turns(torch, "bert_base", g, e, bert_batches[0])
+    out["bert_base"] = nums
+    del g, e
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(SEED)
+    vit = models.vit_small(num_classes=1000, dropout=DROP_P,
+                           attn_dropout=DROP_P, device="cuda")
+    vit_batches = _vit_batches(torch, 3)
+    for remat in (False, True):
+        vit.remat = remat
+
+        def make_vit():
+            return make_train_step(
+                vit, FusedAdam(list(vit.parameters()), lr=VIT_LR,
+                               adam_w_mode=True, weight_decay=VIT_WD),
+                lambda o, y: F.cross_entropy(o, y),
+                half_dtype=torch.bfloat16, loss_scale=1.0)
+        what = f"vit_s16 remat={remat}"
+        g, e, nums = _graph_pair(torch, dispatch, what, make_vit,
+                                 vit_batches)
+        nums["turns"] = _graph_turns(torch, what, g, e, vit_batches[0])
+        out[f"vit_s16_remat_{remat}"] = nums
+        del g, e
+        torch.cuda.empty_cache()
+    del vit
+
+    torch.manual_seed(SEED)
+    s2s = models.transformer_seq2seq(
+        vocab_size=S2S_VOCAB, max_positions=S2S_SEQ, attn_dropout=DROP_P,
+        output_hidden=True, device="cuda")
+    s2s_batches = _s2s_batches(torch, 3)
+    g, e, nums = _graph_pair(
+        torch, dispatch, "seq2seq_base",
+        lambda: make_train_step(s2s, FusedAdam(list(s2s.parameters()),
+                                               lr=S2S_LR),
+                                _s2s_loss(torch), half_dtype=torch.bfloat16,
+                                loss_scale=1.0), s2s_batches)
+    nums["turns"] = _graph_turns(torch, "seq2seq_base", g, e, s2s_batches[0])
+    out["seq2seq_base"] = nums
+    del g, e, s2s
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_two_layers(torch, dispatch, models, gpt, llama, dcgan):
+    """Every other kernel inside a replayed graph, at 2 layers and full
+    width, held against ``_raw_step_fn`` on three batches: GPT-2 small
+    (chunked loss, attention dropout 0.1; B1/B2, B3/B4, B7/B8, B12), the
+    same with remat (the recomputation's dropout drawn from the graph's
+    twin generators), llama_125m in kernel mode (B5/B6, B9/B10), a
+    FusedSGD ResNet-50 step (B11), the GAN step and a GPT step with
+    ``accum_steps`` 4 and a cosine ``lr_schedule``.  Returns the
+    numbers."""
+    import numpy as np
+    from apex_tpu_torch.nn import functional as F
+    from apex_tpu_torch.optimizers import FusedAdam, FusedSGD
+    from apex_tpu_torch.optimizers.schedules import warmup_cosine
+    from apex_tpu_torch.training import make_gan_train_step, make_train_step
+    out = {}
+    print("graph phase, 2 layers at full width:")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    ids = [torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ), generator=g,
+                         device="cuda") for _ in range(3)]
+    torch.manual_seed(SEED)
+    gm = gpt.gpt2_small(layers=2, max_positions=TRAIN_POS, dropout=0.1,
+                        attn_dropout=DROP_P, output_hidden=True,
+                        device="cuda")
+    for tag, kw in (("gpt2_small_2_layers", {}),
+                    ("gpt2_small_2_layers_accum4_cosine",
+                     dict(accum_steps=4, lr_schedule=warmup_cosine(2, 10)))):
+        for remat in ((False, True) if not kw else (False,)):
+            gm.remat = remat
+
+            def make_gpt():
+                return make_train_step(
+                    gm, FusedAdam(list(gm.parameters()), lr=LR,
+                                  weight_decay=WD),
+                    _chunked_lm_loss(), half_dtype=torch.bfloat16,
+                    loss_scale="dynamic", **kw)
+            name = tag + ("_remat" if remat else "")
+            _, _, out[name] = _graph_pair(torch, dispatch, name, make_gpt,
+                                          [(x, x) for x in ids])
+    gm.remat = False
+    del gm
+    torch.manual_seed(SEED)
+    lm = llama.LlamaModel(**{**LLAMA, "layers": 2}, output_hidden=True,
+                          device="cuda")
+    lids = [x % LLAMA["vocab_size"] for x in ids]
+    _, _, out["llama_125m_2_layers_kernel"] = _graph_pair(
+        torch, dispatch, "llama_125m (2 layers) kernel loss",
+        lambda: make_train_step(
+            lm, FusedAdam(list(lm.parameters()), lr=LR, weight_decay=WD),
+            _kernel_lm_loss(), half_dtype=torch.bfloat16, loss_scale=1.0),
+        [(x, x) for x in lids])
+    del lm
+    torch.manual_seed(SEED)
+    rn = models.resnet50(num_classes=1000, device="cuda")
+    rng = np.random.default_rng(7)
+    rb = [(torch.from_numpy(rng.standard_normal((32, 3, 224, 224)).astype(
+        np.float32)).cuda(), torch.from_numpy(
+            rng.integers(0, 1000, (32,))).cuda()) for _ in range(3)]
+    _, _, out["resnet50_fused_sgd"] = _graph_pair(
+        torch, dispatch, "resnet50 FusedSGD (batch 32)",
+        lambda: make_train_step(rn, FusedSGD(list(rn.parameters()),
+                                             **SGD_HYPER),
+                                _resnet_loss(torch),
+                                half_dtype=torch.bfloat16, loss_scale=1.0),
+        rb)
+    del rn
+    torch.manual_seed(SEED + 41)
+    netG = dcgan.build_generator(DCGAN_NZ, DCGAN_NGF, device="cuda")
+    netD = dcgan.build_discriminator(DCGAN_NDF, device="cuda")
+    rng = np.random.default_rng(5)
+    gb = [(torch.from_numpy(rng.standard_normal(
+        (DCGAN_BATCH, 3, 32, 32)).astype(np.float32)).cuda(),
+        torch.from_numpy(rng.standard_normal(
+            (DCGAN_BATCH, DCGAN_NZ, 1, 1)).astype(np.float32)).cuda())
+        for _ in range(3)]
+
+    bce = torch.nn.functional.binary_cross_entropy_with_logits
+
+    def d_loss(out_r, out_f):
+        return bce(out_r, torch.ones_like(out_r)) + bce(
+            out_f, torch.zeros_like(out_f))
+
+    def g_loss(out_f):
+        return bce(out_f, torch.ones_like(out_f))
+    def make_gan():
+        return make_gan_train_step(
+            netD, netG, FusedAdam(list(netD.parameters()), **DCGAN_ADAM),
+            FusedAdam(list(netG.parameters()), **DCGAN_ADAM), d_loss, g_loss,
+            loss_scale="dynamic", max_loss_scale=DCGAN_MAX_SCALE)
+    # the eager step twice with cuDNN's default convolution algorithms,
+    # some of whose weight gradients add in a varying order
+    a, b = make_gan(), make_gan()
+    for i, batch in enumerate(gb[:2]):
+        a._raw_step_fn(a.state, i, *batch)
+        b._raw_step_fn(b.state, i, *batch)
+    again = all(torch.equal(x, y) for x, y in zip(
+        _state_tensors(torch, a.state), _state_tensors(torch, b.state)))
+    del a, b
+    print(f"  DCGAN make_gan_train_step run twice eagerly, cuDNN's default "
+          f"algorithms: {'equal' if again else 'not equal'} bit for bit; "
+          f"the graph against eager runs with cudnn.deterministic")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, _, out["gan_step"] = _graph_pair(
+            torch, dispatch, "DCGAN make_gan_train_step", make_gan, gb)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out["gan_step"]["eager_twice_equal_default_cudnn"] = again
+    del netG, netD
+    torch.cuda.empty_cache()
+    return out
+
+
+def _deferred_run(torch, amp, bert, sd, defer, batch, check_sync):
+    """DEFER_ITERS iterations of the amp O2 BERT loop (FusedLAMB, dynamic
+    scale capped at 2^12) from the weights ``sd``, a non-finite gradient
+    planted at DEFER_PLANT; with ``check_sync`` the iterations after the
+    first run under ``torch.cuda.set_sync_debug_mode("warn")``, and any
+    synchronizing operation it reports (a host read) fails them.  Returns
+    (losses, the tensors to compare, loss scale, step count, host ms of the
+    iterations after the first)."""
+    import warnings
+    from apex_tpu_torch.amp._amp_state import _amp_state, reset
+    from apex_tpu_torch.optimizers import FusedLAMB
+    reset()
+    torch.manual_seed(SEED)
+    m = bert.bert_base(max_positions=BERT_SEQ, attn_dropout=0.0,
+                       dropout=0.0, device="cuda")
+    m.load_state_dict(sd)
+    opt = FusedLAMB(list(m.parameters()), lr=BERT_LR, weight_decay=BERT_WD)
+    kw = dict(defer_scale_update=True) if defer else {}
+    m, opt = amp.initialize(m, opt, opt_level="O2", verbosity=0,
+                            max_loss_scale=2.0 ** 12, **kw)
+    loss_fn = _bert_mlm_loss(torch)
+    x, y = batch
+    losses = []
+    t0 = None
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        for i in range(DEFER_ITERS):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if check_sync:
+                    torch.cuda.set_sync_debug_mode("warn")
+            try:
+                loss, _ = _amp_iteration(amp, m, opt, loss_fn, x, y,
+                                         plant=i == DEFER_PLANT)
+            finally:
+                if check_sync and i == DEFER_ITERS - 1:
+                    torch.cuda.set_sync_debug_mode("default")
+            losses.append(loss.detach())
+    syncs = sorted({f"{w.filename}:{w.lineno}: {str(w.message)[:80]}"
+                    for w in seen if "called a synchronizing" in
+                    str(w.message)})
+    if check_sync and syncs:
+        raise AssertionError(f"amp deferred mode: host syncs in an "
+                             f"iteration: {syncs}")
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / (DEFER_ITERS - 1)
+    state = [p.detach().clone() for p in m.parameters()] + \
+        [p.detach().clone() for g in opt.param_groups for p in g["params"]] \
+        + [opt.state[p][k].clone() for g in opt.param_groups
+           for p in g["params"] for k in ("exp_avg", "exp_avg_sq")]
+    scale = _amp_state.loss_scalers[0].loss_scale()
+    steps = int(opt.param_groups[0]["step"])
+    reset()
+    del m, opt
+    return [float(v) for v in losses], state, scale, steps, host_ms
+
+
+def deferred_phase(torch, amp, bert):
+    """amp O2 BERT-base (FusedLAMB, 64 x 128) with
+    ``defer_scale_update=True`` in turns with the default mode, from the
+    same weights and batch, one overflow planted: the same losses, skip
+    (the step count one behind, the scale halved) and bits after
+    DEFER_ITERS iterations; the deferred mode's iterations after the first
+    run with the card's sync check on (no host read).  Returns the
+    numbers."""
+    torch.manual_seed(SEED)
+    src = bert.bert_base(max_positions=BERT_SEQ, device="cuda")
+    sd = {k: v.detach().clone() for k, v in src.state_dict().items()}
+    del src
+    batch = _bert_batch(torch, BERT_BATCH, BERT_SEQ, "cuda", seed=4)
+    runs = {}
+    for defer in (False, True, True, False):
+        r = _deferred_run(torch, amp, bert, sd, defer, batch, defer)
+        runs.setdefault(defer, []).append(r)
+    base = runs[False][0]
+    for defer, rs in runs.items():
+        for r in rs:
+            same = r[0] == base[0] and r[2:4] == base[2:4] and all(
+                torch.equal(a, b) for a, b in zip(r[1], base[1]))
+            if not same:
+                raise AssertionError(
+                    f"amp deferred={defer}: losses {r[0]} scale {r[2]} "
+                    f"steps {r[3]} against {base[0]} {base[2]} {base[3]}, "
+                    f"or the weights and moments differ")
+    if base[2] != 2.0 ** 11 or base[3] != DEFER_ITERS - 1:
+        raise AssertionError(f"amp: the planted overflow was not skipped "
+                             f"once: scale {base[2]}, steps {base[3]}")
+    print(f"amp O2 BERT-base FusedLAMB, defer_scale_update in turns with the "
+          f"default, an overflow planted at iteration {DEFER_PLANT + 1}: "
+          f"losses {[round(v, 5) for v in base[0]]}, scale {base[2]}, "
+          f"{base[3]} steps taken of {DEFER_ITERS}, weights and moments "
+          f"equal bit for bit in all four runs; the deferred iterations ran "
+          f"under the card's sync check (no host read); host ms an "
+          f"iteration: default {[round(r[4], 2) for r in runs[False]]}, "
+          f"deferred {[round(r[4], 2) for r in runs[True]]}")
+    return dict(losses=base[0], scale=base[2], steps=base[3],
+                host_ms={str(k): [r[4] for r in v] for k, v in runs.items()})
+
+
+def drive_phase(torch, dispatch, models):
+    """``Executor.drive`` over DRIVE_WINDOWS synthetic uint8 NHWC batches
+    (64 x 224 x 224 x 3) into the NHWC ResNet-50 step (channels-last conv
+    weights, FusedSGD, bf16), the prefetcher normalising on the card,
+    depth 2 against depth 1 in turns, each from the same weights: one H2D
+    a window, losses equal bit for bit across the turns, images/s.
+    Returns the numbers."""
+    import numpy as np
+    from apex_tpu_torch import nn
+    from apex_tpu_torch.nn.modules import conv_weights_to
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.runtime import data, executor
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED)
+    model = models.resnet50(num_classes=1000, device="cuda")
+    conv_weights_to(nn.to_channels_last(model), torch.channels_last)
+    rng = np.random.default_rng(9)
+    host = [(rng.integers(0, 256, (DRIVE_BATCH, 224, 224, 3), np.uint8),
+             rng.integers(0, 1000, (DRIVE_BATCH,)))
+            for _ in range(DRIVE_WINDOWS)]
+    runs, base = {2: [], 1: []}, None
+    for depth in (2, 1, 1, 2):
+        step = make_train_step(model, FusedSGD(list(model.parameters()),
+                                               **SGD_HYPER),
+                               _resnet_loss(torch),
+                               half_dtype=torch.bfloat16, loss_scale=1.0)
+        # the step's eager call, on a batch of the windows' signature,
+        # outside the clock
+        step(torch.zeros((DRIVE_BATCH, 224, 224, 3), dtype=torch.bfloat16,
+                         device="cuda"),
+             torch.zeros((DRIVE_BATCH,), dtype=torch.int64, device="cuda"))
+        data.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = executor.executor.drive(step, host, depth=depth,
+                                         channels_last=True,
+                                         half_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        values = [float(v) for v in losses]
+        if data.COUNTS["h2d"] != DRIVE_WINDOWS or len(values) != \
+                DRIVE_WINDOWS or not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"drive depth {depth}: {data.COUNTS}, "
+                                 f"losses {values}")
+        base = values if base is None else base
+        if values != base:
+            raise AssertionError(f"drive depth {depth}: losses {values} "
+                                 f"against {base}")
+        runs[depth].append(DRIVE_BATCH * DRIVE_WINDOWS / s)
+        del step
+        torch.cuda.empty_cache()
+    print(f"Executor.drive, NHWC ResNet-50 (FusedSGD, bf16), {DRIVE_WINDOWS} "
+          f"windows of {DRIVE_BATCH} uint8 images normalised on the card, "
+          f"one H2D a window, losses equal bit for bit: images/s depth 2 "
+          f"{[round(v, 1) for v in runs[2]]}, depth 1 "
+          f"{[round(v, 1) for v in runs[1]]} (the first call of each step, "
+          f"its eager one, outside the clock; its capture inside)")
+    return dict(images_per_s={str(k): v for k, v in runs.items()},
+                losses=base)
+
+
+def _hf_gpt2_state_dict(seed, layers=12, e=768, vocab=50257, pos=1024):
+    """A GPT-2-small-shaped Hugging Face state dict (``GPT2LMHeadModel``
+    key names, Conv1D (in, out) weights, the tied head) from
+    ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, s=0.02):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+    sd = {"transformer.wte.weight": w(vocab, e),
+          "transformer.wpe.weight": w(pos, e, s=0.01),
+          "transformer.ln_f.weight": 1 + w(e, s=0.1),
+          "transformer.ln_f.bias": w(e)}
+    for i in range(layers):
+        p = f"transformer.h.{i}."
+        sd.update({p + "ln_1.weight": 1 + w(e, s=0.1), p + "ln_1.bias": w(e),
+                   p + "attn.c_attn.weight": w(e, 3 * e),
+                   p + "attn.c_attn.bias": w(3 * e),
+                   p + "attn.c_proj.weight": w(e, e),
+                   p + "attn.c_proj.bias": w(e),
+                   p + "ln_2.weight": 1 + w(e, s=0.1), p + "ln_2.bias": w(e),
+                   p + "mlp.c_fc.weight": w(e, 4 * e),
+                   p + "mlp.c_fc.bias": w(4 * e),
+                   p + "mlp.c_proj.weight": w(4 * e, e),
+                   p + "mlp.c_proj.bias": w(e)})
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def hf_phase(torch, models):
+    """``models.gpt2_from_hf`` over a GPT-2-small-shaped HF state dict
+    from a seed, on the card and on the CPU: the logits of 2 x 64 tokens
+    within HF_TOL (fp32, TF32 off), and the export back equal to the
+    dict.  Returns the largest difference."""
+    import numpy as np
+    sd = _hf_gpt2_state_dict(SEED)
+    card = models.gpt2_from_hf(sd, device="cuda")
+    cpu = models.gpt2_from_hf(sd, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 50257,
+                                                             (2, 64)))
+    with torch.inference_mode():
+        got = card(ids.cuda()).float().cpu()
+        want = cpu(ids).float()
+    err = (got - want).abs().max().item()
+    back = models.gpt2_to_hf_state_dict(card)
+    if set(back) != set(sd) or not all(np.array_equal(back[k], sd[k])
+                                       for k in sd):
+        raise AssertionError("gpt2_to_hf_state_dict(gpt2_from_hf(sd)) != sd")
+    check("models.hf: gpt2_from_hf logits (2, 64, 50257), card against CPU",
+          err, HF_TOL)
+    del card, cpu
+    return err
+
+
+def graph_phase(torch, dispatch, models, bert, gpt, llama, dcgan, amp):
+    """This slice's phases: the executor's graphs at full width and at 2
+    layers, amp's deferred scale update, ``Executor.drive`` and the HF
+    converters.  Returns (the launch counts of the graph pairs' first
+    calls, the eager ones, which the wrappers count; numbers)."""
+    t0 = time.perf_counter()
+    full = graph_full_width(torch, dispatch, models, bert)
+    t1 = time.perf_counter()
+    two = graph_two_layers(torch, dispatch, models, gpt, llama, dcgan)
+    t2 = time.perf_counter()
+    deferred = deferred_phase(torch, amp, bert)
+    drive = drive_phase(torch, dispatch, models)
+    hf_err = hf_phase(torch, models)
+    print(f"graph phases: {time.perf_counter() - t0:.1f} s (full width "
+          f"{t1 - t0:.1f}, 2 layers {t2 - t1:.1f}, deferred, drive and hf "
+          f"{time.perf_counter() - t2:.1f})")
+    counts = dict(full["bert_base"]["launches"])
+    for nums in two.values():
+        for k, v in nums["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts, dict(full_width=full, two_layers=two, deferred=deferred,
+                        drive=drive, hf_max_abs_err=hf_err)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6510,7 +7261,7 @@ def main():
     from apex_tpu_torch import _build
     from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
         lm_head_xent, multi_tensor, rms_norm, xentropy
-    from apex_tpu_torch import RNN, models
+    from apex_tpu_torch import RNN, amp, models
     from apex_tpu_torch.contrib.multihead_attn import attn_funcs
     from apex_tpu_torch.models import bert, dcgan, gpt, llama
 
@@ -6659,6 +7410,8 @@ def main():
     paths.update(slice_counts)
     print(f"seq2seq, ViT, remat and RNN phases: "
           f"{time.perf_counter() - t_phase:.1f} s")
+    paths["graph_phase"], graph_nums = graph_phase(
+        torch, dispatch, models, bert, gpt, llama, dcgan, amp)
 
     def launches(name):
         by = {k: c[name] for k, c in paths.items() if c[name]}
@@ -6896,7 +7649,8 @@ def main():
                       "seq2seq_generate": slice_nums["seq2seq_generate"],
                       "vit_s16_train": slice_nums["vit_train"],
                       "remat": slice_nums["remat"],
-                      "rnn": slice_nums["rnn"]}))
+                      "rnn": slice_nums["rnn"],
+                      "graph": graph_nums}))
     print(f"chip_smoke wall time: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,7 +8,8 @@ O0 within 1e-5, O2 and O3 within the JAX amp test's ``rtol=0.05``, and the
 tensors the optimizer updates (O2's fp32 masters, O3's half parameters and
 moments) within fp16 rounding of the JAX optimizer's.  Beside it: O2's structure, the overflow skip and the scale halving (the same
 history on both sides), ``delay_unscale``, the amp checkpoint state, O1
-accepted, and what is not ported (``defer_scale_update``).
+and ``defer_scale_update`` accepted (the deferred mode is held in
+``tests/test_torch_amp_deferred.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -341,9 +342,13 @@ def test_o1_and_deferred_updates_raise_and_options_resolve():
     assert m1 is tm and tm._amp_policy is _amp_state.ambient_policy
     assert all(p.dtype == torch.float32 for p in tm.parameters())
     port_reset()
-    with pytest.raises(NotImplementedError, match="defer_scale_update"):
-        amp.initialize(tm, opt, opt_level="O2", defer_scale_update=True,
-                       verbosity=0)
+    # the deferred scale update is ported (tests/test_torch_amp_deferred.py
+    # holds it against JAX): initialize takes it
+    _, tmd = _models()
+    amp.initialize(tmd, FusedAdam(list(tmd.parameters()), lr=LR),
+                   opt_level="O2", defer_scale_update=True, verbosity=0)
+    assert _amp_state.opt_properties.defer_scale_update is True
+    port_reset()
     with pytest.raises(RuntimeError, match="Unexpected optimization"):
         amp.initialize(tm, opt, opt_level="O4", verbosity=0)
     assert amp.resolve_dtype("bf16") is torch.bfloat16

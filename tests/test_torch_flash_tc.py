@@ -15,13 +15,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import _get_current_function_mode_stack
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from apex_tpu.kernels import attention as jax_attn
 from apex_tpu.kernels.dispatch import force_mode
 
 from apex_tpu_torch.kernels import attention
 from apex_tpu_torch.kernels.dispatch import counts
-from torch_products import value_products
+from torch_products import value_ops
 
 torch.set_num_threads(2)
 
@@ -95,18 +97,47 @@ def _drop(p, offsets, seed=-99):
 
 @pytest.fixture
 def products_by_value():
-    """Every matrix product in the attention module's plain versions and
-    tc models (q.k^T, p.v, dp, dq, dk, dv) is a pure function of its
-    operands' values for the test (``torch_products``), so the two models
-    under comparison take the same bits wherever they multiply the same
-    values, and differ wherever their operands do.  The rest of their
-    arithmetic is theirs.
+    """Every op in the attention module's plain versions and tc models
+    (the products q.k^T, p.v, dp, dq, dk, dv, and ``logsumexp``, softmax,
+    the reductions and elementwise ops beside them) is a pure function of
+    its operands' values for the test (``torch_products.value_ops``), so
+    the two models under comparison take the same bits wherever they apply
+    the same op to the same values, and differ wherever an op or an operand
+    does.
 
-    (CPU matrix products are not promised to give the same bits twice:
+    (torch's CPU arithmetic is not promised to give the same bits twice:
     whole runs of the suite found the first case's ``lse`` apart with
-    ``out`` equal when only q.k^T was shared between the models.)"""
-    with value_products():
+    ``out`` equal, so the ``logsumexp`` beside an equal softmax, when only
+    q.k^T was shared between the models, and the case failed again in a
+    whole run with every product shared; neither was reproduced alone.)
+
+    No torch-function or dispatch mode may be active on entry: a mode that
+    an earlier test left on the stack would rewrite the arithmetic of both
+    models."""
+    assert not _get_current_function_mode_stack(), \
+        f"torch-function modes active: {_get_current_function_mode_stack()}"
+    assert not _get_current_dispatch_mode_stack(), \
+        f"dispatch modes active: {_get_current_dispatch_mode_stack()}"
+    with value_ops():
         yield
+
+
+def _assert_same(name, got, want):
+    """``got`` equals ``want`` bit for bit, or a message that says where
+    and by how much they differ."""
+    assert got.dtype == want.dtype and got.shape == want.shape, \
+        f"{name}: {got.dtype}{tuple(got.shape)} against " \
+        f"{want.dtype}{tuple(want.shape)}"
+    if torch.equal(got, want):
+        return
+    diff = (got.double() - want.double()).abs()
+    diff = torch.where(torch.isnan(diff), torch.inf, diff)
+    at = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    raise AssertionError(
+        f"{name}: {int((got != want).sum())} of {got.numel()} elements "
+        f"differ; the largest at {tuple(int(i) for i in at)}: "
+        f"{got[at].item()!r} against {want[at].item()!r} "
+        f"({diff[at].item():.3e}); torch threads {torch.get_num_threads()}")
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
@@ -122,13 +153,15 @@ def test_tc_models_are_the_plain_versions_at_fp32(case, products_by_value):
     assert attention._operand(probe, q.dtype) is probe
     out, lse = attention.flash_attention_reference(*args, **drop)
     tout, tlse = attention.flash_attention_tc_reference(*args, **drop)
-    assert torch.equal(out, tout) and torch.equal(lse, tlse)
+    _assert_same("out", tout, out)
+    _assert_same("lse", tlse, lse)
     want = attention.flash_attention_bwd_reference(
         q, k, v, b, out, lse, g, 0.125, causal, window, **drop)
     got = attention.flash_attention_bwd_tc_reference(
         q, k, v, b, out, lse, g, 0.125, causal, window, **drop)
-    for a, w in zip(got, want):
-        assert a.dtype == F32 and torch.equal(a, w)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == F32
+        _assert_same(name, a, w)
 
 
 def _to_jax(a, dtype):

@@ -13,8 +13,9 @@ from apex_tpu_torch.RNN import LSTM
 from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn, \
     SelfMultiheadAttn
 from apex_tpu_torch.models import GptModel, TransformerSeq2Seq, VitModel, \
-    gpt2_small
+    gpt2_small, resnet18, resnet_from_torch
 from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.runtime import DataPrefetcher
 
 torch.set_num_threads(2)
 
@@ -57,7 +58,8 @@ def test_importing_the_port_loads_no_jax_module():
                  "reparameterization.weight_norm", "reparameterization.lora",
                  "contrib.multihead_attn.encdec_multihead_attn",
                  "models.seq2seq", "models.vit", "nn.modules", "RNN.cells",
-                 "RNN.RNNBackend", "RNN.models"):
+                 "RNN.RNNBackend", "RNN.models", "models.hf",
+                 "runtime.executor", "runtime.step_cache", "runtime.data"):
         assert f"apex_tpu_torch.{name}" in loaded, name
 
 
@@ -125,6 +127,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                   lambda: VitModel(image_size=8, patch_size=4, hidden=16,
                                    layers=1, heads=2),
                   lambda: LSTM(4, 8, 1),
+                  lambda: DataPrefetcher([]),
+                  lambda: resnet_from_torch(resnet18(device="cpu")),
                   lambda: GptModel(**small, device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()

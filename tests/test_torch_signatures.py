@@ -5,8 +5,9 @@ For each callable of the port that has a JAX twin on this slice's paths
 wrappers, the LAMB optimizer and op, the data-parallel surface, the legacy
 amp and fp16_utils API, O1's registry, the GAN step, NovoGrad, the contrib
 optimizers, the MLP, the reparameterizations, encoder-decoder attention,
-the seq2seq and ViT families, ``checkpoint_forward`` and the RNNs), every
-parameter of the JAX signature exists in the port's with the same default
+the seq2seq and ViT families, ``checkpoint_forward``, the RNNs, the HF
+converters, the runtime's executor and prefetcher and ``amp.initialize``),
+every parameter of the JAX signature exists in the port's with the same default
 (a dtype default by its name); the port may add ``device``, ``dtype`` and
 ``generator`` parameters, a JAX PRNG ``key`` is the port's ``generator``,
 and the kernels' ``interpret`` switch and the JAX modules' ``ctx`` have no
@@ -45,6 +46,9 @@ import apex_tpu.fp16_utils as jax_fp16_utils
 import apex_tpu.parallel as jax_parallel
 import apex_tpu.parallel.distributed as jax_distributed
 import apex_tpu.training as jax_training
+import apex_tpu.models.hf as jax_hf
+import apex_tpu.runtime as jax_runtime
+import apex_tpu.runtime.executor as jax_executor
 
 import apex_tpu_torch.RNN as rnn
 import apex_tpu_torch.amp as amp
@@ -72,6 +76,9 @@ import apex_tpu_torch.optimizers as optimizers
 import apex_tpu_torch.parallel as parallel
 import apex_tpu_torch.parallel.distributed as distributed
 from apex_tpu_torch.training import make_train_step
+import apex_tpu_torch.models.hf as hf
+import apex_tpu_torch.runtime as runtime
+import apex_tpu_torch.runtime.executor as executor
 
 torch.set_num_threads(2)
 
@@ -138,6 +145,20 @@ PAIRS = [
     (jax_rnn, rnn, "mLSTMRNNCell"), (jax_rnn, rnn, "RNNCell"),
     (jax_rnn, rnn, "stackedRNN"), (jax_rnn, rnn, "bidirectionalRNN"),
     (jax_rnn.models, rnn.models, "toRNNBackend"),
+    (jax_hf, hf, "gpt2_from_hf"), (jax_hf, hf, "llama_from_hf"),
+    (jax_hf, hf, "gpt2_to_hf_state_dict"),
+    (jax_hf, hf, "llama_to_hf_state_dict"), (jax_hf, hf, "mixtral_from_hf"),
+    (jax_hf, hf, "resnet_from_torch"),
+    (jax_runtime, runtime, "DataPrefetcher"),
+    (jax_runtime, runtime, "Program"),
+    (jax_runtime, runtime, "set_overlap"),
+    (jax_runtime, runtime, "overlap_enabled"),
+    (jax_runtime.Executor, runtime.Executor, "submit"),
+    (jax_runtime.Executor, runtime.Executor, "compile"),
+    (jax_runtime.Executor, runtime.Executor, "drive"),
+    (jax_executor, executor, "DonationPolicy"),
+    (jax_executor, executor, "drain_telemetry"),
+    (jax_amp, amp, "initialize"),
 ]
 NO_COUNTERPART = {"interpret", "ctx"}
 # a JAX parameter the port takes under another name, with the same default
@@ -147,9 +168,13 @@ RENAMED = {"key": "generator"}
 def _default_key(value):
     """A default as compared across the packages: a dtype by its name
     (``jnp.bfloat16`` is ``torch.bfloat16``), a class of either package
-    by its name, anything else as it is."""
+    by its name, a bare ``object()`` sentinel as one, anything else as it
+    is."""
     if isinstance(value, torch.dtype):
         return ("dtype", str(value).replace("torch.", ""))
+    if type(value) is object:
+        # a module's own "not given" sentinel (the executor's _UNSET)
+        return ("unset",)
     if isinstance(value, type) and hasattr(value, "dtype"):
         import jax.numpy as jnp
         return ("dtype", jnp.dtype(value).name)
@@ -276,6 +301,11 @@ REFUSED = [
                                    device="cpu"),
         torch.zeros((1, 4), dtype=torch.long), 2, **kw),
      dict(mesh="a mesh"), A9),
+    (lambda **kw: runtime.set_overlap(**kw), dict(gather=True), A9),
+    (lambda **kw: runtime.Program("train_step", (), lambda: None, **kw),
+     dict(wrap=lambda f: f), A9),
+    (lambda **kw: runtime.Program("train_step", (), lambda: None, **kw),
+     dict(in_shardings=None), A9),
 ]
 
 

@@ -9,7 +9,7 @@ computed as usual and then overwritten with the result of the first call
 that saw the same operand values, so two computations that multiply the
 same values take the same bits, and two that multiply different values
 still differ.  The rest of the arithmetic (softmax, reductions, casts) is
-torch's own.
+torch's own; inside :func:`value_ops` it is memoised too.
 """
 import contextlib
 import hashlib
@@ -39,17 +39,33 @@ def _key_of(x):
     return (tuple(x.shape), x.dtype, digest)
 
 
+def _memoisable(func, leaves, out):
+    """Whether ``func``'s result may be replaced by a memo: any op whose
+    outputs are fresh floating tensors (not views of its inputs) and that
+    draws no random numbers."""
+    if torch.Tag.nondeterministic_seeded in func.tags:
+        return False
+    outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+    if not outs or not all(t.is_floating_point() for t in outs):
+        return False
+    held = {t.untyped_storage().data_ptr() for t in leaves
+            if isinstance(t, torch.Tensor)}
+    return not any(t.untyped_storage().data_ptr() in held for t in outs)
+
+
 class _ValueProducts(TorchDispatchMode):
-    def __init__(self):
+    def __init__(self, every_op=False):
         super().__init__()
         self.memo = {}
+        self.every_op = every_op
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func not in PRODUCTS:
-            return out
         leaves, _ = tree_flatten((args, kwargs))
+        if func not in PRODUCTS and not (
+                self.every_op and _memoisable(func, leaves, out)):
+            return out
         key = (str(func),) + tuple(_key_of(x) for x in leaves)
         first = self.memo.get(key)
         if first is None:
@@ -71,4 +87,16 @@ def value_products():
     """The scope in which CPU products are memoised on their operands'
     values (see the module docstring)."""
     with _ValueProducts():
+        yield
+
+
+@contextlib.contextmanager
+def value_ops():
+    """The scope in which every CPU op that makes fresh floating tensors
+    and draws no random numbers (products, reductions, ``exp``,
+    ``logsumexp``, softmax, ...) is memoised on its operands' values, so
+    that two computations that apply the same ops to the same values take
+    the same bits at every op, and two that differ in an op or an operand
+    still differ."""
+    with _ValueProducts(every_op=True):
         yield
