@@ -8,16 +8,21 @@ compiler flags, so an edited source rebuilds and an unchanged one is
 loaded as it is.  Nothing is compiled when the package is imported: a
 kernel's library is built at its first launch, or all of them at once,
 one ``nvcc`` per source running side by side, by :func:`build_all`.
+:func:`start_all` starts those builds and returns at once: a later load
+or :func:`build_all` waits only for the sources it needs, so a program
+can go on while the slowest ones compile.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -29,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: dict = {}
+# builds started by start_all and not yet waited for, by source name
+_pending: dict = {}
+# seconds from start to end of each source this process built
+_seconds: dict = {}
 
 
 def sources() -> list:
@@ -61,59 +70,103 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` for one source; returns (process, tmp, final path)
-    or None when the library is already built."""
+class _Job:
+    """One running ``nvcc``: its process, its output's temporary and final
+    paths, its log file and its start time.  A ``background`` build runs
+    under ``nice`` (where there is one), so the program that goes on
+    while it compiles keeps its core."""
+
+    def __init__(self, name: str, out: Path, background: bool = False):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.out = out
+        self.tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        self.log = tempfile.TemporaryFile(mode="w+")
+        self.begun = time.perf_counter()
+        nice = shutil.which("nice") if background else None
+        self.proc = subprocess.Popen(
+            [*([nice, "-n", "10"] if nice else []), _nvcc(), *NVCC_FLAGS,
+             "-o", str(self.tmp), str(CSRC / f"{name}.cu")],
+            stdout=self.log, stderr=subprocess.STDOUT, text=True)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.tmp.unlink(missing_ok=True)
+        self.log.close()
+
+
+def _start(name: str, background: bool = False):
+    """Start ``nvcc`` for one source; None when it is already built."""
     out = _lib_path(name)
-    if out.is_file():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return None if out.is_file() else _Job(name, out, background)
 
 
 def _build(names) -> dict:
     """Build the named sources that are not built yet, one ``nvcc`` per
-    source, all started together; the caller holds ``_lock``.  Returns
-    ``{name: seconds}`` for the sources built now and ``{name: "cached"}``
+    source, all started together (or by :func:`start_all` before); the
+    caller holds ``_lock``.  Returns ``{name: seconds}`` for the sources
+    built now, each from its start to its end, and ``{name: "cached"}``
     for the others.  The first failure raises, and no ``nvcc`` outlives
     the call."""
-    t0 = time.perf_counter()
-    started = {}
+    jobs = {}
     try:
-        for n in names:
-            started[n] = _start(n)
         report = {}
-        for n, s in started.items():
-            if s is None:
+        for n in names:
+            jobs[n] = _pending.pop(n, None) or _start(n)
+            if jobs[n] is None:
                 report[n] = "cached"
-                continue
-            proc, tmp, out = s
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed to build {n}.cu (exit "
-                    f"{proc.returncode}):\n{log}")
-            os.replace(tmp, out)
-            report[n] = round(time.perf_counter() - t0, 3)
+        live = {n: j for n, j in jobs.items() if j is not None}
+        while live:
+            for n, j in list(live.items()):
+                if j.proc.poll() is None:
+                    continue
+                del live[n]
+                if j.proc.returncode != 0:
+                    j.log.seek(0)
+                    raise RuntimeError(
+                        f"nvcc failed to build {n}.cu (exit "
+                        f"{j.proc.returncode}):\n{j.log.read()}")
+                os.replace(j.tmp, j.out)
+                report[n] = _seconds[n] = round(
+                    time.perf_counter() - j.begun, 3)
+            if live:
+                time.sleep(0.05)
         return report
     finally:
-        for s in started.values():
-            if s is not None and s[0].poll() is None:
-                s[0].kill()
-                s[0].wait()
-                s[1].unlink(missing_ok=True)
+        for j in jobs.values():
+            if j is not None:
+                j.stop()
+
+
+@atexit.register
+def _stop_pending() -> None:
+    with _lock:
+        for j in _pending.values():
+            j.stop()
+        _pending.clear()
+
+
+def start_all() -> None:
+    """Start ``nvcc`` for every kernel source that is neither built nor
+    building, under ``nice``, and return without waiting; a load or
+    :func:`build_all` waits for them, and the interpreter's exit kills
+    those nobody waited for."""
+    with _lock:
+        for n in sources():
+            if n not in _pending:
+                j = _start(n, background=True)
+                if j is not None:
+                    _pending[n] = j
 
 
 def build_all() -> dict:
-    """Build every kernel source that is not built yet (see :func:`_build`
-    for the report)."""
+    """Build every kernel source that is not built yet; returns ``{name:
+    seconds}`` for each source this process built (by a load too), each
+    from its start to its end, and ``{name: "cached"}`` for the others."""
     with _lock:
-        return _build(sources())
+        report = _build(sources())
+        return {n: _seconds.get(n, r) for n, r in report.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

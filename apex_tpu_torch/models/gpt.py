@@ -11,7 +11,12 @@ dropout draw their masks from the ``generator`` passed to ``forward``
 (``torch.rand(...) < keep``, scaled by ``1 / keep``), so a train step can
 seed them from its own state.  The cached paths (``prefill``,
 ``decode_chunk``, ``decode_step``) run in (B, S, E); decode attention over
-the KV cache is plain PyTorch, as it is plain XLA in the JAX package.
+the KV cache is plain PyTorch, as it is plain XLA in the JAX package.  A
+cached path's position is a Python int or a 0-d int64 tensor on the
+model's device (the position embedding read by ``index_select``, the KV
+write by ``index_copy_``), so a captured decode step reads it where it
+lies; a Python int is range-checked here, a device position by its
+caller.  Both give the same bits.
 Parameter names are the JAX package's, so
 :func:`apex_tpu_torch.models.convert.from_jax_state_dict` carries weights
 across one to one.
@@ -39,7 +44,9 @@ from torch import nn
 from .._unported import PARALLEL, accept_defaults
 from ..contrib.multihead_attn import SelfMultiheadAttn
 from ..contrib.multihead_attn.attn_funcs import flash_attention
-from ..inference.quant import kv_value, kv_write, make_kv_cache
+from ..inference.decode import sample_probs
+from ..inference.quant import (gather_rows, kv_value, kv_write,
+                               make_kv_cache, positions, raw)
 from ..kernels.dispatch import MASKED_FILL, resolve_device
 from ..nn.modules import checkpoint_forward
 from ..normalization import FusedLayerNorm
@@ -128,7 +135,7 @@ class GptBlock(nn.Module):
         each query attends the cache up to its own position."""
         attn = self.attn
         b, s_c, _ = x.shape
-        pos = t0 + torch.arange(s_c, device=x.device)
+        pos = positions(t0, s_c, x.device)
         q, k_new, v_new = self._chunk_qkv(x)
         kcache = kv_write(kcache, k_new, (0, 0, t0, 0))
         vcache = kv_write(vcache, v_new, (0, 0, t0, 0))
@@ -237,28 +244,38 @@ class GptModel(nn.Module):
 
     def init_caches(self, batch, s_max, dtype=torch.float32):
         """Per-layer (k, v) caches of shape (B, H, S_max, D) on the model's
-        device."""
+        device (QuantKV caches for ``"int8"``)."""
         attn = self.blocks[0].attn
         shape = (batch, attn.num_heads, s_max, attn.head_dim)
-        dev = self.tok_emb.weight.device
+        dev = self.pos_emb.weight.device
         return [(make_kv_cache(shape, dtype, dev),
                  make_kv_cache(shape, dtype, dev)) for _ in self.blocks]
 
     def _check_positions(self, what, t0, s_c, caches):
+        """Range-check a Python-int position; a device position (a 0-d
+        tensor) is its caller's to bound, as a traced one is in the JAX
+        package."""
         if len(caches) != len(self.blocks):
             raise ValueError(f"{what}: {len(caches)} caches for "
                              f"{len(self.blocks)} blocks")
+        if isinstance(t0, torch.Tensor):
+            return t0
+        t0 = int(t0)
         cap = caches[0][0].shape[2]
         if t0 < 0 or t0 + s_c > min(self.max_positions, cap):
             raise ValueError(
                 f"{what}: positions {t0}..{t0 + s_c} out of range for "
                 f"max_positions {self.max_positions} / cache capacity {cap}")
+        return t0
 
     def _run_blocks(self, toks, caches, pos_of, blk_fn):
         """Embed ``toks`` plus positions (``pos_of(pos_table)``), thread the
-        caches through ``blk_fn`` per block, final LN and tied head."""
+        caches through ``blk_fn`` per block, final LN and tied head.  The
+        token gather is int8-aware (only the selected rows dequantize); the
+        tied head reads the whole (dequantized) table."""
+        x = gather_rows(raw(self.tok_emb), toks) \
+            + pos_of(self.pos_emb.weight)
         emb = self.tok_emb.weight
-        x = emb[toks] + pos_of(self.pos_emb.weight)
         new_caches = []
         for blk, (kc, vc) in zip(self.blocks, caches):
             x, kc, vc = blk_fn(blk, x, kc, vc)
@@ -278,21 +295,22 @@ class GptModel(nn.Module):
 
     def decode_chunk(self, toks, caches, t0):
         """Logits for a token chunk ``toks (B, S_c)`` at positions
-        ``t0 ..`` against the caches."""
-        t0 = int(t0)
+        ``t0 ..`` (a Python int or a 0-d int64 device tensor) against the
+        caches."""
         s_c = toks.shape[1]
-        self._check_positions("decode_chunk", t0, s_c, caches)
+        t0 = self._check_positions("decode_chunk", t0, s_c, caches)
+        pos = positions(t0, s_c, toks.device)
         return self._run_blocks(
-            toks, caches, lambda pos: pos[t0:t0 + s_c][None],
+            toks, caches, lambda table: table.index_select(0, pos)[None],
             lambda blk, x, kc, vc: blk.decode_chunk(x, kc, vc, t0))
 
     def decode_step(self, tok, caches, t):
-        """Logits for one token, ``tok (B,)`` at position ``t``:
-        ``(logits (B, V), caches)``."""
-        t = int(t)
-        self._check_positions("decode_step", t, 1, caches)
+        """Logits for one token, ``tok (B,)`` at position ``t`` (a Python
+        int or a 0-d int64 device tensor): ``(logits (B, V), caches)``."""
+        t = self._check_positions("decode_step", t, 1, caches)
+        pos = positions(t, 1, tok.device)
         return self._run_blocks(
-            tok, caches, lambda pos: pos[t],
+            tok, caches, lambda table: table.index_select(0, pos),
             lambda blk, x, kc, vc: blk.decode(x, kc, vc, t))
 
 
@@ -315,7 +333,9 @@ def nucleus_filter(logits, top_p):
 def make_sampler(temperature, top_k, top_p, vocab):
     """Validate the sampling knobs and return ``sample(logits,
     generator)``: greedy at temperature 0, else temperature, then top-k,
-    then top-p, then a draw from ``generator`` (on the logits' device)."""
+    then top-p, then a draw from ``generator`` (on the logits' device),
+    with no host sync, so a CUDA graph captures it
+    (:func:`apex_tpu_torch.inference.decode.sample_probs`)."""
     if temperature < 0.0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
     if top_k is not None and not 1 <= top_k <= vocab:
@@ -333,26 +353,34 @@ def make_sampler(temperature, top_k, top_p, vocab):
         if top_p is not None:
             logits = nucleus_filter(logits, top_p)
         probs = torch.softmax(logits.float(), dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[..., 0]
+        return sample_probs(probs, generator)
 
     return sample
 
 
 def generate(model, prompt_ids, max_new_tokens, temperature=0.0,
-             top_k=None, generator=None, cache_dtype=None, top_p=None):
+             top_k=None, generator=None, cache_dtype=None, mesh=None,
+             top_p=None):
     """Autoregressive decoding with a KV cache: ``prompt_ids (B, P)`` ->
     ``(B, P + max_new_tokens)`` token ids on the model's device.  Drives
     any model with the decode protocol (``init_caches``, ``prefill``,
     ``decode_step``, ``max_positions``, ``tok_emb``): the GPT and Llama
     families.
 
-    With ``P > 1`` and at least one new token, the prompt goes through ONE
-    ``prefill`` pass, whose last logits give the first new token, and
-    ``decode_step`` runs at positions ``P .. P + max_new_tokens - 2``.
-    Otherwise every position runs through ``decode_step``, teacher-forced
-    inside the prompt.  ``temperature=0`` is greedy; sampling needs a
-    ``torch.Generator`` on the model's device.  ``cache_dtype`` defaults to
-    the token embedding's dtype."""
+    With ``P > 1`` the prompt goes through ONE eager ``prefill``, whose
+    last logits give the first new token; otherwise decoding starts at
+    position 0.  The decode steps then run through the bucket's cached
+    program (:mod:`apex_tpu_torch.inference.decode`): on the card its
+    first step runs eagerly, its second is captured as a CUDA graph, and
+    every later step replays it, the position and the token on the
+    device.  ``temperature=0`` is greedy; sampling needs a
+    ``torch.Generator`` on the model's device, and draws what an eager
+    loop on it would.  ``cache_dtype`` defaults to the token embedding's
+    dtype; ``"int8"`` is the quantized KV cache.  ``mesh`` is taken at its
+    default and refused otherwise."""
+    from ..inference.decode import compute_dtype, decode_graph, model_device
+    accept_defaults("generate: sharded decode (mesh)", PARALLEL,
+                    mesh=(mesh, None))
     b, p = prompt_ids.shape
     if p < 1:
         raise ValueError("generate needs a prompt of at least one token")
@@ -363,31 +391,16 @@ def generate(model, prompt_ids, max_new_tokens, temperature=0.0,
             f"max_positions {model.max_positions}")
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a torch.Generator")
-    vocab = getattr(model, "vocab_size", None) \
-        or model.tok_emb.weight.shape[0]
+    vocab = getattr(model, "vocab_size", None) or raw(model.tok_emb).shape[0]
     sample = make_sampler(temperature, top_k, top_p, vocab)
     if cache_dtype is None:
-        cache_dtype = model.tok_emb.weight.dtype
-    prompt = prompt_ids.to(device=model.tok_emb.weight.device,
-                           dtype=torch.long)
-    with torch.inference_mode():
-        caches = model.init_caches(b, s_total, dtype=cache_dtype)
-        if p > 1 and max_new_tokens >= 1:
-            logits, caches = model.prefill(prompt, caches)
-            tok = sample(logits[:, -1], generator)
-            new = [tok]
-            for t in range(p, s_total - 1):
-                logits, caches = model.decode_step(tok, caches, t)
-                tok = sample(logits, generator)
-                new.append(tok)
-            return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)
-        tok = prompt[:, 0]
-        seq = [tok]
-        for t in range(s_total - 1):
-            logits, caches = model.decode_step(tok, caches, t)
-            tok = prompt[:, t + 1] if t + 1 < p else sample(logits, generator)
-            seq.append(tok)
-        return torch.stack(seq, dim=1)
+        cache_dtype = compute_dtype(model)
+    prompt = prompt_ids.to(device=model_device(model), dtype=torch.long)
+    if max_new_tokens < 1:
+        return prompt.clone()
+    graph = decode_graph(model, b, s_total, cache_dtype, temperature, top_k,
+                         top_p, sample)
+    return graph.generate(prompt, max_new_tokens, generator)
 
 
 def gpt2_small(**kw):

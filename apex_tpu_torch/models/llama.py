@@ -22,12 +22,18 @@ lm_head.weight)`` so that a loss such as
 :func:`apex_tpu_torch.contrib.xentropy.chunked_lm_head_loss` applies the
 head itself.
 
+A cached path's position is a Python int or a 0-d int64 tensor on the
+model's device (RoPE computed at the positions, the KV write by
+``index_copy_``), so a captured decode step reads it where it lies.  With
+``sliding_window`` the caches are rolling (``inference/rolling.py``:
+``window + ROLLING_SLACK`` slots, slot = position mod the slot count): the
+prompt goes through the flash kernel's band and its last rows into the
+slots, and ``decode_chunk`` masks by the closed-form slot positions.
+
 Owed to later slices, and refused with ``NotImplementedError``: tensor and
 sequence parallelism (``tp_axis``, ``sp_axis``) and the mixture of experts
-(``moe_axis``, ``moe_num_experts`` and its knobs), ROADMAP A9; cached
-decode with ``sliding_window``
-(the rolling window cache of ``inference/rolling.py`` and the chunked
-prefill over it), A5.  Each is taken at its JAX default.
+(``moe_axis``, ``moe_num_experts`` and its knobs), ROADMAP A9.  Each is
+taken at its JAX default.
 """
 from __future__ import annotations
 
@@ -35,9 +41,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._unported import PARALLEL, accept_defaults, refuse
+from .._unported import PARALLEL, accept_defaults
 from ..contrib.multihead_attn.attn_funcs import flash_attention
-from ..inference.quant import kv_value, kv_write, make_kv_cache
+from ..inference.quant import (gather_rows, kv_value, kv_write,
+                               make_kv_cache, positions, raw)
+from ..inference.rolling import (ROLLING_SLACK, rolling_kv_write,
+                                 rolling_slot_positions)
 from ..kernels.dispatch import MASKED_FILL, resolve_device
 from ..nn.modules import checkpoint_forward
 from ..normalization import FusedRMSNorm
@@ -158,36 +167,65 @@ class LlamaBlock(nn.Module):
 
     def prefill(self, x, kcache, vcache):
         """Cache-filling forward from position 0: causal flash attention
-        over the chunk ``x (B, S_c, E)`` plus the KV writes."""
+        (banded with ``sliding_window``) over the chunk ``x (B, S_c, E)``
+        plus the KV writes (into a rolling cache, its last rows)."""
         s_c = x.shape[1]
         q, k_new, v_new = self._chunk_qkv(
             x, torch.arange(s_c, device=x.device))
-        kcache = kv_write(kcache, k_new, (0, 0, 0, 0))
-        vcache = kv_write(vcache, v_new, (0, 0, 0, 0))
+        if self.sliding_window is not None:
+            kcache = rolling_kv_write(kcache, k_new, 0)
+            vcache = rolling_kv_write(vcache, v_new, 0)
+        else:
+            kcache = kv_write(kcache, k_new, (0, 0, 0, 0))
+            vcache = kv_write(vcache, v_new, (0, 0, 0, 0))
         return self._mlp_tail(x, self._attend(q, k_new, v_new)), kcache, \
             vcache
 
     def decode_chunk(self, x, kcache, vcache, t0):
         """Cached forward over ``x (B, S_c, E)`` at positions ``t0 ..``:
         writes the chunk's K/V into the KVH-wide caches, and each query
-        attends the cache up to its own position."""
+        attends the cache up to its own position (within the band with
+        ``sliding_window``, over the rolling cache's slot positions)."""
         b, s_c, _ = x.shape
         d = self.head_dim
-        pos = t0 + torch.arange(s_c, device=x.device)
+        pos = positions(t0, s_c, x.device)
         q, k_new, v_new = self._chunk_qkv(x, pos)
-        kcache = kv_write(kcache, k_new, (0, 0, t0, 0))
-        vcache = kv_write(vcache, v_new, (0, 0, t0, 0))
-        slots = torch.arange(kcache.shape[2], device=x.device)
-        kvh = kcache.shape[1]
+        if self.sliding_window is None:
+            kcache = kv_write(kcache, k_new, (0, 0, t0, 0))
+            vcache = kv_write(vcache, v_new, (0, 0, t0, 0))
+            keys, vals = kv_value(kcache), kv_value(vcache)
+            slots = torch.arange(kcache.shape[2], device=x.device)
+        elif s_c == 1:
+            # write first, then attend the cache in place: the one position
+            # the write evicts is a full window behind the query
+            kcache = rolling_kv_write(kcache, k_new, t0)
+            vcache = rolling_kv_write(vcache, v_new, t0)
+            keys, vals = kv_value(kcache), kv_value(vcache)
+            slots = rolling_slot_positions(kcache.shape[2], t0 + 1)
+        else:
+            # a chunk attends [the cache before its write | its own rows]:
+            # writing first would evict band keys its early queries need
+            keys = torch.cat([kv_value(kcache), k_new.float()], dim=2)
+            vals = torch.cat([kv_value(vcache), v_new.float()], dim=2)
+            slots = torch.cat([rolling_slot_positions(kcache.shape[2], t0),
+                               pos])
+            kcache = rolling_kv_write(kcache, k_new, t0)
+            vcache = rolling_kv_write(vcache, v_new, t0)
+        slots = slots.to(x.device)
+        kvh = k_new.shape[1]
         qg = q.reshape(b, kvh, self.heads // kvh, s_c, d)
         scores = torch.einsum("bkgqd,bksd->bkgqs", qg.float(),
-                              kv_value(kcache)) * (d ** -0.5)
+                              keys) * (d ** -0.5)
         # cache slots beyond each position are unwritten (or stale)
         valid = slots[None, :] <= pos[:, None]
+        if self.sliding_window is not None:
+            # the band: key j is visible from t iff t - w < j <= t; negative
+            # slot positions were never written
+            valid = valid & (slots[None, :] > pos[:, None]
+                             - self.sliding_window) & (slots[None, :] >= 0)
         scores = torch.where(valid, scores, MASKED_FILL)
         probs = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bkgqs,bksd->bkgqd", probs,
-                         kv_value(vcache)).to(x.dtype)
+        o = torch.einsum("bkgqs,bksd->bkgqd", probs, vals).to(x.dtype)
         o = o.reshape(b, self.heads, s_c, d).transpose(1, 2) \
             .reshape(b, s_c, self.heads * d)
         return self._mlp_tail(x, o), kcache, vcache
@@ -273,36 +311,51 @@ class LlamaModel(nn.Module):
             return x, self.lm_head.weight
         return _linear(x, self.lm_head.weight)
 
-    def _decode_guard(self, what):
-        if self.sliding_window is not None:
-            refuse(f"{what}: cached decode with sliding_window (the rolling "
-                   f"window cache)", "ROADMAP A5, inference/")
-
     def init_caches(self, batch, s_max, dtype=torch.float32):
         """Per-layer (k, v) caches of shape (B, KVH, S_max, D) on the
-        model's device: KVH wide, the GQA cache saving."""
-        self._decode_guard("init_caches")
-        dev = self.tok_emb.weight.device
+        model's device: KVH wide, the GQA cache saving.  With
+        ``sliding_window`` a rolling cache of at most ``window +
+        ROLLING_SLACK`` slots."""
+        dev = self.norm.weight.device
+        if self.sliding_window is not None:
+            s_max = min(s_max, self.sliding_window + ROLLING_SLACK)
         return [(make_kv_cache((batch, blk.kv_heads, s_max, blk.head_dim),
                                dtype, dev),
                  make_kv_cache((batch, blk.kv_heads, s_max, blk.head_dim),
                                dtype, dev)) for blk in self.blocks]
 
+    def _cache_capacity(self, caches):
+        """The positions the caches can serve: a full-size rolling cache
+        never bounds them (old slots fall out of the band), so its bound is
+        ``max_positions``; a smaller one must not wrap and keeps its slot
+        count, as a plain cache does."""
+        n = caches[0][0].shape[2]
+        if self.sliding_window is not None and n >= min(
+                self.max_positions, self.sliding_window + ROLLING_SLACK):
+            return self.max_positions
+        return n
+
     def _check_positions(self, what, t0, s_c, caches):
-        self._decode_guard(what)
+        """Range-check a Python-int position; a device position (a 0-d
+        tensor) is its caller's to bound."""
         if len(caches) != len(self.blocks):
             raise ValueError(f"{what}: {len(caches)} caches for "
                              f"{len(self.blocks)} blocks")
-        cap = caches[0][0].shape[2]
+        if isinstance(t0, torch.Tensor):
+            return t0
+        t0 = int(t0)
+        cap = self._cache_capacity(caches)
         if t0 < 0 or t0 + s_c > min(self.max_positions, cap):
             raise ValueError(
                 f"{what}: positions {t0}..{t0 + s_c} out of range for "
                 f"max_positions {self.max_positions} / cache capacity {cap}")
+        return t0
 
     def _run_blocks(self, toks, caches, blk_fn):
-        """Embed ``toks``, thread the caches through ``blk_fn`` per block,
-        final norm and head."""
-        x = self.tok_emb.weight[toks]
+        """Embed ``toks`` (int8-aware: only the selected rows dequantize),
+        thread the caches through ``blk_fn`` per block, final norm and
+        head."""
+        x = gather_rows(raw(self.tok_emb), toks)
         new_caches = []
         for blk, (kc, vc) in zip(self.blocks, caches):
             x, kc, vc = blk_fn(blk, x, kc, vc)
@@ -318,18 +371,17 @@ class LlamaModel(nn.Module):
 
     def decode_chunk(self, toks, caches, t0):
         """Logits for a token chunk ``toks (B, S_c)`` at positions ``t0 ..``
-        against the caches: ``(logits (B, S_c, V), caches)``."""
-        t0 = int(t0)
-        self._check_positions("decode_chunk", t0, toks.shape[1], caches)
+        (a Python int or a 0-d int64 device tensor) against the caches:
+        ``(logits (B, S_c, V), caches)``."""
+        t0 = self._check_positions("decode_chunk", t0, toks.shape[1], caches)
         return self._run_blocks(
             toks, caches,
             lambda blk, x, kc, vc: blk.decode_chunk(x, kc, vc, t0))
 
     def decode_step(self, tok, caches, t):
-        """Logits for one token, ``tok (B,)`` at position ``t``:
-        ``(logits (B, V), caches)``."""
-        t = int(t)
-        self._check_positions("decode_step", t, 1, caches)
+        """Logits for one token, ``tok (B,)`` at position ``t`` (a Python
+        int or a 0-d int64 device tensor): ``(logits (B, V), caches)``."""
+        t = self._check_positions("decode_step", t, 1, caches)
         return self._run_blocks(
             tok, caches, lambda blk, x, kc, vc: blk.decode(x, kc, vc, t))
 

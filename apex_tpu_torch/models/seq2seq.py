@@ -158,45 +158,110 @@ def transformer_seq2seq(**kw):
                                         dec_layers=6, heads=8), **kw})
 
 
+class Seq2SeqGraph:
+    """One bucket of ``seq2seq_generate``: the step over the whole padded
+    target buffer as a :class:`~apex_tpu_torch.inference.decode.GraphRun`
+    over ``(buf (B, N + 1), t (), mem (S, B, E), logits (B, V)[, kpm (B,
+    S)])``: the decoder over ``buf``, the head at ``t``, the sample
+    written at ``t + 1``, ``t`` incremented, all on the device."""
+
+    def __init__(self, model, b, s_src, n, masked, sample, sampled):
+        from ..inference.decode import GraphRun, model_device
+        dev = model_device(model)
+        emb = model.tok_emb.weight
+        self.model = model
+        self.sample = sample
+        self.buf = torch.zeros((b, n + 1), dtype=torch.long, device=dev)
+        self.t = torch.zeros((), dtype=torch.long, device=dev)
+        self.mem = torch.zeros((s_src, b, emb.shape[1]), dtype=emb.dtype,
+                               device=dev)
+        self.kpm = torch.zeros((b, s_src), dtype=torch.bool, device=dev) \
+            if masked else None
+        self.logits = torch.zeros((b, emb.shape[0]), dtype=emb.dtype,
+                                  device=dev)
+        state = (self.buf, self.t, self.mem, self.logits) + \
+            ((self.kpm,) if masked else ())
+        self.run = GraphRun("seq2seq_decode", self._step, state, dev,
+                            sampled)
+
+    def _step(self, state, generator):
+        buf, t, mem, logits_buf = state[:4]
+        kpm = state[4] if len(state) > 4 else None
+        model = self.model
+        x = model._decode(buf, mem, kpm).index_select(1, t.reshape(1))[:, 0]
+        emb = model.tok_emb.weight
+        logits = torch.matmul(x, emb.t().to(x.dtype))
+        tok = self.sample(logits, generator)
+        buf.index_copy_(1, t.reshape(1) + 1, tok[:, None])
+        logits_buf.copy_(logits)
+        t.add_(1)
+
+    def generate(self, src, kpm, n, bos_id, generator, eager=False,
+                 logits=None):
+        """Encode, then ``n`` steps (with ``eager`` the un-captured step;
+        each step's logits appended to the list ``logits`` when one is
+        given); returns ``(B, n)``."""
+        with torch.no_grad():
+            self.mem.copy_(self.model._encode(src, kpm))
+            if kpm is not None:
+                self.kpm.copy_(kpm)
+            self.buf.fill_(bos_id)
+            self.t.zero_()
+        run = self.run
+        run.start(generator)
+        for _ in range(n):
+            run.step(eager)
+            if logits is not None:
+                logits.append(self.logits.clone())
+        run.finish(eager)
+        return self.buf[:, 1:].clone()
+
+
 def seq2seq_generate(model, src_ids, max_new_tokens, bos_id=0,
                      src_attention_mask=None, temperature=0.0, top_k=None,
                      generator=None, mesh=None):
-    """Decoding: encode ``src_ids (B, S_src)`` once, then extend the
-    target one token a step -> ``(B, max_new_tokens)`` ids on the model's
-    device (BOS not included).  Each step runs the decoder over the whole
-    padded ``(B, max_new_tokens + 1)`` target buffer, as the JAX loop does
-    (the causal decoder makes positions past the step inert), and takes
-    the head at the step's position; there is no decoder KV cache.  Runs
-    eagerly without gradients, dropout off.  ``temperature=0`` is greedy;
-    otherwise temperature and ``top_k``, drawn from ``generator`` (a
-    ``torch.Generator`` on the model's device).  ``mesh`` is taken at its
-    default and refused otherwise."""
+    """Decoding: encode ``src_ids (B, S_src)`` once, eagerly, then extend
+    the target one token a step -> ``(B, max_new_tokens)`` ids on the
+    model's device (BOS not included).  Each step runs the decoder over
+    the whole padded ``(B, max_new_tokens + 1)`` target buffer, as the JAX
+    loop does (the causal decoder makes positions past the step inert),
+    and takes the head at the step's position; there is no decoder KV
+    cache.  The steps run through a cached program a (batch, source
+    length, buffer length, mask, sampler, parameter ids) bucket
+    (:mod:`apex_tpu_torch.inference.decode`): on the card its first step
+    runs eagerly, its second is captured as a CUDA graph and the rest
+    replay it, the step index and the buffer on the device.  Dropout is
+    off.  ``temperature=0`` is greedy; otherwise temperature and
+    ``top_k``, drawn from ``generator`` (a ``torch.Generator`` on the
+    model's device).  ``mesh`` is taken at its default and refused
+    otherwise."""
+    from ..inference.decode import model_device
+    from ..utils.jit_cache import compiled_run_cache, model_tensors
     accept_defaults("seq2seq_generate: tensor parallelism (mesh)", PARALLEL,
                     mesh=(mesh, None))
-    b = src_ids.shape[0]
+    b, s_src = src_ids.shape
     if max_new_tokens + 1 > model.max_positions:
         raise ValueError(
             f"max_new_tokens {max_new_tokens} exceeds max_positions "
             f"{model.max_positions} - 1")
-    emb = model.tok_emb.weight
-    sample = make_sampler(temperature, top_k, None, emb.shape[0])
+    vocab = model.tok_emb.weight.shape[0]
+    sample = make_sampler(temperature, top_k, None, vocab)
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a torch.Generator")
-    dev = emb.device
+    dev = model_device(model)
     src = src_ids.to(device=dev, dtype=torch.long)
     kpm = None if src_attention_mask is None \
         else src_attention_mask.to(dev) == 0
+    masked = kpm is not None
+    graph = compiled_run_cache(
+        model, "_s2s_gen_cache",
+        (b, s_src, max_new_tokens, masked, float(temperature), top_k),
+        model_tensors(model),
+        lambda: Seq2SeqGraph(model, b, s_src, max_new_tokens, masked,
+                              sample, temperature > 0.0))
     was_training = model.training
     model.eval()
     try:
-        with torch.no_grad():
-            mem = model._encode(src, kpm)
-            buf = torch.full((b, max_new_tokens + 1), bos_id,
-                             dtype=torch.long, device=dev)
-            for t in range(max_new_tokens):
-                x = model._decode(buf, mem, kpm)[:, t]
-                buf[:, t + 1] = sample(torch.matmul(x, emb.t().to(x.dtype)),
-                                       generator)
+        return graph.generate(src, kpm, max_new_tokens, bos_id, generator)
     finally:
         model.train(was_training)
-    return buf[:, 1:]

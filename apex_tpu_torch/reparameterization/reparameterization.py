@@ -90,6 +90,14 @@ class Reparameterization:
                     f"parameters ('{name}')")
             return None
 
+        from ..inference.quant import quantized_names
+        if name2use in quantized_names(module2use):
+            if strict:
+                raise ValueError(
+                    f"cannot reparameterize int8-quantized weight '{name}' "
+                    f"— quantized models are inference-only; reparameterize "
+                    f"first, quantize after")
+            return None
         reparams = getattr(module2use, "_reparameterizations", {})
         weight = module2use._parameters.get(name2use)
         if weight is None or name2use in reparams \
@@ -103,9 +111,8 @@ class Reparameterization:
                         "Parameter")
                 if not weight.is_floating_point():
                     raise ValueError(
-                        f"cannot reparameterize quantized weight '{name}' "
-                        f"({weight.dtype}): the port has no int8 weights "
-                        f"yet (ROADMAP A5)")
+                        f"cannot reparameterize the {weight.dtype} weight "
+                        f"'{name}' (needs a floating point weight)")
                 raise ValueError(
                     f"cannot reparameterize {weight.dim()}-d parameter "
                     f"'{name}' (needs ndim > 1)")
@@ -163,6 +170,7 @@ class Reparameterization:
         child, or the root without ``hook_child``)."""
         module2use, name2use = Reparameterization.get_module_and_name(
             self.module, self.name)
+        from ..inference.quant import quantized_names
         with torch.no_grad():
             weight = self.compute_weight(module2use, name2use).clone()
         for n in self.reparameterization_names:
@@ -171,6 +179,8 @@ class Reparameterization:
         reparams.pop(name2use, None)
         cls = type(module2use)
         delattr(cls, name2use)
-        if not reparams:
+        if not reparams and not quantized_names(module2use):
+            # the class's own properties are gone: give the module its own
+            # class back (an int8 weight keeps the subclass's property)
             module2use.__class__ = cls._reparameterized_base
         module2use.register_parameter(name2use, nn.Parameter(weight))

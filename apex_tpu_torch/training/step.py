@@ -484,6 +484,12 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     if telemetry:
         _refuse("telemetry", "ROADMAP A8, observe/")
 
+    from ..inference.quant import is_quantized
+    if is_quantized(model):
+        raise ValueError(
+            "this model has int8-quantized weights "
+            "(apex_tpu_torch.inference.quantize_int8) — quantized models "
+            "are inference-only; rebuild/reload the model to train")
     params = [p for p in model.parameters()]
     names = [n for n, _ in model.named_parameters()]
     buffers = list(model.buffers())

@@ -197,8 +197,9 @@ def test_out_of_range_positions_raise(models):
     with pytest.raises(ValueError, match="does not fit"):
         kv_write(caches[0][0], torch.zeros(1, HEADS, 2, E // HEADS),
                  (0, 0, 15, 0))
-    with pytest.raises(NotImplementedError, match="int8"):
-        make_kv_cache((1, 1, 4, 4), "int8", "cpu")
+    # the int8 cache is a QuantKV (values int8, one fp32 scale a position)
+    q8 = make_kv_cache((1, 1, 4, 4), "int8", "cpu")
+    assert q8.q.dtype == torch.int8 and q8.scale.shape == (1, 1, 4, 1)
 
 
 def test_from_jax_state_dict_rejects_mismatches(models):

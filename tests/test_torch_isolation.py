@@ -59,7 +59,10 @@ def test_importing_the_port_loads_no_jax_module():
                  "contrib.multihead_attn.encdec_multihead_attn",
                  "models.seq2seq", "models.vit", "nn.modules", "RNN.cells",
                  "RNN.RNNBackend", "RNN.models", "models.hf",
-                 "runtime.executor", "runtime.step_cache", "runtime.data"):
+                 "runtime.executor", "runtime.step_cache", "runtime.data",
+                 "inference.quant", "inference.decode", "inference.rolling",
+                 "inference.session", "inference.speculative",
+                 "inference.beam", "inference.draft", "utils.jit_cache"):
         assert f"apex_tpu_torch.{name}" in loaded, name
 
 

@@ -186,6 +186,55 @@ def test_device_rule_and_counters():
         dispatch.use_kernel(torch.empty(2), torch.empty(2, device="meta"))
 
 
+def _fake_nvcc(tmp_path, body):
+    """A stand-in ``nvcc`` under ``tmp_path/bin`` running the shell
+    ``body`` with ``$src`` and ``$out`` set from its arguments."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 0 ]; do case \"$1\" in -o) out=\"$2\"; shift;; "
+        "*.cu) src=\"$1\";; esac; shift; done\n" + body)
+    nvcc.chmod(0o755)
+
+
+def test_started_builds_are_waited_for_one_by_one(monkeypatch, tmp_path):
+    """``start_all`` starts every source's build and returns; a load waits
+    for its own source only, ``build_all`` for the rest, each source's
+    seconds reported from its own start; a failed source raises and the
+    builds still running are killed."""
+    _fake_nvcc(tmp_path, 'case "$src" in *layer_norm*) sleep 1;; '
+                         '*broken*) echo "bad source"; exit 2;; esac\n'
+                         'echo built > "$out"\n')
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_pending", {})
+    monkeypatch.setattr(_build, "_seconds", {})
+    _build.start_all()
+    assert sorted(_build._pending) == _build.sources()
+    with _build._lock:
+        assert _build._build(["xentropy"]) == {
+            "xentropy": _build._seconds["xentropy"]}
+    report = _build.build_all()
+    assert set(report) == set(_build.sources()) and not _build._pending
+    assert report["layer_norm"] >= 1.0 > report["xentropy"]
+    assert all(_build._lib_path(n).is_file() for n in report)
+    assert set(_build.build_all().values()) <= set(report.values())
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for n in ("broken", "layer_norm"):
+        (csrc / f"{n}.cu").write_text("")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "_seconds", {})
+    _build.start_all()
+    jobs = dict(_build._pending)
+    with pytest.raises(RuntimeError, match="bad source"):
+        _build.build_all()
+    assert jobs["layer_norm"].proc.poll() is not None
+    assert not list((tmp_path / "build").glob("*.tmp"))
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -243,15 +243,17 @@ def test_unported_options_raise():
     ids = torch.zeros((1, 3), dtype=torch.long)
     with torch.no_grad():
         assert banded(ids).shape == (1, 3, 16)   # the forward takes the band
-    with pytest.raises(NotImplementedError, match="rolling window cache"):
-        banded.init_caches(1, 8)
+    # cached decode with the band is ported: rolling caches of window +
+    # ROLLING_SLACK slots at most (here the 8 asked for)
+    assert banded.init_caches(1, 8)[0][0].shape == (1, 2, 8, 8)
+    caches = banded.init_caches(1, 8)
+    with torch.no_grad():
+        assert banded.prefill(ids, caches)[0].shape == (1, 3, 16)
+        assert banded.decode_chunk(ids[:, :2], caches, 3)[0].shape == \
+            (1, 2, 16)
+        assert banded.decode_step(ids[:, 0], caches, 5)[0].shape == (1, 16)
+    assert generate(banded, ids, 2).shape == (1, 5)
     caches = LlamaModel(**small).init_caches(1, 8)
-    for call in (lambda: banded.prefill(ids, caches),
-                 lambda: banded.decode_chunk(ids, caches, 0),
-                 lambda: banded.decode_step(ids[:, 0], caches, 0),
-                 lambda: generate(banded, ids, 2)):
-        with pytest.raises(NotImplementedError, match="rolling window"):
-            call()
     with pytest.raises(ValueError, match="sliding_window"):
         LlamaModel(**small, sliding_window=0)
     with pytest.raises(ValueError, match="positions"):

@@ -35,6 +35,7 @@ from apex_tpu.reparameterization import \
     remove_reparameterization as jax_remove_reparameterization
 from apex_tpu.training import make_train_step as jax_make_train_step
 
+from apex_tpu_torch.inference import quantize_int8
 from apex_tpu_torch.models import LlamaModel, from_jax_state_dict, generate
 from apex_tpu_torch.nn import functional as F
 from apex_tpu_torch.optimizers import FusedAdam
@@ -154,14 +155,13 @@ def test_strict_names_raise_where_jax_raises_and_hook_child_false():
     remove_reparameterization(tm, WeightNorm, remove_all=True)
     assert "2.weight" in tm.state_dict()
     _close(tm(x), before, 1e-6)
-    # an int8 weight is refused naming its owner
+    # an int8-quantized weight is refused with the JAX package's error
     q = torch.nn.Linear(4, 4)
-    q.weight = torch.nn.Parameter(torch.ones(4, 4, dtype=torch.int8),
-                                  requires_grad=False)
-    with pytest.raises(ValueError, match="ROADMAP A5"):
+    quantize_int8(q, min_size=1)
+    with pytest.raises(ValueError, match="int8-quantized weight"):
         apply_lora(q, "weight", r=2)
     apply_lora(q, r=2)               # the sweep skips it
-    assert "weight" in q.state_dict()
+    assert "weight_q" in q.state_dict()
 
 
 # -- LoRA ----------------------------------------------------------------

@@ -49,6 +49,10 @@ import apex_tpu.training as jax_training
 import apex_tpu.models.hf as jax_hf
 import apex_tpu.runtime as jax_runtime
 import apex_tpu.runtime.executor as jax_executor
+import apex_tpu.inference as jax_inference
+import apex_tpu.inference.draft as jax_draft
+import apex_tpu.inference.rolling as jax_rolling
+import apex_tpu.utils.jit_cache as jax_jit_cache
 
 import apex_tpu_torch.RNN as rnn
 import apex_tpu_torch.amp as amp
@@ -79,6 +83,10 @@ from apex_tpu_torch.training import make_train_step
 import apex_tpu_torch.models.hf as hf
 import apex_tpu_torch.runtime as runtime
 import apex_tpu_torch.runtime.executor as executor
+import apex_tpu_torch.inference as inference
+import apex_tpu_torch.inference.draft as draft
+import apex_tpu_torch.inference.rolling as rolling
+import apex_tpu_torch.utils.jit_cache as jit_cache
 
 torch.set_num_threads(2)
 
@@ -159,6 +167,28 @@ PAIRS = [
     (jax_executor, executor, "DonationPolicy"),
     (jax_executor, executor, "drain_telemetry"),
     (jax_amp, amp, "initialize"),
+    (jax_gpt, gpt, "generate"), (jax_gpt, gpt, "make_sampler"),
+    (jax_inference, inference, "beam_generate"),
+    (jax_inference, inference, "speculative_generate"),
+    (jax_inference, inference, "DecodeSession"),
+    (jax_inference.DecodeSession, inference.DecodeSession, "generate"),
+    (jax_inference.DecodeSession, inference.DecodeSession, "append"),
+    (jax_inference, inference, "PagedSession"),
+    (jax_inference, inference, "make_self_draft"),
+    (jax_inference, inference, "train_draft"),
+    (jax_draft, draft, "make_distill_step"),
+    (jax_draft, draft, "DistillStep"),
+    (jax_inference, inference, "quantize_int8"),
+    (jax_inference, inference, "quantize_tensor_int8"),
+    (jax_inference, inference, "absmax_int8"),
+    (jax_inference, inference, "gather_rows"),
+    (jax_inference, inference, "make_kv_cache"),
+    (jax_inference, inference, "kv_write"),
+    (jax_inference, inference, "kv_value"),
+    (jax_rolling, rolling, "rolling_slot_positions"),
+    (jax_rolling, rolling, "window_retired_blocks"),
+    (jax_rolling, rolling, "rolling_kv_write"),
+    (jax_jit_cache, jit_cache, "compiled_run_cache"),
 ]
 NO_COUNTERPART = {"interpret", "ctx"}
 # a JAX parameter the port takes under another name, with the same default
@@ -301,6 +331,16 @@ REFUSED = [
                                    device="cpu"),
         torch.zeros((1, 4), dtype=torch.long), 2, **kw),
      dict(mesh="a mesh"), A9),
+    (lambda **kw: gpt.generate(
+        gpt.GptModel(**SMALL_GPT), torch.zeros((1, 2), dtype=torch.long), 2,
+        **kw), dict(mesh="a mesh"), A9),
+    (lambda **kw: inference.beam_generate(
+        gpt.GptModel(**SMALL_GPT), torch.zeros((1, 2), dtype=torch.long), 2,
+        2, **kw), dict(mesh="a mesh"), A9),
+    (lambda **kw: inference.speculative_generate(
+        gpt.GptModel(**SMALL_GPT), gpt.GptModel(**SMALL_GPT),
+        torch.zeros((1, 2), dtype=torch.long), 2, k=1, **kw),
+     dict(mesh="a mesh"), A9),
     (lambda **kw: runtime.set_overlap(**kw), dict(gather=True), A9),
     (lambda **kw: runtime.Program("train_step", (), lambda: None, **kw),
      dict(wrap=lambda f: f), A9),
@@ -347,8 +387,8 @@ def test_defaults_are_accepted():
 
 def test_refusal_messages_name_the_current_roadmap_items():
     """The owners named in the refusals follow ROADMAP's queue A as it is
-    numbered now (parallelism A9, inference A5, observe A8); remat, once
-    A4's, is ported and builds."""
+    numbered now (parallelism A9, the serve engine A6, observe A8); remat,
+    once A4's, and inference, once A5's, are ported and build."""
     small = dict(SMALL_GPT)
     with pytest.raises(NotImplementedError,
                        match="tensor and sequence.*ROADMAP A9"):
@@ -357,9 +397,12 @@ def test_refusal_messages_name_the_current_roadmap_items():
                        match="mixture of experts.*ROADMAP A9"):
         llama.LlamaModel(**small, moe_axis="data")
     assert llama.LlamaModel(**small, remat=True).remat
+    # cached decode with the band is ported (A5): rolling caches, no
+    # refusal; the paged session waits for the serve engine, A6
     banded = llama.LlamaModel(**small, sliding_window=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5, inference"):
-        banded.init_caches(1, 8)
+    assert banded.init_caches(1, 8)[0][0].shape[2] == 8
+    with pytest.raises(NotImplementedError, match="ROADMAP A6, serve"):
+        inference.PagedSession(None)
     tm = gpt.GptModel(**small)
     opt = optimizers.FusedAdam(list(tm.parameters()))
     loss = lambda out, y: out.float().mean()  # noqa: E731
