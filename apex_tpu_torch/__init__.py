@@ -31,8 +31,11 @@ O1 (a per-op cast policy applied to every module call), the legacy
 ``amp.init`` API and ``fp16_utils``; and the GAN iteration
 (``training.make_gan_train_step``); and the runtime (``runtime``: the
 step cache, the executor that captures each train step as a CUDA graph
-and replays it, the input prefetcher) and the Hugging Face and
-torchvision state-dict converters (``models.hf``).
+and replays it, the input prefetcher, the chaos hooks, the resilience
+runtime's atomic schema-3 checkpoints, which the JAX package restores and
+which restore the JAX package's, ``CheckpointManager`` and
+``BadStepGuard``, and the native host runtime), ``utils.checkpoint``, and
+the Hugging Face and torchvision state-dict converters (``models.hf``).
 """
 from . import (amp, contrib, fp16_utils, inference, kernels, models,
                multi_tensor_apply, nn, normalization, ops, optimizers,

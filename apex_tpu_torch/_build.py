@@ -12,7 +12,11 @@ one ``nvcc`` per source running side by side, by :func:`build_all`.
 or :func:`build_all` waits only for the sources it needs, so a program
 can go on while the slowest ones compile.
 
-There is no fallback: a missing ``nvcc`` or a failed build raises.
+The host runtime, ``csrc/runtime.cpp`` (plain C++, no CUDA), builds the
+same way with ``g++`` at its first use (:func:`load_host`).
+
+There is no fallback: a missing ``nvcc`` or ``g++``, or a failed build,
+raises.
 """
 from __future__ import annotations
 
@@ -177,6 +181,42 @@ def load(name: str) -> ctypes.CDLL:
             _build([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
             _loaded[name] = lib
+        return lib
+
+
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cpp``, built
+    with ``g++`` first if needed (into ``build/apex_tpu_torch/``, its name
+    carrying a hash of the source and the flags, as the kernels')."""
+    with _lock:
+        key = f"host:{name}"
+        lib = _loaded.get(key)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cpp"
+        h = hashlib.sha256(src.read_bytes())
+        h.update(" ".join(HOST_FLAGS).encode())
+        out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+        if not out.is_file():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(
+                    f"g++ not found on PATH: the host runtime "
+                    f"csrc/{name}.cpp cannot be built on this host")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            res = subprocess.run([gxx, *HOST_FLAGS, str(src), "-o",
+                                  str(tmp)], capture_output=True, text=True)
+            if res.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"g++ failed to build {name}.cpp (exit "
+                    f"{res.returncode}):\n{res.stdout}{res.stderr}")
+            os.replace(tmp, out)
+        lib = _loaded[key] = ctypes.CDLL(str(out))
         return lib
 
 

@@ -91,7 +91,14 @@ def lazy_init_with_master_weights(self):
     for param_group in self.param_groups:
         for half, master in _masters_of_group(stash, param_group["params"]):
             if half in self.state:
-                self.state[master] = self.state.pop(half)
+                # a state loaded before the masters existed was cast to the
+                # half param's dtype by torch's load_state_dict: back to
+                # the master's, as the reference's load_state_dict(
+                # state_dict()) round trip at this point does
+                self.state[master] = {
+                    k: v.to(master.dtype) if k != "step" and isinstance(
+                        v, torch.Tensor) and v.is_floating_point() else v
+                    for k, v in self.state.pop(half).items()}
     for param in stash.all_fp32_from_fp16_params \
             + stash.all_fp32_from_fp32_params:
         param.grad = None

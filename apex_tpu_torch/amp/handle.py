@@ -19,7 +19,10 @@ optimizers with ``_step_cache_scaler_ok``), leaving reads nothing: the
 scaler is handed to the optimizer, whose next ``step()`` takes the
 scaler's device overflow flag as its skip flag and updates the loss scale
 on the device, so no iteration reads the card (and nothing prints
-"Gradient overflow"; read ``loss_scale()`` to see the scale).
+"Gradient overflow"; read ``loss_scale()`` to see the scale).  The chaos
+hook ``amp.backward`` fires on leaving, before the unscale, and a
+``runtime.resilience.BadStepGuard`` attached to the optimizer hears of
+each skipped step.
 
 Beside it, the legacy API: ``init`` returns an ``AmpHandle`` whose
 construction makes an O1 policy the ambient one of every module call (or
@@ -53,8 +56,38 @@ def _patch_step_skip(opt, scaler, idx):
         reset_fused_sgd_scale(opt)
         opt.step = opt_step
         opt._amp_stash.already_patched = False
+        # runtime.resilience.BadStepGuard (attach_optimizer): a skipped
+        # call never reaches the guard's step wrapper (this function
+        # replaced it for the call), so notify it here; the skip is known
+        # on the host
+        guard = getattr(opt._amp_stash, "_guard", None)
+        if guard is not None:
+            guard.observe(1)
 
     return skip_step
+
+
+def _chaos_poison(optimizers, loss_id):
+    """``amp.backward`` chaos hook: ``"nonfinite_grads"`` multiplies every
+    gradient the backward produced by NaN, so that the scaler's own
+    overflow machinery (flag, skip, halving) fires, as the train step's
+    batch taint does for the fused step."""
+    from ..runtime import chaos as _chaos
+    if not _chaos.active() or _chaos.hook(
+            "amp.backward", loss_id=loss_id) != "nonfinite_grads":
+        return
+    for optimizer in optimizers:
+        stash = getattr(optimizer, "_amp_stash", None)
+        param_lists = [g["params"] for g in optimizer.param_groups]
+        for name in ("all_fp16_params", "all_fp32_params",
+                     "all_fp32_from_fp32_params"):
+            lst = getattr(stash, name, None)
+            if lst:
+                param_lists.append(lst)
+        for params in param_lists:
+            for p in params:
+                if getattr(p, "grad", None) is not None:
+                    p.grad = p.grad * float("nan")
 
 
 @contextlib.contextmanager
@@ -95,6 +128,7 @@ def scale_loss(loss, optimizers, loss_id=0, model=None, delay_unscale=False,
 
     yield loss.float() * loss_scale
 
+    _chaos_poison(optimizers, loss_id)
     if delay_unscale:
         for optimizer in optimizers:
             optimizer._amp_stash.params_have_scaled_gradients = True

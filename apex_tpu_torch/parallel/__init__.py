@@ -13,7 +13,8 @@ from torch.nn.modules.batchnorm import _BatchNorm
 from .distributed import (DistributedDataParallel, DistributedInitError,
                           Reducer, all_reduce_mean, apply_flat_dist_call,
                           broadcast_module, flat_dist_call, init_distributed,
-                          num_processes, rank, split_by_type, world_size)
+                          num_processes, rank, split_by_type,
+                          timed_flat_dist_call, world_size)
 from .LARC import LARC
 from .sync_batchnorm import SyncBatchNorm, check_axis_name
 
@@ -22,7 +23,7 @@ __all__ = ["DistributedDataParallel", "DistributedInitError", "LARC",
            "apply_flat_dist_call", "broadcast_module", "convert_syncbn_model",
            "create_syncbn_process_group", "flat_dist_call",
            "init_distributed", "num_processes", "rank", "split_by_type",
-           "world_size"]
+           "timed_flat_dist_call", "world_size"]
 
 
 def convert_syncbn_model(module, process_group=None, channel_last=False,

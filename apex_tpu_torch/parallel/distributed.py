@@ -41,10 +41,8 @@ import torch.distributed as dist
 
 from .._unported import PARALLEL, accept_defaults
 from ..kernels.dispatch import is_dense, resolve_device
-
-
-class DistributedInitError(RuntimeError):
-    """``init_distributed`` exhausted its attempts or its deadline."""
+from ..runtime import chaos as _chaos
+from ..runtime.resilience import CollectiveTimeoutError, DistributedInitError
 
 
 def world_size(group=None) -> int:
@@ -96,8 +94,12 @@ def init_distributed(coordinator_address: Optional[str] = None,
     more attempts (``APEX_TPU_INIT_RETRIES``, default 4) or the deadline
     ``timeout_s`` (``APEX_TPU_INIT_TIMEOUT``, default 300 s) run out;
     then :class:`DistributedInitError` names the coordinator, the rank,
-    the process count, the attempts and the last error.  ``_initialize``
-    replaces ``torch.distributed.init_process_group`` in tests."""
+    the process count, the attempts and the last error.  Chaos hook
+    ``dist.init`` fires before every attempt (``"fail"`` is retried,
+    ``"kill"`` propagates).  After a successful start the rank announces
+    itself in the default store (:func:`announce_presence`).
+    ``_initialize`` replaces ``torch.distributed.init_process_group`` in
+    tests."""
     dev = resolve_device(device)
     if coordinator_address is None:
         coordinator_address = os.environ.get("APEX_TPU_COORDINATOR")
@@ -128,12 +130,17 @@ def init_distributed(coordinator_address: Optional[str] = None,
         if remaining <= 0:
             break
         try:
+            if _chaos.active():
+                _chaos.hook("dist.init", attempt=attempt)
             _initialize(backend=backend,
                         init_method=f"tcp://{coordinator_address}",
                         world_size=num_processes, rank=process_id,
                         timeout=datetime.timedelta(
                             seconds=max(1, int(remaining))))
+            announce_presence()
             return backend
+        except _chaos.ChaosKilled:
+            raise           # simulated preemption: die like the real thing
         except Exception as e:  # noqa: BLE001: every init failure retries
             last_exc = e
             sleep = min(delay, max_backoff_s,
@@ -146,6 +153,52 @@ def init_distributed(coordinator_address: Optional[str] = None,
         f"{timeout_s:.0f}s deadline (coordinator="
         f"{coordinator_address!r}, process_id={process_id}, "
         f"num_processes={num_processes}): {last_exc}") from last_exc
+
+
+#: the presence registry's keys in the default store, one a rank
+_PRESENCE = "apex_tpu/members/"
+#: test seam: when set, a callable returning the list of missing ranks
+_PRESENCE_PROBE = None
+
+
+def _store():
+    if not dist.is_initialized():
+        return None
+    try:
+        return dist.distributed_c10d._get_default_store()
+    except Exception:       # noqa: BLE001: no store, no registry
+        return None
+
+
+def announce_presence():
+    """Register this rank in the presence registry, a key a rank in
+    ``torch.distributed``'s default store holding the hostname
+    (best-effort; nothing without ``torch.distributed``).
+    ``init_distributed`` calls it after a successful start, so that a
+    later collective timeout can name the ranks that never arrived."""
+    store = _store()
+    if store is None:
+        return
+    import socket
+    try:
+        store.set(f"{_PRESENCE}{rank()}", socket.gethostname())
+    except Exception:       # noqa: BLE001: best-effort
+        pass
+
+
+def missing_ranks() -> Optional[list]:
+    """Ranks with no registration in the presence registry, or None when
+    that cannot be told (one process, no store)."""
+    if _PRESENCE_PROBE is not None:
+        return _PRESENCE_PROBE()
+    store = _store()
+    if store is None:
+        return None
+    try:
+        return [r for r in range(world_size())
+                if not store.check([f"{_PRESENCE}{r}"])]
+    except Exception:       # noqa: BLE001: the store cannot tell
+        return None
 
 
 def split_by_type(tensors):
@@ -196,6 +249,46 @@ def flat_dist_call(tensors, call, extra_args=None):
     for bucket in split_by_type(tensors):
         out.extend(apply_flat_dist_call(bucket, call, extra_args))
     return out
+
+
+def timed_flat_dist_call(tensors, call, extra_args=None,
+                         timeout_s: float = 60.0):
+    """:func:`flat_dist_call` with a deadline: the collective runs on a
+    worker thread, and past ``timeout_s`` a
+    :class:`~apex_tpu_torch.runtime.resilience.CollectiveTimeoutError`
+    names this rank, the world size and the ranks missing from the
+    presence registry (:func:`announce_presence`) where it can.  Chaos
+    hook ``dist.collective`` fires inside the worker (``"delay"`` is the
+    slow peer).  The abandoned worker is a daemon thread: the caller is
+    expected to checkpoint and die or start again, not to retry the
+    wedged collective."""
+    import threading
+    box = {}
+
+    def worker():
+        try:
+            if _chaos.active():
+                _chaos.hook("dist.collective")
+            box["out"] = flat_dist_call(tensors, call, extra_args)
+        except BaseException as e:  # surfaced below
+            box["exc"] = e
+
+    t = threading.Thread(target=worker, daemon=True,
+                         name="apex-tpu-torch-collective")
+    t.start()
+    t.join(timeout_s)
+    if "exc" in box:
+        raise box["exc"]
+    if "out" in box:
+        return box["out"]
+    missing = missing_ranks()
+    suspect = (f"ranks never present in the presence registry: {missing}"
+               if missing
+               else "missing rank unknown (no presence registry — single "
+                    "process or init_distributed not used)")
+    raise CollectiveTimeoutError(
+        f"collective did not complete within {timeout_s:g}s on rank "
+        f"{rank()} of {world_size()} process(es); {suspect}")
 
 
 def _exchange(flat, group, always_fp32, predivide_factor, average,

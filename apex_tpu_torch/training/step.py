@@ -24,6 +24,14 @@ the call index, so a replay draws the masks an eager call draws.  The
 un-captured step is kept as ``TrainStep._raw_step_fn(state, call_index,
 *batch)``.
 
+A restore (``TrainStep.load_state``,
+``runtime.resilience.CheckpointManager.restore_resharded``) copies into
+the state's own tensors, so the graph replays the restored state with no
+recapture.  A ``runtime.resilience.BadStepGuard`` attached to the step
+observes each call's device skip flag; the chaos hook ``train.step``
+(``"nonfinite_grads"``) taints the batch before the submit, as in the JAX
+step.
+
 Gradient accumulation (``accum_steps``) and lr schedules (``lr_schedule``)
 run as in the JAX step.  What the JAX step does beyond that is owed to
 later slices and refused here with ``NotImplementedError``: data, tensor
@@ -45,6 +53,7 @@ from ..amp.policy import disable_casts
 from ..amp.scaler import ScalerState, update_scale_state
 from ..kernels.dispatch import same_layout
 from ..ops.multi_tensor import nonfinite_flag
+from ..runtime import chaos as _chaos
 from ..runtime import executor as _executor
 from .._unported import PARALLEL, refuse
 from ..optimizers import FusedAdam, FusedLAMB, FusedNovoGrad, FusedSGD
@@ -102,14 +111,22 @@ class TrainStep:
         self.state = init_state
         #: 0-based count of calls; with ``rng_seed`` it seeds the dropout
         #: generators of each call (a host integer: reading the device step
-        #: count would be a host sync)
+        #: count would be a host sync); chaos ``at=`` indices key on it
         self.calls = 0
+        #: runtime.resilience.BadStepGuard attached by guard.attach(step)
+        self._guard = None
 
     def __call__(self, *batch):
+        if _chaos.active():
+            batch = _chaos_taint(self, batch)
         self._seed(self.calls)
         loss = _executor.executor.submit(self._program, (self.state,) + batch,
                                          step=self.calls + 1)
         self.calls += 1
+        if self._guard is not None:
+            # the step's device skip flag, which the next call overwrites
+            # in place: the guard copies it out without a host sync
+            self._guard.observe(self.state.scaler.overflow)
         return loss
 
     def graph_stats(self):
@@ -133,6 +150,32 @@ class TrainStep:
             for p, m, half in zip(self._params, st.master_params,
                                   st.model_params):
                 p.data = m if half is None else half
+
+    def load_state(self, host_state):
+        """Copy a host checkpoint state (or a state of tensors anywhere)
+        into this step's own tensors, each with ``copy_``: a captured graph
+        replays the restored state with no recapture.  The structure, each
+        leaf's shape and dtype are checked first
+        (``runtime.resilience.reshard_state``: a typed
+        ``CheckpointReshardError`` naming the leaf; nothing is cast)."""
+        from ..runtime.resilience import reshard_state
+        reshard_state(host_state, self.state)
+        return self
+
+
+def _chaos_taint(train_step, batch):
+    """``train.step`` chaos hook: ``"nonfinite_grads"`` multiplies every
+    floating batch tensor by NaN, so the scaled loss and every gradient go
+    non-finite and the step's own overflow machinery (flag, skip, scale
+    halving) fires as in a real overflow storm; a captured step copies the
+    tainted batch into its static inputs and replays on it.
+    ``"kill"``/``"fail"`` raise from the hook itself."""
+    action = _chaos.hook("train.step", step=train_step.calls)
+    if action != "nonfinite_grads":
+        return batch
+    return tuple(tree_map(
+        lambda x: x * float("nan") if isinstance(x, torch.Tensor)
+        and x.is_floating_point() else x, b) for b in batch)
 
 
 def match_param_groups(optimizer, params, caller="make_train_step"):

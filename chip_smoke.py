@@ -319,7 +319,31 @@ Phases, each of which raises on failure:
    launches) and ``train_draft``; ``beam_generate`` with 4 beams (graph
    against eager) and ``num_beams=1`` against greedy ``generate``; a
    ``DecodeSession`` chat against one-shot ``generate`` and against its
-   un-captured steps.
+   un-captured steps;
+28. (last) ``runtime.resilience`` on ViT-S/16's graph step at full width
+   (resilience_phase; the dynamic loss scale, so that a storm has a skip
+   flag): the launch counts of its eager call and of its capture (flash
+   12/12/12 on tc, LayerNorm 25/25/25, Adam 1) and a replay's from the
+   graph; an uninterrupted reference of 6 steps from a fixed state; from
+   the same state 3 steps, ``save_sharded``, a second save killed by chaos
+   at ``ckpt.shard_write``, every state tensor zeroed,
+   ``restore_or_initialize`` (the first save) and ``restore_resharded``
+   into the same step's tensors, then 3 more steps equal to the reference
+   bit for bit with no recapture; ``save_async`` while the loop goes on,
+   its file equal to a synchronous save of the same state; the card's
+   checkpoint restored into a ``device="cpu"`` step bit for bit; a
+   ``BadStepGuard``'s clean-path cost (20 steps with and without, in
+   turns, and a profiled window each: no device-to-host copy or
+   synchronize added) and a storm of 9 non-finite steps (warn, rollback to
+   the snapshot bit for bit with the halved scale kept,
+   ``TrainingDivergedError``); the save and restore seconds, GB/s, the
+   host's peak shard bytes and the caller's ms of ``save_async``.
+
+The CPU sides of phases 5 and 7 and of the layers phase (24) run in a
+process of their own (``chip_smoke.py --cpu-worker DIR``, started under
+``nice`` once the kernels are built, with the weights in a temporary
+directory and CUDA hidden from it), beside the card's phases; each of those
+phases waits for its side there and prints how long it waited.
 
 Every main path's launch counts include the norm kernels' per-route
 counters (each path runs its forwards and backwards on ``vec``), and every
@@ -335,14 +359,18 @@ as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
 without the rest of the repository beside it, it exits non-zero before
 printing a result.  TF32 is off for every comparison.
 """
+import atexit
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 SEED = 1234
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -1241,8 +1269,11 @@ def kernel_split_ms(torch, fn, names, calls=5):
     fn()
     torch.cuda.synchronize()
     # the profiler now and then records no device activity at all in a
-    # window: such a window is taken again, twice at most
-    for attempt in range(3):
+    # window, up to three windows in a row on the card: such a window
+    # is taken again after a pause of a second, four times at most
+    for attempt in range(5):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -2771,7 +2802,7 @@ def resnet_cpu_phase(torch, models):
     from apex_tpu_torch import nn
     from apex_tpu_torch.optimizers import FusedSGD
     from apex_tpu_torch.training import make_train_step
-    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    torch.set_num_threads(main_threads())
     torch.backends.cudnn.deterministic = True
     torch.manual_seed(SEED + 22)
     sd = models.resnet50(device="cpu").state_dict()
@@ -3175,78 +3206,114 @@ def train_path(torch, dispatch, model, loss_fn, what, xent_want,
     return counts, 1e3 * step_s, prof
 
 
-def train_cpu_phase(torch, dispatch, gpt, model):
-    """Training on the card against the CPU from the same weights.  Returns
-    the launch counts of the card's first fp32 step, ``make_train_step``
-    without half copies: the path that runs the simt flash kernels
-    backward (12/12/12), the LayerNorm kernels (25/25/25) and one Adam
-    launch."""
+def _train_cpu_ids(torch):
+    """The card-against-CPU training batch: 2 x 128 ids from a seed."""
+    g = torch.Generator().manual_seed(SEED + 7)
+    return torch.randint(0, 50257, (2, 128), generator=g)
+
+
+def _gpt_on(torch, gpt, sd, dev, **kw):
+    """GPT-2 small on ``dev`` holding the weights ``sd``."""
+    m = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0,
+                       attn_dropout=0.0, device=dev, **kw)
+    m.load_state_dict(sd)
+    return m
+
+
+def _dynamic_skip_run(torch, gpt, sd, dev, ids8):
+    """The dynamic-scale fp16 run (batch 1 x 8, a non-finite loss planted
+    at step 2) on ``dev``: (skips, scales, masters unchanged by the skipped
+    step, step count)."""
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.training import make_train_step
-    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    m = _gpt_on(torch, gpt, sd, dev)
+    step = make_train_step(m, FusedAdam(list(m.parameters()), lr=LR,
+                                        weight_decay=WD),
+                           _lm_loss(torch), half_dtype=torch.float16,
+                           loss_scale="dynamic", max_loss_scale=2.0 ** 10)
+    x = ids8.to(dev)
+    skips, scales, masters = [], [], []
+    for w in (1.0, float("inf"), 1.0):
+        step(x, x, torch.tensor(w, device=dev))
+        skips.append(int(step.last_step_skipped))
+        scales.append(float(step.state.scaler.loss_scale))
+        masters.append([t.clone() for t in step.state.master_params])
+    unchanged = all(torch.equal(a, b) for a, b in zip(masters[0], masters[1]))
+    return skips, scales, unchanged, int(step.state.step)
+
+
+def train_cpu_reference(torch, gpt, sd):
+    """The CPU side of train_cpu_phase, run by the CPU worker beside the
+    card's phases: from the weights ``sd`` (fp32, dropout 0) the loss and
+    every gradient of one backward, the losses and fp32 masters of 3 train
+    steps, and the dynamic-scale skip run."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
     lm_loss = _lm_loss(torch)
-    kw = dict(max_positions=TRAIN_POS, dropout=0.0, attn_dropout=0.0)
+    ids = _train_cpu_ids(torch)
+    m = _gpt_on(torch, gpt, sd, "cpu")
+    loss = lm_loss(m(ids), ids)
+    loss.backward()
+    out = dict(loss=float(loss.detach()),
+               grads=[p.grad for p in m.parameters()])
+    m = _gpt_on(torch, gpt, sd, "cpu")
+    step = make_train_step(m, FusedAdam(list(m.parameters()), lr=LR,
+                                        weight_decay=WD),
+                           lm_loss, half_dtype=None, loss_scale=1.0)
+    out["losses"] = [float(step(ids, ids)) for _ in range(3)]
+    out["masters"] = list(step.state.master_params)
+    out["dynamic"] = _dynamic_skip_run(torch, gpt, sd, "cpu", ids[:1, :8])
+    return out
+
+
+def train_cpu_phase(torch, dispatch, gpt, model, ref):
+    """Training on the card against the CPU from the same weights (the
+    CPU's side, ``ref``, from train_cpu_reference in the CPU worker).
+    Returns the launch counts of the card's first fp32 step,
+    ``make_train_step`` without half copies: the path that runs the simt
+    flash kernels backward (12/12/12), the LayerNorm kernels (25/25/25) and
+    one Adam launch."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    lm_loss = _lm_loss(torch)
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-
-    def pair():
-        out = []
-        for dev in ("cuda", "cpu"):
-            m = gpt.gpt2_small(**kw, device=dev)
-            m.load_state_dict(sd)
-            out.append(m)
-        return out
-
-    g = torch.Generator().manual_seed(SEED + 7)
-    ids = torch.randint(0, model.vocab_size, (2, 128), generator=g)
+    ids = _train_cpu_ids(torch)
     print("training, card vs CPU (same weights, fp32, TF32 off, dropout 0, "
           "batch 2 x 128):")
-    mc, mh = pair()
-    losses = []
-    for m in (mc, mh):
-        loss = lm_loss(m(ids.to(m.tok_emb.weight.device)),
-                       ids.to(m.tok_emb.weight.device))
-        loss.backward()
-        losses.append(float(loss.detach()))
+    mc = _gpt_on(torch, gpt, sd, "cuda")
+    x = ids.cuda()
+    loss = lm_loss(mc(x), x)
+    loss.backward()
     check("loss of one forward (relative)",
-          abs(losses[0] - losses[1]) / abs(losses[1]), 1e-4)
+          abs(float(loss.detach()) - ref["loss"]) / abs(ref["loss"]), 1e-4)
     worst, worst_name = 0.0, None
-    for (name, pc), ph in zip(mc.named_parameters(), mh.parameters()):
-        ref = ph.grad
-        e = (pc.grad.cpu() - ref).abs().max().item() / max(
-            ref.abs().max().item(), 1e-30)
+    for (name, pc), g in zip(mc.named_parameters(), ref["grads"]):
+        e = (pc.grad.cpu() - g).abs().max().item() / max(
+            g.abs().max().item(), 1e-30)
         if e > worst:
             worst, worst_name = e, name
     check(f"gradients of one backward, worst tensor {worst_name} (max abs "
           f"err / max |g|)", worst, 1e-3)
 
-    mc, mh = pair()
-    runs = []
-    for m in (mc, mh):
-        dev = m.tok_emb.weight.device
-        step = make_train_step(m, FusedAdam(list(m.parameters()), lr=LR,
-                                            weight_decay=WD),
-                               lm_loss, half_dtype=None, loss_scale=1.0)
-        x = ids.to(dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-            dispatch.reset_counts()
-            first = float(step(x, x))
-            torch.cuda.synchronize()
-            counts = dispatch.counts()
-            layers = len(m.blocks)
-            want = dict.fromkeys(counts, 0)
-            want.update(_flash_want("simt", layers), fused_adam=1,
-                        **dict.fromkeys(LN_NAMES, 2 * layers + 1))
-            print(f"  launches in the card's first fp32 step: {counts}")
-            print(f"  norm kernels by route: {_norm_routes(counts)}")
-            if counts != want:
-                raise AssertionError(f"launch counts {counts} != expected "
-                                     f"{want}")
-            losses = [first] + [float(step(x, x)) for _ in range(2)]
-        else:
-            losses = [float(step(x, x)) for _ in range(3)]
-        runs.append((losses, [t.cpu() for t in step.state.master_params]))
-    for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
+    mc = _gpt_on(torch, gpt, sd, "cuda")
+    step = make_train_step(mc, FusedAdam(list(mc.parameters()), lr=LR,
+                                         weight_decay=WD),
+                           lm_loss, half_dtype=None, loss_scale=1.0)
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    first = float(step(x, x))
+    torch.cuda.synchronize()
+    counts = dispatch.counts()
+    layers = len(mc.blocks)
+    want = dict.fromkeys(counts, 0)
+    want.update(_flash_want("simt", layers), fused_adam=1,
+                **dict.fromkeys(LN_NAMES, 2 * layers + 1))
+    print(f"  launches in the card's first fp32 step: {counts}")
+    print(f"  norm kernels by route: {_norm_routes(counts)}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    losses = [first] + [float(step(x, x)) for _ in range(2)]
+    for i, (a, b) in enumerate(zip(losses, ref["losses"])):
         check(f"train step {i + 1} loss (relative)", abs(a - b) / abs(b),
               1e-4)
     # Adam moves every parameter by about lr a step whatever the size of its
@@ -3255,35 +3322,21 @@ def train_cpu_phase(torch, dispatch, gpt, model):
     # copies up to 2 lr apart per step: 6 lr over 3 steps
     tol = 6.5 * LR
     check(f"fp32 masters after 3 steps (max abs diff; tol 6.5 x lr)",
-          max((a - b).abs().max().item()
-              for a, b in zip(runs[0][1], runs[1][1])), tol)
+          max((a.cpu() - b).abs().max().item()
+              for a, b in zip(step.state.master_params, ref["masters"])), tol)
+    del mc, step
 
     print("dynamic loss scale, fp16 half copies, batch 1 x 8, a non-finite "
           "loss planted at step 2:")
-    mc, mh = pair()
-    ids8 = ids[:1, :8]
-    for m in (mc, mh):
-        dev = m.tok_emb.weight.device
-        step = make_train_step(m, FusedAdam(list(m.parameters()), lr=LR,
-                                            weight_decay=WD),
-                               lm_loss, half_dtype=torch.float16,
-                               loss_scale="dynamic",
-                               max_loss_scale=2.0 ** 10)
-        x = ids8.to(dev)
-        skips, scales, masters = [], [], []
-        for w in (1.0, float("inf"), 1.0):
-            step(x, x, torch.tensor(w, device=dev))
-            skips.append(int(step.last_step_skipped))
-            scales.append(float(step.state.scaler.loss_scale))
-            masters.append([t.clone() for t in step.state.master_params])
-        unchanged = all(torch.equal(a, b)
-                        for a, b in zip(masters[0], masters[1]))
-        print(f"  {dev.type}: skipped {skips}, scale {scales}, masters "
-              f"unchanged by the skipped step: {unchanged}, step count "
-              f"{int(step.state.step)}")
+    for dev, run in (("cuda", _dynamic_skip_run(torch, gpt, sd, "cuda",
+                                                ids[:1, :8])),
+                     ("cpu", ref["dynamic"])):
+        skips, scales, unchanged, n = run
+        print(f"  {dev}: skipped {skips}, scale {scales}, masters "
+              f"unchanged by the skipped step: {unchanged}, step count {n}")
         if skips != [0, 1, 0] or scales != [1024.0, 512.0, 512.0] \
-                or not unchanged or int(step.state.step) != 2:
-            raise AssertionError(f"dynamic-scale skip on {dev.type}: skipped "
+                or not unchanged or n != 2:
+            raise AssertionError(f"dynamic-scale skip on {dev}: skipped "
                                  f"{skips}, scales {scales}, unchanged "
                                  f"{unchanged}")
     return counts
@@ -3599,66 +3652,84 @@ def _print_profile(torch, fn, top):
     return dict(busy_ms=busy, idle_share=1 - busy / wall, device_ops=n)
 
 
-def train_modes_cpu_phase(torch, gpt, model):
-    """The chunked and fused steps on the card against the CPU, from the
-    same weights: fp32, dropout 0, batch 2 x 128, chunks of 100 rows (two
-    full chunks and a padded remainder of 54)."""
+def _modes_ids(torch):
+    g = torch.Generator().manual_seed(SEED + 8)
+    return torch.randint(0, 50257, (2, 128), generator=g)
+
+
+def _mode_loss(torch, mode):
+    return _chunked_lm_loss(chunk_rows=100) if mode == "chunked" \
+        else _fused_lm_loss(torch)
+
+
+def train_modes_reference(torch, gpt, sd):
+    """The CPU side of train_modes_cpu_phase, run by the CPU worker: for
+    the chunked and the fused loss, the loss and every gradient of one
+    backward, and the losses and fp32 masters of 3 train steps."""
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.training import make_train_step
-    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    g = torch.Generator().manual_seed(SEED + 8)
-    ids = torch.randint(0, 50257, (2, 128), generator=g)
+    ids = _modes_ids(torch)
+    out = {}
     for mode in ("chunked", "fused"):
-        loss_fn = _chunked_lm_loss(chunk_rows=100) if mode == "chunked" \
-            else _fused_lm_loss(torch)
-        kw = dict(max_positions=TRAIN_POS, dropout=0.0, attn_dropout=0.0,
-                  output_hidden=mode == "chunked")
+        loss_fn = _mode_loss(torch, mode)
+        kw = dict(output_hidden=mode == "chunked")
+        m = _gpt_on(torch, gpt, sd, "cpu", **kw)
+        loss = loss_fn(m(ids), ids)
+        loss.backward()
+        r = dict(loss=float(loss.detach()),
+                 grads=[p.grad for p in m.parameters()])
+        m = _gpt_on(torch, gpt, sd, "cpu", **kw)
+        step = make_train_step(m, FusedAdam(list(m.parameters()), lr=LR,
+                                            weight_decay=WD),
+                               loss_fn, half_dtype=None, loss_scale=1.0)
+        r["losses"] = [float(step(ids, ids)) for _ in range(3)]
+        r["masters"] = list(step.state.master_params)
+        out[mode] = r
+        del m, step
+    return out
 
-        def pair():
-            out = []
-            for dev in ("cuda", "cpu"):
-                m = gpt.gpt2_small(**kw, device=dev)
-                m.load_state_dict(sd)
-                out.append(m)
-            return out
 
+def train_modes_cpu_phase(torch, gpt, model, ref):
+    """The chunked and fused steps on the card against the CPU, from the
+    same weights: fp32, dropout 0, batch 2 x 128, chunks of 100 rows (two
+    full chunks and a padded remainder of 54); the CPU's side, ``ref``,
+    from train_modes_reference in the CPU worker."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    x = _modes_ids(torch).cuda()
+    for mode in ("chunked", "fused"):
+        loss_fn = _mode_loss(torch, mode)
+        kw = dict(output_hidden=mode == "chunked")
+        r = ref[mode]
         print(f"training with the {mode} loss, card vs CPU (same weights, "
               f"fp32, TF32 off, dropout 0, batch 2 x 128):")
-        mc, mh = pair()
-        losses = []
-        for m in (mc, mh):
-            x = ids.to(m.tok_emb.weight.device)
-            loss = loss_fn(m(x), x)
-            loss.backward()
-            losses.append(float(loss.detach()))
+        mc = _gpt_on(torch, gpt, sd, "cuda", **kw)
+        loss = loss_fn(mc(x), x)
+        loss.backward()
         check("loss of one forward (relative)",
-              abs(losses[0] - losses[1]) / abs(losses[1]), 1e-4)
+              abs(float(loss.detach()) - r["loss"]) / abs(r["loss"]), 1e-4)
         worst, worst_name = 0.0, None
-        for (name, pc), ph in zip(mc.named_parameters(), mh.parameters()):
-            e = (pc.grad.cpu() - ph.grad).abs().max().item() / max(
-                ph.grad.abs().max().item(), 1e-30)
+        for (name, pc), g in zip(mc.named_parameters(), r["grads"]):
+            e = (pc.grad.cpu() - g).abs().max().item() / max(
+                g.abs().max().item(), 1e-30)
             if e > worst:
                 worst, worst_name = e, name
         check(f"gradients of one backward, worst tensor {worst_name} (max "
               f"abs err / max |g|)", worst, 1e-3)
-        mc, mh = pair()
-        runs = []
-        for m in (mc, mh):
-            x = ids.to(m.tok_emb.weight.device)
-            step = make_train_step(m, FusedAdam(list(m.parameters()), lr=LR,
-                                                weight_decay=WD),
-                                   loss_fn, half_dtype=None, loss_scale=1.0)
-            runs.append(([float(step(x, x)) for _ in range(3)],
-                         [t.cpu() for t in step.state.master_params]))
-        for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
+        mc = _gpt_on(torch, gpt, sd, "cuda", **kw)
+        step = make_train_step(mc, FusedAdam(list(mc.parameters()), lr=LR,
+                                             weight_decay=WD),
+                               loss_fn, half_dtype=None, loss_scale=1.0)
+        losses = [float(step(x, x)) for _ in range(3)]
+        for i, (a, b) in enumerate(zip(losses, r["losses"])):
             check(f"train step {i + 1} loss (relative)", abs(a - b) / abs(b),
                   1e-4)
         check("fp32 masters after 3 steps (max abs diff; tol 6.5 x lr)",
-              max((a - b).abs().max().item()
-                  for a, b in zip(runs[0][1], runs[1][1])), 6.5 * LR)
-        del mc, mh, runs
-
+              max((a.cpu() - b).abs().max().item()
+                  for a, b in zip(step.state.master_params, r["masters"])),
+              6.5 * LR)
+        del mc, step
 
 
 def _amp_model(torch, gpt, sd, dev, **kw):
@@ -4624,7 +4695,7 @@ def bert_cpu_phase(torch, bert, attn_funcs):
     steps of a 2-layer cut (``_bert_novograd_cpu_steps``)."""
     from apex_tpu_torch.optimizers import FusedLAMB
     from apex_tpu_torch.training import make_train_step
-    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    torch.set_num_threads(main_threads())
     loss_fn = _bert_mlm_loss(torch)
     torch.manual_seed(SEED)
     kw = dict(max_positions=BERT_SEQ, dropout=0.0, attn_dropout=0.0)
@@ -5004,7 +5075,7 @@ def o1_resnet_path(torch, dispatch, models):
 
         print(f"amp O1 ResNet-18 on the card against the CPU, the same "
               f"weights, batch {O1_CPU_BATCH}:")
-        torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+        torch.set_num_threads(main_threads())
         traces, first = {}, {}
         for dev in ("cuda", "cpu"):
             m, o = _o1_resnet(torch, models, dev, sd)
@@ -5276,7 +5347,7 @@ def o1_dcgan_path(torch, dispatch, dcgan):
         print(f"amp O1 DCGAN on the card against the CPU, the same weights, "
               f"batch {O1_CPU_BATCH}, 5 iterations, an inf planted at "
               f"iteration 3:")
-        torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+        torch.set_num_threads(main_threads())
         rng = np.random.default_rng(6)
         creal = torch.from_numpy(rng.standard_normal(
             (5, O1_CPU_BATCH, 3, 32, 32)).astype(np.float32))
@@ -5951,52 +6022,86 @@ def _worst_grad(torch, got, ref):
 
 
 LAYERS_CHECK_ROWS = 128
+LAYERS_SIZES = ([480, 1024, 1024, 1], [1024, 4096, 4096, 1024])
 
 
-def layers_phase(torch):
-    """apex.mlp's MLP at ([480, 1024, 1024, 1]) and ([1024, 4096, 4096,
-    1024]), then the same with ``apply_weight_norm`` over it: forward and
-    backward on the card and on the CPU from the same weights on the first
-    LAYERS_CHECK_ROWS rows of the batch, in fp32 and under amp O1's half
-    policy (the "mlp" entry casts the whole MLP to fp16, on both devices),
-    then the card's ms for each at batch 4096 (library GEMMs; no hand
-    kernel).  The CPU's fp16 GEMMs are slow on the card's host, hence the
-    rows.  Gradients are held per parameter in norm: the first layer's
-    sums products of zero-mean inputs, whose cancellation magnifies
-    rounding (at 4096 rows about 1000-fold: fp32 against fp64 on the CPU
-    4.3e-4 in norm, 8.5e-3 at the worst element).  Returns the numbers."""
+def _o1_fwd_bwd(torch, model, x):
+    """``_fwd_bwd`` under amp O1's half policy."""
     from apex_tpu_torch.amp import policy
+    with policy.autocast(policy.CastPolicy(half_dtype=torch.float16)):
+        return _fwd_bwd(torch, model, x)
+
+
+LAYERS_ARMS = (("fp32", _fwd_bwd, 1e-4, 2e-3),
+               ("O1 fp16", _o1_fwd_bwd, 1e-2, 5e-2))
+
+
+def layers_weights(torch):
+    """The MLPs' weights, from the seed on the CPU: one state dict a size
+    of LAYERS_SIZES, which the card and the CPU worker both load."""
+    from apex_tpu_torch.mlp import MLP
+    out = []
+    for sizes in LAYERS_SIZES:
+        torch.manual_seed(SEED)
+        out.append(MLP(sizes, device="cpu").state_dict())
+    return out
+
+
+def _layers_inputs(torch):
+    g = torch.Generator().manual_seed(SEED + 60)
+    return [torch.randn(4096, sizes[0], generator=g) for sizes in LAYERS_SIZES]
+
+
+def layers_reference(torch, weights):
+    """The CPU side of layers_phase, run by the CPU worker: each MLP (and
+    the same under ``apply_weight_norm``) forward and backward on the first
+    LAYERS_CHECK_ROWS rows in fp32 and under O1, by (sizes, WeightNorm,
+    arm)."""
     from apex_tpu_torch.mlp import MLP
     from apex_tpu_torch.reparameterization import apply_weight_norm
-    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
     out = {}
-    g = torch.Generator().manual_seed(SEED + 60)
+    for sizes, sd, x in zip(LAYERS_SIZES, weights, _layers_inputs(torch)):
+        cpu = MLP(sizes, device="cpu")
+        cpu.load_state_dict(sd)
+        for wn in (False, True):
+            if wn:
+                apply_weight_norm(cpu)
+            for arm, run, _, _ in LAYERS_ARMS:
+                out[(tuple(sizes), wn, arm)] = run(
+                    torch, cpu, x[:LAYERS_CHECK_ROWS])
+    return out
 
-    def o1(model, x):
-        with policy.autocast(policy.CastPolicy(half_dtype=torch.float16)):
-            return _fwd_bwd(torch, model, x)
+
+def layers_phase(torch, weights, ref):
+    """apex.mlp's MLP at ([480, 1024, 1024, 1]) and ([1024, 4096, 4096,
+    1024]), then the same with ``apply_weight_norm`` over it: forward and
+    backward on the card and on the CPU (``ref``, from layers_reference in
+    the CPU worker) from the same weights on the first LAYERS_CHECK_ROWS
+    rows of the batch, in fp32 and under amp O1's half policy (the "mlp"
+    entry casts the whole MLP to fp16, on both devices), then the card's ms
+    for each at batch 4096 (library GEMMs; no hand kernel).  The CPU's fp16
+    GEMMs are slow on the card's host, hence the rows.  Gradients are held
+    per parameter in norm: the first layer's sums products of zero-mean
+    inputs, whose cancellation magnifies rounding (at 4096 rows about
+    1000-fold: fp32 against fp64 on the CPU 4.3e-4 in norm, 8.5e-3 at the
+    worst element).  Returns the numbers."""
+    from apex_tpu_torch.mlp import MLP
+    from apex_tpu_torch.reparameterization import apply_weight_norm
+    out = {}
     print(f"layers: MLP and WeightNorm, card vs CPU (TF32 off) at "
           f"{LAYERS_CHECK_ROWS} rows, timed at 4096:")
-    for sizes in ([480, 1024, 1024, 1], [1024, 4096, 4096, 1024]):
-        torch.manual_seed(SEED)
+    for sizes, sd, x in zip(LAYERS_SIZES, weights, _layers_inputs(torch)):
         card = MLP(sizes, device="cuda")
-        cpu = MLP(sizes, device="cpu")
-        cpu.load_state_dict({k: v.cpu() for k, v in
-                             card.state_dict().items()})
-        x = torch.randn(4096, sizes[0], generator=g)
+        card.load_state_dict(sd)
         xc = x.cuda()
         for wn in (False, True):
             if wn:
                 apply_weight_norm(card)
-                apply_weight_norm(cpu)
             tag = f"MLP({sizes}){' + WeightNorm' if wn else ''}"
-            rows = x[:LAYERS_CHECK_ROWS]
-            for arm, run, tol_out, tol_g in (("fp32", _fwd_bwd, 1e-4, 2e-3),
-                                             ("O1 fp16", o1, 1e-2, 5e-2)):
-                ref_out, ref_g = run(torch, cpu, rows) if arm == "fp32" \
-                    else run(cpu, rows)
-                got_out, got_g = run(torch, card, rows.cuda()) \
-                    if arm == "fp32" else run(card, rows.cuda())
+            rows = xc[:LAYERS_CHECK_ROWS]
+            for arm, run, tol_out, tol_g in LAYERS_ARMS:
+                ref_out, ref_g = ref[(tuple(sizes), wn, arm)]
+                got_out, got_g = run(torch, card, rows)
                 want = torch.float32 if arm == "fp32" else torch.float16
                 if got_out.dtype != want or ref_out.dtype != want or any(
                         t.dtype != torch.float32 for t in got_g.values()):
@@ -6010,12 +6115,12 @@ def layers_phase(torch):
                       f"/ |CPU| in norm)", err, tol_g)
             t32 = median_ms(lambda: _fwd_bwd(torch, card, xc), reps=5,
                             inner=3, warmup=2, capped=True)[0]
-            t16 = median_ms(lambda: o1(card, xc), reps=5, inner=3,
-                            warmup=2, capped=True)[0]
+            t16 = median_ms(lambda: _o1_fwd_bwd(torch, card, xc), reps=5,
+                            inner=3, warmup=2, capped=True)[0]
             print(f"  {tag}: forward + backward at batch 4096 {t32:.3f} ms "
                   f"fp32, {t16:.3f} ms under O1 (fp16)")
             out[tag] = dict(fp32_ms=t32, o1_ms=t16)
-        del card, cpu, x, xc
+        del card, x, xc
     return out
 
 
@@ -8077,6 +8182,427 @@ def inference_phase(torch, dispatch, gpt, llama, inference):
 
 
 # (main's line, seconds since the previous lap) of this run's phases
+# --- resilience: checkpoints, resume, the guard ---------------------------
+
+RES_STEPS = 3                 # steps before the save and after the restore
+RES_KILL_AT = 40              # the killed save dies before this shard file
+RES_GUARD_TURNS = ("guard", "none", "none", "guard")
+RES_GUARD_STEPS = 20
+RES_PROFILE_STEPS = 5
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+
+
+def _res_vit_step(torch, models, dev):
+    """ViT-S/16's step as vit_train_turns builds it (vit_small, 1000
+    classes, dropout 0.1, FusedAdam lr 1e-3 AdamW wd 0.05, bf16 half
+    copies), with the dynamic loss scale, so that a storm has a skip flag
+    for the guard to read."""
+    from apex_tpu_torch.nn import functional as F
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    torch.manual_seed(SEED)
+    model = models.vit_small(num_classes=1000, device=dev)
+    return make_train_step(
+        model, FusedAdam(list(model.parameters()), lr=VIT_LR,
+                         adam_w_mode=True, weight_decay=VIT_WD),
+        lambda out, yy: F.cross_entropy(out, yy), half_dtype=torch.bfloat16,
+        loss_scale="dynamic")
+
+
+def _host_syncs(torch, fn):
+    """The device-to-host copies and the synchronizing CUDA runtime calls
+    in a ``torch.profiler`` trace of ``fn``: (copies, syncs)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    names = [e.name for e in prof.events()]
+    return (sum("DtoH" in n or "Device -> Pinned" in n
+                or "Device -> Pageable" in n for n in names),
+            sum(n in _SYNC_CALLS for n in names))
+
+
+def resilience_phase(torch, dispatch, models, card):
+    """runtime.resilience on ViT-S/16's graph step at full width (32 x
+    224 x 224, batches from a seed), the slice's path: the launches of its
+    eager call and of its capture, each read around the call with the
+    counts set to 0 just before (flash 12/12/12 on tc, LayerNorm 25/25/25,
+    Adam 1), and a replay's from the graph's kernel nodes and a traced
+    replay; then (a) from a fixed state, 6 steps as the
+    reference; (b) from the same state 3 steps, ``save_sharded``, a second
+    save killed by chaos at ``ckpt.shard_write``, every state tensor
+    zeroed, ``restore_or_initialize`` (the first save, equal to the state
+    it saved), ``restore_resharded`` into the same step's tensors, 3 more
+    steps: losses and every state tensor equal (a) bit for bit, with the
+    captures unchanged; (c) ``save_async`` after step 3 while the loop
+    updates the tensors in place, its file equal to a synchronous save of
+    the same state leaf for leaf; (d) the save of (b) restored into a
+    ``device="cpu"`` ViT-S/16 step, every tensor equal; (e) a BadStepGuard
+    (patience 3, warn / rollback / raise): 20 steps with the guard against
+    20 without, in turns, each arm's device-to-host copies and
+    synchronizing calls under the profiler (the guard's equal to none's),
+    then a storm of 9 ``train.step`` ``"nonfinite_grads"`` after 2 clean
+    steps: warn, rollback (every tensor back at the snapshot bit for bit,
+    the halved scale kept), TrainingDivergedError; (f) the save and
+    restore seconds, GB/s, the host's peak shard bytes and the caller's
+    ms of ``save_async``.  Writes into a temporary directory and removes
+    it.  Returns (the path's launch counts, the numbers)."""
+    import warnings
+    from apex_tpu_torch.runtime import chaos
+    from apex_tpu_torch.runtime.resilience import (
+        BadStepGuard, CheckpointManager, TrainingDivergedError, _flatten)
+    step = _res_vit_step(torch, models, "cuda")
+    batches = _vit_batches(torch, 2 * RES_STEPS, seed=5)
+
+    def tensors(st=None):
+        return [t for _, t in _flatten(step.state if st is None else st)]
+
+    def clone():
+        return [t.clone() for t in tensors()]
+
+    def put(vals, calls):
+        with torch.no_grad():
+            for t, v in zip(tensors(), vals):
+                t.copy_(v)
+        step.calls = calls
+
+    def run(lo, hi):
+        return [step(*batches[i]) for i in range(lo, hi)]
+
+    def differ(vals, st=None):
+        return [i for i, (t, v) in enumerate(zip(tensors(st), vals))
+                if not torch.equal(t.to(v.device), v)]
+
+    def host_equal(host, vals):
+        return [i for i, (h, v) in enumerate(zip(
+            (x for _, x in _flatten(host)), vals))
+            if not torch.equal(torch.as_tensor(h).to(v.device), v)]
+
+    nums = {}
+    print(f"resilience: ViT-S/16 graph step (batch {VIT_BATCH} x 3 x 224 x "
+          f"224, bf16 halves, dynamic scale, dropout 0.1), {card}:")
+    counts = []
+    for i in range(2):                         # the eager call, the capture
+        torch.cuda.synchronize()
+        dispatch.reset_counts()
+        step(*batches[i])
+        torch.cuda.synchronize()
+        counts.append(dispatch.counts())
+    want = _want(counts[0], 12, LN_NAMES, 25, fused_adam=1)
+    _expect("ViT-S/16 step, its eager call", counts[0], want)
+    _expect("ViT-S/16 step, its capture", counts[1], want)
+    _replay_counts(torch, dispatch, "ViT-S/16 step, a replay",
+                   step._program, lambda: step(*batches[2]), want)
+    path = {k: counts[0][k] + counts[1][k] for k in want}
+    torch.cuda.synchronize()
+    s0, c0 = clone(), step.calls
+    captures = step.graph_stats()["captures"]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors())
+    # (a) the uninterrupted reference
+    ref_losses = run(0, RES_STEPS)
+    r3 = clone()
+    ref_losses += run(RES_STEPS, 2 * RES_STEPS)
+    ref = clone()
+    root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    try:
+        mgr = CheckpointManager(os.path.join(root, "run"), keep_n=4)
+        # (b) save, kill, restore, resume
+        put(s0, c0)
+        run(0, RES_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save_sharded(RES_STEPS, step)
+        save_s = time.perf_counter() - t0
+        nums["save_sharded"] = dict(s=save_s, **mgr.last_save_stats,
+                                    gb_per_s=mgr.last_save_stats["bytes"]
+                                    / save_s / 1e9)
+        run(RES_STEPS, RES_STEPS + 1)
+        with chaos.session() as c:
+            c.on("ckpt.shard_write", action="kill", at=RES_KILL_AT)
+            try:
+                mgr.save_sharded(RES_STEPS + 1, step)
+                raise AssertionError("the chaos kill at ckpt.shard_write "
+                                     "did not fire")
+            except chaos.ChaosKilled:
+                pass
+        debris = len(os.listdir(mgr.shard_dir_for(RES_STEPS + 1)))
+        with torch.no_grad():
+            for t in tensors():
+                t.zero_()
+        step.calls = 0
+        t0 = time.perf_counter()
+        found, comps = mgr.restore_or_initialize()
+        read_s = time.perf_counter() - t0
+        if found != RES_STEPS or host_equal(comps["state"], r3):
+            raise AssertionError(f"restore_or_initialize found step {found}"
+                                 f" (want {RES_STEPS}), leaves differing "
+                                 f"{host_equal(comps['state'], r3)[:8]}")
+        del comps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.restore_resharded(step, step=found)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step.calls != c0 + RES_STEPS or differ(r3):
+            raise AssertionError(f"restore_resharded: calls {step.calls}, "
+                                 f"tensors differing {differ(r3)[:8]}")
+        losses = run(RES_STEPS, 2 * RES_STEPS)
+        bad = differ(ref)
+        same_losses = all(torch.equal(a, b) for a, b in
+                          zip(losses, ref_losses[RES_STEPS:]))
+        gs = step.graph_stats()
+        print(f"  (b) save_sharded at step {RES_STEPS}: {nbytes / 1e9:.3f} "
+              f"GB in {len(tensors())} tensors, {save_s:.3f} s "
+              f"({nums['save_sharded']['gb_per_s']:.2f} GB/s), host peak "
+              f"{mgr.last_save_stats['shard_bytes_peak_host']} bytes; the "
+              f"next save killed before shard file {RES_KILL_AT} "
+              f"({debris} files of debris, no manifest); state zeroed; "
+              f"restore_or_initialize found step {found} ({read_s:.3f} s, "
+              f"equal to the saved state); restore_resharded into the live "
+              f"tensors {restore_s:.3f} s "
+              f"({mgr.last_restore_stats['peak_host_bytes']} bytes host "
+              f"peak); {RES_STEPS} more steps: losses equal (a) "
+              f"{same_losses}, {len(tensors()) - len(bad)} of "
+              f"{len(tensors())} tensors equal bit for bit; captures "
+              f"{gs['captures']} (before {captures}), replays "
+              f"{gs['replays']}")
+        if bad or not same_losses or gs["captures"] != captures:
+            raise AssertionError(f"the resumed run differs from the "
+                                 f"uninterrupted one at tensors {bad[:8]} "
+                                 f"(losses equal {same_losses}) or "
+                                 f"recaptured ({gs})")
+        nums.update(state_bytes=nbytes, tensors=len(tensors()),
+                    restore_or_initialize_s=read_s, restore_resharded_s=
+                    restore_s, restore_gb_per_s=nbytes / restore_s / 1e9,
+                    killed_debris_files=debris)
+        # (c) async save while the loop goes on
+        put(s0, c0)
+        run(0, RES_STEPS)
+        t0 = time.perf_counter()
+        handle = mgr.save_async(10, state=step.state)
+        caller_ms = 1e3 * (time.perf_counter() - t0)
+        run(RES_STEPS, 2 * RES_STEPS)
+        torch.cuda.synchronize()
+        handle.wait()
+        async_s = time.perf_counter() - t0
+        put(r3, c0 + RES_STEPS)
+        mgr.save(11, state=step.state)
+        a_host, s_host = mgr.restore(10)["state"], mgr.restore(11)["state"]
+        la = [x for _, x in _flatten(a_host)]
+        ls = [x for _, x in _flatten(s_host)]
+        bad = [i for i, (x, y) in enumerate(zip(la, ls))
+               if not torch.equal(torch.as_tensor(x), torch.as_tensor(y))]
+        print(f"  (c) save_async after step {RES_STEPS}: {caller_ms:.1f} ms "
+              f"on the caller's thread, written {async_s:.3f} s after the "
+              f"call while {RES_STEPS} more steps ran; its file against a "
+              f"synchronous save of the same state: {len(la) - len(bad)} of "
+              f"{len(la)} leaves equal")
+        if bad or len(la) != len(tensors()) or host_equal(a_host, r3):
+            raise AssertionError(f"the async save differs from the "
+                                 f"synchronous one at leaves {bad[:8]}")
+        nums.update(save_async_caller_ms=caller_ms, save_async_s=async_s)
+        del a_host, s_host, la, ls
+        # (d) the card's checkpoint into a CPU step
+        cpu_step = _res_vit_step(torch, models, "cpu")
+        t0 = time.perf_counter()
+        mgr.restore_resharded(cpu_step, step=RES_STEPS)
+        cpu_s = time.perf_counter() - t0
+        bad = differ(r3, cpu_step.state)
+        print(f"  (d) the step-{RES_STEPS} checkpoint into a device='cpu' "
+              f"ViT-S/16 step in {cpu_s:.3f} s: "
+              f"{len(r3) - len(bad)} of {len(r3)} tensors equal bit for bit,"
+              f" calls {cpu_step.calls}")
+        if bad or cpu_step.calls != c0 + RES_STEPS:
+            raise AssertionError(f"card to CPU: tensors {bad[:8]} differ")
+        nums["restore_into_cpu_s"] = cpu_s
+        del cpu_step
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # (e) the guard: its clean-path cost, then a storm
+    put(s0, c0)
+    events = []
+    guard = BadStepGuard(patience=3, policy=("warn", "rollback", "raise"),
+                         snapshot_interval=10 ** 9, on_event=events.append)
+    guard.attach(step)
+    k = [0]
+
+    def steps(n):
+        for _ in range(n):
+            step(*batches[k[0] % len(batches)])
+            k[0] += 1
+    walls = {"guard": [], "none": []}
+    for arm in RES_GUARD_TURNS:
+        step._guard = guard if arm == "guard" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(RES_GUARD_STEPS)
+        torch.cuda.synchronize()
+        walls[arm].append(1e3 * (time.perf_counter() - t0) / RES_GUARD_STEPS)
+    syncs = {}
+    for arm in ("none", "guard"):
+        step._guard = guard if arm == "guard" else None
+        syncs[arm] = _host_syncs(torch, lambda: steps(RES_PROFILE_STEPS))
+    guard.flush()
+    clean = dict(guard.stats)
+    print(f"  (e) the guard's clean path, {RES_GUARD_STEPS} steps a turn "
+          f"(host clock, ms a step): with "
+          f"{[round(v, 3) for v in walls['guard']]}, without "
+          f"{[round(v, 3) for v in walls['none']]}; in a profiled window of "
+          f"{RES_PROFILE_STEPS} steps (device-to-host copies, synchronizing "
+          f"calls): with {syncs['guard']}, without {syncs['none']}; "
+          f"{clean['observed']} flags observed, {clean['skipped']} skipped")
+    if syncs["guard"] != syncs["none"] or clean["skipped"] or \
+            clean["observed"] != 2 * RES_GUARD_STEPS + RES_PROFILE_STEPS:
+        raise AssertionError(f"the guard added host work on the clean path "
+                             f"({syncs}) or saw skips ({clean})")
+    put(s0, c0)
+    guard.attach(step)                      # the rollback's anchor: s0
+    anchor = clone()
+    steps(2)
+    moved = clone()
+    diverged = False
+    with chaos.session() as c, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        c.on("train.step", action="nonfinite_grads", after=0, times=9)
+        try:
+            steps(9)
+            guard.flush()
+        except TrainingDivergedError:
+            diverged = True
+    torch.cuda.synchronize()
+    scaler_idx = {i for i, (pth, _) in enumerate(_flatten(step.state))
+                  if pth.startswith(".scaler")}
+    bad = [i for i in differ(anchor) if i not in scaler_idx]
+    scale = float(step.state.scaler.loss_scale)
+    stages = [e["stage"] for e in events]
+    n_moved = sum(not torch.equal(a, b) for a, b in zip(moved, anchor))
+    n_kept = len(anchor) - len(scaler_idx)
+    print(f"  (e) storm of 9 non-finite steps after 2 clean ones: stages "
+          f"{stages}, TrainingDivergedError {diverged}, rollbacks "
+          f"{guard.stats['rollbacks']}; after it {n_kept - len(bad)} of "
+          f"{n_kept} tensors (all but the scaler's) equal the snapshot bit "
+          f"for bit (the clean steps had moved {n_moved}), loss scale "
+          f"{scale} (2^16 halved 9 times, kept through the rollback)")
+    if stages != ["warn", "rollback", "raise"] or not diverged or bad or \
+            scale != 2.0 ** 16 / 2 ** 9 or not n_moved:
+        raise AssertionError(f"guard storm: stages {stages}, diverged "
+                             f"{diverged}, tensors {bad[:8]} off the "
+                             f"snapshot, scale {scale}")
+    step._guard = None
+    nums.update(guard_step_ms=walls, guard_host_syncs=syncs,
+                guard_stages=stages, card=card)
+    print(f"  resilience numbers ({card}): {json.dumps(nums)}")
+    del step, batches, s0, r3, ref, anchor, moved
+    torch.cuda.empty_cache()
+    return path, nums
+
+
+# --- the CPU halves of the card-against-CPU phases, in a process of their
+# own beside the card's phases ----------------------------------------------
+
+CPU_WORKER_JOBS = ("train_cpu", "train_modes_cpu", "layers")
+# the host's cores split while the worker runs: its threads and the main
+# process's CPU work each take half, so neither oversubscribes the other
+CPU_WORKER_THREADS = 4
+
+
+def main_threads():
+    """The threads of the main process's own CPU work: the host's cores
+    (at most 8), less the CPU worker's while it runs."""
+    n = max(1, min(8, os.cpu_count() or 1))
+    return max(1, n - CPU_WORKER_THREADS) if CpuWorker.running else n
+
+
+def cpu_worker(workdir):
+    """``python3 chip_smoke.py --cpu-worker DIR``: compute the CPU sides of
+    train_cpu_phase, train_modes_cpu_phase and layers_phase from the
+    weights in DIR (no card: CUDA is hidden from this process), each into
+    DIR/<job>.pt as it completes, or DIR/<job>.err with the traceback."""
+    import torch
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from apex_tpu_torch.models import gpt
+    sd = torch.load(os.path.join(workdir, "gpt.pt"))
+    mlps = torch.load(os.path.join(workdir, "mlp.pt"))
+    jobs = {"train_cpu": lambda: train_cpu_reference(torch, gpt, sd),
+            "train_modes_cpu": lambda: train_modes_reference(torch, gpt, sd),
+            "layers": lambda: layers_reference(torch, mlps)}
+    for name in CPU_WORKER_JOBS:
+        t0 = time.perf_counter()
+        try:
+            res = jobs[name]()
+        except BaseException:
+            with open(os.path.join(workdir, f"{name}.err"), "w") as f:
+                f.write(traceback.format_exc())
+            return 1
+        path = os.path.join(workdir, f"{name}.pt")
+        torch.save({"result": res, "seconds": time.perf_counter() - t0},
+                   path + ".tmp")
+        os.replace(path + ".tmp", path)
+    return 0
+
+
+class CpuWorker:
+    """The CPU worker process (:func:`cpu_worker`), started once the
+    kernels are built, under ``nice``, with GPT-2 small's and the MLPs'
+    weights written to a temporary directory; :meth:`result` waits for one
+    job's result (and reports the seconds the card's side waited for it);
+    :meth:`close` stops the process and removes the directory."""
+
+    #: True while a worker runs (main_threads reads it)
+    running = False
+
+    def __init__(self, torch, train_model, mlp_weights):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+        torch.save({k: v.detach().cpu()
+                    for k, v in train_model.state_dict().items()},
+                   os.path.join(self.dir, "gpt.pt"))
+        torch.save(mlp_weights, os.path.join(self.dir, "mlp.pt"))
+        # no card; OpenMP threads that wait sleep instead of spinning on
+        # the cores the main process needs
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   OMP_WAIT_POLICY="PASSIVE")
+        nice = shutil.which("nice")
+        self.log = open(os.path.join(self.dir, "worker.log"), "w+")
+        self.proc = subprocess.Popen(
+            [*([nice, "-n", "19"] if nice else []), sys.executable,
+             os.path.abspath(__file__), "--cpu-worker", self.dir],
+            env=env, stdout=self.log, stderr=subprocess.STDOUT)
+        self.waited = {}
+        CpuWorker.running = True
+        torch.set_num_threads(main_threads())
+
+    def result(self, torch, name):
+        path = os.path.join(self.dir, f"{name}.pt")
+        err = os.path.join(self.dir, f"{name}.err")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if os.path.exists(err) or self.proc.poll() is not None:
+                time.sleep(0.5)
+                msg = open(err).read() if os.path.exists(err) else ""
+                self.log.seek(0)
+                raise RuntimeError(f"the CPU worker failed at {name} (exit "
+                                   f"{self.proc.poll()}): {msg}"
+                                   f"{self.log.read()[-4000:]}")
+            time.sleep(0.2)
+        out = torch.load(path, weights_only=False)
+        self.waited[name] = round(time.perf_counter() - t0, 1)
+        print(f"  CPU worker: {name} took {out['seconds']:.1f} s in its "
+              f"process; the card's side waited {self.waited[name]} s")
+        return out["result"]
+
+    def close(self):
+        CpuWorker.running = False
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 LAPS = []
 _LAP_T = [0.0]
 
@@ -8112,6 +8638,9 @@ def main():
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}")
 
+    # the MLPs' weights of layers_phase, from the seed on the CPU: the CPU
+    # worker computes their CPU side beside the card's phases
+    mlp_weights = layers_weights(torch)
     # the training path's model, built first: its parameter shapes feed
     # the Adam kernel's phase
     torch.manual_seed(SEED)
@@ -8138,6 +8667,10 @@ def main():
     print(f"kernel build: {built} (each source's seconds from its start); "
           f"all built {parts[-1] - t_all:.1f} s into the run, the last "
           f"{parts[-1] - parts[-2]:.1f} s waited for after the flash phases")
+    # the CPU halves of the card-against-CPU phases run from here on in a
+    # process of their own (after the build, so as not to slow nvcc)
+    worker = CpuWorker(torch, train_model, mlp_weights)
+    atexit.register(worker.close)
     norm_res = norm_resources()
     ln = ln_phase(torch, layer_norm, dispatch)
     lnb_err, lnb_times = ln_bwd_phase(torch, layer_norm, dispatch)
@@ -8205,10 +8738,11 @@ def main():
     paths["llama_train_kernel"] = llama_counts["kernel"]
     print(f"training phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    paths["train_step_fp32"] = train_cpu_phase(torch, dispatch, gpt,
-                                               train_model)
+    paths["train_step_fp32"] = train_cpu_phase(
+        torch, dispatch, gpt, train_model, worker.result(torch, "train_cpu"))
     lap()
-    train_modes_cpu_phase(torch, gpt, train_model)
+    train_modes_cpu_phase(torch, gpt, train_model,
+                          worker.result(torch, "train_modes_cpu"))
     lap()
     print(f"card-vs-CPU training phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -8263,7 +8797,10 @@ def main():
     t_phase = time.perf_counter()
     legacy = legacy_optimizer_phase(torch, shapes)
     lap()
-    layers = layers_phase(torch)
+    layers = layers_phase(torch, mlp_weights,
+                          worker.result(torch, "layers"))
+    worker.close()
+    torch.set_num_threads(main_threads())
     lap()
     print(f"legacy optimizer and layer phases: "
           f"{time.perf_counter() - t_phase:.1f} s")
@@ -8291,6 +8828,9 @@ def main():
                                           inference)
     paths.update(inf_paths)
     print(f"inference phases in all: {time.perf_counter() - t_phase:.1f} s")
+    paths["resilience_vit_s16"], resilience = resilience_phase(
+        torch, dispatch, models, card)
+    lap()
 
     def launches(name):
         by = {k: c[name] for k, c in paths.items() if c[name]}
@@ -8530,7 +9070,9 @@ def main():
                       "remat": slice_nums["remat"],
                       "rnn": slice_nums["rnn"],
                       "graph": graph_nums,
-                      "decode": DECODE_NUMS, "inference": inf_nums}))
+                      "decode": DECODE_NUMS, "inference": inf_nums,
+                      "resilience": resilience,
+                      "cpu_worker_waits_s": worker.waited}))
     print(f"phase seconds by main's line (each since the line before): "
           f"{LAPS}")
     print(f"capped timings (plain and library calls; function, line, "
@@ -8545,4 +9087,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-worker"]:
+        sys.exit(cpu_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,6 +1,7 @@
 """The port stands alone: ``apex_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package, and the port's entry points
-refuse to run quietly on the CPU when no card is present."""
+neither JAX nor anything of the JAX package (nor ``ml_dtypes`` or
+``orbax``, which the JAX package's checkpoints use), and the port's entry
+points refuse to run quietly on the CPU when no card is present."""
 import ast
 import os
 import subprocess
@@ -21,7 +22,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "apex_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "apex_tpu")
+FORBIDDEN = ("jax", "jaxlib", "apex_tpu", "ml_dtypes", "orbax")
 
 
 def _port_sources():
@@ -62,7 +63,9 @@ def test_importing_the_port_loads_no_jax_module():
                  "runtime.executor", "runtime.step_cache", "runtime.data",
                  "inference.quant", "inference.decode", "inference.rolling",
                  "inference.session", "inference.speculative",
-                 "inference.beam", "inference.draft", "utils.jit_cache"):
+                 "inference.beam", "inference.draft", "utils.jit_cache",
+                 "runtime.chaos", "runtime.resilience", "runtime.elastic",
+                 "utils.checkpoint"):
         assert f"apex_tpu_torch.{name}" in loaded, name
 
 
