@@ -5,8 +5,10 @@ The JAX module also mirrors each firing into its ``observe`` registry,
 which is not ported (ROADMAP A8); the controller's ``log`` holds every
 firing here.  Hook points that the port does not run yet (``host.loss``,
 ``coordinator.loss``, ``heartbeat.delay``, ``device.loss``,
-``ckpt.reshard`` and the ``serve.*`` points, owned by ROADMAP A6, A9 and
-A10) keep their names in the tables below for the slices that port them.
+``ckpt.reshard``, ``serve.session_snapshot`` and ``serve.migrate``, owned
+by ROADMAP A9 and A10) keep their names in the tables below for the slices
+that port them; ``serve.kv_handoff`` fires in
+``resilience.stream_kv_handoff``.
 
 The reference repo can claim "bitwise accurate" save/resume but cannot
 *prove* it under failure: nothing in an eager CUDA stack can kill a save

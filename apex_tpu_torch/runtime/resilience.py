@@ -47,8 +47,13 @@ storms, the PyTorch counterpart of ``apex_tpu/runtime/resilience.py``.
   event has completed and reads it from host memory, so the clean path
   adds no device-to-host copy and no synchronize.
 
-The KV-block handoff of the serve stack waits for ROADMAP A6 and refuses;
-the JAX package's ``observe`` spans around saves and restores wait for A8.
+* The serve stack's KV-block handoff (:func:`stream_kv_handoff`,
+  :func:`load_kv_handoff`): a paged pool's blocks as schema-3 block files
+  under the JAX package's manifest, so a handoff written by either
+  package loads into the other's pool.
+
+The JAX package's ``observe`` spans around saves and restores wait for
+ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -67,7 +72,6 @@ import numpy as np
 import torch
 
 from . import chaos as _chaos
-from .._unported import refuse
 
 SCHEMA_VERSION = 3
 _MAGIC = "__apex_tpu_checkpoint__"
@@ -650,28 +654,179 @@ def _assemble_tree(skeleton, streamed_meta: dict, base_dir: str,
 
 
 # ---------------------------------------------------------------------------
-# serve KV-block handoff: waits for the paged pool (ROADMAP A6)
+# serve KV-block handoff (disaggregated prefill/decode)
 # ---------------------------------------------------------------------------
 
-_KV = "the serve KV-block handoff (a paged pool's blocks)"
-_A6 = "ROADMAP A6, serve/"
+_KV_MANIFEST = "KV_MANIFEST.pkl"
+_KV_MAGIC = "__apex_tpu_kv_handoff__"
 
 
-def stream_kv_handoff(dir_path, pool, table, *, source="kv_handoff",
-                      extra_meta=None):
-    refuse(f"{_KV}: stream_kv_handoff", _A6)
+def _pool_parts(pool):
+    """``[("kv", tensor)]`` for a plain pool, ``[("q", ...), ("scale",
+    ...)]`` for the int8 :class:`~apex_tpu_torch.inference.quant.QuantKV`
+    pair (duck-typed, so this module never imports serve)."""
+    if hasattr(pool, "q") and hasattr(pool, "scale"):
+        return [("q", pool.q), ("scale", pool.scale)]
+    return [("kv", pool)]
 
 
-def read_kv_handoff_meta(dir_path):
-    refuse(f"{_KV}: read_kv_handoff_meta", _A6)
+def _block_shape(arr):
+    """A pool part's per-block shape: ``(L, 2, H, bs, D)``."""
+    return [int(d) for d in arr.shape[:2]] + [int(d) for d in arr.shape[3:]]
 
 
-def load_kv_handoff(dir_path, pool, new_ids):
-    refuse(f"{_KV}: load_kv_handoff", _A6)
+def stream_kv_handoff(dir_path: str, pool, table, *,
+                      source: str = "kv_handoff",
+                      extra_meta: Optional[dict] = None):
+    """Stream one session's KV blocks out of a paged pool into
+    ``dir_path`` under the schema-3 shard-file contract of the JAX
+    package: one file per (block, pool part), raw bytes, atomic
+    tmp + fsync + rename, CRC32 in the manifest, and the manifest commits
+    LAST, so a kill mid-handoff leaves debris with no manifest.  A card
+    pool's block passes through one pinned host buffer: the host holds one
+    block's bytes at a time.
+
+    ``table`` is the session's physical block ids in logical order; the
+    manifest records logical order, so the loader's fresh ids map
+    positionally.  Chaos hook ``serve.kv_handoff`` fires before each
+    block file.  ``extra_meta`` rides in the manifest under ``"meta"``.
+    The manifest is the JAX package's (a plain pickled dict), so either
+    package loads the other's handoff.
+
+    Returns ``(manifest, peak_bytes)``: peak is the largest single host
+    buffer written (one block part's bytes)."""
+    os.makedirs(dir_path, exist_ok=True)
+    parts = _pool_parts(pool)
+    staging = _Staging()
+    blocks_meta = []
+    peak = 0
+    for logical, bid in enumerate(table):
+        entry = {}
+        for part, arr in parts:
+            buf = _shard_bytes(arr[:, :, int(bid)], staging)
+            peak = max(peak, buf.nbytes)
+            fname = f"kvblk{logical}_{part}.bin"
+            if _chaos.active():
+                _chaos.hook("serve.kv_handoff", dir=dir_path,
+                            file=fname, block=logical)
+            _write_shard_file(dir_path, fname, buf)
+            entry[part] = {"file": fname, "crc32": zlib.crc32(buf),
+                           "nbytes": int(buf.nbytes)}
+        blocks_meta.append(entry)
+    manifest = {
+        _KV_MAGIC: SCHEMA_VERSION,
+        "kind": "kv_handoff",
+        "quant": len(parts) == 2,
+        "parts": {part: {"shape": _block_shape(arr),
+                         "dtype": _dtype_name(arr)}
+                  for part, arr in parts},
+        "n_blocks": len(blocks_meta),
+        "blocks": blocks_meta,
+        "source": source,
+    }
+    if extra_meta is not None:
+        manifest["meta"] = dict(extra_meta)
+    _write_shard_file(dir_path, _KV_MANIFEST, pickle.dumps(manifest))
+    _fsync_dir(dir_path)
+    return manifest, peak
 
 
-def discard_kv_handoff(dir_path):
-    refuse(f"{_KV}: discard_kv_handoff", _A6)
+class _PlainUnpickler(pickle.Unpickler):
+    """A manifest is builtins only: any pickled global is refused."""
+
+    def find_class(self, module, name):
+        raise CheckpointCorruptError(
+            f"a KV handoff manifest names the global {module}.{name}")
+
+
+def read_kv_handoff_meta(dir_path: str) -> dict:
+    """Load and validate a KV handoff directory's MANIFEST without
+    touching the block files; a mid-stream kill's manifest-less debris is
+    rejected here with :class:`CheckpointCorruptError`."""
+    src = os.path.join(dir_path, _KV_MANIFEST)
+    try:
+        with open(src, "rb") as f:
+            manifest = _PlainUnpickler(io.BytesIO(f.read())).load()
+    except FileNotFoundError as e:
+        raise CheckpointCorruptError(
+            f"{dir_path}: no KV handoff manifest (mid-handoff "
+            f"kill?)") from e
+    if not isinstance(manifest, dict) or \
+            manifest.get(_KV_MAGIC) is None or \
+            manifest.get("kind") != "kv_handoff":
+        raise CheckpointCorruptError(
+            f"{dir_path}: not a KV handoff manifest")
+    if manifest[_KV_MAGIC] > SCHEMA_VERSION:
+        raise CheckpointCorruptError(
+            f"{dir_path}: handoff schema {manifest[_KV_MAGIC]} is newer "
+            f"than this reader ({SCHEMA_VERSION})")
+    return manifest
+
+
+def load_kv_handoff(dir_path: str, pool, new_ids):
+    """Copy a streamed KV handoff into ``pool`` at the freshly allocated
+    physical ids ``new_ids`` (logical order: entry i of the manifest lands
+    in ``new_ids[i]``), in place.  The block bytes are written verbatim,
+    int8 payloads AND their fp32 scales alike, so a handed-off session's
+    continuation is the unified engine's.
+
+    Raises :class:`CheckpointCorruptError` when the directory has no
+    manifest (a mid-handoff kill), a block file is absent, or a CRC/size
+    check fails; raises :class:`CheckpointReshardError` when the manifest
+    describes a different pool geometry (dtype, per-block shape,
+    quantization) or another block count than ``new_ids``.  Returns
+    ``(pool, peak_bytes)``."""
+    manifest = read_kv_handoff_meta(dir_path)
+    parts = _pool_parts(pool)
+    if manifest["quant"] != (len(parts) == 2):
+        raise CheckpointReshardError(
+            f"{dir_path}: handoff quant={manifest['quant']} but the "
+            f"destination pool is "
+            f"{'int8' if len(parts) == 2 else 'dense'}")
+    for part, arr in parts:
+        meta = manifest["parts"][part]
+        want = _block_shape(arr)
+        if meta["shape"] != want or meta["dtype"] != _dtype_name(arr):
+            raise CheckpointReshardError(
+                f"{dir_path}: handoff part {part!r} is "
+                f"{meta['shape']}/{meta['dtype']}, destination pool "
+                f"block is {want}/{_dtype_name(arr)} — pools must share "
+                f"geometry (layers/heads/block_size/head_dim/dtype)")
+    new_ids = list(new_ids)
+    if len(new_ids) != manifest["n_blocks"]:
+        raise CheckpointReshardError(
+            f"{dir_path}: handoff carries {manifest['n_blocks']} "
+            f"blocks, caller allocated {len(new_ids)}")
+    peak = 0
+    for logical, entry in enumerate(manifest["blocks"]):
+        nid = int(new_ids[logical])
+        for part, arr in parts:
+            meta = entry[part]
+            path = os.path.join(dir_path, meta["file"])
+            try:
+                with open(path, "rb") as f:
+                    buf = f.read()
+            except FileNotFoundError as e:
+                raise CheckpointCorruptError(
+                    f"{dir_path}: missing handoff block file "
+                    f"{meta['file']!r} (partial handoff "
+                    f"directory?)") from e
+            if len(buf) != meta["nbytes"] or \
+                    zlib.crc32(buf) != meta["crc32"]:
+                raise CheckpointCorruptError(
+                    f"{dir_path}: handoff block file {meta['file']!r} "
+                    f"failed checksum validation")
+            peak = max(peak, len(buf))
+            block = torch.frombuffer(bytearray(buf), dtype=torch.uint8) \
+                .view(arr.dtype).reshape(_block_shape(arr))
+            arr[:, :, nid].copy_(block)
+    return pool, peak
+
+
+def discard_kv_handoff(dir_path: str) -> None:
+    """Remove a handoff directory: after a successful ingest, or to
+    clear partial debris before a retry."""
+    shutil.rmtree(dir_path, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------

@@ -337,13 +337,36 @@ Phases, each of which raises on failure:
    synchronize added) and a storm of 9 non-finite steps (warn, rollback to
    the snapshot bit for bit with the halved scale kept,
    ``TrainingDivergedError``); the save and restore seconds, GB/s, the
-   host's peak shard bytes and the caller's ms of ``save_async``.
+   host's peak shard bytes and the caller's ms of ``save_async``;
+29. (after phase 27, before 28) ``serve_phase``: ``serve.ServeEngine`` on GPT-2 small
+   at full width (fp32, max_positions 1024, the seed's weights; blocks of
+   16, a 320-block pool, batch buckets up to 8, prefill chunks of 128; one
+   CUDA graph a bucket signature through the executor) over a seeded
+   open-loop trace of 48 requests (prompts 32-480 tokens, 16-128 new,
+   Poisson arrivals 2 ticks apart): tokens/s, TTFT and end-to-end p50 /
+   p99 from the ``serve.request`` events, ticks, peak occupancy, the
+   launch counts of the run (25 LayerNorm forwards on vec a tick, every
+   decode and prefill graph's kernel nodes read back), captures against
+   the bucket bound, the graphs' pool bytes; the same trace again with the
+   prefix cache flushed (the same tokens, nothing captured); every request
+   against a greedy ``DecodeSession``; 4 requests and a ``PagedSession``
+   card against the CPU worker; the batch-8, 64-block decode tick's graph
+   against the same program un-captured (bit for bit, its launches read
+   three ways, ms a tick in turns, busy and idle share) and
+   ``publish_weights`` into the captured engine; the int8 pool against the
+   int8-cache session; the prefix cache on and off over 16 requests that
+   share a 256-token prefix; ``DisaggregatedEngine`` with an int8-pool
+   self-draft (k 3; the KV handoff's host peak one block; each speculative
+   tick's graph 124 LayerNorm nodes); a 96-block pool that preempts.  Tokens that differ from their reference must first
+   differ at a near tie (the reference's top two logits within
+   GEN_TIE_TOL).
 
-The CPU sides of phases 5 and 7 and of the layers phase (24) run in a
-process of their own (``chip_smoke.py --cpu-worker DIR``, started under
-``nice`` once the kernels are built, with the weights in a temporary
-directory and CUDA hidden from it), beside the card's phases; each of those
-phases waits for its side there and prints how long it waited.
+The CPU sides of phases 5 and 7, of the layers phase (24) and of the serve
+phase (29) run in a process of their own (``chip_smoke.py --cpu-worker
+DIR``, started under ``nice`` once the kernels are built, with the weights
+in a temporary directory and CUDA hidden from it), beside the card's
+phases; each of those phases waits for its side there and prints how long
+it waited.
 
 Every main path's launch counts include the norm kernels' per-route
 counters (each path runs its forwards and backwards on ``vec``), and every
@@ -351,8 +374,8 @@ profiled step prints its device operations (the train steps beside their
 count when the backward's sums were cast after the kernels).  It prints a
 JSON line of the BERT, NovoGrad-turn, Llama-step, LoRA, legacy-optimizer,
 layer, GPT profiled-step, dropout-arm, amp O1, ResNet-50 layout-turn,
-imagenet-arm, seq2seq, ViT, remat, RNN, graph, decode and inference
-numbers, its own wall
+imagenet-arm, seq2seq, ViT, remat, RNN, graph, decode, inference and
+serve numbers, its own wall
 time, one JSON line of per-kernel
 numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -393,7 +416,11 @@ VIT_BATCH, VIT_TOKENS, VIT_LR, VIT_WD = 32, (224 // 16) ** 2 + 1, 1e-3, 0.05
 # blocks and CLS norm (384), timed beside NORM_SHAPES
 LN_SLICE_SHAPES = (((S2S_BATCH * S2S_SEQ, 512), "bfloat16"),
                    ((VIT_BATCH * VIT_TOKENS, 384), "bfloat16"),
-                   ((VIT_BATCH, 384), "bfloat16"))
+                   ((VIT_BATCH, 384), "bfloat16"),
+                   # seq2seq_generate's fp32 target buffer and the serve
+                   # engine's prefill chunk
+                   ((GEN_BATCH * (GEN_NEW + 1), 512), "float32"),
+                   ((128, 768), "float32"))
 
 
 def card_line():
@@ -722,6 +749,8 @@ def ln_phase(torch, layer_norm, dispatch):
              ((TRAIN_BATCH * TRAIN_SEQ, 768), bf16, True, (bf16, bf16)),
              ((BERT_BATCH * BERT_SEQ, 768), bf16, True, (bf16, bf16)),
              ((4096, 768), f32, True, (bf16, f16)),
+             # the serve engine's prefill chunk
+             ((128, 768), f32, True),
              ((1280, 768), f16, True, (f32, f16)),
              ((37, 1001), bf16, True, (bf16, bf16)),
              ((37, 1001), f32, True, (f32, bf16)),
@@ -8181,6 +8210,587 @@ def inference_phase(torch, dispatch, gpt, llama, inference):
     return paths, nums
 
 
+# --- serve: ServeEngine, PagedSession, the handoff, DisaggregatedEngine ----
+
+# GPT-2 small at full width (fp32, max_positions TRAIN_POS) through the
+# serve engine: blocks of 16 positions, a 320-block pool (377.5 MB), batch
+# buckets 1..8, prefill chunks of 128
+SERVE_BLOCK, SERVE_BLOCKS, SERVE_BATCH, SERVE_CHUNK = 16, 320, 8, 128
+# the trace (bench.py::serve_bench_records' shape at full width): prompt
+# lengths, new tokens, Poisson arrivals a mean of SERVE_GAP ticks apart
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_GAP = 48, (32, 480), \
+    (16, 128), 2.0
+SERVE_SUB = 16                  # requests of the int8, spec and dry arms
+SERVE_DRY_BLOCKS = 96           # the dry pool: preemption
+SERVE_SPEC_K = 3
+# the prefix arm: a block-aligned 256-token prefix, every 4th request the
+# prefix alone, arrivals 3 ticks apart
+SERVE_PREFIX, SERVE_PREFIX_GAP = 256, 3
+SERVE_PROBE_TICKS = 16          # ticks of a timed turn of the probe bucket
+SERVE_CPU_TOL = 1e-3            # card against CPU, as cpu_phase
+
+
+def serve_trace(serve):
+    """The serve phase's open-loop trace from the numpy seed SEED:
+    SERVE_REQUESTS requests with prompt lengths uniform in SERVE_PROMPT,
+    new tokens uniform in SERVE_NEW, tokens uniform in 1..50256, and
+    arrival ticks the running sum of Poisson(SERVE_GAP) draws."""
+    import numpy as np
+    n = SERVE_REQUESTS
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, n)
+    news = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, n)
+    reqs = [serve.Request(f"s{i}", [int(t) for t in
+                                    rng.integers(1, 50257, int(ln))],
+                          int(m)) for i, (ln, m) in enumerate(zip(lens,
+                                                                  news))]
+    arrivals = np.cumsum(rng.poisson(SERVE_GAP, n)).tolist()
+    return reqs, arrivals
+
+
+def serve_bucket_bound(serve, reqs):
+    """The bench's bound on decode graphs: batch buckets x table buckets
+    of the longest request plus one block of growth (bench.py:2465-2475)."""
+    top = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    tables = serve.blocks_for(top, SERVE_BLOCK) + 1
+    return len({serve.bucket(b, SERVE_BATCH)
+                for b in range(1, SERVE_BATCH + 1)}) \
+        * len({serve.bucket(t) for t in range(1, tables + 1)})
+
+
+def serve_run(torch, eng, reqs, arrivals, pools):
+    """Serve ``reqs`` open loop (request i submitted ``arrivals[i]`` ticks
+    after the engine's tick at the call), the host clock around the loop ending in a
+    synchronize; every pool leak-free after.  Returns (outputs, numbers:
+    tokens/s, TTFT and end-to-end p50 / p99 from the ``serve.request``
+    events as bench.py:2524-2529 reads them, ticks, peak occupancy,
+    preemptions)."""
+    import numpy as np
+    from apex_tpu_torch.observe import registry as obs
+    reg = obs.get_registry()
+    reg.clear_events()
+    pre0 = obs.counter("serve.preemptions").value
+    peak, i, tick0 = 0.0, 0, eng.tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        while i < len(reqs) and tick0 + arrivals[i] <= eng.tick:
+            eng.submit(reqs[i])
+            i += 1
+        more = eng.step()
+        peak = max([peak] + [p.occupancy for p in pools])
+        if not more and i >= len(reqs):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for p in pools:
+        p.check_no_leaks()
+    out = dict(eng.results)
+    if sorted(out) != sorted(r.rid for r in reqs) or any(
+            len(out[r.rid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError("serve: not every request got its tokens")
+    if any(t < 0 or t >= 50257 for v in out.values() for t in v):
+        raise AssertionError("serve: generated ids outside the vocabulary")
+    ts = {(e["rid"], e["phase"]): e["ts_ms"]
+          for e in reg.events("serve.request")}
+    ttft = [ts[(r.rid, "first_token")] - ts[(r.rid, "queued")]
+            for r in reqs]
+    e2e = [ts[(r.rid, "done")] - ts[(r.rid, "queued")] for r in reqs]
+    tokens = sum(len(out[r.rid]) for r in reqs)
+    pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+    return out, dict(
+        wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+        ticks=eng.tick - tick0, ttft_p50_ms=pct(ttft, 50),
+        ttft_p99_ms=pct(ttft, 99),
+        e2e_p50_ms=pct(e2e, 50), e2e_p99_ms=pct(e2e, 99),
+        peak_occupancy=peak,
+        preemptions=obs.counter("serve.preemptions").value - pre0)
+
+
+def _serve_line(what, n):
+    print(f"  {what}: {n['tokens']} tokens in {n['wall_s']:.2f} s = "
+          f"{n['tokens_per_s']:.1f} tokens/s, {n['ticks']} ticks; TTFT "
+          f"p50/p99 {n['ttft_p50_ms']:.1f}/{n['ttft_p99_ms']:.1f} ms, e2e "
+          f"{n['e2e_p50_ms']:.1f}/{n['e2e_p99_ms']:.1f} ms; peak occupancy "
+          f"{n['peak_occupancy']:.3f}; preemptions {n['preemptions']}")
+
+
+def _tie_check(torch, model, what, prompt, ref, got):
+    """``got`` equal to the greedy reference tokens ``ref`` of ``prompt``,
+    or first differing where the reference's top two logits (a forward
+    over the prompt and the reference tokens before it) are within
+    GEN_TIE_TOL.  Returns None or (index, gap)."""
+    diff = [t for t, (a, b) in enumerate(zip(ref, got)) if a != b]
+    if len(ref) != len(got):
+        raise AssertionError(f"{what}: {len(got)} tokens against "
+                             f"{len(ref)}")
+    if not diff:
+        return None
+    t = diff[0]
+    ids = torch.tensor([list(prompt) + list(ref[:t])], device="cuda")
+    with torch.no_grad():
+        gap = float(_top2_gap(torch, model(ids)[0, -1]))
+    if not gap <= GEN_TIE_TOL:
+        raise AssertionError(f"{what}: token {t} differs ({got[t]} against "
+                             f"{ref[t]}); the reference's top two logits "
+                             f"are {gap} apart")
+    return t, gap
+
+
+def _serve_against(torch, model, what, reqs, ref, got):
+    """Every request's tokens in ``got`` against ``ref`` (_tie_check);
+    returns the near ties by request."""
+    ties = {}
+    for r in reqs:
+        tie = _tie_check(torch, model, f"{what} {r.rid}", r.prompt,
+                         ref[r.rid], got[r.rid])
+        if tie is not None:
+            ties[r.rid] = tie
+    print(f"  {what}: {len(reqs) - len(ties)} of {len(reqs)} requests equal "
+          f"bit for bit, the rest first differ at near ties {ties}")
+    return ties
+
+
+def _session_refs(torch, inference, model, reqs, cache_dtype=None):
+    """Each request's greedy tokens from one ``DecodeSession`` (reset
+    between requests; one decode graph)."""
+    s = inference.DecodeSession(model, batch=1, capacity=TRAIN_POS,
+                                cache_dtype=cache_dtype)
+    out = {}
+    for r in reqs:
+        s.reset()
+        s.append(torch.tensor([r.prompt], device="cuda"))
+        out[r.rid] = s.generate(r.max_new_tokens)[0].tolist()
+    return out
+
+
+def _serve_cpu_trace(serve):
+    """The card-against-CPU requests: 4 prompts of 64-160 tokens, 8-16 new
+    tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 19)
+    lens, news = rng.integers(64, 161, 4), rng.integers(8, 17, 4)
+    return [serve.Request(f"c{i}", [int(t) for t in
+                                    rng.integers(1, 50257, int(ln))],
+                          int(m)) for i, (ln, m) in enumerate(zip(lens,
+                                                                  news))]
+
+
+def serve_side(torch, serve, inference, model):
+    """The card-against-CPU serve work on ``model``'s device: the 4
+    requests through a ServeEngine (all at tick 0), then a PagedSession's
+    ``append`` of the first prompt on the same engine.  Returns the tokens
+    and those logits (on the CPU)."""
+    reqs = _serve_cpu_trace(serve)
+    eng = serve.ServeEngine(model, num_blocks=64, block_size=SERVE_BLOCK,
+                            max_batch=4, prefill_chunk=SERVE_CHUNK)
+    out = eng.run(reqs)
+    with inference.PagedSession(eng) as ps:
+        logits = ps.append(reqs[0].prompt).float().cpu()
+    eng.close()
+    return dict(tokens=out, logits=logits)
+
+
+def serve_cpu_reference(torch, gpt, sd):
+    """The CPU side of serve_phase's card-against-CPU check, run by the CPU
+    worker: serve_side on a CPU GPT-2 small from the weights ``sd``, and
+    the top-two logit gaps of a forward over each request's tokens, one a
+    generated token (for near ties)."""
+    from apex_tpu_torch import inference, serve
+    model = _gpt_on(torch, gpt, sd, "cpu").eval()
+    res = serve_side(torch, serve, inference, model)
+    res["gaps"] = {}
+    with torch.no_grad():
+        for r in _serve_cpu_trace(serve):
+            ids = list(r.prompt) + res["tokens"][r.rid][:-1]
+            lg = model(torch.tensor([ids]))[0, len(r.prompt) - 1:]
+            res["gaps"][r.rid] = _top2_gap(torch, lg).tolist()
+    return res
+
+
+def serve_cpu_check(torch, serve, inference, model, ref):
+    """serve_side on the card against the CPU worker's: equal tokens, or a
+    first difference at a near tie of the CPU's logits; the PagedSession
+    logits within SERVE_CPU_TOL."""
+    got = serve_side(torch, serve, inference, model)
+    ties = {}
+    for r in _serve_cpu_trace(serve):
+        a, b = got["tokens"][r.rid], ref["tokens"][r.rid]
+        diff = [t for t, (x, y) in enumerate(zip(a, b)) if x != y]
+        if diff:
+            gap = ref["gaps"][r.rid][diff[0]]
+            ties[r.rid] = (diff[0], gap)
+            if not gap <= GEN_TIE_TOL:
+                raise AssertionError(
+                    f"serve card against CPU: {r.rid}'s token {diff[0]} "
+                    f"differs; the CPU's top two logits are {gap} apart")
+    err = (got["logits"] - ref["logits"]).abs().max().item()
+    check(f"serve card against CPU: PagedSession.append logits (1, 50257) "
+          f"(4 requests' tokens equal but for near ties {ties})", err,
+          SERVE_CPU_TOL)
+    return dict(logits_max_abs_err=err, near_ties=ties)
+
+
+class _ProgramRun:
+    """One executor program over fixed arguments, stepped like a decode
+    run (the interface _graph_nodes reads): ``step(eager=True)`` calls
+    its function un-captured."""
+
+    def __init__(self, program, args):
+        self.program, self.args = program, args
+
+    def step(self, eager=False):
+        from apex_tpu_torch.runtime import executor
+        if eager:
+            return self.program.fn(*self.args)
+        return executor.executor.submit(self.program, self.args)
+
+
+def _probe_operands(eng):
+    """A batch-8 decode tick of the largest table bucket (64 blocks, 1024
+    slots): 8 rows at positions 500-507, 33 blocks each."""
+    import numpy as np
+    per, nb = 33, 64
+    tables = [[1 + r * per + j for j in range(per)] + [0] * (nb - per)
+              for r in range(SERVE_BATCH)]
+    toks = np.random.default_rng(SEED + 23).integers(1, 50257, SERVE_BATCH)
+    return eng._ints(toks, [500 + r for r in range(SERVE_BATCH)], tables)
+
+
+def _serve_graph_checks(torch, dispatch, eng, counts, ln_want):
+    """Every captured graph of the engine's decode and prefill programs
+    holds the LayerNorm forward nodes of ``ln_want`` (25 on vec) and no
+    other hand-written kernel; the wrappers counted those a call for each
+    eager warm-up and each capture.  Returns the arm's launches in all (the counts plus each
+    graph's nodes times its later replays) and the graphs' numbers."""
+    from apex_tpu_torch.runtime import executor
+    later, calls, graphs = 0, 0, {}
+    for kind in ("decode_step", "prefill_step"):
+        prog = eng.programs()[kind]
+        for text in executor.graph_dot(prog):
+            nodes = _dot_kernel_counts([text], counts)
+            if nodes != ln_want:
+                raise AssertionError(f"serve {kind}: a graph's kernel nodes "
+                                     f"{_nonzero(nodes)}, not "
+                                     f"{_nonzero(ln_want)}")
+        for e in prog.entries():
+            later += e.replays - e.captures
+            calls += min(e.calls, 2)
+        graphs[kind] = executor.graph_stats(prog)
+    want = {k: ln_want[k] * calls for k in counts}
+    _expect("serve unified, the wrappers (each bucket's warm-up and "
+            "capture)", counts, want)
+    total = {k: counts[k] + ln_want[k] * later for k in counts}
+    print(f"  serve unified: every decode and prefill graph holds "
+          f"{_nonzero(ln_want)} kernel nodes; {later} later replays; "
+          f"launches in all {_nonzero(total)}")
+    return total, graphs
+
+
+def serve_probe(torch, dispatch, serve, eng, ln_want):
+    """One batch-8 decode bucket (the largest table bucket) through a
+    program of its own over the engine's decode body and pool: the graph's
+    outputs equal the un-captured call's bit for bit; one eager tick's
+    launches = the graph's kernel nodes = a traced replay's kernels
+    (_graph_nodes); ms a tick of each arm in turns, busy ms and idle
+    share from one profiled window an arm.  Then publish_weights into the
+    engine's own captured decode program at that bucket: the next replay
+    equals an eager call with the new weights bit for bit, and differs
+    from the replay before (the old weights are published back after)."""
+    from apex_tpu_torch.runtime import executor
+    eng.block_pool.flush_cache()          # the probe writes free blocks
+    args = (eng.pool, *_probe_operands(eng))
+    _, decode = eng._programs()
+    run = _ProgramRun(executor.Program("decode_step", ("serve_probe",),
+                                       decode.fn, donate_argnums=(0,)),
+                      args)
+    ref = run.step(eager=True)
+    run.step()
+    got = run.step()
+    _equal_lists("serve probe: graph against the eager tick (tokens, "
+                 "logits)", list(got), list(ref))
+    _graph_nodes(torch, dispatch, "serve decode tick (batch 8, 64 blocks)",
+                 run, ln_want)
+    n = SERVE_PROBE_TICKS
+
+    def run_arm(eager):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run.step(eager)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    what = "serve decode tick (batch 8, 64 blocks)"
+    tok_s = _timed_arms(torch, f"{what} ({n} ticks)", run_arm,
+                        SERVE_BATCH * n)
+    prof = _profiled_arms(
+        torch, what, lambda: None,
+        lambda eager: [run.step(eager) for _ in range(DECODE_PROFILE_STEPS)],
+        DECODE_PROFILE_STEPS)
+    idle = _turn_idle(what, prof, tok_s, SERVE_BATCH, DECODE_PROFILE_STEPS)
+    ms = {arm: [1e3 * SERVE_BATCH / v for v in vals]
+          for arm, vals in tok_s.items()}
+    # where a replayed tick's device time goes, by kernel name
+    _, busy, by_name, _ = _profiled(
+        torch, lambda: [run.step() for _ in range(DECODE_PROFILE_STEPS)],
+        cpu=False)
+    top = sorted((by_name or {}).items(), key=lambda kv: -kv[1])[:8]
+    top = {k[:80]: v / DECODE_PROFILE_STEPS for k, v in top}
+    print(f"  {what}: the replay's top kernels, device ms a tick (of "
+          f"{(busy or 0) / DECODE_PROFILE_STEPS:.3f} busy): " + "; ".join(
+              f"{k} {v:.4f}" for k, v in top.items()))
+    probe = dict(ms_a_tick=ms, tokens_per_s=tok_s, profiled=prof,
+                 idle_share=idle, top_kernels_ms=top,
+                 graph=executor.graph_stats(run.program))
+    # publish_weights into the engine's captured decode program
+    eng_run = _ProgramRun(decode, args)
+    for _ in range(3):
+        before = eng_run.step()
+    stats0 = executor.graph_stats(decode)
+    model = eng.model
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    old = [p.detach().clone() for p in model.parameters()]
+    new = [p + 0.02 * torch.randn(p.shape, generator=g, device="cuda")
+           for p in old]
+    eng.publish_weights(new)
+    after = eng_run.step()
+    eager = eng_run.step(eager=True)
+    stats1 = executor.graph_stats(decode)
+    eng.publish_weights(old, epoch=0)
+    _equal_lists("serve publish_weights: the next replay against an eager "
+                 "call with the new weights", list(after), list(eager))
+    if torch.equal(after[1], before[1]) or stats1["captures"] != \
+            stats0["captures"]:
+        raise AssertionError(f"serve publish_weights: the replay did not "
+                             f"take the new weights ({stats0} -> {stats1})")
+    print(f"  serve publish_weights: the captured decode graph's next replay "
+          f"equals the eager call with the new weights bit for bit "
+          f"(captures {stats0['captures']} before and after)")
+    del old, new
+    return probe
+
+
+def serve_phase(torch, dispatch, gpt, inference, serve, cpu_ref):
+    """This slice's phase: ServeEngine on GPT-2 small at full width (fp32,
+    the CPU worker's weights rebuilt from the seed).  (a) the unified
+    engine over the seeded trace, its launches counted (the counts set to
+    0 just before and read just after), then the same trace again with
+    the prefix cache flushed: the same tokens and no new capture; decode
+    captures within the bucket bound; every graph's nodes; (b) every
+    request against a greedy DecodeSession; (c) 4 requests and a
+    PagedSession on the card against the CPU worker's; (d) the probe
+    bucket's graph against eager, timed (serve_probe, which also does
+    (i), publish_weights into the captured engine); (e) the int8 pool
+    against the int8-cache DecodeSession; (f) the prefix cache on and off;
+    (g) DisaggregatedEngine with an int8-pool self-draft, k 3; (h) a dry
+    pool that preempts.  Returns (the counted arm's launches, numbers)."""
+    import tempfile as _tempfile
+    from apex_tpu_torch.runtime import executor, step_cache
+    torch.manual_seed(SEED)
+    model = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0,
+                           attn_dropout=0.0, device="cuda").eval()
+    reqs, arrivals = serve_trace(serve)
+    nums, secs = {}, {}
+    t = time.perf_counter()
+    # (a) the unified engine: the counted main path
+    eng = serve.ServeEngine(model, num_blocks=SERVE_BLOCKS,
+                            block_size=SERVE_BLOCK, max_batch=SERVE_BATCH,
+                            prefill_chunk=SERVE_CHUNK)
+    step_cache.reset_stats()
+    torch.cuda.synchronize()
+    dispatch.reset_counts()
+    out, nums["unified"] = serve_run(torch, eng, reqs, arrivals,
+                                     [eng.block_pool])
+    counts = dispatch.counts()
+    _serve_line("serve unified (48 requests, the first run: with each "
+                "bucket's warm-up and capture)", nums["unified"])
+    # LN1 and LN2 of every block and ln_f: 25 a tick at 12 layers
+    n_norm = 2 * len(model.blocks) + 1
+    ln_want = dict.fromkeys(counts, 0)
+    ln_want.update(ln_forward=n_norm, ln_forward_vec=n_norm)
+    total, graphs = _serve_graph_checks(torch, dispatch, eng, counts,
+                                        ln_want)
+    caps0 = {k: executor.graph_stats(p)["captures"]
+             for k, p in eng.programs().items()}
+    eng.block_pool.flush_cache()
+    again, nums["unified_repeat"] = serve_run(
+        torch, eng, [serve.Request(r.rid, r.prompt, r.max_new_tokens)
+                     for r in reqs], arrivals, [eng.block_pool])
+    caps1 = {k: executor.graph_stats(p)["captures"]
+             for k, p in eng.programs().items()}
+    _serve_line("serve unified, the same trace again (cache flushed)",
+                nums["unified_repeat"])
+    if again != out or caps1 != caps0:
+        raise AssertionError(f"serve: the repeated trace gave other tokens "
+                             f"({again == out}) or captured again ({caps0} "
+                             f"-> {caps1})")
+    bound = serve_bucket_bound(serve, reqs)
+    stats = step_cache.kind_stats("decode_step")
+    if not 1 <= caps0["decode_step"] <= bound:
+        raise AssertionError(f"serve: {caps0['decode_step']} decode graphs "
+                             f"against the bound {bound}")
+    pool_bytes = {k: executor.graph_stats(p)["pool_bytes"]
+                  for k, p in eng.programs().items()}
+    nums["graphs"] = dict(
+        captures=caps0, bucket_bound=bound, decode_stats=stats,
+        by_kind={k: executor.graph_stats(p)
+                 for k, p in eng.programs().items()},
+        pool_bytes=pool_bytes, pool_bytes_sum=sum(pool_bytes.values()),
+        entry_pool_bytes={k: [e.pool_bytes for e in p.entries()]
+                          for k, p in eng.programs().items()},
+        kv_pool_bytes=eng.pool.numel() * eng.pool.element_size())
+    print(f"  serve graphs: captures {caps0} (decode bound {bound}); the "
+          f"repeated trace captured nothing and gave the same tokens; graph "
+          f"pools {pool_bytes} = {sum(pool_bytes.values()) / 2 ** 20:.1f} "
+          f"MiB, by graph {nums['graphs']['entry_pool_bytes']}; the KV pool "
+          f"{nums['graphs']['kv_pool_bytes'] / 1e6:.1f} MB")
+    if not bool((eng.pool[:, :, 0] == 0).all()):
+        raise AssertionError("serve: the null block is not all zeros")
+    secs["unified"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # (b) against greedy DecodeSession, request by request
+    nums["session_ties"] = _serve_against(
+        torch, model, "serve unified against DecodeSession", reqs,
+        _session_refs(torch, inference, model, reqs), out)
+    secs["session"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # (c) card against CPU
+    nums["cpu"] = serve_cpu_check(torch, serve, inference, model, cpu_ref)
+    secs["cpu"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # (d) and (i): the probe bucket, publish_weights
+    nums["probe"] = serve_probe(torch, dispatch, serve, eng, ln_want)
+    eng.close()
+    del eng
+    secs["probe"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sub, sub_arr = reqs[:SERVE_SUB], arrivals[:SERVE_SUB]
+    # (e) the int8 pool against the int8-cache DecodeSession
+    eng = serve.ServeEngine(model, num_blocks=SERVE_BLOCKS,
+                            block_size=SERVE_BLOCK, max_batch=SERVE_BATCH,
+                            prefill_chunk=SERVE_CHUNK, cache_dtype="int8")
+    got, nums["int8"] = serve_run(torch, eng, sub, sub_arr,
+                                  [eng.block_pool])
+    _serve_line("serve int8 pool (16 requests)", nums["int8"])
+    nums["int8"]["ties"] = _serve_against(
+        torch, model, "serve int8 pool against the int8-cache DecodeSession",
+        sub, _session_refs(torch, inference, model, sub, "int8"), got)
+    del eng
+    secs["int8"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # (f) the prefix cache on and off
+    import numpy as np
+    rng = np.random.default_rng(SEED + 31)
+    prefix = [int(x) for x in rng.integers(1, 50257, SERVE_PREFIX)]
+    preqs = [serve.Request(
+        f"p{i}", prefix + ([] if i % 4 == 3 else [
+            int(x) for x in rng.integers(1, 50257,
+                                         int(rng.integers(8, 65)))]),
+        int(rng.integers(16, 33))) for i in range(SERVE_SUB)]
+    parr = [SERVE_PREFIX_GAP * i for i in range(SERVE_SUB)]
+    pref = {}
+    for on in (True, False):
+        eng = serve.ServeEngine(model, num_blocks=SERVE_BLOCKS,
+                                block_size=SERVE_BLOCK,
+                                max_batch=SERVE_BATCH,
+                                prefill_chunk=SERVE_CHUNK, prefix_cache=on)
+        o, n = serve_run(torch, eng, preqs, parr, [eng.block_pool])
+        n["prefix_cache"] = eng.metrics()["prefix_cache"]
+        _serve_line(f"serve prefix cache {'on' if on else 'off'}", n)
+        pref["on" if on else "off"] = (o, n)
+        del eng
+    nums["prefix"] = {k: v[1] for k, v in pref.items()}
+    nums["prefix"]["ties"] = _serve_against(
+        torch, model, "serve prefix cache on against off", preqs,
+        pref["off"][0], pref["on"][0])
+    pc = nums["prefix"]["on"]["prefix_cache"]
+    if not (pc["hit_rate"] > 0.5 and pc["cow_forks"] >= 1):
+        raise AssertionError(f"serve prefix cache: {pc}")
+    print(f"  serve prefix cache: hit rate {pc['hit_rate']:.3f}, CoW forks "
+          f"{pc['cow_forks']}; TTFT p50 on "
+          f"{nums['prefix']['on']['ttft_p50_ms']:.1f} ms, off "
+          f"{nums['prefix']['off']['ttft_p50_ms']:.1f} ms")
+    secs["prefix"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # (g) disaggregated + speculative (an int8-pool self-draft)
+    tmp = _tempfile.mkdtemp(prefix="chip_smoke_handoff_")
+    try:
+        dis = serve.DisaggregatedEngine(
+            model, num_blocks=SERVE_BLOCKS, block_size=SERVE_BLOCK,
+            max_batch=SERVE_BATCH, prefill_chunk=SERVE_CHUNK,
+            decode_blocks=2 * SERVE_BLOCKS, handoff_dir=tmp,
+            draft=inference.make_self_draft(model), spec_k=SERVE_SPEC_K)
+        got, n = serve_run(torch, dis, sub, sub_arr,
+                           [dis.prefill.block_pool, dis.decode.block_pool])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    m = dis.metrics()
+    spec = m["decode"]["spec"]
+    seq_ticks = spec["offered"] / SERVE_SPEC_K
+    n.update(handoff=m["handoff"], spec=spec,
+             committed_per_sequence_tick=spec["committed_tokens"]
+             / seq_ticks if seq_ticks else 0.0,
+             graphs={f"{ph}.{k}": executor.graph_stats(p)
+                     for ph, e in (("prefill", dis.prefill),
+                                   ("decode", dis.decode))
+                     for k, p in e.programs().items()})
+    _serve_line("serve disaggregated + speculative (16 requests, k 3)", n)
+    # a speculative tick's graph: the target's 2L + 1 norms, and the
+    # draft's k + 1 steps of 2L with ln_f on the first k; every other
+    # graph 2L + 1 (the chunks)
+    layers = len(model.blocks)
+    n_spec = 2 * layers + 1 + (SERVE_SPEC_K + 1) * 2 * layers + SERVE_SPEC_K
+    for ph, e in (("prefill", dis.prefill), ("decode", dis.decode)):
+        for kind, prog in e.programs().items():
+            want = dict.fromkeys(ln_want, 0)
+            if kind != "block_copy":
+                k_ln = n_spec if kind == "spec_verify_step" else n_norm
+                want.update(ln_forward=k_ln, ln_forward_vec=k_ln)
+            for text in executor.graph_dot(prog):
+                nodes = _dot_kernel_counts([text], ln_want)
+                if nodes != want:
+                    raise AssertionError(
+                        f"serve disaggregated {ph}.{kind}: a graph's kernel "
+                        f"nodes {_nonzero(nodes)}, not {_nonzero(want)}")
+    print(f"  serve disaggregated: every graph's kernel nodes are its "
+          f"LayerNorm forwards on vec, {n_spec} a speculative tick and "
+          f"{n_norm} a chunk")
+    n["ties"] = _serve_against(torch, model,
+                               "serve disaggregated + speculative against "
+                               "unified", sub, out, got)
+    attn = model.blocks[0].attn
+    block_bytes = len(model.blocks) * 2 * attn.num_heads * SERVE_BLOCK \
+        * attn.head_dim * 4
+    if m["handoff"]["bytes_peak_host"] != block_bytes or \
+            m["handoff"]["count"] != SERVE_SUB or spec["ticks"] < 1:
+        raise AssertionError(f"serve disaggregated: {m['handoff']}, {spec}")
+    print(f"  serve disaggregated: {m['handoff']['count']} handoffs, host "
+          f"peak {m['handoff']['bytes_peak_host']} bytes (one fp32 block "
+          f"part); accept rate {spec['accept_rate']:.3f}, committed tokens a "
+          f"sequence-tick {n['committed_per_sequence_tick']:.3f}")
+    nums["disagg_spec"] = n
+    del dis
+    secs["disagg_spec"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # (h) a dry pool: preemption and recompute
+    eng = serve.ServeEngine(model, num_blocks=SERVE_DRY_BLOCKS,
+                            block_size=SERVE_BLOCK, max_batch=SERVE_BATCH,
+                            prefill_chunk=SERVE_CHUNK)
+    got, n = serve_run(torch, eng, sub, sub_arr, [eng.block_pool])
+    _serve_line(f"serve dry pool ({SERVE_DRY_BLOCKS} blocks)", n)
+    if n["preemptions"] < 1:
+        raise AssertionError("serve dry pool: no preemption")
+    n["ties"] = _serve_against(torch, model, "serve dry pool against "
+                               "unified", sub, out, got)
+    nums["dry_pool"] = n
+    del eng
+    secs["dry_pool"] = time.perf_counter() - t
+    nums["seconds"] = secs
+    print("serve phases: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in secs.items()))
+    return total, nums
+
+
 # (main's line, seconds since the previous lap) of this run's phases
 # --- resilience: checkpoints, resume, the guard ---------------------------
 
@@ -8502,7 +9112,7 @@ def resilience_phase(torch, dispatch, models, card):
 # --- the CPU halves of the card-against-CPU phases, in a process of their
 # own beside the card's phases ----------------------------------------------
 
-CPU_WORKER_JOBS = ("train_cpu", "train_modes_cpu", "layers")
+CPU_WORKER_JOBS = ("train_cpu", "train_modes_cpu", "layers", "serve_cpu")
 # the host's cores split while the worker runs: its threads and the main
 # process's CPU work each take half, so neither oversubscribes the other
 CPU_WORKER_THREADS = 4
@@ -8517,8 +9127,8 @@ def main_threads():
 
 def cpu_worker(workdir):
     """``python3 chip_smoke.py --cpu-worker DIR``: compute the CPU sides of
-    train_cpu_phase, train_modes_cpu_phase and layers_phase from the
-    weights in DIR (no card: CUDA is hidden from this process), each into
+    train_cpu_phase, train_modes_cpu_phase, layers_phase and serve_phase
+    from the weights in DIR (no card: CUDA is hidden from this process), each into
     DIR/<job>.pt as it completes, or DIR/<job>.err with the traceback."""
     import torch
     torch.set_num_threads(CPU_WORKER_THREADS)
@@ -8528,7 +9138,8 @@ def cpu_worker(workdir):
     mlps = torch.load(os.path.join(workdir, "mlp.pt"))
     jobs = {"train_cpu": lambda: train_cpu_reference(torch, gpt, sd),
             "train_modes_cpu": lambda: train_modes_reference(torch, gpt, sd),
-            "layers": lambda: layers_reference(torch, mlps)}
+            "layers": lambda: layers_reference(torch, mlps),
+            "serve_cpu": lambda: serve_cpu_reference(torch, gpt, sd)}
     for name in CPU_WORKER_JOBS:
         t0 = time.perf_counter()
         try:
@@ -8627,6 +9238,7 @@ def main():
     from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
         lm_head_xent, multi_tensor, rms_norm, xentropy
     from apex_tpu_torch import RNN, amp, inference, models
+    from apex_tpu_torch import serve as serving
     from apex_tpu_torch.contrib.multihead_attn import attn_funcs
     from apex_tpu_torch.models import bert, dcgan, gpt, llama
 
@@ -8799,6 +9411,7 @@ def main():
     lap()
     layers = layers_phase(torch, mlp_weights,
                           worker.result(torch, "layers"))
+    serve_cpu = worker.result(torch, "serve_cpu")
     worker.close()
     torch.set_num_threads(main_threads())
     lap()
@@ -8828,6 +9441,9 @@ def main():
                                           inference)
     paths.update(inf_paths)
     print(f"inference phases in all: {time.perf_counter() - t_phase:.1f} s")
+    paths["serve_unified"], serve_nums = serve_phase(
+        torch, dispatch, gpt, inference, serving, serve_cpu)
+    lap()
     paths["resilience_vit_s16"], resilience = resilience_phase(
         torch, dispatch, models, card)
     lap()
@@ -9071,6 +9687,7 @@ def main():
                       "rnn": slice_nums["rnn"],
                       "graph": graph_nums,
                       "decode": DECODE_NUMS, "inference": inf_nums,
+                      "serve": serve_nums,
                       "resilience": resilience,
                       "cpu_worker_waits_s": worker.waited}))
     print(f"phase seconds by main's line (each since the line before): "

@@ -17,6 +17,7 @@ from apex_tpu_torch.models import GptModel, TransformerSeq2Seq, VitModel, \
     gpt2_small, resnet18, resnet_from_torch
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.runtime import DataPrefetcher
+from apex_tpu_torch.serve import init_pool_buffer
 
 torch.set_num_threads(2)
 
@@ -65,7 +66,9 @@ def test_importing_the_port_loads_no_jax_module():
                  "inference.session", "inference.speculative",
                  "inference.beam", "inference.draft", "utils.jit_cache",
                  "runtime.chaos", "runtime.resilience", "runtime.elastic",
-                 "utils.checkpoint"):
+                 "utils.checkpoint", "observe.registry", "serve.pool",
+                 "serve.scheduler", "serve.kernels", "serve.engine",
+                 "serve.disagg", "serve.elastic", "kernels.spec_verify"):
         assert f"apex_tpu_torch.{name}" in loaded, name
 
 
@@ -135,6 +138,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                   lambda: LSTM(4, 8, 1),
                   lambda: DataPrefetcher([]),
                   lambda: resnet_from_torch(resnet18(device="cpu")),
+                  lambda: init_pool_buffer(1, 1, 4, 2, 4),
                   lambda: GptModel(**small, device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()

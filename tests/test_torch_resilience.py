@@ -878,7 +878,8 @@ def test_timed_flat_dist_call_over_gloo(tmp_path):
     "CheckpointManager", "BadStepGuard", "write_checkpoint_file",
     "read_checkpoint_file", "serialize_checkpoint", "deserialize_checkpoint",
     "stream_components_to_dir", "reshard_state", "reshard_streamed",
-    "stream_kv_handoff", "load_kv_handoff"])
+    "stream_kv_handoff", "load_kv_handoff", "read_kv_handoff_meta",
+    "discard_kv_handoff"])
 def test_signatures_take_the_jax_arguments(name):
     import inspect
     want = inspect.signature(getattr(jax_res, name)).parameters
@@ -889,11 +890,21 @@ def test_signatures_take_the_jax_arguments(name):
 
 
 def test_kv_handoff_and_elastic_refuse_naming_their_items(tmp_path):
+    """The KV handoff is ported (the serve engine's, ROADMAP A6): a pool's
+    blocks stream out and load back bit for bit (the cross-package and
+    error cases are in test_torch_serve_disagg.py); elastic training still
+    refuses, naming ROADMAP A9."""
     from apex_tpu_torch.runtime import elastic
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        res.stream_kv_handoff(str(tmp_path), None, [0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        res.load_kv_handoff(str(tmp_path), None, [0])
+    from apex_tpu_torch.serve import init_pool_buffer
+    pool = init_pool_buffer(1, 2, 4, 4, 2, device="cpu")
+    pool[:, :, 1] = torch.arange(pool[:, :, 1].numel(),
+                                 dtype=torch.float32).view(pool[:, :, 1].shape)
+    manifest, peak = res.stream_kv_handoff(str(tmp_path), pool, [1])
+    assert manifest["n_blocks"] == 1 and peak == pool[:, :, 1].numel() * 4
+    dst, _ = res.load_kv_handoff(str(tmp_path),
+                                 init_pool_buffer(1, 2, 4, 4, 2,
+                                                  device="cpu"), [3])
+    assert torch.equal(dst[:, :, 3], pool[:, :, 1])
     for call in (lambda: elastic.current_devices(),
                  lambda: elastic.ElasticTrainer(None, None, None, None),
                  lambda: elastic.elastic_restore(None, None, None, None)):

@@ -9,8 +9,8 @@ against ``apex_tpu.inference.DecodeSession``, on the CPU.
   cache, give the JAX tokens;
 * the session's graphs key on its capacity and its parameters (a LoRA
   apply mid-session misses); sampling follows the generator; the
-  validation errors are the JAX package's; ``PagedSession`` refuses
-  naming ROADMAP A6.
+  validation errors are the JAX package's, ``PagedSession``'s too (its
+  parity with the JAX session is in test_torch_serve.py).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -115,5 +115,22 @@ def test_session_validation_is_the_jax_packages():
         s.generate(0)
     with pytest.raises(ValueError, match="Generator"):
         s.generate(1, temperature=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        PagedSession(object())
+    from apex_tpu_torch.serve import ServeEngine
+    ps = PagedSession(ServeEngine(tm, num_blocks=16, block_size=8,
+                                  prefill_chunk=4))
+    with pytest.raises(ValueError, match="empty session"):
+        ps.generate(2)
+    with pytest.raises(ValueError, match="zero tokens"):
+        ps.append([])
+    ps.append([1, 2, 3])
+    with pytest.raises(ValueError, match="max_new_tokens"):
+        ps.generate(0)
+    with pytest.raises(ValueError, match="exceed max_positions"):
+        ps.append(list(range(70)))
+    ps.close()
+    ps = PagedSession(ServeEngine(tm, num_blocks=4, block_size=8,
+                                  prefill_chunk=4))
+    with pytest.raises(RuntimeError, match="exhausted"):
+        ps.append(list(range(30)))
+    ps.close()
+    assert ps.position == 0 and ps.block_table == ()

@@ -53,6 +53,11 @@ import apex_tpu.inference as jax_inference
 import apex_tpu.inference.draft as jax_draft
 import apex_tpu.inference.rolling as jax_rolling
 import apex_tpu.utils.jit_cache as jax_jit_cache
+import apex_tpu.serve as jax_serve
+import apex_tpu.serve.kernels as jax_serve_kernels
+import apex_tpu.serve.pool as jax_serve_pool
+import apex_tpu.kernels.spec_verify as jax_spec_verify
+import apex_tpu.observe.registry as jax_registry
 
 import apex_tpu_torch.RNN as rnn
 import apex_tpu_torch.amp as amp
@@ -87,6 +92,12 @@ import apex_tpu_torch.inference as inference
 import apex_tpu_torch.inference.draft as draft
 import apex_tpu_torch.inference.rolling as rolling
 import apex_tpu_torch.utils.jit_cache as jit_cache
+import apex_tpu_torch.serve as serve
+import apex_tpu_torch.serve.kernels as serve_kernels
+import apex_tpu_torch.serve.pool as serve_pool
+import apex_tpu_torch.kernels.spec_verify as spec_verify
+import apex_tpu_torch.observe as observe
+import apex_tpu_torch.observe.registry as registry
 
 torch.set_num_threads(2)
 
@@ -189,6 +200,37 @@ PAIRS = [
     (jax_rolling, rolling, "window_retired_blocks"),
     (jax_rolling, rolling, "rolling_kv_write"),
     (jax_jit_cache, jit_cache, "compiled_run_cache"),
+    (jax_serve, serve, "ServeEngine"),
+    *((jax_serve.ServeEngine, serve.ServeEngine, m)
+      for m in ("run", "step", "submit", "submit_recompute", "evict_session",
+                "publish_weights", "ingest_handoff", "harvest_ready",
+                "release_handoff", "metrics", "close")),
+    (jax_serve, serve, "DisaggregatedEngine"),
+    (jax_serve.DisaggregatedEngine, serve.DisaggregatedEngine, "run"),
+    (jax_serve, serve, "ServeFleet"), (jax_serve, serve, "FleetMember"),
+    (jax_serve, serve, "Scheduler"), (jax_serve, serve, "Request"),
+    *((jax_serve.Scheduler, serve.Scheduler, m)
+      for m in ("submit_recompute", "admit", "grow", "evict", "preempt_for",
+                "note_commit", "retire_window_blocks", "pack_decode",
+                "pack_spec")),
+    (jax_serve, serve, "BlockPool"),
+    *((jax_serve.BlockPool, serve.BlockPool, m)
+      for m in ("alloc", "free", "acquire_prefix")),
+    (jax_serve, serve, "init_pool_buffer"), (jax_serve, serve, "blocks_for"),
+    (jax_serve, serve, "bucket"),
+    (jax_serve_pool, serve_pool, "chain_key"),
+    (jax_serve_pool, serve_pool, "chain_keys"),
+    *((jax_serve_kernels, serve_kernels, f)
+      for f in ("gather_pool", "scatter_pool", "insert_row",
+                "build_block_copy_fn", "build_decode_fn", "build_prefill_fn",
+                "build_spec_verify_fn")),
+    (jax_spec_verify, spec_verify, "spec_verify_fp"),
+    (jax_inference.PagedSession, inference.PagedSession, "append"),
+    (jax_inference.PagedSession, inference.PagedSession, "generate"),
+    (jax_registry, registry, "MetricsRegistry"),
+    (jax_registry.MetricsRegistry, registry.MetricsRegistry, "event"),
+    (jax_registry.MetricsRegistry, registry.MetricsRegistry, "events"),
+    (jax_registry, registry, "event"), (jax_registry, registry, "events"),
 ]
 NO_COUNTERPART = {"interpret", "ctx"}
 # a JAX parameter the port takes under another name, with the same default
@@ -346,6 +388,12 @@ REFUSED = [
      dict(wrap=lambda f: f), A9),
     (lambda **kw: runtime.Program("train_step", (), lambda: None, **kw),
      dict(in_shardings=None), A9),
+    (lambda **kw: serve.ServeEngine(gpt.GptModel(**SMALL_GPT), num_blocks=4,
+                                    block_size=4).run([], **kw),
+     dict(watchdog_deadline_s=1.0), "ROADMAP A8"),
+    (lambda **kw: serve.DisaggregatedEngine(
+        gpt.GptModel(**SMALL_GPT), num_blocks=4, block_size=4).run([], **kw),
+     dict(watchdog_deadline_s=1.0), "ROADMAP A8"),
 ]
 
 
@@ -387,8 +435,9 @@ def test_defaults_are_accepted():
 
 def test_refusal_messages_name_the_current_roadmap_items():
     """The owners named in the refusals follow ROADMAP's queue A as it is
-    numbered now (parallelism A9, the serve engine A6, observe A8); remat,
-    once A4's, and inference, once A5's, are ported and build."""
+    numbered now (parallelism A9, observe A8, the elastic serve fleet A10);
+    remat, once A4's, inference, once A5's, and the serve engine, once
+    A6's, are ported and build."""
     small = dict(SMALL_GPT)
     with pytest.raises(NotImplementedError,
                        match="tensor and sequence.*ROADMAP A9"):
@@ -398,11 +447,25 @@ def test_refusal_messages_name_the_current_roadmap_items():
         llama.LlamaModel(**small, moe_axis="data")
     assert llama.LlamaModel(**small, remat=True).remat
     # cached decode with the band is ported (A5): rolling caches, no
-    # refusal; the paged session waits for the serve engine, A6
+    # refusal; the paged session over the serve engine is ported (A6)
     banded = llama.LlamaModel(**small, sliding_window=4)
     assert banded.init_caches(1, 8)[0][0].shape[2] == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP A6, serve"):
-        inference.PagedSession(None)
+    eng = serve.ServeEngine(gpt.GptModel(**small), num_blocks=4,
+                            block_size=4)
+    assert inference.PagedSession(eng).block_table == ()
+    # the elastic serve fleet is A10's, the rest of observe A8's
+    with pytest.raises(NotImplementedError, match="ROADMAP A10, cluster"):
+        serve.ServeFleet(None, n_engines=2, num_blocks=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10, cluster"):
+        serve.FleetMember(None, eng)
+    assert issubclass(serve.StaleEpochError, RuntimeError)
+    for name in ("span", "last_span", "StepTelemetry", "init_telemetry",
+                 "accumulate", "StallWatchdog", "heartbeat",
+                 "last_heartbeat", "describe", "catalog_names", "CATALOG",
+                 "STALL_HINT"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8, observe"):
+            value = getattr(observe, name)
+            value()
     tm = gpt.GptModel(**small)
     opt = optimizers.FusedAdam(list(tm.parameters()))
     loss = lambda out, y: out.float().mean()  # noqa: E731
