@@ -35,12 +35,16 @@ and replays it, the input prefetcher, the chaos hooks, the resilience
 runtime's atomic schema-3 checkpoints, which the JAX package restores and
 which restore the JAX package's, ``CheckpointManager`` and
 ``BadStepGuard``, and the native host runtime), ``utils.checkpoint``, and
-the Hugging Face and torchvision state-dict converters (``models.hf``).
+the Hugging Face and torchvision state-dict converters (``models.hf``);
+serving (``serve``); and the observe runtime (``observe``: spans as NVTX
+ranges, the train step's on-device telemetry, the stall watchdog, the
+metric catalog), ``pyprof`` over ``torch.profiler`` and the kernels'
+measured dispatch ledger (``kernels.ledger``).
 """
 from . import (amp, contrib, fp16_utils, inference, kernels, models,
-               multi_tensor_apply, nn, normalization, ops, optimizers,
-               parallel, runtime, training)
+               multi_tensor_apply, nn, normalization, observe, ops,
+               optimizers, parallel, pyprof, runtime, training)
 
 __all__ = ["amp", "contrib", "fp16_utils", "inference", "kernels", "models",
-           "multi_tensor_apply", "nn", "normalization", "ops", "optimizers",
-           "parallel", "runtime", "training"]
+           "multi_tensor_apply", "nn", "normalization", "observe", "ops",
+           "optimizers", "parallel", "pyprof", "runtime", "training"]

@@ -58,8 +58,8 @@ import numpy as np
 import torch
 
 from .. import _build
-from .dispatch import LAUNCHES, MASKED_FILL, check_dtype, dtype_code, \
-    use_kernel
+from .dispatch import LAUNCHES, MASKED_FILL, attention_fp, check_dtype, \
+    decide, dtype_code, kernel_probe, register_kernel, use_kernel
 
 MAX_HEAD_DIM = 128   # the simt sources keep D / 16 output columns a thread
 TC_HEAD_DIM = 64     # the tc route's head dim: one 128-byte swizzle row
@@ -70,6 +70,25 @@ for _kernel in KERNELS:
     LAUNCHES.setdefault(f"flash_attention_{_kernel}", 0)
     for _route in ROUTES:
         LAUNCHES.setdefault(f"flash_attention_{_kernel}_{_route}", 0)
+
+
+register_kernel(
+    "flash_attention",
+    xla_fallback="apex_tpu_torch.kernels.attention.flash_attention_reference",
+    threshold_probe=kernel_probe,
+    doc="B1: blockwise online-softmax attention forward (simt, tc)")
+register_kernel(
+    "flash_attention_bwd",
+    xla_fallback=("apex_tpu_torch.kernels.attention."
+                  "flash_attention_bwd_reference"),
+    threshold_probe=kernel_probe,
+    doc="B2: the flash backward, dq then dk/dv (simt, tc)")
+
+
+def flash_fp(q3, k3, causal) -> str:
+    """The ledger key of a flash launch on ``(B·H, S, D)`` operands."""
+    bh, sq, d = q3.shape
+    return attention_fp(1, bh, sq, k3.shape[1], d, q3.dtype, causal)
 
 
 def flash_route(dtype, d, *addresses):
@@ -399,6 +418,7 @@ def _dropout_args(dropout_p, seed_vec):
 
 
 def _launch(q3, k3, v3, bias, scale, causal, window, dropout_p, seed_vec):
+    decide("flash_attention", flash_fp(q3, k3, causal), q3.device)
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     out = torch.empty_like(q3)
@@ -450,6 +470,7 @@ def flash_attention_fwd(q3, k3, v3, bias, scale, causal, window=None,
 
 def _launch_bwd(q3, k3, v3, bias, out, lse, g, scale, causal, window,
                 dropout_p, seed_vec):
+    decide("flash_attention_bwd", flash_fp(q3, k3, causal), q3.device)
     bh, sq, d = q3.shape
     sk = k3.shape[1]
     g = g.to(q3.dtype).contiguous()

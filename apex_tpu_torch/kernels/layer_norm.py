@@ -32,7 +32,8 @@ import functools
 import torch
 
 from .. import _build
-from .dispatch import LAUNCHES, check_dtype, dtype_code, use_kernel
+from .dispatch import LAUNCHES, check_dtype, decide, dtype_code, \
+    kernel_probe, register_kernel, rows_fp, use_kernel
 
 MAX_N = 16384     # the longest row the kernel takes (csrc/layer_norm.cu)
 
@@ -50,6 +51,17 @@ LAUNCHES.setdefault("ln_backward_rows", 0)
 for _route in ROUTES:
     LAUNCHES.setdefault(f"ln_backward_rows_{_route}", 0)
 LAUNCHES.setdefault("ln_backward_cols", 0)
+
+register_kernel(
+    "layer_norm",
+    xla_fallback="apex_tpu_torch.kernels.layer_norm.ln_forward_reference",
+    threshold_probe=kernel_probe,
+    doc="B3: LayerNorm forward (vec, scalar)")
+register_kernel(
+    "layer_norm_bwd",
+    xla_fallback="apex_tpu_torch.kernels.layer_norm.ln_backward_reference",
+    threshold_probe=kernel_probe,
+    doc="B4: LayerNorm backward, rows then column sums")
 
 
 def norm_route(dtype, n, *addresses):
@@ -161,6 +173,7 @@ def _bwd_parts(device_index, rows, n, dtype, route):
 
 def _launch(x2d, weight, bias, eps):
     rows, n = x2d.shape
+    decide("layer_norm", rows_fp(rows, n, x2d.dtype), x2d.device)
     y = torch.empty_like(x2d)
     mean = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
     rstd = torch.empty_like(mean)
@@ -199,6 +212,7 @@ def ln_forward(x2d, weight, bias, eps):
 
 def _launch_bwd(g2d, x2d, mean, rstd, weight, sum_dtype):
     rows, n = x2d.shape
+    decide("layer_norm_bwd", rows_fp(rows, n, x2d.dtype), x2d.device)
     dx = torch.empty_like(x2d)
     affine = weight is not None
     if rows == 0:

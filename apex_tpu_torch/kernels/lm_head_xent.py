@@ -36,12 +36,24 @@ import functools
 import torch
 
 from .. import _build
-from .dispatch import LAUNCHES, check_dtype, dtype_code, use_kernel
+from .dispatch import LAUNCHES, check_dtype, decide, dtype_code, \
+    kernel_probe, register_kernel, use_kernel, vocab_chain_fp
 
 ROUTES = ("simt", "tc")
 for _route in ROUTES:
     for _kernel in ("fwd", "dx", "demb"):
         LAUNCHES.setdefault(f"lm_head_xent_{_kernel}_{_route}", 0)
+
+register_kernel(
+    "vocab_chain_loss",
+    xla_fallback="apex_tpu_torch.kernels.lm_head_xent.lm_head_xent_forward_reference",
+    threshold_probe=kernel_probe,
+    doc="B9: fused LM head + cross-entropy forward (the JAX name)")
+register_kernel(
+    "vocab_chain_loss_bwd",
+    xla_fallback="apex_tpu_torch.kernels.lm_head_xent.lm_head_xent_backward_reference",
+    threshold_probe=kernel_probe,
+    doc="B10: its backward, dx and demb")
 
 # the widest E whose 128 own rows stay in an SM's shared memory (tc route)
 TC_E_MAX = 768
@@ -134,6 +146,7 @@ def lm_head_xent_forward(x, emb, labels):
         return lm_head_xent_forward_reference(x, emb, labels)
     lab = _kernel_args(x, emb, labels, "lm_head_xent_forward")
     (n, e), v = x.shape, emb.shape[0]
+    decide("vocab_chain_loss", vocab_chain_fp(n, v, e, x.dtype), x.device)
     loss = torch.empty(n, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(loss)
     if n == 0:
@@ -167,6 +180,8 @@ def lm_head_xent_backward(x, emb, labels, lse, g):
     lse = lse.to(torch.float32).contiguous()
     gm = g.to(torch.float32).contiguous()
     e, v = x.shape[1], emb.shape[0]
+    decide("vocab_chain_loss_bwd", vocab_chain_fp(n, v, e, x.dtype),
+           x.device)
     dx = torch.empty_like(x)
     demb = torch.empty_like(emb)
     if n == 0:

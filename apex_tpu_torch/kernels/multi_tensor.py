@@ -51,11 +51,30 @@ import numpy as np
 import torch
 
 from .. import _build
-from .dispatch import (LAUNCHES, KERNEL_DTYPES, dtype_code, hold,
-                       is_dense, same_layout, use_kernel)
+from .dispatch import (LAUNCHES, KERNEL_DTYPES, decide, dtype_code, hold,
+                       is_dense, kernel_probe, multi_tensor_fp,
+                       register_kernel, same_layout, use_kernel)
 
 LAUNCHES.setdefault("fused_adam", 0)
 LAUNCHES.setdefault("fused_sgd", 0)
+
+register_kernel(
+    "multi_tensor_sgd",
+    xla_fallback="apex_tpu_torch.kernels.multi_tensor.fused_sgd_reference",
+    threshold_probe=kernel_probe,
+    doc="B11: packed momentum-SGD group update (fused_sgd)")
+register_kernel(
+    "multi_tensor_adam",
+    xla_fallback="apex_tpu_torch.kernels.multi_tensor.fused_adam_reference",
+    threshold_probe=kernel_probe,
+    doc="B12: packed Adam/AdamW group update (fused_adam)")
+
+
+def group_fp(op: str, params, grads) -> str:
+    """The ledger key of one multi-tensor launch: the op, the list's
+    elements and tensors, the gradients' dtype (the JAX ``group_fp``)."""
+    return multi_tensor_fp(op, sum(p.numel() for p in params), len(params),
+                           grads[0].dtype)
 
 # the slots of the fp32 scalar vector the kernel reads
 LR, WD, B1, OMB1, B2, OMB2, EPS, BC1, BC2 = range(9)
@@ -325,9 +344,10 @@ def _table(first, second, third, chunk):
 
 
 def _launch_adam(noop_flag, tensor_lists, scal, mode, use_wd):
+    gs, ps, ms, vs = tensor_lists
+    decide("multi_tensor_adam", group_fp("adam", ps, gs), ps[0].device)
     lib = _adam_lib()
     maxt, largest = lib.apex_adam_max_tensors(), lib.apex_adam_chunk()
-    gs, ps, ms, vs = tensor_lists
     flag = noop_flag.reshape(())
     sms = _sms(ps[0].device.index)
     with torch.cuda.device(ps[0].device):
@@ -509,9 +529,10 @@ def _sgd_lib():
 
 def _launch_sgd(noop_flag, tensor_lists, scal, has_mom, nesterov, first_run,
                 wd_after_momentum, use_wd):
+    gs, ps, ms = tensor_lists[:3]
+    decide("multi_tensor_sgd", group_fp("sgd", ps, gs), ps[0].device)
     lib = _sgd_lib()
     maxt, largest = lib.apex_sgd_max_tensors(), lib.apex_sgd_chunk()
-    gs, ps, ms = tensor_lists[:3]
     cs = tensor_lists[3] if len(tensor_lists) == 4 else None
     cdtype = -1 if cs is None else dtype_code(cs[0].dtype)
     flag = noop_flag.reshape(())

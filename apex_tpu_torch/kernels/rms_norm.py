@@ -28,7 +28,8 @@ import functools
 import torch
 
 from .. import _build
-from .dispatch import LAUNCHES, check_dtype, dtype_code, use_kernel
+from .dispatch import LAUNCHES, check_dtype, decide, dtype_code, \
+    kernel_probe, register_kernel, rows_fp, use_kernel
 from .layer_norm import ROUTES, norm_route
 
 MAX_N = 16384     # the longest row the kernel takes (csrc/rms_norm.cu)
@@ -43,6 +44,17 @@ LAUNCHES.setdefault("rms_backward_rows", 0)
 for _route in ROUTES:
     LAUNCHES.setdefault(f"rms_backward_rows_{_route}", 0)
 LAUNCHES.setdefault("rms_backward_cols", 0)
+
+register_kernel(
+    "rms_norm",
+    xla_fallback="apex_tpu_torch.kernels.rms_norm.rms_forward_reference",
+    threshold_probe=kernel_probe,
+    doc="B5: RMSNorm forward (vec, scalar)")
+register_kernel(
+    "rms_norm_bwd",
+    xla_fallback="apex_tpu_torch.kernels.rms_norm.rms_backward_reference",
+    threshold_probe=kernel_probe,
+    doc="B6: RMSNorm backward, rows then column sums")
 
 
 def rms_forward_reference(x2d, weight, eps):
@@ -131,6 +143,7 @@ def _bwd_parts(device_index, rows, n, dtype, route):
 
 def _launch(x2d, weight, eps):
     rows, n = x2d.shape
+    decide("rms_norm", rows_fp(rows, n, x2d.dtype), x2d.device)
     y = torch.empty_like(x2d)
     rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2d.device)
     if rows == 0:
@@ -164,6 +177,7 @@ def rms_forward(x2d, weight, eps):
 
 def _launch_bwd(g2d, x2d, rstd, weight, sum_dtype):
     rows, n = x2d.shape
+    decide("rms_norm_bwd", rows_fp(rows, n, x2d.dtype), x2d.device)
     dx = torch.empty_like(x2d)
     affine = weight is not None
     if rows == 0:

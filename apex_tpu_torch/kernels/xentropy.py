@@ -25,11 +25,23 @@ import functools
 import torch
 
 from .. import _build
-from .dispatch import (LAUNCHES, MASKED_LOGIT_THR, check_dtype, dtype_code,
+from .dispatch import (LAUNCHES, MASKED_LOGIT_THR, check_dtype, decide,
+                       dtype_code, kernel_probe, register_kernel, rows_fp,
                        use_kernel)
 
 LAUNCHES.setdefault("xent_forward", 0)
 LAUNCHES.setdefault("xent_backward", 0)
+
+register_kernel(
+    "xentropy",
+    xla_fallback="apex_tpu_torch.kernels.xentropy.xent_forward_reference",
+    threshold_probe=kernel_probe,
+    doc="B7: label-smoothed softmax cross-entropy forward")
+register_kernel(
+    "xentropy_bwd",
+    xla_fallback="apex_tpu_torch.kernels.xentropy.xent_backward_reference",
+    threshold_probe=kernel_probe,
+    doc="B8: its backward, dlogits")
 
 
 def _target(xf, labels):
@@ -117,6 +129,7 @@ def _lib():
 def _launch_fwd(logits2d, labels, smoothing, padding_idx):
     rows, c = logits2d.shape
     dev = logits2d.device
+    decide("xentropy", rows_fp(rows, c, logits2d.dtype), dev)
     loss = torch.empty(rows, dtype=torch.float32, device=dev)
     lse = torch.empty_like(loss)
     n_live = torch.empty_like(loss)
@@ -138,6 +151,7 @@ def _launch_fwd(logits2d, labels, smoothing, padding_idx):
 
 def _launch_bwd(logits2d, labels, lse, gmask, smoothing, n_live):
     rows, c = logits2d.shape
+    decide("xentropy_bwd", rows_fp(rows, c, logits2d.dtype), logits2d.device)
     x = logits2d.contiguous()
     dx = torch.empty_like(x)
     if rows == 0:

@@ -5,10 +5,8 @@ records and ``snapshot()`` schema; host-only, no JAX in it).
 One process-global choke point for the numbers the port reports: the
 serve engine's request lifecycle events, its gauges (queue depth, pool
 occupancy, prefix-cache and speculative rates) and its latency
-histograms.  The JAX package also routes the step cache's counters and
-the chaos firings through here; in the port those stay where they are
-(``runtime.step_cache``, ``runtime.chaos``'s log) until ROADMAP A8 ports
-the rest of ``observe/``.
+histograms, the step cache's counters, the chaos firings, spans, the
+train step's drained telemetry and the kernels' dispatch decisions.
 
 Design constraints:
 

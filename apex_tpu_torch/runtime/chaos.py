@@ -1,9 +1,9 @@
 """Deterministic, seedable fault injection (chaos), the PyTorch port's copy
 of ``apex_tpu/runtime/chaos.py``: the same hook names, the same
 ``at=``/``after=``/``times=`` counting and the same seeded determinism.
-The JAX module also mirrors each firing into its ``observe`` registry,
-which is not ported (ROADMAP A8); the controller's ``log`` holds every
-firing here.  Hook points that the port does not run yet (``host.loss``,
+Each firing is mirrored as a ``chaos.inject`` event into the observe
+registry (outside the controller's lock, as in the JAX module), beside the
+controller's ``log``.  Hook points that the port does not run yet (``host.loss``,
 ``coordinator.loss``, ``heartbeat.delay``, ``device.loss``,
 ``ckpt.reshard``, ``serve.session_snapshot`` and ``serve.migrate``, owned
 by ROADMAP A9 and A10) keep their names in the tables below for the slices
@@ -238,6 +238,12 @@ class ChaosController:
                            else getattr(fault.action, "__name__",
                                         "callable"))
             self.log.append((point, count, action_name))
+        # mirrored into the observe registry outside the lock (a JSONL
+        # sink may do IO), so injections land in the same event stream as
+        # the telemetry they perturb
+        from ..observe import registry as _obs
+        _obs.event("chaos.inject", point=point, call=count,
+                   action=action_name)
         if callable(fault.action):
             return fault.action(dict(ctx, point=point, call=count))
         if fault.action == "delay":

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..kernels.dispatch import resolve_device
+from ..observe import spans as _spans
 
 #: windows copied to the device by every prefetcher (one copy of the
 #: images and the targets of a window counts one), and their bytes
@@ -144,6 +145,13 @@ class DataPrefetcher:
         images, target = (torch.from_numpy(a) for a in item)
         COUNTS["h2d"] += 1
         COUNTS["h2d_bytes"] += images.nbytes + target.nbytes
+        fields = {} if self.accum_steps == 1 \
+            else {"accum_steps": self.accum_steps}
+        with _spans.span("h2d", **fields):
+            return self._copy(images, target)
+
+    def _copy(self, images, target) -> bool:
+        """Issue the copy of one window (see :meth:`_issue`)."""
         if not self._cuda:
             self._inflight.append((None, self._prepare(images.clone()),
                                    target.clone()))

@@ -33,6 +33,14 @@ launch counters of the kernel wrappers (``kernels.dispatch.LAUNCHES``)
 count where the wrappers launch: the warm-up and the capture, not a
 replay, which runs no Python.  A replay's outputs are its static output
 tensors, so each is returned as a clone.
+
+The train, serve and rollout kinds (:data:`TRAIN_KINDS`,
+:data:`SERVE_KINDS`, :data:`ROLLOUT_KINDS`) run each dispatch inside
+``observe.span("dispatch", kind=...)`` and heartbeat the stall watchdog
+with the caller's ``step`` once the dispatch was enqueued; other kinds
+span only under ``step_cache.set_dispatch_spans(True)`` and never
+heartbeat.  :func:`drain_telemetry` is the train steps' one read-back of
+their on-device telemetry.
 """
 from __future__ import annotations
 
@@ -45,11 +53,27 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from .._unported import PARALLEL, refuse
 from ..kernels import dispatch as _dispatch
+from ..observe import registry as _obs
+from ..observe import spans as _spans
+from ..observe import telemetry as _obs_telemetry
+from ..observe import watchdog as _obs_watchdog
 from . import step_cache as _sc
 
-#: program kinds that are whole-training-window dispatches
+#: program kinds that are whole-training-window dispatches: each gets a
+#: ``span("dispatch")`` and a watchdog heartbeat
 TRAIN_KINDS = frozenset({"train_step", "zero_train_step",
                          "gan_train_step"})
+
+#: serving-loop kinds (``apex_tpu_torch.serve``): like the train kinds the
+#: unit of forward progress, so every tick spans and heartbeats
+SERVE_KINDS = frozenset({"prefill_step", "decode_step",
+                         "draft_prefill_step", "spec_verify_step"})
+
+#: rollout-loop kinds (the JAX ``rollout`` runtime's weight publish; the
+#: port does not run it yet, ROADMAP A10)
+ROLLOUT_KINDS = frozenset({"weight_publish"})
+
+_BEAT_KINDS = TRAIN_KINDS | SERVE_KINDS | ROLLOUT_KINDS
 
 _UNSET = object()
 
@@ -408,12 +432,22 @@ class Executor:
         return entry
 
     def submit(self, program: Program, args, *, step: Optional[int] = None):
-        """Compile-or-hit, count one dispatch, run (see the module
-        docstring).  ``step`` is the JAX watchdog's heartbeat (ROADMAP A8)
-        and is not read."""
+        """Compile-or-hit, count one dispatch, span, run, heartbeat (see
+        the module docstring).  ``step``: the caller's 1-based step count
+        for the watchdog heartbeat of the train and serve kinds, sent
+        after the dispatch was enqueued (execution is asynchronous; a card
+        that stops blocks the host at its next synchronizing call)."""
         entry = self.compile(program, args)
         self._cache._bump("dispatches", program.kind)
-        return entry.run(program, args)
+        beat = program.kind in _BEAT_KINDS
+        if beat or _sc._DISPATCH_SPANS:
+            with _spans.span("dispatch", kind=program.kind):
+                out = entry.run(program, args)
+        else:
+            out = entry.run(program, args)
+        if beat and step is not None:
+            _obs_watchdog.heartbeat(step=step)
+        return out
 
     def drive(self, step, loader, *, max_steps: Optional[int] = None,
               **prefetch_kwargs):
@@ -477,6 +511,44 @@ def graph_dot(program: Program) -> list:
     return out
 
 
-def drain_telemetry(step):
-    """The JAX step's telemetry drain; telemetry is not ported."""
-    refuse("drain_telemetry", "ROADMAP A8, observe/")
+def read_telemetry(telem) -> dict:
+    """The five scalars of a :class:`~apex_tpu_torch.observe.telemetry.
+    StepTelemetry` on the host, through one device-to-host copy (a
+    ``torch.stack`` in fp64, which holds the int32 counts exactly, and one
+    ``.cpu()``: the only host sync of the telemetry path)."""
+    host = torch.stack([t.to(torch.float64) for t in telem]).cpu().tolist()
+    return dict(zip(telem._fields, host))
+
+
+def drain_telemetry(step) -> Optional[dict]:
+    """Read a step's on-device telemetry accumulator to the host and reset
+    it, for every step kind with ``.state.telem`` and ``.calls``.
+
+    One read (:func:`read_telemetry`); then a ``train.telemetry`` event, the
+    ``train.loss`` / ``train.grad_norm`` / ``train.loss_scale`` gauges and
+    the ``train.overflow_windows`` counter, as in the JAX package.  The
+    accumulator is reset **in place** (``zero_`` / ``fill_``), where the JAX
+    drain rebinds a fresh one: a captured step goes on writing the tensors
+    it was captured with.  Returns the record, or None when telemetry is
+    off or no window completed since the last drain."""
+    telem = step.state.telem
+    if telem is None:
+        return None
+    host = read_telemetry(telem)
+    windows = int(host["windows"])
+    if windows == 0:
+        return None
+    rec = _obs.event(
+        "train.telemetry",
+        step=step.calls,
+        windows=windows,
+        loss_mean=float(host["loss_sum"]) / windows,
+        grad_norm=float(host["grad_norm"]),
+        loss_scale=float(host["loss_scale"]),
+        overflow_count=int(host["overflow_count"]))
+    _obs.gauge("train.loss").set(rec["loss_mean"])
+    _obs.gauge("train.grad_norm").set(rec["grad_norm"])
+    _obs.gauge("train.loss_scale").set(rec["loss_scale"])
+    _obs.counter("train.overflow_windows").inc(rec["overflow_count"])
+    _obs_telemetry.reset_(telem)
+    return rec

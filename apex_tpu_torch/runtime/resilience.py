@@ -22,9 +22,11 @@ storms, the PyTorch counterpart of ``apex_tpu/runtime/resilience.py``.
   package's module paths, so a plain ``pickle.loads`` there rebuilds them;
   the reader maps those names back and refuses any global outside an
   allow-list (those classes, numpy's array reconstructors and dtypes,
-  builtins, ``collections``) with :class:`CheckpointCorruptError`.  A JAX
-  ``StepState`` whose ``telem`` is None loads into the six-field state
-  here; a set ``telem`` raises (ROADMAP A8).  A gathered bf16 tensor is
+  builtins, ``collections``) with :class:`CheckpointCorruptError`.  The
+  ``StepState``'s seventh field, ``telem``, is None or an
+  ``observe.StepTelemetry`` of five 0-d tensors, pickled under the JAX
+  package's name, so a state with telemetry crosses both ways; a state
+  without leaves it None.  A gathered bf16 tensor is
   pickled as ``numpy.ndarray(shape, ml_dtypes.bfloat16, bytes)``, which
   the JAX package loads as an ``ml_dtypes`` array and this reader as a CPU
   ``torch.bfloat16`` tensor; other gathered arrays come back as host
@@ -52,8 +54,11 @@ storms, the PyTorch counterpart of ``apex_tpu/runtime/resilience.py``.
   under the JAX package's manifest, so a handoff written by either
   package loads into the other's pool.
 
-The JAX package's ``observe`` spans around saves and restores wait for
-ROADMAP A8.
+Saves and restores run inside the JAX package's ``observe`` spans:
+``ckpt.save`` (``mode`` ``sync``, ``sharded`` or ``async``, the last on
+the writer thread), ``ckpt.save.submit`` (an async save's host copy on
+the caller's thread) and ``ckpt.restore`` (``mode="resharded"`` for
+:meth:`CheckpointManager.restore_resharded`).
 """
 from __future__ import annotations
 
@@ -71,6 +76,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..observe import spans as _spans
 from . import chaos as _chaos
 
 SCHEMA_VERSION = 3
@@ -284,6 +290,8 @@ _FORMAT_NAMES = {
         (f"{_JAX}.training.step", "StepState"),
     (f"{_PORT}.amp.scaler", "ScalerState"):
         (f"{_JAX}.amp.scaler", "ScalerState"),
+    (f"{_PORT}.observe.telemetry", "StepTelemetry"):
+        (f"{_JAX}.observe.telemetry", "StepTelemetry"),
     (__name__, "_StreamedLeaf"):
         (f"{_JAX}.runtime.resilience", "_StreamedLeaf"),
 }
@@ -341,16 +349,9 @@ def _dumps(obj) -> bytes:
 
 
 def _format_step_state(*fields):
-    """The format's ``StepState`` (seven fields in the JAX package, the
-    last ``telem``) as this package's six-field one."""
+    """The format's ``StepState`` (seven fields, the last ``telem``; six
+    in a file written before it) as this package's."""
     from ..training.step import StepState
-    if len(fields) == 7:
-        if fields[6] is not None:
-            raise CheckpointReshardError(
-                "the checkpoint's StepState carries a telemetry "
-                "accumulator (telem), which this package does not hold "
-                "yet (ROADMAP A8, observe/); save it with telemetry off")
-        fields = fields[:6]
     return StepState(*fields)
 
 
@@ -370,6 +371,16 @@ def _format_scaler_state(*fields):
 class _FormatScalerState:
     def __new__(cls, *fields):
         return _format_scaler_state(*fields)
+
+
+def _format_step_telemetry(*fields):
+    from ..observe.telemetry import StepTelemetry
+    return StepTelemetry(*fields)
+
+
+class _FormatStepTelemetry:
+    def __new__(cls, *fields):
+        return _format_step_telemetry(*fields)
 
 
 class _ForeignType:
@@ -456,6 +467,8 @@ class _Reader(pickle.Unpickler):
             return _FormatStepState
         if (module, name) == (f"{_JAX}.amp.scaler", "ScalerState"):
             return _FormatScalerState
+        if (module, name) == (f"{_JAX}.observe.telemetry", "StepTelemetry"):
+            return _FormatStepTelemetry
         if (module, name) == (f"{_JAX}.runtime.resilience",
                               "_StreamedLeaf"):
             return _StreamedLeaf
@@ -1275,7 +1288,8 @@ class CheckpointManager:
         returns the final path."""
         handle = SaveHandle(step, self.path_for(step))
         try:
-            self._write(step, _to_host(components))
+            with _spans.span("ckpt.save", step=step, mode="sync"):
+                self._write(step, _to_host(components))
         except BaseException as e:
             handle._finish(e)
             raise
@@ -1296,26 +1310,29 @@ class CheckpointManager:
         components = {"state": train_step.state, **extra}
         handle = SaveHandle(step, self.path_for(step))
         try:
-            self._sweep_tmp()
-            sdir = self.shard_dir_for(step)
-            if os.path.isdir(sdir):   # same-step re-save: fresh dir
-                shutil.rmtree(sdir, ignore_errors=True)
-            skeletons, streamed, peak = \
-                stream_components_to_dir(sdir, components)
-            self.last_save_stats = {
-                "shard_bytes_peak_host": peak,
-                "bytes": sum(sh["nbytes"] for m in streamed.values()
-                             for leaf in m["leaves"] if leaf
-                             for sh in leaf["shards"])}
-            self._write(step, skeletons,
-                        plan=getattr(train_step, "plan", None),
-                        streamed=streamed, sweep=False,
-                        extra_manifest=_calls_meta(train_step))
+            with _spans.span("ckpt.save", step=step, mode="sharded"):
+                self._save_sharded(step, train_step, components)
         except BaseException as e:
             handle._finish(e)
             raise
         handle._finish()
         return handle.path
+
+    def _save_sharded(self, step, train_step, components):
+        self._sweep_tmp()
+        sdir = self.shard_dir_for(step)
+        if os.path.isdir(sdir):   # same-step re-save: fresh dir
+            shutil.rmtree(sdir, ignore_errors=True)
+        skeletons, streamed, peak = stream_components_to_dir(sdir,
+                                                             components)
+        self.last_save_stats = {
+            "shard_bytes_peak_host": peak,
+            "bytes": sum(sh["nbytes"] for m in streamed.values()
+                         for leaf in m["leaves"] if leaf
+                         for sh in leaf["shards"])}
+        self._write(step, skeletons, plan=getattr(train_step, "plan", None),
+                    streamed=streamed, sweep=False,
+                    extra_manifest=_calls_meta(train_step))
 
     def save_async(self, step: int, /, **components) -> SaveHandle:
         """Async atomic save.  The host copy is taken here, on the caller
@@ -1325,7 +1342,10 @@ class CheckpointManager:
         ``wait()`` (and on :meth:`wait` / :meth:`close`)."""
         if self._closed:
             raise RuntimeError("CheckpointManager is closed")
-        host = snapshot_state(components)
+        # the caller-thread cost of an async save is this copy: spanned
+        # apart from the worker's write
+        with _spans.span("ckpt.save.submit", step=step):
+            host = snapshot_state(components)
         handle = SaveHandle(step, self.path_for(step))
         with self._lock:
             self._queue.append((step, host, handle))
@@ -1348,7 +1368,8 @@ class CheckpointManager:
                     return
                 step, host, handle = self._queue.popleft()
             try:
-                self._write(step, _map_leaves(host, _host_leaf))
+                with _spans.span("ckpt.save", step=step, mode="async"):
+                    self._write(step, _map_leaves(host, _host_leaf))
             except BaseException as e:  # surfaced via handle.wait()
                 handle._finish(e)
             else:
@@ -1391,8 +1412,9 @@ class CheckpointManager:
             if step is None:
                 raise FileNotFoundError(
                     f"no checkpoints under {self.directory!r}")
-        return read_checkpoint_file(self.path_for(step),
-                                    return_manifest=return_manifest)
+        with _spans.span("ckpt.restore", step=step):
+            return read_checkpoint_file(self.path_for(step),
+                                        return_manifest=return_manifest)
 
     def restore_resharded(self, train_step, step: Optional[int] = None):
         """Restore one checkpoint (the latest when ``step`` is None) into
@@ -1409,6 +1431,10 @@ class CheckpointManager:
             if step is None:
                 raise FileNotFoundError(
                     f"no checkpoints under {self.directory!r}")
+        with _spans.span("ckpt.restore", step=step, mode="resharded"):
+            return self._restore_resharded(train_step, step)
+
+    def _restore_resharded(self, train_step, step):
         path = self.path_for(step)
         comps, manifest = read_checkpoint_file(
             path, return_manifest=True, assemble_streamed=False)

@@ -12,8 +12,9 @@ An entry must not outlive the step that built it: a captured graph pins a
 private memory pool holding a whole step's activations.  So the cache keeps
 only a weak reference to each entry, which the program it was built for
 holds (and with it the step); the LRU cap bounds the counters' keys, not
-the card's memory.  Counters are plain integers (the JAX package keeps them
-in its observe registry, ROADMAP A8).
+the card's memory.  The counters live in the observe registry under the
+JAX names (``step_cache.<counter>``, ``step_cache.kind.<kind>.<counter>``);
+:meth:`StepCache.stats` rebuilds the JAX dict from them.
 """
 from __future__ import annotations
 
@@ -23,6 +24,21 @@ from collections import OrderedDict
 
 import torch
 from torch.utils._pytree import tree_flatten
+
+from ..observe import registry as _obs
+
+#: opt-in ``span("dispatch")`` around every dispatch of an eager kind (the
+#: train, serve and rollout kinds always span).  Off by default: the eager
+#: optimizer and amp dispatches are many small host calls, and a span
+#: event each would be a measurable share of them; the counters always
+#: flow through the registry.
+_DISPATCH_SPANS = False
+
+
+def set_dispatch_spans(enable: bool) -> None:
+    """Enable/disable ``span("dispatch")`` around eager cache dispatches."""
+    global _DISPATCH_SPANS
+    _DISPATCH_SPANS = bool(enable)
 
 
 def _leaf_sig(leaf):
@@ -50,33 +66,44 @@ class StepCache:
                      "multi_tensor_calls")
     _KIND_COUNTERS = ("compiles", "cache_hits", "dispatches")
 
-    def __init__(self, cap: int = 128):
+    def __init__(self, cap: int = 128, metrics_prefix: str = "step_cache."):
         self._cap = cap
+        self._prefix = metrics_prefix
+        self._registry = _obs.get_registry()
         self._lock = threading.RLock()
         self._programs: OrderedDict = OrderedDict()
         self.reset_stats()
 
     def reset_stats(self):
-        with self._lock:
-            self._counts = dict.fromkeys(self._TOP_COUNTERS, 0)
-            self._by_kind: dict = {}
+        self._registry.remove(self._prefix)
 
     def _bump(self, name, kind=None):
-        with self._lock:
-            self._counts[name] += 1
-            if kind is not None:
-                per = self._by_kind.setdefault(
-                    kind, dict.fromkeys(self._KIND_COUNTERS, 0))
-                per[name] += 1
+        self._registry.counter(self._prefix + name).inc()
+        if kind is not None:
+            self._registry.counter(
+                f"{self._prefix}kind.{kind}.{name}").inc()
 
     def stats(self) -> dict:
         """The JAX dict: ``compiles`` (a new key), ``cache_hits``,
         ``dispatches`` (one a step call), ``multi_tensor_calls`` (eager
-        multi-tensor op calls), ``programs`` (live keys) and ``by_kind``."""
+        multi-tensor op calls), ``programs`` (live keys) and ``by_kind``,
+        read from the registry's counters."""
+        counters = self._registry.snapshot()["counters"]
+        out = {n: counters.get(self._prefix + n, 0)
+               for n in self._TOP_COUNTERS}
+        by_kind: dict = {}
+        kind_prefix = self._prefix + "kind."
+        for full, value in counters.items():
+            if not full.startswith(kind_prefix):
+                continue
+            kind, _, cname = full[len(kind_prefix):].rpartition(".")
+            if kind and cname in self._KIND_COUNTERS:
+                by_kind.setdefault(
+                    kind, dict.fromkeys(self._KIND_COUNTERS, 0))[cname] = \
+                    value
         with self._lock:
-            out = dict(self._counts)
             out["programs"] = len(self._programs)
-            out["by_kind"] = {k: dict(v) for k, v in self._by_kind.items()}
+        out["by_kind"] = by_kind
         return out
 
     def program(self, kind: str, static_key, args, build):

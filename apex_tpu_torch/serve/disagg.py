@@ -44,7 +44,6 @@ import re
 import tempfile
 from typing import Dict, List, Sequence
 
-from .._unported import refuse
 from ..observe import registry as _obs
 from ..runtime.chaos import ChaosInjectedFailure
 from ..runtime.resilience import discard_kv_handoff, stream_kv_handoff
@@ -200,11 +199,10 @@ class DisaggregatedEngine:
         """Serve ``requests`` to completion; returns ``{rid: tokens}``
         merged from both engines (a request that finishes at its first
         token never leaves the prefill engine).  ``watchdog_deadline_s``
-        is ROADMAP A8 and refused."""
-        if watchdog_deadline_s is not None:
-            refuse("DisaggregatedEngine.run(watchdog_deadline_s=...), the "
-                   "stall watchdog", "ROADMAP A8, observe/")
-        return run_trace(self, requests, arrivals, max_ticks)
+        arms a stall watchdog over the loop, as for
+        :meth:`ServeEngine.run`."""
+        return run_trace(self, requests, arrivals, max_ticks,
+                         watchdog_deadline_s)
 
     # -- introspection -----------------------------------------------------
 

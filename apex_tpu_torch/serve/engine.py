@@ -37,8 +37,9 @@ The tick loop (:meth:`ServeEngine.step`):
 Per-request lifecycle telemetry (``serve.request`` events with phases
 queued -> prefill -> first_token -> done, TTFT / e2e / tick-latency
 histograms, queue-depth and pool-occupancy gauges) flows through
-:mod:`apex_tpu_torch.observe.registry`.  The JAX ``run``'s stall
-watchdog is ROADMAP A8 and refuses.
+:mod:`apex_tpu_torch.observe.registry`.  Every dispatch heartbeats the
+stall watchdog (the executor's serve kinds), and ``run(watchdog_deadline_s=
+...)`` arms one over the loop.
 
 Greedy decoding only, as in the JAX package: serving parity is pinned
 against ``inference.DecodeSession``.
@@ -53,10 +54,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .._unported import refuse
 from ..inference.decode import compute_dtype, model_device
 from ..kernels.spec_verify import spec_verify_fp, spec_verify_pays
 from ..observe import registry as _obs
+from ..observe import watchdog as _watchdog
 from ..runtime import executor as _executor
 from . import kernels as _kernels
 from .pool import BlockPool, blocks_for, init_pool_buffer
@@ -69,8 +70,6 @@ _SERVE_TOKENS = itertools.count()
 
 #: engine roles in a disaggregated deployment (serve/disagg.py)
 PHASES = ("unified", "prefill", "decode")
-
-_A8 = "ROADMAP A8, observe/"
 
 
 def _dtype_name(dtype) -> str:
@@ -491,12 +490,11 @@ class ServeEngine:
 
         ``arrivals``: optional per-request tick indices (an open-loop
         trace: request i becomes visible at tick ``arrivals[i]``); None
-        submits everything up front.  ``watchdog_deadline_s`` (a stall
-        watchdog over the loop) is ROADMAP A8 and refused."""
-        if watchdog_deadline_s is not None:
-            refuse("ServeEngine.run(watchdog_deadline_s=...), the stall "
-                   "watchdog", _A8)
-        return run_trace(self, requests, arrivals, max_ticks)
+        submits everything up front.  ``watchdog_deadline_s`` arms a stall
+        watchdog over the loop: every dispatch heartbeats, so a card that
+        stops fires ``watchdog.stall`` instead of hanging unseen."""
+        return run_trace(self, requests, arrivals, max_ticks,
+                         watchdog_deadline_s)
 
     # -- internals ---------------------------------------------------------
 
@@ -572,10 +570,12 @@ class ServeEngine:
         return [s for s in ds if s.draft_position == s.position]
 
     def _spec_pays(self, sessions: List[Session]) -> bool:
-        """``spec_policy="on"`` always speculates; ``"auto"`` asks
-        :func:`~apex_tpu_torch.kernels.spec_verify.spec_verify_pays` for
-        this bucket shape (no measured verdict in the port: plain decode
-        ticks, the catch-up path keeping the draft cache consistent)."""
+        """``spec_policy="on"`` always speculates; ``"auto"`` asks the
+        dispatch ledger (:func:`~apex_tpu_torch.kernels.spec_verify.
+        spec_verify_pays`, ``decide()`` cached per bucket shape) whether
+        this card's measured verify win covers this shape; below it the
+        engine runs plain decode ticks and the catch-up path keeps the
+        draft cache consistent."""
         if self._spec_policy == "on":
             return True
         b = bucket(len(sessions), self.scheduler.max_batch)
@@ -583,7 +583,7 @@ class ServeEngine:
         nbd = bucket(max(len(s.draft_table) for s in sessions))
         return spec_verify_pays(spec_verify_fp(
             b=b, k=self.spec_k, s_t=nbt * self.block_size,
-            s_d=nbd * self.block_size, dtype=self._dtype_name))
+            s_d=nbd * self.block_size, dtype=self._dtype_name), self.device)
 
     def _ensure_decode_blocks(self) -> None:
         """Every decoding session needs its table to cover the rows this
@@ -857,24 +857,35 @@ class ServeEngine:
         return out
 
 
-def run_trace(engine, requests, arrivals=None, max_ticks=None):
+def run_trace(engine, requests, arrivals=None, max_ticks=None,
+              watchdog_deadline_s=None):
     """The open-loop serve loop of :meth:`ServeEngine.run` and
     ``DisaggregatedEngine.run``: request i is submitted once the engine's
     tick reaches ``arrivals[i]`` (all at tick 0 when None), and the engine
-    steps until it is drained (or ``max_ticks``).  Returns
+    steps until it is drained (or ``max_ticks``), under a
+    :class:`~apex_tpu_torch.observe.watchdog.StallWatchdog` of
+    ``watchdog_deadline_s`` when one is given.  Returns
     ``{rid: tokens}``."""
     pending = sorted(
         zip(arrivals if arrivals is not None else [0] * len(requests),
             range(len(requests))),
         key=lambda p: (p[0], p[1]))
-    i = 0
-    while True:
-        while i < len(pending) and pending[i][0] <= engine.tick:
-            engine.submit(requests[pending[i][1]])
-            i += 1
-        more = engine.step()
-        if not more and i >= len(pending):
-            break
-        if max_ticks is not None and engine.tick >= max_ticks:
-            break
+    wd = _watchdog.StallWatchdog(watchdog_deadline_s) \
+        if watchdog_deadline_s else None
+    if wd is not None:
+        wd.start()
+    try:
+        i = 0
+        while True:
+            while i < len(pending) and pending[i][0] <= engine.tick:
+                engine.submit(requests[pending[i][1]])
+                i += 1
+            more = engine.step()
+            if not more and i >= len(pending):
+                break
+            if max_ticks is not None and engine.tick >= max_ticks:
+                break
+    finally:
+        if wd is not None:
+            wd.stop()
     return dict(engine.results)

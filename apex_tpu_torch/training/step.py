@@ -33,10 +33,16 @@ observes each call's device skip flag; the chaos hook ``train.step``
 step.
 
 Gradient accumulation (``accum_steps``) and lr schedules (``lr_schedule``)
-run as in the JAX step.  What the JAX step does beyond that is owed to
-later slices and refused here with ``NotImplementedError``: data, tensor
-and ZeRO parallelism, flat masters and telemetry.  An optimizer other than
-the four fused ones raises ``TypeError``, as in the JAX step.
+run as in the JAX step.  ``telemetry=True`` accumulates each window's loss,
+global gradient norm, loss scale and overflow count on the device, inside
+the captured step (``observe.telemetry``, ``StepState.telem``), and reads
+them back every ``drain_every`` calls (``TrainStep.drain_telemetry``: one
+device-to-host copy, then the accumulator reset in place).  Each call
+heartbeats the stall watchdog through the executor.  What the JAX step
+does beyond that is owed to later slices and refused here with
+``NotImplementedError``: data, tensor and ZeRO parallelism and flat
+masters.  An optimizer other than the four fused ones raises
+``TypeError``, as in the JAX step.
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ from .. import ops
 from ..amp.policy import disable_casts
 from ..amp.scaler import ScalerState, update_scale_state
 from ..kernels.dispatch import same_layout
+from ..observe import telemetry as _obs_telemetry
 from ..ops.multi_tensor import nonfinite_flag
 from ..runtime import chaos as _chaos
 from ..runtime import executor as _executor
@@ -69,6 +76,10 @@ class StepState(NamedTuple):
     scaler: ScalerState
     stats: list                  # the model's buffers (updated in place)
     step: torch.Tensor           # int32 scalar: applied optimizer steps
+    #: observe.StepTelemetry accumulator, or None (telemetry off): None has
+    #: no leaves, so a state and a checkpoint without telemetry are the
+    #: six-field ones
+    telem: Optional[object] = None
 
 
 def dropout_seed(rng_seed: int, step: int) -> int:
@@ -115,11 +126,17 @@ class TrainStep:
         self.calls = 0
         #: runtime.resilience.BadStepGuard attached by guard.attach(step)
         self._guard = None
+        #: on-device telemetry (make_train_step telemetry=) and the calls
+        #: between its drains
+        self._telemetry = False
+        self._drain_every = 1
 
     def __call__(self, *batch):
         if _chaos.active():
             batch = _chaos_taint(self, batch)
         self._seed(self.calls)
+        # the executor heartbeats the watchdog with the 1-based call count
+        # once the call is enqueued
         loss = _executor.executor.submit(self._program, (self.state,) + batch,
                                          step=self.calls + 1)
         self.calls += 1
@@ -127,7 +144,17 @@ class TrainStep:
             # the step's device skip flag, which the next call overwrites
             # in place: the guard copies it out without a host sync
             self._guard.observe(self.state.scaler.overflow)
+        if self._telemetry and self.calls % self._drain_every == 0:
+            self.drain_telemetry()
         return loss
+
+    def drain_telemetry(self):
+        """Read the on-device telemetry to the host and reset it in place
+        (:func:`apex_tpu_torch.runtime.executor.drain_telemetry`: one
+        device-to-host copy, the step's one host sync); emits a
+        ``train.telemetry`` event and returns the record (None when
+        telemetry is off or no window completed since the last drain)."""
+        return _executor.drain_telemetry(self)
 
     def graph_stats(self):
         """The captured graphs of this step: entries (batch signatures),
@@ -375,7 +402,8 @@ def build_opt_update(optimizer, params, group_idxs,
 
 def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
                        init_scale, scale_window, min_loss_scale,
-                       max_loss_scale, zero_flag, lr_schedule=None):
+                       max_loss_scale, zero_flag, lr_schedule=None,
+                       loss=None):
     """The post-gradient half of a step, on the device: unscale into fp32
     master gradients with the overflow flag, the optimizer update (skipped
     on the flag; with ``lr_schedule``, each group's lr times the schedule
@@ -388,7 +416,10 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
     channels-last weight gradient beside an OIHW weight) is copied into
     the master's layout first, as ``.grad`` accumulation does, since the
     kernels take each list in its param's layout; where the two agree
-    (channels-last weights and their gradients) nothing is copied.
+    (channels-last weights and their gradients) nothing is copied.  With
+    ``state.telem`` set, the window's ``loss``, the master gradients' norm,
+    the new loss scale and the flag are folded into it
+    (``observe.telemetry.accumulate``), written into its own tensors.
     Returns ``state``."""
     grads = [g if same_layout(g, m) else
              torch.empty_like(m, dtype=g.dtype).copy_(g)
@@ -426,6 +457,12 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
         sc.unskipped.copy_(new_scaler.unskipped)
         sc.overflow.copy_(flag.reshape(sc.overflow.shape))
         state.step.copy_(torch.where(skip, state.step, step_count))
+        telem = getattr(state, "telem", None)
+        if telem is not None:
+            new = _obs_telemetry.accumulate(
+                telem, loss=loss, master_grads=master_grads, flag=flag,
+                loss_scale=sc.loss_scale)
+            torch._foreach_copy_(list(telem), list(new))
     return state
 
 
@@ -496,9 +533,14 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     ported.  A model's buffers (BatchNorm's running statistics) are its
     own, updated in place by its forward, as the JAX step carries them
     through a skipped step too.  ``axis_name``, ``tp_axis``, the DDP knobs, ``zero_sharding``,
-    ``flat_master``, ``parallel`` and ``telemetry`` raise
-    ``NotImplementedError`` naming their ROADMAP item.  ``donate_state`` has
-    nothing to choose: the state is always updated in place."""
+    ``flat_master`` and ``parallel`` raise ``NotImplementedError`` naming
+    their ROADMAP item.  ``donate_state`` has nothing to choose: the state is
+    always updated in place.
+
+    ``telemetry=True`` adds an on-device accumulator to the state
+    (``state.telem``, see ``observe.telemetry``), folded inside the
+    captured step, and drains it every ``drain_every`` calls; the graph is
+    keyed on it, so a step with telemetry captures its own graph."""
     if axis_name is not None or gradient_predivide_factor != 1.0 \
             or allreduce_always_fp32:
         _refuse("data parallelism (axis_name and the DDP knobs)", PARALLEL)
@@ -524,8 +566,8 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, "
                          f"got {grad_accum_steps}")
-    if telemetry:
-        _refuse("telemetry", "ROADMAP A8, observe/")
+    if telemetry and drain_every < 1:
+        raise ValueError(f"drain_every must be >= 1, got {drain_every}")
 
     from ..inference.quant import is_quantized
     if is_quantized(model):
@@ -546,6 +588,9 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     init_state = init_step_state(params, buffers, model_dtypes, opt_init,
                                  init_scale)
     dev = params[0].device
+    if telemetry:
+        init_state = init_state._replace(
+            telem=_obs_telemetry.init_telemetry(dev))
     zero_flag = torch.zeros((), dtype=torch.int32, device=dev)
     takes_generator = "generator" in inspect.signature(
         model.forward).parameters
@@ -649,7 +694,7 @@ def make_train_step(model, optimizer, loss_fn: Callable,
             state, grads, opt_update, dynamic=dynamic,
             init_scale=init_scale, scale_window=scale_window,
             min_loss_scale=min_loss_scale, max_loss_scale=max_loss_scale,
-            zero_flag=zero_flag, lr_schedule=lr_schedule)
+            zero_flag=zero_flag, lr_schedule=lr_schedule, loss=loss)
         return loss
 
     def raw_step_fn(state: StepState, call_index, *batch):
@@ -663,5 +708,8 @@ def make_train_step(model, optimizer, loss_fn: Callable,
         "train_step", (next(_STEP_TOKENS), grad_accum_steps, accum_stacked,
                        bool(telemetry)),
         step_body, donate_argnums=(0,), generators=gens)
-    return TrainStep(model, optimizer, loss_fn, program, seed_calls,
-                     raw_step_fn, params, init_state)
+    ts = TrainStep(model, optimizer, loss_fn, program, seed_calls,
+                   raw_step_fn, params, init_state)
+    ts._telemetry = bool(telemetry)
+    ts._drain_every = int(drain_every)
+    return ts

@@ -357,12 +357,40 @@ Phases, each of which raises on failure:
    int8-cache session; the prefix cache on and off over 16 requests that
    share a 256-token prefix; ``DisaggregatedEngine`` with an int8-pool
    self-draft (k 3; the KV handoff's host peak one block; each speculative
-   tick's graph 124 LayerNorm nodes); a 96-block pool that preempts.  Tokens that differ from their reference must first
-   differ at a near tie (the reference's top two logits within
-   GEN_TIE_TOL).
+   tick's graph 124 LayerNorm nodes); a 96-block pool that preempts; the
+   unified trace once more through ``run(watchdog_deadline_s=5.0)`` (no
+   stall, the same tokens, nothing captured).  Tokens that differ from
+   their reference must first differ at a near tie (the reference's top
+   two logits within GEN_TIE_TOL);
+30. (last, after 28) ``observe_phase``: (a) GPT-2 small's step (16 x 1024,
+   bf16, FusedAdam, the chunked loss, dropout 0) with ``telemetry=True,
+   drain_every=4`` over 8 calls beside the step without: the first
+   drain's gradient norm bit for bit the eager recompute from the
+   pre-step state, ``loss_mean`` within 1e-6 of the calls' losses,
+   windows, overflows and scale exact, no device-to-host copy and no
+   synchronizing call between drains (a profiled window), the graphs'
+   nodes with and without, the replay's ms in turns; (d) the kernel
+   phase's times as this card's ledger (``build/observe_kernel_ledger
+   .json``) and the step's decisions from it, each on "pallas" with its
+   win; (b) ``pyprof.profile_step`` of the step, eager, 3 executions: the
+   flash, LayerNorm, loss and FusedAdam rows with their measured us,
+   matched + unattributed = the trace's kernel time, every hand-kernel
+   launch in a row or counted as dropped, the rows whose roofline
+   estimate exceeds their time listed; (c) a 2 s device sleep under a
+   0.5 s StallWatchdog inside ``span("observe.stall_probe")``: one
+   diagnostic, fired during the sleep, naming the span and the card; a
+   span's host cost; (d) ``ServeEngine(spec_policy="auto")`` over 16
+   requests: at the first bucket it asks about, its decision with no
+   spec_verify record ("xla", the prior), the probe at that bucket (one
+   verify dispatch against k + 1 chained decode dispatches) recorded, and
+   from then on that bucket decided from the record (source "ledger"), the
+   tokens those of serve_phase's unified run.
 
-The CPU sides of phases 5 and 7, of the layers phase (24) and of the serve
-phase (29) run in a process of their own (``chip_smoke.py --cpu-worker
+The CPU sides of phases 4, 5 and 7 and of Llama's card-against-CPU check,
+of amp O2's overflow skip, of ResNet-50's card-against-CPU check,
+of the legacy optimizers and the layers phase (24) and of the serve phase
+(29) run in a process of their own
+(``chip_smoke.py --cpu-worker
 DIR``, started under ``nice`` once the kernels are built, with the weights
 in a temporary directory and CUDA hidden from it), beside the card's
 phases; each of those phases waits for its side there and prints how long
@@ -374,8 +402,8 @@ profiled step prints its device operations (the train steps beside their
 count when the backward's sums were cast after the kernels).  It prints a
 JSON line of the BERT, NovoGrad-turn, Llama-step, LoRA, legacy-optimizer,
 layer, GPT profiled-step, dropout-arm, amp O1, ResNet-50 layout-turn,
-imagenet-arm, seq2seq, ViT, remat, RNN, graph, decode, inference and
-serve numbers, its own wall
+imagenet-arm, seq2seq, ViT, remat, RNN, graph, decode, inference, serve,
+resilience and observe numbers, its own wall
 time, one JSON line of per-kernel
 numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -1266,25 +1294,46 @@ def profile_phase(torch, model, out, steps=8):
                 print(f"    {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:90]}")
 
 
-def cpu_phase(torch, gpt, model, out, prefill_logits, step_logits):
-    """The same weights on the CPU (the plain versions): prefill logits of
-    the first 2 sequences and 8 teacher-forced decode steps."""
-    cpu = gpt.gpt2_small(max_positions=MAX_POS, dropout=0.0,
-                         attn_dropout=0.0, device="cpu").eval()
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    toks = out[:2].cpu()
-    tol = 1e-3     # fp32 on both sides, TF32 off; sums in other orders
-    print("card vs CPU (same weights; max abs logit difference):")
+def decode_cpu_inputs(model, out, prefill_logits, step_logits):
+    """What the CPU worker's decode check needs from a generate path: the
+    weights on the host, the first 2 sequences' tokens and the card's
+    logits (prefill and 8 teacher-forced decode steps)."""
+    return dict(sd={k: v.detach().cpu() for k, v in model.state_dict().items()},
+                toks=out[:2].cpu(), prefill=prefill_logits,
+                steps=list(step_logits))
+
+
+def decode_cpu_errors(torch, model, inputs):
+    """The CPU side of a generate path's card-against-CPU check (the CPU
+    worker's job): ``model`` (on the CPU, the plain versions) loaded with
+    the card's weights, the prefill of the first 2 sequences and 8
+    teacher-forced decode steps; each logit's largest difference from the
+    card's."""
+    model.load_state_dict(inputs["sd"])
+    model.eval()
+    toks = inputs["toks"]
+    errs = []
     with torch.inference_mode():
-        caches = cpu.init_caches(2, PROMPT + NEW)
-        logits, caches = cpu.prefill(toks[:, :PROMPT], caches)
-        check("prefill logits (2, 512, 50257)",
-              (logits - prefill_logits).abs().max().item(), tol)
-        for i, want in enumerate(step_logits):
+        caches = model.init_caches(2, PROMPT + NEW)
+        logits, caches = model.prefill(toks[:, :PROMPT], caches)
+        errs.append((f"prefill logits {tuple(logits.shape)}",
+                     (logits - inputs["prefill"]).abs().max().item()))
+        for i, want in enumerate(inputs["steps"]):
             t = PROMPT + i
-            logits, caches = cpu.decode_step(toks[:, t], caches, t)
-            check(f"decode step t={t} logits",
-                  (logits - want).abs().max().item(), tol)
+            logits, caches = model.decode_step(toks[:, t], caches, t)
+            errs.append((f"decode step t={t} logits",
+                         (logits - want).abs().max().item()))
+    return errs
+
+
+def cpu_phase(what, errs):
+    """A generate path's weights on the CPU against the card: the CPU
+    worker's decode_cpu_errors, each within 1e-3 (fp32 on both sides, TF32
+    off; sums in other orders)."""
+    print(f"{what} card vs CPU (same weights; max abs logit difference; the "
+          f"CPU side in the CPU worker):")
+    for name, err in errs:
+        check(name, err, 1e-3)
 
 
 def kernel_split_ms(torch, fn, names, calls=5):
@@ -2802,7 +2851,80 @@ def resnet_train_turns(torch, dispatch, models):
         [dict(arm=arm, **r) for arm, r in turns]
 
 
-def resnet_cpu_phase(torch, models):
+def _resnet_cpu_inputs(torch, models):
+    """resnet_cpu_phase's weights (torch's default initialisation on the
+    CPU from the seed) and batch (numpy's seed): the same in the main
+    process and the CPU worker."""
+    import numpy as np
+    torch.manual_seed(SEED + 22)
+    sd = models.resnet50(device="cpu").state_dict()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 1000, (2,)))
+    return sd, x, y
+
+
+def _resnet_run(torch, models, sd, x, y, dev, nhwc):
+    """One fp32 arm of resnet_cpu_phase: 3 steps of make_train_step +
+    FusedSGD on ``dev`` (NHWC through ``nn.to_channels_last``); the losses,
+    the masters, momenta and floating buffers after step 1, and the integer
+    buffers after step 3."""
+    from apex_tpu_torch import nn
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.training import make_train_step
+    m = models.resnet50(device=dev)
+    m.load_state_dict(sd)
+    xin = x
+    if nhwc:
+        nn.to_channels_last(m)
+        xin = x.permute(0, 2, 3, 1).contiguous()
+    step = make_train_step(m, FusedSGD(list(m.parameters()), **SGD_HYPER),
+                           _resnet_loss(torch), loss_scale=1.0)
+    losses = [float(step(xin.to(dev), y.to(dev)))]
+    # copies: on the CPU, .cpu() would alias what steps 2-3 update
+    first = ([t.to("cpu", copy=True) for t in step.state.master_params],
+             [t.to("cpu", copy=True)
+              for t in step.state.opt_state["momentum"]],
+             {n: b.to("cpu", copy=True) for n, b in m.named_buffers()
+              if b.is_floating_point()})
+    losses += [float(step(xin.to(dev), y.to(dev))) for _ in range(2)]
+    return (losses,) + first + (
+        {n: int(b) for n, b in m.named_buffers()
+         if not b.is_floating_point()},)
+
+
+def resnet_cpu_reference(torch, models):
+    """The CPU sides of resnet_cpu_phase (the CPU worker's job): the fp32
+    CPU arms, NCHW and NHWC, and the fp64 ``torch.optim.SGD`` loop."""
+    sd, x, y = _resnet_cpu_inputs(torch, models)
+    runs = {tag: _resnet_run(torch, models, sd, x, y, "cpu", nhwc)
+            for tag, nhwc in (("CPU", False), ("CPU NHWC", True))}
+    m = models.resnet50(device="cpu")
+    m.load_state_dict(sd)
+    m = m.double()
+    params = list(m.parameters())
+    opt = torch.optim.SGD(params, foreach=False, **SGD_HYPER)
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = torch.nn.functional.cross_entropy(m(x.double()), y)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        if len(losses) == 1:
+            first = ([p.detach().clone() for p in params],
+                     [opt.state[p]["momentum_buffer"].clone()
+                      for p in params],
+                     {n: b.clone() for n, b in m.named_buffers()
+                      if b.is_floating_point()})
+    runs["fp64"] = (losses,) + first + (
+        {n: int(b) for n, b in m.named_buffers()
+         if not b.is_floating_point()},)
+    return runs
+
+
+def resnet_cpu_phase(torch, models, cpu_runs):
     """make_train_step + FusedSGD (the bench's lr 0.1, momentum 0.9, weight
     decay 1e-4) on ResNet-50 at full width and depth from torch's default
     initialisation, batch 2 of 3 x 64 x 64, 3 steps: on the card and on the
@@ -2826,66 +2948,19 @@ def resnet_cpu_phase(torch, models):
     0.155); the running statistics it leaves (a forward, which is well
     conditioned) within 1e-4 of max(1, |ref|).  Steps 2-3 print their
     losses, which must be finite, and leave ``num_batches_tracked`` at 3 in
-    every run."""
+    every run.  The CPU arms and the fp64 loop come from the CPU worker
+    (``cpu_runs``, resnet_cpu_reference), from the same seed's weights and
+    batch."""
     import numpy as np
-    from apex_tpu_torch import nn
-    from apex_tpu_torch.optimizers import FusedSGD
-    from apex_tpu_torch.training import make_train_step
     torch.set_num_threads(main_threads())
+    sd, x, y = _resnet_cpu_inputs(torch, models)
     torch.backends.cudnn.deterministic = True
-    torch.manual_seed(SEED + 22)
-    sd = models.resnet50(device="cpu").state_dict()
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.standard_normal((2, 3, 64, 64)).astype(
-        np.float32))
-    y = torch.from_numpy(rng.integers(0, 1000, (2,)))
-    runs = {}
-    for tag, dev, nhwc in (("card", "cuda", False), ("CPU", "cpu", False),
-                           ("card NHWC", "cuda", True),
-                           ("CPU NHWC", "cpu", True)):
-        m = models.resnet50(device=dev)
-        m.load_state_dict(sd)
-        xin = x
-        if nhwc:
-            nn.to_channels_last(m)
-            xin = x.permute(0, 2, 3, 1).contiguous()
-        step = make_train_step(m, FusedSGD(list(m.parameters()),
-                                           **SGD_HYPER),
-                               _resnet_loss(torch), loss_scale=1.0)
-        losses = [float(step(xin.to(dev), y.to(dev)))]
-        # copies: on the CPU, .cpu() would alias what steps 2-3 update
-        first = ([t.to("cpu", copy=True) for t in step.state.master_params],
-                 [t.to("cpu", copy=True)
-                  for t in step.state.opt_state["momentum"]],
-                 {n: b.to("cpu", copy=True) for n, b in m.named_buffers()
-                  if b.is_floating_point()})
-        losses += [float(step(xin.to(dev), y.to(dev))) for _ in range(2)]
-        runs[tag] = (losses,) + first + (
-            {n: int(b) for n, b in m.named_buffers()
-             if not b.is_floating_point()},)
+    runs = {tag: _resnet_run(torch, models, sd, x, y, "cuda", nhwc)
+            for tag, nhwc in (("card", False), ("card NHWC", True))}
     torch.backends.cudnn.deterministic = False
-    m = models.resnet50(device="cpu")
-    m.load_state_dict(sd)
-    m = m.double()
-    params = list(m.parameters())
-    opt = torch.optim.SGD(params, foreach=False, **SGD_HYPER)
-    losses = []
-    for _ in range(3):
-        opt.zero_grad()
-        loss = torch.nn.functional.cross_entropy(m(x.double()), y)
-        loss.backward()
-        opt.step()
-        losses.append(float(loss.detach()))
-        if len(losses) == 1:
-            first = ([p.detach().clone() for p in params],
-                     [opt.state[p]["momentum_buffer"].clone()
-                      for p in params],
-                     {n: b.clone() for n, b in m.named_buffers()
-                      if b.is_floating_point()})
-    runs["fp64"] = (losses,) + first + (
-        {n: int(b) for n, b in m.named_buffers()
-         if not b.is_floating_point()},)
-    init = [sd[n] for n, _ in m.named_parameters()]
+    runs.update(cpu_runs)
+    names = [n for n, _ in models.resnet50(device="cpu").named_parameters()]
+    init = [sd[n] for n in names]
 
     def worst(pairs):
         """The largest per-tensor norm(a - ref) / norm(ref), and the
@@ -3768,12 +3843,64 @@ def _amp_model(torch, gpt, sd, dev, **kw):
     return m
 
 
+def amp_skip_history(torch, gpt, sd, dev):
+    """amp O2's overflow skip on ``dev`` (the card, or the CPU in the CPU
+    worker): GPT-2 small from ``sd``, FusedAdam, 3 iterations of a 1 x 8
+    batch drawn on the CPU from the seed, a non-finite gradient planted at
+    iteration 2; (skipped, loss scale) per iteration."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.amp._amp_state import _amp_state, reset
+    from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
+    from apex_tpu_torch.optimizers import FusedAdam
+    reset()
+    m = _amp_model(torch, gpt, {k: v.to(dev) for k, v in sd.items()}, dev)
+    opt = FusedAdam(list(m.parameters()), lr=LR, weight_decay=WD)
+    m, opt = amp.initialize(m, opt, opt_level="O2", verbosity=0,
+                            max_loss_scale=2.0 ** 10)
+    x = torch.randint(0, 50257, (1, 8), generator=torch.Generator()
+                      .manual_seed(SEED + 13)).to(dev)
+    rows = []
+    for i in range(3):
+        logits = m(x)
+        loss = SoftmaxCrossEntropyLoss.apply(
+            logits[:, :-1].reshape(-1, logits.shape[-1]),
+            x[:, 1:].reshape(-1), 0.0, -1, True).mean()
+        with amp.scale_loss(loss, opt) as scaled:
+            scaled.backward()
+            if i == 1:
+                p16 = opt._amp_stash.all_fp16_params[0]
+                p16.grad[(0,) * p16.grad.dim()] = float("inf")
+        before = opt.param_groups[0].get("step", 0)
+        opt.step()
+        opt.zero_grad()
+        rows.append((opt.param_groups[0].get("step", 0) == before,
+                     _amp_state.loss_scalers[0].loss_scale()))
+    del m, opt
+    reset()
+    return rows
+
+
+def amp_skip_check(card, cpu):
+    """amp O2's overflow skip, the card's history (amp_phase's) against the
+    CPU worker's (amp_skip_history): equal, and the expected skip and
+    halving."""
+    print("amp O2 overflow skip, batch 1 x 8, a non-finite gradient planted "
+          "at iteration 2:")
+    for dev, rows in (("cuda", card), ("cpu", cpu)):
+        print(f"  {dev}: (skipped, scale) per iteration {rows}")
+    if card != cpu or card != [(False, 1024.0), (True, 512.0), (False, 512.0)]:
+        raise AssertionError(f"amp skip history differs: card {card}, CPU "
+                             f"{cpu}")
+
+
 def amp_phase(torch, dispatch, gpt, model):
     """amp.initialize + scale_loss on GPT-2 small at full width with the
     fused xentropy loss: O2 (fp16, dynamic scale) with launch counts of one
     iteration, O3 (fp16 parameters and moments through the Adam kernel),
-    the overflow skip on the card and the CPU, and delay_unscale.  Returns
-    the launch counts of one O2 and one O3 iteration."""
+    the overflow skip on the card (held against the CPU worker's by
+    amp_skip_check, later in the run), and delay_unscale.  Returns the
+    launch counts of one O2 and one O3 iteration and the card's skip
+    history."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.amp._amp_state import _amp_state, reset
     from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
@@ -3838,36 +3965,7 @@ def amp_phase(torch, dispatch, gpt, model):
                                  f"{losses}")
         del m, opt
 
-    print("amp O2 overflow skip, batch 1 x 8, a non-finite gradient planted "
-          "at iteration 2:")
-    hist = {}
-    for dev in ("cuda", "cpu"):
-        reset()
-        m = _amp_model(torch, gpt, {k: v.to(dev) for k, v in sd.items()},
-                       dev)
-        opt = FusedAdam(list(m.parameters()), lr=LR, weight_decay=WD)
-        m, opt = amp.initialize(m, opt, opt_level="O2", verbosity=0,
-                                max_loss_scale=2.0 ** 10)
-        x = ids[:1, :8].to(dev)
-        rows = []
-        for i in range(3):
-            loss = loss_of(m(x), x)
-            with amp.scale_loss(loss, opt) as scaled:
-                scaled.backward()
-                if i == 1:
-                    p16 = opt._amp_stash.all_fp16_params[0]
-                    p16.grad[(0,) * p16.grad.dim()] = float("inf")
-            before = opt.param_groups[0].get("step", 0)
-            opt.step()
-            opt.zero_grad()
-            rows.append((opt.param_groups[0].get("step", 0) == before,
-                         _amp_state.loss_scalers[0].loss_scale()))
-        hist[dev] = rows
-        print(f"  {dev}: (skipped, scale) per iteration {rows}")
-        del m, opt
-    if hist["cuda"] != hist["cpu"] or \
-            hist["cuda"] != [(False, 1024.0), (True, 512.0), (False, 512.0)]:
-        raise AssertionError(f"amp skip history differs: {hist}")
+    skip_history = amp_skip_history(torch, gpt, sd, "cuda")
 
     print("amp O2 delay_unscale: two backward passes (1 x 256) into one "
           "step, delayed against undelayed:")
@@ -3913,7 +4011,7 @@ def amp_phase(torch, dispatch, gpt, model):
     check("two batches: master gradients, worst tensor max of (|diff| - "
           "0.02 |ref|) / max |ref|", worst, 1e-3)
     reset()
-    return counts
+    return counts, skip_history
 
 
 # the JAX bench's llama_125m (bench.py:1424-1430, :1704-1706)
@@ -4353,27 +4451,6 @@ def llama_generate_path(torch, dispatch, gpt, llama):
         arms, wall_s=wall,
         eager_int_loop_tokens_per_s=BATCH * (NEW - 1) / decode_s)
     return model, out, counts, prefill_logits, step_logits
-
-
-def llama_cpu_phase(torch, llama, model, out, prefill_logits, step_logits):
-    """The same Llama weights on the CPU (the plain versions): prefill
-    logits of the first 2 sequences and 8 teacher-forced decode steps."""
-    cpu = llama.LlamaModel(**LLAMA, max_positions=MAX_POS,
-                           device="cpu").eval()
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    toks = out[:2].cpu()
-    tol = 1e-3     # fp32 on both sides, TF32 off; sums in other orders
-    print("Llama card vs CPU (same weights; max abs logit difference):")
-    with torch.inference_mode():
-        caches = cpu.init_caches(2, PROMPT + NEW)
-        logits, caches = cpu.prefill(toks[:, :PROMPT], caches)
-        check(f"prefill logits (2, {PROMPT}, {LLAMA['vocab_size']})",
-              (logits - prefill_logits).abs().max().item(), tol)
-        for i, want in enumerate(step_logits):
-            t = PROMPT + i
-            logits, caches = cpu.decode_step(toks[:, t], caches, t)
-            check(f"decode step t={t} logits",
-                  (logits - want).abs().max().item(), tol)
 
 
 def _kernel_lm_loss():
@@ -5898,37 +5975,30 @@ def _allclose_check(what, got, ref, rtol, atol):
     check(f"{what} (max of |card - CPU| - {rtol:g} |CPU|)", worst, atol)
 
 
-def legacy_optimizer_phase(torch, shapes):
-    """The deprecated-API optimizers at GPT-2 small's parameter list
-    (``shapes``), 3 steps each on the card and on the CPU from the same
-    values: the legacy FusedAdam with the sqrt(v) + eps denominator, a loss
-    scale of 1024 on fp16 gradients given as ``grads=``, fp16
-    ``output_params`` and the ``max_grad_norm`` clip fed by ``grad_norms``;
-    with eps inside the sqrt on the params' own fp32 ``.grad``; the contrib
-    FusedLAMB (global-norm clip); and FP16_Optimizer over a legacy
-    FusedAdam of fp16 params (dynamic scale from 2^10) with an inf planted
-    at step 2, which both devices must skip, halving the scale.  Each is
-    held to the JAX tests' tolerances; the host ms of each ``step()`` call
-    on the card and one more step's device busy ms (``torch.profiler``)
-    are printed.  Returns the numbers."""
+def legacy_data(torch, shapes):
+    """The legacy optimizers' parameters and 3 gradient sets at GPT-2
+    small's parameter list (``shapes``), drawn on the CPU from the seed, so
+    that the CPU worker draws the same values as the card's side."""
+    g = torch.Generator().manual_seed(SEED + 50)
+    init = [torch.randn(s, generator=g) * 0.02 for s in shapes]
+    grads = [[torch.randn(s, generator=g) for s in shapes] for _ in range(3)]
+    return init, grads
+
+
+def _legacy_arms(torch, init, grads, hist):
+    """The legacy optimizers as ``(name, make(dev), rtol, atol)``:
+    ``make(dev)`` gives (the tensors the steps write, prepare(i), step())
+    on ``dev``, from ``init`` (the parameters, any device) and ``grads[dev]``
+    (3 gradient sets on ``dev``); FP16_Optimizer's (overflow, scale) after
+    each step goes to ``hist[dev]``."""
     from apex_tpu_torch.contrib.optimizers import (FP16_Optimizer, FusedAdam,
                                                    FusedLAMB)
-    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
     f16 = torch.float16
-    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
-    init = [torch.randn(s, generator=g, device="cuda") * 0.02
-            for s in shapes]
-    grads = {"cuda": [[torch.randn(s, generator=g, device="cuda")
-                       for s in shapes] for _ in range(3)]}
-    grads["cpu"] = [[t.cpu() for t in gs] for gs in grads["cuda"]]
-    print(f"legacy optimizers at GPT-2 small's {len(shapes)} tensors "
-          f"({n_el} values), card vs CPU, 3 steps each:")
 
     def params_on(dev, dtype=torch.float32):
         return [torch.nn.Parameter(t.to(dev, dtype, copy=True))
                 for t in init]
 
-    # each maker gives (the tensors the steps write, prepare(i), step())
     def adam_scaled(dev):
         ps = params_on(dev)
         outs = [p.detach().to(f16) for p in ps]
@@ -5959,8 +6029,6 @@ def legacy_optimizer_phase(torch, shapes):
         opt = FusedLAMB(ps, lr=1e-3, weight_decay=0.01, max_grad_norm=1.0)
         return ps, with_grads(ps, dev), opt.step
 
-    hist = {}
-
     def fp16_opt(dev):
         ps = params_on(dev, f16)
         opt = FP16_Optimizer(FusedAdam(ps, lr=1e-3, max_grad_norm=1.0),
@@ -5982,30 +6050,66 @@ def legacy_optimizer_phase(torch, shapes):
         return ps + [m for grp in opt.fp32_groups for m in grp], prepare, \
             step
 
-    out = {}
-    for name, make, rtol, atol in (
-            ("FusedAdam scale 1024, fp16 grads and output_params, clip",
+    return (("FusedAdam scale 1024, fp16 grads and output_params, clip",
              adam_scaled, 2e-5, 2e-6),
             ("FusedAdam eps_inside_sqrt", adam_eps_inside, 2e-5, 2e-6),
             ("contrib FusedLAMB, clip", lamb, 3e-5, 3e-6),
             ("FP16_Optimizer(FusedAdam), dynamic scale, inf at step 2",
-             fp16_opt, 2e-5, 2e-6)):
-        res, host = {}, []
-        for dev in ("cuda", "cpu"):
-            tensors, prepare, step = make(dev)
-            for i in range(3):
-                prepare(i)
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                step()
-                if dev == "cuda":
-                    host.append(1e3 * (time.perf_counter() - t0))
-            res[dev] = [t.detach().cpu() for t in tensors]
-            if dev == "cuda":
-                prepare(3)
-                _, busy, _, n_ops = _profiled(torch, step)
-            del tensors, prepare, step
+             fp16_opt, 2e-5, 2e-6))
+
+
+def legacy_reference(torch, shapes):
+    """The CPU side of legacy_optimizer_phase (the CPU worker's job): each
+    legacy optimizer's 3 steps on the CPU from legacy_data's values; the
+    tensors they wrote and FP16_Optimizer's history."""
+    init, grads = legacy_data(torch, shapes)
+    hist, out = {}, {}
+    for name, make, _, _ in _legacy_arms(torch, init, {"cpu": grads}, hist):
+        tensors, prepare, step = make("cpu")
+        for i in range(3):
+            prepare(i)
+            step()
+        out[name] = [t.detach() for t in tensors]
+        del tensors, prepare, step
+    return dict(tensors=out, hist=hist["cpu"])
+
+
+def legacy_optimizer_phase(torch, shapes, ref):
+    """The deprecated-API optimizers at GPT-2 small's parameter list
+    (``shapes``), 3 steps each on the card from legacy_data's values,
+    against the CPU worker's 3 steps from the same values (``ref``,
+    legacy_reference): the legacy FusedAdam with the sqrt(v) + eps
+    denominator, a loss scale of 1024 on fp16 gradients given as
+    ``grads=``, fp16 ``output_params`` and the ``max_grad_norm`` clip fed by
+    ``grad_norms``; with eps inside the sqrt on the params' own fp32
+    ``.grad``; the contrib FusedLAMB (global-norm clip); and FP16_Optimizer
+    over a legacy FusedAdam of fp16 params (dynamic scale from 2^10) with
+    an inf planted at step 2, which both devices must skip, halving the
+    scale.  Each is held to the JAX tests' tolerances; the host ms of each
+    ``step()`` call on the card and one more step's device busy ms
+    (``torch.profiler``) are printed.  Returns the numbers."""
+    f16 = torch.float16
+    n_el = sum(int(torch.Size(s).numel()) for s in shapes)
+    init, grads = legacy_data(torch, shapes)
+    grads = {"cuda": [[t.cuda() for t in gs] for gs in grads]}
+    print(f"legacy optimizers at GPT-2 small's {len(shapes)} tensors "
+          f"({n_el} values), card vs CPU (the CPU worker's), 3 steps each:")
+    hist = {"cpu": ref["hist"]}
+    out = {}
+    for name, make, rtol, atol in _legacy_arms(torch, init, grads, hist):
+        host = []
+        tensors, prepare, step = make("cuda")
+        for i in range(3):
+            prepare(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            host.append(1e3 * (time.perf_counter() - t0))
+        res = {"cuda": [t.detach().cpu() for t in tensors],
+               "cpu": ref["tensors"][name]}
+        prepare(3)
+        _, busy, _, n_ops = _profiled(torch, step)
+        del tensors, prepare, step
         half = [i for i, t in enumerate(res["cpu"]) if t.dtype == f16]
         full = [i for i in range(len(res["cpu"])) if i not in half]
         print(f"  {name}: host {', '.join(f'{t:.2f}' for t in host)} ms a "
@@ -8624,6 +8728,35 @@ def serve_phase(torch, dispatch, gpt, inference, serve, cpu_ref):
         raise AssertionError(f"serve: the repeated trace gave other tokens "
                              f"({again == out}) or captured again ({caps0} "
                              f"-> {caps1})")
+    # the same trace once more through ServeEngine.run under its stall
+    # watchdog (the observe phase's (c)): no stall, the same tokens,
+    # nothing captured
+    from apex_tpu_torch.observe import registry as obs_reg
+    stalls0 = len(obs_reg.events("watchdog.stall"))
+    eng.block_pool.flush_cache()
+    torch.cuda.synchronize()
+    t_w = time.perf_counter()
+    got_w = eng.run([serve.Request(r.rid, r.prompt, r.max_new_tokens)
+                     for r in reqs], arrivals=[a + eng.tick
+                                               for a in arrivals],
+                    watchdog_deadline_s=5.0)
+    torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t_w
+    got_w = {r.rid: got_w[r.rid] for r in reqs}
+    caps2 = {k: executor.graph_stats(p)["captures"]
+             for k, p in eng.programs().items()}
+    n_tok = sum(len(v) for v in got_w.values())
+    watchdog_run = dict(wall_s=wall_w, tokens=n_tok,
+                        tokens_per_s=n_tok / wall_w,
+                        stalls=len(obs_reg.events("watchdog.stall"))
+                        - stalls0, deadline_s=5.0)
+    print(f"  serve unified, the same trace under run(watchdog_deadline_s="
+          f"5.0): {n_tok} tokens in {wall_w:.2f} s = "
+          f"{n_tok / wall_w:.1f} tokens/s (host clock), "
+          f"{watchdog_run['stalls']} stalls, the same tokens "
+          f"{got_w == out}, captures {caps2}")
+    if got_w != out or caps2 != caps0 or watchdog_run["stalls"]:
+        raise AssertionError(f"serve under the watchdog: {watchdog_run}")
     bound = serve_bucket_bound(serve, reqs)
     stats = step_cache.kind_stats("decode_step")
     if not 1 <= caps0["decode_step"] <= bound:
@@ -8788,7 +8921,8 @@ def serve_phase(torch, dispatch, gpt, inference, serve, cpu_ref):
     nums["seconds"] = secs
     print("serve phases: " + ", ".join(f"{k} {v:.1f} s"
                                        for k, v in secs.items()))
-    return total, nums
+    return total, nums, dict(tokens=out, reqs=reqs, arrivals=arrivals,
+                             watchdog_run=watchdog_run)
 
 
 # (main's line, seconds since the previous lap) of this run's phases
@@ -9112,7 +9246,551 @@ def resilience_phase(torch, dispatch, models, card):
 # --- the CPU halves of the card-against-CPU phases, in a process of their
 # own beside the card's phases ----------------------------------------------
 
-CPU_WORKER_JOBS = ("train_cpu", "train_modes_cpu", "layers", "serve_cpu")
+# --- observe: telemetry in the graph, pyprof, the watchdog, the ledger ----
+
+OBS_CALLS, OBS_DRAIN = 8, 4     # telemetry step calls, calls a drain
+OBS_TURNS = ("plain", "telemetry", "telemetry", "plain")
+OBS_TURN_STEPS = 5              # replays a timed turn
+OBS_SPANS = 10_000              # spans (and bare profiler ranges) timed
+OBS_PROFILE_EXECUTIONS = 3      # pyprof.profile_step's executions
+OBS_STALL_MS, OBS_STALL_DEADLINE_S = 2000, 0.5
+OBS_EFF_LIMIT = 1.05            # a row above: a count fault of the models
+OBS_PROBE_UNITS = 10            # spec probe: timed units a turn
+OBS_LEDGER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "observe_kernel_ledger.json")
+# the GPT-2 small step's kernels, by their ledger names
+GPT_STEP_KERNELS = ("flash_attention", "flash_attention_bwd", "layer_norm",
+                    "layer_norm_bwd", "xentropy", "xentropy_bwd",
+                    "multi_tensor_adam")
+# the pyprof rows that hold the step's hand kernels
+OBS_PROFILE_OPS = ("flash_attention", "fused_layer_norm_affine",
+                   "chunked_lm_head_loss", "optimizer.FusedAdam.step")
+_ROWS_KEY = re.compile(r"\((\d+), (\d+)\) (\w+)")
+_DTYPE_WORDS = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}
+
+
+def _rows_key(key):
+    """``(rows, n, dtype)`` of a kernel phase's ``"(R, N) dtype"`` key."""
+    m = _ROWS_KEY.match(key)
+    return int(m.group(1)), int(m.group(2)), \
+        _DTYPE_WORDS.get(m.group(3), m.group(3))
+
+
+def kernel_ledger_entries(dispatch, fl, fl_train, dq, ln, lnb_times, xf, xb,
+                          rms_f, rmsb_times, lmx_f, lmx_dx, adam, sgd,
+                          shapes, rn_shapes):
+    """The kernel phase's own times as ledger records, one a timed shape:
+    the hand kernel's device ms (the wrapper's, or the whole backward's
+    launches) and its library call's (the plain version's where there is
+    none), keyed by the fingerprint the kernel's wrapper decides on."""
+    out = []
+
+    def add(kernel, fp, ms, yard, what):
+        if ms and yard:
+            out.append(dict(kernel=kernel, fp=fp, pallas_us=1e3 * ms,
+                            xla_us=1e3 * yard, what=what))
+
+    def yard(r):
+        return r.get("library_ms") or r.get("plain_ms")
+    gfp = dispatch.attention_fp(1, TRAIN_BATCH * 12, TRAIN_SEQ, TRAIN_SEQ,
+                                64, "bfloat16", True)
+    add("flash_attention", gfp, fl_train["ms"], yard(fl_train),
+        "tc forward, GPT step")
+    add("flash_attention_bwd", gfp, dq["whole_ms"], yard(dq),
+        "tc backward, both launches, GPT step")
+    add("flash_attention", dispatch.attention_fp(
+        1, 96, 512, 512, 64, "float32", True), fl["ms"], yard(fl),
+        "simt forward, generate's prefill")
+    for kind, fwd, bwd in (("layer_norm", ln, lnb_times),
+                           ("rms_norm", rms_f, rmsb_times)):
+        for key, t in fwd["shapes"].items():
+            add(kind, dispatch.rows_fp(*_rows_key(key)), t["wrapper_ms"],
+                t["library_ms"], f"forward {key}")
+        for key, t in bwd.items():
+            add(f"{kind}_bwd", dispatch.rows_fp(*_rows_key(key)),
+                t["wrapper_ms"], t["library_ms"],
+                f"backward, both launches, {key}")
+    for kernel, r in (("xentropy", xf), ("xentropy_bwd", xb)):
+        add(kernel, dispatch.rows_fp(TRAIN_BATCH * (TRAIN_SEQ - 1), 50257,
+                                     "bfloat16"), r["ms"], yard(r),
+            "the fused loss's shape")
+        for sub in ("chunk_shape", "bert_shape", "seq2seq_chunk_shape"):
+            add(kernel, dispatch.rows_fp(*_rows_key(r[sub]["shape"])),
+                r[sub]["ms"], yard(r[sub]), r[sub]["shape"])
+    vfp = dispatch.vocab_chain_fp(TRAIN_BATCH * (TRAIN_SEQ - 1), 32000, 768,
+                                  "bfloat16")
+    add("vocab_chain_loss", vfp, lmx_f["ms"], yard(lmx_f), "tc forward")
+    add("vocab_chain_loss_bwd", vfp, lmx_dx["whole_ms"], yard(lmx_dx),
+        "tc backward, both launches")
+    add("multi_tensor_adam", dispatch.multi_tensor_fp(
+        "adam", sum(math.prod(s) for s in shapes), len(shapes), "bfloat16"),
+        adam["ms"], adam["library_ms"], "GPT-2 small's list, bf16 grads")
+    add("multi_tensor_sgd", dispatch.multi_tensor_fp(
+        "sgd", sum(math.prod(s) for _, s in rn_shapes), len(rn_shapes),
+        "bfloat16"), sgd["step"]["ms"], sgd["step"]["library_ms"],
+        "ResNet-50's list, bf16 and fp32 grads")
+    return out
+
+
+def _dot_nodes(texts):
+    """The nodes of captured graphs' DOT text."""
+    return sum(len(_DOT_NODE.findall(t)) for t in texts)
+
+
+def telemetry_arm(torch, dispatch, model, ids):
+    """(a) GPT-2 small's step with ``telemetry=True, drain_every=4`` over
+    8 calls (1 eager, 2 captured, 3-8 replayed: two drains), beside the
+    same step without telemetry.  Holds the first drain's gradient norm bit
+    for bit against the eager recompute from the pre-step state (a twin
+    step loaded with that state, its un-captured call), the drained
+    ``loss_mean`` within 1e-6 of the calls' losses, windows, overflows and
+    scale exactly; no device-to-host copy and no synchronizing call between
+    drains (a profiled window of 3 replays); the graphs' nodes with and
+    without telemetry; the replay's ms in turns.  Returns (the telemetry
+    step, call 1's launches, numbers)."""
+    from apex_tpu_torch.observe import get_registry
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.runtime import executor
+    from apex_tpu_torch.training import make_train_step
+    reg = get_registry()
+
+    def make(**kw):
+        return make_train_step(
+            model, FusedAdam(list(model.parameters()), lr=LR,
+                             weight_decay=WD), _chunked_lm_loss(),
+            half_dtype=torch.bfloat16, loss_scale=1.0, **kw)
+    plain = make()
+    tel = make(telemetry=True, drain_every=OBS_DRAIN)
+    twin = make(telemetry=True, drain_every=10 ** 9)
+    reg.clear_events()
+    losses, nums = [], {}
+    # what an empty profiled window counts (the profiler's own stop)
+    base = _host_syncs(torch, lambda: None)
+    while tel.calls < OBS_CALLS:
+        c = tel.calls
+        if c == OBS_DRAIN:
+            # calls 5-7 in one profiled window, between the two drains:
+            # their losses stay on the device until after it
+            syncs = _host_syncs(torch, lambda: losses.extend(
+                [tel(ids, ids) for _ in range(OBS_DRAIN - 1)]))
+            continue
+        if c == OBS_DRAIN - 1:
+            twin.load_state(tel.state)      # the pre-step state of call 4
+        torch.cuda.synchronize()
+        dispatch.reset_counts()
+        losses.append(tel(ids, ids))
+        if c == 0:
+            torch.cuda.synchronize()
+            counts = dispatch.counts()
+        if c == OBS_DRAIN - 1:
+            _, recompute_loss = twin._raw_step_fn(twin.state, c, ids, ids)
+            recompute = float(twin.state.telem.grad_norm)
+    losses = [float(x) for x in losses]
+    recs = reg.events("train.telemetry")
+    plain_losses = [float(plain(ids, ids)) for _ in range(OBS_CALLS)]
+    tg, pg = tel.graph_stats(), plain.graph_stats()
+    first = recs[0]
+    mean4 = sum(losses[:OBS_DRAIN]) / OBS_DRAIN
+    ok = (len(recs) == 2 and [r["step"] for r in recs] == [4, 8]
+          and all(r["windows"] == OBS_DRAIN and r["overflow_count"] == 0
+                  and r["loss_scale"] == 1.0 for r in recs)
+          and first["grad_norm"] == recompute
+          and abs(first["loss_mean"] - mean4) <= 1e-6 * abs(mean4)
+          and tg["captures"] == pg["captures"] == 1
+          and tg["replays"] - tg["captures"] == OBS_CALLS - 2
+          and syncs == base)
+    tdot, pdot = executor.graph_dot(tel._program), \
+        executor.graph_dot(plain._program)
+    tk = _dot_kernel_counts(tdot, counts)
+    pk = _dot_kernel_counts(pdot, counts)
+    nodes = dict(telemetry=_dot_nodes(tdot), plain=_dot_nodes(pdot))
+    print(f"observe phase (a): GPT-2 small make_train_step, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, bf16, FusedAdam, chunked loss, "
+          f"dropout 0, telemetry=True drain_every={OBS_DRAIN}, "
+          f"{OBS_CALLS} calls: drains {recs}; the first drain's grad_norm "
+          f"{first['grad_norm']!r} against the eager recompute from the "
+          f"pre-step state {recompute!r} (loss {float(recompute_loss)!r}); "
+          f"loss_mean {first['loss_mean']!r} against the calls' mean "
+          f"{mean4!r}; graphs: telemetry {tg}, plain {pg}; between drains "
+          f"(3 replays profiled) {syncs[0]} device-to-host copies, "
+          f"{syncs[1]} synchronizing calls, as many as an empty profiled "
+          f"window's {base}; graph nodes {nodes} (the "
+          f"accumulate's: {nodes['telemetry'] - nodes['plain']}); hand "
+          f"kernels in each graph equal: {tk == pk}")
+    if not ok or tk != pk or tk != counts:
+        raise AssertionError("observe (a): telemetry in the graph failed "
+                             "its checks (see the line above)")
+    walls = {a: [] for a in dict.fromkeys(OBS_TURNS)}
+    arms = {"plain": plain, "telemetry": tel}
+    for arm in OBS_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OBS_TURN_STEPS):
+            arms[arm](ids, ids)
+        torch.cuda.synchronize()
+        walls[arm].append(1e3 * (time.perf_counter() - t0) / OBS_TURN_STEPS)
+    ev = {a: _event_ms(torch, lambda s=s: s(ids, ids))
+          for a, s in arms.items()}
+    print(f"  replay ms in turns {'/'.join(OBS_TURNS)} ({OBS_TURN_STEPS} "
+          f"replays a turn, host clock, the telemetry arm draining every "
+          f"{OBS_DRAIN} calls): " + "; ".join(
+              f"{a} " + ", ".join(f"{v:.3f}" for v in vals)
+              for a, vals in walls.items())
+          + f"; one replay between CUDA events: plain {ev['plain']:.3f}, "
+          f"telemetry {ev['telemetry']:.3f}")
+    nums.update(drains=recs, grad_norm_recompute=recompute,
+                loss_mean_reference=mean4, graphs=dict(telemetry=tg,
+                                                       plain=pg),
+                syncs_between_drains=dict(d2h_copies=syncs[0],
+                                          sync_calls=syncs[1]),
+                syncs_empty_window=dict(d2h_copies=base[0],
+                                        sync_calls=base[1]),
+                graph_nodes=nodes, turns_ms=walls, event_ms=ev,
+                plain_losses=plain_losses)
+    del plain, twin
+    torch.cuda.empty_cache()
+    return tel, counts, nums
+
+
+def ledger_arm(torch, dispatch, tel, ids, entries):
+    """(d, first half) This card's kernel ledger under ``build/``: every
+    kernel and library time the kernel phase measured, one record a timed
+    shape, under ``chip_name()``; then one eager call of the telemetry
+    step decides its kernels from it: each on "pallas" (the card's rule),
+    the measured win beside it.  Returns (the ledger, numbers)."""
+    from apex_tpu_torch.kernels import ledger
+    if os.path.exists(OBS_LEDGER):
+        os.unlink(OBS_LEDGER)
+    led = ledger.set_path(OBS_LEDGER)
+    dispatch.reset_decisions()
+    chip = ledger.chip_name()
+    for e in entries:
+        led.record_kernel(chip, e["kernel"], e["fp"],
+                          pallas_us=e["pallas_us"], xla_us=e["xla_us"],
+                          source="chip_smoke kernel phase")
+    tel._raw_step_fn(tel.state, tel.calls, ids, ids)
+    torch.cuda.synchronize()
+    got = {d["kernel"]: d for d in dispatch.decisions()}
+    step = {k: got.get(k) for k in GPT_STEP_KERNELS}
+    print(f"observe phase (d): {len(entries)} ledger records under "
+          f"{chip!r} ({OBS_LEDGER}); the GPT step's decisions: " + "; ".join(
+              f"{k} {d['tier']} win {d['win']!r} ({d['source']})"
+              if d else f"{k} none" for k, d in step.items()))
+    if any(d is None or d["tier"] != "pallas" or d["win"] is None
+           for d in step.values()):
+        raise AssertionError(f"observe (d): the GPT step's decisions {step}")
+    slower = {k: d["win"] for k, d in got.items() if d["win"] is not None
+              and d["win"] < 1.0}
+    return led, dict(chip=chip, records=entries, decisions=list(got.values()),
+                     slower_than_library=slower)
+
+
+def pyprof_arm(torch, tel, ids):
+    """(b) ``pyprof.profile_step`` over the telemetry step's un-captured
+    call, 3 executions: the flash, LayerNorm, loss and FusedAdam rows
+    forward and backward with their measured µs; matched and unattributed
+    ms, the unattributed time by name, dropped launches.  Every hand-kernel
+    launch the wrappers counted in the window is in a row or counted as
+    dropped; matched + unattributed is the trace's kernel time.  Rows
+    whose eff (the roofline estimate over the measured time) exceeds
+    OBS_EFF_LIMIT are listed (a count fault of the FLOP or byte model),
+    not failed."""
+    from apex_tpu_torch import pyprof
+    k = [tel.calls]
+
+    def call():
+        tel._raw_step_fn(tel.state, k[0], ids, ids)
+        k[0] += 1
+    t0 = time.perf_counter()
+    rows, rep = pyprof.profile_step(call, executions=OBS_PROFILE_EXECUTIONS)
+    secs = time.perf_counter() - t0
+    by_op = {}
+    for r in rows:
+        if r["op"] in OBS_PROFILE_OPS:
+            o = by_op.setdefault(f"{r['op']} {r['dir']}", dict(
+                rows=0, meas_us=0.0, est_us=0.0, unmeasured=0))
+            o["rows"] += 1
+            o["est_us"] += r["est_us"]
+            if r["meas_us"] is None:
+                o["unmeasured"] += 1
+            else:
+                o["meas_us"] += r["meas_us"]
+    traced = dict.fromkeys(rep["launch_counts"], 0)
+    for name, n in rep["kernel_names"].items():
+        m = _KERNEL_NAME.search(name)
+        for counter in KERNEL_COUNTERS[m.group(1)] if m else ():
+            traced[counter] = traced.get(counter, 0) + n
+    primary = {v[0] for v in KERNEL_COUNTERS.values()}
+    short = sum(max(0, rep["launch_counts"].get(c, 0) - traced.get(c, 0))
+                for c in primary)
+    over = {c: traced[c] for c in primary & set(traced)
+            if traced[c] > rep["launch_counts"].get(c, 0)}
+    lost_rows = {k: v for k, v in rep["unattributed_by"].items()
+                 if _KERNEL_NAME.search(k)}
+    top = sorted((r for r in rows if r["meas_us"]),
+                 key=lambda r: -r["meas_us"])[:12]
+    high = [dict(op=r["op"], dir=r["dir"], shapes=r["shapes"][:3],
+                 dtype=(r["dtypes"] or ["-"])[0], eff=r["eff"],
+                 meas_us=r["meas_us"], est_us=r["est_us"])
+            for r in rows if r["eff"] is not None and r["eff"] > OBS_EFF_LIMIT]
+    print(f"observe phase (b): pyprof.profile_step of the GPT step, eager, "
+          f"{OBS_PROFILE_EXECUTIONS} executions ({secs:.1f} s with the "
+          f"trace's join; basis {rep['basis']}, {rep['items']} kernels): "
+          f"matched {rep['matched_ns'] / 1e6:.3f} ms + unattributed "
+          f"{rep['unattributed_ns'] / 1e6:.3f} ms = "
+          f"{rep['total_ns'] / 1e6:.3f} ms; dropped launches "
+          f"{rep['dropped_launches']} {rep['dropped_by']}; hand kernels: "
+          f"the wrappers counted {_nonzero(rep['launch_counts'])}, the "
+          f"trace shows {_nonzero(traced)}")
+    for key, o in by_op.items():
+        print(f"  {key}: {o['rows']} rows, measured {o['meas_us']:.1f} us "
+              f"an execution (roofline estimate {o['est_us']:.1f} us; "
+              f"{o['unmeasured']} rows unmeasured)")
+    print("  top rows: " + "; ".join(
+        f"{r['op']} {r['dir']} {r['shapes'][:2]} {r['meas_us']:.1f} us "
+        f"(est {r['est_us']:.1f}, eff {r['eff']})" for r in top))
+    print(f"  unattributed by name (us over the executions): "
+          f"{dict(list(rep['unattributed_by'].items())[:10])}")
+    print(f"  rows with eff > {OBS_EFF_LIMIT} (a count fault of the FLOP or "
+          f"byte model, listed, not failed): {high}")
+    want = [f"{op} {d}" for op in OBS_PROFILE_OPS for d in ("fwd", "bwd")
+            if not (op.startswith("optimizer.") and d == "bwd")]
+    if rep["matched_ns"] + rep["unattributed_ns"] != rep["total_ns"] \
+            or short > rep["dropped_launches"] or over or lost_rows \
+            or any(by_op.get(k, {}).get("meas_us", 0) <= 0 for k in want):
+        raise AssertionError(
+            f"observe (b): the profile's join: identity "
+            f"{rep['matched_ns'] + rep['unattributed_ns']} / "
+            f"{rep['total_ns']}, launches short {short} against dropped "
+            f"{rep['dropped_launches']}, over {over}, hand kernels "
+            f"unattributed {lost_rows}, rows {by_op}")
+    return dict(seconds=secs, by_op=by_op, top=[
+        dict(op=r["op"], dir=r["dir"], shapes=r["shapes"][:3],
+             meas_us=r["meas_us"], est_us=r["est_us"], eff=r["eff"])
+        for r in top], eff_over_limit=high,
+        report={k: v for k, v in rep.items() if k != "trace_dir"},
+        traced_hand_kernels=traced)
+
+
+def watchdog_arm(torch):
+    """(c, second half) An injected stall on the card: a StallWatchdog of
+    0.5 s, an open ``span("observe.stall_probe")``, a 2 s device sleep and
+    a synchronize on this thread.  Exactly one ``watchdog.stall`` must
+    come, fired while the card slept, naming the probe's span and the card.
+    Then the host cost of a span (and of a bare ``record_function`` with no
+    profiler on) over OBS_SPANS of them."""
+    from apex_tpu_torch import observe
+    reg = observe.get_registry()
+    cycles = int(_sleep_cycles_per_ms(torch) * OBS_STALL_MS)
+    torch.cuda.synchronize()
+    observe.heartbeat()
+    wd = observe.StallWatchdog(OBS_STALL_DEADLINE_S, poll_s=0.05)
+    wd.start()
+    try:
+        with observe.span("observe.stall_probe"):
+            t0 = time.monotonic()
+            torch.cuda._sleep(cycles)
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+        observe.heartbeat()
+    finally:
+        wd.stop()
+    evs = [e for e in reg.events("watchdog.stall")
+           if e["ts_ms"] >= t0 * 1e3]
+    d = wd.stalls[0] if wd.stalls else {}
+    fired = evs[0]["ts_ms"] / 1e3 - t0 if evs else None
+    print(f"observe phase (c): a {OBS_STALL_MS} ms device sleep under a "
+          f"{OBS_STALL_DEADLINE_S} s watchdog: {len(wd.stalls)} diagnostic, "
+          f"fired {fired!r} s into the sleep of {t1 - t0:.3f} s; last span "
+          f"{d.get('last_span')}; backend {d.get('backend')!r}; hint "
+          f"{d.get('hint', '')[:60]!r}...")
+    if len(wd.stalls) != 1 or len(evs) != 1 \
+            or not t0 * 1e3 <= evs[0]["ts_ms"] <= t1 * 1e3 \
+            or d["last_span"]["span"] != "observe.stall_probe" \
+            or d["backend"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"observe (c): the stall probe's diagnostics "
+                             f"{wd.stalls}, events {evs}")
+    t = time.perf_counter()
+    for _ in range(OBS_SPANS):
+        with observe.span("observe.cost"):
+            pass
+    span_us = 1e6 * (time.perf_counter() - t) / OBS_SPANS
+    t = time.perf_counter()
+    for _ in range(OBS_SPANS):
+        with torch.profiler.record_function("observe.cost"):
+            pass
+    rf_us = 1e6 * (time.perf_counter() - t) / OBS_SPANS
+    print(f"  host cost: {span_us:.3f} us a span (the event, the histogram, "
+          f"an NVTX range; {OBS_SPANS} spans), {rf_us:.3f} us a "
+          f"record_function range with no profiler on (not opened by a "
+          f"span then)")
+    return dict(stall=dict(diagnostics=wd.stalls, fired_s_into_sleep=fired,
+                           sleep_s=t1 - t0),
+                span_us=span_us, record_function_us=rf_us)
+
+
+def spec_probe(torch, eng, b, nbt, nbd, blocks):
+    """The spec_verify probe as the JAX bench defines it: one verify
+    dispatch against the k + 1 chained decode dispatches it replaces, on
+    the engine's self-draft, at batch bucket ``b`` with ``nbt``/``nbd``
+    table blocks drawn from ``blocks`` (free blocks of the engine's pool:
+    no live row is written), operands on the device (tokens chained on
+    the device), each arm through the engine's own programs (so as CUDA
+    graphs).  ms a unit in turns; returns (verify ms, chain ms, turns)."""
+    import numpy as np
+    k = eng.spec_k
+    _, spec_prog = eng._spec_programs()
+    _, dec_prog = eng._programs()
+    t_tab = [[blocks[(i * nbt + j) % len(blocks)] for j in range(nbt)]
+             for i in range(b)]
+    d_tab = [[blocks[(i * nbd + j) % len(blocks)] for j in range(nbd)]
+             for i in range(b)]
+    rng = np.random.default_rng(SEED + 41)
+    toks = [int(t) for t in rng.integers(1, 50257, b)]
+    v_ops = eng._ints(toks, [2] * b, t_tab, d_tab)
+    tok_t, pos_t, tab_t = eng._ints(toks, [2] * b, t_tab)
+
+    def verify():
+        eng._submit(spec_prog, (eng.pool, eng.dpool, *v_ops))
+
+    def chain():
+        tk = tok_t
+        for j in range(k + 1):
+            tk, _ = eng._submit(dec_prog, (eng.pool, tk, pos_t + j, tab_t))
+    arms = {"verify": verify, "chain": chain}
+    for fn in arms.values():
+        for _ in range(3):          # eager, capture, replay
+            fn()
+    out = {a: [] for a in arms}
+    for arm in ("verify", "chain", "chain", "verify"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OBS_PROBE_UNITS):
+            arms[arm]()
+        torch.cuda.synchronize()
+        out[arm].append(1e3 * (time.perf_counter() - t0) / OBS_PROBE_UNITS)
+    return statistics.median(out["verify"]), statistics.median(out["chain"]), \
+        out
+
+
+def spec_auto_arm(torch, dispatch, gpt, serve, inference, led, keep):
+    """(d, second half) ``ServeEngine(spec_policy="auto")`` on GPT-2 small
+    with a self-draft over the trace's first 16 requests.  At the first
+    bucket shape it asks about, the decision with no spec_verify record
+    (the prior "no"), then the probe at that bucket on free blocks,
+    recorded under this card; from then on the engine decides that shape
+    from the record (source "ledger", its win).  The tokens against
+    serve_phase's unified run, as its other arms are compared."""
+    from apex_tpu_torch.kernels import ledger
+    from apex_tpu_torch.kernels.spec_verify import spec_verify_fp
+    from apex_tpu_torch.observe import registry as obs
+    torch.manual_seed(SEED)
+    model = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0,
+                           attn_dropout=0.0, device="cuda").eval()
+    reqs, arrivals = keep["reqs"][:SERVE_SUB], keep["arrivals"][:SERVE_SUB]
+    want = {r.rid: keep["tokens"][r.rid] for r in reqs}
+    eng = serve.ServeEngine(model, num_blocks=SERVE_BLOCKS,
+                            block_size=SERVE_BLOCK, max_batch=SERVE_BATCH,
+                            prefill_chunk=SERVE_CHUNK,
+                            draft=inference.make_self_draft(model),
+                            spec_k=SERVE_SPEC_K, spec_policy="auto")
+    pays, state = eng._spec_pays, {}
+
+    def probing(sessions):
+        if not state:
+            b = serve.bucket(len(sessions), SERVE_BATCH)
+            nbt = serve.bucket(max(len(s.table) for s in sessions))
+            nbd = serve.bucket(max(len(s.draft_table) for s in sessions))
+            fp = spec_verify_fp(b=b, k=SERVE_SPEC_K, s_t=nbt * SERVE_BLOCK,
+                                s_d=nbd * SERVE_BLOCK, dtype=eng._dtype_name)
+            prior = dispatch.decide("spec_verify", fp, eng.device)
+            verify_ms, chain_ms, turns = spec_probe(
+                torch, eng, b, nbt, nbd, list(eng.block_pool._free))
+            rec = led.record_kernel(ledger.chip_name(), "spec_verify", fp,
+                                    pallas_us=1e3 * verify_ms,
+                                    xla_us=1e3 * chain_ms,
+                                    source="chip_smoke spec_verify probe")
+            dispatch.reset_decisions()
+            state.update(fp=fp, prior=prior, verify_ms=verify_ms,
+                         chain_ms=chain_ms, turns=turns, record=rec,
+                         bucket=dict(b=b, t_blocks=nbt, d_blocks=nbd))
+        return pays(sessions)
+    eng._spec_pays = probing
+    got, n = serve_run(torch, eng, [serve.Request(r.rid, r.prompt,
+                                                  r.max_new_tokens)
+                                    for r in reqs], arrivals,
+                       [eng.block_pool])
+    evs = [e for e in obs.events("kernels.dispatch")
+           if e["kernel"] == "spec_verify"]
+    mine = [e for e in evs if e["shape_fp"] == state["fp"]]
+    prior, rec = state["prior"], state["record"]
+    spec = eng.metrics()["spec"]
+    ties = _serve_against(torch, model, "spec_policy='auto' against the "
+                          "unified run", reqs, want, got)
+    after = [(e["shape_fp"], e["tier"], e["source"], e["win"]) for e in evs]
+    print(f"observe phase (d): ServeEngine(spec_policy='auto'), GPT-2 small "
+          f"with a self-draft, k {SERVE_SPEC_K}, {len(reqs)} requests, "
+          f"{n['tokens_per_s']:.1f} tokens/s (the probe inside the loop); "
+          f"the first bucket asked: {state['bucket']}, its decision with no "
+          f"record {prior.tier} ({prior.source}); probe: one verify dispatch "
+          f"{state['verify_ms']:.3f} ms against {SERVE_SPEC_K + 1} chained "
+          f"decode dispatches {state['chain_ms']:.3f} ms (turns "
+          f"{state['turns']}), win {rec['win']:.3f}; the decisions after "
+          f"the record: {after}; "
+          f"spec ticks {spec['ticks']}")
+    if (prior.tier, prior.source) != ("xla", "probe") or not mine \
+            or (mine[-1]["source"], mine[-1]["win"]) != ("ledger",
+                                                         rec["win"]):
+        raise AssertionError("observe (d): spec_policy='auto' against the "
+                             "ledger failed its checks (see above)")
+    eng.close()
+    return dict(bucket=state["bucket"], fp=state["fp"],
+                verify_ms=state["verify_ms"], chain_ms=state["chain_ms"],
+                probe_turns=state["turns"], record=rec, ties=ties,
+                prior=dict(tier=prior.tier, source=prior.source), run=n,
+                spec=spec, decisions=[dict(e) for e in evs])
+
+
+def observe_phase(torch, dispatch, gpt, serve, inference, entries, keep):
+    """This slice's phase (observe/, pyprof/, the ledger): (a) telemetry in
+    the GPT-2 small step's graph; (d) the kernel ledger and the step's
+    decisions from it; (b) pyprof on the card; (c) the injected stall, the
+    span's host cost (the serve loop under the watchdog ran in
+    serve_phase); (d) spec_policy="auto" from this card's probe.  Returns
+    (the telemetry step's call-1 launches, numbers)."""
+    t = time.perf_counter()
+    secs = {}
+    torch.manual_seed(SEED)
+    model = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0,
+                           attn_dropout=0.0, device="cuda")
+    model.output_hidden = True          # the chunked loss's input
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    ids = torch.randint(0, model.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                        generator=g, device="cuda")
+    tel, counts, nums = telemetry_arm(torch, dispatch, model, ids)
+    secs["telemetry"] = time.perf_counter() - t
+    t = time.perf_counter()
+    led, nums["ledger"] = ledger_arm(torch, dispatch, tel, ids, entries)
+    nums["pyprof"] = pyprof_arm(torch, tel, ids)
+    secs["ledger_pyprof"] = time.perf_counter() - t
+    del tel, model, ids
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    nums["watchdog"] = watchdog_arm(torch)
+    nums["watchdog"]["serve_run"] = keep["watchdog_run"]
+    secs["watchdog"] = time.perf_counter() - t
+    t = time.perf_counter()
+    nums["spec_auto"] = spec_auto_arm(torch, dispatch, gpt, serve,
+                                      inference, led, keep)
+    secs["spec_auto"] = time.perf_counter() - t
+    nums["seconds"] = secs
+    print("observe phases: " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in secs.items()))
+    return counts, nums
+
+
+CPU_WORKER_JOBS = ("train_cpu", "train_modes_cpu", "resnet_cpu", "generate_cpu",
+                   "llama_cpu", "amp_cpu", "legacy", "layers", "serve_cpu")
 # the host's cores split while the worker runs: its threads and the main
 # process's CPU work each take half, so neither oversubscribes the other
 CPU_WORKER_THREADS = 4
@@ -9127,17 +9805,38 @@ def main_threads():
 
 def cpu_worker(workdir):
     """``python3 chip_smoke.py --cpu-worker DIR``: compute the CPU sides of
-    train_cpu_phase, train_modes_cpu_phase, layers_phase and serve_phase
+    the generate paths' card-against-CPU checks (from the inputs the main
+    process hands over, ``CpuWorker.submit``), train_cpu_phase,
+    train_modes_cpu_phase, amp_phase's overflow skip,
+    resnet_cpu_phase, legacy_optimizer_phase, layers_phase and serve_phase
     from the weights in DIR (no card: CUDA is hidden from this process), each into
     DIR/<job>.pt as it completes, or DIR/<job>.err with the traceback."""
     import torch
     torch.set_num_threads(CPU_WORKER_THREADS)
     torch.backends.cuda.matmul.allow_tf32 = False
-    from apex_tpu_torch.models import gpt
+    from apex_tpu_torch import models
+    from apex_tpu_torch.models import gpt, llama
     sd = torch.load(os.path.join(workdir, "gpt.pt"))
     mlps = torch.load(os.path.join(workdir, "mlp.pt"))
-    jobs = {"train_cpu": lambda: train_cpu_reference(torch, gpt, sd),
+    shapes = torch.load(os.path.join(workdir, "shapes.pt"))
+
+    def given(name):
+        """The main process's input of job ``name``, once it is written."""
+        path = os.path.join(workdir, f"{name}.in.pt")
+        while not os.path.exists(path):
+            time.sleep(0.2)
+        return torch.load(path, weights_only=False)
+    jobs = {"generate_cpu": lambda: decode_cpu_errors(
+                torch, gpt.gpt2_small(max_positions=MAX_POS, dropout=0.0,
+                                      attn_dropout=0.0, device="cpu"),
+                given("generate_cpu")),
+            "llama_cpu": lambda: decode_cpu_errors(
+                torch, llama.LlamaModel(**LLAMA, max_positions=MAX_POS,
+                                        device="cpu"), given("llama_cpu")),"train_cpu": lambda: train_cpu_reference(torch, gpt, sd),
             "train_modes_cpu": lambda: train_modes_reference(torch, gpt, sd),
+            "amp_cpu": lambda: amp_skip_history(torch, gpt, sd, "cpu"),
+            "resnet_cpu": lambda: resnet_cpu_reference(torch, models),
+            "legacy": lambda: legacy_reference(torch, shapes),
             "layers": lambda: layers_reference(torch, mlps),
             "serve_cpu": lambda: serve_cpu_reference(torch, gpt, sd)}
     for name in CPU_WORKER_JOBS:
@@ -9171,6 +9870,9 @@ class CpuWorker:
                     for k, v in train_model.state_dict().items()},
                    os.path.join(self.dir, "gpt.pt"))
         torch.save(mlp_weights, os.path.join(self.dir, "mlp.pt"))
+        # the parameter shapes of the legacy optimizers' list
+        torch.save([tuple(p.shape) for p in train_model.parameters()],
+                   os.path.join(self.dir, "shapes.pt"))
         # no card; OpenMP threads that wait sleep instead of spinning on
         # the cores the main process needs
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
@@ -9184,6 +9886,12 @@ class CpuWorker:
         self.waited = {}
         CpuWorker.running = True
         torch.set_num_threads(main_threads())
+
+    def submit(self, torch, name, payload):
+        """Hand job ``name`` its input (the worker waits for it)."""
+        path = os.path.join(self.dir, f"{name}.in.pt")
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
 
     def result(self, torch, name):
         path = os.path.join(self.dir, f"{name}.pt")
@@ -9237,6 +9945,12 @@ def main():
     _build.start_all()
     from apex_tpu_torch.kernels import attention, dispatch, layer_norm, \
         lm_head_xent, multi_tensor, rms_norm, xentropy
+    from apex_tpu_torch.kernels import ledger as kernel_ledger
+    # the kernels' dispatch decisions read this run's own ledger, under
+    # build/ (the observe phase records the card's times there)
+    if os.path.exists(OBS_LEDGER):
+        os.unlink(OBS_LEDGER)
+    kernel_ledger.set_path(OBS_LEDGER)
     from apex_tpu_torch import RNN, amp, inference, models
     from apex_tpu_torch import serve as serving
     from apex_tpu_torch.contrib.multihead_attn import attn_funcs
@@ -9295,6 +10009,11 @@ def main():
     rms_f, rmsb_err, rmsb_times = rms_phase(torch, rms_norm, dispatch)
     lmx_f, lmx_dx, lmx_dw = lmx_phase(torch, lm_head_xent)
     parts.append(time.perf_counter())
+    # the kernel phase's times as this card's ledger records (observe
+    # phase (d))
+    ledger_entries = kernel_ledger_entries(
+        dispatch, fl, fl_train, dq, ln, lnb_times, xf, xb, rms_f,
+        rmsb_times, lmx_f, lmx_dx, adam, sgd, shapes, rn_shapes)
     _LAP_T[0] = parts[-1]
     print(f"kernel phase: {parts[-1] - t_phase:.1f} s (" + ", ".join(
         f"{b - a:.1f}" for a, b in zip(parts, parts[1:])) + " s: flash, the "
@@ -9304,14 +10023,18 @@ def main():
         torch, dispatch, gpt)
     lap()
     profile_phase(torch, model, out)
-    cpu_phase(torch, gpt, model, out, prefill_logits, step_logits)
+    # the CPU side of the card-against-CPU check runs in the worker; its
+    # errors are checked before the legacy optimizers' phase
+    worker.submit(torch, "generate_cpu", decode_cpu_inputs(
+        model, out, prefill_logits, step_logits))
     lap()
     del model, out
     model, out, llama_serve, prefill_logits, step_logits = \
         llama_generate_path(torch, dispatch, gpt, llama)
     lap()
     profile_phase(torch, model, out)
-    llama_cpu_phase(torch, llama, model, out, prefill_logits, step_logits)
+    worker.submit(torch, "llama_cpu", decode_cpu_inputs(
+        model, out, prefill_logits, step_logits))
     lap()
     del model, out
     print(f"serving phases: {time.perf_counter() - t_phase:.1f} s")
@@ -9358,7 +10081,7 @@ def main():
     lap()
     print(f"card-vs-CPU training phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    amp_counts = amp_phase(torch, dispatch, gpt, train_model)
+    amp_counts, amp_skips = amp_phase(torch, dispatch, gpt, train_model)
     lap()
     paths["amp_O2"], paths["amp_O3"] = amp_counts["O2"], amp_counts["O3"]
     print(f"amp phases: {time.perf_counter() - t_phase:.1f} s")
@@ -9367,7 +10090,7 @@ def main():
         resnet_turns = resnet_train_turns(torch, dispatch, models)
     lap()
     resnet_ms = resnet_turns[0]["step_ms"]
-    resnet_cpu_phase(torch, models)
+    resnet_cpu_phase(torch, models, worker.result(torch, "resnet_cpu"))
     lap()
     imagenet = {}
     for cl, key in ((False, "imagenet_amp"),
@@ -9407,7 +10130,11 @@ def main():
         llama_lora_path(torch, dispatch, gpt, llama, multi_tensor)
     print(f"LoRA phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    legacy = legacy_optimizer_phase(torch, shapes)
+    cpu_phase("GPT-2 small generate", worker.result(torch, "generate_cpu"))
+    cpu_phase("Llama generate", worker.result(torch, "llama_cpu"))
+    amp_skip_check(amp_skips, worker.result(torch, "amp_cpu"))
+    legacy = legacy_optimizer_phase(torch, shapes,
+                                    worker.result(torch, "legacy"))
     lap()
     layers = layers_phase(torch, mlp_weights,
                           worker.result(torch, "layers"))
@@ -9441,11 +10168,14 @@ def main():
                                           inference)
     paths.update(inf_paths)
     print(f"inference phases in all: {time.perf_counter() - t_phase:.1f} s")
-    paths["serve_unified"], serve_nums = serve_phase(
+    paths["serve_unified"], serve_nums, serve_keep = serve_phase(
         torch, dispatch, gpt, inference, serving, serve_cpu)
     lap()
     paths["resilience_vit_s16"], resilience = resilience_phase(
         torch, dispatch, models, card)
+    lap()
+    paths["observe_telemetry_step"], observe_nums = observe_phase(
+        torch, dispatch, gpt, serving, inference, ledger_entries, serve_keep)
     lap()
 
     def launches(name):
@@ -9689,6 +10419,7 @@ def main():
                       "decode": DECODE_NUMS, "inference": inf_nums,
                       "serve": serve_nums,
                       "resilience": resilience,
+                      "observe": observe_nums,
                       "cpu_worker_waits_s": worker.waited}))
     print(f"phase seconds by main's line (each since the line before): "
           f"{LAPS}")

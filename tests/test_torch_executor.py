@@ -17,7 +17,8 @@ eagerly on every call, with the same counting.  So these tests hold:
   JAX one does;
 * a capture that fails raises, then and on every later call, and the
   program never runs eagerly in its place;
-* the knobs and refusals (``gather`` overlap, telemetry, shardings).
+* the knobs and refusals (``gather`` overlap, shardings) and the
+  telemetry drain of a step without telemetry.
 """
 import contextlib
 
@@ -431,8 +432,11 @@ def test_knobs_and_refusals():
         executor.set_overlap(gather=True)
     with pytest.raises(ValueError, match="True/False/'auto'"):
         executor.set_overlap(h2d="on")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        executor.drain_telemetry(None)
+    # the telemetry drain is ported (A8): a step without telemetry has
+    # nothing to drain
+    from types import SimpleNamespace
+    assert executor.drain_telemetry(SimpleNamespace(
+        state=SimpleNamespace(telem=None), calls=0)) is None
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         executor.Program("train_step", (), lambda: None, wrap=lambda f: f)
     # the state is always updated in place: donation is on, and a request

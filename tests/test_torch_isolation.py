@@ -16,6 +16,7 @@ from apex_tpu_torch.contrib.multihead_attn import EncdecMultiheadAttn, \
 from apex_tpu_torch.models import GptModel, TransformerSeq2Seq, VitModel, \
     gpt2_small, resnet18, resnet_from_torch
 from apex_tpu_torch.normalization import FusedLayerNorm
+from apex_tpu_torch.observe import init_telemetry
 from apex_tpu_torch.runtime import DataPrefetcher
 from apex_tpu_torch.serve import init_pool_buffer
 
@@ -68,7 +69,12 @@ def test_importing_the_port_loads_no_jax_module():
                  "runtime.chaos", "runtime.resilience", "runtime.elastic",
                  "utils.checkpoint", "observe.registry", "serve.pool",
                  "serve.scheduler", "serve.kernels", "serve.engine",
-                 "serve.disagg", "serve.elastic", "kernels.spec_verify"):
+                 "serve.disagg", "serve.elastic", "kernels.spec_verify",
+                 "kernels.ledger", "observe.spans", "observe.telemetry",
+                 "observe.watchdog", "observe.catalog", "pyprof.annotate",
+                 "pyprof.nvtx", "pyprof.parse.parse", "pyprof.parse.trace",
+                 "pyprof.prof.models", "pyprof.prof.prof",
+                 "pyprof.prof.output"):
         assert f"apex_tpu_torch.{name}" in loaded, name
 
 
@@ -139,6 +145,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                   lambda: DataPrefetcher([]),
                   lambda: resnet_from_torch(resnet18(device="cpu")),
                   lambda: init_pool_buffer(1, 1, 4, 2, 4),
+                  lambda: init_telemetry(),
                   lambda: GptModel(**small, device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()

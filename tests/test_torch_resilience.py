@@ -536,6 +536,51 @@ def _port_mlp(hidden=32):
         lambda o, t: F.cross_entropy(o, t), half_dtype=None, loss_scale=1.0)
 
 
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_schema3_checkpoint_with_telemetry_crosses(tmp_path, writer):
+    """An MLP step built with ``telemetry=True`` on both sides: one
+    package's ``save_sharded`` after 2 undrained windows restores into the
+    other's step, the telemetry accumulator (``StepState.telem``, five 0-d
+    leaves under the JAX ``StepTelemetry`` name) leaf for leaf with the
+    rest of the state; the restored accumulator then drains as the
+    writer's would have."""
+    rng = np.random.default_rng(2)
+    xn = rng.standard_normal((8, 16)).astype(np.float32)
+    yn = rng.integers(0, 10, (8,))
+    model, jopt = _jax_mlp()
+    js = jax_make_train_step(model, jopt, lambda o, t: jax_F.cross_entropy(o, t),
+                             half_dtype=None, loss_scale=1.0, telemetry=True,
+                             drain_every=100)
+    tm = torch.nn.Sequential(torch.nn.Linear(16, 32), torch.nn.GELU(),
+                             torch.nn.Linear(32, 10))
+    ts = make_train_step(tm, FusedSGD(list(tm.parameters()), lr=0.1,
+                                      momentum=0.9),
+                         lambda o, t: F.cross_entropy(o, t), half_dtype=None,
+                         loss_scale=1.0, telemetry=True, drain_every=100)
+    if writer == "jax":
+        for _ in range(2):
+            js(jnp.asarray(xn), jnp.asarray(yn))
+        jax_res.CheckpointManager(str(tmp_path)).save_sharded(2, js)
+        assert CheckpointManager(str(tmp_path)).restore_resharded(ts) == \
+            (2, {})
+        src, dst = js, ts
+    else:
+        for _ in range(2):
+            ts(torch.from_numpy(xn), torch.from_numpy(yn))
+        CheckpointManager(str(tmp_path)).save_sharded(2, ts)
+        got = jax_res.CheckpointManager(str(tmp_path)).restore_resharded(js)
+        assert got[0] == 2
+        blob = pickle.loads(open(tmp_path / "ckpt_00000002.pkl", "rb").read())
+        skel = pickle.loads(blob["payload"]["state"])
+        assert type(skel.telem).__module__ == "apex_tpu.observe.telemetry"
+        src, dst = ts, js
+    _assert_cross_equal(js.state, ts.state)
+    assert int(np.asarray(ts.state.telem.windows)) == 2
+    rec = dst.drain_telemetry()
+    assert rec["windows"] == 2 and rec["overflow_count"] == 0
+    assert rec["loss_scale"] == 1.0
+
+
 def test_jax_checkpoint_from_the_8_device_mesh_restores(tmp_path):
     """An MLP step under auto.Plan(dp=8, zero_stage=1, n_devices=8)
     (tests/test_elastic.py's) saves its ZeRO-sharded state as 8 shard
@@ -573,15 +618,18 @@ def test_jax_checkpoint_from_the_8_device_mesh_restores(tmp_path):
 
 def test_gathered_jax_bf16_payload_and_set_telemetry_are_refused(tmp_path):
     """A gathered JAX payload holding an ml_dtypes array names the leaf and
-    points at save_sharded; a StepState with telemetry names A8."""
+    points at save_sharded; a StepState with telemetry, once refused naming
+    A8, now reads as the port's seven-field state (telemetry is ported)."""
     js, _ = _gpt_steps()
     path = str(tmp_path / "g.pkl")
     jax_res.write_checkpoint_file(path, {"state": js.state})
     with pytest.raises(CheckpointReshardError,
                        match=r"leaf \.model_params\[0\].*save_sharded"):
         read_checkpoint_file(path)
-    with pytest.raises(CheckpointReshardError, match="A8"):
-        res._format_step_state(*([None] * 6 + [object()]))
+    telem = object()
+    st = res._format_step_state(*([None] * 6 + [telem]))
+    assert st.telem is telem and len(st) == 7
+    assert res._format_step_state(*([None] * 6)).telem is None
 
 
 # ---------------------------------------------------------------------------

@@ -314,9 +314,10 @@ def test_windowed_engine_equals_the_jax_engine(model):
 
 
 def test_spec_policy_auto_gives_the_jax_tokens_by_plain_ticks(model):
-    """``spec_policy="auto"`` has no measured verdict in the port: plain
-    decode ticks (the draft catching up in the prefill slot), the JAX
-    package's tokens."""
+    """``spec_policy="auto"`` on the CPU decides "xla" (the device's rule,
+    as the JAX package decides with no Pallas backend): plain decode ticks
+    (the draft catching up in the prefill slot), the JAX package's
+    tokens."""
     from apex_tpu_torch.inference import make_self_draft
     eng = ServeEngine(model, num_blocks=128, block_size=8, max_batch=4,
                       prefill_chunk=4, draft=make_self_draft(model),

@@ -6,7 +6,8 @@ wrappers, the LAMB optimizer and op, the data-parallel surface, the legacy
 amp and fp16_utils API, O1's registry, the GAN step, NovoGrad, the contrib
 optimizers, the MLP, the reparameterizations, encoder-decoder attention,
 the seq2seq and ViT families, ``checkpoint_forward``, the RNNs, the HF
-converters, the runtime's executor and prefetcher and ``amp.initialize``),
+converters, the runtime's executor and prefetcher, ``amp.initialize``,
+the observe runtime, the kernel ledger and tier decision and pyprof),
 every parameter of the JAX signature exists in the port's with the same default
 (a dtype default by its name); the port may add ``device``, ``dtype`` and
 ``generator`` parameters, a JAX PRNG ``key`` is the port's ``generator``,
@@ -58,6 +59,12 @@ import apex_tpu.serve.kernels as jax_serve_kernels
 import apex_tpu.serve.pool as jax_serve_pool
 import apex_tpu.kernels.spec_verify as jax_spec_verify
 import apex_tpu.observe.registry as jax_registry
+import apex_tpu.observe as jax_observe
+import apex_tpu.kernels.dispatch as jax_dispatch
+import apex_tpu.kernels.ledger as jax_ledger
+import apex_tpu.pyprof as jax_pyprof
+import apex_tpu.pyprof.parse.trace as jax_pp_trace
+import apex_tpu.runtime.step_cache as jax_step_cache
 
 import apex_tpu_torch.RNN as rnn
 import apex_tpu_torch.amp as amp
@@ -98,6 +105,11 @@ import apex_tpu_torch.serve.pool as serve_pool
 import apex_tpu_torch.kernels.spec_verify as spec_verify
 import apex_tpu_torch.observe as observe
 import apex_tpu_torch.observe.registry as registry
+import apex_tpu_torch.kernels.dispatch as dispatch
+import apex_tpu_torch.kernels.ledger as ledger
+import apex_tpu_torch.pyprof as pyprof
+import apex_tpu_torch.pyprof.parse.trace as pp_trace
+import apex_tpu_torch.runtime.step_cache as step_cache
 
 torch.set_num_threads(2)
 
@@ -231,6 +243,25 @@ PAIRS = [
     (jax_registry.MetricsRegistry, registry.MetricsRegistry, "event"),
     (jax_registry.MetricsRegistry, registry.MetricsRegistry, "events"),
     (jax_registry, registry, "event"), (jax_registry, registry, "events"),
+    (jax_training, training, "make_train_step"),
+    (jax_training.TrainStep, training.TrainStep, "drain_telemetry"),
+    *((jax_observe, observe, f)
+      for f in ("span", "last_span", "StallWatchdog", "heartbeat",
+                "last_heartbeat", "init_telemetry", "accumulate",
+                "describe", "catalog_names")),
+    (jax_step_cache, step_cache, "set_dispatch_spans"),
+    (jax_ledger, ledger, "Ledger"), (jax_ledger, ledger, "default_path"),
+    (jax_ledger, ledger, "chip_name"), (jax_ledger, ledger, "set_path"),
+    *((jax_ledger.Ledger, ledger.Ledger, m)
+      for m in ("record_kernel", "lookup_kernel", "kernel_entries",
+                "record_plan", "plan_measurements", "ingest_events")),
+    *((jax_dispatch, dispatch, f)
+      for f in ("decide", "register_kernel", "measured_threshold",
+                "attention_fp", "multi_tensor_fp", "vocab_chain_fp",
+                "KernelSpec", "Decision")),
+    *((jax_pyprof, pyprof, f)
+      for f in ("profile_step", "capture", "save", "analyze")),
+    (jax_pp_trace, pp_trace, "merge_measurements"),
 ]
 NO_COUNTERPART = {"interpret", "ctx"}
 # a JAX parameter the port takes under another name, with the same default
@@ -388,12 +419,6 @@ REFUSED = [
      dict(wrap=lambda f: f), A9),
     (lambda **kw: runtime.Program("train_step", (), lambda: None, **kw),
      dict(in_shardings=None), A9),
-    (lambda **kw: serve.ServeEngine(gpt.GptModel(**SMALL_GPT), num_blocks=4,
-                                    block_size=4).run([], **kw),
-     dict(watchdog_deadline_s=1.0), "ROADMAP A8"),
-    (lambda **kw: serve.DisaggregatedEngine(
-        gpt.GptModel(**SMALL_GPT), num_blocks=4, block_size=4).run([], **kw),
-     dict(watchdog_deadline_s=1.0), "ROADMAP A8"),
 ]
 
 
@@ -404,6 +429,26 @@ def test_non_default_values_are_refused_naming_their_owner(make, kw, owner):
     with pytest.raises(NotImplementedError, match=owner) as info:
         make(**kw)
     assert next(iter(kw)) in str(info.value)
+
+
+WATCHED = [
+    lambda: serve.ServeEngine(gpt.GptModel(**SMALL_GPT), num_blocks=4,
+                              block_size=4),
+    lambda: serve.DisaggregatedEngine(gpt.GptModel(**SMALL_GPT),
+                                      num_blocks=4, block_size=4),
+]
+
+
+@pytest.mark.parametrize("make", WATCHED, ids=["ServeEngine",
+                                               "DisaggregatedEngine"])
+def test_engines_run_under_the_stall_watchdog(make):
+    """``run(watchdog_deadline_s=...)``, once refused naming A8, arms a
+    stall watchdog over the loop (``apex_tpu_torch.observe``) and stops it
+    after: an empty trace serves nothing and reports no stall."""
+    obs = observe.get_registry()
+    obs.clear_events()
+    assert make().run([], watchdog_deadline_s=1.0) == {}
+    assert obs.events("watchdog.stall") == []
 
 
 def test_defaults_are_accepted():
@@ -435,9 +480,9 @@ def test_defaults_are_accepted():
 
 def test_refusal_messages_name_the_current_roadmap_items():
     """The owners named in the refusals follow ROADMAP's queue A as it is
-    numbered now (parallelism A9, observe A8, the elastic serve fleet A10);
-    remat, once A4's, inference, once A5's, and the serve engine, once
-    A6's, are ported and build."""
+    numbered now (parallelism A9, the elastic serve fleet A10); remat, once
+    A4's, inference, once A5's, the serve engine, once A6's, and observe
+    and telemetry, once A8's, are ported and build."""
     small = dict(SMALL_GPT)
     with pytest.raises(NotImplementedError,
                        match="tensor and sequence.*ROADMAP A9"):
@@ -453,7 +498,7 @@ def test_refusal_messages_name_the_current_roadmap_items():
     eng = serve.ServeEngine(gpt.GptModel(**small), num_blocks=4,
                             block_size=4)
     assert inference.PagedSession(eng).block_table == ()
-    # the elastic serve fleet is A10's, the rest of observe A8's
+    # the elastic serve fleet is A10's; observe is ported (A8)
     with pytest.raises(NotImplementedError, match="ROADMAP A10, cluster"):
         serve.ServeFleet(None, n_engines=2, num_blocks=8)
     with pytest.raises(NotImplementedError, match="ROADMAP A10, cluster"):
@@ -461,18 +506,19 @@ def test_refusal_messages_name_the_current_roadmap_items():
     assert issubclass(serve.StaleEpochError, RuntimeError)
     for name in ("span", "last_span", "StepTelemetry", "init_telemetry",
                  "accumulate", "StallWatchdog", "heartbeat",
-                 "last_heartbeat", "describe", "catalog_names", "CATALOG",
-                 "STALL_HINT"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8, observe"):
-            value = getattr(observe, name)
-            value()
+                 "last_heartbeat", "describe", "catalog_names"):
+        assert callable(getattr(observe, name)), name
+    assert isinstance(observe.CATALOG, dict)
+    assert isinstance(observe.STALL_HINT, str)
+    assert observe.init_telemetry(device="cpu").windows.item() == 0
     tm = gpt.GptModel(**small)
     opt = optimizers.FusedAdam(list(tm.parameters()))
     loss = lambda out, y: out.float().mean()  # noqa: E731
     for kw, owner in ((dict(axis_name="data"), A9),
                       (dict(gradient_predivide_factor=2.0), A9),
                       (dict(tp_axis="model"), A9),
-                      (dict(zero_sharding=True), A9),
-                      (dict(telemetry=True), "ROADMAP A8")):
+                      (dict(zero_sharding=True), A9)):
         with pytest.raises(NotImplementedError, match=owner):
             make_train_step(tm, opt, loss, **kw)
+    assert make_train_step(tm, opt, loss, telemetry=True).state.telem \
+        is not None

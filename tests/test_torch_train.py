@@ -309,10 +309,13 @@ def test_unported_make_train_step_options_raise():
     for kw in (dict(axis_name="data"), dict(tp_axis="model"),
                dict(gradient_predivide_factor=2.0),
                dict(allreduce_always_fp32=True), dict(zero_sharding=True),
-               dict(flat_master=True), dict(parallel="auto"),
-               dict(telemetry=True)):
+               dict(flat_master=True), dict(parallel="auto")):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_train_step(tm, opt, _torch_loss, **kw)
+    # telemetry, once refused here, is ported: the step carries its
+    # accumulator
+    assert make_train_step(tm, opt, _torch_loss,
+                           telemetry=True).state.telem is not None
     # every fused optimizer of the JAX step is ported; another one raises
     # the JAX step's TypeError
     sgd = torch.optim.SGD(tm.parameters(), lr=0.1)
