@@ -39,12 +39,17 @@ the Hugging Face and torchvision state-dict converters (``models.hf``);
 serving (``serve``); and the observe runtime (``observe``: spans as NVTX
 ranges, the train step's on-device telemetry, the stall watchdog, the
 metric catalog), ``pyprof`` over ``torch.profiler`` and the kernels'
-measured dispatch ledger (``kernels.ledger``).
+measured dispatch ledger (``kernels.ledger``); cluster membership
+(``cluster``: heartbeats and epoch-numbered views over a KV store), the
+elastic serve fleet (``serve.ServeFleet``) and the generate-then-train
+loop (``rollout``: ``RolloutRuntime``, ``WeightPublisher``,
+``OnlineDistiller``).
 """
-from . import (amp, contrib, fp16_utils, inference, kernels, models,
+from . import (amp, cluster, contrib, fp16_utils, inference, kernels, models,
                multi_tensor_apply, nn, normalization, observe, ops,
-               optimizers, parallel, pyprof, runtime, training)
+               optimizers, parallel, pyprof, rollout, runtime, training)
 
-__all__ = ["amp", "contrib", "fp16_utils", "inference", "kernels", "models",
-           "multi_tensor_apply", "nn", "normalization", "observe", "ops",
-           "optimizers", "parallel", "pyprof", "runtime", "training"]
+__all__ = ["amp", "cluster", "contrib", "fp16_utils", "inference", "kernels",
+           "models", "multi_tensor_apply", "nn", "normalization", "observe",
+           "ops", "optimizers", "parallel", "pyprof", "rollout", "runtime",
+           "training"]

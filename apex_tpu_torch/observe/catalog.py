@@ -5,7 +5,7 @@ The registry (``registry.py``) is schema-free: any string names a
 counter.  The catalog is where a consumer (a dashboard, a bench stage, a
 test) reads what a name means, its instrument kind and its unit.  Its
 entries name subsystems the JAX package has and the port may not run yet
-(rollout, the planner): a name is documented before it is emitted.
+(the planner): a name is documented before it is emitted.
 """
 from __future__ import annotations
 

@@ -155,50 +155,56 @@ def init_distributed(coordinator_address: Optional[str] = None,
         f"num_processes={num_processes}): {last_exc}") from last_exc
 
 
-#: the presence registry's keys in the default store, one a rank
-_PRESENCE = "apex_tpu/members/"
-#: test seam: when set, a callable returning the list of missing ranks
+#: the presence registry IS the cluster membership layer's member table:
+#: each rank joins as an ``apex_tpu_torch.cluster`` Member over the process
+#: group's store after a successful start, so a later collective timeout can
+#: NAME the ranks that never arrived (or died), and a cluster Coordinator
+#: watching the same table sees the very same registrations (one registry,
+#: two consumers).
+#: Test seam: when set, a callable returning the list of missing ranks
 _PRESENCE_PROBE = None
 
 
 def _store():
-    if not dist.is_initialized():
-        return None
-    try:
-        return dist.distributed_c10d._get_default_store()
-    except Exception:       # noqa: BLE001: no store, no registry
-        return None
+    from ..cluster.kvstore import JaxCoordinatorKV
+    return JaxCoordinatorKV.client()
 
 
 def announce_presence():
-    """Register this rank in the presence registry, a key a rank in
-    ``torch.distributed``'s default store holding the hostname
-    (best-effort; nothing without ``torch.distributed``).
-    ``init_distributed`` calls it after a successful start, so that a
-    later collective timeout can name the ranks that never arrived."""
+    """Join this rank into the cluster membership registry
+    (best-effort; nothing without ``torch.distributed``):
+    ``init_distributed`` calls it after a successful start.  The member id
+    is the rank, the registration record the hostname."""
     store = _store()
     if store is None:
         return
     import socket
     try:
-        store.set(f"{_PRESENCE}{rank()}", socket.gethostname())
+        from ..cluster.kvstore import JaxCoordinatorKV
+        from ..cluster.membership import Member
+        Member(JaxCoordinatorKV(store), str(rank()),
+               spec=socket.gethostname()).join()
     except Exception:       # noqa: BLE001: best-effort
         pass
 
 
 def missing_ranks() -> Optional[list]:
-    """Ranks with no registration in the presence registry, or None when
-    that cannot be told (one process, no store)."""
+    """Ranks with no membership registration, or None when that cannot
+    be told (one process, no store)."""
     if _PRESENCE_PROBE is not None:
         return _PRESENCE_PROBE()
     store = _store()
     if store is None:
         return None
     try:
-        return [r for r in range(world_size())
-                if not store.check([f"{_PRESENCE}{r}"])]
+        from ..cluster.kvstore import JaxCoordinatorKV
+        from ..cluster.membership import PREFIX
+        kv = JaxCoordinatorKV(store)
+        n = len(f"{PREFIX}members/")
+        present = {k[n:] for k in kv.scan(f"{PREFIX}members/")}
     except Exception:       # noqa: BLE001: the store cannot tell
         return None
+    return [r for r in range(world_size()) if str(r) not in present]
 
 
 def split_by_type(tensors):

@@ -3,12 +3,14 @@ of ``apex_tpu/runtime/chaos.py``: the same hook names, the same
 ``at=``/``after=``/``times=`` counting and the same seeded determinism.
 Each firing is mirrored as a ``chaos.inject`` event into the observe
 registry (outside the controller's lock, as in the JAX module), beside the
-controller's ``log``.  Hook points that the port does not run yet (``host.loss``,
-``coordinator.loss``, ``heartbeat.delay``, ``device.loss``,
-``ckpt.reshard``, ``serve.session_snapshot`` and ``serve.migrate``, owned
-by ROADMAP A9 and A10) keep their names in the tables below for the slices
-that port them; ``serve.kv_handoff`` fires in
-``resilience.stream_kv_handoff``.
+controller's ``log``.  ``host.loss`` and ``heartbeat.delay`` fire in
+``cluster.membership.Member.beat``, ``coordinator.loss`` in
+``cluster.coordinator.Coordinator.scan``, ``serve.session_snapshot`` and
+``serve.migrate`` in ``serve.elastic.ServeFleet``, ``serve.kv_handoff`` in
+``resilience.stream_kv_handoff``, ``ckpt.reshard`` in
+``resilience.reshard_state``.  ``device.loss`` (elastic device-set
+detection, ROADMAP A9) keeps its name in the table below for the slice
+that ports it.
 
 The reference repo can claim "bitwise accurate" save/resume but cannot
 *prove* it under failure: nothing in an eager CUDA stack can kill a save

@@ -44,6 +44,7 @@ their on-device telemetry.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from typing import Callable, Optional, Tuple
@@ -69,8 +70,8 @@ TRAIN_KINDS = frozenset({"train_step", "zero_train_step",
 SERVE_KINDS = frozenset({"prefill_step", "decode_step",
                          "draft_prefill_step", "spec_verify_step"})
 
-#: rollout-loop kinds (the JAX ``rollout`` runtime's weight publish; the
-#: port does not run it yet, ROADMAP A10)
+#: rollout-loop kinds (``apex_tpu_torch.rollout``'s weight publish: the
+#: masters copied into the serve parameters, one dispatch)
 ROLLOUT_KINDS = frozenset({"weight_publish"})
 
 _BEAT_KINDS = TRAIN_KINDS | SERVE_KINDS | ROLLOUT_KINDS
@@ -372,6 +373,12 @@ class _Entry:
         reserved = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
         _active.entry, _active.graph = self, graph
+        # no cycle collection inside the capture: a graph freed there (an
+        # earlier program's, in a dead reference cycle) destroys its
+        # executable while the stream captures, which invalidates this
+        # capture (CUDA error 901 at the next launch)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with _dispatch.holding(self._kept), \
                     torch.cuda.graph(graph, pool=program._pool):
@@ -383,6 +390,8 @@ class _Entry:
                 f"capturing the {program.kind} program failed; it does not "
                 f"run eagerly in its place: {self.error}") from e
         finally:
+            if collecting:
+                gc.enable()
             _active.entry = _active.graph = None
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved() - reserved

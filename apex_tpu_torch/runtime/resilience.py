@@ -690,7 +690,7 @@ def _block_shape(arr):
 
 def stream_kv_handoff(dir_path: str, pool, table, *,
                       source: str = "kv_handoff",
-                      extra_meta: Optional[dict] = None):
+                      extra_meta: Optional[dict] = None, link_from=None):
     """Stream one session's KV blocks out of a paged pool into
     ``dir_path`` under the schema-3 shard-file contract of the JAX
     package: one file per (block, pool part), raw bytes, atomic
@@ -706,6 +706,14 @@ def stream_kv_handoff(dir_path: str, pool, table, *,
     The manifest is the JAX package's (a plain pickled dict), so either
     package loads the other's handoff.
 
+    ``link_from`` is ``(directory, blocks, n)``: a committed handoff of
+    the same session whose first ``n`` blocks hold the bytes that
+    ``table``'s first ``n`` blocks hold now (``blocks`` its manifest's
+    block records).  Those files are hard-linked from it instead of
+    written (the serve fleet's periodic session snapshots rewrite only
+    the blocks that changed); the directory is a complete handoff all the
+    same, and the chaos hook fires before each of its block files.
+
     Returns ``(manifest, peak_bytes)``: peak is the largest single host
     buffer written (one block part's bytes)."""
     os.makedirs(dir_path, exist_ok=True)
@@ -713,15 +721,22 @@ def stream_kv_handoff(dir_path: str, pool, table, *,
     staging = _Staging()
     blocks_meta = []
     peak = 0
+    src_dir, src_blocks, n_link = link_from or (None, (), 0)
     for logical, bid in enumerate(table):
         entry = {}
         for part, arr in parts:
-            buf = _shard_bytes(arr[:, :, int(bid)], staging)
-            peak = max(peak, buf.nbytes)
             fname = f"kvblk{logical}_{part}.bin"
             if _chaos.active():
                 _chaos.hook("serve.kv_handoff", dir=dir_path,
                             file=fname, block=logical)
+            if logical < n_link:
+                old = src_blocks[logical][part]
+                os.link(os.path.join(src_dir, old["file"]),
+                        os.path.join(dir_path, fname))
+                entry[part] = dict(old, file=fname)
+                continue
+            buf = _shard_bytes(arr[:, :, int(bid)], staging)
+            peak = max(peak, buf.nbytes)
             _write_shard_file(dir_path, fname, buf)
             entry[part] = {"file": fname, "crc32": zlib.crc32(buf),
                            "nbytes": int(buf.nbytes)}

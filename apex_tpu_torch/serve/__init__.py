@@ -11,8 +11,11 @@ the executor, one CUDA graph a bucket signature on the card.
 :mod:`.disagg` splits the engine into a prefill phase and a decode phase
 (optionally speculative, with a draft model served from its own int8
 pool) joined by the schema-3 streamed KV handoff, whose files either
-package reads.  :mod:`.elastic`'s membership-backed ``ServeFleet`` is
-ROADMAP A10 and refuses.
+package reads.  :mod:`.elastic`'s ``ServeFleet`` replicates the engine
+behind the cluster membership view (``apex_tpu_torch.cluster``): epoch-aware
+routing by projected free blocks, periodic session snapshots over the same
+handoff, and live migration of a lost replica's sessions (batch tier shed
+first, recompute as the fallback).
 """
 from .disagg import DisaggregatedEngine
 from .elastic import FleetMember, ServeFleet, StaleEpochError

@@ -379,7 +379,11 @@ class ServeEngine:
         programs (and the CUDA graphs captured from them) read the
         parameters where they lie, so the next dispatch computes with the
         new weights and nothing is captured again.  Shapes and dtypes must
-        match the current values exactly.  Buffers are not swapped.
+        match the current values exactly.  A leaf that is its parameter's
+        own memory is in place already (the rollout publisher's: its
+        ``weight_publish`` dispatch copied the masters into the
+        parameters), so then only the epoch is stamped and the prefix
+        cache flushed.  Buffers are not swapped.
 
         Live sessions keep their KV cache: rows written under the old
         weights stay, so a mid-generation swap continues under mixed
@@ -414,7 +418,8 @@ class ServeEngine:
                     f"publish side")
         with torch.no_grad():
             for p, v in zip(params, leaves):
-                p.copy_(v)
+                if v.device != p.device or v.data_ptr() != p.data_ptr():
+                    p.copy_(v)
         ep = self.weight_epochs[which] + 1 if epoch is None else int(epoch)
         self.weight_epochs[which] = ep
         if which == "target":

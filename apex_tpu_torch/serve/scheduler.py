@@ -67,7 +67,7 @@ class Request:
     ``max_new_tokens`` generated (greedy), optional ``eos`` stop id
     (emitted, then the session finishes).  ``slo`` is the request's
     service class (:data:`SLO_CLASSES`) — a single engine ignores it;
-    the elastic fleet (ROADMAP A10) migrates latency-tier sessions
+    the elastic fleet (``serve.elastic``) migrates latency-tier sessions
     on a shrink and sheds batch-tier ones first (re-queued, not
     dropped)."""
     rid: str

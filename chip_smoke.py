@@ -384,12 +384,43 @@ Phases, each of which raises on failure:
    spec_verify record ("xla", the prior), the probe at that bucket (one
    verify dispatch against k + 1 chained decode dispatches) recorded, and
    from then on that bucket decided from the record (source "ledger"), the
-   tokens those of serve_phase's unified run.
+   tokens those of serve_phase's unified run;
+31. (after 30) ``rollout_phase``, this slice's main path: a
+   ``rollout.RolloutRuntime`` over serve_phase's engine (its pool and
+   captured graphs) and a GPT-2 small trainer from the same seed (bf16
+   half copies, FusedAdam, the chunked loss): 4 rounds of 8 prompts of 64
+   tokens and 32 new tokens, 2 train steps of 8 x 96 a round, a
+   ``weight_publish`` every round; every serve parameter equal to its
+   master after each publish, no graph captured after round 1, one request
+   against a greedy ``DecodeSession`` after the last publish, epochs 1-4
+   with each sample attributed to its round, the first two losses against
+   the CPU worker's fp32 recompute of both steps (the second as a share
+   of how far the first step moved it; checked last, after phase 32,
+   which runs while the worker computes), the launches over the loop
+   against the step's and the engine's known counts; the engine's model
+   given the seed's weights back; rounds/s, generated tokens/s,
+   the train step's ms and each publish's ms and bytes.  With phases 1, 2
+   and 6 the kernels of its train step are held against their plain
+   versions at its shapes: the tc flash pair at (96, 96, 64) bf16 causal,
+   LayerNorm forward and backward at (768, 768) bf16 (timed too), the
+   xentropy pair at its one (760, 50257) bf16 chunk (timed too).
+32. (after 31) ``fleet_phase``: ``serve.ServeFleet`` of 2 replicas (160
+   blocks each, serve_phase's block size, chunk and batch) over
+   serve_phase's model (the seed's weights), MemoryKV + SimClock, the trace's first 24
+   requests with SLOs alternating latency and batch, a session snapshot
+   every 2 fleet ticks, and a chaos ``host.loss`` that fells serve1 after
+   10 of its beats: every request equal to the unified run's (near-tie
+   rule), the new epoch, at least one session migrated, the snapshots'
+   host peak one block part, no leaked block on the survivor, each
+   replica's decode captures within the bucket bound, every graph's
+   LayerNorm nodes against the wrappers' counts; tokens/s, detect_ms and
+   migrate_ms.
 
 The CPU sides of phases 4, 5 and 7 and of Llama's card-against-CPU check,
-of amp O2's overflow skip, of ResNet-50's card-against-CPU check,
-of the legacy optimizers and the layers phase (24) and of the serve phase
-(29) run in a process of their own
+of amp O2's overflow skip, of ResNet-50's and BERT's card-against-CPU
+checks, of the legacy optimizers and the layers phase (24), of the serve
+phase (29) and of the rollout phase's first two losses (31) run in a process of
+their own
 (``chip_smoke.py --cpu-worker
 DIR``, started under ``nice`` once the kernels are built, with the weights
 in a temporary directory and CUDA hidden from it), beside the card's
@@ -403,7 +434,7 @@ count when the backward's sums were cast after the kernels).  It prints a
 JSON line of the BERT, NovoGrad-turn, Llama-step, LoRA, legacy-optimizer,
 layer, GPT profiled-step, dropout-arm, amp O1, ResNet-50 layout-turn,
 imagenet-arm, seq2seq, ViT, remat, RNN, graph, decode, inference, serve,
-resilience and observe numbers, its own wall
+resilience, observe, fleet and rollout numbers, its own wall
 time, one JSON line of per-kernel
 numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -440,6 +471,11 @@ S2S_VOCAB, S2S_BATCH, S2S_SEQ, S2S_LR = 32000, 64, 128, 1e-3
 S2S_XENT_ROWS = 1024
 GEN_BATCH, GEN_NEW, GEN_PAD_AT = 8, 64, 96
 VIT_BATCH, VIT_TOKENS, VIT_LR, VIT_WD = 32, (224 // 16) ** 2 + 1, 1e-3, 0.05
+# rollout_phase: 4 rounds of 8 prompts of 64 tokens, 32 new tokens each; 2
+# train steps a round at batch 8 x 96; a publish every round
+ROLL_ROUNDS, ROLL_PROMPTS, ROLL_PROMPT, ROLL_NEW = 4, 8, 64, 32
+ROLL_SEQ, ROLL_BATCH, ROLL_STEPS, ROLL_CAPACITY, ROLL_STALENESS = \
+    96, 8, 2, 32, 2
 # the LayerNorm shapes of the seq2seq step (width 512) and of ViT-S/16's
 # blocks and CLS norm (384), timed beside NORM_SHAPES
 LN_SLICE_SHAPES = (((S2S_BATCH * S2S_SEQ, 512), "bfloat16"),
@@ -448,7 +484,9 @@ LN_SLICE_SHAPES = (((S2S_BATCH * S2S_SEQ, 512), "bfloat16"),
                    # seq2seq_generate's fp32 target buffer and the serve
                    # engine's prefill chunk
                    ((GEN_BATCH * (GEN_NEW + 1), 512), "float32"),
-                   ((128, 768), "float32"))
+                   ((128, 768), "float32"),
+                   # the rollout trainer's step (GPT-2 small at 8 x 96)
+                   ((ROLL_BATCH * ROLL_SEQ, 768), "bfloat16"))
 
 
 def card_line():
@@ -788,7 +826,9 @@ def ln_phase(torch, layer_norm, dispatch):
              ((S2S_BATCH * S2S_SEQ, 512), bf16, True, (bf16, bf16)),
              ((VIT_BATCH * VIT_TOKENS, 384), bf16, True, (bf16, bf16)),
              ((VIT_BATCH, 384), bf16, True, (bf16, bf16)),
-             ((GEN_BATCH * (GEN_NEW + 1), 512), f32, True)]
+             ((GEN_BATCH * (GEN_NEW + 1), 512), f32, True),
+             # the rollout trainer's step
+             ((ROLL_BATCH * ROLL_SEQ, 768), bf16, True, (bf16, bf16))]
 
     def make(case):
         shape, dtype, affine = case[:3]
@@ -857,7 +897,8 @@ def _flash_want(route, layers, backward=True):
 # without and with the key-padding bias, a band, ragged sizes, a full bias,
 # the amp loops' fp16; then the seq2seq step's encoder, decoder (causal) and
 # cross-attention (8 heads, key-padded: "keypad8") and ViT-S/16's 197
-# tokens, whose last tile of keys and rows is partial.
+# tokens, whose last tile of keys and rows is partial; last the rollout
+# trainer's step (GPT-2 small at 8 x 96).
 FLASH_TC_CASES = [
     (TRAIN_BATCH * 12, TRAIN_SEQ, TRAIN_SEQ, 64, "bf16", True, None, None),
     (BERT_BATCH * 12, BERT_SEQ, BERT_SEQ, 64, "bf16", False, None, None),
@@ -870,6 +911,7 @@ FLASH_TC_CASES = [
     (S2S_BATCH * 8, S2S_SEQ, S2S_SEQ, 64, "bf16", True, None, None),
     (S2S_BATCH * 8, S2S_SEQ, S2S_SEQ, 64, "bf16", False, "keypad8", None),
     (VIT_BATCH * 6, VIT_TOKENS, VIT_TOKENS, 64, "bf16", False, None, None),
+    (ROLL_BATCH * 12, ROLL_SEQ, ROLL_SEQ, 64, "bf16", True, None, None),
 ]
 
 
@@ -3464,12 +3506,13 @@ def xent_phase(torch, xentropy):
     """The xentropy kernels against their plain versions on the same
     inputs; at the bench shape in fp32 also against F.cross_entropy under
     autograd; timings at the fused and the chunked shape, at BERT's MLM
-    head and at one chunk of the seq2seq step's chunked loss.  Returns the
-    two kernel lines' numbers."""
+    head, at one chunk of the seq2seq step's chunked loss and at the
+    rollout step's one chunk.  Returns the two kernel lines' numbers."""
     from torch.nn import functional as F
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     rows0 = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    roll_rows = ROLL_BATCH * (ROLL_SEQ - 1)
     cases = [  # (rows, C, dtype, smoothing, padding_idx, masked columns)
         (rows0, 50257, bf16, 0.0, -1, 0), (1023, 50257, bf16, 0.0, -1, 0),
         (rows0, 50257, f32, 0.0, -1, 0), (4092, 50257, f32, 0.0, -1, 0),
@@ -3478,7 +3521,8 @@ def xent_phase(torch, xentropy):
         (513, 50257, bf16, 0.1, 0, 0), (37, 1003, f16, 0.0, -1, 0),
         (5, 12345, f32, 0.1, 0, 100),
         (BERT_BATCH * BERT_MLM, BERT_VOCAB, bf16, 0.0, -1, 0),  # BERT MLM
-        (S2S_XENT_ROWS, S2S_VOCAB, bf16, 0.0, -1, 0)]  # a seq2seq chunk
+        (S2S_XENT_ROWS, S2S_VOCAB, bf16, 0.0, -1, 0),  # a seq2seq chunk
+        (roll_rows, 50257, bf16, 0.0, -1, 0)]  # the rollout step's chunk
     print("xentropy forward/backward vs plain (losses, lse: max abs / max(1, "
           "max |ref|); dx: units in the last place (half) or max abs / max "
           "|ref| (fp32)):")
@@ -3529,7 +3573,7 @@ def xent_phase(torch, xentropy):
     numbers = {}
     bert_rows = BERT_BATCH * BERT_MLM
     for rows, c in ((rows0, 50257), (1023, 50257), (bert_rows, BERT_VOCAB),
-                    (S2S_XENT_ROWS, S2S_VOCAB)):
+                    (S2S_XENT_ROWS, S2S_VOCAB), (roll_rows, 50257)):
         x = torch.randn((rows, c), generator=g, device="cuda").to(bf16)
         lab = torch.randint(0, c, (rows,), generator=g, device="cuda")
         gm = torch.full((rows,), 1.0 / rows, device="cuda")
@@ -3579,6 +3623,8 @@ def xent_phase(torch, xentropy):
     for line, i in ((fwd, 0), (bwd, 1)):
         line["seq2seq_chunk_shape"] = dict(shape=s2s_shape,
                                            **numbers[S2S_XENT_ROWS][i])
+        line["rollout_chunk_shape"] = dict(shape=f"({roll_rows}, 50257) bf16",
+                                           **numbers[roll_rows][i])
     return fwd, bwd
 
 
@@ -4791,67 +4837,123 @@ def bert_amp_path(torch, dispatch, bert):
     return counts, seq_s
 
 
-def bert_cpu_phase(torch, bert, attn_funcs):
+BERT_CPU_KW = dict(max_positions=BERT_SEQ, dropout=0.0, attn_dropout=0.0)
+
+
+def _bert_cpu_model(torch, bert, seed, **kw):
+    """bert_base (fp32, dropout 0) drawn on the CPU from ``seed``: the
+    weights the card's side and the CPU worker's side of bert_cpu_phase
+    both start from (the CPU's generator draws the same in each process)."""
+    torch.manual_seed(seed)
+    return bert.bert_base(**BERT_CPU_KW, **kw, device="cpu")
+
+
+def _bert_cpu_inputs(torch):
+    """bert_cpu_phase's batch (2 x 128, the second sequence padded from
+    position 100, 20 MLM positions a sequence) and the flash_attention
+    case's inputs (q, k, v, dO of (2, 12, 128, 64) fp32 and the
+    key-padding bias), all drawn on the CPU."""
+    (ids, pos), labels = _bert_batch(torch, 2, BERT_SEQ, "cpu", seed=2)
+    mask = torch.ones_like(ids)
+    mask[1, 100:] = 0
+    g = torch.Generator().manual_seed(SEED + 22)
+    qkvd = [torch.randn((2, 12, BERT_SEQ, 64), generator=g)
+            for _ in range(4)]
+    bias = torch.zeros((2, 1, BERT_SEQ))
+    bias[1, 0, 90:] = -1e30
+    return ids, pos, labels, mask, qkvd, bias
+
+
+def bert_side(torch, bert, attn_funcs, m, novo, dev):
+    """One side of bert_cpu_phase on ``dev``, from the models ``m``
+    (bert_base) and ``novo`` (its 2-layer cut) on that device: the logits,
+    the loss and every gradient of one backward; one fused LAMB step's
+    loss, masters and moments; flash_attention with dropout 0.1 and its
+    gradients; two FusedNovoGrad steps' losses, masters, moments and
+    running norms.  Everything returned on the CPU."""
+    from apex_tpu_torch.optimizers import FusedLAMB, FusedNovoGrad
+    from apex_tpu_torch.training import make_train_step
+    loss_fn = _bert_mlm_loss(torch)
+    ids, pos, labels, mask, qkvd, bias = (
+        x if isinstance(x, list) else x.to(dev)
+        for x in _bert_cpu_inputs(torch))
+    out = {}
+    logits = m(ids, attention_mask=mask, mlm_positions=pos)
+    loss = loss_fn(logits, labels)
+    loss.backward()
+    out.update(logits=logits.detach().cpu(), loss=float(loss.detach()),
+               grads=[p.grad.cpu() for p in m.parameters()])
+    m.zero_grad(set_to_none=True)
+    step = make_train_step(m, FusedLAMB(list(m.parameters()), lr=BERT_LR,
+                                        weight_decay=BERT_WD),
+                           loss_fn, half_dtype=None, loss_scale=1.0)
+    st = step.state
+    out["lamb"] = (float(step((ids, pos), labels)),
+                   [[t.cpu() for t in lst] for lst in (
+                       st.master_params, st.opt_state["m"],
+                       st.opt_state["v"])])
+    del step, st
+    leaves = [t.to(dev).requires_grad_(True) for t in qkvd[:3]]
+    o = attn_funcs.flash_attention(*leaves, bias=bias, dropout_p=DROP_P,
+                                   dropout_seed=SEED + 23)
+    grads = torch.autograd.grad(o, leaves, qkvd[3].to(dev))
+    out["flash"] = [t.detach().cpu() for t in (o,) + grads]
+    (nids, npos), nlabels = _bert_batch(torch, 2, BERT_SEQ, "cpu", seed=3)
+    step = make_train_step(novo, FusedNovoGrad(list(novo.parameters()),
+                                               lr=BERT_LR,
+                                               weight_decay=BERT_WD),
+                           loss_fn, half_dtype=None, loss_scale=1.0)
+    losses = [float(step((nids.to(dev), npos.to(dev)), nlabels.to(dev)))
+              for _ in range(2)]
+    st = step.state
+    out["novograd"] = (losses, [[t.cpu() for t in lst] for lst in (
+        st.master_params, st.opt_state["m"], st.opt_state["grad_norms"])])
+    return out
+
+
+def bert_cpu_reference(torch, bert, attn_funcs):
+    """The CPU side of bert_cpu_phase, run by the CPU worker: bert_side on
+    the CPU from the seed's weights."""
+    return bert_side(torch, bert, attn_funcs,
+                     _bert_cpu_model(torch, bert, SEED),
+                     _bert_cpu_model(torch, bert, SEED + 3, layers=2), "cpu")
+
+
+def bert_cpu_phase(torch, bert, attn_funcs, ref):
     """BERT-base on the card against the CPU from the same weights (fp32,
     TF32 off, every dropout 0, batch 2 x 128 with the second sequence
     padded from position 100, 20 MLM positions a sequence): the logits,
     the loss and every gradient of one backward, then one fused LAMB step's
     loss, masters and moments; one ``flash_attention`` call with dropout
     0.1 and its gradients, card against CPU; and two FusedNovoGrad train
-    steps of a 2-layer cut (``_bert_novograd_cpu_steps``)."""
-    from apex_tpu_torch.optimizers import FusedLAMB
-    from apex_tpu_torch.training import make_train_step
-    torch.set_num_threads(main_threads())
-    loss_fn = _bert_mlm_loss(torch)
-    torch.manual_seed(SEED)
-    kw = dict(max_positions=BERT_SEQ, dropout=0.0, attn_dropout=0.0)
-    mc = bert.bert_base(**kw, device="cuda")
-    sd = {k: v.detach().cpu() for k, v in mc.state_dict().items()}
-
-    def cpu_copy():
-        m = bert.bert_base(**kw, device="cpu")
-        m.load_state_dict(sd)
-        return m
-    mh = cpu_copy()
-    (ids, pos), labels = _bert_batch(torch, 2, BERT_SEQ, "cpu", seed=2)
-    mask = torch.ones_like(ids)
-    mask[1, 100:] = 0
+    steps of a 2-layer cut.  The weights are drawn on the CPU from the
+    seed; the CPU's side, ``ref``, is bert_cpu_reference's in the CPU
+    worker."""
+    def on_card(seed, **kw):
+        mh = _bert_cpu_model(torch, bert, seed, **kw)
+        mc = bert.bert_base(**BERT_CPU_KW, **kw, device="cuda")
+        mc.load_state_dict(mh.state_dict())
+        return mc, [p.detach().clone() for p in mh.parameters()]
+    mc, before = on_card(SEED)
+    novo, _ = on_card(SEED + 3, layers=2)
+    names = [name for name, _ in mc.named_parameters()]
+    card = bert_side(torch, bert, attn_funcs, mc, novo, "cuda")
+    del mc, novo
     print("BERT-base, card vs CPU (same weights, fp32, TF32 off, dropout 0, "
-          "batch 2 x 128, padding mask):")
-    outs = []
-    for m in (mc, mh):
-        dev = m.decoder_bias.device
-        logits = m(ids.to(dev), attention_mask=mask.to(dev),
-                   mlm_positions=pos.to(dev))
-        loss = loss_fn(logits, labels.to(dev))
-        loss.backward()
-        outs.append((logits.detach().cpu(), float(loss.detach())))
+          "batch 2 x 128, padding mask; the CPU side in the CPU worker):")
     tol = 1e-3     # fp32 on both sides, TF32 off; sums in other orders
     check("MLM logits (2, 20, 30522) (max abs diff)",
-          (outs[0][0] - outs[1][0]).abs().max().item(), tol)
-    check("loss (relative)", abs(outs[0][1] - outs[1][1]) / abs(outs[1][1]),
-          1e-4)
+          (card["logits"] - ref["logits"]).abs().max().item(), tol)
+    check("loss (relative)",
+          abs(card["loss"] - ref["loss"]) / abs(ref["loss"]), 1e-4)
     worst, worst_name = 0.0, None
-    for (name, pc), ph in zip(mc.named_parameters(), mh.parameters()):
-        e = (pc.grad.cpu() - ph.grad).abs().max().item() / max(
-            ph.grad.abs().max().item(), 1e-30)
+    for name, gc, gh in zip(names, card["grads"], ref["grads"]):
+        e = (gc - gh).abs().max().item() / max(gh.abs().max().item(), 1e-30)
         if e > worst:
             worst, worst_name = e, name
     check(f"gradients, worst tensor {worst_name} (max abs err / max |g|)",
           worst, 1e-3)
-
-    before = [p.detach().clone() for p in mh.parameters()]
-    runs = []
-    for m in (mc, mh):
-        dev = m.decoder_bias.device
-        m.zero_grad(set_to_none=True)
-        step = make_train_step(m, FusedLAMB(list(m.parameters()), lr=BERT_LR,
-                                            weight_decay=BERT_WD),
-                               loss_fn, half_dtype=None, loss_scale=1.0)
-        loss = float(step((ids.to(dev), pos.to(dev)), labels.to(dev)))
-        st = step.state
-        runs.append((loss, [[t.cpu() for t in lst] for lst in (
-            st.master_params, st.opt_state["m"], st.opt_state["v"])]))
+    runs = [card["lamb"], ref["lamb"]]
     check("LAMB step 1 loss (relative)",
           abs(runs[0][0] - runs[1][0]) / abs(runs[1][0]), 1e-4)
     # a 768 x 768 weight at std 0.02 moves by about lr |p| / |u| ~ 2e-5 an
@@ -4861,8 +4963,7 @@ def bert_cpu_phase(torch, bert, attn_funcs):
           max((a - b).abs().max().item()
               for a, b in zip(runs[0][1][0], runs[1][1][0])), 1e-5)
     worst, worst_name = 0.0, None
-    for (name, _), a, b, p0 in zip(mh.named_parameters(), runs[0][1][0],
-                                   runs[1][1][0], before):
+    for name, a, b, p0 in zip(names, runs[0][1][0], runs[1][1][0], before):
         e = (torch.linalg.vector_norm((a - p0) - (b - p0))
              / torch.linalg.vector_norm(b - p0).clamp_min(1e-30)).item()
         if e > worst:
@@ -4874,25 +4975,24 @@ def bert_cpu_phase(torch, bert, attn_funcs):
               max((a - b).abs().max().item() / max(b.abs().max().item(),
                                                    1e-30)
                   for a, b in zip(runs[0][1][i], runs[1][1][i])), 2e-3)
-    del mc, mh, runs
-
-    g = torch.Generator().manual_seed(SEED + 22)
-    q, k, v, dout = (torch.randn((2, 12, BERT_SEQ, 64), generator=g)
-                     for _ in range(4))
-    bias = torch.zeros((2, 1, BERT_SEQ))
-    bias[1, 0, 90:] = -1e30
-    res = []
-    for dev in ("cuda", "cpu"):
-        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
-        out = attn_funcs.flash_attention(*leaves, bias=bias.to(dev),
-                                         dropout_p=DROP_P,
-                                         dropout_seed=SEED + 23)
-        grads = torch.autograd.grad(out, leaves, dout.to(dev))
-        res.append([t.detach().cpu() for t in (out,) + grads])
-    for name, a, b in zip(("out", "dq", "dk", "dv"), *res):
+    for name, a, b in zip(("out", "dq", "dk", "dv"), card["flash"],
+                          ref["flash"]):
         check(f"flash_attention dropout {DROP_P}, (2, 12, 128, 64) fp32 "
               f"key-padded, card vs CPU: {name}", scaled_err(a, b)[0], 1e-5)
-    _bert_novograd_cpu_steps(torch, bert, loss_fn)
+    (lc, rc), (lh, rh) = card["novograd"], ref["novograd"]
+    print("BERT 2 layers, FusedNovoGrad make_train_step, card vs CPU (fp32, "
+          "same weights, 2 steps):")
+    check("losses (relative)", max(abs(a - b) / abs(b)
+                                   for a, b in zip(lc, lh)), 1e-4)
+    check("fp32 masters after 2 steps (max abs diff)",
+          max((a - b).abs().max().item() for a, b in zip(rc[0], rh[0])),
+          1e-5)
+    check("first moments, worst tensor (max abs err / max |ref|)",
+          max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+              for a, b in zip(rc[1], rh[1])), 2e-3)
+    check("running norms, worst tensor (relative)",
+          max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+              for a, b in zip(rc[2], rh[2])), 1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -5628,47 +5728,6 @@ def bert_novograd_amp_iteration(torch, dispatch, bert):
     del model, opt
     reset()
     return counts
-
-
-def _bert_novograd_cpu_steps(torch, bert, loss_fn):
-    """A 2-layer bert_base (fp32, dropout 0) and 2 FusedNovoGrad train steps
-    on the card and on the CPU from the same weights and batch: the losses,
-    the masters, the moments and the running norms."""
-    from apex_tpu_torch.optimizers import FusedNovoGrad
-    from apex_tpu_torch.training import make_train_step
-    torch.manual_seed(SEED + 3)
-    kw = dict(max_positions=BERT_SEQ, dropout=0.0, attn_dropout=0.0,
-              layers=2)
-    mc = bert.bert_base(**kw, device="cuda")
-    mh = bert.bert_base(**kw, device="cpu")
-    mh.load_state_dict({k: v.cpu() for k, v in mc.state_dict().items()})
-    (ids, pos), labels = _bert_batch(torch, 2, BERT_SEQ, "cpu", seed=3)
-    runs = []
-    for m in (mc, mh):
-        dev = m.decoder_bias.device
-        step = make_train_step(m, FusedNovoGrad(list(m.parameters()),
-                                                lr=BERT_LR,
-                                                weight_decay=BERT_WD),
-                               loss_fn, half_dtype=None, loss_scale=1.0)
-        losses = [float(step((ids.to(dev), pos.to(dev)), labels.to(dev)))
-                  for _ in range(2)]
-        st = step.state
-        runs.append((losses, [[t.cpu() for t in lst] for lst in (
-            st.master_params, st.opt_state["m"],
-            st.opt_state["grad_norms"])]))
-    print("BERT 2 layers, FusedNovoGrad make_train_step, card vs CPU (fp32, "
-          "same weights, 2 steps):")
-    check("losses (relative)", max(abs(a - b) / abs(b) for a, b in zip(
-        runs[0][0], runs[1][0])), 1e-4)
-    check("fp32 masters after 2 steps (max abs diff)",
-          max((a - b).abs().max().item()
-              for a, b in zip(runs[0][1][0], runs[1][1][0])), 1e-5)
-    check("first moments, worst tensor (max abs err / max |ref|)",
-          max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-              for a, b in zip(runs[0][1][1], runs[1][1][1])), 2e-3)
-    check("running norms, worst tensor (relative)",
-          max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
-              for a, b in zip(runs[0][1][2], runs[1][1][2])), 1e-4)
 
 
 LORA_R, LORA_ALPHA, LORA_LR = 8, 16.0, 1e-3
@@ -8561,31 +8620,48 @@ def _probe_operands(eng):
     return eng._ints(toks, [500 + r for r in range(SERVE_BATCH)], tables)
 
 
-def _serve_graph_checks(torch, dispatch, eng, counts, ln_want):
-    """Every captured graph of the engine's decode and prefill programs
+def _serve_entries(engines):
+    """Each decode and prefill entry of ``engines``' programs by identity:
+    (calls, replays less captures)."""
+    return {id(e): (e.calls, e.replays - e.captures)
+            for eng in engines
+            for kind in ("decode_step", "prefill_step")
+            if kind in eng.programs()
+            for e in eng.programs()[kind].entries()}
+
+
+def _serve_graph_checks(torch, dispatch, engines, counts, ln_want,
+                        what="serve unified", before=None):
+    """Every captured graph of the engines' decode and prefill programs
     holds the LayerNorm forward nodes of ``ln_want`` (25 on vec) and no
     other hand-written kernel; the wrappers counted those a call for each
-    eager warm-up and each capture.  Returns the arm's launches in all (the counts plus each
-    graph's nodes times its later replays) and the graphs' numbers."""
+    eager warm-up and each capture since ``before`` (_serve_entries taken
+    before the counted run; None: a fresh engine).  Returns the arm's
+    launches in all (the counts plus each graph's nodes times its later
+    replays in the run) and the graphs' numbers."""
     from apex_tpu_torch.runtime import executor
+    before = before or {}
     later, calls, graphs = 0, 0, {}
-    for kind in ("decode_step", "prefill_step"):
-        prog = eng.programs()[kind]
-        for text in executor.graph_dot(prog):
-            nodes = _dot_kernel_counts([text], counts)
-            if nodes != ln_want:
-                raise AssertionError(f"serve {kind}: a graph's kernel nodes "
-                                     f"{_nonzero(nodes)}, not "
-                                     f"{_nonzero(ln_want)}")
-        for e in prog.entries():
-            later += e.replays - e.captures
-            calls += min(e.calls, 2)
-        graphs[kind] = executor.graph_stats(prog)
+    for i, eng in enumerate(engines):
+        for kind in ("decode_step", "prefill_step"):
+            prog = eng.programs()[kind]
+            for text in executor.graph_dot(prog):
+                nodes = _dot_kernel_counts([text], counts)
+                if nodes != ln_want:
+                    raise AssertionError(
+                        f"{what} {kind}: a graph's kernel nodes "
+                        f"{_nonzero(nodes)}, not {_nonzero(ln_want)}")
+            for e in prog.entries():
+                c0, l0 = before.get(id(e), (0, 0))
+                later += e.replays - e.captures - l0
+                calls += min(e.calls, 2) - min(c0, 2)
+            graphs[kind if len(engines) == 1 else f"{i}.{kind}"] = \
+                executor.graph_stats(prog)
     want = {k: ln_want[k] * calls for k in counts}
-    _expect("serve unified, the wrappers (each bucket's warm-up and "
-            "capture)", counts, want)
+    _expect(f"{what}, the wrappers (each bucket's warm-up and capture)",
+            counts, want)
     total = {k: counts[k] + ln_want[k] * later for k in counts}
-    print(f"  serve unified: every decode and prefill graph holds "
+    print(f"  {what}: every decode and prefill graph holds "
           f"{_nonzero(ln_want)} kernel nodes; {later} later replays; "
           f"launches in all {_nonzero(total)}")
     return total, graphs
@@ -8712,7 +8788,7 @@ def serve_phase(torch, dispatch, gpt, inference, serve, cpu_ref):
     n_norm = 2 * len(model.blocks) + 1
     ln_want = dict.fromkeys(counts, 0)
     ln_want.update(ln_forward=n_norm, ln_forward_vec=n_norm)
-    total, graphs = _serve_graph_checks(torch, dispatch, eng, counts,
+    total, graphs = _serve_graph_checks(torch, dispatch, [eng], counts,
                                         ln_want)
     caps0 = {k: executor.graph_stats(p)["captures"]
              for k, p in eng.programs().items()}
@@ -8793,8 +8869,7 @@ def serve_phase(torch, dispatch, gpt, inference, serve, cpu_ref):
     t = time.perf_counter()
     # (d) and (i): the probe bucket, publish_weights
     nums["probe"] = serve_probe(torch, dispatch, serve, eng, ln_want)
-    eng.close()
-    del eng
+    keep_eng = eng      # its captured graphs serve the rollout phase
     secs["probe"] = time.perf_counter() - t
     t = time.perf_counter()
     sub, sub_arr = reqs[:SERVE_SUB], arrivals[:SERVE_SUB]
@@ -8922,7 +8997,8 @@ def serve_phase(torch, dispatch, gpt, inference, serve, cpu_ref):
     print("serve phases: " + ", ".join(f"{k} {v:.1f} s"
                                        for k, v in secs.items()))
     return total, nums, dict(tokens=out, reqs=reqs, arrivals=arrivals,
-                             watchdog_run=watchdog_run)
+                             watchdog_run=watchdog_run, engine=keep_eng,
+                             ln_want=ln_want)
 
 
 # (main's line, seconds since the previous lap) of this run's phases
@@ -9789,8 +9865,445 @@ def observe_phase(torch, dispatch, gpt, serve, inference, entries, keep):
     return counts, nums
 
 
+# --- the elastic serve fleet and the rollout loop --------------------------
+
+# fleet_phase: 2 replicas of 160 blocks over the serve phase's model, its
+# trace's first 24 requests, SLOs alternating latency and batch, a snapshot
+# every 2 fleet ticks; chaos fells serve1 after 10 of its beats
+FLEET_REPLICAS, FLEET_BLOCKS, FLEET_REQUESTS, FLEET_SNAPSHOT_EVERY = \
+    2, 160, 24, 2
+FLEET_KILL_AFTER, FLEET_VICTIM = 10, "serve1"
+# rollout_phase's check (e), bf16 half copies on the card against fp32 on
+# the CPU: the first train step's loss (relative), and the second step's
+# as a share of how far the CPU's first step moved the second batch's
+# loss.  Set between the sound card's readings and those of deliberately
+# wrong kernels on the same batches (tools/rollout_loss_controls.py): the
+# first loss moves 7.1e-2 with no causal mask and 6.8e-3 with the labels
+# a row late, the sound card 5.0e-5 from the CPU; the second moves 1.76
+# of the step's move with no causal mask, 2.69 with no target -1 in the
+# xentropy backward, 8.7e-2 with the labels a row late and 4.5e-2 with
+# dq unwritten; LayerNorm's bias or sums lost (4.6e-3) and Adam skipping
+# the last tensor (8.2e-4) move it less than the limit.
+ROLL_CPU_TOL = 1e-3
+ROLL_STEP_TOL = 0.02
+ROLL_COPY_REPLAYS = 10           # the publish program's timed replays
+
+
+def fleet_phase(torch, dispatch, serve, keep):
+    """The elastic serve fleet on GPT-2 small at full width (fp32, the
+    serve phase's model): a ServeFleet of 2 replicas (serve_phase's block
+    size, chunk and batch, 160 blocks each) over MemoryKV + SimClock; the
+    first 24 requests of serve_phase's trace, SLOs alternating batch and
+    latency (s0 batch), a session snapshot every 2 fleet ticks; a chaos ``host.loss``
+    kill fells serve1 after 10 of its beats.  Checks: (a) every request
+    equals the unified engine's tokens (serve_phase (a)) under the near-tie
+    rule; (b) epoch >= 2, at least one session migrated, the snapshots'
+    host peak at most one block part's bytes; (c) no leaked block on the
+    survivor; (d) each replica's decode captures within the bucket bound;
+    the launches (the counts set to 0 just before the run and read just
+    after) are every graph's LayerNorm nodes.  Returns (launches,
+    numbers)."""
+    import collections
+    from apex_tpu_torch.cluster import MemoryKV, SimClock
+    from apex_tpu_torch.runtime import chaos, executor
+    from apex_tpu_torch.serve import elastic
+    t = time.perf_counter()
+    stream = elastic.stream_kv_handoff
+    files = collections.Counter()
+
+    def counted_stream(d, pool, table, **kw):
+        """The snapshots' block files, written and hard-linked."""
+        link = kw.get("link_from")
+        n = min(link[2], len(table)) if link else 0
+        files.update(snapshots=1, linked=n, written=len(table) - n)
+        return stream(d, pool, table, **kw)
+    model = keep["engine"].model
+    src = keep["reqs"][:FLEET_REQUESTS]
+    reqs = [serve.Request(r.rid, r.prompt, r.max_new_tokens) for r in src]
+    arrivals = keep["arrivals"][:FLEET_REQUESTS]
+    slos = ["batch" if i % 2 == 0 else "latency" for i in range(len(reqs))]
+    beats = collections.Counter()
+
+    def fell(ctx):
+        member = ctx.get("member")
+        beats[member] += 1
+        if member == FLEET_VICTIM and beats[member] > FLEET_KILL_AFTER:
+            raise chaos.ChaosKilled(f"chaos: felled {member}")
+    elastic.stream_kv_handoff = counted_stream
+    with chaos.session(seed=SEED) as c:
+        c.on("host.loss", fell, times=-1)
+        fleet = serve.ServeFleet(
+            model, n_engines=FLEET_REPLICAS, num_blocks=FLEET_BLOCKS,
+            block_size=SERVE_BLOCK, max_batch=SERVE_BATCH,
+            prefill_chunk=SERVE_CHUNK, kv=MemoryKV(), clock=SimClock(),
+            snapshot_every=FLEET_SNAPSHOT_EVERY)
+        try:
+            fleet.join()
+            engines = [m.engine for m in fleet.members.values()]
+            torch.cuda.synchronize()
+            dispatch.reset_counts()
+            t0 = time.perf_counter()
+            out = fleet.run(reqs, slos=slos, arrivals=arrivals)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dispatch.counts()
+            m = fleet.metrics()
+            survivor = fleet.members["serve0"]
+            survivor.engine.block_pool.check_no_leaks()
+            caps = {mid: executor.graph_stats(
+                mm.engine.programs()["decode_step"])["captures"]
+                for mid, mm in fleet.members.items()}
+            ticks = fleet.tick
+        finally:
+            fleet.close()
+            elastic.stream_kv_handoff = stream
+    print(f"fleet phase: ServeFleet of {FLEET_REPLICAS} over GPT-2 small "
+          f"(fp32), {FLEET_BLOCKS} blocks a replica, {len(reqs)} requests "
+          f"(SLOs alternating), a snapshot every {FLEET_SNAPSHOT_EVERY} "
+          f"ticks, {FLEET_VICTIM} felled after {FLEET_KILL_AFTER} beats")
+    total, graphs = _serve_graph_checks(torch, dispatch, engines, counts,
+                                        keep["ln_want"], "fleet")
+    tokens = sum(len(v) for v in out.values())
+    if sorted(out) != sorted(r.rid for r in reqs) or any(
+            len(out[r.rid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError("fleet: not every request got its tokens")
+    ties = _serve_against(torch, model, "fleet against the unified engine",
+                          reqs, keep["tokens"], out)
+    attn = model.blocks[0].attn
+    block_bytes = len(model.blocks) * 2 * attn.num_heads * SERVE_BLOCK \
+        * attn.head_dim * 4
+    bound = serve_bucket_bound(serve, reqs)
+    nums = dict(metrics=m, wall_s=wall, tokens=tokens,
+                tokens_per_s=tokens / wall, ticks=ticks, ties=ties,
+                decode_captures=caps, bucket_bound=bound,
+                block_part_bytes=block_bytes, graphs=graphs,
+                snapshot_files=dict(files))
+    print(f"  fleet: {tokens} tokens in {wall:.2f} s = "
+          f"{tokens / wall:.1f} tokens/s, {ticks} fleet ticks; epoch "
+          f"{m['epoch']}, {m['sessions_migrated']} migrated, "
+          f"{m['sessions_shed_requeued']} shed and re-queued, "
+          f"{m['sessions_recomputed']} recomputed, debris "
+          f"{m['debris_rejected']}; detect_ms {m['detect_ms']}, "
+          f"migrate_ms {m['migrate_ms']}; snapshot host peak "
+          f"{m['snapshot_bytes_peak_host']} bytes (a block part "
+          f"{block_bytes}); decode captures {caps} (bound {bound}); "
+          f"{files['snapshots']} session snapshots: {files['written']} "
+          f"block files written, {files['linked']} hard-linked")
+    if m["epoch"] < 2 or m["sessions_migrated"] < 1 or \
+            not 0 < m["snapshot_bytes_peak_host"] <= block_bytes or \
+            any(not 1 <= v <= bound for v in caps.values()) or \
+            m["members"][FLEET_VICTIM]["alive"]:
+        raise AssertionError(f"fleet: {m}, captures {caps}")
+    nums["seconds"] = time.perf_counter() - t
+    return total, nums
+
+
+def rollout_cpu_reference(torch, gpt, sd, ids):
+    """The CPU side of rollout_phase's check (e), run by the CPU worker
+    from GPT-2 small's weights ``sd`` in fp32 on the rollout's first two
+    train batches ``ids`` (2, batch, seq): the losses of two train steps
+    (FusedAdam and the chunked loss as on the card), and the second
+    batch's loss at the seed's weights, which a step that moved no master
+    would leave (the control the second loss is held against)."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.training import make_train_step
+    loss_fn = _chunked_lm_loss()
+    model = _gpt_on(torch, gpt, sd, "cpu", output_hidden=True)
+    with torch.no_grad():
+        held = float(loss_fn(model(ids[1]), ids[1]))
+    step = make_train_step(model, FusedAdam(list(model.parameters()), lr=LR,
+                                            weight_decay=WD),
+                           loss_fn, half_dtype=None, loss_scale=1.0)
+    return dict(losses=[float(step(x, x)) for x in ids], held=held)
+
+
+class _TimedStep:
+    """A train step whose calls the host clock times (each call ends in a
+    synchronize), otherwise the step itself."""
+
+    def __init__(self, torch, step):
+        self._torch, self._step, self.ms = torch, step, []
+
+    def __call__(self, *batch):
+        self._torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = self._step(*batch)
+        self._torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return loss
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+
+def rollout_phase(torch, dispatch, gpt, serve, inference, keep, worker):
+    """This slice's main path: a RolloutRuntime over serve_phase's engine
+    (GPT-2 small fp32, its 320-block pool and captured bucket graphs) and a
+    new trainer (GPT-2 small from the same seed, bf16 half copies over fp32
+    masters, FusedAdam, the chunked loss): 4 rounds of 8 prompts of 64
+    tokens from the seeded stream, 32 new tokens, 2 train steps a round at
+    batch 8 x 96, a publish every round.  Checks: (a) after each publish
+    every serve parameter equals its master bit for bit; (b) no decode or
+    prefill graph captured after round 1; (c) after the last publish one
+    request through the engine equals a greedy DecodeSession over the
+    engine's model (near-tie rule); (d) weight epochs 1-4, each sample's
+    epoch its admission round's, no leaked block; (e) the first two train
+    steps' losses against the CPU worker's fp32 recompute of both steps:
+    the first within ROLL_CPU_TOL of it, the second within ROLL_STEP_TOL
+    of the CPU step's move of that batch's loss; (f) the wrappers'
+    launches over the loop (the counts set to 0 just before and read just
+    after) are the train step's and the engine's known counts.  The
+    engine's model holds the seed's weights again on return.  Returns
+    (launches in all, finish): ``finish()`` makes check (e) once the CPU
+    worker's side is in (main runs fleet_phase meanwhile) and returns the
+    phase's numbers."""
+    import numpy as np
+    from apex_tpu_torch import rollout
+    from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.runtime import executor
+    from apex_tpu_torch.training import make_train_step
+    t = time.perf_counter()
+    eng = keep["engine"]
+    model = eng.model
+    torch.manual_seed(SEED)
+    train_m = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0,
+                             attn_dropout=0.0, device="cuda")
+    if not all(torch.equal(a, b) for a, b in zip(train_m.parameters(),
+                                                 model.parameters())):
+        raise AssertionError("rollout: the trainer's seed weights differ "
+                             "from the engine's")
+    seed = [p.detach().clone() for p in model.parameters()]
+    train_m.output_hidden = True
+    step = _TimedStep(torch, make_train_step(
+        train_m, FusedAdam(list(train_m.parameters()), lr=LR,
+                           weight_decay=WD),
+        _chunked_lm_loss(), half_dtype=torch.bfloat16, loss_scale=1.0))
+    rt = rollout.RolloutRuntime(
+        eng, step, capacity=ROLL_CAPACITY, max_staleness=ROLL_STALENESS,
+        prompt_len=ROLL_PROMPT, max_new_tokens=ROLL_NEW,
+        rollouts_per_round=ROLL_PROMPTS, train_batch=ROLL_BATCH,
+        train_steps_per_round=ROLL_STEPS, seq_len=ROLL_SEQ,
+        publish_every=1, seed=SEED)
+    default_batch = rt.batch_fn
+
+    def batch_fn(xs, w):
+        # the CPU worker recomputes steps 1 and 2 from their batches
+        if len(batch_fn.sent) < 2:
+            batch_fn.sent.append(torch.from_numpy(np.asarray(xs, np.int64)))
+            if len(batch_fn.sent) == 2:
+                worker.submit(torch, "rollout_cpu",
+                              torch.stack(batch_fn.sent))
+        return default_batch(xs, w)
+    batch_fn.sent = []
+    rt.batch_fn = batch_fn
+    publish = rt.publisher.publish
+    pubs = []
+
+    def timed_publish(masters, **kw):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        st = publish(masters, **kw)
+        b.record()
+        b.synchronize()
+        pubs.append(dict(epoch=st["epoch"],
+                         weight_sync_ms=st["weight_sync_ms"],
+                         device_ms=a.elapsed_time(b),
+                         bytes=st["bytes_moved"], leaves=st["leaves"]))
+        return st
+    rt.publisher.publish = timed_publish
+    run = eng.run
+    gen_s = []
+
+    def timed_run(reqs, **kw):
+        t0 = time.perf_counter()
+        res = run(reqs, **kw)
+        gen_s.append(time.perf_counter() - t0)
+        return res
+    eng.run = timed_run
+
+    def captures():
+        return {k: executor.graph_stats(p)["captures"]
+                for k, p in eng.programs().items()}
+    before = _serve_entries([eng])
+    recs, caps = [], []
+    try:
+        torch.cuda.synchronize()
+        dispatch.reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(ROLL_ROUNDS):
+            recs.append(rt.run_round())
+            caps.append(captures())
+            # (a) the published values are the masters, bit for bit
+            bad = [i for i, (p, mv) in enumerate(zip(
+                model.parameters(), rollout.master_leaves(step)))
+                if not torch.equal(p, mv)]
+            if bad:
+                raise AssertionError(f"rollout round {len(recs)}: serve "
+                                     f"parameters {bad[:5]} differ from "
+                                     f"the masters after the publish")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dispatch.counts()
+    finally:
+        del eng.run
+    print(f"rollout phase: RolloutRuntime over the serve phase's engine "
+          f"(GPT-2 small fp32) and a GPT-2 small trainer (bf16 half copies, "
+          f"FusedAdam, chunked loss); {ROLL_ROUNDS} rounds of {ROLL_PROMPTS} "
+          f"x {ROLL_PROMPT} + {ROLL_NEW} tokens, {ROLL_STEPS} train steps of "
+          f"{ROLL_BATCH} x {ROLL_SEQ} a round")
+    # (f) the wrappers: each step signature's eager call and capture, each
+    # engine bucket's warm-up and capture in the loop
+    layers = len(model.blocks)
+    rows = ROLL_BATCH * (ROLL_SEQ - 1)
+    chunks = -(-rows // _chunk_rows(rows, 50257, None))
+    step_want = _want(counts, layers, LN_NAMES, 2 * layers + 1,
+                      xent_forward=chunks, xent_backward=chunks,
+                      fused_adam=1)
+    prog = step._program
+    step_calls = sum(min(e.calls, 2) for e in prog.entries())
+    step_later = sum(e.replays - e.captures for e in prog.entries())
+    for text in executor.graph_dot(prog):
+        nodes = _dot_kernel_counts([text], counts)
+        if nodes != step_want:
+            raise AssertionError(f"rollout train step: graph nodes "
+                                 f"{_nonzero(nodes)}, not "
+                                 f"{_nonzero(step_want)}")
+    eng_counts = {k: counts[k] - step_want[k] * step_calls for k in counts}
+    eng_total, _ = _serve_graph_checks(torch, dispatch, [eng], eng_counts,
+                                       keep["ln_want"], "rollout engine",
+                                       before)
+    total = {k: eng_total[k] + step_want[k] * (step_calls + step_later)
+             for k in counts}
+    print(f"  rollout: the train step's {step_calls} wrapper-counted calls "
+          f"launch {_nonzero(step_want)} each, {step_later} later replays; "
+          f"launches in all {_nonzero(total)}")
+    # (b) captures only in round 1
+    if caps[-1] != caps[0]:
+        raise AssertionError(f"rollout: graphs captured after round 1: "
+                             f"{caps}")
+    # (d) epochs, attribution, leaks
+    epochs = [r["weight_epoch"] for r in recs]
+    wrong = [(s.rid, s.weight_epoch) for s in rt.buffer._samples
+             if s.weight_epoch != int(s.rid[1:].split(".")[0])]
+    eng.block_pool.check_no_leaks()
+    if epochs != list(range(1, ROLL_ROUNDS + 1)) or wrong or \
+            [p["epoch"] for p in pubs] != epochs:
+        raise AssertionError(f"rollout: epochs {epochs}, misattributed "
+                             f"samples {wrong}")
+    # (c) after the last publish: the engine against DecodeSession
+    rng = np.random.default_rng(SEED + 53)
+    req = serve.Request("rollout_check", [int(x) for x in rng.integers(
+        1, 50257, ROLL_PROMPT)], ROLL_NEW)
+    got = eng.run([req])
+    if eng.result_meta[req.rid]["weight_epoch"] != ROLL_ROUNDS:
+        raise AssertionError("rollout: the check request's epoch")
+    ties = _serve_against(torch, model, "rollout engine after the last "
+                          "publish against DecodeSession", [req],
+                          _session_refs(torch, inference, model, [req]),
+                          got)
+    eng.block_pool.check_no_leaks()
+    # the publish's copy on the device: replays of its program (the masters
+    # are the parameters' values already, so nothing changes) queued
+    # behind a device-side sleep (median_ms), so that the events time the
+    # card and not the executor's host work a submit; beside its bound
+    # (the bytes read and written once)
+    prog = rt.publisher._program
+    args = (rollout.master_leaves(step), rt.publisher._tgt_params)
+    copy_ms, copy_host_ms = median_ms(
+        lambda: executor.executor.submit(prog, args), reps=5,
+        inner=ROLL_COPY_REPLAYS, warmup=1)
+    copy_bound = 1e3 * 2 * pubs[-1]["bytes"] / HBM_BYTES_PER_S
+    print(f"  publish copy on the device: {copy_ms:.4f} ms a replay "
+          f"(median of 5 runs of {ROLL_COPY_REPLAYS} replays between CUDA "
+          f"events), the host {copy_host_ms:.4f} ms a submit, against its "
+          f"bound {copy_bound:.4f} ms ({2 * pubs[-1]['bytes']} bytes at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s); graph "
+          f"{executor.graph_stats(prog)}")
+    if not all(math.isfinite(x) for x in rt.losses):
+        raise AssertionError(f"rollout: losses {rt.losses}")
+    replay_ms = step.ms[2:]
+    nums = dict(wall_s=wall, rounds_per_s=ROLL_ROUNDS / wall,
+                tokens_generated=rt.tokens_generated,
+                generate_s=sum(gen_s),
+                generated_tokens_per_s=rt.tokens_generated / sum(gen_s),
+                train_step_ms=step.ms, train_step_graph_ms=(
+                    statistics.median(replay_ms) if replay_ms else None),
+                publishes=pubs, publish_copy_ms=copy_ms,
+                publish_copy_host_ms=copy_host_ms,
+                publish_copy_bound_ms=copy_bound, losses=rt.losses,
+                captures=caps, epochs=epochs, ties=ties,
+                records=[{k: r[k] for k in ("round", "submitted",
+                                            "evicted", "buffer_fill",
+                                            "staleness_p50")}
+                         for r in recs])
+    print(f"  rollout: {ROLL_ROUNDS} rounds in {wall:.2f} s = "
+          f"{nums['rounds_per_s']:.3f} rounds/s; {rt.tokens_generated} "
+          f"tokens generated in {sum(gen_s):.2f} s = "
+          f"{nums['generated_tokens_per_s']:.1f} tokens/s; train step ms "
+          f"(host, each call ending in a synchronize) "
+          f"{[round(x, 2) for x in step.ms]}, the graph's "
+          f"{nums['train_step_graph_ms']:.2f}; losses "
+          f"{[round(x, 4) for x in rt.losses]}")
+    for p in pubs:
+        print(f"  publish epoch {p['epoch']}: weight_sync_ms "
+              f"{p['weight_sync_ms']:.3f} (host), {p['device_ms']:.3f} ms "
+              f"between CUDA events, {p['bytes']} bytes in {p['leaves']} "
+              f"leaves")
+    print(f"  rollout: captures after each round {caps}; every publish's "
+          f"serve parameters equal the masters bit for bit")
+    # the engine's model back to the seed's weights: fleet_phase serves
+    # them next (its tokens are serve_phase's unified run's)
+    with torch.no_grad():
+        for p, w in zip(model.parameters(), seed):
+            p.copy_(w)
+    losses = list(rt.losses)
+    del rt, step, train_m, seed
+    nums["seconds"] = time.perf_counter() - t
+
+    def finish():
+        """(e) the first two steps' losses against the CPU worker's fp32
+        recompute: the first relative to the loss; the second, whose
+        batch the first step's backward and Adam update moved, as a share
+        of how far the CPU's step moved it (its loss at the seed's
+        weights beside).  Returns the phase's numbers."""
+        t0 = time.perf_counter()
+        cpu = worker.result(torch, "rollout_cpu")
+        cpu_loss = cpu["losses"][0]
+        moved = cpu["losses"][1] - cpu["held"]
+        check(f"rollout first train step loss {losses[0]:.6f} against the "
+              f"CPU's fp32 {cpu_loss:.6f} (relative)",
+              abs(losses[0] - cpu_loss) / abs(cpu_loss), ROLL_CPU_TOL)
+        check(f"rollout second train step loss {losses[1]:.6f} against "
+              f"the CPU's fp32 {cpu['losses'][1]:.6f}, as a share of the "
+              f"CPU step's move {moved:.6f} (from {cpu['held']:.6f} at the "
+              f"seed's weights)",
+              abs(losses[1] - cpu["losses"][1]) / abs(moved), ROLL_STEP_TOL)
+        nums.update(cpu_losses=cpu["losses"], cpu_held_loss=cpu["held"],
+                    cpu_wait_s=time.perf_counter() - t0)
+        return nums
+    return total, finish
+
+
+class InlineCpu:
+    """Stands in for the CPU worker when rollout_phase runs alone: the CPU
+    side of its check (e) runs in this process when its result is asked
+    for, from GPT-2 small's weights ``sd``."""
+
+    def __init__(self, gpt, sd):
+        self.gpt, self.sd, self.inputs = gpt, sd, {}
+
+    def submit(self, torch, name, payload):
+        self.inputs[name] = payload
+
+    def result(self, torch, name):
+        return rollout_cpu_reference(torch, self.gpt, self.sd,
+                                     self.inputs[name])
+
+
 CPU_WORKER_JOBS = ("train_cpu", "train_modes_cpu", "resnet_cpu", "generate_cpu",
-                   "llama_cpu", "amp_cpu", "legacy", "layers", "serve_cpu")
+                   "llama_cpu", "amp_cpu", "legacy", "layers", "serve_cpu",
+                   "bert_cpu", "rollout_cpu")
 # the host's cores split while the worker runs: its threads and the main
 # process's CPU work each take half, so neither oversubscribes the other
 CPU_WORKER_THREADS = 4
@@ -9805,26 +10318,32 @@ def main_threads():
 
 def cpu_worker(workdir):
     """``python3 chip_smoke.py --cpu-worker DIR``: compute the CPU sides of
-    the generate paths' card-against-CPU checks (from the inputs the main
-    process hands over, ``CpuWorker.submit``), train_cpu_phase,
-    train_modes_cpu_phase, amp_phase's overflow skip,
-    resnet_cpu_phase, legacy_optimizer_phase, layers_phase and serve_phase
-    from the weights in DIR (no card: CUDA is hidden from this process), each into
-    DIR/<job>.pt as it completes, or DIR/<job>.err with the traceback."""
+    the generate paths' card-against-CPU checks and of rollout_phase's (e)
+    (from the inputs the main process hands over, ``CpuWorker.submit``),
+    train_cpu_phase, train_modes_cpu_phase, amp_phase's overflow skip,
+    resnet_cpu_phase, bert_cpu_phase, legacy_optimizer_phase, layers_phase
+    and serve_phase from the weights in DIR or the seed (no card: CUDA is
+    hidden from this process), each into DIR/<job>.pt as it completes, or
+    DIR/<job>.err with the traceback."""
     import torch
     torch.set_num_threads(CPU_WORKER_THREADS)
     torch.backends.cuda.matmul.allow_tf32 = False
     from apex_tpu_torch import models
-    from apex_tpu_torch.models import gpt, llama
+    from apex_tpu_torch.contrib.multihead_attn import attn_funcs
+    from apex_tpu_torch.models import bert, gpt, llama
     sd = torch.load(os.path.join(workdir, "gpt.pt"))
     mlps = torch.load(os.path.join(workdir, "mlp.pt"))
     shapes = torch.load(os.path.join(workdir, "shapes.pt"))
 
+    waits = {}
+
     def given(name):
         """The main process's input of job ``name``, once it is written."""
         path = os.path.join(workdir, f"{name}.in.pt")
+        t0 = time.perf_counter()
         while not os.path.exists(path):
             time.sleep(0.2)
+        waits[name] = time.perf_counter() - t0
         return torch.load(path, weights_only=False)
     jobs = {"generate_cpu": lambda: decode_cpu_errors(
                 torch, gpt.gpt2_small(max_positions=MAX_POS, dropout=0.0,
@@ -9832,13 +10351,17 @@ def cpu_worker(workdir):
                 given("generate_cpu")),
             "llama_cpu": lambda: decode_cpu_errors(
                 torch, llama.LlamaModel(**LLAMA, max_positions=MAX_POS,
-                                        device="cpu"), given("llama_cpu")),"train_cpu": lambda: train_cpu_reference(torch, gpt, sd),
+                                        device="cpu"), given("llama_cpu")),
+            "train_cpu": lambda: train_cpu_reference(torch, gpt, sd),
             "train_modes_cpu": lambda: train_modes_reference(torch, gpt, sd),
             "amp_cpu": lambda: amp_skip_history(torch, gpt, sd, "cpu"),
             "resnet_cpu": lambda: resnet_cpu_reference(torch, models),
             "legacy": lambda: legacy_reference(torch, shapes),
             "layers": lambda: layers_reference(torch, mlps),
-            "serve_cpu": lambda: serve_cpu_reference(torch, gpt, sd)}
+            "serve_cpu": lambda: serve_cpu_reference(torch, gpt, sd),
+            "bert_cpu": lambda: bert_cpu_reference(torch, bert, attn_funcs),
+            "rollout_cpu": lambda: rollout_cpu_reference(
+                torch, gpt, sd, given("rollout_cpu"))}
     for name in CPU_WORKER_JOBS:
         t0 = time.perf_counter()
         try:
@@ -9848,8 +10371,8 @@ def cpu_worker(workdir):
                 f.write(traceback.format_exc())
             return 1
         path = os.path.join(workdir, f"{name}.pt")
-        torch.save({"result": res, "seconds": time.perf_counter() - t0},
-                   path + ".tmp")
+        torch.save({"result": res, "seconds": time.perf_counter() - t0
+                    - waits.get(name, 0.0)}, path + ".tmp")
         os.replace(path + ".tmp", path)
     return 0
 
@@ -9861,7 +10384,8 @@ class CpuWorker:
     job's result (and reports the seconds the card's side waited for it);
     :meth:`close` stops the process and removes the directory."""
 
-    #: True while a worker runs (main_threads reads it)
+    #: True while a worker computes (main_threads reads it); False once
+    #: it only waits for a later job's input (:meth:`rest`)
     running = False
 
     def __init__(self, torch, train_model, mlp_weights):
@@ -9909,8 +10433,15 @@ class CpuWorker:
         out = torch.load(path, weights_only=False)
         self.waited[name] = round(time.perf_counter() - t0, 1)
         print(f"  CPU worker: {name} took {out['seconds']:.1f} s in its "
-              f"process; the card's side waited {self.waited[name]} s")
+              f"process (its input's wait left out); the card's side "
+              f"waited {self.waited[name]} s")
         return out["result"]
+
+    def rest(self, torch):
+        """The main process's CPU work takes every core again: the worker's
+        jobs left (niced) run beside phases whose CPU sides are small."""
+        CpuWorker.running = False
+        torch.set_num_threads(main_threads())
 
     def close(self):
         CpuWorker.running = False
@@ -10122,7 +10653,6 @@ def main():
     lap()
     paths["bert_novograd_amp_O2"] = bert_novograd_amp_iteration(
         torch, dispatch, bert)
-    bert_cpu_phase(torch, bert, attn_funcs)
     lap()
     print(f"BERT phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -10139,8 +10669,9 @@ def main():
     layers = layers_phase(torch, mlp_weights,
                           worker.result(torch, "layers"))
     serve_cpu = worker.result(torch, "serve_cpu")
-    worker.close()
-    torch.set_num_threads(main_threads())
+    # the worker's last jobs (BERT's CPU side, then the rollout check's) wait
+    # for the end of the run: the main process takes every core again
+    worker.rest(torch)
     lap()
     print(f"legacy optimizer and layer phases: "
           f"{time.perf_counter() - t_phase:.1f} s")
@@ -10177,6 +10708,27 @@ def main():
     paths["observe_telemetry_step"], observe_nums = observe_phase(
         torch, dispatch, gpt, serving, inference, ledger_entries, serve_keep)
     lap()
+    # BERT's card-against-CPU check (its CPU side computed by the worker
+    # while the phases since the legacy optimizers' ran)
+    bert_cpu_phase(torch, bert, attn_funcs, worker.result(torch, "bert_cpu"))
+    lap()
+    # the rollout first, then the fleet while the CPU worker recomputes the
+    # rollout's first two steps, then the rollout's check (e)
+    t_phase = time.perf_counter()
+    paths["rollout"], rollout_finish = rollout_phase(
+        torch, dispatch, gpt, serving, inference, serve_keep, worker)
+    lap()
+    paths["serve_fleet"], fleet_nums = fleet_phase(torch, dispatch, serving,
+                                                   serve_keep)
+    lap()
+    rollout_nums = rollout_finish()
+    lap()
+    worker.close()
+    print(f"rollout and fleet phases: {time.perf_counter() - t_phase:.1f} s "
+          f"(rollout {rollout_nums['seconds']:.1f}, fleet "
+          f"{fleet_nums['seconds']:.1f}, the rollout's CPU check waited "
+          f"{rollout_nums['cpu_wait_s']:.1f} after the fleet)")
+    serve_keep["engine"].close()
 
     def launches(name):
         by = {k: c[name] for k, c in paths.items() if c[name]}
@@ -10420,6 +10972,7 @@ def main():
                       "serve": serve_nums,
                       "resilience": resilience,
                       "observe": observe_nums,
+                      "serve_fleet": fleet_nums, "rollout": rollout_nums,
                       "cpu_worker_waits_s": worker.waited}))
     print(f"phase seconds by main's line (each since the line before): "
           f"{LAPS}")

@@ -74,7 +74,10 @@ def test_importing_the_port_loads_no_jax_module():
                  "observe.watchdog", "observe.catalog", "pyprof.annotate",
                  "pyprof.nvtx", "pyprof.parse.parse", "pyprof.parse.trace",
                  "pyprof.prof.models", "pyprof.prof.prof",
-                 "pyprof.prof.output"):
+                 "pyprof.prof.output", "cluster.kvstore",
+                 "cluster.membership", "cluster.coordinator",
+                 "cluster.runtime", "rollout.buffer", "rollout.publish",
+                 "rollout.distill", "rollout.runtime"):
         assert f"apex_tpu_torch.{name}" in loaded, name
 
 

@@ -330,7 +330,9 @@ def test_spec_policy_auto_gives_the_jax_tokens_by_plain_ticks(model):
 
 def test_lifecycle_events_and_metrics_keys_equal_the_jax_engines(model):
     ref = refs.jax_refs()
+    # the serve metrics of this run alone, as the reference's
     obs.get_registry().clear_events()
+    obs.get_registry().remove("serve.")
     eng = ServeEngine(model, **refs.GEOM)
     eng.run(refs.prompt_reqs(Request))
     assert refs._events(obs) == ref["events"]

@@ -4,8 +4,9 @@ pool's refcount / cached-tier / hash-index invariants, and warm-cache
 continuations equal to the cold engine's and to the JAX engine's tokens
 (fp32 and int8 pools, with and without speculative decoding, under
 preemption, across a weight-epoch invalidation, through PagedSession and
-the disaggregated engine).  The JAX package's migration tests are the
-elastic fleet's (ROADMAP A10) and stay out."""
+the disaggregated engine), and a session migrated between engines through
+the KV handoff, whose chain re-links into the survivor's index unless it
+was built under another weight epoch."""
 import numpy as np
 import pytest
 import torch
@@ -274,3 +275,73 @@ def test_disagg_shared_prefix_equals_the_jax_engine(model, tmp_path):
     assert dis.decode.block_pool.cached_count > 0
     dis.prefill.close()
     dis.decode.close()
+
+
+# ---------------------------------------------------------------------------
+# migration: the chain re-links into the survivor's index
+# ---------------------------------------------------------------------------
+
+
+def _mid_decode(model, tmp_path, name):
+    """A session of SHARED + [20], 8 new tokens, streamed off engine A
+    mid-decode: its handoff directory and host state."""
+    from apex_tpu_torch.runtime.resilience import stream_kv_handoff
+    a = ServeEngine(model, num_blocks=64, block_size=8, prefill_chunk=8)
+    a.submit(Request("m", SHARED + [20], 8))
+    for _ in range(6):
+        a.step()
+    (s,) = a.scheduler.sessions
+    assert s.committed_blocks >= 2 and 0 < len(s.out) < 8
+    d = str(tmp_path / name)
+    stream_kv_handoff(d, a.pool, s.table, source=f"test:{name}")
+    state = dict(chain=list(s.hash_chain), epoch=s.weight_epoch,
+                 out=list(s.out), pend=s.pending_tok, pos=s.position,
+                 nb=len(s.table))
+    a.close()
+    return d, state
+
+
+def test_migration_relinks_chain_into_survivor(model, tmp_path):
+    """A mid-decode session streamed off engine A (its hash chain and
+    weight epoch beside it) and adopted on engine B: the chain re-links
+    into B's index, so B's next same-prefix admission hits, and the
+    continuation is the uninterrupted engine's bit for bit, whose first
+    tokens are the JAX engine's."""
+    ref = ServeEngine(model, num_blocks=64, block_size=8,
+                      prefix_cache=False)
+    full = ref.run([Request("m", SHARED + [20], 8)])["m"]
+    ref.close()
+    assert full[:6] == refs.jax_refs()["prefix"]["x0"]
+    d, st = _mid_decode(model, tmp_path, "mig")
+    b = ServeEngine(model, num_blocks=64, block_size=8, prefill_chunk=8)
+    sess = b.ingest_handoff(Request("m", SHARED + [20], 8), out=st["out"],
+                            pending_tok=st["pend"], position=st["pos"],
+                            handoff_dir=d, n_blocks=st["nb"],
+                            hash_chain=st["chain"],
+                            weight_epoch=st["epoch"])
+    assert sess is not None and sess.cacheable
+    assert sess.committed_blocks == len(st["chain"])
+    while b.scheduler.has_work():
+        b.step()
+    assert b.results["m"] == full
+    b.run([Request("m2", SHARED + [20], 4)])
+    assert b.metrics()["prefix_cache"]["prefill_tokens_saved"] > 0
+    b.close()
+
+
+def test_migration_epoch_mismatch_never_cached(model, tmp_path):
+    """An adopted session whose chain was built under ANOTHER target
+    epoch keeps serving (mixed-weight semantics) but its blocks never
+    enter the survivor's hash index."""
+    d, st = _mid_decode(model, tmp_path, "mig2")
+    b = ServeEngine(model, num_blocks=64, block_size=8, prefill_chunk=8)
+    sess = b.ingest_handoff(Request("m", SHARED + [20], 8), out=st["out"],
+                            pending_tok=st["pend"], position=st["pos"],
+                            handoff_dir=d, n_blocks=st["nb"],
+                            hash_chain=st["chain"], weight_epoch=7)
+    assert sess is not None and not sess.cacheable
+    while b.scheduler.has_work():
+        b.step()
+    assert b.block_pool.cached_count == 0     # nothing was published
+    b.block_pool.check_no_leaks()
+    b.close()

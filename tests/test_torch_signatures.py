@@ -7,7 +7,8 @@ amp and fp16_utils API, O1's registry, the GAN step, NovoGrad, the contrib
 optimizers, the MLP, the reparameterizations, encoder-decoder attention,
 the seq2seq and ViT families, ``checkpoint_forward``, the RNNs, the HF
 converters, the runtime's executor and prefetcher, ``amp.initialize``,
-the observe runtime, the kernel ledger and tier decision and pyprof),
+the observe runtime, the kernel ledger and tier decision and pyprof,
+cluster membership, the elastic serve fleet and the rollout loop),
 every parameter of the JAX signature exists in the port's with the same default
 (a dtype default by its name); the port may add ``device``, ``dtype`` and
 ``generator`` parameters, a JAX PRNG ``key`` is the port's ``generator``,
@@ -65,6 +66,8 @@ import apex_tpu.kernels.ledger as jax_ledger
 import apex_tpu.pyprof as jax_pyprof
 import apex_tpu.pyprof.parse.trace as jax_pp_trace
 import apex_tpu.runtime.step_cache as jax_step_cache
+import apex_tpu.cluster as jax_cluster
+import apex_tpu.rollout as jax_rollout
 
 import apex_tpu_torch.RNN as rnn
 import apex_tpu_torch.amp as amp
@@ -110,6 +113,8 @@ import apex_tpu_torch.kernels.ledger as ledger
 import apex_tpu_torch.pyprof as pyprof
 import apex_tpu_torch.pyprof.parse.trace as pp_trace
 import apex_tpu_torch.runtime.step_cache as step_cache
+import apex_tpu_torch.cluster as cluster
+import apex_tpu_torch.rollout as rollout
 
 torch.set_num_threads(2)
 
@@ -262,6 +267,31 @@ PAIRS = [
     *((jax_pyprof, pyprof, f)
       for f in ("profile_step", "capture", "save", "analyze")),
     (jax_pp_trace, pp_trace, "merge_measurements"),
+    *((jax_serve.ServeFleet, serve.ServeFleet, m)
+      for m in ("join", "submit", "step", "run", "assignments", "slo_of",
+                "metrics", "close")),
+    *((jax_cluster, cluster, f)
+      for f in ("MemoryKV", "FileKV", "JaxCoordinatorKV", "default_kv",
+                "Member", "MembershipView", "current_view", "current_epoch",
+                "Coordinator", "ClusterTrainer", "SimClock", "SimHost",
+                "beat_and_scan", "fleet_for_members",
+                "spawn_member_process")),
+    *((jax_cluster.Member, cluster.Member, m)
+      for m in ("join", "leave", "beat", "ack", "latest_view")),
+    *((jax_cluster.Coordinator, cluster.Coordinator, m)
+      for m in ("registered", "scan", "acked")),
+    *((jax_rollout, rollout, f)
+      for f in ("RolloutBuffer", "RolloutSample", "OnlineDistiller",
+                "WeightPublisher", "master_leaves", "RolloutRuntime")),
+    *((jax_rollout.RolloutBuffer, rollout.RolloutBuffer, m)
+      for m in ("push", "ages", "staleness_p50", "evict_stale",
+                "sample_batch", "state_dict", "load_state_dict")),
+    *((jax_rollout.WeightPublisher, rollout.WeightPublisher, m)
+      for m in ("publish", "restore")),
+    *((jax_rollout.OnlineDistiller, rollout.OnlineDistiller, m)
+      for m in ("train_on", "publish")),
+    *((jax_rollout.RolloutRuntime, rollout.RolloutRuntime, m)
+      for m in ("run_round", "run", "save", "restore")),
 ]
 NO_COUNTERPART = {"interpret", "ctx"}
 # a JAX parameter the port takes under another name, with the same default
@@ -480,9 +510,10 @@ def test_defaults_are_accepted():
 
 def test_refusal_messages_name_the_current_roadmap_items():
     """The owners named in the refusals follow ROADMAP's queue A as it is
-    numbered now (parallelism A9, the elastic serve fleet A10); remat, once
-    A4's, inference, once A5's, the serve engine, once A6's, and observe
-    and telemetry, once A8's, are ported and build."""
+    numbered now (parallelism, the planner and elastic training A9); remat,
+    once A4's, inference, once A5's, the serve engine, once A6's, observe
+    and telemetry, once A8's, and the elastic serve fleet and cluster
+    membership, once A10's, are ported and build."""
     small = dict(SMALL_GPT)
     with pytest.raises(NotImplementedError,
                        match="tensor and sequence.*ROADMAP A9"):
@@ -498,11 +529,20 @@ def test_refusal_messages_name_the_current_roadmap_items():
     eng = serve.ServeEngine(gpt.GptModel(**small), num_blocks=4,
                             block_size=4)
     assert inference.PagedSession(eng).block_table == ()
-    # the elastic serve fleet is A10's; observe is ported (A8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10, cluster"):
-        serve.ServeFleet(None, n_engines=2, num_blocks=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10, cluster"):
-        serve.FleetMember(None, eng)
+    # the elastic serve fleet and the cluster are ported (A10); the
+    # cluster trainer and the planner's fleet are A9's; observe is ported
+    # (A8)
+    with serve.ServeFleet(gpt.GptModel(**small), n_engines=2,
+                          num_blocks=8, block_size=4) as fleet:
+        assert fleet.join().members == ("serve0", "serve1")
+        member = fleet.members["serve0"]
+        assert isinstance(member, serve.FleetMember)
+        assert serve.FleetMember(member.member, eng).engine is eng
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        cluster.ClusterTrainer("/nonexistent", None, None, None,
+                               example_batch=None)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        cluster.fleet_for_members(cluster.MemoryKV(), ["host0"])
     assert issubclass(serve.StaleEpochError, RuntimeError)
     for name in ("span", "last_span", "StepTelemetry", "init_telemetry",
                  "accumulate", "StallWatchdog", "heartbeat",

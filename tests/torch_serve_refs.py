@@ -105,7 +105,10 @@ def _jax_refs(cache_dtype):
     from apex_tpu.serve import Request, ServeEngine
     jm, _ = models()
     eng = ServeEngine(jm, cache_dtype=cache_dtype, **GEOM)
+    # the serve metrics of this run alone: another test in the process may
+    # have left others (a speculative engine's histogram)
     obs.get_registry().clear_events()
+    obs.get_registry().remove("serve.")
     out = dict(prompts=eng.run(prompt_reqs(Request)))
     out["events"] = _events(obs)
     m = eng.metrics()
