@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from .._unported import PARALLEL, refuse
 
@@ -82,22 +83,37 @@ def global_grad_norm(grads) -> torch.Tensor:
 
 
 def accumulate(telem: StepTelemetry, *, loss, master_grads, flag,
-               loss_scale, mean_axes=()) -> StepTelemetry:
+               loss_scale, mean_axes=(), grad_norm=None) -> StepTelemetry:
     """Fold one window's observables into new tensors (safe inside a
     graph capture).
 
     ``master_grads`` are the (unscaled) gradients the optimizer consumed;
     a half gradient is read in fp32 (:func:`global_grad_norm`), never
     summed in its own dtype.  ``flag`` is the window's overflow flag (1 =
-    skipped).  ``mean_axes``, the mesh axes the JAX step averages the loss
-    over, belongs to the parallel steps (ROADMAP A9): only ``()`` is
-    taken."""
-    if tuple(mean_axes):
-        refuse(f"accumulate(mean_axes={tuple(mean_axes)!r})", PARALLEL)
+    skipped).  ``mean_axes`` are the mesh axes the loss is averaged over,
+    as the JAX step pmeans it: the data axis (``"data"``), whose ranks are
+    ``torch.distributed``'s default group, where the loss is all-reduced
+    and divided by the world size (inside the capture, on the card);
+    without ``torch.distributed`` the world is this one process.  Another
+    axis is refused naming ROADMAP A9.  Only the loss needs it: the
+    gradients have been exchanged already, so every rank holds the same
+    norm, flag and scale.  ``grad_norm``, where given, is the window's
+    gradient norm computed by the caller (ZeRO's over the group, whose
+    ``master_grads`` are this rank's shards) in place of the norm of
+    ``master_grads``."""
     dev = telem.windows.device
-    gnorm = global_grad_norm(master_grads).to(dev)
+    gnorm = (global_grad_norm(master_grads) if grad_norm is None
+             else grad_norm).to(dev)
     loss = loss.detach().to(_f32).reshape(()) if loss is not None \
         else torch.zeros((), dtype=_f32, device=dev)
+    for ax in tuple(mean_axes):
+        if ax != "data":
+            refuse(f"accumulate(mean_axes={tuple(mean_axes)!r}): only the "
+                   f"data axis ('data') is ported", PARALLEL)
+        if dist.is_available() and dist.is_initialized():
+            loss = loss.clone()
+            dist.all_reduce(loss)
+            loss = loss / dist.get_world_size()
     scale = loss_scale.detach().to(_f32).reshape(()) \
         if isinstance(loss_scale, torch.Tensor) \
         else torch.full((), float(loss_scale), dtype=_f32, device=dev)

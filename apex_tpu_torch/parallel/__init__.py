@@ -2,8 +2,10 @@
 (reference ``apex/parallel/__init__.py``): ``DistributedDataParallel``,
 ``Reducer``, ``SyncBatchNorm``, ``LARC``, ``convert_syncbn_model`` and
 ``create_syncbn_process_group``, on ``torch.distributed`` with one process
-per card (NCCL on the card, gloo on the CPU).  Tensor, pipeline, expert
-and context parallelism, ZeRO and the planner come with later slices."""
+per card (NCCL on the card, gloo on the CPU), and ZeRO's
+``ZeroTrainStep`` and ``zero_state_sharding`` (stages 0, 1 and 3).
+Tensor, pipeline, expert and context parallelism and the planner come with
+later slices."""
 from __future__ import annotations
 
 import torch
@@ -17,13 +19,15 @@ from .distributed import (DistributedDataParallel, DistributedInitError,
                           timed_flat_dist_call, world_size)
 from .LARC import LARC
 from .sync_batchnorm import SyncBatchNorm, check_axis_name
+from .zero import ZeroTrainStep, zero_state_sharding
 
 __all__ = ["DistributedDataParallel", "DistributedInitError", "LARC",
            "Reducer", "SyncBatchNorm", "all_reduce_mean",
            "apply_flat_dist_call", "broadcast_module", "convert_syncbn_model",
            "create_syncbn_process_group", "flat_dist_call",
            "init_distributed", "num_processes", "rank", "split_by_type",
-           "timed_flat_dist_call", "world_size"]
+           "timed_flat_dist_call", "world_size", "ZeroTrainStep",
+           "zero_state_sharding"]
 
 
 def convert_syncbn_model(module, process_group=None, channel_last=False,

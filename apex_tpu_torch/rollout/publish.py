@@ -54,11 +54,18 @@ _PUBLISH_TOKENS = itertools.count()
 def master_leaves(step) -> List:
     """A fused train step's fp32 master values, aligned with
     ``model.parameters()`` order: the step's own tensors (no copy), which
-    its next call updates in place.  A flat-master step (one fused buffer
-    a dtype bucket) is the JAX package's ZeRO layout and is refused."""
-    if getattr(step, "_flat_meta", None) is not None:
-        refuse("rollout.master_leaves of a flat-master step",
-               "ROADMAP A9, parallelism beyond single-process DP")
+    its next call updates in place.  A flat-master step keeps one stack a
+    (group, shape, dtype) bucket: each leaf is its row of the stack, a
+    view (the JAX package slices the same rows).  A ZeRO step's sharded
+    masters are this rank's rows, not the leaves, and are refused."""
+    meta = getattr(step, "_flat_meta", None)
+    if meta is not None:
+        masters = step.state.master_params
+        return [masters[bid][j] for bid, j in meta.pos]
+    if getattr(step, "_checkpoint_state", None) is not None:
+        refuse("rollout.master_leaves of a ZeRO step (its masters are "
+               "sharded)", "ROADMAP A9, parallelism beyond single-process "
+               "DP")
     return list(step.state.master_params)
 
 

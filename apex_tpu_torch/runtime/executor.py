@@ -119,35 +119,30 @@ class DonationPolicy:
 donation = DonationPolicy()
 
 # the overlap knobs: "h2d" double-buffers the input copies of
-# Executor.drive; "gather" (ZeRO's all-gather prefetch) has nothing to
-# overlap until ZeRO is ported
+# Executor.drive; "gather" is the JAX package's ZeRO all-gather prefetch,
+# accepted and resolved here with nothing to overlap: the port's ZeRO step
+# (parallel/zero.py) gathers each sharded copy once a window, at its top
 _OVERLAP = {"gather": "auto", "h2d": "auto"}
 
 
 def set_overlap(gather=None, h2d=None) -> None:
     """Set the executor's overlap knobs, each True/False/"auto" (None
-    leaves it).  ``gather=True`` asks for ZeRO's prefetch and is refused."""
+    leaves it)."""
     for name, mode in (("gather", gather), ("h2d", h2d)):
         if mode is None:
             continue
         if mode not in (True, False, "auto"):
             raise ValueError(f"overlap {name} mode must be "
                              f"True/False/'auto', got {mode!r}")
-        if name == "gather" and mode is True:
-            refuse("set_overlap(gather=True), ZeRO's all-gather prefetch",
-                   PARALLEL)
         _OVERLAP[name] = mode
 
 
 def overlap_enabled(which: str, override=None) -> bool:
     """A knob resolved to a bool; ``override`` True/False wins.  "auto"
-    turns ``h2d`` on where a card is present; ``gather`` is never on."""
+    turns a knob on where a card is present (on the CPU gloo runs a
+    collective on its own thread, so there is nothing to hide it under;
+    forcing it on there gives the same results)."""
     mode = _OVERLAP[which] if override in (None, "auto") else override
-    if which == "gather":
-        if mode is True:
-            refuse("overlap gather=True, ZeRO's all-gather prefetch",
-                   PARALLEL)
-        return False
     if mode == "auto":
         return torch.cuda.is_available()
     return bool(mode)

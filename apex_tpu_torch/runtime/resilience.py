@@ -1193,6 +1193,39 @@ def _restore_calls(train_step, manifest) -> None:
         train_step.calls = int(calls)
 
 
+def state_to_save(train_step):
+    """``(state, writes)``: the state a checkpoint of ``train_step`` holds,
+    and whether this process writes it.  A ZeRO step
+    (``parallel.zero.ZeroTrainStep``) gathers its sharded leaves whole (a
+    collective: every rank calls it), as the JAX package's saved arrays
+    are, and only its rank 0 writes; any other step writes its own
+    state."""
+    gather = getattr(train_step, "_checkpoint_state", None)
+    if gather is None:
+        return train_step.state, True
+    return gather(), bool(train_step._writes_checkpoint)
+
+
+def saved_barrier(train_step):
+    """After a checkpoint write: the ranks of a ZeRO step wait for the
+    writer, so none reads the files before they exist."""
+    barrier = getattr(train_step, "_checkpoint_barrier", None)
+    if barrier is not None:
+        barrier()
+
+
+def restore_target(train_step):
+    """What a restore copies into: ``train_step`` itself, or for a ZeRO
+    step an object whose ``state`` has the whole leaves on the host (the
+    checkpoint's shapes), which the step's ``load_state`` then cuts into
+    this rank's rows."""
+    make = getattr(train_step, "_restore_target", None)
+    if make is None:
+        return train_step
+    import types
+    return types.SimpleNamespace(state=make())
+
+
 class CheckpointManager:
     """Atomic, rolling, optionally async checkpoints under one directory,
     as the JAX class: ``<directory>/ckpt_<step>.pkl`` (and
@@ -1322,14 +1355,18 @@ class CheckpointManager:
         if "state" in extra:
             raise ValueError("save_sharded owns the 'state' component; "
                              "pass other data under different names")
-        components = {"state": train_step.state, **extra}
+        state, writes = state_to_save(train_step)
+        components = {"state": state, **extra}
         handle = SaveHandle(step, self.path_for(step))
         try:
             with _spans.span("ckpt.save", step=step, mode="sharded"):
-                self._save_sharded(step, train_step, components)
+                if writes:
+                    self._save_sharded(step, train_step, components)
         except BaseException as e:
             handle._finish(e)
             raise
+        finally:
+            saved_barrier(train_step)
         handle._finish()
         return handle.path
 
@@ -1450,6 +1487,15 @@ class CheckpointManager:
             return self._restore_resharded(train_step, step)
 
     def _restore_resharded(self, train_step, step):
+        target = restore_target(train_step)
+        self._restore_into(train_step, target.state, step)
+        if target is not train_step:
+            train_step.load_state(target.state)
+        extras = self._last_extras
+        del self._last_extras
+        return step, extras
+
+    def _restore_into(self, train_step, state, step):
         path = self.path_for(step)
         comps, manifest = read_checkpoint_file(
             path, return_manifest=True, assemble_streamed=False)
@@ -1474,7 +1520,7 @@ class CheckpointManager:
                 f"it to the schema-3 per-shard layout)", stacklevel=2)
         if streamed is not None:
             _, stats = reshard_streamed(
-                comps["state"], streamed, train_step.state,
+                comps["state"], streamed, state,
                 base_dir=self.directory, component="state", source=path)
             self.last_restore_stats = {"mode": "streamed",
                                        "schema": schema, **stats}
@@ -1483,7 +1529,7 @@ class CheckpointManager:
             gathered = sum(getattr(x, "nbytes", 0) for _, x in
                            _flatten(host_state))
             rs: dict = {}
-            reshard_state(host_state, train_step.state, component="state",
+            reshard_state(host_state, state, component="state",
                           source=path, stats_out=rs)
             self.last_restore_stats = {
                 "mode": "gathered", "schema": schema,
@@ -1500,7 +1546,7 @@ class CheckpointManager:
             if k_streamed is not None:   # small ride-along arrays
                 v = _assemble_tree(v, k_streamed, self.directory, path)
             extras[k] = v
-        return step, extras
+        self._last_extras = extras
 
     def restore_or_initialize(self, initialize: Optional[Callable] = None):
         """Auto-resume: ``(step, components)`` from the newest checkpoint

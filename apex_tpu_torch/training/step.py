@@ -38,19 +38,33 @@ global gradient norm, loss scale and overflow count on the device, inside
 the captured step (``observe.telemetry``, ``StepState.telem``), and reads
 them back every ``drain_every`` calls (``TrainStep.drain_telemetry``: one
 device-to-host copy, then the accumulator reset in place).  Each call
-heartbeats the stall watchdog through the executor.  What the JAX step
-does beyond that is owed to later slices and refused here with
-``NotImplementedError``: data, tensor and ZeRO parallelism and flat
-masters.  An optimizer other than the four fused ones raises
-``TypeError``, as in the JAX step.
+heartbeats the stall watchdog through the executor.
+
+Data parallelism runs one process per card, as
+``parallel/distributed.py`` says for DDP: a step built with
+``axis_name="data"`` is called by every rank on its own shard of the
+batch, and after the window's fp32 accumulation it all-reduces the
+gradients with the DDP knobs (``gradient_predivide_factor``,
+``allreduce_always_fp32``) before the update, so every rank updates the
+same masters and makes the same skip decision.  On the card that
+all-reduce is captured inside the step's CUDA graph with the rest (the
+JAX step leaves its program for ``shard_map`` instead).  ``flat_master``
+stacks masters and slots per (group, shape, dtype) bucket and updates each
+group's buckets in one kernel launch.  ``zero_sharding`` returns
+:class:`apex_tpu_torch.parallel.zero.ZeroTrainStep`.  Tensor parallelism
+and the planner (``tp_axis``, ``parallel=``) are owed to a later slice and
+refused with ``NotImplementedError``.  An optimizer other than the four
+fused ones raises ``TypeError``, as in the JAX step.
 """
 from __future__ import annotations
 
 import inspect
 import itertools
+from types import SimpleNamespace
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 from torch.utils._pytree import tree_leaves, tree_map
 
@@ -130,6 +144,15 @@ class TrainStep:
         #: between its drains
         self._telemetry = False
         self._drain_every = 1
+        #: the JAX markers ZeroTrainStep reads: the axis this step exchanges
+        #: over (None: no exchange), whether donate_state=True was asked for
+        #: explicitly, the flat-master layout (None: one tensor a parameter)
+        self._axis_name = None
+        self._donate_state = False
+        self._flat_meta = None
+        #: the pieces of the window that ZeroTrainStep builds its own
+        #: program from (make_train_step's closures and settings)
+        self._parts = None
 
     def __call__(self, *batch):
         if _chaos.active():
@@ -170,10 +193,16 @@ class TrainStep:
 
     def sync_to_objects(self):
         """Write the state back into the model: each parameter gets its
-        model-dtype value (the half copy where cast, else the fp32 master);
-        the masters stay in ``self.state.master_params``."""
+        model-dtype value (the half copy where cast, else the fp32 master;
+        with ``flat_master`` its row of the bucket's stack, a view); the
+        masters stay in ``self.state.master_params``."""
         st = self.state
         with torch.no_grad():
+            if self._flat_meta is not None:
+                for p, v in zip(self._params, flat_param_values(
+                        self._flat_meta, st.master_params, st.model_params)):
+                    p.data = v
+                return
             for p, m, half in zip(self._params, st.master_params,
                                   st.model_params):
                 p.data = m if half is None else half
@@ -403,7 +432,7 @@ def build_opt_update(optimizer, params, group_idxs,
 def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
                        init_scale, scale_window, min_loss_scale,
                        max_loss_scale, zero_flag, lr_schedule=None,
-                       loss=None):
+                       loss=None, mean_axes=(), shards=None):
     """The post-gradient half of a step, on the device: unscale into fp32
     master gradients with the overflow flag, the optimizer update (skipped
     on the flag; with ``lr_schedule``, each group's lr times the schedule
@@ -419,7 +448,11 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
     (channels-last weights and their gradients) nothing is copied.  With
     ``state.telem`` set, the window's ``loss``, the master gradients' norm,
     the new loss scale and the flag are folded into it
-    (``observe.telemetry.accumulate``), written into its own tensors.
+    (``observe.telemetry.accumulate``, the loss averaged over
+    ``mean_axes``), written into its own tensors.  ``shards`` (ZeRO's
+    :class:`apex_tpu_torch.parallel.zero._Collectives`) makes the overflow
+    flag the group's maximum before the update, re-makes the half copies
+    by its all-gather and takes the gradient norm over the group.
     Returns ``state``."""
     grads = [g if same_layout(g, m) else
              torch.empty_like(m, dtype=g.dtype).copy_(g)
@@ -429,6 +462,8 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
         inv = 1.0 / state.scaler.loss_scale
         master_grads = [g.float() * inv for g in grads]
         flag = nonfinite_flag(zero_flag, master_grads)
+        if shards is not None:
+            flag = shards.flag(flag)
     else:
         # the kernels widen the gradients to fp32 themselves
         flag, master_grads = zero_flag, grads
@@ -438,7 +473,9 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
                else lr_schedule(step_count))
     halves = [(h, m) for h, m in zip(state.model_params, state.master_params)
               if h is not None]
-    if halves:
+    if shards is not None:
+        shards.halves(state)
+    elif halves:
         with torch.no_grad():
             torch._foreach_copy_([h for h, _ in halves],
                                  [m for _, m in halves])
@@ -461,9 +498,165 @@ def apply_fused_update(state: StepState, grads, opt_update, *, dynamic,
         if telem is not None:
             new = _obs_telemetry.accumulate(
                 telem, loss=loss, master_grads=master_grads, flag=flag,
-                loss_scale=sc.loss_scale)
+                loss_scale=sc.loss_scale, mean_axes=mean_axes,
+                grad_norm=None if shards is None
+                else shards.grad_norm(master_grads))
             torch._foreach_copy_(list(telem), list(new))
     return state
+
+
+class FlatMeta(NamedTuple):
+    """The layout of the stacked master and slot buffers: one buffer a
+    (param group, shape, model dtype) bucket, the bucket's tensors stacked
+    on a new leading axis, so that each parameter's row is a view and the
+    update of a group's buckets is one kernel launch."""
+    buckets: list    # [(group_index, shape, dtype, [param indices])]
+    pos: list        # per parameter: (bucket_id, index within the bucket)
+    shapes: list     # per parameter: its shape
+
+
+def build_flat_meta(params, group_idxs, model_dtypes):
+    """The buckets of ``params`` in the order the groups list them."""
+    buckets, pos, key2bid = [], [None] * len(params), {}
+    for gi, idxs in enumerate(group_idxs):
+        for i in idxs:
+            key = (gi, tuple(params[i].shape), model_dtypes[i])
+            if key not in key2bid:
+                key2bid[key] = len(buckets)
+                buckets.append((gi, tuple(params[i].shape), model_dtypes[i],
+                                []))
+            bid = key2bid[key]
+            pos[i] = (bid, len(buckets[bid][3]))
+            buckets[bid][3].append(i)
+    return FlatMeta(buckets, pos, [tuple(p.shape) for p in params])
+
+
+def flat_param_values(meta: FlatMeta, masters, model_params):
+    """Each parameter's forward value: its row of the bucket's half stack,
+    or of the fp32 master stack where the bucket is not cast (a view
+    either way)."""
+    return [(masters[bid] if model_params[bid] is None
+             else model_params[bid])[j] for bid, j in meta.pos]
+
+
+def flat_model_params(meta: FlatMeta, masters):
+    """Each bucket's half stack (one cast of the whole stack), None for an
+    fp32 bucket, whose forward values read the master."""
+    return [None if d == _f32 else masters[bid].to(d)
+            for bid, (_, _, d, _) in enumerate(meta.buckets)]
+
+
+def stack_buckets(meta: FlatMeta, grads):
+    """Per-parameter gradients stacked into the buckets' layout."""
+    return [torch.stack([grads[i] for i in idxs])
+            for _, _, _, idxs in meta.buckets]
+
+
+def build_opt_update_flat(optimizer, meta: FlatMeta,
+                          caller="make_train_step"):
+    """The stacked update: ``(opt_update, opt_init)`` as
+    :func:`build_opt_update`'s, over the buckets, one ``multi_tensor_adam``
+    or ``multi_tensor_sgd`` launch a param group over that group's stacks.
+    Only the elementwise optimizers are taken: LAMB's trust ratio and
+    NovoGrad's running norms are per-tensor quantities that a stack would
+    compute per bucket instead (``TypeError``, as in the JAX step).
+    ``opt_init(bucket_shapes, device)`` makes the zero slots."""
+    if not isinstance(optimizer, (FusedSGD, FusedAdam)):
+        raise TypeError(
+            f"{caller}: flat_master=True supports the elementwise "
+            f"optimizers (FusedSGD, FusedAdam); {type(optimizer).__name__} "
+            f"updates depend on per-tensor norms (LAMB trust ratio, "
+            f"NovoGrad running norms) that stacked buffers would "
+            f"change — use flat_master=False")
+    group_buckets = [[b for b, bucket in enumerate(meta.buckets)
+                      if bucket[0] == gi]
+                     for gi in range(len(optimizer.param_groups))]
+    per_group, init = build_opt_update(optimizer, [], group_buckets, caller)
+    names = ("momentum",) if isinstance(optimizer, FusedSGD) else ("m", "v")
+
+    def opt_init(bucket_shapes, device):
+        return {k: [torch.zeros(s, dtype=_f32, device=device)
+                    for s in bucket_shapes] for k in names}
+    return per_group, opt_init
+
+
+def init_step_state_flat(params, buffers, meta: FlatMeta, opt_init,
+                         init_scale):
+    """:func:`init_step_state` in the stacked layout."""
+    dev = params[0].device
+    masters = [torch.stack([params[i].detach().to(_f32) for i in idxs])
+               for _, _, _, idxs in meta.buckets]
+    return StepState(
+        master_params=masters,
+        model_params=flat_model_params(meta, masters),
+        opt_state=opt_init([m.shape for m in masters], dev),
+        scaler=ScalerState(torch.tensor(init_scale, dtype=_f32, device=dev),
+                           torch.zeros((), dtype=torch.int32, device=dev),
+                           torch.zeros((), dtype=torch.int32, device=dev)),
+        stats=list(buffers),
+        step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def apply_fused_update_flat(state: StepState, grads, meta: FlatMeta,
+                            opt_update, **kw):
+    """The stacked twin of :func:`apply_fused_update`: the per-tensor
+    gradients (exchanged already under DP) stacked once a bucket, then the
+    unscale, overflow check, update and half-copy casts each over the
+    stacks."""
+    return apply_fused_update(state, stack_buckets(meta, grads), opt_update,
+                              **kw)
+
+
+def data_group(axis_name, device):
+    """``(group, world, rank)`` of the JAX mesh axis ``axis_name``: ``"data"``
+    (alone, or as a 1-tuple) is ``torch.distributed``'s default group
+    (None), as for ``parallel.SyncBatchNorm``; another axis is refused
+    naming ROADMAP A9.  Without ``torch.distributed`` the world is this
+    one process.  A CUDA step needs an NCCL group: it never exchanges over
+    gloo."""
+    names = tuple(axis_name) if isinstance(axis_name, (tuple, list)) \
+        else (axis_name,)
+    if names != ("data",):
+        _refuse(f"axis_name={axis_name!r}: only the data axis ('data') is "
+                f"ported", PARALLEL)
+    if not dist.is_available() or not dist.is_initialized():
+        return None, 1, 0
+    check_backend(None, device)
+    return None, dist.get_world_size(), dist.get_rank()
+
+
+def check_backend(group, device):
+    """Raise where a CUDA step's ``group`` is not an NCCL group."""
+    if torch.device(device).type == "cuda" \
+            and dist.get_backend(group) != "nccl":
+        raise RuntimeError(
+            f"a train step on {device} exchanges over NCCL; this process "
+            f"group's backend is {dist.get_backend(group)!r} (start it with "
+            f"parallel.init_distributed() on the card)")
+
+
+def dp_exchange(grads, group, world, predivide_factor, always_fp32):
+    """The JAX step's DP gradient exchange, one flattened all-reduce a
+    dtype (``parallel.distributed.apply_flat_dist_call``): each buffer
+    widened to fp32 with ``always_fp32``, divided by ``predivide_factor``
+    (where it is not 1), summed over ``group``, divided by ``world /
+    predivide_factor`` and cast back.  Returns new tensors in ``grads``'
+    order (views of the exchanged buffers)."""
+    from ..parallel.distributed import apply_flat_dist_call, split_by_type
+    post = world / predivide_factor
+
+    def call(flat):
+        gc = flat.float() if always_fp32 else flat
+        if predivide_factor != 1.0:
+            gc = gc / predivide_factor
+        dist.all_reduce(gc, group=group)
+        gc = gc / post
+        return gc.to(flat.dtype) if always_fp32 else gc
+    out = {}
+    for bucket in split_by_type(grads):
+        for g, r in zip(bucket, apply_flat_dist_call(bucket, call)):
+            out[id(g)] = r
+    return [out[id(g)] for g in grads]
 
 
 def _refuse(what, owner):
@@ -532,26 +725,56 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     ``FusedAdam``, ``FusedSGD``, ``FusedLAMB`` and ``FusedNovoGrad`` are
     ported.  A model's buffers (BatchNorm's running statistics) are its
     own, updated in place by its forward, as the JAX step carries them
-    through a skipped step too.  ``axis_name``, ``tp_axis``, the DDP knobs, ``zero_sharding``,
-    ``flat_master`` and ``parallel`` raise ``NotImplementedError`` naming
-    their ROADMAP item.  ``donate_state`` has nothing to choose: the state is
-    always updated in place.
+    through a skipped step too.  ``donate_state`` has nothing to choose:
+    the state is always updated in place.
+
+    ``axis_name="data"``: data parallelism, one process a card.  Each rank
+    calls the step on its own shard of the batch; the window's gradients
+    are all-reduced over ``torch.distributed``'s default group with the
+    DDP knobs (``gradient_predivide_factor`` splits the averaging around
+    the sum, ``allreduce_always_fp32`` sums in fp32), once a window after
+    the fp32 accumulation and before the unscale, so every rank sees the
+    same gradients and skips the same windows (:func:`dp_exchange`).  The
+    rank is folded into each forward's dropout seed, as the JAX key folds
+    the axis index, so ranks draw masks of their own.  The returned loss is
+    this rank's; with ``telemetry`` the accumulated loss is the group's
+    mean.  Without ``torch.distributed`` the world is this one process.
+    Another axis name, ``tp_axis`` and ``parallel`` raise
+    ``NotImplementedError`` naming ROADMAP A9.
+
+    ``flat_master=True``: masters and optimizer slots stacked per (param
+    group, shape, model dtype) bucket (:class:`FlatMeta`); the forward
+    reads each parameter's row of its bucket (a view), and each group's
+    update is one kernel launch over its stacks.  FusedSGD and FusedAdam
+    only (LAMB and NovoGrad raise ``TypeError``), every parameter in a
+    param group; it composes with ``axis_name`` (the gradients exchanged
+    per tensor before the stack), accumulation and schedules, and excludes
+    ``zero_sharding`` (``ValueError``).
+
+    ``zero_sharding=True`` returns a
+    :class:`~apex_tpu_torch.parallel.zero.ZeroTrainStep` over ``zero_axis``
+    of ``zero_mesh`` (a ``torch.distributed`` ``DeviceMesh``; by default
+    one over the default group, or a world of one without
+    ``torch.distributed``) at ``zero_stage`` 0, 1 or 3; see
+    :mod:`apex_tpu_torch.parallel.zero`.  It gathers each sharded copy once
+    a window, so ``overlap`` (the JAX step's all-gather prefetch) is
+    accepted and has nothing to overlap.  Each rank runs ``loss_fn`` over
+    its rows of the global batch and the gradients are averaged over the
+    ranks, which is the JAX step's global-batch loss only for a mean over
+    rows with equal weight for every row: a summed loss gives ``1/n`` of
+    the JAX gradients, and a mean over a mask whose counts differ between
+    ranks weights each rank by its own count.
 
     ``telemetry=True`` adds an on-device accumulator to the state
     (``state.telem``, see ``observe.telemetry``), folded inside the
     captured step, and drains it every ``drain_every`` calls; the graph is
     keyed on it, so a step with telemetry captures its own graph."""
-    if axis_name is not None or gradient_predivide_factor != 1.0 \
-            or allreduce_always_fp32:
-        _refuse("data parallelism (axis_name and the DDP knobs)", PARALLEL)
     if tp_axis is not None:
         _refuse("tensor parallelism (tp_axis)", PARALLEL)
-    if zero_sharding or zero_mesh is not None:
-        _refuse("ZeRO sharding", PARALLEL)
-    if flat_master:
-        _refuse("flat_master", PARALLEL)
     if parallel is not None:
         _refuse("parallel=", PARALLEL)
+    explicit_donate = donate_state is True
+    _executor.donation.resolve(donate_state)
     if accum_steps is not None:
         if grad_accum_steps not in (1, accum_steps):
             raise ValueError(
@@ -568,6 +791,41 @@ def make_train_step(model, optimizer, loss_fn: Callable,
                          f"got {grad_accum_steps}")
     if telemetry and drain_every < 1:
         raise ValueError(f"drain_every must be >= 1, got {drain_every}")
+    if flat_master and zero_sharding:
+        raise ValueError(
+            "flat_master=True excludes zero_sharding: ZeRO's win is "
+            "per-parameter sharding of exactly the buffers flat_master "
+            "concatenates")
+    if zero_sharding:
+        if zero_stage not in (0, 1, 3):
+            raise ValueError(
+                f"zero_stage must be 1 (optimizer-state sharding), 3 "
+                f"(+ parameter sharding), or 0 (replicated state, data "
+                f"parallelism alone); got {zero_stage!r}.  Stage 2 has no "
+                f"switch of its own: the fused step holds no gradient "
+                f"buffer between steps, and its gradients are "
+                f"reduce-scattered into the master shards already")
+        if axis_name is not None:
+            raise ValueError(
+                "zero_sharding=True excludes axis_name: ZeroTrainStep takes "
+                "the global batch and exchanges over zero_axis itself")
+        from ..parallel.zero import (ZeroTrainStep, check_zero_mesh,
+                                     default_zero_mesh)
+        dev = next(iter(model.parameters())).device
+        if zero_mesh is None:
+            zero_mesh = default_zero_mesh(zero_axis, dev)
+        else:
+            check_zero_mesh(zero_mesh, zero_axis)
+        base = make_train_step(
+            model, optimizer, loss_fn, half_dtype=half_dtype,
+            keep_batchnorm_fp32=keep_batchnorm_fp32,
+            dynamic_loss_scale=dynamic_loss_scale,
+            scale_window=scale_window, min_loss_scale=min_loss_scale,
+            max_loss_scale=max_loss_scale, loss_scale=loss_scale,
+            grad_accum_steps=grad_accum_steps, accum_stacked=accum_stacked,
+            lr_schedule=lr_schedule, rng_seed=rng_seed,
+            telemetry=telemetry, drain_every=drain_every)
+        return ZeroTrainStep(base, zero_mesh, zero_axis, stage=zero_stage)
 
     from ..inference.quant import is_quantized
     if is_quantized(model):
@@ -581,12 +839,26 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     group_idxs = match_param_groups(optimizer, params)
     model_dtypes = _model_dtypes(model, params, half_dtype,
                                  keep_batchnorm_fp32)
-    opt_update, opt_init = build_opt_update(optimizer, params, group_idxs)
     dynamic = loss_scale == "dynamic"
     init_scale = (min(max_loss_scale, 2.0 ** 16) if dynamic
                   else float(loss_scale))
-    init_state = init_step_state(params, buffers, model_dtypes, opt_init,
-                                 init_scale)
+    flat_meta = None
+    if flat_master:
+        grouped = {i for idxs in group_idxs for i in idxs}
+        if len(grouped) != len(params):
+            raise ValueError(
+                "flat_master=True requires every model parameter to be "
+                "in an optimizer param_group (frozen params have no "
+                "slot in the flat master buffers)")
+        flat_meta = build_flat_meta(params, group_idxs, model_dtypes)
+        opt_update, opt_init = build_opt_update_flat(optimizer, flat_meta)
+        init_state = init_step_state_flat(params, buffers, flat_meta,
+                                          opt_init, init_scale)
+    else:
+        opt_update, opt_init = build_opt_update(optimizer, params,
+                                                group_idxs)
+        init_state = init_step_state(params, buffers, model_dtypes,
+                                     opt_init, init_scale)
     dev = params[0].device
     if telemetry:
         init_state = init_state._replace(
@@ -594,6 +866,9 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     zero_flag = torch.zeros((), dtype=torch.int32, device=dev)
     takes_generator = "generator" in inspect.signature(
         model.forward).parameters
+    dp_group, dp_world, dp_rank = (None, 1, 0) if axis_name is None \
+        else data_group(axis_name, dev)
+    mean_axes = ("data",) if telemetry and axis_name is not None else ()
 
     def cast(x):
         if isinstance(x, torch.Tensor) and x.is_floating_point() \
@@ -609,10 +884,13 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     gens = [torch.Generator(device=dev) for _ in range(grad_accum_steps)] \
         if takes_generator else []
 
-    def seed_calls(call_index):
+    def seed_calls(call_index, rank=None):
+        """Seed the window's generators for call ``call_index``; ``rank``
+        (under DP, this rank) is folded into each seed."""
         for i, gen in enumerate(gens):
-            gen.manual_seed(dropout_seed(rng_seed,
-                                         call_index * grad_accum_steps + i))
+            seed = dropout_seed(rng_seed, call_index * grad_accum_steps + i)
+            gen.manual_seed(seed if rank is None
+                            else dropout_seed(seed, rank))
 
     def grads_of(leaves, gen, scale, *b):
         """The loss and the gradients of ``loss.float() * scale`` for one
@@ -669,36 +947,56 @@ def make_train_step(model, optimizer, loss_fn: Callable,
                       for b, sp in zip(batch, splits))
                 for i in range(k_acc)]
 
+    def window(scale, leaves, batch):
+        """The window's loss and gradients of ``leaves``, which every
+        microbatch differentiates."""
+        if k_acc == 1:
+            return grads_of(leaves, gens[0] if gens else None, scale,
+                            *batch)
+        # the JAX step's scan: fp32 sums of each microbatch's scaled
+        # gradients and loss, then their means
+        acc, loss_sum = None, torch.zeros((), dtype=_f32, device=dev)
+        for i, mb in enumerate(microbatches(batch)):
+            loss_i, g_i = grads_of(leaves, gens[i] if gens else None,
+                                   scale, *mb)
+            if acc is None:
+                acc = [torch.zeros_like(g, dtype=_f32) for g in g_i]
+            acc = [a + g.float() for a, g in zip(acc, g_i)]
+            loss_sum = loss_sum + loss_i.float()
+        return loss_sum / k_acc, [a / k_acc for a in acc]
+
+    update_kw = dict(dynamic=dynamic, init_scale=init_scale,
+                     scale_window=scale_window, min_loss_scale=min_loss_scale,
+                     max_loss_scale=max_loss_scale, zero_flag=zero_flag,
+                     lr_schedule=lr_schedule)
+
     def step_body(state: StepState, *batch):
         """One window on the state in place, drawing from ``gens`` as
         seeded; returns the loss."""
-        leaves = [v.detach().requires_grad_(True)
-                  for v in model_vals_of(state)]
-        scale = state.scaler.loss_scale
-        if k_acc == 1:
-            loss, grads = grads_of(leaves, gens[0] if gens else None, scale,
-                                   *batch)
+        vals = flat_param_values(flat_meta, state.master_params,
+                                 state.model_params) if flat_master \
+            else model_vals_of(state)
+        leaves = [v.detach().requires_grad_(True) for v in vals]
+        loss, grads = window(state.scaler.loss_scale, leaves, batch)
+        if axis_name is not None and dist.is_initialized():
+            # the DP exchange, once a window, before the unscale
+            grads = dp_exchange(grads, dp_group, dp_world,
+                                gradient_predivide_factor,
+                                allreduce_always_fp32)
+        if flat_master:
+            apply_fused_update_flat(state, grads, flat_meta, opt_update,
+                                    loss=loss, mean_axes=mean_axes,
+                                    **update_kw)
         else:
-            # the JAX step's scan: fp32 sums of each microbatch's scaled
-            # gradients and loss, then their means
-            acc = [torch.zeros_like(v, dtype=_f32) for v in leaves]
-            loss_sum = torch.zeros((), dtype=_f32, device=dev)
-            for i, mb in enumerate(microbatches(batch)):
-                loss_i, g_i = grads_of(leaves, gens[i] if gens else None,
-                                       scale, *mb)
-                acc = [a + g.float() for a, g in zip(acc, g_i)]
-                loss_sum = loss_sum + loss_i.float()
-            grads = [a / k_acc for a in acc]
-            loss = loss_sum / k_acc
-        apply_fused_update(
-            state, grads, opt_update, dynamic=dynamic,
-            init_scale=init_scale, scale_window=scale_window,
-            min_loss_scale=min_loss_scale, max_loss_scale=max_loss_scale,
-            zero_flag=zero_flag, lr_schedule=lr_schedule, loss=loss)
+            apply_fused_update(state, grads, opt_update, loss=loss,
+                               mean_axes=mean_axes, **update_kw)
         return loss
 
+    def seed_step(call_index):
+        seed_calls(call_index, None if axis_name is None else dp_rank)
+
     def raw_step_fn(state: StepState, call_index, *batch):
-        seed_calls(call_index)
+        seed_step(call_index)
         return state, step_body(state, *batch)
 
     # the window program, keyed as the JAX step keys it: a per-builder
@@ -708,8 +1006,15 @@ def make_train_step(model, optimizer, loss_fn: Callable,
         "train_step", (next(_STEP_TOKENS), grad_accum_steps, accum_stacked,
                        bool(telemetry)),
         step_body, donate_argnums=(0,), generators=gens)
-    ts = TrainStep(model, optimizer, loss_fn, program, seed_calls,
+    ts = TrainStep(model, optimizer, loss_fn, program, seed_step,
                    raw_step_fn, params, init_state)
     ts._telemetry = bool(telemetry)
     ts._drain_every = int(drain_every)
+    ts._axis_name = axis_name
+    ts._donate_state = explicit_donate
+    ts._flat_meta = flat_meta
+    ts._parts = SimpleNamespace(
+        opt_update=opt_update, gens=gens, seed_calls=seed_calls,
+        window=window, update_kw=update_kw, k_acc=grad_accum_steps,
+        accum_stacked=accum_stacked, telemetry=bool(telemetry), device=dev)
     return ts

@@ -33,8 +33,9 @@ import numpy as np
 
 from ..runtime.resilience import (  # noqa: F401 — re-exported surface
     CheckpointCorruptError, _as_tensor, _calls_meta, _map_leaves,
-    _restore_calls, read_checkpoint_file, reshard_streamed, snapshot_state,
-    stream_components_to_dir, write_checkpoint_file)
+    _restore_calls, read_checkpoint_file, reshard_streamed, restore_target,
+    saved_barrier, snapshot_state, state_to_save, stream_components_to_dir,
+    write_checkpoint_file)
 
 #: the manifest container inside a train-state directory
 STATE_FILE = "checkpoint.pkl"
@@ -88,8 +89,15 @@ def save_train_state(path: str, step) -> None:
     """Checkpoint a fused step's whole state (masters, half copies,
     optimizer slots, scaler, buffers, step count) and its call count into
     the directory ``path``, atomically (see the module docstring).  Resume
-    is exact: the fp32 masters round-trip bit for bit."""
-    _write_state_dir(path, step.state, _calls_meta(step))
+    is exact: the fp32 masters round-trip bit for bit.  A ZeRO step's
+    leaves are gathered whole and written by its rank 0 (every rank
+    calls this; the others wait for the write)."""
+    state, writes = state_to_save(step)
+    try:
+        if writes:
+            _write_state_dir(path, state, _calls_meta(step))
+    finally:
+        saved_barrier(step)
 
 
 class AsyncTrainStateSaver:
@@ -114,7 +122,10 @@ class AsyncTrainStateSaver:
 
     def save(self, path: str, step) -> None:
         self.wait()
-        host = snapshot_state(step.state)
+        state, writes = state_to_save(step)
+        if not writes:
+            return
+        host = snapshot_state(state)
         meta = _calls_meta(step)
 
         def write():
@@ -163,7 +174,10 @@ def restore_train_state(path: str, step) -> None:
     comps, manifest = read_checkpoint_file(
         manifest_path, return_manifest=True, assemble_streamed=False)
     streamed = manifest["components"]["state"]["streamed"]
-    reshard_streamed(comps["state"], streamed, step.state,
+    target = restore_target(step)
+    reshard_streamed(comps["state"], streamed, target.state,
                      base_dir=os.path.dirname(manifest_path),
                      source=manifest_path)
+    if target is not step:
+        step.load_state(target.state)
     _restore_calls(step, manifest)

@@ -476,6 +476,9 @@ VIT_BATCH, VIT_TOKENS, VIT_LR, VIT_WD = 32, (224 // 16) ** 2 + 1, 1e-3, 0.05
 ROLL_ROUNDS, ROLL_PROMPTS, ROLL_PROMPT, ROLL_NEW = 4, 8, 64, 32
 ROLL_SEQ, ROLL_BATCH, ROLL_STEPS, ROLL_CAPACITY, ROLL_STALENESS = \
     96, 8, 2, 32, 2
+# zero_phase: GPT-2 small at ZERO_BATCH x TRAIN_SEQ tokens a window, and
+# its arms with accum_steps=2 at half of that a microbatch
+ZERO_BATCH = 4
 # the LayerNorm shapes of the seq2seq step (width 512) and of ViT-S/16's
 # blocks and CLS norm (384), timed beside NORM_SHAPES
 LN_SLICE_SHAPES = (((S2S_BATCH * S2S_SEQ, 512), "bfloat16"),
@@ -486,7 +489,10 @@ LN_SLICE_SHAPES = (((S2S_BATCH * S2S_SEQ, 512), "bfloat16"),
                    ((GEN_BATCH * (GEN_NEW + 1), 512), "float32"),
                    ((128, 768), "float32"),
                    # the rollout trainer's step (GPT-2 small at 8 x 96)
-                   ((ROLL_BATCH * ROLL_SEQ, 768), "bfloat16"))
+                   ((ROLL_BATCH * ROLL_SEQ, 768), "bfloat16"),
+                   # zero_phase's window and its accumulated microbatch
+                   ((ZERO_BATCH * TRAIN_SEQ, 768), "bfloat16"),
+                   ((ZERO_BATCH // 2 * TRAIN_SEQ, 768), "bfloat16"))
 
 
 def card_line():
@@ -828,7 +834,10 @@ def ln_phase(torch, layer_norm, dispatch):
              ((VIT_BATCH, 384), bf16, True, (bf16, bf16)),
              ((GEN_BATCH * (GEN_NEW + 1), 512), f32, True),
              # the rollout trainer's step
-             ((ROLL_BATCH * ROLL_SEQ, 768), bf16, True, (bf16, bf16))]
+             ((ROLL_BATCH * ROLL_SEQ, 768), bf16, True, (bf16, bf16)),
+             # zero_phase's window and its accumulated microbatch
+             ((ZERO_BATCH * TRAIN_SEQ, 768), bf16, True, (bf16, bf16)),
+             ((ZERO_BATCH // 2 * TRAIN_SEQ, 768), bf16, True, (bf16, bf16))]
 
     def make(case):
         shape, dtype, affine = case[:3]
@@ -897,8 +906,9 @@ def _flash_want(route, layers, backward=True):
 # without and with the key-padding bias, a band, ragged sizes, a full bias,
 # the amp loops' fp16; then the seq2seq step's encoder, decoder (causal) and
 # cross-attention (8 heads, key-padded: "keypad8") and ViT-S/16's 197
-# tokens, whose last tile of keys and rows is partial; last the rollout
-# trainer's step (GPT-2 small at 8 x 96).
+# tokens, whose last tile of keys and rows is partial; the rollout
+# trainer's step (GPT-2 small at 8 x 96); last zero_phase's window and its
+# accumulated microbatch (GPT-2 small at 4 and 2 x 1024).
 FLASH_TC_CASES = [
     (TRAIN_BATCH * 12, TRAIN_SEQ, TRAIN_SEQ, 64, "bf16", True, None, None),
     (BERT_BATCH * 12, BERT_SEQ, BERT_SEQ, 64, "bf16", False, None, None),
@@ -912,6 +922,9 @@ FLASH_TC_CASES = [
     (S2S_BATCH * 8, S2S_SEQ, S2S_SEQ, 64, "bf16", False, "keypad8", None),
     (VIT_BATCH * 6, VIT_TOKENS, VIT_TOKENS, 64, "bf16", False, None, None),
     (ROLL_BATCH * 12, ROLL_SEQ, ROLL_SEQ, 64, "bf16", True, None, None),
+    (ZERO_BATCH * 12, TRAIN_SEQ, TRAIN_SEQ, 64, "bf16", True, None, None),
+    (ZERO_BATCH // 2 * 12, TRAIN_SEQ, TRAIN_SEQ, 64, "bf16", True, None,
+     None),
 ]
 
 
@@ -10453,6 +10466,307 @@ class CpuWorker:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
+ZERO_STEPS = 3                  # steps each arm is held to its baseline
+ZERO_TURN_STEPS = 5             # replays a timed turn
+ZERO_TURNS = ("base", "arm", "arm", "base")
+# (arm, the arm it must equal bit for bit, make_train_step's options)
+ZERO_ARMS = (
+    ("plain", None, {}),
+    ("dp", "plain", dict(axis_name="data")),
+    ("dp_knobs", "plain", dict(axis_name="data",
+                               gradient_predivide_factor=2.0,
+                               allreduce_always_fp32=True)),
+    ("zero0", "plain", dict(zero_sharding=True, zero_stage=0)),
+    ("zero1", "plain", dict(zero_sharding=True, zero_stage=1)),
+    ("zero3", "plain", dict(zero_sharding=True, zero_stage=3)),
+    ("flat_master", "plain", dict(flat_master=True)),
+    ("plain_accum2", None, dict(accum_steps=2)),
+    ("zero3_accum2_overlap", "plain_accum2",
+     dict(zero_sharding=True, zero_stage=3, accum_steps=2, overlap=True)),
+    ("zero3_accum2_inline", "plain_accum2",
+     dict(zero_sharding=True, zero_stage=3, accum_steps=2, overlap=False)),
+)
+# the collectives a graph of each arm holds at world size 1, a multiple of
+# the parameter tensors (124 in GPT-2 small): NCCL over one rank enqueues a
+# device-to-device copy for an out-of-place reduce-scatter or all-gather
+# and nothing for an in-place all-reduce (tools/nccl_graph_probe.py); each
+# tensor is reduce-scattered once a window and gathered into its half copy
+# after the update (stage 1) or at the top of the window (stage 3, with or
+# without accumulation: the overlap knob has nothing to overlap)
+ZERO_COPIES = {"zero1": 2, "zero3": 2, "zero3_accum2_overlap": 2,
+               "zero3_accum2_inline": 2}
+_DOT_KIND = re.compile(r'label="\{\s*([A-Z_]+)')
+
+
+def _dot_kinds(texts):
+    """A graph's nodes by kind (KERNEL, MEMCPY, ...) from its DOT text."""
+    kinds = {}
+    for t in texts:
+        for m in _DOT_KIND.finditer(t):
+            kinds[m.group(1)] = kinds.get(m.group(1), 0) + 1
+    return kinds
+
+
+def _arm_masters(step):
+    """A step's fp32 masters a parameter (a flat-master stack's rows)."""
+    st = step.state
+    meta = getattr(step, "_flat_meta", None)
+    if meta is None:
+        return list(st.master_params)
+    return [st.master_params[b][j] for b, j in meta.pos]
+
+
+def _copy_ms(by_name):
+    """Device ms of the device-to-device copies and NCCL kernels of a
+    profiled window (by_name from _profiled)."""
+    return sum(v for k, v in (by_name or {}).items()
+               if "DtoD" in k or "nccl" in k.lower())
+
+
+def _zero_kernel_case(torch, multi_tensor, what, kind, ps, bf16_grads):
+    """B12 (``kind`` "adam") or B11 ("sgd") on the card over the tensor
+    list ``ps`` (a flat-master bucket list or a ZeRO shard list) against
+    its plain version on the same inputs, bit for bit; then the kernel's
+    and the plain version's device ms and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    gd = torch.bfloat16 if bf16_grads else torch.float32
+    grads = [torch.randn(p.shape, generator=g, device="cuda").to(gd)
+             for p in ps]
+    slots = 2 if kind == "adam" else 1
+    base = [grads, [p.detach().clone() for p in ps]] + [
+        [torch.rand(p.shape, generator=g, device="cuda") * 0.01
+         for p in ps] for _ in range(slots)]
+
+    def clone():
+        return [base[0]] + [[t.clone() for t in lst] for lst in base[1:]]
+    zero = torch.zeros((), dtype=torch.int32, device="cuda")
+    step = torch.tensor(3, dtype=torch.int32, device="cuda")
+    if kind == "adam":
+        def kernel(lists):
+            multi_tensor.fused_adam(zero, lists, LR, 0.9, 0.999, 1e-8, step,
+                                    1, True, WD)
+        scal = multi_tensor.adam_scalars(LR, 0.9, 0.999, 1e-8, step, True,
+                                         WD, "cuda")
+
+        def plain(lists):
+            multi_tensor.fused_adam_reference(zero, lists, scal, 1, True)
+        per_el = (2 if bf16_grads else 4) + 24
+        ops = 15
+    else:
+        hyper = (SGD_HYPER["weight_decay"], SGD_HYPER["momentum"], 0.0,
+                 SGD_HYPER["lr"], False, False, False, 1.0)
+
+        def kernel(lists):
+            multi_tensor.fused_sgd(zero, lists, *hyper)
+        scal = multi_tensor.sgd_scalars(SGD_HYPER["lr"],
+                                        SGD_HYPER["weight_decay"], 1.0,
+                                        SGD_HYPER["momentum"], 0.0, "cuda")
+
+        def plain(lists):
+            multi_tensor.fused_sgd_reference(zero, lists, scal, True, False,
+                                             False, False, True)
+        per_el = 4 * 3 + 8
+        ops = 6
+    ka, ra = clone(), clone()
+    kernel(ka)
+    plain(ra)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for la, lb in zip(ka[1:], ra[1:])
+               for a, b in zip(la, lb)):
+        raise AssertionError(f"{what}: kernel != plain version")
+    if all(torch.equal(a, b) for a, b in zip(ka[1], base[1])):
+        raise AssertionError(f"{what}: nothing was updated")
+    n_el = sum(p.numel() for p in ps)
+    ms = median_ms(lambda: kernel(ka))[0]
+    plain_ms = median_ms(lambda: plain(ra), reps=3, inner=1, warmup=1,
+                         capped=True)[0]
+    b_ms, b_by = bound_ms(n_el * per_el, ops * n_el, FP32_FLOP_PER_S)
+    print(f"  {what}: {len(ps)} tensors, {n_el} elements, "
+          f"{'bf16' if bf16_grads else 'fp32'} grads: kernel == plain bit "
+          f"for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return dict(tensors=len(ps), elements=n_el, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def zero_phase(torch, dispatch, gpt, multi_tensor, rn_shapes):
+    """A9's first part on the card: torch.distributed with NCCL at world
+    size 1, GPT-2 small at full width (bf16 half copies, FusedAdam, the
+    chunked loss, batch ZERO_BATCH x TRAIN_SEQ), every arm of ZERO_ARMS
+    built from the same weights.  Each arm runs through _graph_pair (its
+    replays against its un-captured step, bit for bit) and must equal its
+    baseline (ZERO_ARMS) bit for bit: the losses of ZERO_STEPS steps and
+    every master; a world of one makes every exchange exact and the DDP
+    knobs divide by powers of two.  Its graph's nodes against the plain
+    graph's show the collectives inside it (ZERO_COPIES).  Then B12 over
+    the flat-master bucket list and the ZeRO shard list, and B11 over
+    ResNet-50's flat-master buckets, against their plain versions; each
+    arm's replay ms in turns with its baseline, the copies' and NCCL
+    kernels' device ms in one profiled replay, shard_sizes() and peak
+    memory.  Returns (the launch counts of each arm's eager call, the
+    phase's numbers)."""
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.runtime import executor
+    from apex_tpu_torch.training import make_train_step
+    t0 = time.perf_counter()
+    parallel.init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1,
+                              process_id=0, timeout_s=120)
+    print(f"zero phase: torch.distributed {dist.get_backend()} (world size "
+          f"{dist.get_world_size()}) -> gpt2_small (12 x 768, vocab 50257, "
+          f"bf16 half copies, FusedAdam lr {LR} wd {WD}, chunked loss), "
+          f"batch {ZERO_BATCH} x {TRAIN_SEQ}; arms "
+          f"{[a for a, _, _ in ZERO_ARMS]}")
+    counts, nums, keep = {}, dict(arms={}), {}
+    try:
+        torch.manual_seed(SEED)
+        model = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0,
+                               attn_dropout=0.0, output_hidden=True,
+                               device="cuda")
+        loss_fn = _chunked_lm_loss()
+        g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+        batches = [(ids, ids) for ids in (
+            torch.randint(0, 50257, (ZERO_BATCH, TRAIN_SEQ), generator=g,
+                          device="cuda") for _ in range(ZERO_STEPS))]
+        layers = len(model.blocks)
+
+        def want_for(k):
+            """One eager call's launches with k microbatches."""
+            rows = ZERO_BATCH // k * (TRAIN_SEQ - 1)
+            chunks = k * -(-rows // _chunk_rows(rows, 50257, None))
+            want = dict.fromkeys(dispatch.counts(), 0)
+            want.update(_flash_want("tc", k * layers), fused_adam=1,
+                        xent_forward=chunks, xent_backward=chunks)
+            want.update(dict.fromkeys(LN_NAMES, k * (2 * layers + 1)))
+            return want
+        for arm, base, kw in ZERO_ARMS:
+            def make(kw=kw):
+                return make_train_step(
+                    model, FusedAdam(list(model.parameters()), lr=LR,
+                                     weight_decay=WD), loss_fn,
+                    half_dtype=torch.bfloat16, loss_scale=1.0, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            gstep, estep, r = _graph_pair(torch, dispatch, f"zero {arm}",
+                                          make, batches)
+            peak = torch.cuda.max_memory_allocated() - before
+            arm_want = want_for(kw.get("accum_steps", 1))
+            if r["launches"] != arm_want:
+                raise AssertionError(f"zero {arm}: launches "
+                                     f"{_nonzero(r['launches'])} != "
+                                     f"{_nonzero(arm_want)}")
+            counts[f"zero_{arm}"] = r["launches"]
+            masters = _arm_masters(estep)
+            kinds = _dot_kinds(executor.graph_dot(gstep._program))
+            out = dict(losses=r["losses"], graph=r["graph"],
+                       graph_nodes=kinds, peak_gib=peak / 2 ** 30)
+            if hasattr(gstep, "shard_sizes"):
+                out["shard_sizes"] = gstep.shard_sizes()
+            if base is None:
+                keep[arm] = dict(g=gstep, losses=r["losses"],
+                                 masters=[m.clone() for m in masters],
+                                 kinds=kinds)
+                note = "baseline"
+            else:
+                b = keep[base]
+                if r["losses"] != b["losses"] or len(masters) != len(
+                        b["masters"]) or not all(
+                        torch.equal(m, n) for m, n in zip(masters,
+                                                         b["masters"])):
+                    bad = [i for i, (m, n) in enumerate(zip(
+                        masters, b["masters"])) if not torch.equal(m, n)]
+                    raise AssertionError(
+                        f"zero {arm}: losses {r['losses']} / {base} "
+                        f"{b['losses']}; masters differ at {bad[:8]}")
+                bk = b["kinds"]
+                copies = kinds.get("MEMCPY", 0) - bk.get("MEMCPY", 0)
+                extra = kinds.get("KERNEL", 0) - bk.get("KERNEL", 0)
+                need = ZERO_COPIES.get(arm, 0) * len(masters)
+                # the DP exchange and ZeRO stage 0 all-reduce in place (no
+                # node over one rank): their graphs hold the exchange's
+                # flattening and divisions instead
+                exchanges = arm != "flat_master"
+                if copies < need or (exchanges and need == 0
+                                     and extra <= 0):
+                    raise AssertionError(
+                        f"zero {arm}: graph nodes {kinds} against {base}'s "
+                        f"{bk}: {copies} copies (need {need}), {extra} "
+                        f"kernels more")
+                out.update(copy_nodes_over_base=copies,
+                           kernel_nodes_over_base=extra)
+                note = (f"== {base} bit for bit ({ZERO_STEPS} losses, "
+                        f"{len(masters)} masters); graph {copies} "
+                        f"copy nodes and {extra} kernel nodes more than "
+                        f"{base}'s")
+                # replays in turns with the baseline, device ms by events
+                arms_fn = {"base": lambda: b["g"](*batches[-1]),
+                           "arm": lambda: gstep(*batches[-1])}
+                walls = {"base": [], "arm": []}
+                for turn in ZERO_TURNS:
+                    walls[turn].append(_event_ms(torch, lambda: [
+                        arms_fn[turn]() for _ in range(ZERO_TURN_STEPS)])
+                        / ZERO_TURN_STEPS)
+                out["replay_ms"], out["base_replay_ms"] = walls["arm"], \
+                    walls["base"]
+                _, _, by_arm, _ = _profiled(torch, arms_fn["arm"], cpu=False)
+                if "copies_ms" not in b:    # a baseline's, profiled once
+                    _, _, by_base, _ = _profiled(torch, arms_fn["base"],
+                                                 cpu=False)
+                    b["copies_ms"] = _copy_ms(by_base) if by_base else None
+                out["copies_ms"] = _copy_ms(by_arm) if by_arm else None
+                out["base_copies_ms"] = b["copies_ms"]
+                note += (f"; replay {', '.join(f'{v:.3f}' for v in walls['arm'])}"
+                         f" ms against {base}'s "
+                         f"{', '.join(f'{v:.3f}' for v in walls['base'])}; "
+                         f"copies and NCCL kernels in one profiled replay "
+                         f"{out['copies_ms']} ms ({base}: "
+                         f"{out['base_copies_ms']} ms)")
+            if arm == "flat_master":
+                out["adam_case"] = _zero_kernel_case(
+                    torch, multi_tensor, "B12 over the flat-master buckets",
+                    "adam", list(gstep.state.master_params), True)
+                nums["adam_flat"] = out["adam_case"]
+            if arm == "zero1":
+                out["adam_case"] = _zero_kernel_case(
+                    torch, multi_tensor, "B12 over the ZeRO shard list",
+                    "adam", list(gstep.state.master_params), True)
+                nums["adam_shards"] = out["adam_case"]
+            print(f"  zero {arm}: {note}; peak {peak / 2 ** 30:.3f} GiB"
+                  + (f", shard_sizes {out['shard_sizes']} bytes"
+                     if "shard_sizes" in out else ""))
+            nums["arms"][arm] = out
+            del gstep, estep, masters, r
+        on, off = (nums["arms"][f"zero3_accum2_{k}"]["losses"]
+                   for k in ("overlap", "inline"))
+        if on != off:
+            raise AssertionError(f"zero3 accum2: overlap on {on} != off {off}")
+        keep.clear()
+        del model
+        torch.cuda.empty_cache()
+        # B11 over ResNet-50's flat-master buckets (a kernel check only)
+        by_shape = {}
+        for _, shp in rn_shapes:
+            by_shape.setdefault(shp, []).append(shp)
+        buckets = [torch.randn((len(v),) + k, device="cuda") * 0.05
+                   for k, v in by_shape.items()]
+        nums["sgd_flat"] = _zero_kernel_case(
+            torch, multi_tensor, f"B11 over ResNet-50's flat-master buckets "
+            f"({len(rn_shapes)} tensors stacked by shape)", "sgd", buckets,
+            False)
+        del buckets
+    finally:
+        keep.clear()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    nums["seconds"] = time.perf_counter() - t0
+    print(f"zero phase: {nums['seconds']:.1f} s")
+    return counts, nums
+
+
 LAPS = []
 _LAP_T = [0.0]
 
@@ -10694,6 +11008,10 @@ def main():
     paths["graph_phase"], graph_nums = graph_phase(
         torch, dispatch, models, bert, gpt, llama, dcgan, amp)
     lap()
+    zero_counts, zero_nums = zero_phase(torch, dispatch, gpt, multi_tensor,
+                                        rn_shapes)
+    paths.update(zero_counts)
+    lap()
     t_phase = time.perf_counter()
     inf_paths, inf_nums = inference_phase(torch, dispatch, gpt, llama,
                                           inference)
@@ -10929,7 +11247,9 @@ def main():
              lora_case=lora_nums["adam"],
              lora_step_tokens_per_s=lora_nums["tokens_per_s"],
              seq2seq_case=slice_nums["adam_seq2seq"],
-             vit_case=slice_nums["adam_vit"]),
+             vit_case=slice_nums["adam_vit"],
+             flat_master_case=zero_nums["adam_flat"],
+             zero_shard_case=zero_nums["adam_shards"]),
         dict(name="fused_sgd", route="cuda",
              source="apex_tpu_torch/csrc/multi_tensor_sgd.cu",
              replaces=f"{fb}multi_tensor.py:129 (_sgd_kernel :106, "
@@ -10939,7 +11259,8 @@ def main():
              imagenet_channels_last_images_per_s=imagenet[
                  "imagenet_amp_channels_last"]["images_per_s"],
              o1_resnet18_case=o1_kernels["sgd_resnet18"],
-             o1_resnet18_images_per_s=o1_resnet["images_per_s"]),
+             o1_resnet18_images_per_s=o1_resnet["images_per_s"],
+             flat_master_resnet50_case=zero_nums["sgd_flat"]),
     ]
     print(json.dumps({"bert_base": dict(train=bert_nums,
                                         train_attn_dropout=bert_drop_nums,
@@ -10973,6 +11294,7 @@ def main():
                       "resilience": resilience,
                       "observe": observe_nums,
                       "serve_fleet": fleet_nums, "rollout": rollout_nums,
+                      "zero": zero_nums,
                       "cpu_worker_waits_s": worker.waited}))
     print(f"phase seconds by main's line (each since the line before): "
           f"{LAPS}")

@@ -428,8 +428,12 @@ def test_knobs_and_refusals():
     assert not executor.overlap_enabled("h2d", override=False)
     executor.set_overlap(h2d="auto")
     assert not executor.overlap_enabled("gather")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        executor.set_overlap(gather=True)
+    # ZeRO's all-gather prefetch knob is accepted and resolves as set
+    executor.set_overlap(gather=True)
+    assert executor.overlap_enabled("gather")
+    assert not executor.overlap_enabled("gather", override=False)
+    executor.set_overlap(gather="auto")
+    assert executor.overlap_enabled("gather") is torch.cuda.is_available()
     with pytest.raises(ValueError, match="True/False/'auto'"):
         executor.set_overlap(h2d="on")
     # the telemetry drain is ported (A8): a step without telemetry has

@@ -213,9 +213,16 @@ def test_drain_is_one_read_of_the_five_scalars():
                     "grad_norm": float(np.float32(np.sqrt(12.0))),
                     "loss_scale": 8.0, "overflow_count": 1.0,
                     "windows": 1.0}
+    # the data axis is ported (averaged over torch.distributed's group; a
+    # world of one here); another axis is refused
+    one = telemetry.accumulate(
+        t, loss=torch.tensor(2.5), master_grads=[torch.full((3,), 2.0)],
+        flag=torch.ones((), dtype=torch.int32),
+        loss_scale=torch.tensor(8.0), mean_axes=("data",))
+    assert executor.read_telemetry(one) == host
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         telemetry.accumulate(t, loss=None, master_grads=[], flag=None,
-                             loss_scale=1.0, mean_axes=("data",))
+                             loss_scale=1.0, mean_axes=("model",))
 
 
 def test_grad_norm_reads_half_gradients_in_fp32():

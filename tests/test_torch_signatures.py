@@ -136,6 +136,8 @@ PAIRS = [
     (jax_distributed, distributed, "all_reduce_mean"),
     (jax_parallel, parallel, "SyncBatchNorm"),
     (jax_parallel, parallel, "convert_syncbn_model"),
+    (jax_parallel, parallel, "ZeroTrainStep"),
+    (jax_parallel, parallel, "zero_state_sharding"),
     (jax_F, F, "batch_norm"), (jax_F, F, "conv2d"), (jax_F, F, "max_pool2d"),
     (jax_F, F, "avg_pool2d"), (jax_F, F, "adaptive_avg_pool2d"),
     (jax_nn, nn, "to_channels_last"),
@@ -444,12 +446,28 @@ REFUSED = [
         gpt.GptModel(**SMALL_GPT), gpt.GptModel(**SMALL_GPT),
         torch.zeros((1, 2), dtype=torch.long), 2, k=1, **kw),
      dict(mesh="a mesh"), A9),
-    (lambda **kw: runtime.set_overlap(**kw), dict(gather=True), A9),
+    (lambda **kw: parallel.ZeroTrainStep(_linear_step(), None, **kw),
+     dict(plan="a plan"), A9),
     (lambda **kw: runtime.Program("train_step", (), lambda: None, **kw),
      dict(wrap=lambda f: f), A9),
     (lambda **kw: runtime.Program("train_step", (), lambda: None, **kw),
      dict(in_shardings=None), A9),
+    (lambda **kw: training.make_train_step(*_linear_parts(), **kw),
+     dict(axis_name="model"), A9),
+    (lambda **kw: observe.accumulate(
+        observe.init_telemetry(device="cpu"), loss=None, master_grads=[],
+        flag=None, loss_scale=1.0, **kw), dict(mean_axes=("model",)), A9),
 ]
+
+
+def _linear_parts():
+    lin = torch.nn.Linear(2, 2)
+    return lin, optimizers.FusedAdam(list(lin.parameters())), \
+        lambda out, *_: out.float().mean()
+
+
+def _linear_step():
+    return training.make_train_step(*_linear_parts())
 
 
 @pytest.mark.parametrize("make,kw,owner", REFUSED,
@@ -554,11 +572,15 @@ def test_refusal_messages_name_the_current_roadmap_items():
     tm = gpt.GptModel(**small)
     opt = optimizers.FusedAdam(list(tm.parameters()))
     loss = lambda out, y: out.float().mean()  # noqa: E731
-    for kw, owner in ((dict(axis_name="data"), A9),
-                      (dict(gradient_predivide_factor=2.0), A9),
+    for kw, owner in ((dict(axis_name="model"), A9),
+                      (dict(axis_name=("data", "model")), A9),
                       (dict(tp_axis="model"), A9),
-                      (dict(zero_sharding=True), A9)):
+                      (dict(parallel="auto"), A9)):
         with pytest.raises(NotImplementedError, match=owner):
             make_train_step(tm, opt, loss, **kw)
+    # A9's first part is ported: the data axis, its knobs and ZeRO build
+    for kw in (dict(axis_name="data"), dict(gradient_predivide_factor=2.0),
+               dict(zero_sharding=True)):
+        assert make_train_step(tm, opt, loss, **kw).state.step == 0
     assert make_train_step(tm, opt, loss, telemetry=True).state.telem \
         is not None

@@ -306,12 +306,19 @@ def test_dropout_generator_reproducible_rate_and_per_step():
 def test_unported_make_train_step_options_raise():
     _, tm = _models()
     opt = FusedAdam(list(tm.parameters()), lr=LR)
-    for kw in (dict(axis_name="data"), dict(tp_axis="model"),
-               dict(gradient_predivide_factor=2.0),
-               dict(allreduce_always_fp32=True), dict(zero_sharding=True),
-               dict(flat_master=True), dict(parallel="auto")):
+    for kw in (dict(tp_axis="model"), dict(axis_name="model"),
+               dict(parallel="auto")):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_train_step(tm, opt, _torch_loss, **kw)
+    # data parallelism, its knobs, flat masters and ZeRO are ported (A9's
+    # first part): the data axis builds, the knobs alone are the JAX
+    # step's no-ops, flat_master stacks, zero_sharding wraps
+    from apex_tpu_torch.parallel import ZeroTrainStep
+    for kw in (dict(axis_name="data"), dict(gradient_predivide_factor=2.0),
+               dict(allreduce_always_fp32=True), dict(flat_master=True)):
+        assert make_train_step(tm, opt, _torch_loss, **kw).state.step == 0
+    assert isinstance(make_train_step(tm, opt, _torch_loss,
+                                      zero_sharding=True), ZeroTrainStep)
     # telemetry, once refused here, is ported: the step carries its
     # accumulator
     assert make_train_step(tm, opt, _torch_loss,
