@@ -16,8 +16,10 @@ group as [q_h, k_h, v_h] per head, not torch's [Q; K; V] blocks;
 (k, v) pair per head from the encoder stream.  On the flash path their
 dropout seed is one int32 drawn from the caller's ``generator`` on the
 inputs' device (:func:`draw_dropout_seed`), a fresh one per call, as each
-JAX layer draws from a key of its own.  The tensor- and sequence-parallel
-branches come with later slices.
+JAX layer draws from a key of its own.  Their tensor-parallel branches
+shard heads over a mesh axis (``parallel.tensor_parallel``); the
+self-attention's sequence-parallel branch runs ring or Ulysses attention
+(``parallel.ring_attention``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,6 @@ import math
 
 import torch
 
-from ..._unported import PARALLEL, accept_defaults
 from ...amp.policy import no_casts
 from ...kernels import attention as _k
 from ...kernels.dispatch import MASKED_FILL
@@ -174,41 +175,135 @@ def _attn_with_dropout(q3, k3, v3, bias, heads, scale, dropout_prob,
     return torch.einsum("bts,bsd->btd", p, v3.float()).to(q3.dtype)
 
 
+def _dropout_seed(seed, tp_axis=None):
+    """The kernels' int32 seed, with the rank's index on ``tp_axis`` folded
+    in as ``seed ^ (idx * 0x9E3779B1)`` (the JAX ``_dropout_seed``), so
+    each head shard draws a stream of its own; ``seed`` an int32 tensor
+    drawn by :func:`draw_dropout_seed`."""
+    if tp_axis is None:
+        return seed
+    from ...parallel.mesh import resolve
+    from ...parallel.ring_attention import _xor_seed
+    return _xor_seed(seed, (resolve(tp_axis).index * 0x9E3779B1)
+                     & 0xFFFFFFFF)
+
+
+def _refuse_materialized_tp_dropout(tensor_parallel_axis, dropout):
+    if tensor_parallel_axis is not None and dropout > 0.0:
+        raise NotImplementedError(
+            "attention dropout under tensor parallelism requires the flash "
+            "path (impl='fast'): the materializing impl draws its mask from "
+            "one shared generator, which would correlate dropout across "
+            "head shards")
+
+
 @no_casts
 def self_attn_func(use_time_mask, is_training, heads, scale, inputs,
                    input_weights, output_weights, input_biases=None,
                    output_biases=None, mask=None, dropout_prob=0.0,
-                   generator=None, use_flash=False, causal=False):
+                   generator=None, use_flash=False, causal=False,
+                   seq_parallel_axis=None, seq_parallel_impl="ring",
+                   tensor_parallel_axis=None, sp_shared_key=None):
     """Self-attention over ``inputs (T, B, E)``: fused interleaved QKV
     projection, attention (``use_flash`` selects the kernel path, else the
     materializing one), output projection.  ``causal`` masks future
     positions.  ``generator`` feeds the dropout: the materializing path's
     mask, or on the flash path the seed of the kernels' hash mask, drawn
-    when ``is_training`` and ``dropout_prob > 0``."""
+    when ``is_training`` and ``dropout_prob > 0``.
+
+    ``seq_parallel_axis``: the time dim is sharded over that mesh axis and
+    attention runs the ring (or Ulysses, per ``seq_parallel_impl``) while
+    the projections stay local; masks only under ``"ulysses"``, GLOBAL in
+    shape and the same on every rank.  The ring's dropout seed is drawn
+    from ``sp_shared_key`` (a generator every rank of the axis holds in the
+    same state; ``generator`` when None, which the train step and the model
+    families keep shared across the axis), so its mask is the one-device
+    run's; Ulysses folds the shard index in.
+
+    ``tensor_parallel_axis``: Megatron head sharding.  The in-projection is
+    column-parallel (the interleaved layout groups rows per head, so a
+    contiguous row block is a head block), each rank attends over ``heads
+    / n`` heads, and the out-projection is row-parallel with the pair's one
+    all-reduce; weights stay whole, each rank reads its block.  The
+    dropout seed folds the rank's index on the axis (:func:`_dropout_seed`);
+    the materializing impl refuses dropout under TP."""
     t, b, e = inputs.shape
     head_dim = e // heads
-    lin = torch.matmul(inputs, input_weights.t())
-    if input_biases is not None:
-        lin = lin + input_biases
+    iw, ow, ib = input_weights, output_weights, input_biases
+    if tensor_parallel_axis is not None:
+        from ...parallel.tensor_parallel import tp_attn_begin
+        (inputs,), heads, rows, (ow,) = tp_attn_begin(
+            tensor_parallel_axis, heads,
+            [inputs], [iw] + ([ib] if ib is not None else []), [ow])
+        iw = rows[0]
+        if ib is not None:
+            ib = rows[1]
+        e = heads * head_dim
+    lin = torch.matmul(inputs, iw.t())
+    if ib is not None:
+        lin = lin + ib
     q3, k3, v3 = _split_interleaved_qkv(lin, t, b, heads, head_dim)
     dropout = dropout_prob if is_training else 0.0
-    bias = _masks_to_bias(mask, use_time_mask, b, heads, t, t)
-    if bias is not None:
-        bias = bias.to(inputs.device)
-    if use_flash:
-        seed = draw_dropout_seed(generator, inputs.device) if dropout > 0.0 \
-            else None
-        ctx4 = flash_attention(q3.reshape(b, heads, t, head_dim),
-                               k3.reshape(b, heads, t, head_dim),
-                               v3.reshape(b, heads, t, head_dim),
+
+    def heads4(x3):
+        return x3.reshape(b, heads, t, head_dim)
+    if seq_parallel_axis is not None:
+        from ...parallel.ring_attention import (ring_attention,
+                                                ulysses_attention)
+        if seq_parallel_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"seq_parallel_impl must be 'ring' or 'ulysses', got "
+                f"{seq_parallel_impl!r}")
+        sp_bias = None
+        if mask is not None:
+            if seq_parallel_impl != "ulysses":
+                raise NotImplementedError(
+                    "masks under sequence parallelism require the "
+                    "'ulysses' impl (each rank sees the gathered global "
+                    "sequence there; the ring carries no mask operand)")
+            sp_bias = _masks_to_bias(mask, use_time_mask, b, heads, t, t)
+            sp_bias = sp_bias.to(inputs.device)
+        seed = None
+        if dropout > 0.0:
+            src = generator if (seq_parallel_impl != "ring"
+                                or sp_shared_key is None) else sp_shared_key
+            seed = _dropout_seed(draw_dropout_seed(src, inputs.device),
+                                 tensor_parallel_axis)
+        if seq_parallel_impl == "ring":
+            ctx4 = ring_attention(heads4(q3), heads4(k3), heads4(v3),
+                                  axis_name=seq_parallel_axis, causal=causal,
+                                  scale=scale, dropout_p=dropout,
+                                  dropout_seed=seed)
+        else:
+            ctx4 = ulysses_attention(heads4(q3), heads4(k3), heads4(v3),
+                                     axis_name=seq_parallel_axis,
+                                     causal=causal, scale=scale, bias=sp_bias,
+                                     dropout_p=dropout, dropout_seed=seed)
+        ctx3 = ctx4.reshape(b * heads, t, head_dim)
+    elif use_flash:
+        bias = _masks_to_bias(mask, use_time_mask, b, heads, t, t)
+        if bias is not None:
+            bias = bias.to(inputs.device)
+        seed = _dropout_seed(draw_dropout_seed(generator, inputs.device),
+                             tensor_parallel_axis) if dropout > 0.0 else None
+        ctx4 = flash_attention(heads4(q3), heads4(k3), heads4(v3),
                                bias=bias, causal=causal, scale=scale,
                                dropout_p=dropout, dropout_seed=seed)
         ctx3 = ctx4.reshape(b * heads, t, head_dim)
     else:
+        _refuse_materialized_tp_dropout(tensor_parallel_axis, dropout)
+        bias = _masks_to_bias(mask, use_time_mask, b, heads, t, t)
+        if bias is not None:
+            bias = bias.to(inputs.device)
         ctx3 = _attn_with_dropout(q3, k3, v3, bias, heads, scale, dropout,
                                   generator, use_time_mask_causal=causal)
     ctx = ctx3.transpose(0, 1).reshape(t, b, e)
-    out = torch.matmul(ctx, output_weights.t())
+    out = torch.matmul(ctx, ow.t())
+    if tensor_parallel_axis is not None:
+        # the row-parallel reduction, the column -> row pair's one
+        # collective; the bias is added once, after it
+        from ...parallel.tensor_parallel import reduce_from_tp_region
+        out = reduce_from_tp_region(out, tensor_parallel_axis)
     if output_biases is not None:
         out = out + output_biases
     return out
@@ -225,15 +320,21 @@ def encdec_attn_func(use_time_mask, is_training, heads, scale, inputs_q,
     grouped [k_h, v_h] per head), attention over the encoder positions
     (never causal; ``mask`` a key-padding (B, Tk) or time (Tq, Tk) mask),
     output projection.  ``use_flash`` and ``generator`` as in
-    :func:`self_attn_func`.  ``tensor_parallel_axis`` is taken at its
-    default and refused otherwise."""
-    accept_defaults("encdec_attn_func: tensor parallelism", PARALLEL,
-                    tensor_parallel_axis=(tensor_parallel_axis, None))
+    :func:`self_attn_func`.  ``tensor_parallel_axis``: Megatron head
+    sharding as in :func:`self_attn_func`, both streams through the ``f``
+    operator (their gradients feed the encoder and the decoder)."""
     tq, b, e = inputs_q.shape
     tk = inputs_kv.shape[0]
     head_dim = e // heads
-    q = torch.matmul(inputs_q, input_weights_q.t())
-    kv = torch.matmul(inputs_kv, input_weights_kv.t())
+    wq, wkv, ow = input_weights_q, input_weights_kv, output_weights
+    if tensor_parallel_axis is not None:
+        from ...parallel.tensor_parallel import tp_attn_begin
+        (inputs_q, inputs_kv), heads, (wq, wkv), (ow,) = tp_attn_begin(
+            tensor_parallel_axis, heads, [inputs_q, inputs_kv], [wq, wkv],
+            [ow])
+        e = heads * head_dim
+    q = torch.matmul(inputs_q, wq.t())
+    kv = torch.matmul(inputs_kv, wkv.t())
     kv = kv.reshape(tk, b * heads, 2, head_dim)
     q3 = q.reshape(tq, b * heads, head_dim).transpose(0, 1)
     k3, v3 = kv[:, :, 0].transpose(0, 1), kv[:, :, 1].transpose(0, 1)
@@ -242,8 +343,8 @@ def encdec_attn_func(use_time_mask, is_training, heads, scale, inputs_q,
         bias = bias.to(inputs_q.device)
     dropout = dropout_prob if is_training else 0.0
     if use_flash:
-        seed = draw_dropout_seed(generator, inputs_q.device) \
-            if dropout > 0.0 else None
+        seed = _dropout_seed(draw_dropout_seed(generator, inputs_q.device),
+                             tensor_parallel_axis) if dropout > 0.0 else None
         ctx4 = flash_attention(q3.reshape(b, heads, tq, head_dim),
                                k3.reshape(b, heads, tk, head_dim),
                                v3.reshape(b, heads, tk, head_dim),
@@ -251,7 +352,12 @@ def encdec_attn_func(use_time_mask, is_training, heads, scale, inputs_q,
                                dropout_p=dropout, dropout_seed=seed)
         ctx3 = ctx4.reshape(b * heads, tq, head_dim)
     else:
+        _refuse_materialized_tp_dropout(tensor_parallel_axis, dropout)
         ctx3 = _attn_with_dropout(q3, k3, v3, bias, heads, scale, dropout,
                                   generator)
     ctx = ctx3.transpose(0, 1).reshape(tq, b, e)
-    return torch.matmul(ctx, output_weights.t())
+    out = torch.matmul(ctx, ow.t())
+    if tensor_parallel_axis is not None:
+        from ...parallel.tensor_parallel import reduce_from_tp_region
+        out = reduce_from_tp_region(out, tensor_parallel_axis)
+    return out

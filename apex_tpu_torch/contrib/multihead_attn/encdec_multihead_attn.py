@@ -7,15 +7,14 @@ interleaved (k, v) projection of the encoder stream, inputs in (T, B, E).
 seeded from ``generator``), ``impl='default'`` the materializing path.
 ``include_norm_add`` adds a LayerNorm on the query (the LayerNorm kernels)
 and the residual.  Returns ``(outputs, None)``.  There are no biases, as
-in the JAX package; ``tensor_parallel_axis`` is taken at its default and
-refused otherwise.
+in the JAX package; ``tensor_parallel_axis`` shards the heads over a mesh
+axis (the weights stay whole on every rank).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..._unported import PARALLEL, accept_defaults
 from ...kernels.dispatch import resolve_device
 from ...normalization.fused_layer_norm import fused_layer_norm_affine
 from .attn_funcs import encdec_attn_func
@@ -30,8 +29,6 @@ class EncdecMultiheadAttn(nn.Module):
                  tensor_parallel_axis=None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        accept_defaults("EncdecMultiheadAttn: tensor parallelism", PARALLEL,
-                        tensor_parallel_axis=(tensor_parallel_axis, None))
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         if bias:
@@ -47,6 +44,7 @@ class EncdecMultiheadAttn(nn.Module):
         self.include_norm_add = include_norm_add
         self.impl = impl
         self.scaling = self.head_dim ** -0.5
+        self.tensor_parallel_axis = tensor_parallel_axis
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.in_proj_weight_q = nn.Parameter(
             torch.empty(embed_dim, embed_dim, **kw))
@@ -62,6 +60,13 @@ class EncdecMultiheadAttn(nn.Module):
         for w in (self.in_proj_weight_q, self.in_proj_weight_kv,
                   self.out_proj_weight):
             nn.init.xavier_uniform_(w)
+
+    def tp_sharded_params(self):
+        """The block-sparse-gradient parameters under tensor parallelism:
+        the q and kv projections' head rows, the out-projection's
+        columns."""
+        return [self.in_proj_weight_q, self.in_proj_weight_kv,
+                self.out_proj_weight]
 
     def forward(self, query, key, value=None, key_padding_mask=None,
                 need_weights=False, attn_mask=None, is_training=None,
@@ -91,7 +96,8 @@ class EncdecMultiheadAttn(nn.Module):
             use_time_mask, is_training, self.num_heads, self.scaling, x, key,
             self.in_proj_weight_q, self.in_proj_weight_kv,
             self.out_proj_weight, mask, self.dropout, generator=generator,
-            use_flash=(self.impl == "fast"))
+            use_flash=(self.impl == "fast"),
+            tensor_parallel_axis=self.tensor_parallel_axis)
         if self.include_norm_add:
             if is_training and self.dropout > 0.0:
                 outputs = torch.nn.functional.dropout(

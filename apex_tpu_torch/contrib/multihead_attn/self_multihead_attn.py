@@ -6,15 +6,16 @@ runs the flash-attention kernel, ``impl='default'`` the materializing path
 (the one that takes biases); ``include_norm_add`` adds a pre-LayerNorm and
 the residual.  Returns ``(outputs, None)``.  Attention dropout on the fast
 path runs inside the flash kernels, its seed drawn from ``generator``.
-The sequence- and tensor-parallel arguments are taken at their defaults
-and refused otherwise.
+``seq_parallel_axis`` shards the time dim over a mesh axis (ring or
+Ulysses attention, ``seq_parallel_impl``), ``tensor_parallel_axis`` the
+heads; see :func:`~apex_tpu_torch.contrib.multihead_attn.attn_funcs.
+self_attn_func`.  The weights stay whole on every rank.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..._unported import PARALLEL, accept_defaults
 from ...kernels.dispatch import resolve_device
 from ...normalization.fused_layer_norm import fused_layer_norm_affine
 from .attn_funcs import self_attn_func
@@ -30,11 +31,6 @@ class SelfMultiheadAttn(nn.Module):
                  tensor_parallel_axis=None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        accept_defaults(
-            "SelfMultiheadAttn: sequence and tensor parallelism", PARALLEL,
-            seq_parallel_axis=(seq_parallel_axis, None),
-            seq_parallel_impl=(seq_parallel_impl, "ring"),
-            tensor_parallel_axis=(tensor_parallel_axis, None))
         if embed_dim % num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
         if impl not in ("fast", "default"):
@@ -51,6 +47,9 @@ class SelfMultiheadAttn(nn.Module):
         self.include_norm_add = include_norm_add
         self.impl = impl
         self.scaling = self.head_dim ** -0.5
+        self.seq_parallel_axis = seq_parallel_axis
+        self.seq_parallel_impl = seq_parallel_impl
+        self.tensor_parallel_axis = tensor_parallel_axis
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * embed_dim, embed_dim, **kw))
@@ -69,6 +68,16 @@ class SelfMultiheadAttn(nn.Module):
                 torch.zeros(embed_dim, **kw))
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.xavier_uniform_(self.out_proj_weight)
+
+    def tp_sharded_params(self):
+        """The parameters whose gradients are block-sparse on each rank
+        under tensor parallelism (``make_train_step(tp_axis=...)`` sums them
+        over the axis): the head-sharded in-projection (rows) and the
+        out-projection (columns)."""
+        ps = [self.in_proj_weight, self.out_proj_weight]
+        if self.in_proj_bias is not None:
+            ps.append(self.in_proj_bias)
+        return ps
 
     def forward(self, query, key=None, value=None, key_padding_mask=None,
                 need_weights=False, attn_mask=None, is_training=None,
@@ -94,7 +103,10 @@ class SelfMultiheadAttn(nn.Module):
             use_time_mask, is_training, self.num_heads, self.scaling, x,
             self.in_proj_weight, self.out_proj_weight, self.in_proj_bias,
             self.out_proj_bias, mask, self.dropout, generator=generator,
-            use_flash=(self.impl == "fast"), causal=self.causal)
+            use_flash=(self.impl == "fast"), causal=self.causal,
+            seq_parallel_axis=self.seq_parallel_axis,
+            seq_parallel_impl=self.seq_parallel_impl,
+            tensor_parallel_axis=self.tensor_parallel_axis)
         if self.include_norm_add:
             if is_training and self.dropout > 0.0:
                 outputs = torch.nn.functional.dropout(

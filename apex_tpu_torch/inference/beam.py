@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .._unported import PARALLEL, accept_defaults
+from .._unported import DECODE_MESH, accept_defaults
 from ..utils.jit_cache import compiled_run_cache, model_tensors
 from .decode import GraphRun, bucket_capacity, cache_name, compute_dtype, \
     model_device
@@ -154,7 +154,7 @@ def beam_generate(model, prompt_ids, max_new_tokens, num_beams, eos_id=None,
     raw summed log-probs); ``cache_dtype`` follows ``generate``
     (``"int8"`` for the quantized KV cache); ``mesh`` is taken at its
     default and refused otherwise."""
-    accept_defaults("beam_generate: sharded decode (mesh)", PARALLEL,
+    accept_defaults("beam_generate: sharded decode (mesh)", DECODE_MESH,
                     mesh=(mesh, None))
     b, p = prompt_ids.shape
     k = int(num_beams)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .._unported import PARALLEL, accept_defaults
+from .._unported import DECODE_MESH, accept_defaults
 from ..utils.jit_cache import compiled_run_cache, model_tensors
 from .decode import GraphRun, bucket_capacity, cache_name, compute_dtype, \
     model_device, sample_probs
@@ -154,7 +154,7 @@ def speculative_generate(target, draft, prompt_ids, max_new_tokens, k=4,
     "tokens_per_round", "draft_acceptance"}``.  ``mesh`` is taken at its
     default and refused otherwise."""
     from .rolling import ROLLING_SLACK
-    accept_defaults("speculative_generate: sharded decode (mesh)", PARALLEL,
+    accept_defaults("speculative_generate: sharded decode (mesh)", DECODE_MESH,
                     mesh=(mesh, None))
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")

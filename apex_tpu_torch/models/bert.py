@@ -14,8 +14,15 @@ from the ``generator`` passed to ``forward`` (the attention dropout as the
 seed of the flash kernels' hash mask).  Parameter names are the JAX
 package's, so :func:`apex_tpu_torch.models.convert.from_jax_state_dict`
 carries weights across one to one.  ``remat`` runs each encoder layer
-through :func:`apex_tpu_torch.nn.checkpoint_forward`; ``sp_axis`` and
-``tp_axis`` are taken at their defaults and refused otherwise.
+through :func:`apex_tpu_torch.nn.checkpoint_forward`.  ``tp_axis`` shards
+the heads and the FFN's hidden features over a mesh axis (the weights stay
+whole on every rank; ``tp_sharded_params()`` lists the block-sparse ones);
+``sp_axis`` shards the sequence, with Ulysses attention (a key-padding
+mask needs the gathered sequence, which the ring does not carry): the
+``attention_mask`` stays GLOBAL (B, S_global) and the same on every rank,
+positions are offset by the shard, and each elementwise dropout mask is
+drawn for the whole sequence with this rank keeping its rows
+(``models.gpt.shard_dropout``).
 """
 from __future__ import annotations
 
@@ -23,12 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._unported import PARALLEL, accept_defaults
 from ..contrib.multihead_attn import SelfMultiheadAttn
 from ..kernels.dispatch import resolve_device
 from ..nn.modules import checkpoint_forward
 from ..normalization import FusedLayerNorm
-from .gpt import dropout
+from .gpt import shard_dropout
 
 
 class BertLayer(nn.Module):
@@ -39,27 +45,46 @@ class BertLayer(nn.Module):
                  attn_dropout=0.1, sp_axis=None, tp_axis=None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        accept_defaults("BertLayer: tensor and sequence parallelism",
-                        PARALLEL, sp_axis=(sp_axis, None),
-                        tp_axis=(tp_axis, None))
         kw = dict(device=resolve_device(device), dtype=dtype)
+        # the encoder's SP runs Ulysses: non-causal attention under a
+        # key-padding mask needs the whole sequence on each rank
         self.attn = SelfMultiheadAttn(hidden, heads, dropout=attn_dropout,
-                                      impl="fast", **kw)
+                                      impl="fast", seq_parallel_axis=sp_axis,
+                                      seq_parallel_impl="ulysses",
+                                      tensor_parallel_axis=tp_axis, **kw)
         self.attn_ln = FusedLayerNorm(hidden, **kw)
         self.fc1 = nn.Linear(hidden, intermediate, **kw)
         self.fc2 = nn.Linear(intermediate, hidden, **kw)
         self.out_ln = FusedLayerNorm(hidden, **kw)
         self.dropout = nn.Dropout(dropout)
+        self.tp_axis = tp_axis
+        self.sp_axis = sp_axis
 
     def forward(self, x, key_padding_mask=None, generator=None):
-        """``x (S, B, E)``; ``key_padding_mask (B, S)`` True where a key is
-        padding; ``generator`` draws the dropout masks."""
-        p = self.dropout.p
+        """``x (S, B, E)`` (this rank's rows under ``sp_axis``);
+        ``key_padding_mask (B, S)`` True where a key is padding (GLOBAL
+        under ``sp_axis``); ``generator`` draws the dropout masks."""
+        p, sp = self.dropout.p, self.sp_axis
         h, _ = self.attn(x, key_padding_mask=key_padding_mask,
                          generator=generator)
-        x = self.attn_ln(x + dropout(h, p, self.training, generator))
-        h = self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
-        return self.out_ln(x + dropout(h, p, self.training, generator))
+        x = self.attn_ln(x + shard_dropout(h, p, self.training, generator,
+                                           sp, 0))
+        gelu = lambda y: F.gelu(y, approximate="tanh")  # noqa: E731
+        if self.tp_axis is not None:
+            # Megatron's MLP: column -> GELU -> row, one all-reduce a pair
+            from ..parallel.tensor_parallel import tp_ffn
+            h = tp_ffn(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                       self.fc2.bias, self.tp_axis, activation=gelu)
+        else:
+            h = self.fc2(gelu(self.fc1(x)))
+        return self.out_ln(x + shard_dropout(h, p, self.training, generator,
+                                             sp, 0))
+
+    def tp_sharded_params(self):
+        """The block-sparse-gradient parameters under ``tp_axis``: the
+        attention's, then the MLP's column and row entries."""
+        return self.attn.tp_sharded_params() + [
+            self.fc1.weight, self.fc1.bias, self.fc2.weight]
 
 
 def segment_embedding(table, ids):
@@ -88,10 +113,9 @@ class BertModel(nn.Module):
                  dropout=0.1, attn_dropout=0.1, remat=False, sp_axis=None,
                  tp_axis=None, device=None, dtype=torch.float32):
         super().__init__()
-        accept_defaults("BertModel: tensor and sequence parallelism",
-                        PARALLEL, sp_axis=(sp_axis, None),
-                        tp_axis=(tp_axis, None))
         kw = dict(device=resolve_device(device), dtype=dtype)
+        self.tp_axis = tp_axis
+        self.sp_axis = sp_axis
         self.hidden = hidden
         self.max_positions = max_positions
         self.remat = remat
@@ -104,21 +128,36 @@ class BertModel(nn.Module):
         self.emb_drop = nn.Dropout(dropout)
         self.layers = nn.ModuleList([
             BertLayer(hidden, heads, intermediate, dropout, attn_dropout,
-                      **kw) for _ in range(layers)])
+                      sp_axis=sp_axis, tp_axis=tp_axis, **kw)
+            for _ in range(layers)])
+
+    def tp_sharded_params(self):
+        """Every layer's block-sparse-gradient parameters under
+        ``tp_axis``."""
+        return [p for ly in self.layers for p in ly.tp_sharded_params()]
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 generator=None):
         b, s = input_ids.shape
-        if s > self.max_positions:
+        off = 0
+        if self.sp_axis is not None:
+            from ..parallel.mesh import resolve
+            ax = resolve(self.sp_axis)
+            if s * ax.size > self.max_positions:
+                raise ValueError(
+                    f"global sequence length {s * ax.size} exceeds "
+                    f"max_positions {self.max_positions}")
+            off = ax.index * s
+        elif s > self.max_positions:
             raise ValueError(f"sequence length {s} exceeds max_positions "
                              f"{self.max_positions}")
-        pos = torch.arange(s, device=input_ids.device)[None, :]
+        pos = torch.arange(off, off + s, device=input_ids.device)[None, :]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = self.tok_emb(input_ids) + self.pos_emb(pos) \
             + segment_embedding(self.type_emb.weight, token_type_ids)
-        x = dropout(self.emb_ln(x), self.emb_drop.p, self.training,
-                    generator)
+        x = shard_dropout(self.emb_ln(x), self.emb_drop.p, self.training,
+                          generator, self.sp_axis, 1)
         x = x.transpose(0, 1)                  # (S, B, E)
         kpm = None if attention_mask is None else attention_mask == 0
         for layer in self.layers:
@@ -144,6 +183,11 @@ class BertForMaskedLM(nn.Module):
         vocab = self.bert.tok_emb.weight.shape[0]
         self.decoder_bias = nn.Parameter(
             torch.zeros(vocab, dtype=torch.float32, device=device))
+
+    def tp_sharded_params(self):
+        """The encoder's block-sparse-gradient parameters (the MLM head
+        stays replicated)."""
+        return self.bert.tp_sharded_params()
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 mlm_positions=None, generator=None):

@@ -30,10 +30,28 @@ paths apply the head themselves and are unaffected.
 Attention dropout (``attn_dropout``, 0.1 by default) runs inside the flash
 kernels, seeded from the same ``generator``.  ``remat`` runs each block
 through :func:`apex_tpu_torch.nn.checkpoint_forward`, its activations
-recomputed in the backward.  The JAX package's mixture-of-experts, tensor-
-and sequence-parallel arguments are taken at their defaults and refused
-otherwise (``NotImplementedError`` naming the ROADMAP item that owns
-them).
+recomputed in the backward.
+
+Tensor and sequence parallelism (``tp_axis``, ``sp_axis``, ``tp_vocab``)
+run one process a rank over mesh axes that
+:mod:`apex_tpu_torch.parallel.mesh` resolves.  ``tp_axis`` shards the
+attention heads and the MLP's hidden features (Megatron's column -> row
+pairs, :mod:`apex_tpu_torch.parallel.tensor_parallel`); the weights stay
+whole on every rank and :meth:`GptModel.tp_sharded_params` lists those
+whose gradients are block-sparse.  ``tp_vocab`` also shards the tied table
+and returns vocab-sharded logits for
+``parallel.vocab_parallel_cross_entropy``.  ``sp_axis`` shards the
+sequence: ``input_ids`` are this rank's rows of the global sequence, the
+positions are offset by the shard, attention runs the ring
+(:mod:`apex_tpu_torch.parallel.ring_attention`).  Under ``sp_axis`` the
+``generator`` must be in the same state on every rank of the axis (the
+train step keeps it so): the ring's dropout seed is drawn from it, so the
+ring's mask is the one-device run's, and each elementwise dropout mask is
+drawn for the whole sequence and this rank keeps its own rows, so the
+shards' masks differ (the JAX ``fold_shard_into_key``) while the
+generator stays in step.  The cached decode paths and ``generate`` of a
+model built with either axis refuse (``NotImplementedError`` naming
+ROADMAP A9's decode under a mesh), as does the mixture of experts.
 """
 from __future__ import annotations
 
@@ -41,7 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._unported import PARALLEL, accept_defaults
+from .._unported import DECODE_MESH, EXPERTS, accept_defaults, refuse
 from ..contrib.multihead_attn import SelfMultiheadAttn
 from ..contrib.multihead_attn.attn_funcs import flash_attention
 from ..inference.decode import sample_probs
@@ -62,6 +80,25 @@ def dropout(x, p, training, generator=None):
     return torch.where(mask, x / keep, 0.0)
 
 
+def shard_dropout(x, p, training, generator, sp_axis, dim):
+    """:func:`dropout` of ``x``, this rank's shard along ``dim`` of a
+    sequence sharded over ``sp_axis`` (None: the plain dropout): the mask
+    is drawn for the whole sequence and this rank keeps its rows, so every
+    shard draws other positions while ``generator`` advances alike on every
+    rank of the axis."""
+    if sp_axis is None or not training or p == 0.0:
+        return dropout(x, p, training, generator)
+    from ..parallel.mesh import resolve
+    ax = resolve(sp_axis)
+    shape = list(x.shape)
+    n = shape[dim]
+    shape[dim] *= ax.size
+    keep = 1.0 - p
+    mask = (torch.rand(shape, generator=generator, device=x.device)
+            < keep).narrow(dim, ax.index * n, n).contiguous()
+    return torch.where(mask, x / keep, 0.0)
+
+
 class GptBlock(nn.Module):
     """Pre-LN decoder block: LN -> causal MHA -> residual, LN -> GELU FFN ->
     residual."""
@@ -70,9 +107,6 @@ class GptBlock(nn.Module):
                  attn_dropout=0.1, sp_axis=None, tp_axis=None,
                  attn_bias=False, device=None, dtype=torch.float32):
         super().__init__()
-        accept_defaults("GptBlock: tensor and sequence parallelism",
-                        PARALLEL, sp_axis=(sp_axis, None),
-                        tp_axis=(tp_axis, None))
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.ln1 = FusedLayerNorm(hidden, **kw)
         # attn_bias=True (what GPT-2 checkpoints carry) selects the 'default'
@@ -80,22 +114,43 @@ class GptBlock(nn.Module):
         self.attn = SelfMultiheadAttn(hidden, heads, dropout=attn_dropout,
                                       bias=attn_bias,
                                       impl="default" if attn_bias else "fast",
-                                      causal=True, **kw)
+                                      causal=True, seq_parallel_axis=sp_axis,
+                                      tensor_parallel_axis=tp_axis, **kw)
         self.ln2 = FusedLayerNorm(hidden, **kw)
         self.fc1 = nn.Linear(hidden, intermediate, **kw)
         self.fc2 = nn.Linear(intermediate, hidden, **kw)
         self.dropout = nn.Dropout(dropout)
+        self.tp_axis = tp_axis
+        self.sp_axis = sp_axis
 
     def _ffn(self, h):
+        if self.tp_axis is not None:
+            # Megatron's MLP: fc1 column-parallel, GELU on the sharded
+            # hidden, fc2 row-parallel, one all-reduce for the pair
+            from ..parallel.tensor_parallel import tp_ffn
+            return tp_ffn(h, self.fc1.weight, self.fc1.bias,
+                          self.fc2.weight, self.fc2.bias, self.tp_axis,
+                          activation=lambda y: F.gelu(y, approximate="tanh"))
         return self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
 
     def forward(self, x, generator=None):
-        """``x (S, B, E)``; ``generator`` draws the dropout masks."""
+        """``x (S, B, E)`` (this rank's rows of S under ``sp_axis``);
+        ``generator`` draws the dropout masks."""
         p = self.dropout.p
         h, _ = self.attn(self.ln1(x), generator=generator)
-        x = x + dropout(h, p, self.training, generator)
+        x = x + shard_dropout(h, p, self.training, generator, self.sp_axis,
+                              0)
         h = self._ffn(self.ln2(x))
-        return x + dropout(h, p, self.training, generator)
+        return x + shard_dropout(h, p, self.training, generator, self.sp_axis,
+                                 0)
+
+    def tp_sharded_params(self):
+        """The parameters whose gradients are block-sparse on each rank
+        under ``tp_axis`` (``make_train_step(tp_axis=...)`` sums them over
+        the axis): the attention's, then the MLP's column and row
+        entries."""
+        return self.attn.tp_sharded_params() + [
+            self.fc1.weight, self.fc1.bias, self.fc2.weight]
 
     def _chunk_qkv(self, x):
         """(B, S_c, E) -> q, k, v (B, H, S_c, D) through the interleaved
@@ -177,11 +232,8 @@ class GptModel(nn.Module):
                  pad_vocab_multiple=None, output_hidden=False, device=None,
                  dtype=torch.float32):
         super().__init__()
-        accept_defaults("GptModel: tensor and sequence parallelism",
-                        PARALLEL, sp_axis=(sp_axis, None),
-                        tp_axis=(tp_axis, None), tp_vocab=(tp_vocab, False))
         accept_defaults(
-            "GptModel: the mixture of experts", PARALLEL,
+            "GptModel: the mixture of experts", EXPERTS,
             moe_axis=(moe_axis, None),
             moe_num_experts=(moe_num_experts, None),
             moe_every=(moe_every, 2),
@@ -198,6 +250,28 @@ class GptModel(nn.Module):
         if pad_vocab_multiple:
             self.padded_vocab = -(-vocab_size // pad_vocab_multiple) \
                 * pad_vocab_multiple
+        # the JAX package's construction checks of the parallel options
+        if tp_vocab and self.padded_vocab != vocab_size:
+            raise ValueError(
+                "pad_vocab_multiple with tp_vocab is not supported: the "
+                "vocab-parallel loss would see unmasked pad columns in "
+                "the last shard")
+        if tp_axis is not None and attn_dropout > 0.0 and attn_bias:
+            raise ValueError(
+                "tp_axis with attn_dropout > 0 requires the flash impl; "
+                "attn_bias=True selects the materializing 'default' "
+                "impl, which draws from one shared generator — set "
+                "attn_dropout=0.0 or attn_bias=False")
+        if tp_vocab and tp_axis is None:
+            raise ValueError("tp_vocab requires tp_axis")
+        if output_hidden and tp_vocab:
+            raise ValueError(
+                "output_hidden with tp_vocab is redundant: vocab-parallel "
+                "logits already never materialize whole — use "
+                "vocab_parallel_cross_entropy as the loss instead")
+        self.tp_axis = tp_axis
+        self.sp_axis = sp_axis
+        self.tp_vocab = tp_vocab
         self.hidden = hidden
         self.max_positions = max_positions
         kw = dict(device=device, dtype=dtype)
@@ -208,20 +282,47 @@ class GptModel(nn.Module):
         self.drop = nn.Dropout(dropout)
         self.blocks = nn.ModuleList([
             GptBlock(hidden, heads, intermediate, dropout, attn_dropout,
-                     attn_bias=attn_bias, **kw) for _ in range(layers)])
+                     sp_axis=sp_axis, tp_axis=tp_axis, attn_bias=attn_bias,
+                     **kw) for _ in range(layers)])
         self.ln_f = FusedLayerNorm(hidden, **kw)
+
+    def tp_sharded_params(self):
+        """Every block's block-sparse-gradient parameters under ``tp_axis``
+        (see :meth:`GptBlock.tp_sharded_params`), and the vocab-sharded
+        table under ``tp_vocab``."""
+        ps = [p for blk in self.blocks for p in blk.tp_sharded_params()]
+        if self.tp_vocab:
+            ps.append(self.tok_emb.weight)
+        return ps
 
     def forward(self, input_ids, generator=None):
         """``input_ids (B, S)`` -> logits ``(B, S, V)``, or ``(hidden (B, S,
         E), tok_emb.weight)`` with ``output_hidden``; in training mode
-        ``generator`` (on the model's device) draws every dropout mask."""
+        ``generator`` (on the model's device) draws every dropout mask.
+        Under ``sp_axis`` S is this rank's shard of the global sequence;
+        under ``tp_vocab`` the logits are this rank's vocab shard."""
         b, s = input_ids.shape
-        if s > self.max_positions:
+        off = 0
+        if self.sp_axis is not None:
+            from ..parallel.mesh import resolve
+            ax = resolve(self.sp_axis)
+            if s * ax.size > self.max_positions:
+                raise ValueError(
+                    f"global sequence length {s * ax.size} exceeds "
+                    f"max_positions {self.max_positions}")
+            off = ax.index * s
+        elif s > self.max_positions:
             raise ValueError(f"sequence length {s} exceeds max_positions "
                              f"{self.max_positions}")
-        pos = torch.arange(s, device=input_ids.device)
-        x = dropout(self.tok_emb(input_ids) + self.pos_emb(pos)[None],
-                    self.drop.p, self.training, generator)
+        pos = torch.arange(off, off + s, device=input_ids.device)
+        if self.tp_vocab:
+            from ..parallel.tensor_parallel import vocab_parallel_embedding
+            tok = vocab_parallel_embedding(input_ids, self.tok_emb.weight,
+                                           self.tp_axis)
+        else:
+            tok = self.tok_emb(input_ids)
+        x = shard_dropout(tok + self.pos_emb(pos)[None], self.drop.p,
+                          self.training, generator, self.sp_axis, 1)
         x = x.transpose(0, 1)                  # (S, B, E)
         for blk in self.blocks:
             x = checkpoint_forward(blk, x, generator) if self.remat \
@@ -230,6 +331,9 @@ class GptModel(nn.Module):
         emb = self.tok_emb.weight
         if self.output_hidden:
             return x, emb
+        if self.tp_vocab:
+            from ..parallel.tensor_parallel import vocab_parallel_logits
+            return vocab_parallel_logits(x, emb, self.tp_axis)
         return self._mask_pad_logits(torch.matmul(x, emb.t().to(x.dtype)))
 
     def _mask_pad_logits(self, logits):
@@ -244,7 +348,12 @@ class GptModel(nn.Module):
 
     def init_caches(self, batch, s_max, dtype=torch.float32):
         """Per-layer (k, v) caches of shape (B, H, S_max, D) on the model's
-        device (QuantKV caches for ``"int8"``)."""
+        device (QuantKV caches for ``"int8"``).  Every cached path starts
+        here, so a model built with ``tp_axis`` or ``sp_axis`` refuses its
+        decode here."""
+        if self.tp_axis is not None or self.sp_axis is not None:
+            refuse("cached decode of a model built with tp_axis / sp_axis",
+                   DECODE_MESH)
         attn = self.blocks[0].attn
         shape = (batch, attn.num_heads, s_max, attn.head_dim)
         dev = self.pos_emb.weight.device
@@ -379,7 +488,7 @@ def generate(model, prompt_ids, max_new_tokens, temperature=0.0,
     dtype; ``"int8"`` is the quantized KV cache.  ``mesh`` is taken at its
     default and refused otherwise."""
     from ..inference.decode import compute_dtype, decode_graph, model_device
-    accept_defaults("generate: sharded decode (mesh)", PARALLEL,
+    accept_defaults("generate: sharded decode (mesh)", DECODE_MESH,
                     mesh=(mesh, None))
     b, p = prompt_ids.shape
     if p < 1:

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._unported import PARALLEL, refuse
+from .._unported import EXPERTS, refuse
 
 
 def _to_numpy(t):
@@ -321,7 +321,7 @@ def mixtral_from_hf(src, moe_axis="data", capacity_factor=8.0,
                     aux_weight=0.0, **model_kw):
     """The JAX package's Mixtral loader needs the mixture-of-experts
     blocks, which are not ported."""
-    refuse("mixtral_from_hf (mixture-of-experts blocks)", PARALLEL)
+    refuse("mixtral_from_hf (mixture-of-experts blocks)", EXPERTS)
 
 
 def resnet_from_torch(src, **model_kw):

@@ -30,10 +30,17 @@ model's device (RoPE computed at the positions, the KV write by
 prompt goes through the flash kernel's band and its last rows into the
 slots, and ``decode_chunk`` masks by the closed-form slot positions.
 
-Owed to later slices, and refused with ``NotImplementedError``: tensor and
-sequence parallelism (``tp_axis``, ``sp_axis``) and the mixture of experts
-(``moe_axis``, ``moe_num_experts`` and its knobs), ROADMAP A9.  Each is
-taken at its JAX default.
+``tp_axis`` shards the query AND the KV heads over a mesh axis (both
+divisible by its size; head-major row blocks of the projections) and the
+SwiGLU's hidden features, with ``o_proj`` and ``down_proj`` row-parallel
+(:mod:`apex_tpu_torch.parallel.tensor_parallel`; the weights stay whole on
+every rank, :meth:`LlamaModel.tp_sharded_params` lists the block-sparse
+ones).  ``sp_axis`` shards the sequence: RoPE rotates by global positions
+and attention runs the GQA-aware ring
+(:mod:`apex_tpu_torch.parallel.ring_attention`, KVH-wide chunks).  The
+cached paths of a model built with either refuse (ROADMAP A9's decode
+under a mesh), as does the mixture of experts (``moe_axis``,
+``moe_num_experts`` and its knobs), each taken at its JAX default.
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._unported import PARALLEL, accept_defaults
+from .._unported import DECODE_MESH, EXPERTS, accept_defaults, refuse
 from ..contrib.multihead_attn.attn_funcs import flash_attention
 from ..inference.quant import (gather_rows, kv_value, kv_write,
                                make_kv_cache, positions, raw)
@@ -88,9 +95,8 @@ class LlamaBlock(nn.Module):
                  sp_axis=None, sliding_window=None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        accept_defaults("LlamaBlock: tensor and sequence parallelism",
-                        PARALLEL, tp_axis=(tp_axis, None),
-                        sp_axis=(sp_axis, None))
+        self.tp_axis = tp_axis
+        self.sp_axis = sp_axis
         if head_dim is None:
             if hidden % heads:
                 raise ValueError(f"hidden {hidden} not divisible by {heads} "
@@ -118,26 +124,51 @@ class LlamaBlock(nn.Module):
         self.down_proj = lin(intermediate, hidden)
 
     def _qkv(self, h):
-        """(B, S, E) -> q (B, H, S, D), k/v (B, KVH, S, D)."""
+        """(B, S, E) -> q (B, H, S, D), k/v (B, KVH, S, D); under
+        ``tp_axis`` the LOCAL head counts, ``h`` entered through the ``f``
+        operator."""
         b, s, _ = h.shape
         d = self.head_dim
+        heads, kv_heads = self.heads, self.kv_heads
+        wq, wk, wv = self.q_proj.weight, self.k_proj.weight, \
+            self.v_proj.weight
+        if self.tp_axis is not None:
+            # head-major row blocks: a contiguous row block is a head
+            # block, for Q and KV alike
+            from ..parallel.mesh import resolve
+            from ..parallel.tensor_parallel import (_shard_rows,
+                                                    copy_to_tp_region)
+            n = resolve(self.tp_axis).size
+            if heads % n or kv_heads % n:
+                raise ValueError(
+                    f"tensor parallelism: heads ({heads}) and kv_heads "
+                    f"({kv_heads}) must both divide by the "
+                    f"'{self.tp_axis}' axis size ({n})")
+            h = copy_to_tp_region(h, self.tp_axis)
+            wq, wk, wv = (_shard_rows(w, self.tp_axis) for w in (wq, wk, wv))
+            heads, kv_heads = heads // n, kv_heads // n
 
         def to_heads(y, nh):
             return y.reshape(b, s, nh, d).transpose(1, 2)
-        return (to_heads(_linear(h, self.q_proj.weight), self.heads),
-                to_heads(_linear(h, self.k_proj.weight), self.kv_heads),
-                to_heads(_linear(h, self.v_proj.weight), self.kv_heads))
+        return (to_heads(_linear(h, wq), heads),
+                to_heads(_linear(h, wk), kv_heads),
+                to_heads(_linear(h, wv), kv_heads))
 
     def _attend(self, q, k, v):
         """Causal flash attention of q (B, H, S, D) over the chunk's own
-        K/V (B, KVH, S, D), each K/V head repeated over its query group;
-        -> (B, S, H * D)."""
-        rep = q.shape[1] // k.shape[1]
-        if rep > 1:
-            k = k.repeat_interleave(rep, dim=1)
-            v = v.repeat_interleave(rep, dim=1)
-        o = flash_attention(q, k, v, causal=True,
-                            sliding_window=self.sliding_window)
+        K/V (B, KVH, S, D), each K/V head repeated over its query group
+        (under ``sp_axis`` the ring, which expands each KVH-wide chunk at
+        its use); -> (B, S, H * D)."""
+        if self.sp_axis is not None:
+            from ..parallel.ring_attention import ring_attention
+            o = ring_attention(q, k, v, self.sp_axis, causal=True)
+        else:
+            rep = q.shape[1] // k.shape[1]
+            if rep > 1:
+                k = k.repeat_interleave(rep, dim=1)
+                v = v.repeat_interleave(rep, dim=1)
+            o = flash_attention(q, k, v, causal=True,
+                                sliding_window=self.sliding_window)
         b, h, s, d = o.shape
         return o.transpose(1, 2).reshape(b, s, h * d)
 
@@ -152,9 +183,43 @@ class LlamaBlock(nn.Module):
             * _linear(h, self.up_proj.weight)
         return _linear(gated, self.down_proj.weight)
 
+    def _tp_swiglu(self, h):
+        """SwiGLU as the Megatron column -> row pair: gate and up both
+        column-parallel on the one ``f``-entered stream, the gating on the
+        feature shard, down_proj's all-reduce the pair's one forward
+        collective."""
+        from ..parallel.tensor_parallel import (_shard_cols, _shard_rows,
+                                                copy_to_tp_region,
+                                                row_parallel_linear)
+        h = copy_to_tp_region(h, self.tp_axis)
+        wg = _shard_rows(self.gate_proj.weight, self.tp_axis)
+        wu = _shard_rows(self.up_proj.weight, self.tp_axis)
+        wd = _shard_cols(self.down_proj.weight, self.tp_axis)
+        gated = F.silu(_linear(h, wg)) * _linear(h, wu)
+        return row_parallel_linear(gated, wd.to(gated.dtype), None,
+                                   self.tp_axis)
+
+    def tp_sharded_params(self):
+        """The block-sparse-gradient parameters under ``tp_axis``
+        (``make_train_step(tp_axis=...)`` sums them over the axis): the
+        head-sharded Q/K/V rows, the column-sharded o_proj and the SwiGLU
+        pair's sharded dims."""
+        return [self.q_proj.weight, self.k_proj.weight, self.v_proj.weight,
+                self.o_proj.weight, self.gate_proj.weight,
+                self.up_proj.weight, self.down_proj.weight]
+
     def _mlp_tail(self, x, o):
         """Attention output projection + residual, then the RMSNorm ->
-        SwiGLU residual (one body for training and every cached path)."""
+        SwiGLU residual (one body for training and every cached path);
+        under ``tp_axis`` ``o`` holds the local heads' features, o_proj is
+        row-parallel and the FFN the column -> row SwiGLU."""
+        if self.tp_axis is not None:
+            from ..parallel.tensor_parallel import (_shard_cols,
+                                                    row_parallel_linear)
+            wo = _shard_cols(self.o_proj.weight, self.tp_axis)
+            x = x + row_parallel_linear(o, wo.to(o.dtype), None,
+                                        self.tp_axis)
+            return x + self._tp_swiglu(self.ln2(x))
         x = x + _linear(o, self.o_proj.weight)
         return x + self._ffn(self.ln2(x))
 
@@ -255,11 +320,8 @@ class LlamaModel(nn.Module):
                  moe_top_k=1, moe_aux_weight=0.01, sliding_window=None,
                  output_hidden=False, device=None, dtype=torch.float32):
         super().__init__()
-        accept_defaults("LlamaModel: tensor and sequence parallelism",
-                        PARALLEL, tp_axis=(tp_axis, None),
-                        sp_axis=(sp_axis, None))
         accept_defaults(
-            "LlamaModel: the mixture of experts", PARALLEL,
+            "LlamaModel: the mixture of experts", EXPERTS,
             moe_axis=(moe_axis, None),
             moe_num_experts=(moe_num_experts, None),
             moe_every=(moe_every, 2),
@@ -268,6 +330,12 @@ class LlamaModel(nn.Module):
         if sliding_window is not None and sliding_window < 1:
             raise ValueError(f"sliding_window must be >= 1, got "
                              f"{sliding_window}")
+        if sliding_window is not None and sp_axis is not None:
+            raise ValueError(
+                "sliding_window with sp_axis is not supported (the ring's "
+                "chunk bias is causal, not banded)")
+        self.tp_axis = tp_axis
+        self.sp_axis = sp_axis
         device = resolve_device(device)
         self.output_hidden = output_hidden
         self.remat = remat
@@ -287,21 +355,38 @@ class LlamaModel(nn.Module):
         self.blocks = nn.ModuleList([
             LlamaBlock(hidden, heads, kv_heads, intermediate,
                        rope_theta=rope_theta, eps=eps, head_dim=head_dim,
+                       tp_axis=tp_axis, sp_axis=sp_axis,
                        sliding_window=sliding_window, **kw)
             for _ in range(layers)])
         self.norm = FusedRMSNorm(hidden, eps=eps, **kw)
         self.lm_head = nn.Linear(hidden, vocab_size, bias=False, **kw)
         nn.init.normal_(self.lm_head.weight, std=0.02)
 
+    def tp_sharded_params(self):
+        """Every block's block-sparse-gradient parameters under
+        ``tp_axis`` (see :meth:`LlamaBlock.tp_sharded_params`)."""
+        return [p for blk in self.blocks for p in blk.tp_sharded_params()]
+
     def forward(self, input_ids):
         """``input_ids (B, S)`` -> logits ``(B, S, V)``, or ``(hidden (B, S,
         E), lm_head.weight)`` with ``output_hidden``."""
         s = input_ids.shape[1]
-        if s > self.max_positions:
+        off = 0
+        if self.sp_axis is not None:
+            # s is this rank's shard; RoPE rotates by global positions
+            from ..parallel.mesh import resolve
+            ax = resolve(self.sp_axis)
+            if s * ax.size > self.max_positions:
+                raise ValueError(
+                    f"global sequence {s} x {ax.size} shards exceeds "
+                    f"max_positions {self.max_positions}")
+            off = ax.index * s
+        elif s > self.max_positions:
             raise ValueError(f"sequence length {s} exceeds max_positions "
                              f"{self.max_positions}")
-        cos, sin = rope_tables(torch.arange(s, device=input_ids.device),
-                               self.blocks[0].head_dim, self.rope_theta)
+        cos, sin = rope_tables(
+            torch.arange(off, off + s, device=input_ids.device),
+            self.blocks[0].head_dim, self.rope_theta)
         x = self.tok_emb(input_ids)
         for blk in self.blocks:
             x = checkpoint_forward(blk, x, cos, sin) if self.remat \
@@ -315,7 +400,11 @@ class LlamaModel(nn.Module):
         """Per-layer (k, v) caches of shape (B, KVH, S_max, D) on the
         model's device: KVH wide, the GQA cache saving.  With
         ``sliding_window`` a rolling cache of at most ``window +
-        ROLLING_SLACK`` slots."""
+        ROLLING_SLACK`` slots.  Every cached path starts here, so a model
+        built with ``tp_axis`` or ``sp_axis`` refuses its decode here."""
+        if self.tp_axis is not None or self.sp_axis is not None:
+            refuse("cached decode of a model built with tp_axis / sp_axis",
+                   DECODE_MESH)
         dev = self.norm.weight.device
         if self.sliding_window is not None:
             s_max = min(s_max, self.sliding_window + ROLLING_SLACK)

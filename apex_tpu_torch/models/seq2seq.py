@@ -12,8 +12,11 @@ The public API is batch-first ``(B, S)`` ids; the layers run ``(S, B,
 E)``.  In training mode every dropout mask is drawn from the ``generator``
 passed to ``forward``.  Parameter names are the JAX package's, so
 :func:`apex_tpu_torch.models.convert.from_jax_state_dict` carries weights
-across one to one; ``tp_axis`` and ``mesh`` are taken at their defaults
-and refused otherwise.
+across one to one.  ``tp_axis`` shards the heads of every attention
+(self, cross and the encoder's) and every FFN's hidden features over a
+mesh axis, the weights whole on every rank (``tp_sharded_params()`` lists
+the block-sparse ones); ``seq2seq_generate`` of such a model, and its
+``mesh``, refuse (ROADMAP A9's decode under a mesh).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._unported import PARALLEL, accept_defaults
+from .._unported import DECODE_MESH, accept_defaults, refuse
 from ..contrib.multihead_attn import EncdecMultiheadAttn, SelfMultiheadAttn
 from ..kernels.dispatch import resolve_device
 from ..normalization import FusedLayerNorm
@@ -37,20 +40,29 @@ class Seq2SeqDecoderLayer(nn.Module):
                  attn_dropout=0.1, tp_axis=None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        accept_defaults("Seq2SeqDecoderLayer: tensor parallelism", PARALLEL,
-                        tp_axis=(tp_axis, None))
         kw = dict(device=resolve_device(device), dtype=dtype)
         self.ln1 = FusedLayerNorm(hidden, **kw)
         self.self_attn = SelfMultiheadAttn(hidden, heads, dropout=attn_dropout,
-                                           impl="fast", causal=True, **kw)
+                                           impl="fast", causal=True,
+                                           tensor_parallel_axis=tp_axis, **kw)
         self.ln2 = FusedLayerNorm(hidden, **kw)
         self.cross_attn = EncdecMultiheadAttn(hidden, heads,
                                               dropout=attn_dropout,
-                                              impl="fast", **kw)
+                                              impl="fast",
+                                              tensor_parallel_axis=tp_axis,
+                                              **kw)
         self.ln3 = FusedLayerNorm(hidden, **kw)
         self.fc1 = nn.Linear(hidden, intermediate, **kw)
         self.fc2 = nn.Linear(intermediate, hidden, **kw)
         self.dropout = nn.Dropout(dropout)
+        self.tp_axis = tp_axis
+
+    def tp_sharded_params(self):
+        """The self and cross attention's head blocks and the MLP's column
+        and row entries."""
+        return (self.self_attn.tp_sharded_params()
+                + self.cross_attn.tp_sharded_params()
+                + [self.fc1.weight, self.fc1.bias, self.fc2.weight])
 
     def forward(self, x, memory, memory_kpm=None, generator=None):
         """``x (S_tgt, B, E)`` over ``memory (S_src, B, E)``;
@@ -63,7 +75,14 @@ class Seq2SeqDecoderLayer(nn.Module):
                                key_padding_mask=memory_kpm,
                                generator=generator)
         x = x + dropout(h, p, self.training, generator)
-        h = self.fc2(F.gelu(self.fc1(self.ln3(x)), approximate="tanh"))
+        gelu = lambda y: F.gelu(y, approximate="tanh")  # noqa: E731
+        if self.tp_axis is not None:
+            from ..parallel.tensor_parallel import tp_ffn
+            h = tp_ffn(self.ln3(x), self.fc1.weight, self.fc1.bias,
+                       self.fc2.weight, self.fc2.bias, self.tp_axis,
+                       activation=gelu)
+        else:
+            h = self.fc2(gelu(self.fc1(self.ln3(x))))
         return x + dropout(h, p, self.training, generator)
 
 
@@ -86,9 +105,8 @@ class TransformerSeq2Seq(nn.Module):
                  tp_axis=None, output_hidden=False, device=None,
                  dtype=torch.float32):
         super().__init__()
-        accept_defaults("TransformerSeq2Seq: tensor parallelism", PARALLEL,
-                        tp_axis=(tp_axis, None))
         kw = dict(device=resolve_device(device), dtype=dtype)
+        self.tp_axis = tp_axis
         self.output_hidden = output_hidden
         intermediate = intermediate or 4 * hidden
         self.hidden = hidden
@@ -100,12 +118,18 @@ class TransformerSeq2Seq(nn.Module):
         self.drop = nn.Dropout(dropout)
         self.enc_layers = nn.ModuleList([
             BertLayer(hidden, heads, intermediate, dropout, attn_dropout,
-                      **kw) for _ in range(enc_layers)])
+                      tp_axis=tp_axis, **kw) for _ in range(enc_layers)])
         self.dec_layers = nn.ModuleList([
             Seq2SeqDecoderLayer(hidden, heads, intermediate, dropout,
-                                attn_dropout, **kw)
+                                attn_dropout, tp_axis=tp_axis, **kw)
             for _ in range(dec_layers)])
         self.dec_ln = FusedLayerNorm(hidden, **kw)
+
+    def tp_sharded_params(self):
+        """Both stacks' block-sparse-gradient parameters under
+        ``tp_axis``."""
+        return [p for ly in list(self.enc_layers) + list(self.dec_layers)
+                for p in ly.tp_sharded_params()]
 
     def _embed(self, ids, generator=None):
         s = ids.shape[1]
@@ -237,8 +261,10 @@ def seq2seq_generate(model, src_ids, max_new_tokens, bos_id=0,
     otherwise."""
     from ..inference.decode import model_device
     from ..utils.jit_cache import compiled_run_cache, model_tensors
-    accept_defaults("seq2seq_generate: tensor parallelism (mesh)", PARALLEL,
-                    mesh=(mesh, None))
+    accept_defaults("seq2seq_generate: tensor parallelism (mesh)",
+                    DECODE_MESH, mesh=(mesh, None))
+    if model.tp_axis is not None:
+        refuse("seq2seq_generate of a model built with tp_axis", DECODE_MESH)
     b, s_src = src_ids.shape
     if max_new_tokens + 1 > model.max_positions:
         raise ValueError(

@@ -21,7 +21,6 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from .._unported import PARALLEL, refuse
 
 _f32 = torch.float32
 
@@ -91,11 +90,12 @@ def accumulate(telem: StepTelemetry, *, loss, master_grads, flag,
     a half gradient is read in fp32 (:func:`global_grad_norm`), never
     summed in its own dtype.  ``flag`` is the window's overflow flag (1 =
     skipped).  ``mean_axes`` are the mesh axes the loss is averaged over,
-    as the JAX step pmeans it: the data axis (``"data"``), whose ranks are
-    ``torch.distributed``'s default group, where the loss is all-reduced
-    and divided by the world size (inside the capture, on the card);
-    without ``torch.distributed`` the world is this one process.  Another
-    axis is refused naming ROADMAP A9.  Only the loss needs it: the
+    as the JAX step pmeans it: their product's ranks, resolved by
+    :func:`apex_tpu_torch.parallel.mesh.resolve` (``"data"`` alone the
+    default group unless an entered mesh names it; any other axis needs
+    the mesh), where the loss is all-reduced and divided by their number
+    (inside the capture, on the card); without ``torch.distributed`` the
+    world is this one process, and an axis no mesh names raises.  Only the loss needs it: the
     gradients have been exchanged already, so every rank holds the same
     norm, flag and scale.  ``grad_norm``, where given, is the window's
     gradient norm computed by the caller (ZeRO's over the group, whose
@@ -106,14 +106,13 @@ def accumulate(telem: StepTelemetry, *, loss, master_grads, flag,
              else grad_norm).to(dev)
     loss = loss.detach().to(_f32).reshape(()) if loss is not None \
         else torch.zeros((), dtype=_f32, device=dev)
-    for ax in tuple(mean_axes):
-        if ax != "data":
-            refuse(f"accumulate(mean_axes={tuple(mean_axes)!r}): only the "
-                   f"data axis ('data') is ported", PARALLEL)
+    if tuple(mean_axes):
+        from ..parallel.mesh import resolve
+        ax = resolve(tuple(mean_axes), "accumulate: mean_axes=")
         if dist.is_available() and dist.is_initialized():
             loss = loss.clone()
-            dist.all_reduce(loss)
-            loss = loss / dist.get_world_size()
+            dist.all_reduce(loss, group=ax.group)
+            loss = loss / ax.size
     scale = loss_scale.detach().to(_f32).reshape(()) \
         if isinstance(loss_scale, torch.Tensor) \
         else torch.full((), float(loss_scale), dtype=_f32, device=dev)

@@ -1,11 +1,25 @@
-"""Data parallelism, the PyTorch counterpart of ``apex_tpu/parallel``
-(reference ``apex/parallel/__init__.py``): ``DistributedDataParallel``,
-``Reducer``, ``SyncBatchNorm``, ``LARC``, ``convert_syncbn_model`` and
-``create_syncbn_process_group``, on ``torch.distributed`` with one process
-per card (NCCL on the card, gloo on the CPU), and ZeRO's
-``ZeroTrainStep`` and ``zero_state_sharding`` (stages 0, 1 and 3).
-Tensor, pipeline, expert and context parallelism and the planner come with
-later slices."""
+"""Parallelism, the PyTorch counterpart of ``apex_tpu/parallel``
+(reference ``apex/parallel/__init__.py``), on ``torch.distributed`` with
+one process per card (NCCL on the card, gloo on the CPU):
+``DistributedDataParallel``, ``Reducer``, ``SyncBatchNorm``, ``LARC``,
+``convert_syncbn_model`` and ``create_syncbn_process_group``; ZeRO's
+``ZeroTrainStep`` and ``zero_state_sharding`` (stages 0, 1 and 3);
+Megatron tensor parallelism (``column_parallel_linear``,
+``row_parallel_linear``, the vocab-parallel embedding, logits and cross
+entropy, ``ColumnParallelLinear``, ``RowParallelLinear``); sequence
+parallelism (``ring_attention``, ``ulysses_attention``).
+
+Mesh axes.  The JAX package names mesh axes inside ``shard_map`` under a
+mesh the caller entered; the port keeps those names in every signature
+and resolves them in one place, :mod:`apex_tpu_torch.parallel.mesh`, its
+only addition to the JAX surface: ``use_mesh(mesh)`` enters a
+``DeviceMesh`` with named dims (``init_device_mesh(device, (2, 2),
+mesh_dim_names=("data", "model"))``), and ``mesh.resolve(axis)`` gives the
+process group, size and this rank's index of a name or of a tuple of
+names (the group of their product, made once and cached).  Without a mesh
+``"data"`` alone is the default group, as in the data-parallel step; any
+other name raises.  Pipeline and expert parallelism, sharded decode and
+the planner come with later slices."""
 from __future__ import annotations
 
 import torch
@@ -18,7 +32,13 @@ from .distributed import (DistributedDataParallel, DistributedInitError,
                           num_processes, rank, split_by_type,
                           timed_flat_dist_call, world_size)
 from .LARC import LARC
+from .mesh import use_mesh
+from .ring_attention import ring_attention, ulysses_attention
 from .sync_batchnorm import SyncBatchNorm, check_axis_name
+from .tensor_parallel import (ColumnParallelLinear, RowParallelLinear,
+                              column_parallel_linear, row_parallel_linear,
+                              vocab_parallel_cross_entropy,
+                              vocab_parallel_embedding, vocab_parallel_logits)
 from .zero import ZeroTrainStep, zero_state_sharding
 
 __all__ = ["DistributedDataParallel", "DistributedInitError", "LARC",
@@ -27,7 +47,11 @@ __all__ = ["DistributedDataParallel", "DistributedInitError", "LARC",
            "create_syncbn_process_group", "flat_dist_call",
            "init_distributed", "num_processes", "rank", "split_by_type",
            "timed_flat_dist_call", "world_size", "ZeroTrainStep",
-           "zero_state_sharding"]
+           "zero_state_sharding", "ColumnParallelLinear",
+           "RowParallelLinear", "column_parallel_linear",
+           "row_parallel_linear", "vocab_parallel_cross_entropy",
+           "vocab_parallel_embedding", "vocab_parallel_logits",
+           "ring_attention", "ulysses_attention", "use_mesh"]
 
 
 def convert_syncbn_model(module, process_group=None, channel_last=False,

@@ -98,11 +98,15 @@ def _leaf_sharding(x, n):
 
 
 def default_zero_mesh(zero_axis: str, device):
-    """The default ZeRO mesh: a 1-D ``DeviceMesh`` over
-    ``torch.distributed``'s default group, its dim named ``zero_axis`` (the
-    JAX default is a mesh over every device; torch has no ambient mesh
-    context to take one from).  None without ``torch.distributed``: a
+    """The default ZeRO mesh: the mesh entered with ``parallel.use_mesh``
+    where it names ``zero_axis`` (the JAX default reads the ambient mesh),
+    else a 1-D ``DeviceMesh`` over ``torch.distributed``'s default group,
+    its dim named ``zero_axis``.  None without ``torch.distributed``: a
     world of this one process."""
+    from .mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is not None and zero_axis in mesh.mesh_dim_names:
+        return mesh
     if not dist.is_available() or not dist.is_initialized():
         return None
     from torch.distributed.device_mesh import init_device_mesh
@@ -427,7 +431,7 @@ class ZeroTrainStep:
 
     def _seed(self, call_index):
         self._base._parts.seed_calls(call_index,
-                                     self.rank if self.n > 1 else None)
+                                     (self.rank,) if self.n > 1 else ())
 
     def _raw_step_fn(self, state, call_index, *batch):
         """The un-captured step on a global batch: ``(state, call_index,

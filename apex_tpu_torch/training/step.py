@@ -51,10 +51,16 @@ all-reduce is captured inside the step's CUDA graph with the rest (the
 JAX step leaves its program for ``shard_map`` instead).  ``flat_master``
 stacks masters and slots per (group, shape, dtype) bucket and updates each
 group's buckets in one kernel launch.  ``zero_sharding`` returns
-:class:`apex_tpu_torch.parallel.zero.ZeroTrainStep`.  Tensor parallelism
-and the planner (``tp_axis``, ``parallel=``) are owed to a later slice and
-refused with ``NotImplementedError``.  An optimizer other than the four
-fused ones raises ``TypeError``, as in the JAX step.
+:class:`apex_tpu_torch.parallel.zero.ZeroTrainStep`.  ``axis_name`` may
+name any batch axes of an entered mesh
+(``parallel.use_mesh``; ``"data"`` alone needs none) and ``tp_axis`` the
+model's tensor-parallel axis: after the DP exchange the gradients of the
+model's ``tp_sharded_params()`` (block-sparse on each rank, since every
+rank reads its block of the whole weights) are summed over the TP group,
+once a window, inside the same graph.  The planner (``parallel=``) is
+owed to a later slice and refused with ``NotImplementedError``.  An
+optimizer other than the four fused ones raises ``TypeError``, as in the
+JAX step.
 """
 from __future__ import annotations
 
@@ -77,6 +83,7 @@ from ..ops.multi_tensor import nonfinite_flag
 from ..runtime import chaos as _chaos
 from ..runtime import executor as _executor
 from .._unported import PARALLEL, refuse
+from ..parallel.mesh import names_of, resolve
 from ..optimizers import FusedAdam, FusedLAMB, FusedNovoGrad, FusedSGD
 
 _f32 = torch.float32
@@ -607,22 +614,18 @@ def apply_fused_update_flat(state: StepState, grads, meta: FlatMeta,
                               **kw)
 
 
-def data_group(axis_name, device):
-    """``(group, world, rank)`` of the JAX mesh axis ``axis_name``: ``"data"``
-    (alone, or as a 1-tuple) is ``torch.distributed``'s default group
-    (None), as for ``parallel.SyncBatchNorm``; another axis is refused
-    naming ROADMAP A9.  Without ``torch.distributed`` the world is this
-    one process.  A CUDA step needs an NCCL group: it never exchanges over
-    gloo."""
-    names = tuple(axis_name) if isinstance(axis_name, (tuple, list)) \
-        else (axis_name,)
-    if names != ("data",):
-        _refuse(f"axis_name={axis_name!r}: only the data axis ('data') is "
-                f"ported", PARALLEL)
-    if not dist.is_available() or not dist.is_initialized():
-        return None, 1, 0
-    check_backend(None, device)
-    return None, dist.get_world_size(), dist.get_rank()
+def data_group(axis_name, device, what="make_train_step: axis_name="):
+    """``(group, world, rank)`` of the mesh axes ``axis_name`` (a name or a
+    tuple), resolved by :func:`apex_tpu_torch.parallel.mesh.resolve`:
+    ``"data"`` alone is ``torch.distributed``'s default group (None)
+    unless an entered mesh names it; a tuple is the group of the axes'
+    product; an axis no entered mesh names raises.  Without
+    ``torch.distributed`` the data axis is this one process.  A CUDA step
+    needs an NCCL group: it never exchanges over gloo."""
+    ax = resolve(axis_name, what)
+    if dist.is_available() and dist.is_initialized():
+        check_backend(ax.group, device)
+    return ax.group, ax.size, ax.index
 
 
 def check_backend(group, device):
@@ -642,7 +645,6 @@ def dp_exchange(grads, group, world, predivide_factor, always_fp32):
     (where it is not 1), summed over ``group``, divided by ``world /
     predivide_factor`` and cast back.  Returns new tensors in ``grads``'
     order (views of the exchanged buffers)."""
-    from ..parallel.distributed import apply_flat_dist_call, split_by_type
     post = world / predivide_factor
 
     def call(flat):
@@ -652,11 +654,28 @@ def dp_exchange(grads, group, world, predivide_factor, always_fp32):
         dist.all_reduce(gc, group=group)
         gc = gc / post
         return gc.to(flat.dtype) if always_fp32 else gc
+    return _flat_exchange(grads, call)
+
+
+def _flat_exchange(grads, call):
+    """``call`` on one flattened buffer a dtype of ``grads``; the results
+    cut back, in ``grads``' order."""
+    from ..parallel.distributed import apply_flat_dist_call, split_by_type
     out = {}
     for bucket in split_by_type(grads):
         for g, r in zip(bucket, apply_flat_dist_call(bucket, call)):
             out[id(g)] = r
     return [out[id(g)] for g in grads]
+
+
+def tp_sum(grads, group):
+    """The sums of ``grads`` over ``group``, one flattened all-reduce a
+    dtype (the JAX step's ``psum`` over ``tp_axis``, each tensor summed
+    elementwise); new tensors in ``grads``' order."""
+    def call(flat):
+        dist.all_reduce(flat, group=group)
+        return flat
+    return _flat_exchange(grads, call)
 
 
 def _refuse(what, owner):
@@ -739,8 +758,23 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     the axis index, so ranks draw masks of their own.  The returned loss is
     this rank's; with ``telemetry`` the accumulated loss is the group's
     mean.  Without ``torch.distributed`` the world is this one process.
-    Another axis name, ``tp_axis`` and ``parallel`` raise
-    ``NotImplementedError`` naming ROADMAP A9.
+    ``axis_name`` may also name other batch axes, or several (``("data",
+    "sp")``), of a mesh entered with ``parallel.use_mesh``; the gradients
+    are averaged over their product, and each axis's index is folded into
+    the dropout seed, except the model's own ``sp_axis``, whose ranks must
+    draw alike (the sequence-parallel models keep their shards' masks
+    apart themselves and the ring's dropout seed shared).  An axis no mesh
+    names raises ``NotImplementedError``.
+
+    ``tp_axis``: tensor parallelism.  The model, built with the same
+    ``tp_axis``, lists in ``tp_sharded_params()`` the parameters whose
+    gradients are block-sparse on each rank; after the DP exchange and
+    before the unscale those are summed over the TP group (one flattened
+    all-reduce a dtype), once a window.  Every TP rank calls the step on
+    the same batch; the dropout seed is not folded with the TP index
+    (replicated activations drop alike; the attention folds it into its
+    own seed).  ``parallel`` raises ``NotImplementedError`` naming ROADMAP
+    A9.
 
     ``flat_master=True``: masters and optimizer slots stacked per (param
     group, shape, model dtype) bucket (:class:`FlatMeta`); the forward
@@ -769,8 +803,6 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     (``state.telem``, see ``observe.telemetry``), folded inside the
     captured step, and drains it every ``drain_every`` calls; the graph is
     keyed on it, so a step with telemetry captures its own graph."""
-    if tp_axis is not None:
-        _refuse("tensor parallelism (tp_axis)", PARALLEL)
     if parallel is not None:
         _refuse("parallel=", PARALLEL)
     explicit_donate = donate_state is True
@@ -805,10 +837,12 @@ def make_train_step(model, optimizer, loss_fn: Callable,
                 f"switch of its own: the fused step holds no gradient "
                 f"buffer between steps, and its gradients are "
                 f"reduce-scattered into the master shards already")
-        if axis_name is not None:
+        if axis_name is not None or tp_axis is not None:
             raise ValueError(
-                "zero_sharding=True excludes axis_name: ZeroTrainStep takes "
-                "the global batch and exchanges over zero_axis itself")
+                "zero_sharding=True excludes axis_name/tp_axis: "
+                "ZeroTrainStep takes the global batch and exchanges over "
+                "zero_axis itself; tensor parallelism runs on the "
+                "axis_name path")
         from ..parallel.zero import (ZeroTrainStep, check_zero_mesh,
                                      default_zero_mesh)
         dev = next(iter(model.parameters())).device
@@ -866,9 +900,27 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     zero_flag = torch.zeros((), dtype=torch.int32, device=dev)
     takes_generator = "generator" in inspect.signature(
         model.forward).parameters
-    dp_group, dp_world, dp_rank = (None, 1, 0) if axis_name is None \
+    dp_group, dp_world, _ = (None, 1, 0) if axis_name is None \
         else data_group(axis_name, dev)
-    mean_axes = ("data",) if telemetry and axis_name is not None else ()
+    tp_group, tp_ids = None, frozenset()
+    if tp_axis is not None:
+        tp_group = data_group(tp_axis, dev, "make_train_step: tp_axis=")[0]
+        getter = getattr(model, "tp_sharded_params", None)
+        if getter is None:
+            raise ValueError(
+                "tp_axis given but the model has no tp_sharded_params() — "
+                "build the model with its tp_axis= option (models/gpt.py, "
+                "models/bert.py) so the step knows which gradients are "
+                "block-sparse")
+        tp_ids = frozenset(id(p) for p in getter())
+    tp_idx = [i for i, p in enumerate(params) if id(p) in tp_ids]
+    # the axes whose index folds into the dropout seed: each batch axis but
+    # the model's own sp_axis, whose ranks must draw alike
+    sp = getattr(model, "sp_axis", None)
+    fold_idx = [] if axis_name is None else [
+        resolve(ax).index for ax in names_of(axis_name) if ax != sp]
+    mean_axes = names_of(axis_name) if telemetry and axis_name is not None \
+        else ()
 
     def cast(x):
         if isinstance(x, torch.Tensor) and x.is_floating_point() \
@@ -884,13 +936,15 @@ def make_train_step(model, optimizer, loss_fn: Callable,
     gens = [torch.Generator(device=dev) for _ in range(grad_accum_steps)] \
         if takes_generator else []
 
-    def seed_calls(call_index, rank=None):
-        """Seed the window's generators for call ``call_index``; ``rank``
-        (under DP, this rank) is folded into each seed."""
+    def seed_calls(call_index, folds=()):
+        """Seed the window's generators for call ``call_index``; each index
+        of ``folds`` (the rank's index on each folded axis) is folded into
+        each seed in turn."""
         for i, gen in enumerate(gens):
             seed = dropout_seed(rng_seed, call_index * grad_accum_steps + i)
-            gen.manual_seed(seed if rank is None
-                            else dropout_seed(seed, rank))
+            for idx in folds:
+                seed = dropout_seed(seed, idx)
+            gen.manual_seed(seed)
 
     def grads_of(leaves, gen, scale, *b):
         """The loss and the gradients of ``loss.float() * scale`` for one
@@ -983,6 +1037,12 @@ def make_train_step(model, optimizer, loss_fn: Callable,
             grads = dp_exchange(grads, dp_group, dp_world,
                                 gradient_predivide_factor,
                                 allreduce_always_fp32)
+        if tp_idx and dist.is_initialized():
+            # the TP assembly: each rank's block of a sharded parameter's
+            # gradient, summed over the TP group
+            summed = tp_sum([grads[i] for i in tp_idx], tp_group)
+            for i, g in zip(tp_idx, summed):
+                grads[i] = g
         if flat_master:
             apply_fused_update_flat(state, grads, flat_meta, opt_update,
                                     loss=loss, mean_axes=mean_axes,
@@ -993,7 +1053,7 @@ def make_train_step(model, optimizer, loss_fn: Callable,
         return loss
 
     def seed_step(call_index):
-        seed_calls(call_index, None if axis_name is None else dp_rank)
+        seed_calls(call_index, fold_idx)
 
     def raw_step_fn(state: StepState, call_index, *batch):
         seed_step(call_index)

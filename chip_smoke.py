@@ -415,6 +415,19 @@ Phases, each of which raises on failure:
    replica's decode captures within the bucket bound, every graph's
    LayerNorm nodes against the wrappers' counts; tokens/s, detect_ms and
    migrate_ms.
+33. (after 26) ``zero_phase``: NCCL at world size 1 (``nccl_world``),
+   GPT-2 small's bf16 step at 4 x 1024 against DP, its knobs, ZeRO stages
+   0/1/3, flat masters and stage 3 with accumulation, each bit for bit;
+34. (after 33, on its group) ``tp_sp_phase``: a ``DeviceMesh`` of dims
+   ("data", "seq", "model"), each of size 1; the tp, tp_vocab, sp and
+   tp_sp steps of GPT-2 small (``tp_axis``, ``tp_vocab``, ``sp_axis`` on
+   the ring, both) through the executor's graphs against phase 33's plain
+   step, bit for bit (sp) or within tolerances set by
+   ``tools/tp_sp_controls.py``; a four-rank ring replayed in one process
+   through ``parallel.ring_attention``'s own steps at (48, 1024, 64) bf16
+   causal, at dropout 0 and 0.1, against the whole-sequence flash kernels
+   and the plain versions; a fully masked chunk on both routes; the chunk
+   call timed against SDPA with the same mask.
 
 The CPU sides of phases 4, 5 and 7 and of Llama's card-against-CPU check,
 of amp O2's overflow skip, of ResNet-50's and BERT's card-against-CPU
@@ -434,7 +447,7 @@ count when the backward's sums were cast after the kernels).  It prints a
 JSON line of the BERT, NovoGrad-turn, Llama-step, LoRA, legacy-optimizer,
 layer, GPT profiled-step, dropout-arm, amp O1, ResNet-50 layout-turn,
 imagenet-arm, seq2seq, ViT, remat, RNN, graph, decode, inference, serve,
-resilience, observe, fleet and rollout numbers, its own wall
+resilience, observe, fleet, rollout, zero and tp/sp numbers, its own wall
 time, one JSON line of per-kernel
 numbers, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -442,6 +455,8 @@ without the rest of the repository beside it, it exits non-zero before
 printing a result.  TF32 is off for every comparison.
 """
 import atexit
+import contextlib
+import importlib
 import json
 import math
 import os
@@ -10581,12 +10596,45 @@ def _zero_kernel_case(torch, multi_tensor, what, kind, ps, bf16_grads):
     plain_ms = median_ms(lambda: plain(ra), reps=3, inner=1, warmup=1,
                          capped=True)[0]
     b_ms, b_by = bound_ms(n_el * per_el, ops * n_el, FP32_FLOP_PER_S)
+    lib_ms = None
+    if kind == "sgd":
+        # the library's one call over the same stacks: torch's fused SGD
+        # (momentum, weight decay) on the same gradients
+        lp = [t.clone().requires_grad_(True) for t in ka[1]]
+        for p_, g_ in zip(lp, grads):
+            p_.grad = g_.clone()
+        lib = torch.optim.SGD(lp, lr=SGD_HYPER["lr"],
+                              momentum=SGD_HYPER["momentum"],
+                              weight_decay=SGD_HYPER["weight_decay"],
+                              fused=True)
+        lib_ms = median_ms(lib.step, capped=True)[0]
+        del lp, lib
     print(f"  {what}: {len(ps)} tensors, {n_el} elements, "
           f"{'bf16' if bf16_grads else 'fp32'} grads: kernel == plain bit "
           f"for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})")
+          f"{b_ms:.4f} ms ({b_by})"
+          + ("" if lib_ms is None else
+             f", library (torch.optim.SGD fused) {lib_ms:.4f} ms"))
     return dict(tensors=len(ps), elements=n_el, max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+@contextlib.contextmanager
+def nccl_world(torch):
+    """torch.distributed with NCCL over this one card (world size 1), torn
+    down on the way out (its product groups forgotten)."""
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.parallel import mesh
+    parallel.init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1,
+                              process_id=0, timeout_s=120)
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        mesh.reset()
+        dist.destroy_process_group()
 
 
 def zero_phase(torch, dispatch, gpt, multi_tensor, rn_shapes):
@@ -10603,23 +10651,22 @@ def zero_phase(torch, dispatch, gpt, multi_tensor, rn_shapes):
     ResNet-50's flat-master buckets, against their plain versions; each
     arm's replay ms in turns with its baseline, the copies' and NCCL
     kernels' device ms in one profiled replay, shard_sizes() and peak
-    memory.  Returns (the launch counts of each arm's eager call, the
-    phase's numbers)."""
+    memory.  Runs inside nccl_world() (tp_sp_phase follows it on the same
+    group).  Returns (the launch counts of each arm's eager call, the
+    phase's numbers, the plain arm: its captured step, losses, masters,
+    graph nodes and batches)."""
     import torch.distributed as dist
-    from apex_tpu_torch import parallel
     from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.runtime import executor
     from apex_tpu_torch.training import make_train_step
     t0 = time.perf_counter()
-    parallel.init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1,
-                              process_id=0, timeout_s=120)
     print(f"zero phase: torch.distributed {dist.get_backend()} (world size "
           f"{dist.get_world_size()}) -> gpt2_small (12 x 768, vocab 50257, "
           f"bf16 half copies, FusedAdam lr {LR} wd {WD}, chunked loss), "
           f"batch {ZERO_BATCH} x {TRAIN_SEQ}; arms "
           f"{[a for a, _, _ in ZERO_ARMS]}")
-    counts, nums, keep = {}, dict(arms={}), {}
+    counts, nums, keep, plain = {}, dict(arms={}), {}, None
     try:
         torch.manual_seed(SEED)
         model = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0,
@@ -10744,6 +10791,8 @@ def zero_phase(torch, dispatch, gpt, multi_tensor, rn_shapes):
                    for k in ("overlap", "inline"))
         if on != off:
             raise AssertionError(f"zero3 accum2: overlap on {on} != off {off}")
+        # the plain arm, graph and all, is tp_sp_phase's baseline
+        plain = dict(keep.pop("plain"), batches=batches)
         keep.clear()
         del model
         torch.cuda.empty_cache()
@@ -10761,9 +10810,376 @@ def zero_phase(torch, dispatch, gpt, multi_tensor, rn_shapes):
     finally:
         keep.clear()
         torch.cuda.synchronize()
-        dist.destroy_process_group()
     nums["seconds"] = time.perf_counter() - t0
     print(f"zero phase: {nums['seconds']:.1f} s")
+    return counts, nums, plain
+
+
+# tp_sp_phase: A9's second part's first half on the card at world size 1
+TP_SP_TURN_STEPS = 5            # replays a timed turn
+TP_SP_TURNS = ("base", "arm", "arm", "base")
+# (arm, GptModel options, make_train_step options, loss)
+TP_SP_ARMS = (
+    ("tp", dict(tp_axis="model", output_hidden=True),
+     dict(axis_name="data", tp_axis="model"), "chunked"),
+    ("tp_vocab", dict(tp_axis="model", tp_vocab=True),
+     dict(axis_name="data", tp_axis="model"), "vocab"),
+    ("sp", dict(sp_axis="seq", output_hidden=True),
+     dict(axis_name=("data", "seq")), "chunked"),
+    ("tp_sp", dict(sp_axis="seq", tp_axis="model", output_hidden=True),
+     dict(axis_name=("data", "seq"), tp_axis="model"), "chunked"),
+)
+# An arm whose arithmetic is the plain step's must equal it bit for bit:
+# "sp" (the ring of one rank masks its chunk by a bias where the plain
+# kernel skips by its causal flag, and reads the same bits).  The others
+# are held within TP_SP_TOL[arm] of it: the largest relative loss
+# difference over the ZERO_STEPS steps, and the norm of the masters'
+# difference over the norm of the plain step's move of them.  A world of
+# one makes every collective exact, so what differs is the arithmetic: the
+# row-parallel layers add their bias after the sum in bf16 (the plain
+# nn.Linear adds it inside the product's epilogue), and tp_vocab's loss is
+# plain PyTorch in fp32 over bf16 logits (the plain step's the xentropy
+# kernels).  tools/tp_sp_controls.py on zero_phase's batches (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md, PR 23) read the arms at loss 3.035e-06 /
+# masters 0.0530 (tp, tp_sp) and 2.977e-04 / 0.1584 (tp_vocab), and the
+# plain step with one kernel wrapper made wrong at a time at: B1 without
+# its causal mask 2.244e-03 / 1.188, B2 without dq 5.981e-05 / 0.2831, B7
+# labels a row late 1.240e-02 / 0, B8 without the target's -1 1.315e-03 /
+# 1.252, B12 skipping the last tensor 2.278e-05 / 0.0046; B3 without its
+# bias 6.085e-06 / 0.0097 and B4 without its column sums 6.085e-06 /
+# 0.0204 lie under what rounding moves the arms.  So these limits catch
+# B1, B2, B7, B8 and B12 in the tp arms (tp_vocab, which runs no xentropy
+# kernel: B1 and B2) and not B3 or B4, which the kernel phases hold.
+TP_SP_TOL = {"tp": dict(loss=1.5e-5, masters=0.1),
+             "tp_sp": dict(loss=1.5e-5, masters=0.1),
+             "tp_vocab": dict(loss=1e-3, masters=0.22)}
+# the ring replay: GPT-2 small's attention at ZERO_BATCH x TRAIN_SEQ, split
+# into RING_N chunks, at each dropout rate, one seed
+RING_N, RING_DROPOUT, RING_SEED = 4, (0.0, 0.1), 90210
+
+
+def _arm_distance(torch, losses, masters, base):
+    """The arm's largest relative loss difference from the plain step's and
+    its masters' distance from the plain step's over the plain step's move
+    (norms in fp64)."""
+    flat = [v for r in losses for v in r]
+    bflat = [v for r in base["losses"] for v in r]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(flat, bflat))
+    num = sum(float(((m.double() - n.double()) ** 2).sum())
+              for m, n in zip(masters, base["masters"]))
+    den = sum(float(((n.double() - i.double()) ** 2).sum())
+              for n, i in zip(base["masters"], base["init"]))
+    return loss_rel, math.sqrt(num / den)
+
+
+def _ring_refs(torch, attention, dropout_p):
+    """The ring replay's inputs at GPT-2 small's attention shape and their
+    whole-sequence causal results: one kernel call forward and backward,
+    and the plain versions."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 230)
+    bh, s, d = ZERO_BATCH * 12, TRAIN_SEQ, 64
+    q, k, v, do = (torch.randn((bh, s, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    seed = torch.tensor(RING_SEED, dtype=torch.int32, device="cuda")
+    drop = dict(dropout_p=dropout_p, dropout_seed=seed if dropout_p else None)
+    wo, wl = attention.flash_attention_fwd(q, k, v, None, scale, True,
+                                           **drop)
+    wg = attention.flash_attention_bwd(q, k, v, None, wo, wl, do, scale,
+                                       True, **drop)
+    po, pl = attention.flash_attention_reference(q, k, v, None, scale, True,
+                                                 None, **drop)
+    pg = attention.flash_attention_bwd_reference(q, k, v, None, po, pl, do,
+                                                 scale, True, None, **drop)
+    return dict(qkvg=(q, k, v, do), seed=seed, kernel=(wo, wl, wg),
+                plain=(po, pl, pg))
+
+
+def _ring_replay(torch, n, dropout_p, refs):
+    """A ring of ``n`` ranks replayed in one process through the port's
+    ring steps (``parallel.ring_attention.ring_fwd_step`` /
+    ``ring_bwd_step``, no collective) on ``refs``' inputs
+    (:func:`_ring_refs`): each rank's chunks in the order it would receive
+    them, the backward's dK/dV accumulators taking their steps in the
+    ring's order.  The merged out and lse and the assembled dq/dk/dv are
+    held against one whole-sequence causal kernel call and against the
+    plain versions.  Returns the errors."""
+    ring = importlib.import_module("apex_tpu_torch.parallel.ring_attention")
+    q, k, v, do = refs["qkvg"]
+    bh, s, d = q.shape
+    seed = refs["seed"]
+    kw = dict(causal=True, scale=d ** -0.5, groups=1, batch=bh,
+              dropout_p=dropout_p, seed=seed if dropout_p else None)
+    c = s // n
+
+    def chunks(t):
+        return [t[:, j * c:(j + 1) * c].contiguous() for j in range(n)]
+    qs, ks, vs, gs = (chunks(t) for t in (q, k, v, do))
+    outs, lses = [], []
+    for idx in range(n):
+        out = torch.zeros((bh, c, d), dtype=torch.float32, device="cuda")
+        lse = torch.full((bh, c), -math.inf, device="cuda")
+        for r in range(n):
+            src = (idx - r) % n
+            out, lse, _, _ = ring.ring_fwd_step(r, idx, n, qs[idx], ks[src],
+                                                vs[src], out, lse, **kw)
+        outs.append(out.to(torch.bfloat16))
+        lses.append(lse)
+    acc = {key: [torch.zeros((bh, c, d), device="cuda") for _ in range(n)]
+           for key in ("dq", "dk", "dv")}
+    # step r of every rank before step r + 1: each chunk's accumulators
+    # take their contributions in the ring's order
+    for r in range(n):
+        for idx in range(n):
+            src = (idx - r) % n
+            acc["dq"][idx], acc["dk"][src], acc["dv"][src], _, _ = \
+                ring.ring_bwd_step(r, idx, n, qs[idx], ks[src], vs[src],
+                                   outs[idx], lses[idx], gs[idx],
+                                   acc["dq"][idx], acc["dk"][src],
+                                   acc["dv"][src], **kw)
+    got = dict(out=torch.cat(outs, 1), lse=torch.cat(lses, 1),
+               **{key: torch.cat(a, 1) for key, a in acc.items()})
+    errs = {}
+    for ref_name in ("kernel", "plain"):
+        ro, rl, rg = refs[ref_name]
+        errs[f"out_vs_{ref_name}"] = scaled_err(got["out"], ro)[0]
+        errs[f"lse_vs_{ref_name}"] = scaled_err(got["lse"], rl)[0]
+        for key, r_ in zip(("dq", "dk", "dv"), rg):
+            errs[f"{key}_vs_{ref_name}"] = (
+                (got[key].float() - r_.float()).abs().max().item()
+                / r_.float().abs().max().item())
+    tag = f"ring of {n} chunks of {c}, dropout {dropout_p}"
+    for name, err in errs.items():
+        tol = 2e-2 if name.startswith("out") else 2e-5 \
+            if name.startswith("lse") else 1e-2
+        check(f"{tag}: {name.replace('_vs_', ' vs the whole-sequence ')}",
+              err, tol)
+    return errs
+
+
+def _masked_chunk_case(torch, attention, dtype):
+    """One chunk whose every key follows every query (the ring's chunk j >
+    i under a causal mask: the bias is -1e30 everywhere): the kernel's out
+    and lse (the route the dtype picks) against the plain version's, both
+    finite, and the merge with a live chunk giving it weight 0."""
+    ring = importlib.import_module("apex_tpu_torch.parallel.ring_attention")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 231)
+    bh, c, d = ZERO_BATCH * 12, TRAIN_SEQ // RING_N, 64
+    q, k, v = (torch.randn((bh, c, d), generator=g, device="cuda").to(dtype)
+               for _ in range(3))
+    bias = ring._chunk_bias(c, c, 0, c, True, "cuda")
+    ko, kl = attention.flash_attention_fwd(q, k, v, bias, d ** -0.5, False)
+    po, pl = attention.flash_attention_reference(q, k, v, bias, d ** -0.5,
+                                                 False)
+    live_o, live_l = attention.flash_attention_fwd(q, k, v, None, d ** -0.5,
+                                                   False)
+    mo, ml = ring._merge(live_o.float(), live_l, ko, kl)
+    finite = all(bool(torch.isfinite(t).all()) for t in (ko, kl, mo, ml))
+    out_err = scaled_err(ko, po)[0]
+    lse_err = ((kl - pl).abs() / pl.abs()).max().item()
+    merge_err = scaled_err(mo, live_o)[0]
+    route = "tc" if dtype == torch.bfloat16 else "simt"
+    print(f"  fully masked chunk ({bh}, {c}, {c}, {d}) {dtype} on {route}: "
+          f"lse {kl.max().item():.6e} (plain {pl.max().item():.6e}), "
+          f"finite {finite}")
+    if not finite:
+        raise AssertionError(f"fully masked chunk on {route}: not finite")
+    check(f"fully masked chunk on {route}: out vs plain", out_err, 2e-2)
+    check(f"fully masked chunk on {route}: lse vs plain (relative)",
+          lse_err, 1e-6)
+    check(f"fully masked chunk on {route}: merged with a live chunk vs the "
+          f"live chunk", merge_err, 1e-6)
+    return dict(out_err=out_err, lse_rel_err=lse_err, merge_err=merge_err,
+                lse=kl.max().item())
+
+
+def _ring_chunk_times(torch, attention):
+    """The ring's chunk call at the replay's shape: the forward and the
+    backward kernels (one diagonal chunk, its causal bias), the plain
+    versions, and SDPA given the same float mask (its backward timed
+    alone); the bounds count the chunk's unmasked pairs."""
+    from torch.nn import functional as F
+    ring = importlib.import_module("apex_tpu_torch.parallel.ring_attention")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 232)
+    bh, c, d = ZERO_BATCH * 12, TRAIN_SEQ // RING_N, 64
+    q, k, v, do = (torch.randn((bh, c, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    bias = ring._chunk_bias(c, c, 0, 0, True, "cuda")
+    o, lse = attention.flash_attention_fwd(q, k, v, bias, scale, False)
+    fwd = median_ms(lambda: attention.flash_attention_fwd(
+        q, k, v, bias, scale, False))[0]
+    bwd = median_ms(lambda: attention.flash_attention_bwd(
+        q, k, v, bias, o, lse, do, scale, False))[0]
+    plain_fwd = median_ms(lambda: attention.flash_attention_reference(
+        q, k, v, bias, scale, False), capped=True)[0]
+    plain_bwd = median_ms(lambda: attention.flash_attention_bwd_reference(
+        q, k, v, bias, o, lse, do, scale, False), capped=True)[0]
+    q4, k4, v4 = (t.view(ZERO_BATCH, 12, c, d).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    m4 = bias.to(torch.bfloat16)[:, None]
+    lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=m4, scale=scale), capped=True)[0]
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                        scale=scale)
+    g4 = do.view(ZERO_BATCH, 12, c, d)
+    lib_bwd = median_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), g4, retain_graph=True), capped=True)[0]
+    io, extra = bh * c * d * 2, bh * c * 4 + bias.numel() * 4
+    pairs = bh * _unmasked_pairs(c, c, True, None)
+    bf, bf_by = bound_ms(4 * io + extra, 4 * d * pairs, BF16_FLOP_PER_S)
+    bb, bb_by = bound_ms(8 * io + extra, 10 * d * pairs, BF16_FLOP_PER_S)
+    r = dict(shape=f"({bh}, {c}, {c}, {d}) bf16, the chunk's fp32 bias "
+                   f"(1, {c}, {c}), causal=False",
+             fwd_ms=fwd, bwd_ms=bwd, plain_fwd_ms=plain_fwd,
+             plain_bwd_ms=plain_bwd, library_fwd_ms=lib_fwd,
+             library_bwd_ms=lib_bwd, bound_fwd_ms=bf, bound_fwd_by=bf_by,
+             bound_bwd_ms=bb, bound_bwd_by=bb_by)
+    print(f"  ring chunk {r['shape']}: forward {fwd:.4f} ms (plain "
+          f"{plain_fwd:.4f}, SDPA with the mask {lib_fwd:.4f}, bound "
+          f"{bf:.4f} {bf_by}); backward {bwd:.4f} ms (plain {plain_bwd:.4f}, "
+          f"SDPA's backward {lib_bwd:.4f}, bound {bb:.4f} {bb_by})")
+    return r
+
+
+def tp_sp_phase(torch, dispatch, gpt, attention, base):
+    """A9's second part's first half on the card, over zero_phase's NCCL
+    group at world size 1 and a DeviceMesh of dims ("data", "seq",
+    "model"), each of size 1.  (a) GPT-2 small at full width (bf16 half
+    copies, FusedAdam, batch ZERO_BATCH x TRAIN_SEQ, the plain step's
+    weights for every arm): each arm of TP_SP_ARMS through _graph_pair
+    (each replay equal to its un-captured step bit for bit), against
+    ``base``, zero_phase's plain arm (its step, losses, masters, graph
+    nodes and batches), over its ZERO_STEPS steps, bit for bit or within
+    TP_SP_TOL[arm]; its graph's nodes against the plain graph's,
+    its replay ms in turns with the plain step's, its launches.  (b) A
+    four-rank ring replayed in one process at GPT-2 small's attention
+    shape, at dropout 0 and 0.1, against one whole-sequence kernel call
+    and the plain versions (and the same at one rank); a fully masked
+    chunk on both routes; the chunk call's times.  Returns (the arms'
+    launch counts, the phase's numbers)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from apex_tpu_torch.contrib.xentropy.chunked import _chunk_rows
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import use_mesh, vocab_parallel_cross_entropy
+    from apex_tpu_torch.runtime import executor
+    from apex_tpu_torch.training import make_train_step
+    t0 = time.perf_counter()
+    mesh = init_device_mesh("cuda", (1, 1, 1),
+                            mesh_dim_names=("data", "seq", "model"))
+    print(f"tp/sp phase: mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+          f" -> gpt2_small (12 x 768, vocab 50257, bf16 half copies, "
+          f"FusedAdam lr {LR} wd {WD}), batch {ZERO_BATCH} x {TRAIN_SEQ}; "
+          f"arms {[a for a, _, _, _ in TP_SP_ARMS]} against the plain step")
+    counts, nums = {}, dict(arms={})
+    # the seed's weights, zero_phase's plain arm's
+    torch.manual_seed(SEED)
+    plain = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0,
+                           attn_dropout=0.0, output_hidden=True,
+                           device="cuda")
+    weights = {k: t.detach().clone() for k, t in plain.state_dict().items()}
+    init = [weights[n].float() for n, _ in plain.named_parameters()]
+    del plain
+    batches, gb = base["batches"], base["g"]
+    base = dict(losses=base["losses"], masters=base["masters"], init=init,
+                kinds=base["kinds"])
+    rows = ZERO_BATCH * (TRAIN_SEQ - 1)
+    chunks = -(-rows // _chunk_rows(rows, 50257, None))
+    want = dict.fromkeys(dispatch.counts(), 0)
+    want.update(_flash_want("tc", 12), fused_adam=1, xent_forward=chunks,
+                xent_backward=chunks)
+    want.update(dict.fromkeys(LN_NAMES, 2 * 12 + 1))
+
+    def vocab_loss(logits, ids):
+        return vocab_parallel_cross_entropy(logits[:, :-1], ids[:, 1:],
+                                            "model")
+
+    def build(model, loss, kw):
+        def make():
+            return make_train_step(
+                model, FusedAdam(list(model.parameters()), lr=LR,
+                                 weight_decay=WD),
+                vocab_loss if loss == "vocab" else _chunked_lm_loss(),
+                half_dtype=torch.bfloat16, loss_scale=1.0, **kw)
+        return make
+    try:
+        with use_mesh(mesh):
+            for arm, model_kw, step_kw, loss in TP_SP_ARMS:
+                model = gpt.gpt2_small(max_positions=TRAIN_POS, dropout=0.0,
+                                       attn_dropout=0.0, device="cuda",
+                                       **model_kw)
+                model.load_state_dict(weights)
+                gstep, estep, r = _graph_pair(torch, dispatch,
+                                              f"tp/sp {arm}",
+                                              build(model, loss, step_kw),
+                                              batches)
+                arm_want = dict(want)
+                if loss == "vocab":
+                    arm_want.update(xent_forward=0, xent_backward=0)
+                if r["launches"] != arm_want:
+                    raise AssertionError(
+                        f"tp/sp {arm}: launches {_nonzero(r['launches'])} "
+                        f"!= {_nonzero(arm_want)}")
+                counts[f"tp_sp_{arm}"] = r["launches"]
+                masters = list(estep.state.master_params)
+                same = r["losses"] == base["losses"] and all(
+                    torch.equal(m, n) for m, n in zip(masters,
+                                                      base["masters"]))
+                loss_rel, master_rel = _arm_distance(torch, r["losses"],
+                                                     masters, base)
+                kinds = _dot_kinds(executor.graph_dot(gstep._program))
+                walls = {"base": [], "arm": []}
+                arms_fn = {"base": lambda: gb(*batches[-1]),
+                           "arm": lambda: gstep(*batches[-1])}
+                for turn in TP_SP_TURNS:
+                    walls[turn].append(_event_ms(torch, lambda: [
+                        arms_fn[turn]() for _ in range(TP_SP_TURN_STEPS)])
+                        / TP_SP_TURN_STEPS)
+                out = dict(losses=r["losses"], bitwise=same,
+                           loss_rel=loss_rel, master_rel=master_rel,
+                           graph=r["graph"], graph_nodes=kinds,
+                           base_graph_nodes=base["kinds"],
+                           replay_ms=walls["arm"],
+                           base_replay_ms=walls["base"],
+                           launches=_nonzero(r["launches"]))
+                tol = TP_SP_TOL.get(arm)
+                held = "== plain bit for bit" if same else (
+                    f"against plain: loss {loss_rel:.3e}, masters "
+                    f"{master_rel:.3e} (tolerance {tol})")
+                print(f"  tp/sp {arm}: {held}; losses {r['losses']}; graph "
+                      f"nodes {kinds} against plain's {base['kinds']}; "
+                      f"replay {', '.join(f'{v:.3f}' for v in walls['arm'])}"
+                      f" ms against plain's "
+                      f"{', '.join(f'{v:.3f}' for v in walls['base'])}; "
+                      f"launches {_nonzero(r['launches'])}")
+                if not same and (tol is None or not loss_rel <= tol["loss"]
+                                 or not master_rel <= tol["masters"]):
+                    raise AssertionError(
+                        f"tp/sp {arm}: loss {loss_rel}, masters "
+                        f"{master_rel} against tolerance {tol}")
+                nums["arms"][arm] = out
+                del gstep, estep, model, masters, r
+    finally:
+        del gb
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    nums["ring"] = {}
+    for p in RING_DROPOUT:
+        refs = _ring_refs(torch, attention, p)
+        for n in (RING_N, 1):
+            nums["ring"][f"n{n}_dropout{p}"] = _ring_replay(torch, n, p,
+                                                            refs)
+        del refs
+    t2 = time.perf_counter()
+    nums["masked_chunk"] = {
+        route: _masked_chunk_case(torch, attention, dt) for route, dt in
+        (("tc", torch.bfloat16), ("simt", torch.float32))}
+    nums["chunk_times"] = _ring_chunk_times(torch, attention)
+    nums["seconds"] = time.perf_counter() - t0
+    print(f"tp/sp phase: {nums['seconds']:.1f} s (arms {t1 - t0:.1f}, ring "
+          f"replays {t2 - t1:.1f}, masked chunks and chunk times "
+          f"{time.perf_counter() - t2:.1f})")
     return counts, nums
 
 
@@ -11008,9 +11424,15 @@ def main():
     paths["graph_phase"], graph_nums = graph_phase(
         torch, dispatch, models, bert, gpt, llama, dcgan, amp)
     lap()
-    zero_counts, zero_nums = zero_phase(torch, dispatch, gpt, multi_tensor,
-                                        rn_shapes)
-    paths.update(zero_counts)
+    with nccl_world(torch):
+        zero_counts, zero_nums, zero_plain = zero_phase(
+            torch, dispatch, gpt, multi_tensor, rn_shapes)
+        paths.update(zero_counts)
+        lap()
+        tp_counts, tp_nums = tp_sp_phase(torch, dispatch, gpt, attention,
+                                         zero_plain)
+        del zero_plain
+        paths.update(tp_counts)
     lap()
     t_phase = time.perf_counter()
     inf_paths, inf_nums = inference_phase(torch, dispatch, gpt, llama,
@@ -11164,6 +11586,9 @@ def main():
              errors=fl_tc_err, resources=flash_res["flash_fwd_tc"],
              dropout=dropout_numbers("fwd", "fwd"),
              slice_shapes=slice_nums["flash"],
+             ring_chunk=tp_nums["chunk_times"],
+             ring_replay=tp_nums["ring"],
+             masked_chunk=tp_nums["masked_chunk"]["tc"],
              slice_scope="slice_shapes: the forward (fwd_ms) and the whole "
                          "backward (bwd_ms: both launches and delta) at the "
                          "seq2seq and ViT shapes"),
@@ -11187,7 +11612,8 @@ def main():
              shape="(96, 512, 64) fp32 causal", **fl,
              train_shape=dict(fl_train, ms=gpt_simt["fwd_ms"],
                               note="simt route forced"),
-             dropout_branch="ported", dropout=simt_numbers("fwd")),
+             dropout_branch="ported", dropout=simt_numbers("fwd"),
+             masked_chunk=tp_nums["masked_chunk"]["simt"]),
         dict(name="flash_attention_bwd_dq", route="cuda", kernel_route="simt",
              source=f"{fa}_bwd.cu", replaces=rep_dq,
              **launches("flash_attention_bwd_dq_simt"),
@@ -11294,7 +11720,7 @@ def main():
                       "resilience": resilience,
                       "observe": observe_nums,
                       "serve_fleet": fleet_nums, "rollout": rollout_nums,
-                      "zero": zero_nums,
+                      "zero": zero_nums, "tp_sp": tp_nums,
                       "cpu_worker_waits_s": worker.waited}))
     print(f"phase seconds by main's line (each since the line before): "
           f"{LAPS}")

@@ -183,11 +183,15 @@ def test_module_refusals_are_the_jax_packages():
         EncdecMultiheadAttn(E, HEADS, bias=True, device="cpu")
     with pytest.raises(ValueError, match="Unsupported impl"):
         EncdecMultiheadAttn(E, HEADS, impl="other", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        EncdecMultiheadAttn(E, HEADS, tensor_parallel_axis="model",
-                            device="cpu")
-    m = EncdecMultiheadAttn(E, HEADS, device="cpu")
+    # tensor parallelism builds; its axis resolves through an entered mesh,
+    # and without one the forward raises naming ROADMAP A9
+    tp = EncdecMultiheadAttn(E, HEADS, tensor_parallel_axis="model",
+                             device="cpu")
+    assert len(tp.tp_sharded_params()) == 3
     x = torch.zeros(TQ, B, E)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        tp(x, torch.zeros(TK, B, E))
+    m = EncdecMultiheadAttn(E, HEADS, device="cpu")
     with pytest.raises(ValueError, match="should not be both defined"):
         m(x, torch.zeros(TK, B, E),
           key_padding_mask=torch.from_numpy(_mask("keypad")),

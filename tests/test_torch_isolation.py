@@ -77,7 +77,8 @@ def test_importing_the_port_loads_no_jax_module():
                  "pyprof.prof.output", "cluster.kvstore",
                  "cluster.membership", "cluster.coordinator",
                  "cluster.runtime", "rollout.buffer", "rollout.publish",
-                 "rollout.distill", "rollout.runtime"):
+                 "rollout.distill", "rollout.runtime", "parallel.mesh",
+                 "parallel.tensor_parallel", "parallel.ring_attention"):
         assert f"apex_tpu_torch.{name}" in loaded, name
 
 

@@ -229,5 +229,12 @@ def test_base_geometry_and_refusals():
     assert (m.hidden, len(m.enc_layers), len(m.dec_layers)) == (512, 6, 6)
     assert m.dec_layers[0].self_attn.num_heads == 8
     assert m.dec_layers[0].fc1.weight.shape == (2048, 512)
+    # tensor parallelism builds (its axis resolves through an entered
+    # mesh: without one the forward raises); its decode is A9's later part
+    tp = TransformerSeq2Seq(**CFG, tp_axis="model", device="cpu")
+    ids = torch.zeros((B, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        TransformerSeq2Seq(**CFG, tp_axis="model", device="cpu")
+        tp(ids, ids)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP A9, second part: decode"):
+        seq2seq_generate(tp, ids, 2)

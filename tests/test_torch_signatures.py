@@ -8,15 +8,17 @@ optimizers, the MLP, the reparameterizations, encoder-decoder attention,
 the seq2seq and ViT families, ``checkpoint_forward``, the RNNs, the HF
 converters, the runtime's executor and prefetcher, ``amp.initialize``,
 the observe runtime, the kernel ledger and tier decision and pyprof,
-cluster membership, the elastic serve fleet and the rollout loop),
+cluster membership, the elastic serve fleet, the rollout loop, tensor
+parallelism and ring / Ulysses attention),
 every parameter of the JAX signature exists in the port's with the same default
 (a dtype default by its name); the port may add ``device``, ``dtype`` and
 ``generator`` parameters, a JAX PRNG ``key`` is the port's ``generator``,
 and the kernels' ``interpret`` switch and the JAX modules' ``ctx`` have no
 counterpart.  A value other than the default of an argument that asks for
-something not ported yet (a mesh axis, tensor or sequence parallelism,
-experts) raises ``NotImplementedError`` naming the ROADMAP item that owns
-it; ``remat=True`` builds.
+something not ported yet (experts, sharded decode, a mesh axis no entered
+mesh names, the planner) raises ``NotImplementedError`` naming the ROADMAP
+item that owns it; ``remat=True`` and the tensor- and sequence-parallel
+arguments build.
 """
 import inspect
 
@@ -47,6 +49,7 @@ import apex_tpu.amp.policy as jax_policy
 import apex_tpu.fp16_utils as jax_fp16_utils
 import apex_tpu.parallel as jax_parallel
 import apex_tpu.parallel.distributed as jax_distributed
+import apex_tpu.parallel.tensor_parallel as jax_tensor_parallel
 import apex_tpu.training as jax_training
 import apex_tpu.models.hf as jax_hf
 import apex_tpu.runtime as jax_runtime
@@ -94,6 +97,7 @@ import apex_tpu_torch.ops.multi_tensor as ops
 import apex_tpu_torch.optimizers as optimizers
 import apex_tpu_torch.parallel as parallel
 import apex_tpu_torch.parallel.distributed as distributed
+import apex_tpu_torch.parallel.tensor_parallel as tensor_parallel
 from apex_tpu_torch.training import make_train_step
 import apex_tpu_torch.models.hf as hf
 import apex_tpu_torch.runtime as runtime
@@ -138,6 +142,16 @@ PAIRS = [
     (jax_parallel, parallel, "convert_syncbn_model"),
     (jax_parallel, parallel, "ZeroTrainStep"),
     (jax_parallel, parallel, "zero_state_sharding"),
+    *((jax_parallel, parallel, f)
+      for f in ("ColumnParallelLinear", "RowParallelLinear",
+                "column_parallel_linear", "row_parallel_linear",
+                "vocab_parallel_cross_entropy", "vocab_parallel_embedding",
+                "vocab_parallel_logits", "ring_attention",
+                "ulysses_attention")),
+    *((jax_tensor_parallel, tensor_parallel, f)
+      for f in ("copy_to_tp_region", "reduce_from_tp_region", "tp_ffn",
+                "tp_attn_begin")),
+    (jax_attn_funcs, attn_funcs, "self_attn_func"),
     (jax_F, F, "batch_norm"), (jax_F, F, "conv2d"), (jax_F, F, "max_pool2d"),
     (jax_F, F, "avg_pool2d"), (jax_F, F, "adaptive_avg_pool2d"),
     (jax_nn, nn, "to_channels_last"),
@@ -354,12 +368,10 @@ SMALL_BERT = dict(vocab_size=16, hidden=16, layers=1, heads=2,
 A9 = "ROADMAP A9"
 
 REFUSED = [
-    (lambda **kw: mha.EncdecMultiheadAttn(16, 2, device="cpu", **kw),
-     dict(tensor_parallel_axis="model"), A9),
-    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(tp_axis="model"),
-     A9),
-    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(sp_axis="seq"), A9),
-    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(tp_vocab=True), A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw).init_caches(1, 8),
+     dict(tp_axis="model"), A9),
+    (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw).init_caches(1, 8),
+     dict(sp_axis="seq"), A9),
     (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(moe_axis="data"),
      A9),
     (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(moe_num_experts=4),
@@ -370,14 +382,13 @@ REFUSED = [
     (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(moe_top_k=2), A9),
     (lambda **kw: gpt.GptModel(**SMALL_GPT, **kw), dict(moe_aux_weight=0.1),
      A9),
-    (lambda **kw: gpt.GptBlock(16, 2, 32, device="cpu", **kw),
-     dict(sp_axis="seq"), A9),
-    (lambda **kw: gpt.GptBlock(16, 2, 32, device="cpu", **kw),
-     dict(tp_axis="model"), A9),
-    (lambda **kw: seq2seq.TransformerSeq2Seq(
-        vocab_size=16, hidden=16, enc_layers=1, dec_layers=1, heads=2,
-        max_positions=8, device="cpu", **kw), dict(tp_axis="model"), A9),
-    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw),
+    (lambda **kw: seq2seq.seq2seq_generate(
+        seq2seq.TransformerSeq2Seq(vocab_size=16, hidden=16, enc_layers=1,
+                                   dec_layers=1, heads=2, max_positions=8,
+                                   device="cpu", **kw),
+        torch.zeros((1, 4), dtype=torch.long), 2), dict(tp_axis="model"),
+     A9),
+    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw).init_caches(1, 8),
      dict(tp_axis="model"), A9),
     (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw),
      dict(moe_num_experts=4), A9),
@@ -389,24 +400,8 @@ REFUSED = [
      A9),
     (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw),
      dict(moe_aux_weight=0.1), A9),
-    (lambda **kw: llama.LlamaBlock(16, 2, 2, 32, device="cpu", **kw),
-     dict(tp_axis="model"), A9),
-    (lambda **kw: llama.LlamaBlock(16, 2, 2, 32, device="cpu", **kw),
+    (lambda **kw: llama.LlamaModel(**SMALL_GPT, **kw).init_caches(1, 8),
      dict(sp_axis="seq"), A9),
-    (lambda **kw: seq2seq.Seq2SeqDecoderLayer(16, 2, 32, device="cpu", **kw),
-     dict(tp_axis="model"), A9),
-    (lambda **kw: bert.BertModel(**SMALL_BERT, **kw), dict(sp_axis="seq"),
-     A9),
-    (lambda **kw: bert.BertModel(**SMALL_BERT, **kw), dict(tp_axis="model"),
-     A9),
-    (lambda **kw: bert.BertLayer(16, 2, 32, device="cpu", **kw),
-     dict(tp_axis="model"), A9),
-    (lambda **kw: mha.SelfMultiheadAttn(16, 2, device="cpu", **kw),
-     dict(seq_parallel_axis="seq"), A9),
-    (lambda **kw: mha.SelfMultiheadAttn(16, 2, device="cpu", **kw),
-     dict(seq_parallel_impl="ulysses"), A9),
-    (lambda **kw: mha.SelfMultiheadAttn(16, 2, device="cpu", **kw),
-     dict(tensor_parallel_axis="model"), A9),
     (lambda **kw: distributed.all_reduce_mean([torch.zeros(2)], **kw),
      dict(mesh="a mesh"), A9),
     (lambda **kw: distributed.Reducer([torch.zeros(2)], **kw),
@@ -426,10 +421,6 @@ REFUSED = [
      dict(axis_index_groups=[[0]]), A9),
     (lambda **kw: groupbn.BatchNorm2d_NHWC(4, device="cpu", **kw),
      dict(axis_name="batch"), A9),
-    (lambda **kw: attn_funcs.encdec_attn_func(
-        False, False, 2, 1.0, torch.zeros(3, 1, 4), torch.zeros(5, 1, 4),
-        torch.zeros(4, 4), torch.zeros(8, 4), torch.zeros(4, 4), **kw),
-     dict(tensor_parallel_axis="model"), A9),
     (lambda **kw: seq2seq.seq2seq_generate(
         seq2seq.TransformerSeq2Seq(vocab_size=16, hidden=16, enc_layers=1,
                                    dec_layers=1, heads=2, max_positions=8,
@@ -534,11 +525,46 @@ def test_refusal_messages_name_the_current_roadmap_items():
     membership, once A10's, are ported and build."""
     small = dict(SMALL_GPT)
     with pytest.raises(NotImplementedError,
-                       match="tensor and sequence.*ROADMAP A9"):
-        llama.LlamaModel(**small, tp_axis="model")
+                       match="ROADMAP A9, second part: decode under a mesh"):
+        llama.LlamaModel(**small, tp_axis="model").init_caches(1, 8)
     with pytest.raises(NotImplementedError,
-                       match="mixture of experts.*ROADMAP A9"):
+                       match="mixture of experts.*ROADMAP A9, second part: "
+                             "experts"):
         llama.LlamaModel(**small, moe_axis="data")
+    for call in (lambda: gpt.generate(gpt.GptModel(**small), torch.zeros(
+            (1, 2), dtype=torch.long), 2, mesh="a mesh"),
+                 lambda: seq2seq.seq2seq_generate(
+                     seq2seq.TransformerSeq2Seq(
+                         vocab_size=16, hidden=16, enc_layers=1,
+                         dec_layers=1, heads=2, max_positions=8,
+                         device="cpu"),
+                     torch.zeros((1, 4), dtype=torch.long), 2,
+                     mesh="a mesh")):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP A9, second part: decode under a "
+                                 "mesh"):
+            call()
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP A9, second part: experts"):
+        hf.mixtral_from_hf({})
+    # A9's second part's first half is ported: the tensor- and
+    # sequence-parallel arguments build, and their axes resolve through an
+    # entered mesh (an axis no mesh names raises)
+    for kw in (dict(tp_axis="model"), dict(sp_axis="seq"),
+               dict(tp_axis="model", tp_vocab=True)):
+        assert gpt.GptModel(**small, **kw).tp_sharded_params()
+    for kw in (dict(tp_axis="model"), dict(sp_axis="seq")):
+        assert llama.LlamaModel(**small, **kw).tp_sharded_params()
+    assert bert.BertModel(**SMALL_BERT, tp_axis="model",
+                          sp_axis="seq").tp_sharded_params()
+    assert mha.SelfMultiheadAttn(16, 2, seq_parallel_axis="seq",
+                                 seq_parallel_impl="ulysses",
+                                 tensor_parallel_axis="model",
+                                 device="cpu").tensor_parallel_axis \
+        == "model"
+    with pytest.raises(NotImplementedError, match="no entered mesh"):
+        gpt.GptModel(**small, tp_axis="model")(
+            torch.zeros((1, 4), dtype=torch.long))
     assert llama.LlamaModel(**small, remat=True).remat
     # cached decode with the band is ported (A5): rolling caches, no
     # refusal; the paged session over the serve engine is ported (A6)
